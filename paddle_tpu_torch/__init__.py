@@ -1,0 +1,30 @@
+"""paddle_tpu_torch — the Fluid-style framework on PyTorch and CUDA.
+
+The port of ``paddle_tpu`` (JAX/XLA/Pallas on a TPU) to an NVIDIA H100:
+the same Program IR, op types and on-disk formats, lowered to PyTorch,
+with the Pallas kernels rewritten as hand-written Hopper kernels
+(``csrc/``). It imports torch, numpy and the standard library only.
+
+Entry points run on the card unless the caller asks for the CPU
+(``Executor(CPUPlace())``, ``AnalysisConfig.disable_gpu()``).
+"""
+import torch as _torch
+
+# Float32 matrix products stay exact (no TF32): served programs are
+# float32, and parity with the JAX package's float32 results depends on
+# full-precision products.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from . import ops  # noqa: F401,E402  — registers every op lowering
+from .framework import (  # noqa: F401,E402
+    Program, program_guard, default_main_program, default_startup_program,
+    ParamAttr, unique_name, Variable, Parameter)
+from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
+from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
+from .executor import Executor  # noqa: F401,E402
+from . import layers  # noqa: F401,E402
+from . import initializer  # noqa: F401,E402
+from . import io  # noqa: F401,E402
+from . import inference  # noqa: F401,E402
+from . import convert  # noqa: F401,E402

@@ -1,0 +1,182 @@
+"""Block lowering: run a Program block op by op on tensors.
+
+PyTorch runs eagerly, so lowering a block IS running it: each op's
+registered lowering is called in program order against an environment of
+named tensors. Also here: build-time shape inference, which runs the
+same lowerings on ``device="meta"`` tensors (shapes and dtypes only, no
+data and no kernels).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .dtypes import as_torch_dtype, convert_dtype
+from .registry import REGISTRY
+
+# Placeholder for the dynamic (batch) dimension during build-time shape
+# inference; outputs containing this dim are mapped back to -1. A large
+# prime so it cannot collide with a real static layer width.
+_DYN_DIM = 100003
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix(*words) -> int:
+    """splitmix64 over the words: a well-spread 63-bit seed per
+    (program seed, step, op id)."""
+    h = 0x9E3779B97F4A7C15
+    for w in words:
+        h = (h ^ (int(w) & _MASK64)) & _MASK64
+        h = (h + 0x9E3779B97F4A7C15) & _MASK64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
+        h ^= h >> 31
+    return h & ((1 << 63) - 1)
+
+
+class LowerCtx:
+    """Per-run context: the device, random seeds, train/infer mode."""
+
+    def __init__(self, device, seed=0, step=0, is_test=False):
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.step = int(step)
+        self.is_test = is_test
+
+    def generator_for(self, op_id: int):
+        """A fresh generator for one op: seeded from the program seed
+        with the step and the op's stable id folded in, so every op draws
+        its own reproducible stream. None on the meta device (shape
+        inference draws nothing)."""
+        if self.device.type == "meta":
+            return None
+        g = torch.Generator(device=self.device)
+        g.manual_seed(_mix(self.seed, self.step, op_id))
+        return g
+
+
+def _gather_slot(env, names):
+    vals = []
+    for n in names:
+        if n == "":
+            continue
+        if n not in env:
+            raise KeyError(f"var {n!r} not materialised before use")
+        vals.append(env[n])
+    return vals
+
+
+def _nan_inf_check(op, name, val, op_idx):
+    """FLAGS_check_nan_inf: raise naming the op and the output."""
+    if bool(torch.isfinite(val).all()):
+        return
+    block_idx = op.block.idx if getattr(op, "block", None) is not None \
+        else 0
+    in_names = [n for ns in op.inputs.values() for n in ns if n]
+    where = f"block {block_idx}/op {'?' if op_idx is None else op_idx}"
+    raise FloatingPointError(
+        f"Operator {op.type!r} at {where} output {name!r} contains "
+        f"Inf/Nan; op inputs {in_names} (FLAGS_check_nan_inf)")
+
+
+def run_op(op, env, ctx, op_idx=None):
+    """Execute one op's lowering against env (name -> tensor)."""
+    from .flags import FLAGS
+    blk = op.block.idx if getattr(op, "block", None) is not None else 0
+    opdef = REGISTRY.get(
+        op.type, where=f"{blk}/{'?' if op_idx is None else op_idx}")
+    ins = {}
+    for slot, names in op.inputs.items():
+        vals = _gather_slot(env, names)
+        if vals:
+            ins[slot] = vals
+    opctx = _OpCtx(ctx, op)
+    try:
+        outs = opdef.lower(opctx, ins, op.attrs)
+    except Exception as e:
+        # name the program op, its input shapes and attrs on failure
+        shapes = {s: [tuple(getattr(v, "shape", ())) for v in vs]
+                  for s, vs in ins.items()}
+        e.add_note(f"[operator {op.type!r}] inputs {shapes} -> outputs "
+                   f"{dict(op.outputs)}, attrs {op.attrs}")
+        raise
+    check = FLAGS.check_nan_inf and ctx.device.type != "meta"
+    for slot, names in op.outputs.items():
+        if slot not in outs:
+            continue
+        for name, val in zip(names, outs[slot]):
+            if name:
+                env[name] = val
+                if check and val.is_floating_point():
+                    _nan_inf_check(op, name, val, op_idx)
+
+
+class _OpCtx:
+    """View of LowerCtx bound to one op."""
+
+    def __init__(self, ctx: LowerCtx, op):
+        self._ctx = ctx
+        self._op = op
+        self.device = ctx.device
+        self.is_test = ctx.is_test or bool(op.attrs.get("is_test", False))
+        self.block = getattr(op, "block", None)
+        self.attrs = op.attrs
+
+    @property
+    def generator(self):
+        return self._ctx.generator_for(
+            self._op.attrs.get("fwd_id", self._op.id))
+
+    def rand(self, shape, device=None):
+        """Uniform [0, 1) float32 draws from this op's generator."""
+        device = device or self.device
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, device="meta")
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def randn(self, shape, device=None):
+        """Standard normal float32 draws from this op's generator."""
+        device = device or self.device
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, device="meta")
+        return torch.randn(shape, generator=self.generator, device=device)
+
+
+def lower_block(block, env: Dict, ctx: LowerCtx):
+    for i, op in enumerate(block.ops):
+        run_op(op, env, ctx, op_idx=i)
+    return env
+
+
+# ---------------------------------------------------------------------------
+# Build-time shape inference
+# ---------------------------------------------------------------------------
+
+def infer_op_shapes(op, block):
+    """Fill in output var shapes/dtypes by running the lowering on meta
+    tensors."""
+    REGISTRY.get(op.type)  # unregistered -> NotImplementedError
+
+    env = {}
+    for slot, names in op.inputs.items():
+        for n in names:
+            if not n or n in env:
+                continue
+            v = block.var(n)
+            if v.shape is None:
+                return  # cannot infer yet
+            shape = tuple(_DYN_DIM if d == -1 else d for d in v.shape)
+            env[n] = torch.empty(shape, dtype=as_torch_dtype(v.dtype),
+                                 device="meta")
+
+    run_op(op, env, LowerCtx("meta"))
+    for name in op.output_names():
+        if not name or name not in env:
+            continue
+        out = env[name]
+        v = block.var(name)
+        v.shape = tuple(-1 if d == _DYN_DIM else int(d) for d in out.shape)
+        v.dtype = convert_dtype(out.dtype)
+

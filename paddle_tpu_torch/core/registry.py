@@ -1,0 +1,82 @@
+"""Op registry: op type -> PyTorch lowering + metadata.
+
+Every op registers ONE lowering, a plain function on tensors:
+``lower(ctx, ins, attrs) -> outs`` with ``ins``/``outs`` mapping slot
+names to lists of tensors. A lowering that reaches a hand-written kernel
+calls the kernel's wrapper, which launches it for CUDA tensors.
+
+The grad op (the JAX package's generic vjp grad) belongs to the training
+slice and is not registered here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+
+@dataclasses.dataclass
+class OpDef:
+    type: str
+    # lower(ctx, ins, attrs) -> outs; {slot: [tensors]} both ways
+    lower: Callable
+    # Input slots that are not differentiable (indices, labels, masks...).
+    nondiff_inputs: Sequence[str] = ()
+    # Output slots that are not differentiable.
+    nondiff_outputs: Sequence[str] = ()
+    # Draws random numbers through ctx.generator (dropout, initializers).
+    stateful: bool = False
+    # Semantic version, saved with programs and checked on load.
+    version: int = 1
+
+
+class OpRegistry:
+    def __init__(self):
+        self._ops: Dict[str, OpDef] = {}
+
+    def register(self, opdef: OpDef):
+        if opdef.type in self._ops:
+            raise ValueError(f"op {opdef.type!r} already registered")
+        self._ops[opdef.type] = opdef
+        return opdef
+
+    def get(self, op_type: str, where: Optional[str] = None) -> OpDef:
+        """Look up an OpDef; `where` ("{block}/{op_idx}") names the
+        program op when the lookup happens during lowering."""
+        try:
+            return self._ops[op_type]
+        except KeyError:
+            import difflib
+            close = difflib.get_close_matches(
+                op_type, list(self._ops), n=3, cutoff=0.6)
+            hint = ("; did you mean " +
+                    ", ".join(repr(c) for c in close) + "?") if close \
+                else ""
+            at = f" (at block/op {where})" if where else ""
+            raise NotImplementedError(
+                f"op {op_type!r} has no registered PyTorch lowering "
+                f"({len(self._ops)} ops registered{hint}){at}"
+            ) from None
+
+    def has(self, op_type: str) -> bool:
+        return op_type in self._ops
+
+    def types(self):
+        return sorted(self._ops)
+
+
+REGISTRY = OpRegistry()
+
+
+def register_op(op_type, *, nondiff_inputs=(), nondiff_outputs=(),
+                stateful=False, version=1):
+    """Decorator: @register_op("mul") def _mul(ctx, ins, attrs): ..."""
+
+    def deco(fn):
+        REGISTRY.register(OpDef(
+            type=op_type, lower=fn,
+            nondiff_inputs=tuple(nondiff_inputs),
+            nondiff_outputs=tuple(nondiff_outputs),
+            stateful=stateful, version=version))
+        return fn
+
+    return deco

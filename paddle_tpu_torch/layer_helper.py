@@ -1,0 +1,103 @@
+"""LayerHelper: shared plumbing for layers.* graph builders.
+
+Creates parameters in the startup program (with their init ops) and the
+main program, appends compute ops to the main program, and applies
+default initializers, bias and activation. Static graph only: the eager
+(dygraph) mode of the JAX package is not ported.
+"""
+from __future__ import annotations
+
+from .framework import (ParamAttr, default_main_program,
+                        default_startup_program, unique_name)
+from .initializer import Constant, Xavier
+
+__all__ = ["LayerHelper"]
+
+
+class LayerHelper:
+    def __init__(self, layer_type, **kwargs):
+        self.kwargs = kwargs
+        self.layer_type = layer_type
+        self.name = kwargs.get("name") or unique_name.generate(layer_type)
+
+    @property
+    def main_program(self):
+        return self.kwargs.get("main_program") or default_main_program()
+
+    @property
+    def startup_program(self):
+        return self.kwargs.get("startup_program") or \
+            default_startup_program()
+
+    @property
+    def block(self):
+        return self.main_program.current_block()
+
+    @property
+    def param_attr(self):
+        return ParamAttr._to_attr(self.kwargs.get("param_attr"))
+
+    @property
+    def bias_attr(self):
+        return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
+
+    def create_parameter(self, attr, shape, dtype, is_bias=False,
+                         default_initializer=None):
+        if attr is False:
+            return None
+        attr = ParamAttr._to_attr(attr)
+        name = attr.name or unique_name.generate(
+            f"{self.name}.{'b' if is_bias else 'w'}")
+        init = attr.initializer or default_initializer or \
+            (Constant(0.0) if is_bias else Xavier())
+        shape = [int(s) for s in shape]
+        # the parameter lives in BOTH programs: startup (with its init
+        # op) and main (as an input to compute ops)
+        sp = self.startup_program.global_block()
+        sv = sp.create_parameter(name, shape, dtype, trainable=attr.trainable)
+        init(sv, sp)
+        return self.block.program.global_block().create_parameter(
+            name, shape, dtype, trainable=attr.trainable,
+            regularizer=attr.regularizer,
+            optimize_attr={"learning_rate": attr.learning_rate},
+            do_model_average=attr.do_model_average)
+
+    def create_variable_for_type_inference(self, dtype="float32",
+                                           stop_gradient=False):
+        return self.block.create_var(
+            name=unique_name.generate(f"{self.name}.tmp"),
+            dtype=dtype, stop_gradient=stop_gradient)
+
+    def append_op(self, **kwargs):
+        return self.block.append_op(
+            kwargs["type"], inputs=kwargs.get("inputs"),
+            outputs=kwargs.get("outputs"), attrs=kwargs.get("attrs"))
+
+    def append_bias_op(self, input_var, dim_start=1, dim_end=None):
+        bias_attr = self.bias_attr
+        if bias_attr is False:
+            return input_var
+        size = list(input_var.shape[dim_start:dim_end])
+        b = self.create_parameter(bias_attr, shape=size,
+                                  dtype=input_var.dtype, is_bias=True)
+        out = self.create_variable_for_type_inference(input_var.dtype)
+        self.append_op(type="elementwise_add",
+                       inputs={"X": [input_var.name], "Y": [b.name]},
+                       outputs={"Out": [out.name]},
+                       attrs={"axis": dim_start})
+        return out
+
+    def append_activation(self, input_var):
+        act = self.kwargs.get("act")
+        if act is None:
+            return input_var
+        if isinstance(act, dict):
+            act = dict(act)
+            act_type = act.pop("type")
+            act_attrs = act
+        else:
+            act_type, act_attrs = act, {}
+        out = self.create_variable_for_type_inference(input_var.dtype)
+        self.append_op(type=act_type, inputs={"X": [input_var.name]},
+                       outputs={"Out": [out.name]}, attrs=act_attrs)
+        return out

@@ -1,0 +1,168 @@
+"""layers.nn — graph-building functions over the op library.
+
+The functions the transformer encoder calls. Each emits the same op
+types and attrs as its counterpart in the JAX package, so programs built
+by the two packages serialize identically.
+"""
+from __future__ import annotations
+
+import math
+
+from ..initializer import Constant
+from ..layer_helper import LayerHelper
+from .math_ops import elementwise_add  # noqa: F401
+
+__all__ = ["fc", "embedding", "layer_norm", "dropout",
+           "add_position_encoding", "flash_attention", "reshape",
+           "transpose", "gelu", "elementwise_add"]
+
+
+def _unary_layer(op_type):
+    def layer(x, name=None, **attrs):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x.name]},
+                         outputs={"Out": [out.name]}, attrs=attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+gelu = _unary_layer("gelu")
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully-connected layer: mul per input + sum + bias + activation."""
+    helper = LayerHelper("fc", param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    mul_results = []
+    for inp in inputs:
+        in_dim = math.prod(inp.shape[num_flatten_dims:])
+        w = helper.create_parameter(helper.param_attr, [in_dim, size],
+                                    inp.dtype)
+        tmp = helper.create_variable_for_type_inference(inp.dtype)
+        helper.append_op(type="mul",
+                         inputs={"X": [inp.name], "Y": [w.name]},
+                         outputs={"Out": [tmp.name]},
+                         attrs={"x_num_col_dims": num_flatten_dims,
+                                "y_num_col_dims": 1})
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError(
+            "fc over several inputs needs the sum op, which is not "
+            "ported yet")
+    pre_act = helper.append_bias_op(mul_results[0],
+                                    dim_start=num_flatten_dims)
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """lookup over a [vocab, dim] parameter. Ids with a trailing dim of 1
+    would take the lookup_table op, which is not ported yet."""
+    if input.shape and input.shape[-1] == 1:
+        raise NotImplementedError(
+            "embedding over ids with a trailing dim of 1 (lookup_table) "
+            "is not ported yet")
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(helper.param_attr, size, dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="lookup_table_v2",
+                     inputs={"W": [w.name], "Ids": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"padding_idx": (-1 if padding_idx is None
+                                            else padding_idx)})
+    return out
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    norm_size = math.prod(input.shape[begin_norm_axis:])
+    inputs = {"X": [input.name]}
+    if scale:
+        s = helper.create_parameter(helper.param_attr, [norm_size],
+                                    input.dtype,
+                                    default_initializer=Constant(1.0))
+        inputs["Scale"] = [s.name]
+    if shift:
+        b = helper.create_parameter(helper.bias_attr, [norm_size],
+                                    input.dtype, is_bias=True)
+        inputs["Bias"] = [b.name]
+    y = helper.create_variable_for_type_inference(input.dtype)
+    m = helper.create_variable_for_type_inference(input.dtype, True)
+    v = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [y.name], "Mean": [m.name],
+                              "Variance": [v.name]},
+                     attrs={"begin_norm_axis": begin_norm_axis,
+                            "epsilon": epsilon})
+    return helper.append_activation(y)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op(type="dropout", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "Mask": [mask.name]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "dropout_implementation":
+                                dropout_implementation})
+    return out
+
+
+def add_position_encoding(input, alpha, beta, name=None):
+    return _unary_layer("add_position_encoding")(input, name=name,
+                                                 alpha=alpha, beta=beta)
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=None,
+                    block_k=None, attn_dropout=0.0, name=None):
+    """Fused attention over [b, h, t, d] q/k/v (the Hopper kernel of
+    ops/cuda/flash_attention.py; exact plain path when dropout is on).
+
+    block_q/block_k=None omits the tile attrs; 0 forces the exact plain
+    path. Other values are TPU tile hints that the Hopper kernel reads
+    no further."""
+    helper = LayerHelper("flash_attention", name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    # is_test present so clone(for_test=True) turns attention dropout off
+    attrs = {"causal": causal, "attn_dropout": float(attn_dropout),
+             "is_test": False}
+    if block_q is not None:
+        attrs["block_q"] = block_q
+    if block_k is not None:
+        attrs["block_k"] = block_k
+    if sm_scale is not None:
+        attrs["sm_scale"] = float(sm_scale)
+    helper.append_op(type="flash_attention",
+                     inputs={"Q": [q.name], "K": [k.name], "V": [v.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    helper = LayerHelper("reshape2", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="reshape2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "XShape": [xshape.name]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return helper.append_activation(out)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(type="transpose2", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name], "XShape": [xshape.name]},
+                     attrs={"axis": list(perm)})
+    return out

@@ -1,0 +1,138 @@
+"""Transformer encoder — BERT-base and its kin.
+
+Built from the layers API exactly as the JAX package builds it, so the
+two packages produce the same program (op types, attrs and parameter
+names). The tensor- and sequence-parallel shard hints (``tp``/``sp``)
+are not ported yet; a config that asks for them raises.
+"""
+from __future__ import annotations
+
+import math
+
+from .. import layers
+from ..framework import ParamAttr
+from ..initializer import Normal
+from ..ops.attention import FLASH_AUTO_MIN_SEQ
+
+
+class TransformerConfig:
+    def __init__(self, vocab_size=30522, d_model=768, n_heads=12,
+                 n_layers=12, d_ff=3072, max_seq_len=512, dropout=0.1,
+                 tp=False, sp=False, use_flash="auto", causal=False,
+                 attn_dropout=None, flash_block_q=None, flash_block_k=None):
+        if tp or sp:
+            raise NotImplementedError(
+                "tensor/sequence-parallel shard hints (tp/sp) are not "
+                "ported yet")
+        self.vocab_size = vocab_size
+        self.d_model = d_model
+        self.n_heads = n_heads
+        self.n_layers = n_layers
+        self.d_ff = d_ff
+        self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.tp = tp
+        self.sp = sp
+        # "auto" writes block_q=0 below FLASH_AUTO_MIN_SEQ, which routes
+        # the op to the plain path: a serving config that should run the
+        # kernel passes use_flash=True
+        if use_flash == "auto":
+            use_flash = max_seq_len >= FLASH_AUTO_MIN_SEQ
+        self.use_flash = use_flash
+        self.flash_block_q = flash_block_q
+        self.flash_block_k = flash_block_k
+        self.causal = causal
+        self.attn_dropout = dropout if attn_dropout is None else \
+            attn_dropout
+
+
+def bert_base(**kw):
+    return TransformerConfig(**kw)
+
+
+def _dense(x, size, name, cfg, act=None):
+    return layers.fc(x, size=size, num_flatten_dims=2, act=act,
+                     param_attr=ParamAttr(name=f"{name}.w",
+                                          initializer=Normal(0.0, 0.02)),
+                     bias_attr=ParamAttr(name=f"{name}.b"))
+
+
+def _flash_block_attrs(cfg):
+    """block_q/block_k kwargs for layers.flash_attention: 0/0 forces the
+    exact plain path when flash is off; explicit config tiles are
+    recorded; otherwise none."""
+    if not cfg.use_flash:
+        return {"block_q": 0, "block_k": 0}
+    kw = {}
+    if cfg.flash_block_q is not None:
+        kw["block_q"] = int(cfg.flash_block_q)
+    if cfg.flash_block_k is not None:
+        kw["block_k"] = int(cfg.flash_block_k)
+    return kw
+
+
+def _attention(x, cfg, prefix):
+    b, t, d = x.shape[0], x.shape[1], cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    q = _dense(x, d, f"{prefix}.q", cfg)
+    k = _dense(x, d, f"{prefix}.k", cfg)
+    v = _dense(x, d, f"{prefix}.v", cfg)
+
+    def split_heads(z):
+        z = layers.reshape(z, [b, t, h, hd])
+        return layers.transpose(z, [0, 2, 1, 3])  # [b, h, t, hd]
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    ctxv = layers.flash_attention(
+        q, k, v, causal=cfg.causal, sm_scale=1.0 / math.sqrt(hd),
+        attn_dropout=cfg.attn_dropout, **_flash_block_attrs(cfg))
+    ctxv = layers.transpose(ctxv, [0, 2, 1, 3])
+    ctxv = layers.reshape(ctxv, [b, t, d])
+    return _dense(ctxv, d, f"{prefix}.proj", cfg)
+
+
+def _ffn(x, cfg, prefix):
+    h = _dense(x, cfg.d_ff, f"{prefix}.fc1", cfg, act="gelu")
+    return _dense(h, cfg.d_model, f"{prefix}.fc2", cfg)
+
+
+def _block(x, cfg, i):
+    att = _attention(x, cfg, f"layer_{i}.att")
+    if cfg.dropout:
+        att = layers.dropout(att, cfg.dropout,
+                             dropout_implementation="upscale_in_train")
+    x = layers.layer_norm(layers.elementwise_add(x, att),
+                          begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"layer_{i}.ln1.w"),
+                          bias_attr=ParamAttr(name=f"layer_{i}.ln1.b"))
+    ff = _ffn(x, cfg, f"layer_{i}.ffn")
+    if cfg.dropout:
+        ff = layers.dropout(ff, cfg.dropout,
+                            dropout_implementation="upscale_in_train")
+    return layers.layer_norm(layers.elementwise_add(x, ff), begin_norm_axis=2,
+                             param_attr=ParamAttr(name=f"layer_{i}.ln2.w"),
+                             bias_attr=ParamAttr(name=f"layer_{i}.ln2.b"))
+
+
+def encoder(tokens, cfg: TransformerConfig):
+    """tokens: int64 [batch, seq]. Returns hidden states [b, t, d]."""
+    emb = layers.embedding(
+        tokens, size=[cfg.vocab_size, cfg.d_model],
+        param_attr=ParamAttr(name="word_emb",
+                             initializer=Normal(0.0, 0.02)))
+    x = layers.add_position_encoding(emb, alpha=1.0, beta=1.0)
+    if cfg.dropout:
+        x = layers.dropout(x, cfg.dropout,
+                           dropout_implementation="upscale_in_train")
+    for i in range(cfg.n_layers):
+        x = _block(x, cfg, i)
+    return x
+
+
+def lm_logits(hidden, cfg: TransformerConfig):
+    """LM head projection to vocab logits."""
+    return layers.fc(hidden, size=cfg.vocab_size, num_flatten_dims=2,
+                     param_attr=ParamAttr(name="lm_head.w",
+                                          initializer=Normal(0.0, 0.02)),
+                     bias_attr=False)

@@ -1,0 +1,13 @@
+"""Op library: importing this package registers every lowering."""
+from ..core.registry import REGISTRY
+
+from . import activations  # noqa: F401
+from . import attention  # noqa: F401
+from . import elementwise  # noqa: F401
+from . import math  # noqa: F401
+from . import nn_ops  # noqa: F401
+from . import tensor_ops  # noqa: F401
+
+
+def registered_types():
+    return REGISTRY.types()

@@ -1,0 +1,70 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``paddle_tpu_torch/csrc/`` is compiled on first use into
+a shared library with a plain C interface, for ``sm_90a`` (Hopper):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
+
+The library name carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. The build
+directory is ``paddle_tpu_torch/_build/`` (ignored by git), or
+``$PADDLE_TPU_TORCH_BUILD_DIR``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from typing import Dict, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> str:
+    return os.environ.get("PADDLE_TPU_TORCH_BUILD_DIR") or \
+        os.path.join(_PKG, "_build")
+
+
+def build(name: str) -> Tuple[str, str]:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    Returns (library path, nvcc's output; "" when found built). nvcc's
+    output lists each kernel's registers, shared memory and spills."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    out = os.path.join(build_dir(), f"{name}-{h.hexdigest()[:12]}.so")
+    if os.path.exists(out):
+        return out, ""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin); "
+            "the CUDA kernels of paddle_tpu_torch are built at first use")
+    os.makedirs(build_dir(), exist_ok=True)
+    tmp = f"{out}.tmp.{os.getpid()}"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out, proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, building it first if needed."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(build(name)[0])
+    return _LIBS[name]

@@ -1,0 +1,42 @@
+"""Core math / tensor-manipulation ops: mul, reshape2, transpose2.
+
+The large products in `mul` stay `torch.matmul` (cuBLAS on the card), as
+the JAX package leaves them to XLA. Float32 products are exact: the
+package turns TF32 off when it is imported (see __init__.py).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.registry import register_op
+
+
+@register_op("mul")
+def _mul(ctx, ins, attrs):
+    # mul = 2D matmul after flattening X to [prod(lead), rest] and Y to
+    # [prod(y lead), rest]
+    x, y = ins["X"][0], ins["Y"][0]
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    x2 = x.reshape(math.prod(x.shape[:xnc]), -1)
+    y2 = y.reshape(math.prod(y.shape[:ync]), -1)
+    out = torch.matmul(x2, y2).to(x.dtype)
+    return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+def _with_xshape(name, fn):
+    """reshape2/transpose2 also output an XShape var (the reference's
+    grad-path bookkeeping): an empty [0, *x.shape] tensor."""
+    @register_op(name, nondiff_outputs=("XShape",))
+    def _low(ctx, ins, attrs, _fn=fn):
+        x = ins["X"][0]
+        return {"Out": [_fn(x, attrs)],
+                "XShape": [x.new_zeros((0,) + tuple(x.shape))]}
+    return _low
+
+
+_with_xshape("reshape2", lambda x, a: torch.reshape(
+    x, [int(s) for s in a.get("shape", [])]))
+_with_xshape("transpose2", lambda x, a: x.permute(*a.get("axis")))

@@ -31,3 +31,7 @@ def pytest_configure(config):
         "markers",
         "slow: exhaustive sweeps excluded from the tier-1 run "
         "(-m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (paddle_tpu_torch kernels); skips "
+        "where there is none")
