@@ -6,13 +6,20 @@
 Phases, one progress line each; any failure exits non-zero:
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the kernel source (csrc/flash_attention_fwd.cu) with
-             nvcc for sm_90a.
-3. kernels — hold each kernel against its plain PyTorch version on the
-             card at the shapes the serving path gives it, and time the
-             kernel, the plain version and one PyTorch library call that
-             computes the same function (a yardstick only; the port never
-             calls it).
+2. build   — compile the kernel sources (csrc/flash_attention_fwd.cu,
+             csrc/flash_attention_bwd.cu) with nvcc for sm_90a, one nvcc
+             per source, started together.
+3. kernels — hold the forward kernel against its plain PyTorch version on
+             the card at the shapes the serving and training paths give
+             it, and time it at the serving shape beside the plain version
+             and one PyTorch library call that computes the same function
+             (a yardstick only; the port never calls it).
+   kernels (backward) — hold the dq and dk/dv kernels against their plain
+             versions (the training shape [384, 512, 64] in bf16 and f32,
+             causal, ragged T, d 128 and 32, bh 12), then time all three
+             kernels at the training shape in bf16 beside their plain
+             versions, SDPA's forward and the backward of SDPA (one call
+             for dq, dk and dv) as yardsticks.
 4. serve   — build BERT-base (12 layers, d 768, 12 heads, d_ff 3072, vocab
              30522) with tokens [-1, 512] through the port, run its startup
              program on the card from a fixed seed, save it as an inference
@@ -26,10 +33,24 @@ Phases, one progress line each; any failure exits non-zero:
              predictor's run time and the forward's card time, and at
              batch 8 a torch.profiler breakdown of device time by kernel
              class with the device's busy share.
+6. train   — BERT-base training at full width through build_train (batch
+             32, T 512, bf16 AMP, AdamW lr 1e-4, dropout 0.1): startup on
+             the card from a fixed seed, 3 warm-up and 10 timed steps with
+             labels = tokens; losses finite and falling, each kernel
+             launched 12 times per timed step (counts set to 0 just
+             before, read just after), no executor cache miss after the
+             first step; median step time, the host's median time to
+             enqueue a step, tokens/s, MFU, and a torch.profiler split of
+             one step by kernel class.
+7. train_cpu_check — the same model at batch 1, dropout 0, in float32
+             and in bf16 AMP: one step on the card and one on the CPU
+             (plain versions) from the same startup values; the loss and
+             three parameters' gradients must agree, and attention must
+             run in bf16 under AMP.
 
 The last two lines of standard output are one JSON object listing the
-kernels (launches on the serving path, error, times, bound) and the
-result line {"ok": true, "device": {...}}.
+kernels (launches on the serving and training paths, error, times,
+bound) and the result line {"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -47,9 +68,22 @@ MAX_BATCH = 8            # EngineConfig(max_batch_size=8)
 N_REQUESTS = 16
 N_THREADS = 4
 # published H100 SXM peaks (NVIDIA data sheet, 700 W)
+TRAIN_SHAPE = (384, T, HD)  # b32 x 12 heads, the training path's shape
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 BF16_FLOPS = 989e12      # dense bf16 tensor cores
+# bfloat16 backward kernels vs their plain versions: max|kernel - plain| /
+# max(1, max|plain|), and the share of elements that differ at all. On the
+# H100 the sound kernels read at most 1.06e-3 and 1.4e-4; a kernel that
+# skips one bf16 rounding of P or dS, or rounds toward zero, reads
+# 3.6e-3 to 1.4e-2 and 0.41 to 0.83 (PERF.md, PR 2)
+BF16_BWD_TOL = 5e-3
+BF16_BWD_DIFF_SHARE = 1e-2
+# one bf16 AMP training step, card vs CPU: the loss, and each gradient's
+# Frobenius gap over its norm (measured on the H100: 1.2e-5 and at most
+# 8.1e-3, bf16 rounding at different points of the two devices' products)
+AMP_LOSS_RTOL = 1e-4
+AMP_GRAD_RTOL = 2e-2
 
 
 def check(cond, msg):
@@ -78,14 +112,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(bh, t, d, causal, elsize):
-    """Least time for the work: bytes (q, k, v read once, o and the
-    float32 lse written once) over HBM rate vs operations over the peak
+# per attention kernel: [bh, T, d] tensors read and written, float32 [bh,
+# T] rows moved (lse, delta), operations per (query, key) pair per head dim
+KERNEL_WORK = {
+    "flash_attention_fwd": (3, 1, 1, 4),      # q k v -> o, lse
+    "flash_attention_bwd_dq": (4, 1, 2, 6),   # q k v dO lse delta -> dq
+    "flash_attention_bwd_dkv": (4, 2, 2, 8),  # ... -> dk, dv
+}
+
+
+def attention_bound_ms(kernel, bh, t, d, causal, elsize):
+    """Least time for one kernel's work: bytes (each input read once,
+    each output written once) over HBM rate vs operations over the peak
     rate of the input type; causal counts only the keys at or before
     each query. Returns (ms, "bytes" | "operations")."""
-    nbytes = 4 * bh * t * d * elsize + bh * t * 4
+    n_read, n_write, n_rows, ops = KERNEL_WORK[kernel]
+    nbytes = (n_read + n_write) * bh * t * d * elsize + n_rows * bh * t * 4
     pairs = t * (t + 1) / 2 if causal else t * t
-    flops = 4.0 * bh * pairs * d
+    flops = float(ops) * bh * pairs * d
     peak = F32_FLOPS if elsize == 4 else BF16_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -105,7 +149,8 @@ def kernel_phase(torch):
                 .to(dtype) for _ in range(3)]
 
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
-    # (96 and 12 rows x heads) in both dtypes and masks, a ragged T, d=128
+    # (96 and 12 rows x heads) in both dtypes and masks, a ragged T, d=128,
+    # and the training path's shape in bfloat16 (the last case)
     cases = [(96, T, HD, torch.float32, False),
              (96, T, HD, torch.float32, True),
              (96, T, HD, torch.bfloat16, False),
@@ -114,8 +159,8 @@ def kernel_phase(torch):
              (96, 300, HD, torch.float32, False),
              (96, 300, HD, torch.float32, True),
              (24, T, 128, torch.float32, False),
-             (24, T, 128, torch.bfloat16, True)]
-    main_err = None
+             (24, T, 128, torch.bfloat16, True),
+             (*TRAIN_SHAPE, torch.bfloat16, False)]
     for bh, t, d, dtype, causal in cases:
         q, k, v = qkv(bh, t, d, dtype)
         # through the wrapper, in the [b, h, T, d] layout the model uses
@@ -139,10 +184,9 @@ def kernel_phase(torch):
               f"flash_attention disagrees with its plain version: "
               f"{err} > {tol}")
         check(lse_err <= 1e-3, f"lse disagrees: {lse_err}")
-        if (bh, t, d, dtype, causal) == cases[0]:
-            main_err = err
 
-    # times at the serving path's shape: [96, 512, 64] float32
+    # times at the serving path's shape: [96, 512, 64] float32 (the
+    # training shape's are bwd_kernel_phase's)
     bh, t, d, dtype, causal = cases[0]
     q, k, v = qkv(bh, t, d, dtype)
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
@@ -150,16 +194,120 @@ def kernel_phase(torch):
                                                       causal=causal))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal))
-    bound_ms, bound_by = attention_bound_ms(bh, t, d, causal, 4)
-    phase("kernel_time", shape=f"[{bh},{t},{d}] float32", ms=f"{ms:.4f}",
+    bound_ms, bound_by = attention_bound_ms("flash_attention_fwd", bh, t,
+                                            d, causal, 4)
+    phase("kernel_time", kernel="flash_attention_fwd",
+          shape=f"[{bh},{t},{d}] float32", ms=f"{ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
           bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:63",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return err  # the last case's: the training shape in bfloat16
+
+
+def _rel_err(got, want):
+    """max|got - want| / max(1, max|want|), max|got - want|, and the share
+    of elements where got and want differ at all."""
+    delta = (got.float() - want.float()).abs()
+    diff = delta.max().item()
+    return (diff / max(1.0, want.float().abs().max().item()), diff,
+            (delta > 0).float().mean().item())
+
+
+def bwd_kernel_phase(torch):
+    """Each backward kernel against its plain version on the card, then
+    times at the training shape [384, 512, 64] bfloat16: the two
+    backward kernels, their plain versions and the backward of
+    scaled_dot_product_attention (one call for dq, dk and dv; a
+    yardstick the port never calls), and the forward kernel, its plain
+    version and SDPA's forward in bfloat16."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+
+    def inputs(bh, t, d, dtype, causal):
+        q, k, v, do = [torch.randn((bh, t, d), generator=gen, device=dev)
+                       .to(dtype) for _ in range(4)]
+        o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, lse, delta
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (bh, T, d, dtype, causal): the training shape in both dtypes and
+    # causal, a ragged T, d=128, d=32 and bh=12 (one sequence's heads)
+    cases = [(*TRAIN_SHAPE, bf16, False), (*TRAIN_SHAPE, f32, False),
+             (*TRAIN_SHAPE, bf16, True), (96, 300, HD, f32, True),
+             (96, 300, HD, bf16, False), (24, T, 128, f32, False),
+             (24, T, 128, bf16, True), (48, T, 32, f32, True),
+             (12, T, HD, bf16, False)]
+    errs = {}
+    for bh, t, d, dtype, causal in cases:
+        args = inputs(bh, t, d, dtype, causal)
+        dq = fa.flash_attention_bwd_dq(*args, causal=causal)
+        dk, dv = fa.flash_attention_bwd_dkv(*args, causal=causal)
+        rq = fa.flash_attention_bwd_dq_reference(*args, causal=causal)
+        rk, rv = fa.flash_attention_bwd_dkv_reference(*args, causal=causal)
+        torch.cuda.synchronize()
+        got = {"dq": _rel_err(dq, rq), "dk": _rel_err(dk, rk),
+               "dv": _rel_err(dv, rv)}
+        tol = 1e-4 if dtype == f32 else BF16_BWD_TOL
+        phase("kernel_bwd", case=f"bh{bh}_T{t}_d{d}_{str(dtype)[6:]}"
+              f"{'_causal' if causal else ''}",
+              **{f"{n}_err": f"{e[0]:.3e}" for n, e in got.items()},
+              **{f"{n}_diff_share": f"{e[2]:.3e}" for n, e in got.items()},
+              tol=tol)
+        check(all(math.isfinite(e[0]) and e[0] <= tol
+                  for e in got.values()),
+              f"a backward kernel disagrees with its plain version: "
+              f"{ {n: e[0] for n, e in got.items()} } > {tol}")
+        if dtype == bf16:
+            check(all(e[2] <= BF16_BWD_DIFF_SHARE for e in got.values()),
+                  f"a bfloat16 backward kernel differs from its plain "
+                  f"version in more than {BF16_BWD_DIFF_SHARE} of the "
+                  f"elements: { {n: e[2] for n, e in got.items()} }")
+        if (bh, t, d, dtype, causal) == cases[0]:
+            errs = {"flash_attention_bwd_dq": got["dq"][1],
+                    "flash_attention_bwd_dkv": max(got["dk"][1],
+                                                   got["dv"][1])}
+
+    bh, t, d, dtype, causal = cases[0]
+    args = inputs(bh, t, d, dtype, causal)
+    q, k, v, do = args[:4]
+    times = {
+        "flash_attention_bwd_dq": (
+            cuda_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+            cuda_ms(lambda: fa.flash_attention_bwd_dq_reference(*args))),
+        "flash_attention_bwd_dkv": (
+            cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
+            cuda_ms(lambda: fa.flash_attention_bwd_dkv_reference(*args))),
+        "flash_attention_fwd": (
+            cuda_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+            cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v))),
+    }
+    # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shape4 = (bh // H, H, t, d)
+    q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
+                  (q, k, v))
+    out4 = sdpa(q4, k4, v4)
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do.view(shape4), retain_graph=True))
+    with torch.no_grad():
+        fwd_lib = cuda_ms(lambda: sdpa(q4, k4, v4))
+    library = {"flash_attention_bwd_dq": bwd_lib,
+               "flash_attention_bwd_dkv": bwd_lib,
+               "flash_attention_fwd": fwd_lib}
+    records = {}
+    for name, (ms, plain_ms) in times.items():
+        bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal, 2)
+        phase("kernel_time", kernel=name, shape=f"[{bh},{t},{d}] bfloat16",
+              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{library[name]:.4f}", bound_ms=f"{bound_ms:.4f}",
+              bound_by=bound_by)
+        records[name] = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library[name], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "max_abs_err": errs.get(name)}
+    return records
 
 
 def serve_phase(torch, card):
@@ -226,7 +374,7 @@ def _serve(torch, card, model_dir):
                                 args=(range(j, N_REQUESTS, N_THREADS),))
                for j in range(N_THREADS)]
     # the serving path's run: every count to 0 just before, read after
-    flash_attention.launches = 0
+    _zero_launch_counts()
     batches0 = engine.batches
     t0 = time.perf_counter()
     for th in threads:
@@ -283,12 +431,39 @@ def _model_flops(cfg, batch):
     return 2.0 * batch * T * linear + attn
 
 
+KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
+                  "dq_kernel": "flash_attention_bwd_dq",
+                  "dkv_kernel": "flash_attention_bwd_dkv"}
+
+
 def _kernel_class(name):
-    if "fwd_kernel" in name:
-        return "flash_attention_fwd"
-    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "matmul")):
+    for key, cls in KERNEL_CLASSES.items():
+        if key in name:
+            return cls
+    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "matmul",
+                                       "nvjet")):
         return "matmul"
     return "other"
+
+
+def _device_ms(prof):
+    """Device milliseconds per kernel name from a torch.profiler run."""
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            out[ev.key] = out.get(ev.key, 0.0) + dev_us / 1e3
+    return out
+
+
+def _device_ms_by_class(prof, classes):
+    """Device milliseconds per kernel class from a torch.profiler run."""
+    by_class = dict.fromkeys(classes, 0.0)
+    for name, ms in _device_ms(prof).items():
+        by_class[_kernel_class(name)] += ms
+    return by_class
 
 
 def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
@@ -329,13 +504,8 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
             forward(feed_t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_class = {"flash_attention_fwd": 0.0, "matmul": 0.0, "other": 0.0}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_class[_kernel_class(ev.key)] += dev_us / 1e3
+    by_class = _device_ms_by_class(
+        prof, ("flash_attention_fwd", "matmul", "other"))
     busy = sum(by_class.values())
     # no device time recorded means the profiler could not trace the card
     phase("profile", batch=MAX_BATCH, forwards=iters,
@@ -343,6 +513,273 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms_per_forward": f"{v / iters:.3f}"
              for k, v in by_class.items()}, card=f"'{card}'")
+
+
+TRAIN_BATCH = 32          # bench.py's default BERT-base step
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def model_flops_per_token(cfg, seq_len):
+    """Matmul operations per token, forward and backward (3x forward):
+    dense 6*N_mat + attention 12*L*T*d, the LM head at every position
+    (bench.py's count for the full-T objective)."""
+    d, n_layers = cfg.d_model, cfg.n_layers
+    n_mat = (n_layers * (4 * d * d + 2 * d * cfg.d_ff)
+             + cfg.vocab_size * d)
+    return 6 * n_mat + 12 * n_layers * seq_len * d
+
+
+def _launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    return {"flash_attention_fwd": fa.flash_attention.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches}
+
+
+def _zero_launch_counts():
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        fn.launches = 0
+
+
+def _build_train(ptt, transformer, cfg, batch, amp):
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = transformer.build_train(cfg, batch, T, lr=1e-4, amp=amp)
+    return main, startup, loss
+
+
+def train_phase(torch, card):
+    """BERT-base training at full width through the port's entry points:
+    build_train (bf16 AMP, AdamW at lr 1e-4, dropout 0.1), the startup
+    program on the card, WARMUP_STEPS then TIMED_STEPS steps on seeded
+    random tokens with labels = tokens. Every count is set to 0 just
+    before the timed steps and read just after. Then one step under
+    torch.profiler, split by kernel class."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
+                                use_flash=True)
+    t0 = time.perf_counter()
+    main, startup, loss = _build_train(ptt, transformer, cfg, TRAIN_BATCH,
+                                       True)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    phase("train_build", layers=cfg.n_layers, d_model=cfg.d_model,
+          heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+          batch=TRAIN_BATCH, T=T, amp=True,
+          ops=len(main.global_block().ops),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, T)).astype("int64")
+    feed = {"tokens": toks, "labels": toks}
+
+    def step():
+        """One step: (loss, host ms to enqueue it, ms until the loss is on
+        the host). exe.run returns the loss tensor before the card is
+        done; reading it waits for the card."""
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                      return_numpy=False)[0]
+        t_host = time.perf_counter()
+        value = float(out)
+        return value, (t_host - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    losses = [step()[0]]
+    misses_after_first = exe.cache_stats()["misses"]
+    losses += [step()[0] for _ in range(WARMUP_STEPS - 1)]
+    torch.cuda.reset_peak_memory_stats()
+    # the training path's run: every count to 0 just before, read after
+    _zero_launch_counts()
+    host_times, times = [], []
+    for _ in range(TIMED_STEPS):
+        value, host_ms, step_ms = step()
+        losses.append(value)
+        host_times.append(host_ms)
+        times.append(step_ms)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    misses = exe.cache_stats()["misses"]
+
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0],
+          f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    for name, n in launches.items():
+        check(n == cfg.n_layers * TIMED_STEPS,
+              f"{name} launches {n} != {cfg.n_layers} x {TIMED_STEPS} steps")
+    check(misses == misses_after_first,
+          f"executor cache misses after the first step: "
+          f"{misses_after_first} -> {misses}")
+
+    step_ms = statistics.median(times)
+    tokens = TRAIN_BATCH * T
+    tok_s = tokens / (step_ms / 1e3)
+    flops_tok = model_flops_per_token(cfg, T)
+    phase("train", steps=TIMED_STEPS, step_ms_median=f"{step_ms:.3f}",
+          step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
+          host_ms_median=f"{statistics.median(host_times):.3f}",
+          tokens_per_s=f"{tok_s:.1f}",
+          model_mflop_per_token=f"{flops_tok / 1e6:.2f}",
+          mfu=f"{flops_tok * tok_s / BF16_FLOPS:.4f}",
+          loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
+          launches_per_step=launches["flash_attention_fwd"] // TIMED_STEPS,
+          peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class = _device_ms_by_class(
+        prof, ("matmul", "flash_attention_fwd", *BWD_KERNELS, "other"))
+    busy = sum(by_class.values())
+    phase("train_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
+          busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
+          **{f"{k}_ms": f"{v:.3f}" for k, v in by_class.items()},
+          card=f"'{card}'")
+    others = sorted(((ms, name) for name, ms in _device_ms(prof).items()
+                     if _kernel_class(name) == "other"), reverse=True)
+    for ms, name in others[:8]:
+        print(f"  other: {ms:.3f} ms  {name[:100]}", flush=True)
+    return launches
+
+
+def train_cpu_check(torch):
+    """The same full-width model at batch 1 with dropout 0 (the card's and
+    the CPU's generators draw different masks), in float32 and in bf16
+    AMP: one step on the card and one on the CPU through the plain
+    versions, each from the same startup values. Float32: the loss within
+    rtol 1e-4 and three parameters' gradients within rtol 1e-3, atol 1e-6.
+    AMP: the loss within AMP_LOSS_RTOL and each gradient's Frobenius gap
+    within AMP_GRAD_RTOL of its norm; beside it, the same readings of the
+    card's AMP step against the CPU's float32 step (what an AMP step that
+    silently ran in float32 would be near: bf16 rounding noise of the
+    same size), and flash attention's outputs must be bfloat16 under AMP
+    and float32 without."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                use_flash=True)
+    progs = {amp: _build_train(ptt, transformer, cfg, 1, amp)
+             for amp in (False, True)}
+    check(progs[False][1].fingerprint() == progs[True][1].fingerprint(),
+          "the float32 and AMP startup programs differ")
+    card_exe, cpu_exe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    init_scope = ptt.Scope()
+    card_exe.run(progs[False][1], scope=init_scope)
+    init = {n: init_scope.get_numpy(n) for n in init_scope.names()}
+    del init_scope
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, T))
+    feed = {"tokens": toks, "labels": toks}
+    grads = ["word_emb@GRAD", "layer_0.att.q.w@GRAD",
+             f"layer_{cfg.n_layers - 1}.ffn.fc2.w@GRAD"]
+    t0 = time.perf_counter()
+    out, attn_dtypes = {}, {}
+    for amp, (main, _, loss) in progs.items():
+        # flash attention's outputs: bfloat16 under AMP, float32 without
+        attn = [op.output("Out")[0] for op in main.global_block().ops
+                if op.type == "flash_attention"]
+        for where, exe, place in (("card", card_exe, ptt.CUDAPlace(0)),
+                                  ("cpu", cpu_exe, ptt.CPUPlace())):
+            scope = scope_from_numpy(init, ptt.Scope(), place)
+            got = exe.run(main, feed=feed, fetch_list=[loss] + grads + attn,
+                          scope=scope, return_numpy=False)
+            attn_dtypes[amp, where] = {str(x.dtype) for x in
+                                       got[1 + len(grads):]}
+            out[amp, where] = [x.float().cpu().numpy()
+                               for x in got[:1 + len(grads)]]
+            del scope, got
+    for (amp, where), dtypes in attn_dtypes.items():
+        want = "torch.bfloat16" if amp else "torch.float32"
+        check(dtypes == {want}, f"flash attention ran in {dtypes} on the "
+              f"{where} with amp={amp}; want {want}")
+
+    def loss_rel(a, b):
+        return abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+
+    def grad_rel(a, b):
+        return {n.split("@")[0]: float(np.linalg.norm(x - y) /
+                                       np.linalg.norm(y))
+                for n, x, y in zip(grads, a[1:], b[1:])}
+
+    card, cpu = out[False, "card"], out[False, "cpu"]
+    errs = {}
+    for name, a, b in zip(grads, card[1:], cpu[1:]):
+        errs[name] = float(np.max(np.abs(a - b)))
+        check(np.allclose(a, b, rtol=1e-3, atol=1e-6) and
+              np.abs(b).max() > 0,
+              f"{name}: card vs CPU differ by {errs[name]} "
+              f"(max |CPU| {np.abs(b).max()})")
+    f32_loss = loss_rel(card, cpu)
+    check(f32_loss <= 1e-4, f"card vs CPU loss differs by {f32_loss}")
+    phase("train_cpu_check", batch=1, amp=False,
+          loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
+          loss_rel=f"{f32_loss:.3e}",
+          **{f"{n.split('@')[0]}_max_abs_err": f"{e:.3e}"
+             for n, e in errs.items()})
+
+    card, cpu = out[True, "card"], out[True, "cpu"]
+    amp_loss, amp_grads = loss_rel(card, cpu), grad_rel(card, cpu)
+    vs_f32_loss = loss_rel(card, out[False, "cpu"])
+    vs_f32_grads = grad_rel(card, out[False, "cpu"])
+    phase("train_cpu_check", batch=1, amp=True,
+          loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
+          loss_rel=f"{amp_loss:.3e}", loss_tol=AMP_LOSS_RTOL,
+          **{f"{n}_rel": f"{e:.3e}" for n, e in amp_grads.items()},
+          grad_tol=AMP_GRAD_RTOL,
+          vs_f32_loss_rel=f"{vs_f32_loss:.3e}",
+          **{f"vs_f32_{n}_rel": f"{e:.3e}" for n, e in vs_f32_grads.items()},
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    check(amp_loss <= AMP_LOSS_RTOL,
+          f"AMP card vs CPU loss differs by {amp_loss} > {AMP_LOSS_RTOL}")
+    check(all(e <= AMP_GRAD_RTOL for e in amp_grads.values()),
+          f"AMP card vs CPU gradients differ: {amp_grads} > "
+          f"{AMP_GRAD_RTOL}")
+
+
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+# kernel -> (its source under csrc/, the line of the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "flash_attention_fwd": ("flash_attention_fwd.cu", 63),
+    "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 191),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", 234),
+}
+
+
+def build_phase():
+    """Compile every kernel source with nvcc, one process per source, all
+    started together; print each kernel's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.ops.cuda import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = dict(zip(SOURCES, pool.map(lambda n: build.build(n)[1],
+                                          SOURCES)))
+    phase("build", sources=len(SOURCES),
+          seconds=f"{time.perf_counter() - t0:.2f}",
+          found_built=not any(logs.values()))
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
 
 
 def main():
@@ -353,7 +790,6 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch  # noqa: F401
-    from paddle_tpu_torch.ops.cuda import build
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -364,21 +800,28 @@ def main():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    _, log = build.build("flash_attention_fwd")
-    phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
-          found_built=not log)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  flash_attention_fwd: {line.strip()}", flush=True)
+    build_phase()
 
-    record = kernel_phase(torch)
-    launches = serve_phase(torch, card)
-    record["launches"] = launches[record["name"]]
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
-    print(json.dumps({"kernels": [{k: record[k] for k in keys}]}))
+    fwd_err = kernel_phase(torch)
+    records = bwd_kernel_phase(torch)
+    records["flash_attention_fwd"]["max_abs_err"] = fwd_err
+    served = serve_phase(torch, card)
+    trained = train_phase(torch, card)
+    train_cpu_check(torch)
+
+    # launches on the main paths: the forward's over the serving and the
+    # training runs, the backward kernels' over the training run
+    out = []
+    for name, (source, line) in KERNEL_SOURCES.items():
+        rec = records[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": served.get(name, 0) + trained[name],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,3 +28,6 @@ from . import initializer  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import inference  # noqa: F401,E402
 from . import convert  # noqa: F401,E402
+from . import backward  # noqa: F401,E402
+from . import optimizer  # noqa: F401,E402
+from . import contrib  # noqa: F401,E402

@@ -4,7 +4,16 @@ PyTorch runs eagerly, so lowering a block IS running it: each op's
 registered lowering is called in program order against an environment of
 named tensors. Also here: build-time shape inference, which runs the
 same lowerings on ``device="meta"`` tensors (shapes and dtypes only, no
-data and no kernels).
+data and no kernels), and the ``grad::generic`` op.
+
+Gradients without recomputation. The JAX package's grad op re-runs the
+forward lowering under ``jax.vjp`` and leaves it to XLA to merge the two
+forwards; eager PyTorch would run every forward twice. Here a forward op
+that a grad op names (``fwd_id``) runs under ``torch.enable_grad()`` on
+its differentiable inputs detached into leaves, and its (leaves, outputs)
+are recorded in the run's context. Its grad op runs
+``torch.autograd.grad`` over that record and drops it, so the forward's
+saved tensors are freed as the backward walks.
 """
 from __future__ import annotations
 
@@ -13,7 +22,16 @@ from typing import Dict
 import torch
 
 from .dtypes import as_torch_dtype, convert_dtype
-from .registry import REGISTRY
+from .registry import REGISTRY, OpDef
+
+GRAD_SUFFIX = "@GRAD"
+
+# Dtype names that build-time shape inference records for an op's
+# output: the JAX package infers with 64-bit types off, so an inferred
+# int64 or float64 output is recorded as its 32-bit type. Only the IR's
+# name changes (programs stay byte-identical across the packages); the
+# tensors at run time keep torch's dtypes.
+_IR_DTYPE = {"int64": "int32", "float64": "float32"}
 
 # Placeholder for the dynamic (batch) dimension during build-time shape
 # inference; outputs containing this dim are mapped back to -1. A large
@@ -37,13 +55,20 @@ def _mix(*words) -> int:
 
 
 class LowerCtx:
-    """Per-run context: the device, random seeds, train/infer mode."""
+    """Per-run context: the device, random seeds, train/infer mode, the
+    autograd records of the forward ops named in `record_ids`, and per op
+    id the outputs that nothing reads (`unread`: an op may skip them)."""
 
-    def __init__(self, device, seed=0, step=0, is_test=False):
+    def __init__(self, device, seed=0, step=0, is_test=False,
+                 record_ids=frozenset(), unread=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
         self.is_test = is_test
+        self.record_ids = record_ids
+        self.unread = unread or {}
+        # forward op id -> (its inputs with leaves, its outputs)
+        self.records = {}
 
     def generator_for(self, op_id: int):
         """A fresh generator for one op: seeded from the program seed
@@ -94,7 +119,13 @@ def run_op(op, env, ctx, op_idx=None):
             ins[slot] = vals
     opctx = _OpCtx(ctx, op)
     try:
-        outs = opdef.lower(opctx, ins, op.attrs)
+        if op.id in ctx.record_ids:
+            ins = _with_leaves(opdef, ins)
+            with torch.enable_grad():
+                outs = opdef.lower(opctx, ins, op.attrs)
+            ctx.records[op.id] = (ins, outs)
+        else:
+            outs = opdef.lower(opctx, ins, op.attrs)
     except Exception as e:
         # name the program op, its input shapes and attrs on failure
         shapes = {s: [tuple(getattr(v, "shape", ())) for v in vs]
@@ -123,6 +154,18 @@ class _OpCtx:
         self.is_test = ctx.is_test or bool(op.attrs.get("is_test", False))
         self.block = getattr(op, "block", None)
         self.attrs = op.attrs
+        self.outputs = getattr(op, "outputs", {})
+
+    def wants(self, slot):
+        """Whether a later op reads, or a fetch names, a var of the output
+        slot. An op may leave an unwanted optional output out."""
+        dead = self._ctx.unread.get(self._op.id, ())
+        return any(n and n not in dead for n in self.outputs.get(slot, ()))
+
+    def pop_record(self, fwd_id):
+        """The forward op's (inputs, outputs) record, removed from the
+        run's context; None if it left none."""
+        return self._ctx.records.pop(fwd_id, None)
 
     @property
     def generator(self):
@@ -144,9 +187,76 @@ class _OpCtx:
         return torch.randn(shape, generator=self.generator, device=device)
 
 
-def lower_block(block, env: Dict, ctx: LowerCtx):
+def _with_leaves(opdef, ins):
+    """The op's inputs with each differentiable slot (not in
+    nondiff_inputs, every tensor floating) detached into leaves that
+    require grad: the recorded graph starts at this op."""
+    out = dict(ins)
+    for slot, vals in ins.items():
+        if slot in opdef.nondiff_inputs or \
+                not all(v.is_floating_point() for v in vals):
+            continue
+        out[slot] = [v.detach().requires_grad_() for v in vals]
+    return out
+
+
+def _generic_grad(ctx, ins, attrs):
+    """grad::generic: d(forward inputs) from the forward op's record and
+    the cotangents of its outputs. Outputs without a cotangent and inputs
+    the outputs do not reach get zeros, as jax.vjp gives."""
+    fwd_id = attrs["fwd_id"]
+    record = ctx.pop_record(fwd_id)
+    if record is None:
+        raise RuntimeError(
+            f"grad::generic of {attrs['fwd_type']!r} (forward op id "
+            f"{fwd_id}): the forward op left no autograd record; it must "
+            f"run earlier in the same block")
+    fwd_ins, fwd_outs = record
+    # which positions of each output slot have a cotangent: the grad op's
+    # inputs drop empty names, so the mask restores their positions
+    grad_mask = attrs.get("fwd_out_grad_mask", {})
+    outs, cots = [], []
+    for slot in attrs["fwd_out_slots"]:
+        prims = fwd_outs.get(slot, [])
+        avail = list(ins.get(slot + GRAD_SUFFIX, []))
+        mask = grad_mask.get(slot, [bool(avail)] * len(prims))
+        for a, present in zip(prims, mask):
+            if present and avail and a.is_floating_point():
+                g = avail.pop(0)
+                if a.requires_grad:
+                    outs.append(a)
+                    cots.append(g.to(a.dtype))
+    result, targets, where = {}, [], []
+    for gslot, names in ctx.outputs.items():
+        vals = fwd_ins.get(gslot[:-len(GRAD_SUFFIX)], [])
+        result[gslot] = [None] * len(names)
+        for i, (name, leaf) in enumerate(zip(names, vals)):
+            if not name:
+                continue
+            if leaf.requires_grad:
+                targets.append(leaf)
+                where.append((gslot, i))
+            else:
+                result[gslot][i] = torch.zeros_like(leaf)
+    grads = torch.autograd.grad(outs, targets, cots, allow_unused=True) \
+        if outs and targets else [None] * len(targets)
+    for (gslot, i), leaf, g in zip(where, targets, grads):
+        result[gslot][i] = torch.zeros_like(leaf) if g is None else g
+    return result
+
+
+REGISTRY.register(OpDef(type="grad::generic", lower=_generic_grad))
+
+
+def lower_block(block, env: Dict, ctx: LowerCtx, drop_after=None):
+    """Run the block's ops in order. `drop_after` maps an op index to the
+    var names whose last use it is: they leave `env` once the op ran, so
+    a step holds each activation and gradient only as long as it is
+    needed."""
     for i, op in enumerate(block.ops):
         run_op(op, env, ctx, op_idx=i)
+        for n in (drop_after or {}).get(i, ()):
+            env.pop(n, None)
     return env
 
 
@@ -178,5 +288,6 @@ def infer_op_shapes(op, block):
         out = env[name]
         v = block.var(name)
         v.shape = tuple(-1 if d == _DYN_DIM else int(d) for d in out.shape)
-        v.dtype = convert_dtype(out.dtype)
+        dtype = convert_dtype(out.dtype)
+        v.dtype = _IR_DTYPE.get(dtype, dtype)
 

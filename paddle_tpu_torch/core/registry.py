@@ -5,8 +5,10 @@ Every op registers ONE lowering, a plain function on tensors:
 names to lists of tensors. A lowering that reaches a hand-written kernel
 calls the kernel's wrapper, which launches it for CUDA tensors.
 
-The grad op (the JAX package's generic vjp grad) belongs to the training
-slice and is not registered here.
+Gradients: ``backward.append_backward`` gives every differentiated
+forward op one ``grad::generic`` op, whose lowering (core/lowering.py)
+runs torch autograd over the tensors the forward op recorded when it ran.
+Ops marked ``inplace`` (optimizer updates) are never differentiated.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ class OpDef:
     nondiff_outputs: Sequence[str] = ()
     # Draws random numbers through ctx.generator (dropout, initializers).
     stateful: bool = False
+    # Mutates persistable state (optimizer updates): its outputs may alias
+    # inputs by var name (ParamOut == Param); backward skips it.
+    inplace: bool = False
     # Semantic version, saved with programs and checked on load.
     version: int = 1
 
@@ -68,7 +73,7 @@ REGISTRY = OpRegistry()
 
 
 def register_op(op_type, *, nondiff_inputs=(), nondiff_outputs=(),
-                stateful=False, version=1):
+                stateful=False, inplace=False, version=1):
     """Decorator: @register_op("mul") def _mul(ctx, ins, attrs): ..."""
 
     def deco(fn):
@@ -76,7 +81,7 @@ def register_op(op_type, *, nondiff_inputs=(), nondiff_outputs=(),
             type=op_type, lower=fn,
             nondiff_inputs=tuple(nondiff_inputs),
             nondiff_outputs=tuple(nondiff_outputs),
-            stateful=stateful, version=version))
+            stateful=stateful, inplace=inplace, version=version))
         return fn
 
     return deco

@@ -48,11 +48,14 @@ class Scope:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Host copy of a tensor. numpy has no bfloat16, so bfloat16 comes
-    back widened to float32 (exactly representable)."""
+    """Host copy of a tensor, never aliasing it (training updates state
+    in place). numpy has no bfloat16, so bfloat16 comes back widened to
+    float32 (exactly representable)."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
+    if t.device.type == "cpu":
+        return t.numpy().copy()
     return t.cpu().numpy()
 
 

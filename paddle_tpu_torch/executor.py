@@ -1,17 +1,25 @@
-"""Executor: run a forward-only Program on a Place.
+"""Executor: run a Program on a Place.
 
 ``Executor.run`` moves the feeds to the place, runs the global block op
-by op under ``torch.inference_mode()``, writes persistable state back to
-the Scope and returns the fetches as numpy arrays. PyTorch runs eagerly
-and compiles nothing, but the executor keeps the JAX package's
-per-instance cache of prepared runs, keyed on (program fingerprint, feed
-shapes and dtypes, fetch names), with its hit and miss counters: a
-serving engine's "no new entries after warmup" contract stays
-meaningful, and a program or shape that was never warmed shows up as a
-miss.
+by op, writes persistable state back to the Scope and returns the
+fetches as numpy arrays. PyTorch runs eagerly and compiles nothing, but
+the executor keeps the JAX package's per-instance cache of prepared
+runs, keyed on (program fingerprint, feed shapes and dtypes, fetch
+names), with its hit and miss counters: a serving engine's "no new
+entries after warmup" contract stays meaningful, and a program or shape
+that was never warmed shows up as a miss.
 
-Training (backward ops, optimizer updates, autograd) belongs to the
-training slice.
+Two modes, chosen when a run is prepared:
+
+- a program that writes no persistable state and holds no grad op (a
+  predictor's forward) runs under ``torch.inference_mode()``;
+- any other program (the startup program, a training step) runs under
+  ``torch.no_grad()``, so the tensors it leaves in the Scope are plain
+  tensors that later runs may differentiate through and update in place.
+  The forward ops that a ``grad::generic`` op names run with grad
+  enabled and record their autograd graph for it (core/lowering.py).
+
+Any var of the block can be fetched, a gradient (``…@GRAD``) included.
 """
 from __future__ import annotations
 
@@ -31,11 +39,21 @@ __all__ = ["Executor", "global_scope", "scope_guard"]
 
 
 class _PreparedStep:
-    """What a cache entry holds: the state the block reads and writes."""
+    """What a cache entry holds: the state the block reads and writes,
+    the forward ops whose autograd graph its grad ops need, and the
+    mode (inference only when the block writes no state and holds no
+    grad op)."""
 
-    def __init__(self, state_in_names, state_out_names):
+    def __init__(self, state_in_names, state_out_names, record_ids,
+                 drop_after, unread):
         self.state_in_names = state_in_names
         self.state_out_names = state_out_names
+        self.record_ids = record_ids
+        self.inference = not state_out_names and not record_ids
+        # op index -> vars whose last use it is (not fetched, not state)
+        self.drop_after = drop_after
+        # op id -> outputs no later op reads and nobody fetches
+        self.unread = unread
 
 
 class Executor:
@@ -68,7 +86,7 @@ class Executor:
             self._cache_hits += 1
         else:
             self._cache_misses += 1
-            step = self._prepare(program, block, scope)
+            step = self._prepare(program, block, scope, fetch_names)
             self._cache[key] = step
             from .core.flags import FLAGS
             cap = FLAGS.executor_cache_capacity
@@ -94,16 +112,17 @@ class Executor:
         fp = program.fingerprint()
         step_idx = self._step_counters.get(fp, 0)
         self._step_counters[fp] = step_idx + 1
-        ctx = LowerCtx(self.device, seed=program.random_seed, step=step_idx)
-        with torch.inference_mode():
-            lower_block(block, env, ctx)
+        ctx = LowerCtx(self.device, seed=program.random_seed, step=step_idx,
+                       record_ids=step.record_ids, unread=step.unread)
+        with torch.inference_mode() if step.inference else torch.no_grad():
+            lower_block(block, env, ctx, step.drop_after)
         for n in fetch_names:
             if n not in env:
                 raise KeyError(f"fetch var {n!r} was not computed")
         for n in step.state_out_names:
             if n in env:
-                scope.set(n, env[n])
-        fetches = [env[n] for n in fetch_names]
+                scope.set(n, env[n].detach())
+        fetches = [env[n].detach() for n in fetch_names]
         if return_numpy:
             return [tensor_to_numpy(f) for f in fetches]
         return fetches
@@ -139,7 +158,7 @@ class Executor:
         return (program.fingerprint(), feed_sig, tuple(fetch_names))
 
     @staticmethod
-    def _prepare(program, block, scope) -> _PreparedStep:
+    def _prepare(program, block, scope, fetch_names) -> _PreparedStep:
         # state in: persistables already in scope or read before written
         persistables = {v.name for v in program.list_vars() if v.persistable}
         produced = set()
@@ -152,7 +171,28 @@ class Executor:
         state_in = sorted(n for n in persistables
                           if scope.has(n) or n in consumed_first)
         state_out = sorted(persistables & produced)
-        return _PreparedStep(state_in, state_out)
+        record_ids = frozenset(op.attrs["fwd_id"] for op in block.ops
+                               if op.type == "grad::generic")
+        last_use, last_read = {}, {}
+        for i, op in enumerate(block.ops):
+            for n in op.input_names():
+                last_read[n] = i
+            for n in op.input_names() + op.output_names():
+                if n:
+                    last_use[n] = i
+        keep = set(fetch_names) | set(state_out)
+        drop_after = {}
+        for n, i in last_use.items():
+            if n not in keep:
+                drop_after.setdefault(i, []).append(n)
+        unread = {}
+        for i, op in enumerate(block.ops):
+            dead = frozenset(n for n in op.output_names() if n and n not in
+                             keep and last_read.get(n, -1) <= i)
+            if dead:
+                unread[op.id] = dead
+        return _PreparedStep(state_in, state_out, record_ids, drop_after,
+                             unread)
 
     def cache_stats(self) -> Dict[str, int]:
         """Per-instance prepared-run cache counters."""

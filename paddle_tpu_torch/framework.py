@@ -25,10 +25,14 @@ from .core.dtypes import convert_dtype
 __all__ = [
     "Variable", "Parameter", "Operator", "Block", "Program",
     "default_main_program", "default_startup_program", "program_guard",
-    "unique_name", "ParamAttr",
+    "unique_name", "ParamAttr", "grad_var_name",
 ]
 
 GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 class UniqueNameGenerator:

@@ -21,7 +21,7 @@ class Initializer:
 
 
 class ConstantInitializer(Initializer):
-    def __init__(self, value=0.0, force_cpu=False):
+    def __init__(self, value=0.0):
         self.value = value
 
     def __call__(self, var, block):
@@ -32,7 +32,7 @@ class ConstantInitializer(Initializer):
 
 
 class UniformInitializer(Initializer):
-    def __init__(self, low=-1.0, high=1.0, seed=0):
+    def __init__(self, low=-1.0, high=1.0):
         self.low, self.high = low, high
 
     def __call__(self, var, block):
@@ -44,7 +44,7 @@ class UniformInitializer(Initializer):
 
 
 class NormalInitializer(Initializer):
-    def __init__(self, loc=0.0, scale=1.0, seed=0):
+    def __init__(self, loc=0.0, scale=1.0):
         self.loc, self.scale = loc, scale
 
     def __call__(self, var, block):
@@ -68,7 +68,7 @@ def _fans(var):
 
 
 class XavierInitializer(Initializer):
-    def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
+    def __init__(self, uniform=True, fan_in=None, fan_out=None):
         self.uniform, self.fan_in, self.fan_out = uniform, fan_in, fan_out
 
     def __call__(self, var, block):

@@ -1,8 +1,8 @@
 """layers.nn — graph-building functions over the op library.
 
-The functions the transformer encoder calls. Each emits the same op
-types and attrs as its counterpart in the JAX package, so programs built
-by the two packages serialize identically.
+The functions the transformer encoder and its training losses call.
+Each emits the same op types and attrs as its counterpart in the JAX
+package, so programs built by the two packages serialize identically.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ from .math_ops import elementwise_add  # noqa: F401
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "add_position_encoding", "flash_attention", "reshape",
-           "transpose", "gelu", "elementwise_add"]
+           "transpose", "gelu", "elementwise_add", "mean",
+           "softmax_with_cross_entropy", "gather"]
 
 
 def _unary_layer(op_type):
@@ -29,6 +30,10 @@ def _unary_layer(op_type):
 
 
 gelu = _unary_layer("gelu")
+
+
+def mean(x, name=None):
+    return _unary_layer("mean")(x, name=name)
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -49,12 +54,15 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
                          attrs={"x_num_col_dims": num_flatten_dims,
                                 "y_num_col_dims": 1})
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs needs the sum op, which is not "
-            "ported yet")
-    pre_act = helper.append_bias_op(mul_results[0],
-                                    dim_start=num_flatten_dims)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            mul_results[0].dtype)
+        helper.append_op(type="sum",
+                         inputs={"X": [m.name for m in mul_results]},
+                         outputs={"Out": [pre_bias.name]})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     return helper.append_activation(pre_act)
 
 
@@ -104,7 +112,7 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
     return helper.append_activation(y)
 
 
-def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+def dropout(x, dropout_prob, is_test=False, name=None,
             dropout_implementation="downgrade_in_infer"):
     helper = LayerHelper("dropout", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
@@ -165,4 +173,31 @@ def transpose(x, perm, name=None):
     helper.append_op(type="transpose2", inputs={"X": [x.name]},
                      outputs={"Out": [out.name], "XShape": [xshape.name]},
                      attrs={"axis": list(perm)})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(type="softmax_with_cross_entropy",
+                     inputs={"Logits": [logits.name],
+                             "Label": [label.name]},
+                     outputs={"Softmax": [softmax_out.name],
+                              "Loss": [loss.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index, "axis": axis})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="gather",
+                     inputs={"X": [input.name], "Index": [index.name]},
+                     outputs={"Out": [out.name]})
     return out

@@ -1,9 +1,11 @@
-"""Transformer encoder — BERT-base and its kin.
+"""Transformer encoder — BERT-base and its kin — and its training
+programs.
 
 Built from the layers API exactly as the JAX package builds it, so the
-two packages produce the same program (op types, attrs and parameter
-names). The tensor- and sequence-parallel shard hints (``tp``/``sp``)
-are not ported yet; a config that asks for them raises.
+two packages produce the same programs (op types, attrs and parameter
+names), forward and training alike. The tensor- and sequence-parallel
+shard hints (``tp``/``sp``) are not ported yet; a config that asks for
+them raises.
 """
 from __future__ import annotations
 
@@ -136,3 +138,70 @@ def lm_logits(hidden, cfg: TransformerConfig):
                      param_attr=ParamAttr(name="lm_head.w",
                                           initializer=Normal(0.0, 0.02)),
                      bias_attr=False)
+
+
+def lm_loss(hidden, labels, cfg: TransformerConfig, logits=None):
+    """LM head projection + per-token softmax CE, averaged. Pass
+    precomputed `logits` to avoid a second head projection."""
+    if logits is None:
+        logits = lm_logits(hidden, cfg)
+    # single -1: robust to dynamic batch/time dims (sliced inputs)
+    logits2 = layers.reshape(logits, [-1, cfg.vocab_size])
+    labels2 = layers.reshape(labels, [-1, 1])
+    loss = layers.softmax_with_cross_entropy(logits2, labels2)
+    return layers.mean(loss)
+
+
+def build_train(cfg: TransformerConfig, batch, seq_len, lr=1e-4,
+                optimizer_cls=None, amp=False):
+    """Full training graph (LM loss at every position, AdamW); returns
+    (loss, feed vars). amp=True runs the products and attention in bf16
+    through the mixed-precision rewrite (contrib/)."""
+    from .. import optimizer as opt
+    tokens = layers.data("tokens", shape=[batch, seq_len], dtype="int64",
+                         append_batch_size=False)
+    labels = layers.data("labels", shape=[batch, seq_len], dtype="int64",
+                         append_batch_size=False)
+    hidden = encoder(tokens, cfg)
+    loss = lm_loss(hidden, labels, cfg)
+    optimizer_cls = optimizer_cls or opt.AdamW
+    opt_inst = optimizer_cls(learning_rate=lr)
+    if amp:
+        from ..contrib import mixed_precision as mp
+        opt_inst = mp.decorate(opt_inst)
+    opt_inst.minimize(loss)
+    return loss, [tokens, labels]
+
+
+def build_train_mlm(cfg: TransformerConfig, batch, seq_len, n_mask,
+                    lr=1e-4, optimizer_cls=None, amp=False):
+    """BERT-style masked-LM pretraining graph: the vocab projection and
+    softmax CE run only at the `n_mask` masked positions per sequence,
+    gathered through `mask_pos`.
+
+    Feeds: tokens [b, T] int64; mask_pos [b*n_mask] int32 (flattened
+    row-major indices into [b*T]); mask_label [b*n_mask, 1] int64.
+    """
+    from .. import optimizer as opt
+    tokens = layers.data("tokens", shape=[batch, seq_len], dtype="int64",
+                         append_batch_size=False)
+    mask_pos = layers.data("mask_pos", shape=[batch * n_mask],
+                           dtype="int32", append_batch_size=False)
+    mask_label = layers.data("mask_label", shape=[batch * n_mask, 1],
+                             dtype="int64", append_batch_size=False)
+    hidden = encoder(tokens, cfg)
+    flat = layers.reshape(hidden, [-1, cfg.d_model])
+    picked = layers.gather(flat, mask_pos)
+    logits = layers.fc(picked, size=cfg.vocab_size,
+                       param_attr=ParamAttr(name="lm_head.w",
+                                            initializer=Normal(0.0, 0.02)),
+                       bias_attr=False)
+    loss = layers.mean(layers.softmax_with_cross_entropy(
+        logits, mask_label))
+    optimizer_cls = optimizer_cls or opt.AdamW
+    opt_inst = optimizer_cls(learning_rate=lr)
+    if amp:
+        from ..contrib import mixed_precision as mp
+        opt_inst = mp.decorate(opt_inst)
+    opt_inst.minimize(loss)
+    return loss, [tokens, mask_pos, mask_label]

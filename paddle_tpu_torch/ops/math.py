@@ -1,4 +1,5 @@
-"""Core math / tensor-manipulation ops: mul, reshape2, transpose2.
+"""Core math / tensor-manipulation ops: mul, sum, mean, cast, gather,
+reshape2, transpose2.
 
 The large products in `mul` stay `torch.matmul` (cuBLAS on the card), as
 the JAX package leaves them to XLA. Float32 products are exact: the
@@ -10,6 +11,7 @@ import math
 
 import torch
 
+from ..core.dtypes import as_torch_dtype
 from ..core.registry import register_op
 
 
@@ -24,6 +26,31 @@ def _mul(ctx, ins, attrs):
     y2 = y.reshape(math.prod(y.shape[:ync]), -1)
     out = torch.matmul(x2, y2).to(x.dtype)
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [torch.mean(ins["X"][0])]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(as_torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("gather", nondiff_inputs=("Index",))
+def _gather(ctx, ins, attrs):
+    x, idx = ins["X"][0], ins["Index"][0]
+    return {"Out": [torch.index_select(x, 0, idx.reshape(-1).long())]}
 
 
 def _with_xshape(name, fn):

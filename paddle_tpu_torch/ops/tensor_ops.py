@@ -24,6 +24,15 @@ def _fill_constant(ctx, ins, attrs):
                                dtype=dtype, device=ctx.device)]}
 
 
+@register_op("fill_any_like", nondiff_inputs=("X",), nondiff_outputs=("Out",))
+def _fill_any_like(ctx, ins, attrs):
+    x = ins["X"][0]
+    dtype = attrs.get("dtype")
+    dtype = x.dtype if dtype in (None, -1) else as_torch_dtype(dtype)
+    return {"Out": [torch.full(x.shape, attrs.get("value", 0.0),
+                               dtype=dtype, device=x.device)]}
+
+
 @register_op("gaussian_random", stateful=True, nondiff_outputs=("Out",))
 def _gaussian_random(ctx, ins, attrs):
     dtype = as_torch_dtype(attrs.get("dtype", "float32"))

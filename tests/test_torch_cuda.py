@@ -1,5 +1,6 @@
-"""paddle_tpu_torch's Hopper kernels on the card (marked `cuda`; they
-skip where there is no CUDA device).
+"""paddle_tpu_torch's Hopper kernels (the flash-attention forward and
+its two backward kernels) on the card (marked `cuda`; they skip where
+there is no CUDA device).
 
 The repository's conftest imports JAX, which the card's machine does not
 have, so run these there without it:
@@ -46,3 +47,74 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take():
     h = torch.zeros((2, 128, 64), device="cuda", dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention_fwd(h, h, h)
+
+
+def _bwd_inputs(bh, t, d, dtype, causal):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn((bh, t, d), generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / max(1.0, want.float().abs().max().item())).item()
+
+
+def _diff_share(got, want):
+    return (got.float() != want.float()).float().mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,d,dtype,causal", [
+    (384, 512, 64, "bfloat16", False), (384, 512, 64, "float32", False),
+    (384, 512, 64, "bfloat16", True), (96, 300, 64, "float32", True),
+    (96, 300, 64, "bfloat16", False), (24, 512, 128, "float32", False),
+    (24, 512, 128, "bfloat16", True), (48, 512, 32, "float32", True),
+    (12, 512, 64, "bfloat16", False)])
+def test_backward_kernels_match_plain(bh, t, d, dtype, causal):
+    """dq and dk/dv kernels vs their plain versions, the chip phase's
+    cases: max|kernel - plain| / max(1, max|plain|) within 1e-4 in
+    float32 and 5e-3 in bfloat16, where also at most 1% of the elements
+    may differ at all (sound kernels: at most 1.06e-3 and 0.014%; one
+    skipped bf16 rounding of P or dS: 3.6e-3 to 7.2e-3 and over 41%)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are CUDA only)")
+    args = _bwd_inputs(bh, t, d, getattr(torch, dtype), causal)
+    dq = tfa.flash_attention_bwd_dq(*args, causal=causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(*args, causal=causal)
+    rq = tfa.flash_attention_bwd_dq_reference(*args, causal=causal)
+    rk, rv = tfa.flash_attention_bwd_dkv_reference(*args, causal=causal)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == "float32" else 5e-3
+    for got, want in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == want.dtype and _rel(got, want) <= tol
+        if dtype == "bfloat16":
+            assert _diff_share(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_backward_through_function_launches_each_kernel_once():
+    """loss.backward() through flash_attention: one forward launch, then
+    one launch of each backward kernel; the gradients agree with the
+    plain path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are CUDA only)")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    leaves = [torch.randn((2, 3, 256, 64), generator=g, device="cuda")
+              .requires_grad_() for _ in range(3)]
+    counts = (tfa.flash_attention.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    out = tfa.flash_attention(*leaves, causal=True)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - counts[0],
+            tfa.flash_attention_bwd_dq.launches - counts[1],
+            tfa.flash_attention_bwd_dkv.launches - counts[2]) == (1, 1, 1)
+    ref_leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    tfa.reference_attention(*ref_leaves, causal=True).square().sum() \
+        .backward()
+    for x, r in zip(leaves, ref_leaves):
+        assert _rel(x.grad, r.grad) <= 1e-4

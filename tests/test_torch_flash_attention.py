@@ -1,14 +1,17 @@
 """paddle_tpu_torch's flash attention against paddle_tpu's.
 
-On the CPU the port's `flash_attention` takes its plain version (the
-kernel is CUDA only); it is held against the JAX package's
-`flash_attention`, whose Pallas kernel runs in interpret mode here, and
-against the JAX `reference_attention`. Tolerance atol 3e-5 in float32
-(tiled online softmax vs one-shot softmax sum in different orders).
+On the CPU the port's `flash_attention` takes its plain versions (the
+kernels are CUDA only); it is held against the JAX package's
+`flash_attention`, whose Pallas kernels run in interpret mode here, and
+against the JAX `reference_attention`. Tolerances: atol 3e-5 on the
+float32 forward (tiled online softmax vs one-shot softmax, sums in
+different orders) and atol 1e-4 on the float32 gradients (three chained
+products per gradient, each summed in a different order).
 
-The kernel itself is held against the plain version on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+The kernels themselves are held against the plain versions on the card
+by tests/test_torch_cuda.py and chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,3 +105,93 @@ def test_op_attention_dropout_routing():
     assert not torch.equal(a, c)
     assert not torch.allclose(a, clean, atol=1e-3)
     np.testing.assert_allclose(test_mode.numpy(), clean.numpy(), atol=0)
+
+
+GRAD_ATOL = 1e-4
+
+
+def _jax_grads(q, k, v, g, causal, dtype=jnp.float32):
+    def loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, block_q=128,
+                                  block_k=128)
+        return jnp.sum(out.astype(jnp.float32) * g)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a).astype(dtype) for a in (q, k, v)))
+    return [np.asarray(x.astype(jnp.float32)) for x in grads]
+
+
+def _torch_grads(q, k, v, g, causal, dtype=torch.float32):
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_()
+              for a in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal)
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    return [x.grad.float().numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bh_td"])
+@pytest.mark.parametrize("t", [64, 128, 256, 300])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_grads_match_jax(causal, t, layout):
+    """dq, dk, dv of the port's Function (plain forward and backward on
+    the CPU; T < 128 through autograd of the plain attention) against
+    jax.grad through the Pallas kernels in interpret mode."""
+    shape = (2, 2, t, 16) if layout == "bhtd" else (4, t, 16)
+    q, k, v = _qkv(shape, seed=1)
+    g = np.random.RandomState(2).randn(*shape).astype(np.float32)
+    for got, want in zip(_torch_grads(q, k, v, g, causal),
+                         _jax_grads(q, k, v, g, causal)):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL)
+
+
+def test_flash_attention_grads_match_jax_bf16():
+    """bfloat16 operands: both sides round P and dS to bfloat16 before
+    their products and store the gradients in bfloat16 (8 bits of
+    mantissa), so the tolerance is 3e-2 against gradients of size ~1."""
+    shape = (2, 2, 256, 32)
+    q, k, v = _qkv(shape, seed=3)
+    g = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    got = _torch_grads(q, k, v, g, True, torch.bfloat16)
+    want = _jax_grads(q, k, v, g, True, jnp.bfloat16)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("t,causal", [(128, False), (300, True)])
+def test_plain_backward_matches_autograd_of_reference(t, causal):
+    """The plain dq and dk/dv versions (the kernels' yardsticks on the
+    card) against autograd through the plain attention, float32."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv((3, t, 32), seed=5))
+    do = torch.from_numpy(
+        np.random.RandomState(6).randn(3, t, 32).astype(np.float32))
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    delta = (do * o).sum(-1)
+    dq = tfa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              causal=causal)
+    dk, dv = tfa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                   causal=causal)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = tfa.reference_attention(*leaves, causal=causal)
+    np.testing.assert_allclose(o.numpy(), ref.detach().numpy(), atol=ATOL)
+    want = torch.autograd.grad(ref, leaves, do)
+    for got, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), atol=GRAD_ATOL)
+
+
+def test_cpu_backward_launches_no_kernel():
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv((2, 256, 32)))
+    counts = (tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == counts
+
+
+def test_backward_kernel_entries_refuse_cpu_tensors():
+    q = torch.zeros((2, 128, 64))
+    lse = torch.zeros((2, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse)
