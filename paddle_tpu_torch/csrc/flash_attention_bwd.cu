@@ -2,9 +2,9 @@
 //
 // Replaces the two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // that `_bwd` launches, the FlashAttention-2 backward:
-//   `_bwd_dq_kernel`  -> flash_attention_bwd_dq:
+//   `_bwd_dq_kernel` (:191, launched at :305) -> flash_attention_bwd_dq:
 //       dQ = sum over k tiles of  dS K,
-//   `_bwd_dkv_kernel` -> flash_attention_bwd_dkv:
+//   `_bwd_dkv_kernel` (:234, launched at :340) -> flash_attention_bwd_dkv:
 //       dV = sum over q tiles of  P^T dO,   dK = sum over q tiles of dS^T Q,
 // where per (q, k) tile, recomputed from the forward's row log-sum-exp,
 //   S  = sm_scale * Q K^T (keys >= T and, causal, keys after the query
@@ -14,35 +14,66 @@
 // q, k, v, dO, dQ, dK, dV are [bh, T, d] row-major contiguous in one dtype
 // (float32 or bfloat16); LSE and delta are [bh, T] float32. As in the TPU
 // kernels, dS is rounded to the input dtype before dS K and dS^T Q, and P
-// before P^T dO; every product accumulates in float32.
+// before P^T dO (dS itself is computed from the unrounded float32 P);
+// every product accumulates in float32. The two passes stay separate, as
+// on the TPU: no atomics, each output element is summed by one thread.
 //
-// Design. The TPU kernels walk a sequential grid dimension and carry dq (or
-// dk, dv) in VMEM scratch between grid steps. Blocks on Hopper run in no
+// The TPU kernels walk a sequential grid dimension and carry dq (or dk,
+// dv) in VMEM scratch between grid steps. Blocks on Hopper run in no
 // order, so each block owns its output tile and loops itself:
-//   dq:  one block per (bh, 64-row q tile); Q, dO stay in shared memory,
-//        64-row K/V tiles stream through; in causal mode the loop stops at
-//        the tile holding the diagonal.
-//   dkv: one block per (bh, 64-row k tile); K, V stay in shared memory,
-//        64-row Q/dO tiles stream through; in causal mode the loop starts
-//        at the tile holding the diagonal.
-// Tiles are staged as float32, rows padded by one word so the column walks
-// do not collide on a bank. 256 threads: thread (ty, tx) owns tile rows
-// 4*ty .. 4*ty+3, score columns tx + 16*j and output columns tx + 16*c.
-// The accumulators (dq, or dk and dv) live in float32 registers and are
-// stored once. The ragged tail (T not a multiple of 64) is masked in the
-// kernels, so the caller need not pad T.
+//   dq:  one block per (bh, 64-row q tile); 64-row K/V tiles stream
+//        through; in causal mode the loop stops at the tile holding the
+//        diagonal.
+//   dkv: one block per (bh, 64-row k tile); 64-row Q/dO tiles stream
+//        through; in causal mode the loop starts at the tile holding the
+//        diagonal.
+// The ragged tail (T not a multiple of 64) is masked in the kernels, so
+// the caller need not pad T.
 //
-// Bound at the training path's shape (bh=384, T=512, d=64, bfloat16): the
-// dq pass does 6*d operations per (q, k) pair (38.7 GFLOP) and the dk/dv
-// pass 8*d (51.5 GFLOP) against ~130-150 MB of traffic, so both are bound
-// by operations (0.039 / 0.052 ms at the bf16 tensor-core peak). This
-// version computes with scalar float32 FMAs (67 TFLOP/s peak, 0.58 /
-// 0.77 ms for that work); tensor-core (mma/wgmma) and TMA versions are
-// later work.
+// Bound at the training path's shape ([bh=384, T=512, d=64] bf16): the dq
+// pass does 6*d operations per (q, k) pair (38.7 GFLOP) and the dk/dv pass
+// 8*d (51.5 GFLOP) against 127-153 MB of traffic, so both are bound by
+// operations: 0.039 / 0.052 ms at the 989 TFLOP/s bf16 tensor-core peak.
+//
+// Kernels, chosen by dtype in the entry points:
+//
+// dkv_kernel_mma<D> (bfloat16), the FlashAttention-2 design on the tensor
+//   cores. 4 warps, 16 key rows each. K and V are staged once in shared
+//   memory; Q, dO, LSE and delta tiles of 64 query rows stream through a
+//   2-stage cp.async ring. Tiles are bf16 with rows padded to D + 8
+//   elements, so ldmatrix reads no bank twice. Each warp computes its
+//   score tile transposed, so its rows are its own key rows:
+//     S^T = K Q^T,  P^T = exp(sm_scale S^T - LSE[q]),
+//     dV += bf16(P^T) dO,  dP^T = V dO^T,
+//     dS^T = P^T (dP^T - delta[q]) sm_scale,  dK += bf16(dS^T) Q,
+//   all with mma.m16n8k16 (bf16 in, float32 out). P^T and dS^T go from
+//   one product's accumulators to the next product's A fragments in
+//   registers (mma_bf16.cuh); Q's and dO's B fragments come by ldmatrix,
+//   plain for S^T and dP^T, .trans for dV and dK. dK and dV accumulate in
+//   float32 registers and leave once, through shared memory, as 16-byte
+//   rows. At d = 128 the two accumulators take 128 registers a thread, so
+//   the score tiles are computed 32 query columns at a time (64 below),
+//   which keeps every instance free of spills.
+//
+// dq_kernel<T, D> (float32 and bfloat16) and dkv_kernel<D> (float32),
+//   scalar float32 FMAs: tiles staged as float32, rows padded by one word
+//   so the column walks do not collide on a bank; 256 threads, thread
+//   (ty, tx) owns tile rows 4*ty .. 4*ty+3, score columns tx + 16*j and
+//   output columns tx + 16*c; P and dS pass through shared memory; the
+//   accumulators live in float32 registers and are stored once. Float32
+//   stays on the CUDA cores on purpose: TF32 tensor cores would break the
+//   float32 limits of 1e-4. The bf16 dq kernel is the next to move to the
+//   tensor cores, on mma_bf16.cuh.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "mma_bf16.cuh"
+
 namespace {
+
+// ----------------------------------------------------------------- scalar
 
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // key rows per tile
@@ -201,13 +232,13 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
+    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               T* __restrict__ dk, T* __restrict__ dv, int t, float sm_scale,
-               int causal) {
+               float* __restrict__ dk, float* __restrict__ dv, int t,
+               float sm_scale, int causal) {
   constexpr int DC = D / 16;
   constexpr int S = D + 1;
   extern __shared__ float smem[];
@@ -227,8 +258,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t base = static_cast<size_t>(bh) * t * D;
   const size_t rbase = static_cast<size_t>(bh) * t;
 
-  load_tile<T, D>(sK, k + base, k0, t);
-  load_tile<T, D>(sV, v + base, k0, t);
+  load_tile<float, D>(sK, k + base, k0, t);
+  load_tile<float, D>(sV, v + base, k0, t);
 
   float acc_k[4][DC], acc_v[4][DC];
 #pragma unroll
@@ -244,8 +275,8 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int qt = qstart; qt < ntiles; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's sQ/sdO/sP/sdS are no longer read
-    load_tile<T, D>(sQ, q + base, q0, t);
-    load_tile<T, D>(sdO, dout + base, q0, t);
+    load_tile<float, D>(sQ, q + base, q0, t);
+    load_tile<float, D>(sdO, dout + base, q0, t);
     if (threadIdx.x < BQ) {
       const int qr = q0 + threadIdx.x;
       sL[threadIdx.x] = qr < t ? lse[rbase + qr] : 0.f;
@@ -291,8 +322,8 @@ __global__ void __launch_bounds__(NTHREADS)
         const bool keep = qr < t && kr < t && (!causal || qr >= kr);
         const float p = keep ? expf(s[i][j] * sm_scale - sL[qc]) : 0.f;
         const float ds = p * (dp[i][j] - sD[qc]) * sm_scale;
-        sP[(ty * 4 + i) * PS + qc] = round_to<T>(p);
-        sdS[(ty * 4 + i) * PS + qc] = round_to<T>(ds);
+        sP[(ty * 4 + i) * PS + qc] = p;
+        sdS[(ty * 4 + i) * PS + qc] = ds;
       }
     }
     __syncthreads();
@@ -324,15 +355,247 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int i = 0; i < 4; ++i) {
     const int kr = k0 + ty * 4 + i;
     if (kr >= t) continue;
-    T* krow = dk + base + static_cast<size_t>(kr) * D;
-    T* vrow = dv + base + static_cast<size_t>(kr) * D;
+    float* krow = dk + base + static_cast<size_t>(kr) * D;
+    float* vrow = dv + base + static_cast<size_t>(kr) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      krow[tx + 16 * c] = from_f<T>(acc_k[i][c]);
-      vrow[tx + 16 * c] = from_f<T>(acc_v[i][c]);
+      krow[tx + 16 * c] = acc_k[i][c];
+      vrow[tx + 16 * c] = acc_v[i][c];
     }
   }
 }
+
+
+// --------------------------------------------------------------- bfloat16
+
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 key rows
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K and V once, then two stages of Q and dO ([64][D + 8] bf16 each) and
+  // of LSE and delta (64 floats each)
+  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
+}
+
+// Q, dO, LSE and delta of q tile q0 into one stage of the ring
+template <int D>
+__device__ __forceinline__ void load_q_stage(
+    __nv_bfloat16* sQ, __nv_bfloat16* sdO, float* sL, float* sD,
+    const __nv_bfloat16* q, const __nv_bfloat16* dout, const float* lse,
+    const float* delta, int q0, int t) {
+  using namespace mma_bf16;
+  static_assert(MMA_THREADS == 2 * BQ, "one thread per LSE or delta entry");
+  load_rows_async<BQ, D, MMA_THREADS>(sQ, q, q0, t);
+  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout, q0, t);
+  const int r = threadIdx.x & (BQ - 1);
+  const bool ok = q0 + r < t;
+  const float* src = threadIdx.x < BQ ? lse : delta;
+  cp_async_4((threadIdx.x < BQ ? sL : sD) + r, src + (ok ? q0 + r : 0), ok);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const __nv_bfloat16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, int t, float sm_scale,
+                   int causal) {
+  using namespace mma_bf16;
+  constexpr int LD = D + 8;      // padded row stride (elements)
+  constexpr int TILE = BQ * LD;  // elements of one staged tile
+  constexpr int KD = D / 16;     // k steps over d
+  constexpr int ND = D / 8;      // n-blocks over d
+  // query columns of the score tile per compute pass (the head comment)
+  constexpr int QC = D > 64 ? 32 : 64;
+  constexpr int NQ = QC / 8;     // n-blocks of a score pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + TILE;
+  __nv_bfloat16* sQ = sV + TILE;       // [2][BQ][LD]
+  __nv_bfloat16* sdO = sQ + 2 * TILE;  // [2][BQ][LD]
+  float* sL = reinterpret_cast<float*>(sdO + 2 * TILE);  // [2][BQ]
+  float* sD = sL + 2 * BQ;                               // [2][BQ]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int row0 = k0 + warp * 16;  // the warp's first key row
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t rbase = static_cast<size_t>(bh) * t;
+  const __nv_bfloat16* qb = q + base;
+  const __nv_bfloat16* ob = dout + base;
+
+  // causal: query tiles before the one holding the diagonal see no key of
+  // this tile (BQ == BK, so that tile's index is the k tile's own)
+  const int qstart = causal ? k0 / BQ : 0;
+  const int ntiles = (t + BQ - 1) / BQ;
+
+  load_rows_async<BK, D, MMA_THREADS>(sK, k + base, k0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sV, v + base, k0, t);
+  load_q_stage<D>(sQ, sdO, sL, sD, qb, ob, lse + rbase, delta + rbase,
+                  qstart * BQ, t);
+  cp_async_commit();
+
+  const float scale = sm_scale * LOG2E;  // exponents in log2 units
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int qt = qstart; qt < ntiles; ++qt) {
+    const int q0 = qt * BQ;
+    const int st = (qt - qstart) & 1;
+    if (qt + 1 < ntiles)  // the next tile into the other stage
+      load_q_stage<D>(sQ + (st ^ 1) * TILE, sdO + (st ^ 1) * TILE,
+                      sL + (st ^ 1) * BQ, sD + (st ^ 1) * BQ, qb, ob,
+                      lse + rbase, delta + rbase, q0 + BQ, t);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) has landed
+    __syncthreads();
+    const __nv_bfloat16* tQ = sQ + st * TILE;
+    const __nv_bfloat16* tdO = sdO + st * TILE;
+    const float* tL = sL + st * BQ;
+    const float* tD = sD + st * BQ;
+    // mask only the ragged last tile and the diagonal tile
+    const bool edge = q0 + BQ > t || (causal && q0 < k0 + BK - 1);
+
+#pragma unroll
+    for (int j0 = 0; j0 < BQ; j0 += QC) {
+      // S^T = K Q^T: the warp's 16 key rows x QC query columns
+      float s[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, a_addr(sK, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bn_addr(tQ, LD, j0 + n2 * 16, kk * 16, lane));
+          mma_16816(s[2 * n2], a, b[0], b[1]);
+          mma_16816(s[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+
+      // P^T = exp(sm_scale S^T - LSE[q]) in float32; masked entries 0.
+      // exp2f rather than mma_bf16.cuh's exp2_approx: as fast here, and
+      // with exp2_approx ptxas spills the d = 128 instance (at 255
+      // registers)
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = j0 + n * 8 + 2 * c + (i & 1);
+          float p = exp2f(fmaf(s[n][i], scale, -tL[qc] * LOG2E));
+          if (edge) {
+            const int qr = q0 + qc;
+            const int kr = row0 + g + (i >> 1) * 8;
+            if (qr >= t || (causal && qr < kr)) p = 0.f;
+          }
+          s[n][i] = p;
+        }
+
+      // dV += bf16(P^T) dO
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a<NQ>(a, s, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b,
+                            bk_addr(tdO, LD, j0 + kk * 16, n2 * 16, lane));
+          mma_16816(acc_v[2 * n2], a, b[0], b[1]);
+          mma_16816(acc_v[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+
+      // dP^T = V dO^T
+      float dp[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dp[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, a_addr(sV, LD, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bn_addr(tdO, LD, j0 + n2 * 16, kk * 16, lane));
+          mma_16816(dp[2 * n2], a, b[0], b[1]);
+          mma_16816(dp[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+
+      // dS^T = P^T (dP^T - delta[q]) sm_scale, from the unrounded P^T
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = j0 + n * 8 + 2 * c + (i & 1);
+          dp[n][i] = s[n][i] * (dp[n][i] - tD[qc]) * sm_scale;
+        }
+
+      // dK += bf16(dS^T) Q
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a<NQ>(a, dp, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bk_addr(tQ, LD, j0 + kk * 16, n2 * 16, lane));
+          mma_16816(acc_k[2 * n2], a, b[0], b[1]);
+          mma_16816(acc_k[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // dK, dV to bf16, staged in the warp's own rows of sK and sV (only this
+  // warp read them), then stored as 16-byte rows
+  __nv_bfloat16* wK = sK + warp * 16 * LD;
+  __nv_bfloat16* wV = sV + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * c;
+    *reinterpret_cast<uint32_t*>(wK + g * LD + col) =
+        pack_bf16x2(acc_k[n][0], acc_k[n][1]);
+    *reinterpret_cast<uint32_t*>(wK + (g + 8) * LD + col) =
+        pack_bf16x2(acc_k[n][2], acc_k[n][3]);
+    *reinterpret_cast<uint32_t*>(wV + g * LD + col) =
+        pack_bf16x2(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<uint32_t*>(wV + (g + 8) * LD + col) =
+        pack_bf16x2(acc_v[n][2], acc_v[n][3]);
+  }
+  __syncwarp();
+  constexpr int CHUNKS = D / 8;
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = i / CHUNKS, col = (i % CHUNKS) * 8;
+    if (row0 + r >= t) continue;
+    const size_t off = base + static_cast<size_t>(row0 + r) * D + col;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(wK + r * LD + col);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(wV + r * LD + col);
+  }
+}
+
+// ----------------------------------------------------------------- launch
 
 // above 48 KB a block's shared memory must be requested explicitly; the
 // attribute stays set, so each kernel instance sets it once and keeps the
@@ -361,59 +624,55 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int t, float sm_scale,
-                       int causal, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int bh,
+                           int t, float sm_scale, int causal,
+                           cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kern = dkv_kernel<T, D>;
+  auto kern = dkv_kernel<D>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((t + BK - 1) / BK, bh);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), t, sm_scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), t, sm_scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dq_d(const void* q, const void* k, const void* v,
-                 const void* dout, const void* lse, const void* delta,
-                 void* dq, int bh, int t, int d, float sm_scale, int causal,
-                 cudaStream_t s) {
-  switch (d) {
-    case 32:
-      return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, t, sm_scale,
-                              causal, s);
-    case 64:
-      return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, t, sm_scale,
-                              causal, s);
-    case 128:
-      return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, bh, t,
-                               sm_scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh,
+                            int t, float sm_scale, int causal,
+                            cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  auto kern = dkv_kernel_mma<D>;
+  static const cudaError_t attr_err = allow_smem(kern, smem);
+  if (attr_err != cudaSuccess) return attr_err;
+  const dim3 grid((t + BK - 1) / BK, bh);
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), t, sm_scale, causal);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dkv_d(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int bh, int t, int d, float sm_scale,
-                  int causal, cudaStream_t s) {
+// f(std::integral_constant<int, D>) for the head dims the kernels take
+template <typename F>
+cudaError_t with_head_dim(int d, F&& f) {
   switch (d) {
     case 32:
-      return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                               sm_scale, causal, s);
+      return f(std::integral_constant<int, 32>());
     case 64:
-      return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                               sm_scale, causal, s);
+      return f(std::integral_constant<int, 64>());
     case 128:
-      return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                                sm_scale, causal, s);
+      return f(std::integral_constant<int, 128>());
     default:
       return cudaErrorInvalidValue;
   }
@@ -434,16 +693,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dq_d<float>(q, k, v, dout, lse, delta, dq, bh, t, d, sm_scale,
-                         causal, s);
+      return with_head_dim(d, [&](auto dc) {
+        return launch_dq<float, decltype(dc)::value>(
+            q, k, v, dout, lse, delta, dq, bh, t, sm_scale, causal, s);
+      });
     case 1:
-      return dq_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, t, d,
-                                 sm_scale, causal, s);
+      return with_head_dim(d, [&](auto dc) {
+        return launch_dq<__nv_bfloat16, decltype(dc)::value>(
+            q, k, v, dout, lse, delta, dq, bh, t, sm_scale, causal, s);
+      });
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// float32 runs dkv_kernel, bfloat16 dkv_kernel_mma
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -454,11 +718,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dkv_d<float>(q, k, v, dout, lse, delta, dk, dv, bh, t, d,
-                          sm_scale, causal, s);
+      return with_head_dim(d, [&](auto dc) {
+        return launch_dkv_f32<decltype(dc)::value>(
+            q, k, v, dout, lse, delta, dk, dv, bh, t, sm_scale, causal, s);
+      });
     case 1:
-      return dkv_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, t,
-                                  d, sm_scale, causal, s);
+      return with_head_dim(d, [&](auto dc) {
+        return launch_dkv_bf16<decltype(dc)::value>(
+            q, k, v, dout, lse, delta, dk, dv, bh, t, sm_scale, causal, s);
+      });
     default:
       return cudaErrorInvalidValue;
   }

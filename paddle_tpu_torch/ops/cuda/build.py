@@ -6,8 +6,9 @@ a shared library with a plain C interface, for ``sm_90a`` (Hopper):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The build
+The library name carries a hash of the source, of every header under
+``csrc/`` (``*.cuh``) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. The build
 directory is ``paddle_tpu_torch/_build/`` (ignored by git), or
 ``$PADDLE_TPU_TORCH_BUILD_DIR``.
 """
@@ -36,14 +37,24 @@ def build_dir() -> str:
         os.path.join(_PKG, "_build")
 
 
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every ``csrc/*.cuh`` header (name and bytes) and of the
+    flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:12]}.so")
+
+
 def build(name: str) -> Tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
     Returns (library path, nvcc's output; "" when found built). nvcc's
     output lists each kernel's registers, shared memory and spills."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(build_dir(), f"{name}-{h.hexdigest()[:12]}.so")
+    out = library_path(name)
     if os.path.exists(out):
         return out, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"

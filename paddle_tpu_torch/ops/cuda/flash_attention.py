@@ -12,6 +12,15 @@ Three kernels replace the three TPU kernels of the JAX package's
   ``_bwd_dkv_kernel``): the FlashAttention-2 backward, dQ in one pass and
   dK, dV in another, each recomputing P from the saved log-sum-exp.
 
+The entry points pick the design by dtype. bfloat16 runs the forward and
+the dk/dv pass on the tensor cores (``fwd_kernel_mma``,
+``dkv_kernel_mma``: mma.sync m16n8k16 with float32 accumulation, tiles
+through a cp.async ring, fragment helpers in ``csrc/mma_bf16.cuh``);
+float32 runs scalar float32 FMAs, since TF32 tensor cores would not meet
+the float32 limits. The dq pass runs scalar FMAs in both dtypes. The
+bfloat16 kernels sum in another order than the plain versions, so they
+agree with them to bf16 rounding, not bit for bit.
+
 ``FlashAttentionFunction`` takes the place of the JAX package's
 ``_flash`` ``custom_vjp``: its forward saves q, k, v, o and the
 log-sum-exp; its backward computes delta = rowsum(dO·O) in float32 and
@@ -143,6 +152,13 @@ def _check_operands(name, *xs):
         raise ValueError(f"{name}: operands must lie on one device")
 
 
+def _dense(x):
+    """x contiguous, with its data on a 16-byte boundary: the bfloat16
+    kernels copy 16 bytes a thread."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _rows(name, x, q):
     """A [bh, T] float32 row vector (lse, delta) on q's card."""
     bh, t = q.shape[:2]
@@ -194,7 +210,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
     kernel does not take, and if the launch fails."""
     _check_operands("flash_attention_fwd", q, k, v)
     bh, t, d = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _dense(q), _dense(k), _dense(v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
@@ -213,7 +229,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     forward's lse and delta = rowsum(dO·O), both [bh, T] float32.
     Returns dQ in q's dtype."""
     _check_operands("flash_attention_bwd_dq", q, k, v, do)
-    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    q, k, v, do = (_dense(x) for x in (q, k, v, do))
     lse, delta = _rows("lse", lse, q), _rows("delta", delta, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[2])
@@ -230,7 +246,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     """Launch the dk/dv kernel (arguments as flash_attention_bwd_dq).
     Returns (dK, dV) in q's dtype."""
     _check_operands("flash_attention_bwd_dkv", q, k, v, do)
-    q, k, v, do = (x.contiguous() for x in (q, k, v, do))
+    q, k, v, do = (_dense(x) for x in (q, k, v, do))
     lse, delta = _rows("lse", lse, q), _rows("delta", delta, q)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[2])

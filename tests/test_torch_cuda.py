@@ -13,15 +13,28 @@ import torch
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 
 
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / max(1.0, want.float().abs().max().item())).item()
+
+
+def _diff_share(got, want):
+    return (got.float() != want.float()).float().mean().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(24, 300, 64), (12, 512, 32),
-                                   (4, 256, 128), (2, 64, 64)])
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
-                                       ("bfloat16", 2e-2)])
+                                   (4, 256, 128), (12, 1024, 64),
+                                   (2, 64, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_kernel_matches_plain(causal, dtype, tol, shape):
-    """Kernel vs plain version on the card; T < 128 routes to the plain
-    version and launches nothing."""
+def test_flash_attention_kernel_matches_plain(causal, dtype, shape):
+    """Kernel vs its plain version on float32 copies of the inputs (the
+    TPU kernel's float32 scores), in the input dtype: within 1e-4 in
+    float32; in bfloat16 a relative error within 1e-2 with at most 60% of
+    the elements differing (sound kernel: at most 4.5e-3 and 0.39; keys
+    past T unmasked: 2.4e-2 and 0.998). T < 128 routes to the plain
+    version itself and launches nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel is CUDA only)")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -30,11 +43,19 @@ def test_flash_attention_kernel_matches_plain(causal, dtype, tol, shape):
                for _ in range(3))
     before = tfa.flash_attention.launches
     out = tfa.flash_attention(q, k, v, causal=causal)
-    ref = tfa.reference_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert out.shape == q.shape and out.dtype == q.dtype
     assert tfa.flash_attention.launches == before + (shape[1] >= 128)
-    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if shape[1] < 128:
+        assert torch.equal(out, tfa.reference_attention(q, k, v,
+                                                        causal=causal))
+        return
+    want = tfa.flash_attention_fwd_reference(
+        q.float(), k.float(), v.float(), causal=causal)[0].to(dt)
+    if dtype == "float32":
+        assert (out - want).abs().max().item() <= 1e-4
+    else:
+        assert _rel(out, want) <= 1e-2 and _diff_share(out, want) <= 0.6
 
 
 @pytest.mark.cuda
@@ -57,28 +78,22 @@ def _bwd_inputs(bh, t, d, dtype, causal):
     return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
 
 
-def _rel(got, want):
-    return ((got.float() - want.float()).abs().max()
-            / max(1.0, want.float().abs().max().item())).item()
-
-
-def _diff_share(got, want):
-    return (got.float() != want.float()).float().mean().item()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,t,d,dtype,causal", [
     (384, 512, 64, "bfloat16", False), (384, 512, 64, "float32", False),
     (384, 512, 64, "bfloat16", True), (96, 300, 64, "float32", True),
-    (96, 300, 64, "bfloat16", False), (24, 512, 128, "float32", False),
-    (24, 512, 128, "bfloat16", True), (48, 512, 32, "float32", True),
+    (96, 300, 64, "bfloat16", False), (96, 300, 64, "bfloat16", True),
+    (12, 1024, 64, "bfloat16", True), (24, 512, 128, "float32", False),
+    (24, 512, 128, "bfloat16", False), (24, 512, 128, "bfloat16", True),
+    (48, 512, 32, "float32", True), (48, 512, 32, "bfloat16", False),
     (12, 512, 64, "bfloat16", False)])
 def test_backward_kernels_match_plain(bh, t, d, dtype, causal):
     """dq and dk/dv kernels vs their plain versions, the chip phase's
     cases: max|kernel - plain| / max(1, max|plain|) within 1e-4 in
     float32 and 5e-3 in bfloat16, where also at most 1% of the elements
-    may differ at all (sound kernels: at most 1.06e-3 and 0.014%; one
-    skipped bf16 rounding of P or dS: 3.6e-3 to 7.2e-3 and over 41%)."""
+    may differ at all (sound kernels: at most 2.8e-3 and 0.21%; one
+    skipped bf16 rounding of P or dS: 3.6e-3 to 7.2e-3 and over 41%; dS
+    from the rounded P: 2.7e-3 to 7.8e-3 and over 51%)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels are CUDA only)")
     args = _bwd_inputs(bh, t, d, getattr(torch, dtype), causal)
