@@ -24,7 +24,8 @@ Phases, one progress line each; any failure exits non-zero:
              three kernels at the training shape in bf16 beside their
              plain versions, SDPA's forward and the backward of SDPA (one
              call for dq, dk and dv) as yardsticks, with the achieved
-             TFLOP/s.
+             TFLOP/s, and the two float32 backward kernels at the same
+             shape beside float32 SDPA's backward.
 4. serve   — build BERT-base (12 layers, d 768, 12 heads, d_ff 3072, vocab
              30522) with tokens [-1, 512] through the port, run its startup
              program on the card from a fixed seed, save it as an inference
@@ -37,7 +38,9 @@ Phases, one progress line each; any failure exits non-zero:
 5. buckets — after the serving run: per batch bucket (1, 2, 4, 8) the
              predictor's run time and the forward's card time, and at
              batch 8 a torch.profiler breakdown of device time by kernel
-             class with the device's busy share.
+             class with the device's busy share (the float32 forward must
+             run fwd_kernel_tf32x3 12 times a forward, and the scalar
+             fwd_kernel never).
 6. train   — BERT-base training at full width through build_train (batch
              32, T 512, bf16 AMP, AdamW lr 1e-4, dropout 0.1): startup on
              the card from a fixed seed, 3 warm-up and 10 timed steps with
@@ -47,13 +50,14 @@ Phases, one progress line each; any failure exits non-zero:
              first step; median step time, the host's median time to
              enqueue a step, tokens/s, MFU, and a torch.profiler split of
              one step by kernel class with each flash kernel's symbol and
-             launches (the bf16 step must run fwd_kernel_mma and
-             dkv_kernel_mma 12 times each).
+             launches (the bf16 step must run fwd_kernel_mma,
+             dq_kernel_mma and dkv_kernel_mma 12 times each).
 7. train_cpu_check — the same model at batch 1, dropout 0, in float32
              and in bf16 AMP: one step on the card and one on the CPU
              (plain versions) from the same startup values; the loss and
              three parameters' gradients must agree, and attention must
-             run in bf16 under AMP.
+             run in bf16 under AMP; the float32 card step must launch each
+             kernel 12 times.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
@@ -78,21 +82,29 @@ N_THREADS = 4
 TRAIN_SHAPE = (384, T, HD)  # b32 x 12 heads, the training path's shape
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
+TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
 BF16_FLOPS = 989e12      # dense bf16 tensor cores
+# float32 kernels vs their plain versions, max|kernel - plain|. On the
+# H100 the 3xTF32 forward reads at most 4.4e-6 (LSE 2.6e-6); with one
+# TF32 product instead of three it reads 2.9e-4 to 1.5e-3 in every case,
+# with keys past T unmasked 2.5e-2 at T 300 (MUTANTS below; PERF.md). The
+# scalar backward kernels read at most 2.4e-7.
+F32_TOL = 1e-4
 # bfloat16 kernels vs their plain versions: max|kernel - plain| /
 # max(1, max|plain|), and the share of elements that differ at all.
-# Backward: on the H100 the sound kernels read at most 2.8e-3 and 2.1e-3
-# (the tensor-core dk/dv kernel sums in another order than the plain
-# version; the scalar dq at most 1.2e-3 and 2.5e-4); a kernel that skips
-# one bf16 rounding of P or dS, rounds toward zero, or takes dS from the
-# rounded P reads 2.7e-3 to 1.4e-2 and 0.41 to 0.83 (MUTANTS below;
+# Backward: on the H100 the sound tensor-core kernels read at most 2.8e-3
+# and 2.4e-3 (they sum in another order than the plain versions); a
+# kernel that skips one bf16 rounding of P or dS, rounds toward zero, or
+# takes dS from the rounded P reads 2.7e-3 to 1.4e-2 and 0.41 to 0.83
+# (dQ with dS from the rounded P: 3.9e-3 to 1.0e-2 and 0.52 to 0.55), one
+# that leaves the dQ diagonal unmasked 1.4e2 and 0.97 (MUTANTS below;
 # PERF.md).
 BF16_BWD_TOL = 5e-3
 BF16_BWD_DIFF_SHARE = 1e-2
 # Forward, against its plain version on float32 copies of the inputs (the
-# TPU kernel's float32 scores): the sound kernel reads at most 4.5e-3 and
+# TPU kernel's float32 scores): the sound kernel reads at most 4.3e-3 and
 # 0.393, a kernel that leaves keys past T unmasked 2.4e-2 and 0.998, one
-# that skips the rescale by alpha 0.62 and 0.65 or more (MUTANTS below;
+# that skips the rescale by alpha 0.52 and 0.65 or more (MUTANTS below;
 # PERF.md).
 BF16_FWD_TOL = 1e-2
 BF16_FWD_DIFF_SHARE = 0.6
@@ -148,11 +160,16 @@ def attention_flops(kernel, bh, t, d, causal):
 def attention_bound_ms(kernel, bh, t, d, causal, elsize):
     """Least time for one kernel's work: bytes (each input read once,
     each output written once) over HBM rate vs operations over the peak
-    rate of the input type. Returns (ms, "bytes" | "operations")."""
+    rate of the units that run them: the bf16 tensor cores for bfloat16;
+    for the float32 forward, three TF32 products per product (3xTF32) on
+    the TF32 tensor cores; for the float32 backward, the CUDA cores.
+    Returns (ms, "bytes" | "operations")."""
     n_read, n_write, n_rows, _ = KERNEL_WORK[kernel]
     nbytes = (n_read + n_write) * bh * t * d * elsize + n_rows * bh * t * 4
     flops = attention_flops(kernel, bh, t, d, causal)
-    peak = F32_FLOPS if elsize == 4 else BF16_FLOPS
+    peak = BF16_FLOPS if elsize == 2 else F32_FLOPS
+    if elsize == 4 and kernel == "flash_attention_fwd":
+        flops, peak = 3 * flops, TF32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else \
@@ -173,16 +190,18 @@ def kernel_phase(torch):
     f32, bf16 = torch.float32, torch.bfloat16
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
-    # (many tiles through the bf16 kernel's ring), d=32 and d=128, and the
+    # (many tiles through the kernels' ring), d=32 and d=128, and the
     # training path's shape in bfloat16
     cases = [(96, T, HD, f32, False), (96, T, HD, f32, True),
              (96, T, HD, bf16, False), (96, T, HD, bf16, True),
              (12, T, HD, f32, False), (12, T, HD, bf16, False),
              (96, 300, HD, f32, False), (96, 300, HD, f32, True),
              (96, 300, HD, bf16, False), (96, 300, HD, bf16, True),
-             (12, 1024, HD, bf16, True), (48, T, 32, bf16, False),
-             (24, T, 128, f32, False), (24, T, 128, bf16, False),
-             (24, T, 128, bf16, True), (*TRAIN_SHAPE, bf16, False)]
+             (12, 1024, HD, f32, True), (12, 1024, HD, bf16, True),
+             (48, T, 32, f32, False), (48, T, 32, bf16, False),
+             (24, T, 128, f32, False), (24, T, 128, f32, True),
+             (24, T, 128, bf16, False), (24, T, 128, bf16, True),
+             (*TRAIN_SHAPE, bf16, False)]
     train_err = None
     for bh, t, d, dtype, causal in cases:
         q, k, v = qkv(bh, t, d, dtype)
@@ -202,11 +221,11 @@ def kernel_phase(torch):
         case = f"bh{bh}_T{t}_d{d}_{str(dtype)[6:]}" \
             f"{'_causal' if causal else ''}"
         if dtype == f32:
-            phase("kernel", case=case, max_abs_err=f"{err:.3e}", tol=1e-4,
+            phase("kernel", case=case, max_abs_err=f"{err:.3e}", tol=F32_TOL,
                   lse_err=f"{lse_err:.3e}")
-            check(math.isfinite(err) and err <= 1e-4,
+            check(math.isfinite(err) and err <= F32_TOL,
                   f"flash_attention disagrees with its plain version: "
-                  f"{err} > 1e-4")
+                  f"{err} > {F32_TOL}")
         else:
             phase("kernel", case=case, rel_err=f"{rel:.3e}",
                   diff_share=f"{share:.3e}", max_abs_err=f"{err:.3e}",
@@ -233,11 +252,14 @@ def kernel_phase(torch):
     bound_ms, bound_by = attention_bound_ms("flash_attention_fwd", bh, t,
                                             d, causal, 4)
     flops = attention_flops("flash_attention_fwd", bh, t, d, causal)
+    # beside the 3xTF32 bound: the same work at the CUDA cores' float32
+    # peak, the bound of the scalar kernel this one replaced
     phase("kernel_time", kernel="flash_attention_fwd",
           shape=f"[{bh},{t},{d}] float32", ms=f"{ms:.4f}",
           tflops=f"{flops / ms / 1e9:.1f}", plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          bound_by=bound_by)
+          bound_by=bound_by,
+          cuda_core_bound_ms=f"{flops / F32_FLOPS * 1e3:.4f}")
     return train_err  # the training shape's, in bfloat16
 
 
@@ -256,7 +278,9 @@ def bwd_kernel_phase(torch):
     backward kernels, their plain versions and the backward of
     scaled_dot_product_attention (one call for dq, dk and dv; a
     yardstick the port never calls), and the forward kernel, its plain
-    version and SDPA's forward in bfloat16."""
+    version and SDPA's forward in bfloat16; then the two backward
+    kernels in float32 beside float32 SDPA's backward. Returns the
+    bfloat16 records."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     dev = torch.device("cuda", 0)
@@ -291,7 +315,7 @@ def bwd_kernel_phase(torch):
         torch.cuda.synchronize()
         got = {"dq": _rel_err(dq, rq), "dk": _rel_err(dk, rk),
                "dv": _rel_err(dv, rv)}
-        tol = 1e-4 if dtype == f32 else BF16_BWD_TOL
+        tol = F32_TOL if dtype == f32 else BF16_BWD_TOL
         phase("kernel_bwd", case=f"bh{bh}_T{t}_d{d}_{str(dtype)[6:]}"
               f"{'_causal' if causal else ''}",
               **{f"{n}_err": f"{e[0]:.3e}" for n, e in got.items()},
@@ -311,45 +335,65 @@ def bwd_kernel_phase(torch):
                     "flash_attention_bwd_dkv": max(got["dk"][1],
                                                    got["dv"][1])}
 
-    bh, t, d, dtype, causal = cases[0]
-    args = inputs(bh, t, d, dtype, causal)
-    q, k, v, do = args[:4]
-    times = {
-        "flash_attention_bwd_dq": (
-            cuda_ms(lambda: fa.flash_attention_bwd_dq(*args)),
-            cuda_ms(lambda: fa.flash_attention_bwd_dq_reference(*args))),
-        "flash_attention_bwd_dkv": (
-            cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
-            cuda_ms(lambda: fa.flash_attention_bwd_dkv_reference(*args))),
-        "flash_attention_fwd": (
-            cuda_ms(lambda: fa.flash_attention_fwd(q, k, v)),
-            cuda_ms(lambda: fa.flash_attention_fwd_reference(q, k, v))),
-    }
-    # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
+    bh, t, d, _, causal = cases[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    shape4 = (bh // H, H, t, d)
-    q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
-                  (q, k, v))
-    out4 = sdpa(q4, k4, v4)
-    bwd_lib = cuda_ms(lambda: torch.autograd.grad(
-        out4, (q4, k4, v4), do.view(shape4), retain_graph=True))
-    with torch.no_grad():
-        fwd_lib = cuda_ms(lambda: sdpa(q4, k4, v4))
-    library = {"flash_attention_bwd_dq": bwd_lib,
-               "flash_attention_bwd_dkv": bwd_lib,
-               "flash_attention_fwd": fwd_lib}
-    records = {}
-    for name, (ms, plain_ms) in times.items():
-        bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal, 2)
-        flops = attention_flops(name, bh, t, d, causal)
-        phase("kernel_time", kernel=name, shape=f"[{bh},{t},{d}] bfloat16",
-              ms=f"{ms:.4f}", tflops=f"{flops / ms / 1e9:.1f}",
-              plain_ms=f"{plain_ms:.4f}",
-              library_ms=f"{library[name]:.4f}", bound_ms=f"{bound_ms:.4f}",
-              bound_by=bound_by)
-        records[name] = {"ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library[name], "bound_ms": bound_ms,
-                         "bound_by": bound_by, "max_abs_err": errs.get(name)}
+
+    def time_kernels(dtype, names):
+        """[kernel_time] lines at the training shape in `dtype`: each
+        kernel in `names` beside its plain version and SDPA (the forward,
+        or its backward: one call for dq, dk and dv)."""
+        args = inputs(bh, t, d, dtype, causal)
+        q, k, v, do = args[:4]
+        calls = {
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(*args),
+                lambda: fa.flash_attention_bwd_dq_reference(*args)),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_attention_bwd_dkv(*args),
+                lambda: fa.flash_attention_bwd_dkv_reference(*args)),
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: fa.flash_attention_fwd_reference(q, k, v)),
+        }
+        times = {n: (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
+                 for n in names}
+        # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
+        shape4 = (bh // H, H, t, d)
+        q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
+                      (q, k, v))
+        library = {}
+        if set(names) & set(BWD_KERNELS):
+            out4 = sdpa(q4, k4, v4)
+            library = dict.fromkeys(BWD_KERNELS, cuda_ms(
+                lambda: torch.autograd.grad(out4, (q4, k4, v4),
+                                            do.view(shape4),
+                                            retain_graph=True)))
+        if "flash_attention_fwd" in names:
+            with torch.no_grad():
+                library["flash_attention_fwd"] = cuda_ms(
+                    lambda: sdpa(q4, k4, v4))
+        records = {}
+        elsize = torch.finfo(dtype).bits // 8
+        for name, (ms, plain_ms) in times.items():
+            bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal,
+                                                    elsize)
+            flops = attention_flops(name, bh, t, d, causal)
+            phase("kernel_time", kernel=name,
+                  shape=f"[{bh},{t},{d}] {str(dtype)[6:]}", ms=f"{ms:.4f}",
+                  tflops=f"{flops / ms / 1e9:.1f}",
+                  plain_ms=f"{plain_ms:.4f}",
+                  library_ms=f"{library[name]:.4f}",
+                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+            records[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": library[name],
+                             "bound_ms": bound_ms, "bound_by": bound_by}
+        return records
+
+    records = time_kernels(bf16, (*BWD_KERNELS, "flash_attention_fwd"))
+    for name, err in errs.items():
+        records[name]["max_abs_err"] = err
+    # the float32 backward (the float32 check step's kernels)
+    time_kernels(f32, BWD_KERNELS)
     return records
 
 
@@ -477,8 +521,10 @@ def _model_flops(cfg, batch):
 KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
                   "dq_kernel": "flash_attention_bwd_dq",
                   "dkv_kernel": "flash_attention_bwd_dkv"}
-# the tensor-core kernels the bf16 training step must run
-BF16_KERNEL_SYMBOLS = ("fwd_kernel_mma", "dkv_kernel_mma")
+# the tensor-core kernels the bf16 training step must run, and the one the
+# float32 serving forward must run
+BF16_KERNEL_SYMBOLS = ("fwd_kernel_mma", "dq_kernel_mma", "dkv_kernel_mma")
+F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
 
 
 def _kernel_class(name):
@@ -503,6 +549,23 @@ def _device_ms(prof):
             ms, n = out.get(ev.key, (0.0, 0))
             out[ev.key] = (ms + dev_us / 1e3, n + ev.count)
     return out
+
+
+def _symbol_launches(per_name, pattern):
+    """Launches of the kernels whose profiler name matches `pattern` (a
+    regular expression; a symbol matches itself)."""
+    import re
+    return sum(n for name, (_, n) in per_name.items()
+               if re.search(pattern, name))
+
+
+def _print_flash_symbols(per_name):
+    """The flash kernels' symbols from _device_ms's table: which design
+    ran, and how often."""
+    for name, (ms, n) in sorted(per_name.items()):
+        if _kernel_class(name) in KERNEL_CLASSES.values():
+            print(f"  flash: {n} launches  {ms:.3f} ms  {name[:100]}",
+                  flush=True)
 
 
 def _device_ms_by_class(per_name, classes):
@@ -551,8 +614,9 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
             forward(feed_t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = _device_ms(prof)
     by_class = _device_ms_by_class(
-        _device_ms(prof), ("flash_attention_fwd", "matmul", "other"))
+        per_name, ("flash_attention_fwd", "matmul", "other"))
     busy = sum(by_class.values())
     # no device time recorded means the profiler could not trace the card
     phase("profile", batch=MAX_BATCH, forwards=iters,
@@ -560,6 +624,15 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms_per_forward": f"{v / iters:.3f}"
              for k, v in by_class.items()}, card=f"'{card}'")
+    _print_flash_symbols(per_name)
+    if busy:
+        # the float32 forward runs the 3xTF32 kernel, never the scalar one
+        n = _symbol_launches(per_name, F32_FWD_SYMBOL)
+        check(n == cfg.n_layers * iters, f"{F32_FWD_SYMBOL} ran {n} times "
+              f"in {iters} profiled forwards, not {cfg.n_layers * iters}")
+        # the scalar kernel's name, demangled or mangled
+        n = _symbol_launches(per_name, r"fwd_kernel[<I]")
+        check(n == 0, f"the scalar fwd_kernel ran {n} times")
 
 
 TRAIN_BATCH = 32          # bench.py's default BERT-base step
@@ -699,15 +772,10 @@ def train_phase(torch, card):
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms": f"{v:.3f}" for k, v in by_class.items()},
           card=f"'{card}'")
-    # the flash kernels' symbols: which design ran, and how often a step
-    for name, (ms, n) in sorted(per_name.items()):
-        if _kernel_class(name) in KERNEL_CLASSES.values():
-            print(f"  flash: {n} launches  {ms:.3f} ms  {name[:100]}",
-                  flush=True)
+    _print_flash_symbols(per_name)
     if busy:
         for sym in BF16_KERNEL_SYMBOLS:
-            n = sum(cnt for name, (_, cnt) in per_name.items()
-                    if sym in name)
+            n = _symbol_launches(per_name, sym)
             check(n == cfg.n_layers, f"{sym} ran {n} times in the profiled "
                   f"step, not {cfg.n_layers}")
     others = sorted(((ms, name) for name, (ms, _) in per_name.items()
@@ -750,7 +818,7 @@ def train_cpu_check(torch):
     grads = ["word_emb@GRAD", "layer_0.att.q.w@GRAD",
              f"layer_{cfg.n_layers - 1}.ffn.fc2.w@GRAD"]
     t0 = time.perf_counter()
-    out, attn_dtypes = {}, {}
+    out, attn_dtypes, launches = {}, {}, {}
     for amp, (main, _, loss) in progs.items():
         # flash attention's outputs: bfloat16 under AMP, float32 without
         attn = [op.output("Out")[0] for op in main.global_block().ops
@@ -758,8 +826,10 @@ def train_cpu_check(torch):
         for where, exe, place in (("card", card_exe, ptt.CUDAPlace(0)),
                                   ("cpu", cpu_exe, ptt.CPUPlace())):
             scope = scope_from_numpy(init, ptt.Scope(), place)
+            _zero_launch_counts()
             got = exe.run(main, feed=feed, fetch_list=[loss] + grads + attn,
                           scope=scope, return_numpy=False)
+            launches[amp, where] = _launch_counts()
             attn_dtypes[amp, where] = {str(x.dtype) for x in
                                        got[1 + len(grads):]}
             out[amp, where] = [x.float().cpu().numpy()
@@ -769,6 +839,11 @@ def train_cpu_check(torch):
         want = "torch.bfloat16" if amp else "torch.float32"
         check(dtypes == {want}, f"flash attention ran in {dtypes} on the "
               f"{where} with amp={amp}; want {want}")
+        # each kernel once a layer on the card, none on the CPU
+        n = cfg.n_layers if where == "card" else 0
+        check(all(x == n for x in launches[amp, where].values()),
+              f"kernel launches of the {where} step with amp={amp}: "
+              f"{launches[amp, where]}, not {n} each")
 
     def loss_rel(a, b):
         return abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
@@ -791,6 +866,7 @@ def train_cpu_check(torch):
     phase("train_cpu_check", batch=1, amp=False,
           loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
           loss_rel=f"{f32_loss:.3e}",
+          launches_per_kernel=launches[False, "card"]["flash_attention_fwd"],
           **{f"{n.split('@')[0]}_max_abs_err": f"{e:.3e}"
              for n, e in errs.items()})
 
@@ -822,18 +898,32 @@ KERNEL_SOURCES = {
 }
 
 
+def _kernel_name(symbol):
+    """kernel<D, ...> for the mangled symbol of a kernel template with int
+    arguments in a namespace (`_ZN<len><namespace><len><kernel>I<args>E`);
+    any other symbol as it is."""
+    import re
+    pos, name = 3, None
+    while symbol.startswith("_ZN") and (m := re.match(r"\d+",
+                                                      symbol[pos:])):
+        pos += len(m.group())
+        name = symbol[pos:pos + int(m.group())]
+        pos += int(m.group())
+    args = re.match(r"I((?:Li\d+E)+)E", symbol[pos:])
+    if name is None or args is None:
+        return symbol
+    return f"{name}<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+
+
 def _ptxas_kernels(log):
     """(kernel<...>, registers, spill line) per kernel instance in nvcc's
     -Xptxas=-v output."""
     import re
     out, name, spills = [], "?", ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+((?:fwd|dq|dkv)"
-                      r"_kernel(?:_mma)?)I(f|13__nv_bfloat16)?Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
         if m:
-            dtype = {"f": "float, ", "13__nv_bfloat16": "bf16, "}.get(
-                m.group(2), "")
-            name = f"{m.group(1)}<{dtype}{m.group(3)}>"
+            name, spills = _kernel_name(m.group(1)), ""
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -856,16 +946,18 @@ def build_phase():
     phase("build", sources=len(SOURCES),
           seconds=f"{time.perf_counter() - t0:.2f}",
           found_built=not any(logs.values()))
+    spilled = []
     for source, log in logs.items():
         for name, regs, spills in _ptxas_kernels(log):
             print(f"  {source}: {name} {regs} registers; {spills}",
                   flush=True)
-            check("0 bytes spill stores, 0 bytes spill loads" in spills,
-                  f"{name} spills registers: {spills}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spills:
+                spilled.append(name)
+    check(not spilled, f"kernel instances that spill registers: {spilled}")
 
 
-# Mutation check of the bf16 kernels' limits: (name, source under csrc/,
-# text, replacement, phase). Each breaks one rule of a kernel; `python3
+# Mutation check of the kernels' limits: (name, source under csrc/, text,
+# replacement, phase). Each breaks one rule of a kernel; `python3
 # chip_smoke.py --mutants` runs the phase on a broken copy of the package
 # in a temporary directory, with `check` printing instead of raising, and
 # fails unless every mutant fails a check.
@@ -880,13 +972,33 @@ MUTANTS = [
      "m[mt][r] * scale + log2f(l_safe[r])", "kernel_phase"),
     # keys past kv_len unmasked in the ragged last tile
     ("fwd_no_ragged_mask", "flash_attention_fwd.cu",
-     "if (kc >= kv_len || (causal && kc > qr))", "if (causal && kc > qr)",
-     "kernel_phase"),
+     "if (kc >= kv_len || (causal && kc > qr)) s[mt][n][i] = NEG_INF;",
+     "if (causal && kc > qr) s[mt][n][i] = NEG_INF;", "kernel_phase"),
     # dS from the bf16-rounded P instead of the float32 P
     ("dkv_ds_from_rounded_p", "flash_attention_bwd.cu",
      "dp[n][i] = s[n][i] * (dp[n][i] - tD[qc]) * sm_scale;",
      "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
      "(dp[n][i] - tD[qc]) * sm_scale;", "bwd_kernel_phase"),
+    # dQ: dS from the bf16-rounded P
+    ("dq_ds_from_rounded_p", "flash_attention_bwd.cu",
+     "dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;",
+     "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
+     "(dp[n][i] - dl[i >> 1]) * sm_scale;", "bwd_kernel_phase"),
+    # dQ: keys after the query unmasked on the diagonal tile. (Keys past T
+    # unmasked in the ragged tile change nothing a check can read: their
+    # rows of K are zero-filled, so their dS K terms are exactly 0.)
+    ("dq_no_causal_mask", "flash_attention_bwd.cu",
+     "if (kc >= t || (causal && kc > qr)) p = 0.f;", "if (kc >= t) p = 0.f;",
+     "bwd_kernel_phase"),
+    # float32 forward: one TF32 product (hi hi) instead of three
+    ("fwd_f32_one_tf32_product", "mma_tf32.cuh",
+     "  mma_1688(d0, al, bh[0], bh[1]);\n  mma_1688(d1, al, bh[2], bh[3]);\n"
+     "  mma_1688(d0, ah, bl[0], bl[1]);\n  mma_1688(d1, ah, bl[2], bl[3]);\n",
+     "", "kernel_phase"),
+    # float32 forward: keys past kv_len unmasked in the ragged last tile
+    ("fwd_f32_no_ragged_mask", "flash_attention_fwd.cu",
+     "if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;",
+     "if (causal && kc > qr) s[n][i] = NEG_INF;", "kernel_phase"),
 ]
 
 

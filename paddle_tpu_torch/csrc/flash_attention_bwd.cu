@@ -55,15 +55,32 @@
 //   the score tiles are computed 32 query columns at a time (64 below),
 //   which keeps every instance free of spills.
 //
-// dq_kernel<T, D> (float32 and bfloat16) and dkv_kernel<D> (float32),
-//   scalar float32 FMAs: tiles staged as float32, rows padded by one word
-//   so the column walks do not collide on a bank; 256 threads, thread
-//   (ty, tx) owns tile rows 4*ty .. 4*ty+3, score columns tx + 16*j and
-//   output columns tx + 16*c; P and dS pass through shared memory; the
-//   accumulators live in float32 registers and are stored once. Float32
-//   stays on the CUDA cores on purpose: TF32 tensor cores would break the
-//   float32 limits of 1e-4. The bf16 dq kernel is the next to move to the
-//   tensor cores, on mma_bf16.cuh.
+// dq_kernel_mma<D> (bfloat16), the transpose of dkv_kernel_mma: 4 warps,
+//   16 query rows each. Q and dO are staged once and kept as A fragments
+//   in registers; K and V tiles of 64 key rows stream through a 2-stage
+//   cp.async ring (rows past T zero-filled); each lane keeps the LSE and
+//   delta of its two rows in registers. Per key tile:
+//     S = Q K^T,  P = exp(sm_scale S - LSE),  dP = dO V^T,
+//     dS = P (dP - delta) sm_scale,  dQ += bf16(dS) K,
+//   K's and V's B fragments by plain ldmatrix for S and dP, K's by
+//   ldmatrix.trans for dS K, and dS goes from dP's accumulators to the A
+//   fragment in registers. Only the ragged last tile and the diagonal tile
+//   are masked (a padded key's row of K is zero, so its dS K term is 0
+//   anyway; the mask keeps exp(-LSE) of a padded key from overflowing into
+//   inf * 0). dQ accumulates in float32 registers and leaves once, through
+//   shared memory, as 16-byte rows. At d = 128 the accumulator and the Q
+//   and dO fragments take 128 registers a thread, so the score tiles are
+//   computed 32 key columns at a time (64 below).
+//
+// dq_kernel<D> and dkv_kernel<D> (float32), scalar float32 FMAs: tiles
+//   staged as float32, rows padded by one word so the column walks do not
+//   collide on a bank; 256 threads, thread (ty, tx) owns tile rows 4*ty ..
+//   4*ty+3, score columns tx + 16*j and output columns tx + 16*c; P and dS
+//   pass through shared memory; the accumulators live in float32 registers
+//   and are stored once. One TF32 product would break the float32 limit
+//   of 1e-4; three (3xTF32, as the float32 forward runs them, mma_tf32.cuh)
+//   would meet it. The float32 backward runs only in a batch-1 check step,
+//   so it stays on the CUDA cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -80,34 +97,16 @@ constexpr int BK = 64;         // key rows per tile
 constexpr int NTHREADS = 256;  // 16 x 16 thread grid
 constexpr int PS = 65;         // padded row stride of the 64-wide P/dS tiles
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and widened back: the TPU kernels' astype before a product
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// rows [r0, r0 + 64) of a [T, D] matrix into a padded float32 tile; rows
-// past T read as 0
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// rows [r0, r0 + 64) of a [T, D] matrix into a padded tile; rows past T
+// read as 0
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int r0, int t) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
     const int r = idx / D, c = idx % D;
     const int gr = r0 + r;
-    dst[r * (D + 1) + c] =
-        gr < t ? to_f(src[static_cast<size_t>(gr) * D + c]) : 0.f;
+    dst[r * (D + 1) + c] = gr < t ? src[static_cast<size_t>(gr) * D + c] : 0.f;
   }
 }
 
@@ -121,12 +120,12 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * PS + 2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int t, float sm_scale, int causal) {
+              float* __restrict__ dq, int t, float sm_scale, int causal) {
   constexpr int DC = D / 16;  // output columns per thread
   constexpr int S = D + 1;    // padded row stride
   extern __shared__ float smem[];
@@ -143,8 +142,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t base = static_cast<size_t>(bh) * t * D;
   const size_t rbase = static_cast<size_t>(bh) * t;
 
-  load_tile<T, D>(sQ, q + base, q0, t);
-  load_tile<T, D>(sdO, dout + base, q0, t);
+  load_tile<D>(sQ, q + base, q0, t);
+  load_tile<D>(sdO, dout + base, q0, t);
 
   float row_lse[4], row_delta[4], acc[4][DC];
 #pragma unroll
@@ -163,8 +162,8 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int kt = 0; kt < ntiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's sK/sV/sdS are no longer read
-    load_tile<T, D>(sK, k + base, k0, t);
-    load_tile<T, D>(sV, v + base, k0, t);
+    load_tile<D>(sK, k + base, k0, t);
+    load_tile<D>(sV, v + base, k0, t);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -203,7 +202,7 @@ __global__ void __launch_bounds__(NTHREADS)
         const bool keep = qr < t && kc < t && (!causal || qr >= kc);
         const float p = keep ? expf(s[i][j] * sm_scale - row_lse[i]) : 0.f;
         const float ds = p * (dp[i][j] - row_delta[i]) * sm_scale;
-        sdS[(ty * 4 + i) * PS + tx + 16 * j] = round_to<T>(ds);
+        sdS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -226,9 +225,9 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int i = 0; i < 4; ++i) {
     const int qr = q0 + ty * 4 + i;
     if (qr >= t) continue;
-    T* row = dq + base + static_cast<size_t>(qr) * D;
+    float* row = dq + base + static_cast<size_t>(qr) * D;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[i][c];
   }
 }
 
@@ -258,8 +257,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t base = static_cast<size_t>(bh) * t * D;
   const size_t rbase = static_cast<size_t>(bh) * t;
 
-  load_tile<float, D>(sK, k + base, k0, t);
-  load_tile<float, D>(sV, v + base, k0, t);
+  load_tile<D>(sK, k + base, k0, t);
+  load_tile<D>(sV, v + base, k0, t);
 
   float acc_k[4][DC], acc_v[4][DC];
 #pragma unroll
@@ -275,8 +274,8 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int qt = qstart; qt < ntiles; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's sQ/sdO/sP/sdS are no longer read
-    load_tile<float, D>(sQ, q + base, q0, t);
-    load_tile<float, D>(sdO, dout + base, q0, t);
+    load_tile<D>(sQ, q + base, q0, t);
+    load_tile<D>(sdO, dout + base, q0, t);
     if (threadIdx.x < BQ) {
       const int qr = q0 + threadIdx.x;
       sL[threadIdx.x] = qr < t ? lse[rbase + qr] : 0.f;
@@ -595,6 +594,190 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q and dO once, then two stages of K and V, all [64][D + 8] bf16
+  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const __nv_bfloat16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int t, float sm_scale,
+                  int causal) {
+  using namespace mma_bf16;
+  constexpr int LD = D + 8;      // padded row stride (elements)
+  constexpr int TILE = BK * LD;  // elements of one staged tile
+  constexpr int KD = D / 16;     // k steps over d
+  constexpr int ND = D / 8;      // n-blocks over d
+  // key columns of the score tile per compute pass (the head comment)
+  constexpr int KC = D > 64 ? 32 : 64;
+  constexpr int NK = KC / 8;     // n-blocks of a score pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdO = sQ + TILE;
+  __nv_bfloat16* sK = sdO + TILE;     // [2][BK][LD]
+  __nv_bfloat16* sV = sK + 2 * TILE;  // [2][BK][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t rbase = static_cast<size_t>(bh) * t;
+  const __nv_bfloat16* kb = k + base;
+  const __nv_bfloat16* vb = v + base;
+
+  // causal: keys past the block's last query row contribute nothing
+  const int kend = causal ? min(t, q0 + BQ) : t;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
+  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout + base, q0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
+  cp_async_commit();
+
+  const float scale = sm_scale * LOG2E;  // exponents in log2 units
+  // this lane's rows g (r = 0) and g + 8: LSE in log2 units, and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = row0 + g + 8 * r;
+    lse2[r] = qr < t ? lse[rbase + qr] * LOG2E : 0.f;
+    dl[r] = qr < t ? delta[rbase + qr] : 0.f;
+  }
+  uint32_t qf[KD][4], of[KD][4];  // Q's and dO's A fragments
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < ntiles) {  // the next tile into the other stage
+      const int st = (kt + 1) & 1;
+      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb, k0 + BK, t);
+      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb, k0 + BK, t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) has landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldmatrix_x4(qf[kk], a_addr(sQ, LD, warp * 16, kk * 16, lane));
+        ldmatrix_x4(of[kk], a_addr(sdO, LD, warp * 16, kk * 16, lane));
+      }
+    }
+    const __nv_bfloat16* tK = sK + (kt & 1) * TILE;
+    const __nv_bfloat16* tV = sV + (kt & 1) * TILE;
+    // mask only the ragged last tile and the diagonal tile
+    const bool edge = k0 + BK > t || (causal && k0 + BK - 1 > q0);
+
+#pragma unroll
+    for (int j0 = 0; j0 < BK; j0 += KC) {
+      // S = Q K^T: the warp's 16 query rows x KC key columns
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bn_addr(tK, LD, j0 + n2 * 16, kk * 16, lane));
+          mma_16816(s[2 * n2], qf[kk], b[0], b[1]);
+          mma_16816(s[2 * n2 + 1], qf[kk], b[2], b[3]);
+        }
+
+      // P = exp(sm_scale S - LSE) in float32; masked entries 0 (exp2f, as
+      // in dkv_kernel_mma)
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p = exp2f(fmaf(s[n][i], scale, -lse2[i >> 1]));
+          if (edge) {
+            const int kc = k0 + j0 + n * 8 + 2 * c + (i & 1);
+            const int qr = row0 + g + (i >> 1) * 8;
+            if (kc >= t || (causal && kc > qr)) p = 0.f;
+          }
+          s[n][i] = p;
+        }
+
+      // dP = dO V^T
+      float dp[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dp[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, bn_addr(tV, LD, j0 + n2 * 16, kk * 16, lane));
+          mma_16816(dp[2 * n2], of[kk], b[0], b[1]);
+          mma_16816(dp[2 * n2 + 1], of[kk], b[2], b[3]);
+        }
+
+      // dS = P (dP - delta) sm_scale, from the unrounded P
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;
+
+      // dQ += bf16(dS) K
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a<NK>(a, dp, kk);
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bk_addr(tK, LD, j0 + kk * 16, n2 * 16, lane));
+          mma_16816(acc[2 * n2], a, b[0], b[1]);
+          mma_16816(acc[2 * n2 + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // dQ to bf16, staged in the warp's own rows of sQ (only this warp read
+  // them), then stored as 16-byte rows
+  __nv_bfloat16* wQ = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * c;
+    *reinterpret_cast<uint32_t*>(wQ + g * LD + col) =
+        pack_bf16x2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(wQ + (g + 8) * LD + col) =
+        pack_bf16x2(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int CHUNKS = D / 8;
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = i / CHUNKS, col = (i % CHUNKS) * 8;
+    if (row0 + r < t)
+      *reinterpret_cast<uint4*>(dq + base +
+                                static_cast<size_t>(row0 + r) * D + col) =
+          *reinterpret_cast<const uint4*>(wQ + r * LD + col);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 // above 48 KB a block's shared memory must be requested explicitly; the
@@ -606,21 +789,40 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int t, float sm_scale, int causal,
-                      cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int t,
+                          float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
-  auto kern = dq_kernel<T, D>;
+  auto kern = dq_kernel<D>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((t + BQ - 1) / BQ, bh);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), t, sm_scale, causal);
+      static_cast<float*>(dq), t, sm_scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int t,
+                           float sm_scale, int causal, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  auto kern = dq_kernel_mma<D>;
+  static const cudaError_t attr_err = allow_smem(kern, smem);
+  if (attr_err != cudaSuccess) return attr_err;
+  const dim3 grid((t + BQ - 1) / BQ, bh);
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), t, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -683,6 +885,7 @@ bool bad_shape(int bh, int t) { return bh <= 0 || t <= 0 || bh > 65535; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t.
+// float32 runs dq_kernel, bfloat16 dq_kernel_mma
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -694,12 +897,12 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   switch (dtype) {
     case 0:
       return with_head_dim(d, [&](auto dc) {
-        return launch_dq<float, decltype(dc)::value>(
+        return launch_dq_f32<decltype(dc)::value>(
             q, k, v, dout, lse, delta, dq, bh, t, sm_scale, causal, s);
       });
     case 1:
       return with_head_dim(d, [&](auto dc) {
-        return launch_dq<__nv_bfloat16, decltype(dc)::value>(
+        return launch_dq_bf16<decltype(dc)::value>(
             q, k, v, dout, lse, delta, dq, bh, t, sm_scale, causal, s);
       });
     default:

@@ -45,21 +45,34 @@
 //   TFLOP/s bf16 peak), against 101.5 MB of Q, K, V, O and LSE (30 us at
 //   3.35 TB/s): bound by bytes.
 //
-// fwd_kernel<D> (float32), scalar float32 FMAs: Q, K, V and the
-//   probability tile staged in shared memory as float32 (rows padded by
-//   one word); thread (ty, tx) of 256 owns query rows 4*ty .. 4*ty+3,
-//   score columns tx + 16*j and output columns tx + 16*c, and reduces a
-//   row's max and sum across its 16 lanes with warp shuffles. Float32
-//   stays on the CUDA cores on purpose: the serving path's float32
-//   forward ([96, 512, 64], 6.4 GFLOP, bound by operations at the 67
-//   TFLOP/s float32 peak) already beats float32 SDPA, and TF32 tensor
-//   cores would break the float32 limits of 1e-4.
+// fwd_kernel_tf32x3<D> (float32, the serving path), the same
+//   FlashAttention-2 design on the TF32 tensor cores with 3xTF32 products
+//   (mma_tf32.cuh): each operand splits into a tf32 high and low part and
+//   each product is lo hi + hi lo + hi hi with float32 accumulation. One
+//   TF32 product keeps 11 bits of each operand and misses the float32
+//   limit of 1e-4 on O (on the H100 it reads 2.9e-4 to 1.5e-3 over the
+//   chip check's float32 cases); three read at most 4.4e-6. 4 warps of
+//   16 query rows, k/v tiles of BK = 64 rows through the same 2-stage
+//   cp.async ring; Q, K and V staged as float32 with rows padded to D + 4
+//   words, which keeps both the ldmatrix reads of Q and K and the 32-bit
+//   reads of V free of bank conflicts. Q's and K's fragments come by b16
+//   ldmatrix (a float32 row of 16 bytes is four words, the tf32 fragment
+//   layout) and are split as they are used. P stays float32, as the TPU
+//   kernel keeps it when V is float32, and is split too; its C fragment
+//   becomes P V's A fragment with the keys of each 8-key step taken in
+//   the order 0, 2, 4, 6, 1, 3, 5, 7, and V's rows are read in that order.
+//   Softmax, masking, early stop and LSE as in fwd_kernel_mma. Bound at
+//   the serving path's shape ([bh=96, T=512, d=64] float32): 6.4 GFLOP,
+//   three times over, 39 us at the 494.7 TFLOP/s TF32 peak (96 us if one
+//   counts 6.4 GFLOP at the 67 TFLOP/s float32 peak of the CUDA cores),
+//   against 50.5 MB (15 us at 3.35 TB/s): bound by operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -67,150 +80,6 @@ constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // key rows per k/v tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-
-// ---------------------------------------------------------------- float32
-
-constexpr int NTHREADS = 256;  // 16 x 16 thread grid
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, int t, int kv_len, float sm_scale,
-               int causal) {
-  constexpr int DC = D / 16;  // output columns per thread
-  constexpr int QS = D + 1;   // padded row strides
-  constexpr int KS = D + 1;
-  constexpr int PS = BK + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;            // [BQ][QS]
-  float* sK = sQ + BQ * QS;    // [BK][KS]
-  float* sV = sK + BK * KS;    // [BK][D]
-  float* sP = sV + BK * D;     // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = static_cast<size_t>(bh) * t * D;
-
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    const int qr = q0 + r;
-    sQ[r * QS + c] = qr < t ? q[base + static_cast<size_t>(qr) * D + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  // causal: keys past the tile's last query row contribute nothing
-  const int kend = causal ? min(kv_len, q0 + BQ) : kv_len;
-  const int ntiles = (kend + BK - 1) / BK;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's sK/sV/sP are no longer read
-    for (int idx = tid; idx < BK * D; idx += NTHREADS) {
-      const int r = idx / D, c = idx % D;
-      const int kr = k0 + r;
-      const bool ok = kr < t;
-      const size_t g = base + static_cast<size_t>(kr) * D + c;
-      sK[r * KS + c] = ok ? k[g] : 0.f;
-      sV[r * D + c] = ok ? v[g] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * QS + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sK[(tx + 16 * j) * KS + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-      float rowmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool keep = kc < kv_len && (!causal || qr >= kc);
-        const float x = keep ? s[i][j] * sm_scale : NEG_INF;
-        s[i][j] = x;
-        rowmax = fmaxf(rowmax, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rowmax = fmaxf(rowmax, __shfl_xor_sync(0xffffffffu, rowmax, off));
-      const float m_new = fmaxf(m[i], rowmax);
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rowsum += p;
-        sP[(ty * 4 + i) * PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rowsum += __shfl_xor_sync(0xffffffffu, rowsum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rowsum;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sV[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= t) continue;
-    const float l_safe = fmaxf(l[i], 1e-20f);
-    const float inv = 1.f / l_safe;
-    float* orow = o + base + static_cast<size_t>(qr) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) lse[static_cast<size_t>(bh) * t + qr] = m[i] + logf(l_safe);
-  }
-}
 
 // --------------------------------------------------------------- bfloat16
 
@@ -426,6 +295,196 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------- float32
+
+template <int D>
+constexpr size_t tf32_smem_bytes() {
+  // Q (BQ rows), then two stages each of K and V (BK rows), all float32
+  // with rows of D + 4
+  return sizeof(float) * (BQ + 4 * BK) * (D + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int t, int kv_len,
+                      float sm_scale, int causal) {
+  using namespace mma_bf16;
+  using namespace mma_tf32;
+  constexpr int LD = D + 4;      // padded row stride (floats)
+  constexpr int TILE = BK * LD;  // floats of one staged K or V tile
+  constexpr int KD = D / 8;      // k steps of Q K^T
+  constexpr int NB = BK / 8;     // n-blocks of the score tile
+  constexpr int ND = D / 8;      // n-blocks of the output
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + BQ * LD;   // [2][BK][LD]
+  float* sV = sK + 2 * TILE;  // [2][BK][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const float* kb = k + base;
+  const float* vb = v + base;
+
+  // causal: keys past the block's last query row contribute nothing
+  const int kend = causal ? min(kv_len, q0 + BQ) : kv_len;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
+  cp_async_commit();
+
+  const float scale = sm_scale * LOG2E;  // exponents in log2 units
+  float acc[ND][4];
+  // m: running max of the unscaled scores; l: this lane's share of the
+  // row sums; rows g (r = 0) and g + 8
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < ntiles) {  // the next tile into the other stage
+      const int st = (kt + 1) & 1;
+      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb,
+                                                    k0 + BK, t);
+      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb,
+                                                    k0 + BK, t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) has landed
+    __syncthreads();
+    const float* tK = sK + (kt & 1) * TILE;
+    const float* tV = sV + (kt & 1) * TILE;
+
+    // S = Q K^T, 16 rows x BK keys per warp; Q's fragments are read from
+    // shared memory per k step (kept in registers, they take D / 2 a
+    // thread, and the D = 128 instance spills)
+    float s[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4], ah[4], al[4];
+      ldmatrix_x4(a, a_addr(sQ, LD, warp * 16, kk * 8, lane));
+      split4(a, ah, al);
+#pragma unroll
+      for (int n2 = 0; n2 < NB / 2; ++n2) {
+        uint32_t b[4], kh[4], kl[4];
+        ldmatrix_x4(b, bn_addr(tK, LD, n2 * 16, kk * 8, lane));
+        split4(b, kh, kl);
+        mma_1688_x3(s[2 * n2], s[2 * n2 + 1], ah, al, kh, kl);
+      }
+    }
+
+    // mask only the ragged last tile and the diagonal tile
+    if (k0 + BK > kv_len || (causal && k0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kc = k0 + n * 8 + 2 * c + (i & 1);
+          const int qr = row0 + g + (i >> 1) * 8;
+          if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;
+        }
+    }
+
+    // online softmax against the running max, as in fwd_kernel_mma
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2_approx((m[r] - mx) * scale);
+      const float mx_scaled = mx * scale;
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        s[n][2 * r] = exp2_approx(fmaf(s[n][2 * r], scale, -mx_scaled));
+        s[n][2 * r + 1] =
+            exp2_approx(fmaf(s[n][2 * r + 1], scale, -mx_scaled));
+        sum += s[n][2 * r] + s[n][2 * r + 1];
+      }
+      l[r] = alpha * l[r] + sum;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V, one 8-key step per n-block j of S. The A fragment takes
+    // this lane's keys 2c and 2c + 1 as columns c and c + 4 (mma_tf32.cuh),
+    // so the B fragment reads V's rows 2c and 2c + 1.
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const uint32_t p[4] = {
+          __float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
+          __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
+      uint32_t ph[4], pl[4];
+      split4(p, ph, pl);
+      const float* vr = tV + (j * 8 + 2 * c) * LD + g;
+#pragma unroll
+      for (int n2 = 0; n2 < ND / 2; ++n2) {
+        uint32_t vh[4], vl[4];
+        split(vr[n2 * 16], vh[0], vl[0]);
+        split(vr[LD + n2 * 16], vh[1], vl[1]);
+        split(vr[n2 * 16 + 8], vh[2], vl[2]);
+        split(vr[LD + n2 * 16 + 8], vh[3], vl[3]);
+        mma_1688_x3(acc[2 * n2], acc[2 * n2 + 1], ph, pl, vh, vl);
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // O = acc / l, staged in the warp's own rows of sQ, then 16-byte rows
+  float* sO = sQ + warp * 16 * LD;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float l_safe = fmaxf(sum, 1e-20f);
+    inv[r] = 1.f / l_safe;
+    const int qr = row0 + g + 8 * r;
+    if (c == 0 && qr < t)
+      lse[static_cast<size_t>(bh) * t + qr] = m[r] * sm_scale + logf(l_safe);
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * c;
+    *reinterpret_cast<float2*>(sO + g * LD + col) =
+        make_float2(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<float2*>(sO + (g + 8) * LD + col) =
+        make_float2(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int CHUNKS = D / 4;
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
+    if (row0 + r < t)
+      *reinterpret_cast<float4*>(o + base +
+                                 static_cast<size_t>(row0 + r) * D + col) =
+          *reinterpret_cast<const float4*>(sO + r * LD + col);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 // above 48 KB a block's shared memory must be requested explicitly; the
@@ -441,12 +500,12 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t, int kv_len, float sm_scale,
                        int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kern = fwd_kernel<D>;
+  constexpr size_t smem = tf32_smem_bytes<D>();
+  auto kern = fwd_kernel_tf32x3<D>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), t, kv_len, sm_scale, causal);
@@ -489,8 +548,8 @@ cudaError_t with_head_dim(int d, F&& f) {
 
 }  // namespace
 
-// dtype: 0 = float32 (fwd_kernel), 1 = bfloat16 (fwd_kernel_mma). Returns
-// the launch's cudaError_t.
+// dtype: 0 = float32 (fwd_kernel_tf32x3), 1 = bfloat16 (fwd_kernel_mma).
+// Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int bh,
                                    int t, int d, int kv_len, float sm_scale,

@@ -1,6 +1,7 @@
 // Warp-level bfloat16 tensor-core helpers for sm_80+ (used on sm_90a):
 // cp.async copies into shared memory, ldmatrix fragment loads, the
 // m16n8k16 bf16 mma with float32 accumulation, and f32 -> bf16x2 packing.
+// The copies and ldmatrix addresses serve float32 tiles too (mma_tf32.cuh).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), for lane = 4 * g + c (g = lane / 4, c = lane % 4):
@@ -112,22 +113,27 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// Lane addresses for ldmatrix_x4 over a row-major bf16 tile with row
-// stride `ld` (elements), at (r0, c0):
-//  - a_addr: the A fragment of the 16 x 16 block (rows r0.., cols c0..);
+// Lane addresses for ldmatrix_x4 over a row-major tile with row stride
+// `ld` (elements), at (r0, c0). The tile holds bf16, or float32 read as
+// tf32 (mma_tf32.cuh): a 16-byte matrix row is 8 elements or 4 words (E).
+//  - a_addr: the A fragment of the 16 x 2E block (rows r0.., cols c0..);
 //  - bn_addr: B fragments of two n-blocks (b0, b1 of n-block 0, then of
 //    n-block 1) where the tile is stored n by k (rows = n, cols = k), as
 //    K is for Q K^T; use plain ldmatrix;
-//  - bk_addr: the same where the tile is stored k by n (rows = k, cols =
-//    n), as V is for P V; use ldmatrix .trans.
-__device__ __forceinline__ const __nv_bfloat16* a_addr(
-    const __nv_bfloat16* tile, int ld, int r0, int c0, int lane) {
-  return tile + (r0 + (lane & 15)) * ld + c0 + ((lane >> 4) << 3);
+//  - bk_addr (bf16 only): the same where the tile is stored k by n (rows
+//    = k, cols = n), as V is for P V; use ldmatrix .trans.
+template <typename T>
+__device__ __forceinline__ const T* a_addr(const T* tile, int ld, int r0,
+                                           int c0, int lane) {
+  constexpr int E = 16 / sizeof(T);
+  return tile + (r0 + (lane & 15)) * ld + c0 + (lane >> 4) * E;
 }
-__device__ __forceinline__ const __nv_bfloat16* bn_addr(
-    const __nv_bfloat16* tile, int ld, int n0, int k0, int lane) {
+template <typename T>
+__device__ __forceinline__ const T* bn_addr(const T* tile, int ld, int n0,
+                                            int k0, int lane) {
+  constexpr int E = 16 / sizeof(T);
   return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-         (((lane >> 3) & 1) << 3);
+         ((lane >> 3) & 1) * E;
 }
 __device__ __forceinline__ const __nv_bfloat16* bk_addr(
     const __nv_bfloat16* tile, int ld, int k0, int n0, int lane) {
@@ -135,22 +141,23 @@ __device__ __forceinline__ const __nv_bfloat16* bk_addr(
          ((lane >> 4) << 3);
 }
 
-// Copy rows [r0, r0 + ROWS) of a row-major [t, D] bf16 matrix into a
-// shared tile with row stride D + 8, 16 bytes a thread per step with
-// NTHREADS threads; rows at or past t are zero-filled (their source
-// address is clamped to row 0 and not read).
-template <int ROWS, int D, int NTHREADS>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int r0, int t) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
+// Copy rows [r0, r0 + ROWS) of a row-major [t, D] matrix of bf16 or
+// float32 into a shared tile whose rows are padded by 16 bytes (stride
+// D + 8 or D + 4 elements), 16 bytes a thread per step with NTHREADS
+// threads; rows at or past t are zero-filled (their source address is
+// clamped to row 0 and not read).
+template <int ROWS, int D, int NTHREADS, typename T>
+__device__ __forceinline__ void load_rows_async(T* dst, const T* src, int r0,
+                                                int t) {
+  constexpr int E = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int CHUNKS = D / E;      // chunks per row
   static_assert(ROWS * CHUNKS % NTHREADS == 0, "whole steps only");
 #pragma unroll
   for (int j = 0; j < ROWS * CHUNKS / NTHREADS; ++j) {
     const int i = threadIdx.x + j * NTHREADS;
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const int r = i / CHUNKS, c = (i % CHUNKS) * E;
     const bool ok = r0 + r < t;
-    cp_async_16(dst + r * (D + 8) + c,
+    cp_async_16(dst + r * (D + E) + c,
                 src + (ok ? static_cast<size_t>(r0 + r) * D : 0) + c, ok);
   }
 }

@@ -42,3 +42,45 @@ def test_build_finds_a_library_already_built(csrc):
     os.makedirs(os.path.dirname(path))
     open(path, "wb").close()
     assert build.build("kern") == (path, "")
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, imported from its path (it
+    imports only the standard library at the top)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# nvcc -Xptxas=-v output for three kernel instances of the sources
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_bwd_cu_5e7a1c2b13dq_kernel_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_ifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_bwd_cu_5e7a1c2b13dq_kernel_mmaILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_ifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_fwd_cu_2c13897917fwd_kernel_tf32x3ILi64EEEvPKfS2_S2_PfS3_iifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_fwd_cu_2c13897917fwd_kernel_tf32x3ILi64EEEvPKfS2_S2_PfS3_iifi
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, 412 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_fwd_cu_2c13897914fwd_kernel_mmaILi64ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifi' for 'sm_90a'
+ptxas info    : Used 253 registers, 412 bytes cmem[0]
+"""
+
+
+def test_ptxas_log_names_each_kernel_instance():
+    """chip_smoke's build phase reads each instance's name, registers and
+    spill line from nvcc's log; an instance whose log has no spill line
+    gets an empty one (and so fails the zero-spill check), not the line of
+    the instance before it."""
+    assert _chip_smoke()._ptxas_kernels(PTXAS_LOG) == [
+        ("dq_kernel_mma<64>", 168,
+         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+        ("fwd_kernel_tf32x3<64>", 255,
+         "8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"),
+        ("fwd_kernel_mma<64, 2>", 253, ""),
+    ]
