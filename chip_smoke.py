@@ -2,7 +2,7 @@
 """Drive paddle_tpu_torch on one CUDA card and check it end to end.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --mutants    # the bf16 kernels' mutation check
+    python3 chip_smoke.py --mutants    # the kernels' mutation check
 
 Phases, one progress line each; any failure exits non-zero:
 
@@ -12,20 +12,24 @@ Phases, one progress line each; any failure exits non-zero:
              per source, started together; print each kernel instance's
              registers and fail if one spills.
 3. kernels — hold the forward kernel against its plain PyTorch version on
-             the card at the shapes the serving and training paths give
-             it (and ragged T, T 1024, d 32 and 128, bh 12; float32 within
-             1e-4, bfloat16 by relative error and differing share), and
-             time it at the serving shape beside the plain version and one
-             PyTorch library call that computes the same function (a
+             the card at the shapes the serving and both training paths
+             give it (and ragged T, T 1024, d 32 and 128, bh 12; float32
+             within 1e-4, bfloat16 by relative error and differing share),
+             and time it at the serving shape beside the plain version and
+             one PyTorch library call that computes the same function (a
              yardstick only; the port never calls it).
    kernels (backward) — hold the dq and dk/dv kernels against their plain
-             versions (the training shape [384, 512, 64] in bf16 and f32,
-             causal, ragged T, T 1024, d 128 and 32, bh 12), then time all
-             three kernels at the training shape in bf16 beside their
-             plain versions, SDPA's forward and the backward of SDPA (one
-             call for dq, dk and dv) as yardsticks, with the achieved
-             TFLOP/s, and the two float32 backward kernels at the same
-             shape beside float32 SDPA's backward.
+             versions (the training shapes [384, 512, 64] bf16 and
+             [192, 512, 64] f32, and in each dtype causal, ragged T in
+             both masks, T 1024 causal, d 128 in both masks, d 32, bh 12;
+             float32 within 1e-4), then time all three kernels at the
+             training shape in bf16 beside their plain versions, SDPA's
+             forward and the backward of SDPA (one call for dq, dk and dv)
+             as yardsticks, with the achieved TFLOP/s, the two float32
+             backward kernels at [384, 512, 64] and [192, 512, 64] beside
+             float32 SDPA's backward, and at [192, 512, 64] the float32
+             forward beside float32 SDPA's forward, each with its 3xTF32
+             bound and its CUDA-core bound.
 4. serve   — build BERT-base (12 layers, d 768, 12 heads, d_ff 3072, vocab
              30522) with tokens [-1, 512] through the port, run its startup
              program on the card from a fixed seed, save it as an inference
@@ -51,8 +55,15 @@ Phases, one progress line each; any failure exits non-zero:
              enqueue a step, tokens/s, MFU, and a torch.profiler split of
              one step by kernel class with each flash kernel's symbol and
              launches (the bf16 step must run fwd_kernel_mma,
-             dq_kernel_mma and dkv_kernel_mma 12 times each).
-7. train_cpu_check — the same model at batch 1, dropout 0, in float32
+             dq_kernel_mma and dkv_kernel_mma 12 times each, and no other
+             flash kernel).
+7. train_f32 — the same training in float32 at batch 16 (float32
+             activations take twice AMP's memory), 2 warm-up and 5 timed
+             steps, the same gates; MFU against the CUDA cores' float32
+             peak, peak memory, and the profiled step must run
+             fwd_kernel_tf32x3, dq_kernel_tf32x3 and dkv_kernel_tf32x3 12
+             times each and no other flash kernel.
+8. train_cpu_check — the same model at batch 1, dropout 0, in float32
              and in bf16 AMP: one step on the card and one on the CPU
              (plain versions) from the same startup values; the loss and
              three parameters' gradients must agree, and attention must
@@ -61,7 +72,9 @@ Phases, one progress line each; any failure exits non-zero:
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound) and the result line {"ok": true, "device": {...}}.
+bound; the float32 instances as entries of their own, with the serving,
+float32 training and float32 check-step launches) and the result line
+{"ok": true, "device": {...}}.
 """
 import json
 import math
@@ -80,15 +93,18 @@ N_REQUESTS = 16
 N_THREADS = 4
 # published H100 SXM peaks (NVIDIA data sheet, 700 W)
 TRAIN_SHAPE = (384, T, HD)  # b32 x 12 heads, the training path's shape
+F32_TRAIN_SHAPE = (192, T, HD)  # b16 x 12 heads, the float32 training path
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
 BF16_FLOPS = 989e12      # dense bf16 tensor cores
 # float32 kernels vs their plain versions, max|kernel - plain|. On the
-# H100 the 3xTF32 forward reads at most 4.4e-6 (LSE 2.6e-6); with one
-# TF32 product instead of three it reads 2.9e-4 to 1.5e-3 in every case,
-# with keys past T unmasked 2.5e-2 at T 300 (MUTANTS below; PERF.md). The
-# scalar backward kernels read at most 2.4e-7.
+# H100 the 3xTF32 forward reads at most 4.8e-6 (LSE 2.6e-6) and the 3xTF32
+# dQ, dK and dV at most 7.8e-5 (dV at T 1024 causal, where max|plain| is
+# 5.5); with one TF32 product instead of three the forward reads 2.9e-4 to
+# 1.5e-3 and the backward 3.8e-4 to 3.8e-3 in every case; keys past T
+# unmasked in the forward read 2.5e-2 at T 300, the diagonal unmasked in
+# dQ or dK/dV 1.4e2 or more (MUTANTS below; PERF.md).
 F32_TOL = 1e-4
 # bfloat16 kernels vs their plain versions: max|kernel - plain| /
 # max(1, max|plain|), and the share of elements that differ at all.
@@ -161,19 +177,23 @@ def attention_bound_ms(kernel, bh, t, d, causal, elsize):
     """Least time for one kernel's work: bytes (each input read once,
     each output written once) over HBM rate vs operations over the peak
     rate of the units that run them: the bf16 tensor cores for bfloat16;
-    for the float32 forward, three TF32 products per product (3xTF32) on
-    the TF32 tensor cores; for the float32 backward, the CUDA cores.
-    Returns (ms, "bytes" | "operations")."""
+    for float32, three TF32 products per product (3xTF32) on the TF32
+    tensor cores. Returns (ms, "bytes" | "operations")."""
     n_read, n_write, n_rows, _ = KERNEL_WORK[kernel]
     nbytes = (n_read + n_write) * bh * t * d * elsize + n_rows * bh * t * 4
     flops = attention_flops(kernel, bh, t, d, causal)
-    peak = BF16_FLOPS if elsize == 2 else F32_FLOPS
-    if elsize == 4 and kernel == "flash_attention_fwd":
-        flops, peak = 3 * flops, TF32_FLOPS
+    flops, peak = (flops, BF16_FLOPS) if elsize == 2 else \
+        (3 * flops, TF32_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
+
+
+def cuda_core_bound_ms(kernel, bh, t, d, causal):
+    """A float32 kernel's operations at the CUDA cores' float32 peak: the
+    bound of a scalar kernel, printed beside the 3xTF32 bound."""
+    return attention_flops(kernel, bh, t, d, causal) / F32_FLOPS * 1e3
 
 
 def kernel_phase(torch):
@@ -191,7 +211,7 @@ def kernel_phase(torch):
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
     # (many tiles through the kernels' ring), d=32 and d=128, and the
-    # training path's shape in bfloat16
+    # training paths' shapes: bfloat16 and float32
     cases = [(96, T, HD, f32, False), (96, T, HD, f32, True),
              (96, T, HD, bf16, False), (96, T, HD, bf16, True),
              (12, T, HD, f32, False), (12, T, HD, bf16, False),
@@ -201,8 +221,9 @@ def kernel_phase(torch):
              (48, T, 32, f32, False), (48, T, 32, bf16, False),
              (24, T, 128, f32, False), (24, T, 128, f32, True),
              (24, T, 128, bf16, False), (24, T, 128, bf16, True),
-             (*TRAIN_SHAPE, bf16, False)]
-    train_err = None
+             (*TRAIN_SHAPE, bf16, False), (*F32_TRAIN_SHAPE, f32, False)]
+    # each training path's shape: max|kernel - plain|, by dtype
+    train_errs = {}
     for bh, t, d, dtype, causal in cases:
         q, k, v = qkv(bh, t, d, dtype)
         # through the wrapper, in the [b, h, T, d] layout the model uses
@@ -237,8 +258,9 @@ def kernel_phase(torch):
                   f"version: rel {rel} > {BF16_FWD_TOL} or differing share "
                   f"{share} > {BF16_FWD_DIFF_SHARE}")
         check(lse_err <= 1e-3, f"lse disagrees: {lse_err}")
-        if (bh, t, d, dtype, causal) == cases[-1]:
-            train_err = err
+        path_shape = TRAIN_SHAPE if dtype == bf16 else F32_TRAIN_SHAPE
+        if (bh, t, d, causal) == (*path_shape, False):
+            train_errs[str(dtype)[6:]] = err
 
     # times at the serving path's shape: [96, 512, 64] float32 (the
     # training shape's are bwd_kernel_phase's)
@@ -252,15 +274,13 @@ def kernel_phase(torch):
     bound_ms, bound_by = attention_bound_ms("flash_attention_fwd", bh, t,
                                             d, causal, 4)
     flops = attention_flops("flash_attention_fwd", bh, t, d, causal)
-    # beside the 3xTF32 bound: the same work at the CUDA cores' float32
-    # peak, the bound of the scalar kernel this one replaced
+    core_ms = cuda_core_bound_ms("flash_attention_fwd", bh, t, d, causal)
     phase("kernel_time", kernel="flash_attention_fwd",
           shape=f"[{bh},{t},{d}] float32", ms=f"{ms:.4f}",
           tflops=f"{flops / ms / 1e9:.1f}", plain_ms=f"{plain_ms:.4f}",
           library_ms=f"{library_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-          bound_by=bound_by,
-          cuda_core_bound_ms=f"{flops / F32_FLOPS * 1e3:.4f}")
-    return train_err  # the training shape's, in bfloat16
+          bound_by=bound_by, cuda_core_bound_ms=f"{core_ms:.4f}")
+    return train_errs
 
 
 def _rel_err(got, want):
@@ -279,8 +299,10 @@ def bwd_kernel_phase(torch):
     scaled_dot_product_attention (one call for dq, dk and dv; a
     yardstick the port never calls), and the forward kernel, its plain
     version and SDPA's forward in bfloat16; then the two backward
-    kernels in float32 beside float32 SDPA's backward. Returns the
-    bfloat16 records."""
+    kernels in float32 beside float32 SDPA's backward, at the same shape
+    and at the float32 training path's [192, 512, 64], where the float32
+    forward is timed too. Returns the records per dtype: bfloat16 at the
+    bf16 training shape, float32 at the float32 one."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     dev = torch.device("cuda", 0)
@@ -295,17 +317,20 @@ def bwd_kernel_phase(torch):
         return q, k, v, do, lse, delta
 
     bf16, f32 = torch.bfloat16, torch.float32
-    # (bh, T, d, dtype, causal): the training shape in both dtypes and
-    # causal, a ragged T, T=1024, d=128, d=32 and bh=12 (one sequence's
-    # heads)
+    # (bh, T, d, dtype, causal): the training shapes in both dtypes and
+    # causal, a ragged T in both masks, T=1024 causal, d=128 in both masks,
+    # d=32 and bh=12 (one sequence's heads), in each dtype
     cases = [(*TRAIN_SHAPE, bf16, False), (*TRAIN_SHAPE, f32, False),
              (*TRAIN_SHAPE, bf16, True), (96, 300, HD, f32, True),
              (96, 300, HD, bf16, False), (96, 300, HD, bf16, True),
              (12, 1024, HD, bf16, True), (24, T, 128, f32, False),
              (24, T, 128, bf16, False), (24, T, 128, bf16, True),
              (48, T, 32, f32, True), (48, T, 32, bf16, False),
-             (12, T, HD, bf16, False)]
-    errs = {}
+             (12, T, HD, bf16, False), (96, 300, HD, f32, False),
+             (12, 1024, HD, f32, True), (24, T, 128, f32, True),
+             (12, T, HD, f32, False), (*F32_TRAIN_SHAPE, f32, False)]
+    # each path's shape: max|kernel - plain| per kernel
+    errs = {bf16: {}, f32: {}}
     for bh, t, d, dtype, causal in cases:
         args = inputs(bh, t, d, dtype, causal)
         dq = fa.flash_attention_bwd_dq(*args, causal=causal)
@@ -315,33 +340,38 @@ def bwd_kernel_phase(torch):
         torch.cuda.synchronize()
         got = {"dq": _rel_err(dq, rq), "dk": _rel_err(dk, rk),
                "dv": _rel_err(dv, rv)}
-        tol = F32_TOL if dtype == f32 else BF16_BWD_TOL
+        # float32: max|kernel - plain|; bfloat16: over max(1, max|plain|)
+        tol, at = (F32_TOL, 1) if dtype == f32 else (BF16_BWD_TOL, 0)
         phase("kernel_bwd", case=f"bh{bh}_T{t}_d{d}_{str(dtype)[6:]}"
               f"{'_causal' if causal else ''}",
-              **{f"{n}_err": f"{e[0]:.3e}" for n, e in got.items()},
+              **{f"{n}_err": f"{e[at]:.3e}" for n, e in got.items()},
               **{f"{n}_diff_share": f"{e[2]:.3e}" for n, e in got.items()},
               tol=tol)
-        check(all(math.isfinite(e[0]) and e[0] <= tol
+        check(all(math.isfinite(e[at]) and e[at] <= tol
                   for e in got.values()),
               f"a backward kernel disagrees with its plain version: "
-              f"{ {n: e[0] for n, e in got.items()} } > {tol}")
+              f"{ {n: e[at] for n, e in got.items()} } > {tol}")
         if dtype == bf16:
             check(all(e[2] <= BF16_BWD_DIFF_SHARE for e in got.values()),
                   f"a bfloat16 backward kernel differs from its plain "
                   f"version in more than {BF16_BWD_DIFF_SHARE} of the "
                   f"elements: { {n: e[2] for n, e in got.items()} }")
-        if (bh, t, d, dtype, causal) == cases[0]:
-            errs = {"flash_attention_bwd_dq": got["dq"][1],
-                    "flash_attention_bwd_dkv": max(got["dk"][1],
-                                                   got["dv"][1])}
+        path_shape = TRAIN_SHAPE if dtype == bf16 else F32_TRAIN_SHAPE
+        if (bh, t, d, causal) == (*path_shape, False):
+            errs[dtype] = {"flash_attention_bwd_dq": got["dq"][1],
+                           "flash_attention_bwd_dkv": max(got["dk"][1],
+                                                          got["dv"][1])}
 
-    bh, t, d, _, causal = cases[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def time_kernels(dtype, names):
-        """[kernel_time] lines at the training shape in `dtype`: each
-        kernel in `names` beside its plain version and SDPA (the forward,
-        or its backward: one call for dq, dk and dv)."""
+    def time_kernels(shape, dtype, names):
+        """[kernel_time] lines at `shape` in `dtype`, without the causal
+        mask (the training paths'): each kernel in `names` beside its
+        plain version and SDPA (the forward, or its backward: one call for
+        dq, dk and dv); float32 lines also print the CUDA-core bound
+        beside the 3xTF32 one."""
+        bh, t, d = shape
+        causal = False
         args = inputs(bh, t, d, dtype, causal)
         q, k, v, do = args[:4]
         calls = {
@@ -378,22 +408,28 @@ def bwd_kernel_phase(torch):
             bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal,
                                                     elsize)
             flops = attention_flops(name, bh, t, d, causal)
+            core = {} if dtype == bf16 else {"cuda_core_bound_ms": (
+                f"{cuda_core_bound_ms(name, bh, t, d, causal):.4f}")}
             phase("kernel_time", kernel=name,
                   shape=f"[{bh},{t},{d}] {str(dtype)[6:]}", ms=f"{ms:.4f}",
                   tflops=f"{flops / ms / 1e9:.1f}",
                   plain_ms=f"{plain_ms:.4f}",
                   library_ms=f"{library[name]:.4f}",
-                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-            records[name] = {"ms": ms, "plain_ms": plain_ms,
+                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **core)
+            records[name] = {"shape": f"[{bh},{t},{d}]", "ms": ms,
+                             "plain_ms": plain_ms,
                              "library_ms": library[name],
-                             "bound_ms": bound_ms, "bound_by": bound_by}
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "max_abs_err": errs[dtype].get(name)}
         return records
 
-    records = time_kernels(bf16, (*BWD_KERNELS, "flash_attention_fwd"))
-    for name, err in errs.items():
-        records[name]["max_abs_err"] = err
-    # the float32 backward (the float32 check step's kernels)
-    time_kernels(f32, BWD_KERNELS)
+    records = {"bfloat16": time_kernels(
+        TRAIN_SHAPE, bf16, (*BWD_KERNELS, "flash_attention_fwd"))}
+    # the float32 backward at the bf16 shape (the earlier PRs' yardstick
+    # shape), then all three float32 kernels at the float32 training path's
+    time_kernels(TRAIN_SHAPE, f32, BWD_KERNELS)
+    records["float32"] = time_kernels(
+        F32_TRAIN_SHAPE, f32, (*BWD_KERNELS, "flash_attention_fwd"))
     return records
 
 
@@ -521,10 +557,12 @@ def _model_flops(cfg, batch):
 KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
                   "dq_kernel": "flash_attention_bwd_dq",
                   "dkv_kernel": "flash_attention_bwd_dkv"}
-# the tensor-core kernels the bf16 training step must run, and the one the
-# float32 serving forward must run
+# the tensor-core kernels the bf16 training step must run, the one the
+# float32 serving forward must run, and the three the float32 training
+# step must run
 BF16_KERNEL_SYMBOLS = ("fwd_kernel_mma", "dq_kernel_mma", "dkv_kernel_mma")
 F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
+F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32x3", "dkv_kernel_tf32x3")
 
 
 def _kernel_class(name):
@@ -635,8 +673,12 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
         check(n == 0, f"the scalar fwd_kernel ran {n} times")
 
 
-TRAIN_BATCH = 32          # bench.py's default BERT-base step
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+# the training runs, by amp: (batch, warm-up steps, timed steps, the
+# kernels the profiled step must run, phase tag). bf16 AMP at bench.py's
+# default BERT-base step; float32 at batch 16, as float32 activations
+# take twice AMP's memory
+TRAIN_RUNS = {True: (32, 3, 10, BF16_KERNEL_SYMBOLS, "train"),
+              False: (16, 2, 5, F32_KERNEL_SYMBOLS, "train_f32")}
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
@@ -672,13 +714,17 @@ def _build_train(ptt, transformer, cfg, batch, amp):
     return main, startup, loss
 
 
-def train_phase(torch, card):
+def train_phase(torch, card, amp=True):
     """BERT-base training at full width through the port's entry points:
-    build_train (bf16 AMP, AdamW at lr 1e-4, dropout 0.1), the startup
-    program on the card, WARMUP_STEPS then TIMED_STEPS steps on seeded
-    random tokens with labels = tokens. Every count is set to 0 just
-    before the timed steps and read just after. Then one step under
-    torch.profiler, split by kernel class."""
+    build_train (bf16 AMP or float32, AdamW at lr 1e-4, dropout 0.1), the
+    startup program on the card, then TRAIN_RUNS[amp]'s warm-up and
+    timed steps on seeded random tokens with labels = tokens. Every count
+    is set to 0 just before the timed steps and read just after. Then one
+    step under torch.profiler, split by kernel class: each of the run's
+    kernels must run once a layer, and no other flash kernel. MFU is
+    against the peak of the units the step's products run on: the bf16
+    tensor cores under AMP, the CUDA cores' float32 peak in float32
+    (cuBLAS takes full float32 products: allow_tf32 stays False)."""
     import statistics
 
     import numpy as np
@@ -686,23 +732,22 @@ def train_phase(torch, card):
     from paddle_tpu_torch.models import transformer
     from torch.profiler import ProfilerActivity, profile
 
+    batch, warmup, steps, symbols, tag = TRAIN_RUNS[amp]
     cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
                                 use_flash=True)
     t0 = time.perf_counter()
-    main, startup, loss = _build_train(ptt, transformer, cfg, TRAIN_BATCH,
-                                       True)
+    main, startup, loss = _build_train(ptt, transformer, cfg, batch, amp)
     scope = ptt.Scope()
     exe = ptt.Executor()  # the card
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
-    phase("train_build", layers=cfg.n_layers, d_model=cfg.d_model,
+    phase(f"{tag}_build", layers=cfg.n_layers, d_model=cfg.d_model,
           heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
-          batch=TRAIN_BATCH, T=T, amp=True,
-          ops=len(main.global_block().ops),
+          batch=batch, T=T, amp=amp, ops=len(main.global_block().ops),
           seconds=f"{time.perf_counter() - t0:.2f}")
 
     rng = np.random.RandomState(0)
-    toks = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, T)).astype("int64")
+    toks = rng.randint(0, cfg.vocab_size, (batch, T)).astype("int64")
     feed = {"tokens": toks, "labels": toks}
 
     def step():
@@ -718,12 +763,12 @@ def train_phase(torch, card):
 
     losses = [step()[0]]
     misses_after_first = exe.cache_stats()["misses"]
-    losses += [step()[0] for _ in range(WARMUP_STEPS - 1)]
+    losses += [step()[0] for _ in range(warmup - 1)]
     torch.cuda.reset_peak_memory_stats()
     # the training path's run: every count to 0 just before, read after
     _zero_launch_counts()
     host_times, times = [], []
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         value, host_ms, step_ms = step()
         losses.append(value)
         host_times.append(host_ms)
@@ -737,24 +782,24 @@ def train_phase(torch, card):
     check(losses[-1] < losses[0],
           f"loss did not fall: {losses[0]} -> {losses[-1]}")
     for name, n in launches.items():
-        check(n == cfg.n_layers * TIMED_STEPS,
-              f"{name} launches {n} != {cfg.n_layers} x {TIMED_STEPS} steps")
+        check(n == cfg.n_layers * steps,
+              f"{name} launches {n} != {cfg.n_layers} x {steps} steps")
     check(misses == misses_after_first,
           f"executor cache misses after the first step: "
           f"{misses_after_first} -> {misses}")
 
     step_ms = statistics.median(times)
-    tokens = TRAIN_BATCH * T
-    tok_s = tokens / (step_ms / 1e3)
+    tok_s = batch * T / (step_ms / 1e3)
     flops_tok = model_flops_per_token(cfg, T)
-    phase("train", steps=TIMED_STEPS, step_ms_median=f"{step_ms:.3f}",
+    phase(tag, steps=steps, step_ms_median=f"{step_ms:.3f}",
           step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
           host_ms_median=f"{statistics.median(host_times):.3f}",
           tokens_per_s=f"{tok_s:.1f}",
           model_mflop_per_token=f"{flops_tok / 1e6:.2f}",
-          mfu=f"{flops_tok * tok_s / BF16_FLOPS:.4f}",
+          model_tflops=f"{flops_tok * tok_s / 1e12:.2f}",
+          mfu=f"{flops_tok * tok_s / (BF16_FLOPS if amp else F32_FLOPS):.4f}",
           loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
-          launches_per_step=launches["flash_attention_fwd"] // TIMED_STEPS,
+          launches_per_step=launches["flash_attention_fwd"] // steps,
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -768,16 +813,22 @@ def train_phase(torch, card):
     by_class = _device_ms_by_class(
         per_name, ("matmul", "flash_attention_fwd", *BWD_KERNELS, "other"))
     busy = sum(by_class.values())
-    phase("train_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
+    phase(f"{tag}_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms": f"{v:.3f}" for k, v in by_class.items()},
           card=f"'{card}'")
     _print_flash_symbols(per_name)
     if busy:
-        for sym in BF16_KERNEL_SYMBOLS:
+        for sym in symbols:
             n = _symbol_launches(per_name, sym)
             check(n == cfg.n_layers, f"{sym} ran {n} times in the profiled "
                   f"step, not {cfg.n_layers}")
+        # no other flash kernel (another design, or a scalar one) ran
+        n = sum(n for name, (_, n) in per_name.items()
+                if _kernel_class(name) in KERNEL_CLASSES.values())
+        check(n == len(symbols) * cfg.n_layers,
+              f"{n} flash kernel launches in the profiled step, not "
+              f"{len(symbols)} x {cfg.n_layers} of {symbols}")
     others = sorted(((ms, name) for name, (ms, _) in per_name.items()
                      if _kernel_class(name) == "other"), reverse=True)
     for ms, name in others[:8]:
@@ -796,7 +847,7 @@ def train_cpu_check(torch):
     card's AMP step against the CPU's float32 step (what an AMP step that
     silently ran in float32 would be near: bf16 rounding noise of the
     same size), and flash attention's outputs must be bfloat16 under AMP
-    and float32 without."""
+    and float32 without. Returns the float32 card step's launches."""
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.convert import scope_from_numpy
@@ -887,6 +938,7 @@ def train_cpu_check(torch):
     check(all(e <= AMP_GRAD_RTOL for e in amp_grads.values()),
           f"AMP card vs CPU gradients differ: {amp_grads} > "
           f"{AMP_GRAD_RTOL}")
+    return launches[False, "card"]
 
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
@@ -934,82 +986,98 @@ def _ptxas_kernels(log):
 
 def build_phase():
     """Compile every kernel source with nvcc, one process per source, all
-    started together; print each kernel instance's registers and spills,
-    and fail if any instance spills."""
+    started together; print each kernel instance's registers and spills
+    (from the log kept beside a library found built), and fail if any
+    instance spills or a source has no ptxas log to read."""
     from concurrent.futures import ThreadPoolExecutor
     from paddle_tpu_torch.ops.cuda import build
 
+    found = [n for n in SOURCES if os.path.exists(build.library_path(n))]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         logs = dict(zip(SOURCES, pool.map(lambda n: build.build(n)[1],
                                           SOURCES)))
     phase("build", sources=len(SOURCES),
           seconds=f"{time.perf_counter() - t0:.2f}",
-          found_built=not any(logs.values()))
-    spilled = []
+          found_built=",".join(found) or None)
+    spilled, unread = [], []
     for source, log in logs.items():
-        for name, regs, spills in _ptxas_kernels(log):
+        kernels = _ptxas_kernels(log)
+        if not kernels:
+            unread.append(source)
+        for name, regs, spills in kernels:
             print(f"  {source}: {name} {regs} registers; {spills}",
                   flush=True)
             if "0 bytes spill stores, 0 bytes spill loads" not in spills:
                 spilled.append(name)
+    check(not unread, f"no ptxas log to read for {unread}: delete the "
+          f"library to rebuild it")
     check(not spilled, f"kernel instances that spill registers: {spilled}")
 
 
 # Mutation check of the kernels' limits: (name, source under csrc/, text,
-# replacement, phase). Each breaks one rule of a kernel; `python3
-# chip_smoke.py --mutants` runs the phase on a broken copy of the package
+# replacement, phases). Each breaks one rule of a kernel; `python3
+# chip_smoke.py --mutants` runs the phases on a broken copy of the package
 # in a temporary directory, with `check` printing instead of raising, and
-# fails unless every mutant fails a check.
+# fails unless every mutant fails a check in each of its phases.
 MUTANTS = [
     # the accumulator not rescaled when the running max grows
     ("fwd_no_alpha", "flash_attention_fwd.cu",
      "acc[mt][n][2 * r] *= alpha;\n          acc[mt][n][2 * r + 1] *= alpha;",
-     "", "kernel_phase"),
+     "", ("kernel_phase",)),
     # LSE left in log2 units
     ("fwd_lse_log2", "flash_attention_fwd.cu",
      "m[mt][r] * sm_scale + logf(l_safe[r])",
-     "m[mt][r] * scale + log2f(l_safe[r])", "kernel_phase"),
+     "m[mt][r] * scale + log2f(l_safe[r])", ("kernel_phase",)),
     # keys past kv_len unmasked in the ragged last tile
     ("fwd_no_ragged_mask", "flash_attention_fwd.cu",
      "if (kc >= kv_len || (causal && kc > qr)) s[mt][n][i] = NEG_INF;",
-     "if (causal && kc > qr) s[mt][n][i] = NEG_INF;", "kernel_phase"),
+     "if (causal && kc > qr) s[mt][n][i] = NEG_INF;", ("kernel_phase",)),
     # dS from the bf16-rounded P instead of the float32 P
     ("dkv_ds_from_rounded_p", "flash_attention_bwd.cu",
      "dp[n][i] = s[n][i] * (dp[n][i] - tD[qc]) * sm_scale;",
      "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
-     "(dp[n][i] - tD[qc]) * sm_scale;", "bwd_kernel_phase"),
+     "(dp[n][i] - tD[qc]) * sm_scale;", ("bwd_kernel_phase",)),
     # dQ: dS from the bf16-rounded P
     ("dq_ds_from_rounded_p", "flash_attention_bwd.cu",
      "dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;",
      "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
-     "(dp[n][i] - dl[i >> 1]) * sm_scale;", "bwd_kernel_phase"),
+     "(dp[n][i] - dl[i >> 1]) * sm_scale;", ("bwd_kernel_phase",)),
     # dQ: keys after the query unmasked on the diagonal tile. (Keys past T
     # unmasked in the ragged tile change nothing a check can read: their
     # rows of K are zero-filled, so their dS K terms are exactly 0.)
     ("dq_no_causal_mask", "flash_attention_bwd.cu",
      "if (kc >= t || (causal && kc > qr)) p = 0.f;", "if (kc >= t) p = 0.f;",
-     "bwd_kernel_phase"),
-    # float32 forward: one TF32 product (hi hi) instead of three
-    ("fwd_f32_one_tf32_product", "mma_tf32.cuh",
+     ("bwd_kernel_phase",)),
+    # every float32 kernel (the forward, dQ and dK/dV share mma_1688_x3):
+    # one TF32 product (hi hi) instead of three
+    ("f32_one_tf32_product", "mma_tf32.cuh",
      "  mma_1688(d0, al, bh[0], bh[1]);\n  mma_1688(d1, al, bh[2], bh[3]);\n"
      "  mma_1688(d0, ah, bl[0], bl[1]);\n  mma_1688(d1, ah, bl[2], bl[3]);\n",
-     "", "kernel_phase"),
+     "", ("kernel_phase", "bwd_kernel_phase")),
     # float32 forward: keys past kv_len unmasked in the ragged last tile
     ("fwd_f32_no_ragged_mask", "flash_attention_fwd.cu",
      "if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;",
-     "if (causal && kc > qr) s[n][i] = NEG_INF;", "kernel_phase"),
+     "if (causal && kc > qr) s[n][i] = NEG_INF;", ("kernel_phase",)),
+    # float32 dK/dV: queries before the key unmasked on the diagonal tile
+    ("dkv_f32_no_causal_mask", "flash_attention_bwd.cu",
+     "if (query >= t || (causal && query < key)) e = 0.f;",
+     "if (query >= t) e = 0.f;", ("bwd_kernel_phase",)),
+    # float32 dQ: keys after the query unmasked on the diagonal tile
+    ("dq_f32_no_causal_mask", "flash_attention_bwd.cu",
+     "if (key >= t || (causal && key > query)) e = 0.f;",
+     "if (key >= t) e = 0.f;", ("bwd_kernel_phase",)),
 ]
 
 
 def mutant_phase():
-    """Run each of MUTANTS; print its phase's check lines and failed
-    checks as `[mutant]` lines. Returns the names of mutants no check
-    caught."""
+    """Run each of MUTANTS; print its phases' check lines and failed
+    checks as `[mutant]` lines. Returns the names of mutants that some
+    phase of theirs did not catch."""
     import shutil
     root = os.path.dirname(os.path.abspath(__file__))
     missed = []
-    for name, source, old, new, fn in MUTANTS:
+    for name, source, old, new, fns in MUTANTS:
         with tempfile.TemporaryDirectory(prefix="ptt_mutant_") as tmp:
             shutil.copytree(os.path.join(root, "paddle_tpu_torch"),
                             os.path.join(tmp, "paddle_tpu_torch"),
@@ -1026,22 +1094,33 @@ def mutant_phase():
             code = ("import sys, torch; sys.path.insert(0, '.'); "
                     "import chip_smoke as c; c.check = lambda ok, msg: ok "
                     "or print('[failed] ' + msg[:300], flush=True); "
-                    f"c.build_phase(); c.{fn}(torch)")
+                    "c.build_phase(); " + "; ".join(
+                        f"print('[phase] {fn}', flush=True); "
+                        f"c.{fn}(torch)" for fn in fns))
             proc = subprocess.run(
                 [sys.executable, "-c", code], cwd=tmp, text=True,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 env={**os.environ,
                      "PADDLE_TPU_TORCH_BUILD_DIR": os.path.join(tmp, "b")})
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith(("[kernel", "[failed]"))]
-        for ln in lines:
-            print(f"[mutant] {name} {ln}", flush=True)
-        caught = proc.returncode != 0 or any(
-            ln.startswith("[failed]") for ln in lines)
-        phase("mutant", name=name, rc=proc.returncode, caught=caught)
+        # caught per phase: a failed check in its lines, or the process
+        # failing while it ran
+        caught, current = {}, None
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("[phase] "):
+                current = ln.split()[1]
+                caught[current] = False
+            elif ln.startswith(("[kernel", "[failed]")):
+                print(f"[mutant] {name} {ln}", flush=True)
+                if ln.startswith("[failed]") and current:
+                    caught[current] = True
+        if proc.returncode != 0 and current:
+            caught[current] = True
+        phase("mutant", name=name, rc=proc.returncode,
+              caught=all(caught.get(fn, False) for fn in fns),
+              **{f"caught_{fn}": caught.get(fn, False) for fn in fns})
         if proc.returncode != 0:
             print(proc.stdout[-2000:], flush=True)
-        if not caught:
+        if not all(caught.get(fn, False) for fn in fns):
             missed.append(name)
     return missed
 
@@ -1073,25 +1152,39 @@ def main():
         check(not missed, f"mutants no check caught: {missed}")
         return 0
 
-    fwd_err = kernel_phase(torch)
+    fwd_errs = kernel_phase(torch)
     records = bwd_kernel_phase(torch)
-    records["flash_attention_fwd"]["max_abs_err"] = fwd_err
+    for dtype, err in fwd_errs.items():
+        records[dtype]["flash_attention_fwd"]["max_abs_err"] = err
     served = serve_phase(torch, card)
     trained = train_phase(torch, card)
-    train_cpu_check(torch)
+    trained_f32 = train_phase(torch, card, amp=False)
+    checked_f32 = train_cpu_check(torch)
 
-    # launches on the main paths: the forward's over the serving and the
-    # training runs, the backward kernels' over the training run
-    out = []
-    for name, (source, line) in KERNEL_SOURCES.items():
-        rec = records[name]
-        out.append({
-            "name": name, "route": "cuda",
+    # launches on the main paths, per dtype: the bf16 kernels' over the
+    # bf16 training run; the float32 kernels' over the float32 training
+    # run and the float32 check step, and the float32 forward's over the
+    # serving run too
+    def entry(name, rec, launches, dtype=None):
+        """One kernel's record; a dtype instance of its own is named
+        <name>_<dtype> and carries its dtype."""
+        source, line = KERNEL_SOURCES[name]
+        own = {"dtype": dtype} if dtype else {}
+        return {
+            "name": f"{name}_{dtype}" if dtype else name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": served.get(name, 0) + trained[name],
+            "launches": launches, **own,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "shape")}}
+
+    out = [entry(name, records["bfloat16"][name], trained[name])
+           for name in KERNEL_SOURCES]
+    out += [entry(name, records["float32"][name],
+                  served.get(name, 0) + trained_f32[name] +
+                  checked_f32[name], "float32")
+            for name in KERNEL_SOURCES]
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

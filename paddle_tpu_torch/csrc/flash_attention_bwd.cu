@@ -30,10 +30,15 @@
 // The ragged tail (T not a multiple of 64) is masked in the kernels, so
 // the caller need not pad T.
 //
-// Bound at the training path's shape ([bh=384, T=512, d=64] bf16): the dq
-// pass does 6*d operations per (q, k) pair (38.7 GFLOP) and the dk/dv pass
-// 8*d (51.5 GFLOP) against 127-153 MB of traffic, so both are bound by
+// Bounds. The dq pass does 6*d operations per (q, k) pair and the dk/dv
+// pass 8*d. At the bf16 training path's shape ([bh=384, T=512, d=64]):
+// 38.7 and 51.5 GFLOP against 127-153 MB of traffic, so both are bound by
 // operations: 0.039 / 0.052 ms at the 989 TFLOP/s bf16 tensor-core peak.
+// At the float32 training path's shape ([bh=192, T=512, d=64]): 19.3 and
+// 25.8 GFLOP, each product taken three times as 3xTF32 (below), 0.117 /
+// 0.156 ms at the 494.7 TFLOP/s TF32 tensor-core peak (0.288 / 0.385 ms
+// for the same work at the CUDA cores' 67 TFLOP/s float32 peak), against
+// 127 / 152 MB (0.038 / 0.045 ms at 3.35 TB/s): bound by operations too.
 //
 // Kernels, chosen by dtype in the entry points:
 //
@@ -72,317 +77,65 @@
 //   and dO fragments take 128 registers a thread, so the score tiles are
 //   computed 32 key columns at a time (64 below).
 //
-// dq_kernel<D> and dkv_kernel<D> (float32), scalar float32 FMAs: tiles
-//   staged as float32, rows padded by one word so the column walks do not
-//   collide on a bank; 256 threads, thread (ty, tx) owns tile rows 4*ty ..
-//   4*ty+3, score columns tx + 16*j and output columns tx + 16*c; P and dS
-//   pass through shared memory; the accumulators live in float32 registers
-//   and are stored once. One TF32 product would break the float32 limit
-//   of 1e-4; three (3xTF32, as the float32 forward runs them, mma_tf32.cuh)
-//   would meet it. The float32 backward runs only in a batch-1 check step,
-//   so it stays on the CUDA cores.
+// dkv_kernel_tf32x3<D> (float32), dkv_kernel_mma's design on the TF32
+//   tensor cores with 3xTF32 products (mma_tf32.cuh): each operand splits
+//   into a tf32 high and low part and each product is lo hi + hi lo + hi
+//   hi with float32 accumulation. One TF32 product keeps 11 bits of each
+//   operand and misses the float32 limit of 1e-4; three meet it. All four
+//   products (S^T, dV, dP^T, dK) are mma.m16n8k8 taken three times, so the
+//   kernel is bound by the tensor cores and by the ALU work of the splits.
+//   4 warps of 16 key rows; K and V staged once, Q, dO, LSE and delta tiles
+//   of 64 query rows through a 2-stage cp.async ring, all float32 with rows
+//   padded to D + 4 words (no bank conflicts for ldmatrix or for 32-bit
+//   reads). K's and V's A fragments and Q's and dO's B fragments for S^T
+//   and dP^T come by b16 ldmatrix (a float32 row of 16 bytes is four
+//   words, the tf32 fragment layout) and are split as they are used. For
+//   dV and dK, dO and Q are the k-by-n operand, which b16 ldmatrix cannot
+//   transpose for words: they come by 32-bit shared loads. P^T and dS^T
+//   stay float32 (the input dtype) and go from one product's C fragment to
+//   the next one's A fragment in registers, with the queries of each
+//   8-query step taken in the order 0, 2, 4, 6, 1, 3, 5, 7 and dO's and Q's
+//   rows read in that order. At d = 128 the dK and dV accumulators of all
+//   128 columns would take 128 registers a thread, and ptxas spills 48 to
+//   56 bytes whether the score tiles are computed 32 or 16 query columns
+//   at a time: so there a block sums one 64-column half of dK and dV (a
+//   grid dimension of two), at the price of computing S^T and dP^T twice;
+//   score tiles 32 query columns at a time (64 below). K's and V's
+//   fragments are read from shared memory per k step rather than held.
+//   Shared memory: 203.8 KB at
+//   d = 128 (one block an SM; the full 2-stage ring of 64-row tiles fits),
+//   105.5 KB at d = 64.
+//
+// dq_kernel_tf32x3<D> (float32), the same for dq_kernel_mma's design: Q
+//   and dO staged once and read from shared memory per k step, K and V
+//   tiles through the ring, S = Q K^T and dP = dO V^T with K's and V's B
+//   fragments by ldmatrix, dS from dP's C fragment into dS K's A fragment
+//   in registers, K's rows for dS K by 32-bit loads; every product 3xTF32.
+//   Masking and early stop as in dq_kernel_mma; 32 key columns a pass at
+//   d = 128; 202.8 KB of shared memory at d = 128, 104.4 KB at d = 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-// ----------------------------------------------------------------- scalar
-
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // key rows per tile
-constexpr int NTHREADS = 256;  // 16 x 16 thread grid
-constexpr int PS = 65;         // padded row stride of the 64-wide P/dS tiles
-
-// rows [r0, r0 + 64) of a [T, D] matrix into a padded tile; rows past T
-// read as 0
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int r0, int t) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
-    const int r = idx / D, c = idx % D;
-    const int gr = r0 + r;
-    dst[r * (D + 1) + c] = gr < t ? src[static_cast<size_t>(gr) * D + c] : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + BQ * PS);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * PS + 2 * BQ);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int t, float sm_scale, int causal) {
-  constexpr int DC = D / 16;  // output columns per thread
-  constexpr int S = D + 1;    // padded row stride
-  extern __shared__ float smem[];
-  float* sQ = smem;            // [BQ][S]
-  float* sdO = sQ + BQ * S;    // [BQ][S]
-  float* sK = sdO + BQ * S;    // [BK][S]
-  float* sV = sK + BK * S;     // [BK][S]
-  float* sdS = sV + BK * S;    // [BQ][PS]
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-
-  load_tile<D>(sQ, q + base, q0, t);
-  load_tile<D>(sdO, dout + base, q0, t);
-
-  float row_lse[4], row_delta[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    row_lse[i] = qr < t ? lse[rbase + qr] : 0.f;
-    row_delta[i] = qr < t ? delta[rbase + qr] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  // causal: keys past the tile's last query row contribute nothing
-  const int kend = causal ? min(t, q0 + BQ) : t;
-  const int ntiles = (kend + BK - 1) / BK;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's sK/sV/sdS are no longer read
-    load_tile<D>(sK, k + base, k0, t);
-    load_tile<D>(sV, v + base, k0, t);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], g[4], b[4], e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sQ[(ty * 4 + i) * S + kk];
-        g[i] = sdO[(ty * 4 + i) * S + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = sK[(tx + 16 * j) * S + kk];
-        e[j] = sV[(tx + 16 * j) * S + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], e[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool keep = qr < t && kc < t && (!causal || qr >= kc);
-        const float p = keep ? expf(s[i][j] * sm_scale - row_lse[i]) : 0.f;
-        const float ds = p * (dp[i][j] - row_delta[i]) * sm_scale;
-        sdS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float d[4], kv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = sdS[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) kv[c] = sK[kk * S + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(d[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= t) continue;
-    float* row = dq + base + static_cast<size_t>(qr) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[i][c];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv, int t,
-               float sm_scale, int causal) {
-  constexpr int DC = D / 16;
-  constexpr int S = D + 1;
-  extern __shared__ float smem[];
-  float* sK = smem;            // [BK][S]
-  float* sV = sK + BK * S;     // [BK][S]
-  float* sQ = sV + BK * S;     // [BQ][S]
-  float* sdO = sQ + BQ * S;    // [BQ][S]
-  float* sP = sdO + BQ * S;    // [BK][PS]: P^T, key rows by query columns
-  float* sdS = sP + BK * PS;   // [BK][PS]: dS^T
-  float* sL = sdS + BK * PS;   // [BQ]: the q tile's LSE
-  float* sD = sL + BQ;         // [BQ]: the q tile's delta
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-
-  load_tile<D>(sK, k + base, k0, t);
-  load_tile<D>(sV, v + base, k0, t);
-
-  float acc_k[4][DC], acc_v[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  // causal: query tiles before the one holding the diagonal see no key of
-  // this tile (BQ == BK, so that tile's index is the k tile's own)
-  const int qstart = causal ? k0 / BQ : 0;
-  const int ntiles = (t + BQ - 1) / BQ;
-
-  for (int qt = qstart; qt < ntiles; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // the previous tile's sQ/sdO/sP/sdS are no longer read
-    load_tile<D>(sQ, q + base, q0, t);
-    load_tile<D>(sdO, dout + base, q0, t);
-    if (threadIdx.x < BQ) {
-      const int qr = q0 + threadIdx.x;
-      sL[threadIdx.x] = qr < t ? lse[rbase + qr] : 0.f;
-      sD[threadIdx.x] = qr < t ? delta[rbase + qr] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tiles: row i = key k0 + 4*ty + i, column j = query
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < D; ++kk) {
-      float a[4], e[4], b[4], g[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sK[(ty * 4 + i) * S + kk];
-        e[i] = sV[(ty * 4 + i) * S + kk];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = sQ[(tx + 16 * j) * S + kk];
-        g[j] = sdO[(tx + 16 * j) * S + kk];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(e[i], g[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kr = k0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j;
-        const int qr = q0 + qc;
-        const bool keep = qr < t && kr < t && (!causal || qr >= kr);
-        const float p = keep ? expf(s[i][j] * sm_scale - sL[qc]) : 0.f;
-        const float ds = p * (dp[i][j] - sD[qc]) * sm_scale;
-        sP[(ty * 4 + i) * PS + qc] = p;
-        sdS[(ty * 4 + i) * PS + qc] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pp[4], dd[4], o[DC], x[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pp[i] = sP[(ty * 4 + i) * PS + qq];
-        dd[i] = sdS[(ty * 4 + i) * PS + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        o[c] = sdO[qq * S + tx + 16 * c];
-        x[c] = sQ[qq * S + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          acc_v[i][c] = fmaf(pp[i], o[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(dd[i], x[c], acc_k[i][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty * 4 + i;
-    if (kr >= t) continue;
-    float* krow = dk + base + static_cast<size_t>(kr) * D;
-    float* vrow = dv + base + static_cast<size_t>(kr) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      krow[tx + 16 * c] = acc_k[i][c];
-      vrow[tx + 16 * c] = acc_v[i][c];
-    }
-  }
-}
-
-
-// --------------------------------------------------------------- bfloat16
-
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 key rows
+constexpr int BQ = 64;            // query rows per tile
+constexpr int BK = 64;            // key rows per tile
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // K and V once, then two stages of Q and dO ([64][D + 8] bf16 each) and
-  // of LSE and delta (64 floats each)
-  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
-}
-
-// Q, dO, LSE and delta of q tile q0 into one stage of the ring
-template <int D>
-__device__ __forceinline__ void load_q_stage(
-    __nv_bfloat16* sQ, __nv_bfloat16* sdO, float* sL, float* sD,
-    const __nv_bfloat16* q, const __nv_bfloat16* dout, const float* lse,
-    const float* delta, int q0, int t) {
+// Q, dO, LSE and delta of q tile q0 into one stage of the ring (Q and dO
+// in bfloat16 or float32)
+template <int D, typename T>
+__device__ __forceinline__ void load_q_stage(T* sQ, T* sdO, float* sL,
+                                             float* sD, const T* q,
+                                             const T* dout, const float* lse,
+                                             const float* delta, int q0,
+                                             int t) {
   using namespace mma_bf16;
   static_assert(MMA_THREADS == 2 * BQ, "one thread per LSE or delta entry");
   load_rows_async<BQ, D, MMA_THREADS>(sQ, q, q0, t);
@@ -391,6 +144,15 @@ __device__ __forceinline__ void load_q_stage(
   const bool ok = q0 + r < t;
   const float* src = threadIdx.x < BQ ? lse : delta;
   cp_async_4((threadIdx.x < BQ ? sL : sD) + r, src + (ok ? q0 + r : 0), ok);
+}
+
+// --------------------------------------------------------------- bfloat16
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K and V once, then two stages of Q and dO ([64][D + 8] bf16 each) and
+  // of LSE and delta (64 floats each)
+  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
 }
 
 template <int D>
@@ -778,6 +540,405 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------- float32
+
+// Columns of dK and dV one dkv_kernel_tf32x3 block sums: all of them up
+// to d = 64; at d = 128 one half, each half by a block of its own
+__host__ __device__ constexpr int dkv_tf32_columns(int d) {
+  return d > 64 ? 64 : d;
+}
+
+template <int D>
+constexpr size_t dkv_tf32_smem_bytes() {
+  // K and V once, then two stages of Q and dO ([64][D + 4] float32 each)
+  // and of LSE and delta (64 floats each)
+  return sizeof(float) * (6 * BK * (D + 4) + 4 * BQ);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int t, float sm_scale,
+                      int causal) {
+  using namespace mma_bf16;
+  using namespace mma_tf32;
+  constexpr int LD = D + 4;      // padded row stride (floats)
+  constexpr int TILE = BQ * LD;  // floats of one staged tile
+  constexpr int KD = D / 8;      // k steps over d
+  // columns of dK and dV this block sums, from c0 (the head comment)
+  constexpr int DH = dkv_tf32_columns(D);
+  constexpr int ND = DH / 8;     // n-blocks of those columns
+  // query columns of the score tile per compute pass
+  constexpr int QC = D > 64 ? 32 : 64;
+  constexpr int NQ = QC / 8;     // n-blocks of a score pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sK = reinterpret_cast<float*>(smem_raw);
+  float* sV = sK + TILE;
+  float* sQ = sV + TILE;       // [2][BQ][LD]
+  float* sdO = sQ + 2 * TILE;  // [2][BQ][LD]
+  float* sL = sdO + 2 * TILE;  // [2][BQ]
+  float* sD = sL + 2 * BQ;     // [2][BQ]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * BK;
+  const int c0 = D > DH ? blockIdx.z * DH : 0;
+  const int row0 = k0 + warp * 16;  // the warp's first key row
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t rbase = static_cast<size_t>(bh) * t;
+  const float* qb = q + base;
+  const float* ob = dout + base;
+
+  // causal: query tiles before the one holding the diagonal see no key of
+  // this tile (BQ == BK, so that tile's index is the k tile's own)
+  const int qstart = causal ? k0 / BQ : 0;
+  const int ntiles = (t + BQ - 1) / BQ;
+
+  load_rows_async<BK, D, MMA_THREADS>(sK, k + base, k0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sV, v + base, k0, t);
+  load_q_stage<D>(sQ, sdO, sL, sD, qb, ob, lse + rbase, delta + rbase,
+                  qstart * BQ, t);
+  cp_async_commit();
+
+  const float scale = sm_scale * LOG2E;  // exponents in log2 units
+  float acc_k[ND][4], acc_v[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int qt = qstart; qt < ntiles; ++qt) {
+    const int q0 = qt * BQ;
+    const int st = (qt - qstart) & 1;
+    if (qt + 1 < ntiles)  // the next tile into the other stage
+      load_q_stage<D>(sQ + (st ^ 1) * TILE, sdO + (st ^ 1) * TILE,
+                      sL + (st ^ 1) * BQ, sD + (st ^ 1) * BQ, qb, ob,
+                      lse + rbase, delta + rbase, q0 + BQ, t);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) has landed
+    __syncthreads();
+    const float* tQ = sQ + st * TILE;
+    const float* tdO = sdO + st * TILE;
+    const float* tL = sL + st * BQ;
+    const float* tD = sD + st * BQ;
+    // mask only the ragged last tile and the diagonal tile
+    const bool edge = q0 + BQ > t || (causal && q0 < k0 + BK - 1);
+
+#pragma unroll
+    for (int j0 = 0; j0 < BQ; j0 += QC) {
+      // S^T = K Q^T: the warp's 16 key rows x QC query columns; K's
+      // fragments are read from shared memory per k step
+      float p[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4], kh[4], kl[4];
+        ldmatrix_x4(a, a_addr(sK, LD, warp * 16, kk * 8, lane));
+        split4(a, kh, kl);
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 2; ++n2) {
+          uint32_t b[4], qh[4], ql[4];
+          ldmatrix_x4(b, bn_addr(tQ, LD, j0 + n2 * 16, kk * 8, lane));
+          split4(b, qh, ql);
+          mma_1688_x3(p[2 * n2], p[2 * n2 + 1], kh, kl, qh, ql);
+        }
+      }
+
+      // P^T = exp(sm_scale S^T - LSE[q]); masked entries 0
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qc = j0 + n * 8 + 2 * c + (i & 1);
+          float e = exp2f(fmaf(p[n][i], scale, -tL[qc] * LOG2E));
+          if (edge) {
+            const int query = q0 + qc;
+            const int key = row0 + g + (i >> 1) * 8;
+            if (query >= t || (causal && query < key)) e = 0.f;
+          }
+          p[n][i] = e;
+        }
+
+      // dV += P^T dO, one 8-query step per n-block j of P^T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        uint32_t ph[4], pl[4];
+        c_to_a_tf32(p[j], ph, pl);
+        const float* rows = tdO + (j0 + j * 8 + 2 * c) * LD + c0 + g;
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t oh[4], ol[4];
+          b_from_rows<LD>(rows, n2 * 16, oh, ol);
+          mma_1688_x3(acc_v[2 * n2], acc_v[2 * n2 + 1], ph, pl, oh, ol);
+        }
+      }
+
+      // dP^T = V dO^T
+      float ds[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4], vh[4], vl[4];
+        ldmatrix_x4(a, a_addr(sV, LD, warp * 16, kk * 8, lane));
+        split4(a, vh, vl);
+#pragma unroll
+        for (int n2 = 0; n2 < NQ / 2; ++n2) {
+          uint32_t b[4], oh[4], ol[4];
+          ldmatrix_x4(b, bn_addr(tdO, LD, j0 + n2 * 16, kk * 8, lane));
+          split4(b, oh, ol);
+          mma_1688_x3(ds[2 * n2], ds[2 * n2 + 1], vh, vl, oh, ol);
+        }
+      }
+
+      // dS^T = P^T (dP^T - delta[q]) sm_scale
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds[n][i] = p[n][i] *
+                     (ds[n][i] - tD[j0 + n * 8 + 2 * c + (i & 1)]) * sm_scale;
+
+      // dK += dS^T Q
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        uint32_t sh[4], sl[4];
+        c_to_a_tf32(ds[j], sh, sl);
+        const float* rows = tQ + (j0 + j * 8 + 2 * c) * LD + c0 + g;
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t qh[4], ql[4];
+          b_from_rows<LD>(rows, n2 * 16, qh, ql);
+          mma_1688_x3(acc_k[2 * n2], acc_k[2 * n2 + 1], sh, sl, qh, ql);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // dK, dV staged in the warp's own rows of sK and sV (only this warp
+  // read them), then stored as 16-byte rows
+  float* wK = sK + warp * 16 * LD;
+  float* wV = sV + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * c;
+    *reinterpret_cast<float2*>(wK + g * LD + col) =
+        make_float2(acc_k[n][0], acc_k[n][1]);
+    *reinterpret_cast<float2*>(wK + (g + 8) * LD + col) =
+        make_float2(acc_k[n][2], acc_k[n][3]);
+    *reinterpret_cast<float2*>(wV + g * LD + col) =
+        make_float2(acc_v[n][0], acc_v[n][1]);
+    *reinterpret_cast<float2*>(wV + (g + 8) * LD + col) =
+        make_float2(acc_v[n][2], acc_v[n][3]);
+  }
+  __syncwarp();
+  constexpr int CHUNKS = DH / 4;
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
+    if (row0 + r >= t) continue;
+    const size_t off = base + static_cast<size_t>(row0 + r) * D + c0 + col;
+    *reinterpret_cast<float4*>(dk + off) =
+        *reinterpret_cast<const float4*>(wK + r * LD + col);
+    *reinterpret_cast<float4*>(dv + off) =
+        *reinterpret_cast<const float4*>(wV + r * LD + col);
+  }
+}
+
+template <int D>
+constexpr size_t dq_tf32_smem_bytes() {
+  // Q and dO once, then two stages of K and V, all [64][D + 4] float32
+  return sizeof(float) * 6 * BK * (D + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+    dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     int t, float sm_scale, int causal) {
+  using namespace mma_bf16;
+  using namespace mma_tf32;
+  constexpr int LD = D + 4;      // padded row stride (floats)
+  constexpr int TILE = BK * LD;  // floats of one staged tile
+  constexpr int KD = D / 8;      // k steps over d
+  constexpr int ND = D / 8;      // n-blocks over d
+  // key columns of the score tile per compute pass (the head comment)
+  constexpr int KC = D > 64 ? 32 : 64;
+  constexpr int NK = KC / 8;     // n-blocks of a score pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sdO = sQ + TILE;
+  float* sK = sdO + TILE;     // [2][BK][LD]
+  float* sV = sK + 2 * TILE;  // [2][BK][LD]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int row0 = q0 + warp * 16;  // the warp's first query row
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const size_t rbase = static_cast<size_t>(bh) * t;
+  const float* kb = k + base;
+  const float* vb = v + base;
+
+  // causal: keys past the block's last query row contribute nothing
+  const int kend = causal ? min(t, q0 + BQ) : t;
+  const int ntiles = (kend + BK - 1) / BK;
+
+  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
+  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout + base, q0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
+  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
+  cp_async_commit();
+
+  const float scale = sm_scale * LOG2E;  // exponents in log2 units
+  // this lane's rows g (r = 0) and g + 8: LSE in log2 units, and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = row0 + g + 8 * r;
+    lse2[r] = qr < t ? lse[rbase + qr] * LOG2E : 0.f;
+    dl[r] = qr < t ? delta[rbase + qr] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < ntiles) {  // the next tile into the other stage
+      const int st = (kt + 1) & 1;
+      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb, k0 + BK, t);
+      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb, k0 + BK, t);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) has landed
+    __syncthreads();
+    const float* tK = sK + (kt & 1) * TILE;
+    const float* tV = sV + (kt & 1) * TILE;
+    // mask only the ragged last tile and the diagonal tile
+    const bool edge = k0 + BK > t || (causal && k0 + BK - 1 > q0);
+
+#pragma unroll
+    for (int j0 = 0; j0 < BK; j0 += KC) {
+      // S = Q K^T: the warp's 16 query rows x KC key columns; Q's
+      // fragments are read from shared memory per k step
+      float p[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4], qh[4], ql[4];
+        ldmatrix_x4(a, a_addr(sQ, LD, warp * 16, kk * 8, lane));
+        split4(a, qh, ql);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t b[4], kh[4], kl[4];
+          ldmatrix_x4(b, bn_addr(tK, LD, j0 + n2 * 16, kk * 8, lane));
+          split4(b, kh, kl);
+          mma_1688_x3(p[2 * n2], p[2 * n2 + 1], qh, ql, kh, kl);
+        }
+      }
+
+      // P = exp(sm_scale S - LSE); masked entries 0
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float e = exp2f(fmaf(p[n][i], scale, -lse2[i >> 1]));
+          if (edge) {
+            const int key = k0 + j0 + n * 8 + 2 * c + (i & 1);
+            const int query = row0 + g + (i >> 1) * 8;
+            if (key >= t || (causal && key > query)) e = 0.f;
+          }
+          p[n][i] = e;
+        }
+
+      // dP = dO V^T
+      float ds[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[n][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4], oh[4], ol[4];
+        ldmatrix_x4(a, a_addr(sdO, LD, warp * 16, kk * 8, lane));
+        split4(a, oh, ol);
+#pragma unroll
+        for (int n2 = 0; n2 < NK / 2; ++n2) {
+          uint32_t b[4], vh[4], vl[4];
+          ldmatrix_x4(b, bn_addr(tV, LD, j0 + n2 * 16, kk * 8, lane));
+          split4(b, vh, vl);
+          mma_1688_x3(ds[2 * n2], ds[2 * n2 + 1], oh, ol, vh, vl);
+        }
+      }
+
+      // dS = P (dP - delta) sm_scale
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds[n][i] = p[n][i] * (ds[n][i] - dl[i >> 1]) * sm_scale;
+
+      // dQ += dS K, one 8-key step per n-block j of dS
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        uint32_t sh[4], sl[4];
+        c_to_a_tf32(ds[j], sh, sl);
+        const float* rows = tK + (j0 + j * 8 + 2 * c) * LD + g;
+#pragma unroll
+        for (int n2 = 0; n2 < ND / 2; ++n2) {
+          uint32_t kh[4], kl[4];
+          b_from_rows<LD>(rows, n2 * 16, kh, kl);
+          mma_1688_x3(acc[2 * n2], acc[2 * n2 + 1], sh, sl, kh, kl);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  // dQ staged in the warp's own rows of sQ (only this warp read them),
+  // then stored as 16-byte rows
+  float* wQ = sQ + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * c;
+    *reinterpret_cast<float2*>(wQ + g * LD + col) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(wQ + (g + 8) * LD + col) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int CHUNKS = D / 4;
+  for (int i = lane; i < 16 * CHUNKS; i += 32) {
+    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
+    if (row0 + r < t)
+      *reinterpret_cast<float4*>(dq + base +
+                                 static_cast<size_t>(row0 + r) * D + col) =
+          *reinterpret_cast<const float4*>(wQ + r * LD + col);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 // above 48 KB a block's shared memory must be requested explicitly; the
@@ -794,12 +955,12 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int bh, int t,
                           float sm_scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  auto kern = dq_kernel<D>;
+  constexpr size_t smem = dq_tf32_smem_bytes<D>();
+  auto kern = dq_kernel_tf32x3<D>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
   const dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -832,12 +993,12 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* delta, void* dk, void* dv, int bh,
                            int t, float sm_scale, int causal,
                            cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  auto kern = dkv_kernel<D>;
+  constexpr size_t smem = dkv_tf32_smem_bytes<D>();
+  auto kern = dkv_kernel_tf32x3<D>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BK - 1) / BK, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  const dim3 grid((t + BK - 1) / BK, bh, D / dkv_tf32_columns(D));
+  kern<<<grid, MMA_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -885,7 +1046,7 @@ bool bad_shape(int bh, int t) { return bh <= 0 || t <= 0 || bh > 65535; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t.
-// float32 runs dq_kernel, bfloat16 dq_kernel_mma
+// float32 runs dq_kernel_tf32x3, bfloat16 dq_kernel_mma
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -910,7 +1071,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   }
 }
 
-// float32 runs dkv_kernel, bfloat16 dkv_kernel_mma
+// float32 runs dkv_kernel_tf32x3, bfloat16 dkv_kernel_mma
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,

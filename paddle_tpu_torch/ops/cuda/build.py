@@ -8,8 +8,10 @@ a shared library with a plain C interface, for ``sm_90a`` (Hopper):
 
 The library name carries a hash of the source, of every header under
 ``csrc/`` (``*.cuh``) and of the flags, so an edited source or header is
-rebuilt and an unchanged one is loaded as it is. The build
-directory is ``paddle_tpu_torch/_build/`` (ignored by git), or
+rebuilt and an unchanged one is loaded as it is. nvcc's output (ptxas's
+registers and spills per kernel) is kept beside the library as
+``<name>-<hash>.so.log``, so a library found built still has its log. The
+build directory is ``paddle_tpu_torch/_build/`` (ignored by git), or
 ``$PADDLE_TPU_TORCH_BUILD_DIR``.
 """
 from __future__ import annotations
@@ -51,12 +53,17 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> Tuple[str, str]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns (library path, nvcc's output; "" when found built). nvcc's
-    output lists each kernel's registers, shared memory and spills."""
+    Returns (library path, nvcc's output). nvcc's output lists each
+    kernel's registers, shared memory and spills; for a library found
+    built it is the log kept beside it, or "" if it has none."""
     src = os.path.join(CSRC, f"{name}.cu")
     out = library_path(name)
     if os.path.exists(out):
-        return out, ""
+        try:
+            with open(f"{out}.log") as f:
+                return out, f.read()
+        except FileNotFoundError:
+            return out, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(
@@ -70,6 +77,9 @@ def build(name: str) -> Tuple[str, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
+    # the log first: a library that exists always has its log
+    with open(f"{out}.log", "w") as f:
+        f.write(proc.stdout)
     os.replace(tmp, out)
     return out, proc.stdout
 

@@ -12,17 +12,17 @@ Three kernels replace the three TPU kernels of the JAX package's
   ``_bwd_dkv_kernel``): the FlashAttention-2 backward, dQ in one pass and
   dK, dV in another, each recomputing P from the saved log-sum-exp.
 
-The entry points pick the design by dtype. bfloat16 runs all three on
-the tensor cores (``fwd_kernel_mma``, ``dq_kernel_mma``,
+The entry points pick the design by dtype, and every design runs on the
+tensor cores. bfloat16 runs ``fwd_kernel_mma``, ``dq_kernel_mma`` and
 ``dkv_kernel_mma``: mma.sync m16n8k16 with float32 accumulation, tiles
-through a cp.async ring, fragment helpers in ``csrc/mma_bf16.cuh``).
-float32 runs the forward on the tensor cores too (``fwd_kernel_tf32x3``,
-``csrc/mma_tf32.cuh``): each operand splits into a TF32 high and low
-part and each product is taken as three TF32 products, which meets the
-float32 limit of 1e-4 where one TF32 product does not. The float32
-backward runs scalar float32 FMAs. The tensor-core kernels sum in another
-order than the plain versions, so they agree with them to rounding, not
-bit for bit.
+through a cp.async ring, fragment helpers in ``csrc/mma_bf16.cuh``.
+float32 runs ``fwd_kernel_tf32x3``, ``dq_kernel_tf32x3`` and
+``dkv_kernel_tf32x3``, the same designs on mma.m16n8k8 with TF32
+operands (``csrc/mma_tf32.cuh``): each operand splits into a TF32 high
+and low part and each product is taken as three TF32 products, which
+meets the float32 limit of 1e-4 where one TF32 product does not. The
+kernels sum in another order than the plain versions, so they agree
+with them to rounding, not bit for bit.
 
 ``FlashAttentionFunction`` takes the place of the JAX package's
 ``_flash`` ``custom_vjp``: its forward saves q, k, v, o and the
