@@ -69,11 +69,31 @@ Phases, one progress line each; any failure exits non-zero:
              three parameters' gradients must agree, and attention must
              run in bf16 under AMP; the float32 card step must launch each
              kernel 12 times.
+9. gpt_train — GPT-small (12 layers, d 768, 12 heads, d_ff 3072, vocab
+             32000) through models/gpt.build_train at bench.py's GPT step:
+             batch 32, seq_len 512 (the in-graph shift leaves T 511,
+             causal), bf16 AMP, AdamW lr 3e-4, dropout 0.1; 3 warm-up and
+             10 timed steps with the same gates as train (each bf16 kernel
+             12 times a step at [384, 511, 64] causal); MFU from bench.py's
+             causal count.
+10. gpt_cpu_check — the same GPT at batch 1, dropout 0, bf16 AMP: one
+             step on the card against one on the CPU, under train_cpu_check's
+             AMP limits.
+11. gpt_generate — from the trained GPT scope, in float32 with the same
+             weights: serial greedy kv_generate through the slab decode step
+             (batch 1, max_seq 512) for 8 prompts of 1 to 300 tokens and 32
+             new tokens each, then the same 8 prompts as the slots of the
+             paged decode step (batch 8, block 16, 8 x 32 + 1 blocks) and its
+             chunked-prefill sibling over one pool, driven by
+             paged_generate below; the streams must be equal, the decode
+             steps' logits within 1e-4, and no flash kernel launched.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound; the float32 instances as entries of their own, with the serving,
-float32 training and float32 check-step launches) and the result line
+bound; the bf16 entries count the BERT and the GPT training runs and
+carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys;
+the float32 instances as entries of their own, with the serving, float32
+training and float32 check-step launches) and the result line
 {"ok": true, "device": {...}}.
 """
 import json
@@ -94,6 +114,15 @@ N_THREADS = 4
 # published H100 SXM peaks (NVIDIA data sheet, 700 W)
 TRAIN_SHAPE = (384, T, HD)  # b32 x 12 heads, the training path's shape
 F32_TRAIN_SHAPE = (192, T, HD)  # b16 x 12 heads, the float32 training path
+GPT_SEQ = 512            # GPT-small's bench step: seq_len 512, batch 32
+GPT_BATCH = 32
+GPT_SHAPE = (GPT_BATCH * H, GPT_SEQ - 1, HD)  # causal, after the shift
+# generation from the trained GPT: prompt lengths, new tokens a prompt,
+# the paged step's block size
+GEN_PROMPT_LENS = (1, 2, 17, 64, 129, 200, 255, 300)
+GEN_NEW = 32
+GEN_BLOCK = 16
+GEN_LOGIT_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
@@ -211,7 +240,7 @@ def kernel_phase(torch):
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
     # (many tiles through the kernels' ring), d=32 and d=128, and the
-    # training paths' shapes: bfloat16 and float32
+    # training paths' shapes: bfloat16, float32, and GPT's ragged causal
     cases = [(96, T, HD, f32, False), (96, T, HD, f32, True),
              (96, T, HD, bf16, False), (96, T, HD, bf16, True),
              (12, T, HD, f32, False), (12, T, HD, bf16, False),
@@ -221,8 +250,9 @@ def kernel_phase(torch):
              (48, T, 32, f32, False), (48, T, 32, bf16, False),
              (24, T, 128, f32, False), (24, T, 128, f32, True),
              (24, T, 128, bf16, False), (24, T, 128, bf16, True),
-             (*TRAIN_SHAPE, bf16, False), (*F32_TRAIN_SHAPE, f32, False)]
-    # each training path's shape: max|kernel - plain|, by dtype
+             (*TRAIN_SHAPE, bf16, False), (*F32_TRAIN_SHAPE, f32, False),
+             (*GPT_SHAPE, bf16, True)]
+    # each training path's shape: max|kernel - plain|, by PATH_CASES key
     train_errs = {}
     for bh, t, d, dtype, causal in cases:
         q, k, v = qkv(bh, t, d, dtype)
@@ -258,9 +288,9 @@ def kernel_phase(torch):
                   f"version: rel {rel} > {BF16_FWD_TOL} or differing share "
                   f"{share} > {BF16_FWD_DIFF_SHARE}")
         check(lse_err <= 1e-3, f"lse disagrees: {lse_err}")
-        path_shape = TRAIN_SHAPE if dtype == bf16 else F32_TRAIN_SHAPE
-        if (bh, t, d, causal) == (*path_shape, False):
-            train_errs[str(dtype)[6:]] = err
+        key = _path_key(torch, bh, t, d, dtype, causal)
+        if key:
+            train_errs[key] = err
 
     # times at the serving path's shape: [96, 512, 64] float32 (the
     # training shape's are bwd_kernel_phase's)
@@ -292,6 +322,16 @@ def _rel_err(got, want):
             (delta > 0).float().mean().item())
 
 
+def _path_key(torch, bh, t, d, dtype, causal):
+    """The training path whose attention shape a kernel case is (the key
+    of its records), or None: bf16 BERT, float32 BERT, or bf16 GPT at
+    its ragged causal T."""
+    return {(*TRAIN_SHAPE, torch.bfloat16, False): "bfloat16",
+            (*F32_TRAIN_SHAPE, torch.float32, False): "float32",
+            (*GPT_SHAPE, torch.bfloat16, True): "bfloat16_causal"}.get(
+                (bh, t, d, dtype, causal))
+
+
 def bwd_kernel_phase(torch):
     """Each backward kernel against its plain version on the card, then
     times at the training shape [384, 512, 64] bfloat16: the two
@@ -301,8 +341,9 @@ def bwd_kernel_phase(torch):
     version and SDPA's forward in bfloat16; then the two backward
     kernels in float32 beside float32 SDPA's backward, at the same shape
     and at the float32 training path's [192, 512, 64], where the float32
-    forward is timed too. Returns the records per dtype: bfloat16 at the
-    bf16 training shape, float32 at the float32 one."""
+    forward is timed too; last, all three bf16 kernels at GPT's causal
+    [384, 511, 64] beside causal SDPA. Returns the records per training
+    path (_path_key): bfloat16 and float32 BERT, bfloat16_causal GPT."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     dev = torch.device("cuda", 0)
@@ -318,8 +359,9 @@ def bwd_kernel_phase(torch):
 
     bf16, f32 = torch.bfloat16, torch.float32
     # (bh, T, d, dtype, causal): the training shapes in both dtypes and
-    # causal, a ragged T in both masks, T=1024 causal, d=128 in both masks,
-    # d=32 and bh=12 (one sequence's heads), in each dtype
+    # causal, GPT's ragged causal shape, a ragged T in both masks, T=1024
+    # causal, d=128 in both masks, d=32 and bh=12 (one sequence's heads),
+    # in each dtype
     cases = [(*TRAIN_SHAPE, bf16, False), (*TRAIN_SHAPE, f32, False),
              (*TRAIN_SHAPE, bf16, True), (96, 300, HD, f32, True),
              (96, 300, HD, bf16, False), (96, 300, HD, bf16, True),
@@ -328,9 +370,10 @@ def bwd_kernel_phase(torch):
              (48, T, 32, f32, True), (48, T, 32, bf16, False),
              (12, T, HD, bf16, False), (96, 300, HD, f32, False),
              (12, 1024, HD, f32, True), (24, T, 128, f32, True),
-             (12, T, HD, f32, False), (*F32_TRAIN_SHAPE, f32, False)]
-    # each path's shape: max|kernel - plain| per kernel
-    errs = {bf16: {}, f32: {}}
+             (12, T, HD, f32, False), (*F32_TRAIN_SHAPE, f32, False),
+             (*GPT_SHAPE, bf16, True)]
+    # each path's shape: max|kernel - plain| per kernel, by _path_key
+    errs = {}
     for bh, t, d, dtype, causal in cases:
         args = inputs(bh, t, d, dtype, causal)
         dq = fa.flash_attention_bwd_dq(*args, causal=causal)
@@ -356,34 +399,36 @@ def bwd_kernel_phase(torch):
                   f"a bfloat16 backward kernel differs from its plain "
                   f"version in more than {BF16_BWD_DIFF_SHARE} of the "
                   f"elements: { {n: e[2] for n, e in got.items()} }")
-        path_shape = TRAIN_SHAPE if dtype == bf16 else F32_TRAIN_SHAPE
-        if (bh, t, d, causal) == (*path_shape, False):
-            errs[dtype] = {"flash_attention_bwd_dq": got["dq"][1],
-                           "flash_attention_bwd_dkv": max(got["dk"][1],
-                                                          got["dv"][1])}
+        key = _path_key(torch, bh, t, d, dtype, causal)
+        if key:
+            errs[key] = {"flash_attention_bwd_dq": got["dq"][1],
+                         "flash_attention_bwd_dkv": max(got["dk"][1],
+                                                        got["dv"][1])}
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def time_kernels(shape, dtype, names):
-        """[kernel_time] lines at `shape` in `dtype`, without the causal
-        mask (the training paths'): each kernel in `names` beside its
-        plain version and SDPA (the forward, or its backward: one call for
-        dq, dk and dv); float32 lines also print the CUDA-core bound
-        beside the 3xTF32 one."""
+    def time_kernels(shape, dtype, names, causal=False):
+        """[kernel_time] lines at `shape` in `dtype` and mask: each kernel
+        in `names` beside its plain version and SDPA with the same mask
+        (the forward, or its backward: one call for dq, dk and dv);
+        float32 lines also print the CUDA-core bound beside the 3xTF32
+        one."""
         bh, t, d = shape
-        causal = False
         args = inputs(bh, t, d, dtype, causal)
         q, k, v, do = args[:4]
         calls = {
             "flash_attention_bwd_dq": (
-                lambda: fa.flash_attention_bwd_dq(*args),
-                lambda: fa.flash_attention_bwd_dq_reference(*args)),
+                lambda: fa.flash_attention_bwd_dq(*args, causal=causal),
+                lambda: fa.flash_attention_bwd_dq_reference(
+                    *args, causal=causal)),
             "flash_attention_bwd_dkv": (
-                lambda: fa.flash_attention_bwd_dkv(*args),
-                lambda: fa.flash_attention_bwd_dkv_reference(*args)),
+                lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    *args, causal=causal)),
             "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd(q, k, v),
-                lambda: fa.flash_attention_fwd_reference(q, k, v)),
+                lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+                lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                         causal=causal)),
         }
         times = {n: (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
                  for n in names}
@@ -393,7 +438,7 @@ def bwd_kernel_phase(torch):
                       (q, k, v))
         library = {}
         if set(names) & set(BWD_KERNELS):
-            out4 = sdpa(q4, k4, v4)
+            out4 = sdpa(q4, k4, v4, is_causal=causal)
             library = dict.fromkeys(BWD_KERNELS, cuda_ms(
                 lambda: torch.autograd.grad(out4, (q4, k4, v4),
                                             do.view(shape4),
@@ -401,7 +446,7 @@ def bwd_kernel_phase(torch):
         if "flash_attention_fwd" in names:
             with torch.no_grad():
                 library["flash_attention_fwd"] = cuda_ms(
-                    lambda: sdpa(q4, k4, v4))
+                    lambda: sdpa(q4, k4, v4, is_causal=causal))
         records = {}
         elsize = torch.finfo(dtype).bits // 8
         for name, (ms, plain_ms) in times.items():
@@ -411,25 +456,28 @@ def bwd_kernel_phase(torch):
             core = {} if dtype == bf16 else {"cuda_core_bound_ms": (
                 f"{cuda_core_bound_ms(name, bh, t, d, causal):.4f}")}
             phase("kernel_time", kernel=name,
-                  shape=f"[{bh},{t},{d}] {str(dtype)[6:]}", ms=f"{ms:.4f}",
+                  shape=f"[{bh},{t},{d}] {str(dtype)[6:]}"
+                  f"{' causal' if causal else ''}", ms=f"{ms:.4f}",
                   tflops=f"{flops / ms / 1e9:.1f}",
                   plain_ms=f"{plain_ms:.4f}",
                   library_ms=f"{library[name]:.4f}",
                   bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **core)
-            records[name] = {"shape": f"[{bh},{t},{d}]", "ms": ms,
-                             "plain_ms": plain_ms,
-                             "library_ms": library[name],
-                             "bound_ms": bound_ms, "bound_by": bound_by,
-                             "max_abs_err": errs[dtype].get(name)}
+            records[name] = {
+                "shape": f"[{bh},{t},{d}]{' causal' if causal else ''}",
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library[name],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "max_abs_err": errs.get(_path_key(
+                    torch, bh, t, d, dtype, causal), {}).get(name)}
         return records
 
-    records = {"bfloat16": time_kernels(
-        TRAIN_SHAPE, bf16, (*BWD_KERNELS, "flash_attention_fwd"))}
+    all3 = (*BWD_KERNELS, "flash_attention_fwd")
+    records = {"bfloat16": time_kernels(TRAIN_SHAPE, bf16, all3)}
     # the float32 backward at the bf16 shape (the earlier PRs' yardstick
     # shape), then all three float32 kernels at the float32 training path's
     time_kernels(TRAIN_SHAPE, f32, BWD_KERNELS)
-    records["float32"] = time_kernels(
-        F32_TRAIN_SHAPE, f32, (*BWD_KERNELS, "flash_attention_fwd"))
+    records["float32"] = time_kernels(F32_TRAIN_SHAPE, f32, all3)
+    records["bfloat16_causal"] = time_kernels(GPT_SHAPE, bf16, all3,
+                                              causal=True)
     return records
 
 
@@ -718,19 +766,13 @@ def train_phase(torch, card, amp=True):
     """BERT-base training at full width through the port's entry points:
     build_train (bf16 AMP or float32, AdamW at lr 1e-4, dropout 0.1), the
     startup program on the card, then TRAIN_RUNS[amp]'s warm-up and
-    timed steps on seeded random tokens with labels = tokens. Every count
-    is set to 0 just before the timed steps and read just after. Then one
-    step under torch.profiler, split by kernel class: each of the run's
-    kernels must run once a layer, and no other flash kernel. MFU is
-    against the peak of the units the step's products run on: the bf16
-    tensor cores under AMP, the CUDA cores' float32 peak in float32
+    timed steps on seeded random tokens with labels = tokens (run_steps).
+    MFU is against the peak of the units the step's products run on: the
+    bf16 tensor cores under AMP, the CUDA cores' float32 peak in float32
     (cuBLAS takes full float32 products: allow_tf32 stays False)."""
-    import statistics
-
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import transformer
-    from torch.profiler import ProfilerActivity, profile
 
     batch, warmup, steps, symbols, tag = TRAIN_RUNS[amp]
     cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
@@ -745,10 +787,29 @@ def train_phase(torch, card, amp=True):
           heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
           batch=batch, T=T, amp=amp, ops=len(main.global_block().ops),
           seconds=f"{time.perf_counter() - t0:.2f}")
-
     rng = np.random.RandomState(0)
     toks = rng.randint(0, cfg.vocab_size, (batch, T)).astype("int64")
-    feed = {"tokens": toks, "labels": toks}
+    return run_steps(torch, card, tag, exe, main, scope,
+                     {"tokens": toks, "labels": toks}, loss, cfg.n_layers,
+                     warmup, steps, symbols, batch * T,
+                     model_flops_per_token(cfg, T),
+                     BF16_FLOPS if amp else F32_FLOPS)
+
+
+def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
+              warmup, steps, symbols, tokens_per_step, flops_per_token,
+              peak):
+    """A training run's warm-up and timed steps: losses finite and
+    falling, each kernel in `symbols` launched once a layer a timed step
+    (every count set to 0 just before the timed steps and read just
+    after), no executor cache miss after the first step; the [tag] line
+    (median step time, host enqueue, tokens/s, model TFLOP/s and MFU
+    against `peak`, peak memory). Then one step under torch.profiler,
+    split by kernel class: each of `symbols` must run once a layer, and
+    no other flash kernel. Returns the timed steps' launches."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
 
     def step():
         """One step: (loss, host ms to enqueue it, ms until the loss is on
@@ -782,22 +843,21 @@ def train_phase(torch, card, amp=True):
     check(losses[-1] < losses[0],
           f"loss did not fall: {losses[0]} -> {losses[-1]}")
     for name, n in launches.items():
-        check(n == cfg.n_layers * steps,
-              f"{name} launches {n} != {cfg.n_layers} x {steps} steps")
+        check(n == n_layers * steps,
+              f"{name} launches {n} != {n_layers} x {steps} steps")
     check(misses == misses_after_first,
           f"executor cache misses after the first step: "
           f"{misses_after_first} -> {misses}")
 
     step_ms = statistics.median(times)
-    tok_s = batch * T / (step_ms / 1e3)
-    flops_tok = model_flops_per_token(cfg, T)
+    tok_s = tokens_per_step / (step_ms / 1e3)
     phase(tag, steps=steps, step_ms_median=f"{step_ms:.3f}",
           step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
           host_ms_median=f"{statistics.median(host_times):.3f}",
-          tokens_per_s=f"{tok_s:.1f}",
-          model_mflop_per_token=f"{flops_tok / 1e6:.2f}",
-          model_tflops=f"{flops_tok * tok_s / 1e12:.2f}",
-          mfu=f"{flops_tok * tok_s / (BF16_FLOPS if amp else F32_FLOPS):.4f}",
+          tokens_per_step=tokens_per_step, tokens_per_s=f"{tok_s:.1f}",
+          model_mflop_per_token=f"{flops_per_token / 1e6:.2f}",
+          model_tflops=f"{flops_per_token * tok_s / 1e12:.2f}",
+          mfu=f"{flops_per_token * tok_s / peak:.4f}",
           loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
           launches_per_step=launches["flash_attention_fwd"] // steps,
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
@@ -816,23 +876,25 @@ def train_phase(torch, card, amp=True):
     phase(f"{tag}_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms": f"{v:.3f}" for k, v in by_class.items()},
-          card=f"'{card}'")
+          device_ms=f"{busy:.3f}", card=f"'{card}'")
     _print_flash_symbols(per_name)
     if busy:
         for sym in symbols:
             n = _symbol_launches(per_name, sym)
-            check(n == cfg.n_layers, f"{sym} ran {n} times in the profiled "
-                  f"step, not {cfg.n_layers}")
+            check(n == n_layers, f"{sym} ran {n} times in the profiled "
+                  f"step, not {n_layers}")
         # no other flash kernel (another design, or a scalar one) ran
         n = sum(n for name, (_, n) in per_name.items()
                 if _kernel_class(name) in KERNEL_CLASSES.values())
-        check(n == len(symbols) * cfg.n_layers,
+        check(n == len(symbols) * n_layers,
               f"{n} flash kernel launches in the profiled step, not "
-              f"{len(symbols)} x {cfg.n_layers} of {symbols}")
-    others = sorted(((ms, name) for name, (ms, _) in per_name.items()
-                     if _kernel_class(name) == "other"), reverse=True)
-    for ms, name in others[:8]:
-        print(f"  other: {ms:.3f} ms  {name[:100]}", flush=True)
+              f"{len(symbols)} x {n_layers} of {symbols}")
+    for cls, n in (("matmul", 4), ("other", 8)):
+        top = sorted(((ms, k, name) for name, (ms, k) in per_name.items()
+                      if _kernel_class(name) == cls), reverse=True)
+        for ms, k, name in top[:n]:
+            print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
+                  flush=True)
     return launches
 
 
@@ -850,7 +912,6 @@ def train_cpu_check(torch):
     and float32 without. Returns the float32 card step's launches."""
     import numpy as np
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.convert import scope_from_numpy
     from paddle_tpu_torch.models import transformer
 
     cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
@@ -859,50 +920,13 @@ def train_cpu_check(torch):
              for amp in (False, True)}
     check(progs[False][1].fingerprint() == progs[True][1].fingerprint(),
           "the float32 and AMP startup programs differ")
-    card_exe, cpu_exe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
-    init_scope = ptt.Scope()
-    card_exe.run(progs[False][1], scope=init_scope)
-    init = {n: init_scope.get_numpy(n) for n in init_scope.names()}
-    del init_scope
     toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, T))
-    feed = {"tokens": toks, "labels": toks}
-    grads = ["word_emb@GRAD", "layer_0.att.q.w@GRAD",
-             f"layer_{cfg.n_layers - 1}.ffn.fc2.w@GRAD"]
+    grads = _check_grads(cfg)
     t0 = time.perf_counter()
-    out, attn_dtypes, launches = {}, {}, {}
-    for amp, (main, _, loss) in progs.items():
-        # flash attention's outputs: bfloat16 under AMP, float32 without
-        attn = [op.output("Out")[0] for op in main.global_block().ops
-                if op.type == "flash_attention"]
-        for where, exe, place in (("card", card_exe, ptt.CUDAPlace(0)),
-                                  ("cpu", cpu_exe, ptt.CPUPlace())):
-            scope = scope_from_numpy(init, ptt.Scope(), place)
-            _zero_launch_counts()
-            got = exe.run(main, feed=feed, fetch_list=[loss] + grads + attn,
-                          scope=scope, return_numpy=False)
-            launches[amp, where] = _launch_counts()
-            attn_dtypes[amp, where] = {str(x.dtype) for x in
-                                       got[1 + len(grads):]}
-            out[amp, where] = [x.float().cpu().numpy()
-                               for x in got[:1 + len(grads)]]
-            del scope, got
-    for (amp, where), dtypes in attn_dtypes.items():
-        want = "torch.bfloat16" if amp else "torch.float32"
-        check(dtypes == {want}, f"flash attention ran in {dtypes} on the "
-              f"{where} with amp={amp}; want {want}")
-        # each kernel once a layer on the card, none on the CPU
-        n = cfg.n_layers if where == "card" else 0
-        check(all(x == n for x in launches[amp, where].values()),
-              f"kernel launches of the {where} step with amp={amp}: "
-              f"{launches[amp, where]}, not {n} each")
-
-    def loss_rel(a, b):
-        return abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
-
-    def grad_rel(a, b):
-        return {n.split("@")[0]: float(np.linalg.norm(x - y) /
-                                       np.linalg.norm(y))
-                for n, x, y in zip(grads, a[1:], b[1:])}
+    out, launches = _card_and_cpu(
+        ptt, {amp: (main, loss) for amp, (main, _, loss) in progs.items()},
+        progs[False][1], {"tokens": toks, "labels": toks}, grads,
+        cfg.n_layers)
 
     card, cpu = out[False, "card"], out[False, "cpu"]
     errs = {}
@@ -912,33 +936,373 @@ def train_cpu_check(torch):
               np.abs(b).max() > 0,
               f"{name}: card vs CPU differ by {errs[name]} "
               f"(max |CPU| {np.abs(b).max()})")
-    f32_loss = loss_rel(card, cpu)
+    f32_loss = _loss_rel(card, cpu)
     check(f32_loss <= 1e-4, f"card vs CPU loss differs by {f32_loss}")
     phase("train_cpu_check", batch=1, amp=False,
           loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
           loss_rel=f"{f32_loss:.3e}",
-          launches_per_kernel=launches[False, "card"]["flash_attention_fwd"],
+          launches_per_kernel=launches[False]["flash_attention_fwd"],
           **{f"{n.split('@')[0]}_max_abs_err": f"{e:.3e}"
              for n, e in errs.items()})
+    _amp_check("train_cpu_check", out, grads, t0,
+               vs_f32=out[False, "cpu"])
+    return launches[False]
 
+
+def _check_grads(cfg):
+    """The gradients a card-vs-CPU step compares: the embedding, the
+    first layer's query weight and the last layer's second FFN weight."""
+    return ["word_emb@GRAD", "layer_0.att.q.w@GRAD",
+            f"layer_{cfg.n_layers - 1}.ffn.fc2.w@GRAD"]
+
+
+def _card_and_cpu(ptt, progs, startup, feed, grads, n_layers):
+    """One step of each program in `progs` ({amp: (main, loss)}) on the
+    card and one on the CPU, each from the same startup values (the
+    startup program run once on the card). Flash attention's outputs
+    must be bfloat16 under AMP and float32 without, and each kernel must
+    launch once a layer on the card and never on the CPU. Returns ({(amp,
+    "card" | "cpu"): [loss, *grads] as float32 numpy}, {amp: the card
+    step's launches})."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+
+    card_exe, cpu_exe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    init_scope = ptt.Scope()
+    card_exe.run(startup, scope=init_scope)
+    init = {n: init_scope.get_numpy(n) for n in init_scope.names()}
+    del init_scope
+    out, launches = {}, {}
+    for amp, (main, loss) in progs.items():
+        # flash attention's outputs: bfloat16 under AMP, float32 without
+        attn = [op.output("Out")[0] for op in main.global_block().ops
+                if op.type == "flash_attention"]
+        want = "torch.bfloat16" if amp else "torch.float32"
+        for where, exe, place in (("card", card_exe, ptt.CUDAPlace(0)),
+                                  ("cpu", cpu_exe, ptt.CPUPlace())):
+            scope = scope_from_numpy(init, ptt.Scope(), place)
+            _zero_launch_counts()
+            got = exe.run(main, feed=feed, fetch_list=[loss] + grads + attn,
+                          scope=scope, return_numpy=False)
+            counts = _launch_counts()
+            dtypes = {str(x.dtype) for x in got[1 + len(grads):]}
+            check(dtypes == {want}, f"flash attention ran in {dtypes} on "
+                  f"the {where} with amp={amp}; want {want}")
+            # each kernel once a layer on the card, none on the CPU
+            n = n_layers if where == "card" else 0
+            check(all(x == n for x in counts.values()),
+                  f"kernel launches of the {where} step with amp={amp}: "
+                  f"{counts}, not {n} each")
+            if where == "card":
+                launches[amp] = counts
+            out[amp, where] = [x.float().cpu().numpy()
+                               for x in got[:1 + len(grads)]]
+            del scope, got
+    return out, launches
+
+
+def _loss_rel(a, b):
+    return abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+
+
+def _grad_rel(grads, a, b):
+    import numpy as np
+    return {n.split("@")[0]: float(np.linalg.norm(x - y) /
+                                   np.linalg.norm(y))
+            for n, x, y in zip(grads, a[1:], b[1:])}
+
+
+def _amp_check(tag, out, grads, t0, vs_f32=None):
+    """The AMP step on the card against the one on the CPU: the loss
+    within AMP_LOSS_RTOL, each gradient's Frobenius gap within
+    AMP_GRAD_RTOL of its norm; with `vs_f32` (the CPU's float32 step),
+    the same readings against it printed beside."""
     card, cpu = out[True, "card"], out[True, "cpu"]
-    amp_loss, amp_grads = loss_rel(card, cpu), grad_rel(card, cpu)
-    vs_f32_loss = loss_rel(card, out[False, "cpu"])
-    vs_f32_grads = grad_rel(card, out[False, "cpu"])
-    phase("train_cpu_check", batch=1, amp=True,
+    amp_loss, amp_grads = _loss_rel(card, cpu), _grad_rel(grads, card, cpu)
+    beside = {}
+    if vs_f32 is not None:
+        beside = {"vs_f32_loss_rel": f"{_loss_rel(card, vs_f32):.3e}",
+                  **{f"vs_f32_{n}_rel": f"{e:.3e}" for n, e in
+                     _grad_rel(grads, card, vs_f32).items()}}
+    phase(tag, batch=1, amp=True,
           loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
           loss_rel=f"{amp_loss:.3e}", loss_tol=AMP_LOSS_RTOL,
           **{f"{n}_rel": f"{e:.3e}" for n, e in amp_grads.items()},
-          grad_tol=AMP_GRAD_RTOL,
-          vs_f32_loss_rel=f"{vs_f32_loss:.3e}",
-          **{f"vs_f32_{n}_rel": f"{e:.3e}" for n, e in vs_f32_grads.items()},
+          grad_tol=AMP_GRAD_RTOL, **beside,
           seconds=f"{time.perf_counter() - t0:.2f}")
     check(amp_loss <= AMP_LOSS_RTOL,
           f"AMP card vs CPU loss differs by {amp_loss} > {AMP_LOSS_RTOL}")
     check(all(e <= AMP_GRAD_RTOL for e in amp_grads.values()),
           f"AMP card vs CPU gradients differ: {amp_grads} > "
           f"{AMP_GRAD_RTOL}")
-    return launches[False, "card"]
+
+
+def _gpt_cfg(**kw):
+    """GPT-small as bench.py's GPT step builds it."""
+    from paddle_tpu_torch.models import gpt
+    return gpt.gpt_small(attn_dropout=0.0, use_flash=True,
+                         max_seq_len=GPT_SEQ, **kw)
+
+
+def _build_gpt(ptt, cfg, batch, amp):
+    from paddle_tpu_torch.models import gpt
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _, _ = gpt.build_train(cfg, batch, GPT_SEQ, lr=3e-4, amp=amp)
+    return main, startup, loss
+
+
+def gpt_train_phase(torch, card):
+    """GPT-small training at full width through models/gpt.build_train,
+    as bench.py's GPT step (batch 32, seq_len 512, bf16 AMP, AdamW lr
+    3e-4, dropout 0.1, tokens from RandomState(0)): the startup program
+    on the card, then 3 warm-up and 10 timed steps through run_steps.
+    Attention runs causal at T 511 (the in-graph shift). Tokens a step
+    are batch x 511; operations a token are bench.py's causal count,
+    model_flops_per_token(cfg, 511) - 6 L 511 d. Returns (the timed
+    steps' launches, the trained scope, the config)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    cfg = _gpt_cfg(dropout=0.1)
+    t0 = time.perf_counter()
+    main, startup, loss = _build_gpt(ptt, cfg, GPT_BATCH, True)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    phase("gpt_train_build", layers=cfg.n_layers, d_model=cfg.d_model,
+          heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+          batch=GPT_BATCH, seq_len=GPT_SEQ, T=GPT_SEQ - 1, amp=True,
+          ops=len(main.global_block().ops),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ)).astype(np.int64)
+    t = GPT_SEQ - 1
+    flops_tok = model_flops_per_token(cfg, t) - 6 * cfg.n_layers * t * \
+        cfg.d_model
+    launches = run_steps(torch, card, "gpt_train", exe, main, scope,
+                         {"tokens": toks}, loss, cfg.n_layers, 3, 10,
+                         BF16_KERNEL_SYMBOLS, GPT_BATCH * t, flops_tok,
+                         BF16_FLOPS)
+    return launches, scope, cfg
+
+
+def gpt_cpu_check(torch):
+    """The same full-width GPT at batch 1, dropout 0, bf16 AMP: one step
+    on the card and one on the CPU through the plain versions, from the
+    same startup values, under train_cpu_check's AMP limits; attention
+    must run in bfloat16 and each kernel once a layer on the card."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    cfg = _gpt_cfg(dropout=0.0)
+    main, startup, loss = _build_gpt(ptt, cfg, 1, True)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, GPT_SEQ))
+    grads = _check_grads(cfg)
+    t0 = time.perf_counter()
+    out, _ = _card_and_cpu(ptt, {True: (main, loss)}, startup,
+                           {"tokens": toks}, grads, cfg.n_layers)
+    _amp_check("gpt_cpu_check", out, grads, t0)
+
+
+class _Recorder:
+    """An executor seen through kv_generate: runs every call on `exe` and
+    keeps each step's logits row (batch row 0, position 0) and its
+    milliseconds on the host clock, fetch to the host included."""
+
+    def __init__(self, exe):
+        self.exe, self.place = exe, exe.place
+        self.logits, self.ms = [], []
+
+    def run(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = self.exe.run(*args, **kw)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.logits.append(out[0][0, 0])
+        return out
+
+
+def paged_generate(exe, scope, decode_prog, decode, prefill_prog, prefill,
+                   prompts, max_new_tokens):
+    """Greedy generation of each prompt in a slot of its own through the
+    paged decode program `decode` (seq_tokens 1) and its chunked-prefill
+    sibling `prefill` (seq_tokens = block size) over one pool, driven as
+    a serving scheduler drives them: each slot takes the blocks its
+    prompt and new tokens need from one BlockPool; each iteration runs
+    one prefill chunk (up to a block of prompt[:-1]) for every slot still
+    in its prompt, then one decode step for every slot past it; a slot
+    that has its tokens releases its blocks. Muted rows (n_valid 0) ride
+    along. Returns (the streams, per stream the decode step's logits row
+    at each token, {"prefill" | "decode": milliseconds of each call on
+    the host clock, fetch to the host included})."""
+    import numpy as np
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.sampling import sample_token
+    from paddle_tpu_torch.serving.kv_blocks import (BlockPool,
+                                                    blocks_for_tokens)
+
+    B, bs = decode.batch, decode.block_size
+    check(len(prompts) <= B and prefill.batch == B and
+          prefill.seq_tokens == bs == prefill.block_size and
+          prefill.cache_names == decode.cache_names,
+          "paged_generate: the decode and prefill steps must share batch, "
+          "block size and pool, with a slot for every prompt")
+    gpt._ensure_decode_state(scope, decode_prog.global_block(),
+                             decode.cache_names, exe.place)
+    pool = BlockPool(decode.num_blocks, bs)
+    slots = []
+    for p in prompts:
+        need = blocks_for_tokens(len(p) + max_new_tokens - 1, bs)
+        blocks = [pool.alloc() for _ in range(need)]
+        check(None not in blocks and need <= decode.max_blocks_per_slot,
+              f"paged_generate: no room for {need} blocks")
+        slots.append({"prompt": [int(t) for t in p], "blocks": blocks,
+                      "fed": 0, "cur": int(p[0]), "out": [], "logits": []})
+    times = {"prefill": [], "decode": []}
+
+    def run(prog, step, tokens, nvalid, what):
+        table = np.zeros((B, decode.max_blocks_per_slot), np.int64)
+        start = np.zeros(B, np.int64)
+        nv = np.zeros(B, np.int64)
+        for i, n in nvalid.items():
+            table[i, :len(slots[i]["blocks"])] = slots[i]["blocks"]
+            start[i] = slots[i]["fed"]
+            nv[i] = n
+        t0 = time.perf_counter()
+        out, = exe.run(prog, feed={step.token_var.name: tokens,
+                                   step.table_var.name: table,
+                                   step.start_var.name: start,
+                                   step.nvalid_var.name: nv},
+                       fetch_list=[step.logits_var], scope=scope)
+        times[what].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    while any(len(s["out"]) < max_new_tokens for s in slots):
+        chunk = {i: min(bs, len(s["prompt"]) - 1 - s["fed"])
+                 for i, s in enumerate(slots)
+                 if s["fed"] < len(s["prompt"]) - 1}
+        if chunk:
+            tokens = np.zeros((B, bs), np.int64)
+            for i, n in chunk.items():
+                s = slots[i]
+                tokens[i, :n] = s["prompt"][s["fed"]:s["fed"] + n]
+            run(prefill_prog, prefill, tokens, chunk, "prefill")
+            for i, n in chunk.items():
+                slots[i]["fed"] += n
+                slots[i]["cur"] = slots[i]["prompt"][slots[i]["fed"]]
+        live = {i: 1 for i, s in enumerate(slots)
+                if s["fed"] >= len(s["prompt"]) - 1 and
+                len(s["out"]) < max_new_tokens}
+        if not live:
+            continue
+        tokens = np.zeros((B, 1), np.int64)
+        for i in live:
+            tokens[i, 0] = slots[i]["cur"]
+        logits = run(decode_prog, decode, tokens, live, "decode")
+        for i in live:
+            s = slots[i]
+            tok = sample_token(logits[i, 0])
+            s["out"].append(tok)
+            s["logits"].append(logits[i, 0])
+            s["fed"] += 1
+            s["cur"] = tok
+            if len(s["out"]) == max_new_tokens:
+                for bid in s["blocks"]:
+                    pool.decref(bid)
+    check(pool.used_count() == 0, "paged_generate: blocks left allocated")
+    return ([s["out"] for s in slots], [s["logits"] for s in slots],
+            times)
+
+
+def _build_decode(ptt, build, *args, **kw):
+    """A decode program built in a Program pair of its own; its startup
+    never runs (the trained scope holds the weights)."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        step = build(*args, **kw)
+    return main, step
+
+
+def gpt_generate_phase(torch, card, scope, cfg):
+    """Generation from the trained GPT scope in float32 (the AMP step's
+    weights are float32; the decode programs share their names): serial
+    greedy kv_generate through the slab decode step (batch 1, max_seq
+    GPT_SEQ) for each of GEN_PROMPT_LENS's seeded prompts and GEN_NEW new
+    tokens, then the same prompts as the slots of the paged decode step
+    (block GEN_BLOCK, one pool of slots x blocks-a-slot + 1 blocks) with
+    its chunked-prefill sibling, driven by paged_generate. Gates: equal
+    streams, the paged decode steps' logits within GEN_LOGIT_TOL of the
+    slab's at every token (both condition on the same tokens), finite
+    logits, and no flash kernel launched (counts set to 0 before the
+    serial run, read after the paged one)."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import gpt
+
+    n_slots = len(GEN_PROMPT_LENS)
+    max_blocks = -(-GPT_SEQ // GEN_BLOCK)
+    n_blocks = n_slots * max_blocks + 1
+    slab_prog, slab = _build_decode(ptt, gpt.build_decode_step, cfg, 1,
+                                    GPT_SEQ)
+    dec_prog, dec = _build_decode(ptt, gpt.build_paged_decode_step, cfg,
+                                  n_slots, GPT_SEQ, GEN_BLOCK, n_blocks)
+    pre_prog, pre = _build_decode(ptt, gpt.build_paged_decode_step, cfg,
+                                  n_slots, GPT_SEQ, GEN_BLOCK, n_blocks,
+                                  seq_tokens=GEN_BLOCK, with_logits=False)
+    rng = np.random.RandomState(SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in GEN_PROMPT_LENS]
+    exe = ptt.Executor()  # the card
+
+    # the decode path's run: every count to 0 just before, read after
+    _zero_launch_counts()
+    serial, serial_logits, slab_ms = [], [], []
+    t0 = time.perf_counter()
+    for p in prompts:
+        rec = _Recorder(exe)
+        serial.append(gpt.kv_generate(rec, scope, slab_prog, *slab, p,
+                                      GEN_NEW))
+        serial_logits.append(rec.logits[-GEN_NEW:])
+        slab_ms += rec.ms
+    slab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paged, paged_logits, paged_ms = paged_generate(
+        exe, scope, dec_prog, dec, pre_prog, pre, prompts, GEN_NEW)
+    paged_s = time.perf_counter() - t0
+    launches = _launch_counts()
+
+    same = [a == b for a, b in zip(serial, paged)]
+    err = max((float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+               for s, p, ok in zip(serial_logits, paged_logits, same) if ok
+               for a, b in zip(s, p)), default=math.inf)
+    finite = all(np.isfinite(x).all() for rows in serial_logits +
+                 paged_logits for x in rows)
+    n_tok = n_slots * GEN_NEW
+    phase("gpt_generate", prompts=n_slots,
+          prompt_lens=",".join(map(str, GEN_PROMPT_LENS)),
+          new_tokens=GEN_NEW, streams_equal=sum(same),
+          max_logit_err=f"{err:.3e}", tol=GEN_LOGIT_TOL,
+          slab_steps=len(slab_ms),
+          slab_decode_ms_b1=f"{statistics.median(slab_ms):.3f}",
+          slab_tokens_per_s=f"{n_tok / slab_s:.1f}",
+          paged_decode_steps=len(paged_ms["decode"]),
+          **{f"paged_decode_ms_b{n_slots}":
+             f"{statistics.median(paged_ms['decode']):.3f}"},
+          prefill_chunks=len(paged_ms["prefill"]),
+          prefill_chunk_ms=f"{statistics.median(paged_ms['prefill']):.3f}",
+          paged_tokens_per_s=f"{n_tok / paged_s:.1f}",
+          flash_launches=sum(launches.values()), card=f"'{card}'")
+    differ = [n for n, ok in zip(GEN_PROMPT_LENS, same) if not ok]
+    check(not differ, f"paged streams differ from the serial slab streams "
+          f"for the prompts of lengths {differ}")
+    check(finite, "non-finite decode logits")
+    check(err <= GEN_LOGIT_TOL, f"paged vs slab decode logits differ by "
+          f"{err} > {GEN_LOGIT_TOL}")
+    check(not any(launches.values()),
+          f"the decode programs launched flash kernels: {launches}")
 
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
@@ -1154,32 +1518,39 @@ def main():
 
     fwd_errs = kernel_phase(torch)
     records = bwd_kernel_phase(torch)
-    for dtype, err in fwd_errs.items():
-        records[dtype]["flash_attention_fwd"]["max_abs_err"] = err
+    for key, err in fwd_errs.items():
+        records[key]["flash_attention_fwd"]["max_abs_err"] = err
     served = serve_phase(torch, card)
     trained = train_phase(torch, card)
     trained_f32 = train_phase(torch, card, amp=False)
     checked_f32 = train_cpu_check(torch)
+    gpt_trained, gpt_scope, gpt_cfg = gpt_train_phase(torch, card)
+    gpt_cpu_check(torch)
+    gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
+    del gpt_scope
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
-    # bf16 training run; the float32 kernels' over the float32 training
-    # run and the float32 check step, and the float32 forward's over the
-    # serving run too
-    def entry(name, rec, launches, dtype=None):
+    # BERT and the GPT bf16 training runs; the float32 kernels' over the
+    # float32 training run and the float32 check step, and the float32
+    # forward's over the serving run too
+    def entry(name, rec, launches, dtype=None, causal=None):
         """One kernel's record; a dtype instance of its own is named
-        <name>_<dtype> and carries its dtype."""
+        <name>_<dtype> and carries its dtype; `causal` (the GPT path's
+        record) adds its shape's numbers under causal_* keys."""
         source, line = KERNEL_SOURCES[name]
         own = {"dtype": dtype} if dtype else {}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")
         return {
             "name": f"{name}_{dtype}" if dtype else name, "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": launches, **own,
-            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms",
-                                   "shape")}}
+            "launches": launches, **own, **{k: rec[k] for k in keys},
+            **({f"causal_{k}": causal[k] for k in keys} if causal else {})}
 
-    out = [entry(name, records["bfloat16"][name], trained[name])
+    out = [entry(name, records["bfloat16"][name],
+                 trained[name] + gpt_trained[name],
+                 causal=records["bfloat16_causal"][name])
            for name in KERNEL_SOURCES]
     out += [entry(name, records["float32"][name],
                   served.get(name, 0) + trained_f32[name] +

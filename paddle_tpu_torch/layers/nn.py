@@ -1,6 +1,7 @@
 """layers.nn — graph-building functions over the op library.
 
-The functions the transformer encoder and its training losses call.
+The functions the transformer encoder, its training losses and the GPT
+decode steps call.
 Each emits the same op types and attrs as its counterpart in the JAX
 package, so programs built by the two packages serialize identically.
 """
@@ -15,7 +16,8 @@ from .math_ops import elementwise_add  # noqa: F401
 __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "add_position_encoding", "flash_attention", "reshape",
            "transpose", "gelu", "elementwise_add", "mean",
-           "softmax_with_cross_entropy", "gather"]
+           "softmax_with_cross_entropy", "gather", "softmax", "matmul",
+           "scale", "slice", "one_hot", "reduce_mean"]
 
 
 def _unary_layer(op_type):
@@ -69,15 +71,14 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
     """lookup over a [vocab, dim] parameter. Ids with a trailing dim of 1
-    would take the lookup_table op, which is not ported yet."""
-    if input.shape and input.shape[-1] == 1:
-        raise NotImplementedError(
-            "embedding over ids with a trailing dim of 1 (lookup_table) "
-            "is not ported yet")
+    take lookup_table, which squeezes that dim ([B, 1] ids -> [B, dim]);
+    any other ids take lookup_table_v2 ([..., dim])."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(helper.param_attr, size, dtype)
     out = helper.create_variable_for_type_inference(dtype)
-    helper.append_op(type="lookup_table_v2",
+    op_type = ("lookup_table"
+               if input.shape and input.shape[-1] == 1 else "lookup_table_v2")
+    helper.append_op(type=op_type,
                      inputs={"W": [w.name], "Ids": [input.name]},
                      outputs={"Out": [out.name]},
                      attrs={"padding_idx": (-1 if padding_idx is None
@@ -200,4 +201,68 @@ def gather(input, index, overwrite=True):
     helper.append_op(type="gather",
                      inputs={"X": [input.name], "Index": [index.name]},
                      outputs={"Out": [out.name]})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x.name], "Y": [y.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", act=act, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out)
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"axes": axes, "starts": starts, "ends": ends})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs={"depth": depth})
+    return out
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    """Mean over the axes `dim` (an int or a list); over all of them when
+    `dim` is None."""
+    helper = LayerHelper("reduce_mean", name=name)
+    if dim is None:
+        dim, reduce_all = [0], True
+    else:
+        dim = [dim] if isinstance(dim, int) else list(dim)
+        reduce_all = False
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="reduce_mean", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"dim": dim, "keep_dim": keep_dim,
+                            "reduce_all": reduce_all})
     return out

@@ -1,6 +1,6 @@
-"""Elementwise binary ops with fluid's axis-broadcast semantics: Y's
-dims align to X starting at `axis` (default -1 = numpy-style trailing
-alignment)."""
+"""Elementwise binary ops and comparisons with fluid's axis-broadcast
+semantics: Y's dims align to X starting at `axis` (default -1 =
+numpy-style trailing alignment)."""
 from __future__ import annotations
 
 import torch
@@ -17,11 +17,23 @@ def broadcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
+def _binary(name, fn):
+    @register_op(name)
+    def _low(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        out = _fn(x, broadcast_y(x, y, attrs.get("axis", -1)))
+        scale = attrs.get("scale", None)  # fused scale of the transpiler
+        if scale is not None:
+            out = out * scale
+        return {"Out": [out]}
+    return _low
+
+
+_binary("elementwise_add", torch.add)
+_binary("elementwise_mul", torch.mul)
+
+
+@register_op("less_equal", nondiff_outputs=("Out",))
+def _less_equal(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
-    out = torch.add(x, broadcast_y(x, y, attrs.get("axis", -1)))
-    scale = attrs.get("scale", None)  # fused scale used by the transpiler
-    if scale is not None:
-        out = out * scale
-    return {"Out": [out]}
+    return {"Out": [torch.le(x, broadcast_y(x, y, attrs.get("axis", -1)))]}

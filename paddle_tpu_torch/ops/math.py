@@ -1,9 +1,9 @@
-"""Core math / tensor-manipulation ops: mul, sum, mean, cast, gather,
-reshape2, transpose2.
+"""Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
+cast, gather, slice, reshape2, transpose2.
 
-The large products in `mul` stay `torch.matmul` (cuBLAS on the card), as
-the JAX package leaves them to XLA. Float32 products are exact: the
-package turns TF32 off when it is imported (see __init__.py).
+The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
+the card), as the JAX package leaves them to XLA. Float32 products are
+exact: the package turns TF32 off when it is imported (see __init__.py).
 """
 from __future__ import annotations
 
@@ -26,6 +26,29 @@ def _mul(ctx, ins, attrs):
     y2 = y.reshape(math.prod(y.shape[:ync]), -1)
     out = torch.matmul(x2, y2).to(x.dtype)
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+@register_op("matmul")
+def _matmul(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("transpose_X", False) and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y).to(x.dtype)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return {"Out": [out]}
+
+
+@register_op("scale")
+def _scale(ctx, ins, attrs):
+    x = ins["X"][0]
+    s, b = attrs.get("scale", 1.0), attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        return {"Out": [x * s + b]}
+    return {"Out": [(x + b) * s]}
 
 
 @register_op("sum")
@@ -51,6 +74,21 @@ def _cast(ctx, ins, attrs):
 def _gather(ctx, ins, attrs):
     x, idx = ins["X"][0], ins["Index"][0]
     return {"Out": [torch.index_select(x, 0, idx.reshape(-1).long())]}
+
+
+@register_op("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, s, e in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[ax]
+        s = max(s + dim, 0) if s < 0 else min(s, dim)
+        e = max(e + dim, 0) if e < 0 else min(e, dim)
+        idx[ax] = slice(s, e)
+    out = x[tuple(idx)]
+    if attrs.get("decrease_axis"):
+        out = out.squeeze(tuple(attrs["decrease_axis"]))
+    return {"Out": [out]}
 
 
 def _with_xshape(name, fn):

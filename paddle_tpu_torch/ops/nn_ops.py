@@ -1,9 +1,14 @@
-"""Normalisation, dropout and position-encoding ops."""
+"""Softmax, normalisation, dropout and position-encoding ops."""
 from __future__ import annotations
 
 import torch
 
 from ..core.registry import register_op
+
+
+@register_op("softmax")
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
 @register_op("layer_norm")

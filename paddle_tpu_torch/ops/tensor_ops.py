@@ -1,4 +1,5 @@
-"""Tensor creation / init / random ops and the embedding lookup.
+"""Tensor creation / init / random ops, assign, one_hot and the
+embedding lookups.
 
 Random ops draw from the op's own generator (core/lowering.py), seeded
 from the program seed with the step and the op id folded in, so runs are
@@ -49,13 +50,53 @@ def _uniform_random(ctx, ins, attrs):
     return {"Out": [out.to(dtype)]}
 
 
-@register_op("lookup_table_v2", nondiff_inputs=("Ids",))
-def _lookup_table_v2(ctx, ins, attrs):
-    w, ids = ins["W"][0], ins["Ids"][0]
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("range", nondiff_outputs=("Out",))
+def _range(ctx, ins, attrs):
+    s = ins["Start"][0].reshape(())
+    st = ins["Step"][0].reshape(())
+    n = attrs.get("static_len")
+    if n is None:
+        raise NotImplementedError(
+            "range requires the static_len attr (a static output shape)")
+    return {"Out": [s + torch.arange(n, dtype=s.dtype, device=s.device)
+                    * st]}
+
+
+@register_op("one_hot", nondiff_inputs=("X",), nondiff_outputs=("Out",))
+def _one_hot(ctx, ins, attrs):
+    # a trailing dim of 1 is squeezed; an index outside [0, depth) gives
+    # a row of zeros
+    x = ins["X"][0]
+    if x.dim() and x.shape[-1] == 1:
+        x = x.reshape(x.shape[:-1])
+    depth = torch.arange(int(attrs["depth"]), device=x.device)
+    return {"Out": [(x[..., None] == depth).to(torch.float32)]}
+
+
+def _lookup(w, ids, attrs, out_lead):
     flat = ids.reshape(-1).long()
     out = torch.index_select(w, 0, flat)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx != -1:
         pad = padding_idx % w.shape[0]
         out = torch.where((flat == pad)[:, None], out.new_zeros(()), out)
-    return {"Out": [out.reshape(tuple(ids.shape) + (w.shape[-1],))]}
+    return {"Out": [out.reshape(tuple(out_lead) + (w.shape[-1],))]}
+
+
+@register_op("lookup_table", nondiff_inputs=("Ids",))
+def _lookup_table(ctx, ins, attrs):
+    # ids [..., 1] -> out [..., d]: the trailing 1 is squeezed
+    w, ids = ins["W"][0], ins["Ids"][0]
+    lead = ids.shape[:-1] if ids.dim() and ids.shape[-1] == 1 else ids.shape
+    return _lookup(w, ids, attrs, lead)
+
+
+@register_op("lookup_table_v2", nondiff_inputs=("Ids",))
+def _lookup_table_v2(ctx, ins, attrs):
+    w, ids = ins["W"][0], ins["Ids"][0]
+    return _lookup(w, ids, attrs, ids.shape)

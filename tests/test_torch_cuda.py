@@ -1,6 +1,6 @@
 """paddle_tpu_torch's Hopper kernels (the flash-attention forward and
-its two backward kernels) on the card (marked `cuda`; they skip where
-there is no CUDA device).
+its two backward kernels), and the paged_attention op's CUDA run, on the
+card (marked `cuda`; they skip where there is no CUDA device).
 
 The repository's conftest imports JAX, which the card's machine does not
 have, so run these there without it:
@@ -25,7 +25,7 @@ def _diff_share(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(24, 300, 64), (12, 512, 32),
                                    (4, 256, 128), (12, 1024, 64),
-                                   (2, 64, 64)])
+                                   (2, 64, 64), (384, 511, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_kernel_matches_plain(causal, dtype, shape):
@@ -116,7 +116,7 @@ def _bwd_inputs(bh, t, d, dtype, causal):
     (12, 512, 64, "bfloat16", False), (96, 300, 64, "float32", False),
     (12, 1024, 64, "float32", True), (24, 512, 128, "float32", True),
     (12, 512, 64, "float32", False), (192, 512, 64, "float32", False),
-    (48, 512, 32, "float32", False)])
+    (48, 512, 32, "float32", False), (384, 511, 64, "bfloat16", True)])
 def test_backward_kernels_match_plain(bh, t, d, dtype, causal):
     """dq and dk/dv kernels vs their plain versions, the chip phase's
     cases: max|kernel - plain| / max(1, max|plain|) within 5e-3 in
@@ -168,3 +168,57 @@ def test_backward_through_function_launches_each_kernel_once():
         .backward()
     for x, r in zip(leaves, ref_leaves):
         assert _rel(x.grad, r.grad) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_paged_attention_on_the_card_matches_the_cpu():
+    """The paged_attention op on CUDA tensors against the same op on the
+    CPU: a muted row, a partly valid chunk and a full one, with several
+    writes landing on the scratch block 0 (which of them lands is
+    undefined on the card). Out at every valid position and every
+    mapped pool block agree within 1e-5; garbage in block 0 changes
+    neither."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.core.registry import REGISTRY
+    g = torch.Generator().manual_seed(3)
+    nb, bs, h, hd, b, t = 12, 4, 2, 8, 3, 4
+    ins = {"Q": torch.randn(b, h, t, hd, generator=g),
+           "K": torch.randn(b, h, t, hd, generator=g),
+           "V": torch.randn(b, h, t, hd, generator=g),
+           "CacheK": torch.randn(nb, bs, h, hd, generator=g),
+           "CacheV": torch.randn(nb, bs, h, hd, generator=g),
+           "BlockTable": torch.tensor([[0, 0, 0], [3, 7, 0], [1, 4, 9]]),
+           "StartPos": torch.tensor([0, 5, 8]),
+           "NValid": torch.tensor([0, 2, 4])}
+    lower = REGISTRY.get("paged_attention").lower
+    attrs = {"sm_scale": hd ** -0.5}
+
+    def run(device, scratch):
+        x = {k: v.clone().to(device) for k, v in ins.items()}
+        x["CacheK"][0] = scratch
+        x["CacheV"][0] = scratch
+        ctx = lowering.LowerCtx(device)
+        out = lower(lowering._OpCtx(ctx, _PagedOp(attrs)),
+                    {k: [v] for k, v in x.items()}, attrs)
+        return {k: v[0].cpu() for k, v in out.items()}
+
+    cpu = run("cpu", 0.0)
+    mapped = [1, 3, 4, 7, 9]
+    for scratch in (0.0, 1e3):
+        card = run("cuda", scratch)
+        for row, n in enumerate(ins["NValid"].tolist()):
+            assert torch.allclose(card["Out"][row, :, :n],
+                                  cpu["Out"][row, :, :n], atol=1e-5, rtol=0)
+        for slot in ("CacheKOut", "CacheVOut"):
+            assert torch.equal(card[slot][mapped], cpu[slot][mapped])
+
+
+class _PagedOp:
+    """The program op a lowering's context reads (attrs, id)."""
+
+    def __init__(self, attrs):
+        self.attrs, self.id, self.block, self.type = attrs, 7, None, \
+            "paged_attention"
+        self.outputs = {}
