@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernels' mutation check
+    python3 chip_smoke.py --compare DIR  # time the bf16 kernels of the
+                                         # checkout at DIR and of this
+                                         # one in turns (DIR, this, this,
+                                         # DIR) on one card
+    python3 chip_smoke.py --ablations  # time the bf16 wgmma kernels with
+                                       # one part of their work dropped
 
 Phases, one progress line each; any failure exits non-zero:
 
@@ -54,9 +60,9 @@ Phases, one progress line each; any failure exits non-zero:
              first step; median step time, the host's median time to
              enqueue a step, tokens/s, MFU, and a torch.profiler split of
              one step by kernel class with each flash kernel's symbol and
-             launches (the bf16 step must run fwd_kernel_mma,
-             dq_kernel_mma and dkv_kernel_mma 12 times each, and no other
-             flash kernel).
+             launches (the bf16 step must run fwd_kernel_wgmma,
+             dq_kernel_mma and dkv_kernel_wgmma 12 times each, and no
+             other flash kernel).
 7. train_f32 — the same training in float32 at batch 16 (float32
              activations take twice AMP's memory), 2 warm-up and 5 timed
              steps, the same gates; MFU against the CUDA cores' float32
@@ -147,10 +153,10 @@ F32_TOL = 1e-4
 BF16_BWD_TOL = 5e-3
 BF16_BWD_DIFF_SHARE = 1e-2
 # Forward, against its plain version on float32 copies of the inputs (the
-# TPU kernel's float32 scores): the sound kernel reads at most 4.3e-3 and
-# 0.393, a kernel that leaves keys past T unmasked 2.4e-2 and 0.998, one
-# that skips the rescale by alpha 0.52 and 0.65 or more (MUTANTS below;
-# PERF.md).
+# TPU kernel's float32 scores): the sound kernel reads at most 4.4e-3 and
+# 0.396, a kernel that leaves keys past T unmasked 2.4e-2 and 0.998 (0.23
+# at T 129), one that skips the rescale by alpha 0.52 and 0.65 or more,
+# one that unmasks the causal diagonal 1.05 (MUTANTS below; PERF.md).
 BF16_FWD_TOL = 1e-2
 BF16_FWD_DIFF_SHARE = 0.6
 # one bf16 AMP training step, card vs CPU: the loss, and each gradient's
@@ -158,6 +164,17 @@ BF16_FWD_DIFF_SHARE = 0.6
 # 8.1e-3, bf16 rounding at different points of the two devices' products)
 AMP_LOSS_RTOL = 1e-4
 AMP_GRAD_RTOL = 2e-2
+
+
+# bf16 kernel cases (bh, T, d, causal) at the ragged edges of
+# the 128-row tiles of the forward and dK/dV kernels: one past a tile
+# (129), inside the second tile (200), one short of two tiles (255), in
+# both masks, and ragged causal cases at d 32 and 128 (a 64-byte
+# swizzle; two boxes a row)
+RAGGED_BF16 = [(96, 129, HD, False), (96, 129, HD, True),
+               (96, 200, HD, False), (96, 200, HD, True),
+               (96, 255, HD, False), (96, 255, HD, True),
+               (48, 255, 32, True), (24, 200, 128, True)]
 
 
 def check(cond, msg):
@@ -237,6 +254,7 @@ def kernel_phase(torch):
                 .to(dtype) for _ in range(3)]
 
     f32, bf16 = torch.float32, torch.bfloat16
+    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16]
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
     # (many tiles through the kernels' ring), d=32 and d=128, and the
@@ -251,7 +269,7 @@ def kernel_phase(torch):
              (24, T, 128, f32, False), (24, T, 128, f32, True),
              (24, T, 128, bf16, False), (24, T, 128, bf16, True),
              (*TRAIN_SHAPE, bf16, False), (*F32_TRAIN_SHAPE, f32, False),
-             (*GPT_SHAPE, bf16, True)]
+             (*GPT_SHAPE, bf16, True), *ragged]
     # each training path's shape: max|kernel - plain|, by PATH_CASES key
     train_errs = {}
     for bh, t, d, dtype, causal in cases:
@@ -332,6 +350,85 @@ def _path_key(torch, bh, t, d, dtype, causal):
                 (bh, t, d, dtype, causal))
 
 
+def _inputs(torch, fa, gen, bh, t, d, dtype, causal):
+    """Seeded q, k, v, dO on the card with the plain forward's LSE and
+    delta = rowsum(dO * O): a backward kernel's arguments."""
+    q, k, v, do = [torch.randn((bh, t, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4)]
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def time_kernels(torch, fa, gen, shape, dtype, names, causal=False,
+                 errs=None):
+    """[kernel_time] lines at `shape` in `dtype` and mask: each kernel
+    in `names` (wrappers of the module `fa`) beside its plain version and
+    SDPA with the same mask (the forward, or its backward: one call for
+    dq, dk and dv); float32 lines also print the CUDA-core bound beside
+    the 3xTF32 one. Returns a record per kernel, with its error from
+    `errs` (by _path_key) where the shape is a training path's."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    errs = errs or {}
+    bh, t, d = shape
+    args = _inputs(torch, fa, gen, bh, t, d, dtype, causal)
+    q, k, v, do = args[:4]
+    calls = {
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(*args, causal=causal),
+            lambda: fa.flash_attention_bwd_dq_reference(
+                *args, causal=causal)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                *args, causal=causal)),
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
+            lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                     causal=causal)),
+    }
+    times = {n: (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
+             for n in names}
+    # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
+    shape4 = (bh // H, H, t, d)
+    q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
+                  (q, k, v))
+    library = {}
+    if set(names) & set(BWD_KERNELS):
+        out4 = sdpa(q4, k4, v4, is_causal=causal)
+        library = dict.fromkeys(BWD_KERNELS, cuda_ms(
+            lambda: torch.autograd.grad(out4, (q4, k4, v4),
+                                        do.view(shape4),
+                                        retain_graph=True)))
+    if "flash_attention_fwd" in names:
+        with torch.no_grad():
+            library["flash_attention_fwd"] = cuda_ms(
+                lambda: sdpa(q4, k4, v4, is_causal=causal))
+    records = {}
+    elsize = torch.finfo(dtype).bits // 8
+    for name, (ms, plain_ms) in times.items():
+        bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal,
+                                                elsize)
+        flops = attention_flops(name, bh, t, d, causal)
+        core = {} if dtype == bf16 else {"cuda_core_bound_ms": (
+            f"{cuda_core_bound_ms(name, bh, t, d, causal):.4f}")}
+        phase("kernel_time", kernel=name,
+              shape=f"[{bh},{t},{d}] {str(dtype)[6:]}"
+              f"{' causal' if causal else ''}", ms=f"{ms:.4f}",
+              tflops=f"{flops / ms / 1e9:.1f}",
+              plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{library[name]:.4f}",
+              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **core)
+        records[name] = {
+            "shape": f"[{bh},{t},{d}]{' causal' if causal else ''}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library[name],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": errs.get(_path_key(
+                torch, bh, t, d, dtype, causal), {}).get(name)}
+    return records
+
+
 def bwd_kernel_phase(torch):
     """Each backward kernel against its plain version on the card, then
     times at the training shape [384, 512, 64] bfloat16: the two
@@ -341,8 +438,9 @@ def bwd_kernel_phase(torch):
     version and SDPA's forward in bfloat16; then the two backward
     kernels in float32 beside float32 SDPA's backward, at the same shape
     and at the float32 training path's [192, 512, 64], where the float32
-    forward is timed too; last, all three bf16 kernels at GPT's causal
-    [384, 511, 64] beside causal SDPA. Returns the records per training
+    forward is timed too; then all three bf16 kernels at GPT's causal
+    [384, 511, 64] beside causal SDPA, and at [24, 512, 128] in both
+    masks. Returns the records per training
     path (_path_key): bfloat16 and float32 BERT, bfloat16_causal GPT."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
@@ -350,14 +448,8 @@ def bwd_kernel_phase(torch):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
 
-    def inputs(bh, t, d, dtype, causal):
-        q, k, v, do = [torch.randn((bh, t, d), generator=gen, device=dev)
-                       .to(dtype) for _ in range(4)]
-        o, lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
-        delta = (do.float() * o.float()).sum(-1)
-        return q, k, v, do, lse, delta
-
     bf16, f32 = torch.bfloat16, torch.float32
+    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16]
     # (bh, T, d, dtype, causal): the training shapes in both dtypes and
     # causal, GPT's ragged causal shape, a ragged T in both masks, T=1024
     # causal, d=128 in both masks, d=32 and bh=12 (one sequence's heads),
@@ -371,11 +463,11 @@ def bwd_kernel_phase(torch):
              (12, T, HD, bf16, False), (96, 300, HD, f32, False),
              (12, 1024, HD, f32, True), (24, T, 128, f32, True),
              (12, T, HD, f32, False), (*F32_TRAIN_SHAPE, f32, False),
-             (*GPT_SHAPE, bf16, True)]
+             (*GPT_SHAPE, bf16, True), *ragged]
     # each path's shape: max|kernel - plain| per kernel, by _path_key
     errs = {}
     for bh, t, d, dtype, causal in cases:
-        args = inputs(bh, t, d, dtype, causal)
+        args = _inputs(torch, fa, gen, bh, t, d, dtype, causal)
         dq = fa.flash_attention_bwd_dq(*args, causal=causal)
         dk, dv = fa.flash_attention_bwd_dkv(*args, causal=causal)
         rq = fa.flash_attention_bwd_dq_reference(*args, causal=causal)
@@ -405,79 +497,19 @@ def bwd_kernel_phase(torch):
                          "flash_attention_bwd_dkv": max(got["dk"][1],
                                                         got["dv"][1])}
 
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    def timed(shape, dtype, names, causal=False):
+        return time_kernels(torch, fa, gen, shape, dtype, names, causal,
+                            errs)
 
-    def time_kernels(shape, dtype, names, causal=False):
-        """[kernel_time] lines at `shape` in `dtype` and mask: each kernel
-        in `names` beside its plain version and SDPA with the same mask
-        (the forward, or its backward: one call for dq, dk and dv);
-        float32 lines also print the CUDA-core bound beside the 3xTF32
-        one."""
-        bh, t, d = shape
-        args = inputs(bh, t, d, dtype, causal)
-        q, k, v, do = args[:4]
-        calls = {
-            "flash_attention_bwd_dq": (
-                lambda: fa.flash_attention_bwd_dq(*args, causal=causal),
-                lambda: fa.flash_attention_bwd_dq_reference(
-                    *args, causal=causal)),
-            "flash_attention_bwd_dkv": (
-                lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
-                lambda: fa.flash_attention_bwd_dkv_reference(
-                    *args, causal=causal)),
-            "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
-                lambda: fa.flash_attention_fwd_reference(q, k, v,
-                                                         causal=causal)),
-        }
-        times = {n: (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
-                 for n in names}
-        # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
-        shape4 = (bh // H, H, t, d)
-        q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
-                      (q, k, v))
-        library = {}
-        if set(names) & set(BWD_KERNELS):
-            out4 = sdpa(q4, k4, v4, is_causal=causal)
-            library = dict.fromkeys(BWD_KERNELS, cuda_ms(
-                lambda: torch.autograd.grad(out4, (q4, k4, v4),
-                                            do.view(shape4),
-                                            retain_graph=True)))
-        if "flash_attention_fwd" in names:
-            with torch.no_grad():
-                library["flash_attention_fwd"] = cuda_ms(
-                    lambda: sdpa(q4, k4, v4, is_causal=causal))
-        records = {}
-        elsize = torch.finfo(dtype).bits // 8
-        for name, (ms, plain_ms) in times.items():
-            bound_ms, bound_by = attention_bound_ms(name, bh, t, d, causal,
-                                                    elsize)
-            flops = attention_flops(name, bh, t, d, causal)
-            core = {} if dtype == bf16 else {"cuda_core_bound_ms": (
-                f"{cuda_core_bound_ms(name, bh, t, d, causal):.4f}")}
-            phase("kernel_time", kernel=name,
-                  shape=f"[{bh},{t},{d}] {str(dtype)[6:]}"
-                  f"{' causal' if causal else ''}", ms=f"{ms:.4f}",
-                  tflops=f"{flops / ms / 1e9:.1f}",
-                  plain_ms=f"{plain_ms:.4f}",
-                  library_ms=f"{library[name]:.4f}",
-                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, **core)
-            records[name] = {
-                "shape": f"[{bh},{t},{d}]{' causal' if causal else ''}",
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library[name],
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "max_abs_err": errs.get(_path_key(
-                    torch, bh, t, d, dtype, causal), {}).get(name)}
-        return records
-
-    all3 = (*BWD_KERNELS, "flash_attention_fwd")
-    records = {"bfloat16": time_kernels(TRAIN_SHAPE, bf16, all3)}
+    records = {"bfloat16": timed(TRAIN_SHAPE, bf16, ALL3)}
     # the float32 backward at the bf16 shape (the earlier PRs' yardstick
     # shape), then all three float32 kernels at the float32 training path's
-    time_kernels(TRAIN_SHAPE, f32, BWD_KERNELS)
-    records["float32"] = time_kernels(F32_TRAIN_SHAPE, f32, all3)
-    records["bfloat16_causal"] = time_kernels(GPT_SHAPE, bf16, all3,
-                                              causal=True)
+    timed(TRAIN_SHAPE, f32, BWD_KERNELS)
+    records["float32"] = timed(F32_TRAIN_SHAPE, f32, ALL3)
+    records["bfloat16_causal"] = timed(GPT_SHAPE, bf16, ALL3, causal=True)
+    # d 128 in both masks (the bf16 kernels' widest instance)
+    for causal in (False, True):
+        timed(D128_SHAPE, bf16, ALL3, causal=causal)
     return records
 
 
@@ -608,7 +640,8 @@ KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
 # the tensor-core kernels the bf16 training step must run, the one the
 # float32 serving forward must run, and the three the float32 training
 # step must run
-BF16_KERNEL_SYMBOLS = ("fwd_kernel_mma", "dq_kernel_mma", "dkv_kernel_mma")
+BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_mma",
+                       "dkv_kernel_wgmma")
 F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
 F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32x3", "dkv_kernel_tf32x3")
 
@@ -728,6 +761,8 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
 TRAIN_RUNS = {True: (32, 3, 10, BF16_KERNEL_SYMBOLS, "train"),
               False: (16, 2, 5, F32_KERNEL_SYMBOLS, "train_f32")}
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+ALL3 = (*BWD_KERNELS, "flash_attention_fwd")
+D128_SHAPE = (24, T, 128)
 
 
 def model_flops_per_token(cfg, seq_len):
@@ -1342,9 +1377,8 @@ def _ptxas_kernels(log):
             name, spills = _kernel_name(m.group(1)), ""
         elif "spill" in line:
             spills = line.strip()
-        elif "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line)
-            out.append((name, int(regs.group(1)) if regs else -1, spills))
+        elif (regs := re.search(r"Used (\d+) registers", line)):
+            out.append((name, int(regs.group(1)), spills))
     return out
 
 
@@ -1366,6 +1400,11 @@ def build_phase():
           found_built=",".join(found) or None)
     spilled, unread = [], []
     for source, log in logs.items():
+        # nvcc's and ptxas's warnings and notes (a wgmma pipeline ptxas
+        # serialized, a setmaxnreg it ignored)
+        for line in log.splitlines():
+            if "warning" in line.lower() or "Performance" in line:
+                print(f"  {source}: {line.strip()[:300]}", flush=True)
         kernels = _ptxas_kernels(log)
         if not kernels:
             unread.append(source)
@@ -1379,29 +1418,54 @@ def build_phase():
     check(not spilled, f"kernel instances that spill registers: {spilled}")
 
 
+def smem_phase():
+    """Print the bf16 wgmma kernels' dynamic shared memory per head dim,
+    from the built libraries (ptxas reports only static shared memory)."""
+    import ctypes
+    from paddle_tpu_torch.ops.cuda import build
+    for source, fn, kernel in (
+            ("flash_attention_fwd", "flash_attention_fwd_smem",
+             "fwd_kernel_wgmma"),
+            ("flash_attention_bwd", "flash_attention_bwd_dkv_smem",
+             "dkv_kernel_wgmma")):
+        query = getattr(build.load(source), fn)
+        query.argtypes, query.restype = [ctypes.c_int], ctypes.c_longlong
+        print(f"  {source}: {kernel} dynamic shared memory: " + ", ".join(
+            f"d {d} {query(d)} bytes" for d in (32, 64, 128)), flush=True)
+
+
 # Mutation check of the kernels' limits: (name, source under csrc/, text,
 # replacement, phases). Each breaks one rule of a kernel; `python3
 # chip_smoke.py --mutants` runs the phases on a broken copy of the package
 # in a temporary directory, with `check` printing instead of raising, and
 # fails unless every mutant fails a check in each of its phases.
 MUTANTS = [
-    # the accumulator not rescaled when the running max grows
+    # bf16 forward: the accumulator not rescaled when the running max grows
     ("fwd_no_alpha", "flash_attention_fwd.cu",
-     "acc[mt][n][2 * r] *= alpha;\n          acc[mt][n][2 * r + 1] *= alpha;",
-     "", ("kernel_phase",)),
-    # LSE left in log2 units
+     "o_acc[n][e] *= alpha[e >> 1];", "o_acc[n][e] *= 1.f;",
+     ("kernel_phase",)),
+    # bf16 forward: LSE left in log2 units
     ("fwd_lse_log2", "flash_attention_fwd.cu",
-     "m[mt][r] * sm_scale + logf(l_safe[r])",
-     "m[mt][r] * scale + log2f(l_safe[r])", ("kernel_phase",)),
-    # keys past kv_len unmasked in the ragged last tile
+     "mrow[r] * sm_scale + logf(l_safe)", "mrow[r] * scale + log2f(l_safe)",
+     ("kernel_phase",)),
+    # bf16 forward: keys past kv_len unmasked in the ragged last tile
     ("fwd_no_ragged_mask", "flash_attention_fwd.cu",
-     "if (kc >= kv_len || (causal && kc > qr)) s[mt][n][i] = NEG_INF;",
-     "if (causal && kc > qr) s[mt][n][i] = NEG_INF;", ("kernel_phase",)),
-    # dS from the bf16-rounded P instead of the float32 P
+     "if (kc >= kv_len || (causal && kc > qr)) sc[n][i] = NEG_INF;",
+     "if (causal && kc > qr) sc[n][i] = NEG_INF;", ("kernel_phase",)),
+    # bf16 forward: keys after the query unmasked on the diagonal tile
+    ("fwd_no_causal_mask", "flash_attention_fwd.cu",
+     "if (kc >= kv_len || (causal && kc > qr)) sc[n][i] = NEG_INF;",
+     "if (kc >= kv_len) sc[n][i] = NEG_INF;", ("kernel_phase",)),
+    # bf16 dK/dV: dS from the bf16-rounded P instead of the float32 P
     ("dkv_ds_from_rounded_p", "flash_attention_bwd.cu",
-     "dp[n][i] = s[n][i] * (dp[n][i] - tD[qc]) * sm_scale;",
-     "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
-     "(dp[n][i] - tD[qc]) * sm_scale;", ("bwd_kernel_phase",)),
+     "dp[nn][e] = s[nn][e] * (dp[nn][e] - dcol) * sm_scale;",
+     "dp[nn][e] = __bfloat162float(__float2bfloat16(s[nn][e])) * "
+     "(dp[nn][e] - dcol) * sm_scale;", ("bwd_kernel_phase",)),
+    # bf16 dK/dV: queries before the key unmasked on the diagonal tile
+    ("dkv_no_causal_mask", "flash_attention_bwd.cu",
+     "if (qr >= t || (causal && qr < kr)) s[nn][e] = NEG_INF;",
+     "if (qr >= t) s[nn][e] = NEG_INF;",
+     ("bwd_kernel_phase",)),
     # dQ: dS from the bf16-rounded P
     ("dq_ds_from_rounded_p", "flash_attention_bwd.cu",
      "dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;",
@@ -1432,6 +1496,130 @@ MUTANTS = [
      "if (key >= t || (causal && key > query)) e = 0.f;",
      "if (key >= t) e = 0.f;", ("bwd_kernel_phase",)),
 ]
+
+
+# Ablations of the bf16 wgmma kernels: (name, [(source under csrc/,
+# text, replacement), ...]). Each drops one part of a kernel's work (its
+# results are then wrong); `python3 chip_smoke.py --ablations` times the
+# forward and dK/dV of a copy of the package with that part dropped,
+# beside the unchanged copy ("none"), which says what holds each kernel
+# back (PERF.md).
+ABLATIONS = [
+    ("none", []),
+    # forward: the online softmax (masking, max, exp, sums)
+    ("fwd_no_softmax", [
+        ("flash_attention_fwd.cu", "      float alpha[2];\n",
+         "      float alpha[2] = {1.f, 1.f};\n"),
+        ("flash_attention_fwd.cu", "fwd_softmax<BK>(sc, mrow, l, alpha, 0,",
+         "if (0) fwd_softmax<BK>(sc, mrow, l, alpha, 0,"),
+        ("flash_attention_fwd.cu",
+         "fwd_softmax<BK>(sc, mrow, l, alpha, kt * BK,",
+         "if (0) fwd_softmax<BK>(sc, mrow, l, alpha, kt * BK,")]),
+    # forward: the P V products
+    ("fwd_no_pv", [
+        ("flash_attention_fwd.cu",
+         "for (int kk = 0; kk < BK / 16; ++kk)\n    wgmma_rs<D>(o_acc",
+         "for (int kk = 0; kk < 0; ++kk)\n    wgmma_rs<D>(o_acc")]),
+    # forward: staging and storing O
+    ("fwd_no_epilogue", [
+        ("flash_attention_fwd.cu", "stage_rows<D, D>(o_tile,",
+         "if (0) stage_rows<D, D>(o_tile,"),
+        ("flash_attention_fwd.cu", "tma_store_3d(&o_map,",
+         "if (0) tma_store_3d(&o_map,")]),
+    # forward: the K and V loads (the ring's barriers still turn)
+    ("fwd_no_kv_loads", [
+        ("flash_attention_fwd.cu", "mbar_expect_tx(k_full + 8 * st, KTILE);",
+         "mbar_expect_tx(k_full + 8 * st, 0); if (0)"),
+        ("flash_attention_fwd.cu", "mbar_expect_tx(v_full + 8 * st, KTILE);",
+         "mbar_expect_tx(v_full + 8 * st, 0); if (0)")]),
+    # dK/dV: the exp of P^T
+    ("dkv_no_exp", [
+        ("flash_attention_bwd.cu",
+         "s[nn][e] = exp2_approx(\n                  fmaf(s[nn][e], scale, "
+         "-((e & 1) ? lq.y : lq.x) * LOG2E));",
+         "s[nn][e] = fmaf(s[nn][e], scale, -((e & 1) ? lq.y : lq.x) * "
+         "LOG2E);")]),
+    # dK/dV: the dV and dK products
+    ("dkv_no_dv_dk", [
+        ("flash_attention_bwd.cu",
+         "for (int kk = 0; kk < QC / 16; ++kk)\n            wgmma_rs<DN>(acc_v",
+         "for (int kk = 0; kk < 0; ++kk)\n            wgmma_rs<DN>(acc_v"),
+        ("flash_attention_bwd.cu",
+         "for (int kk = 0; kk < QC / 16; ++kk)\n            wgmma_rs<DN>(acc_k",
+         "for (int kk = 0; kk < 0; ++kk)\n            wgmma_rs<DN>(acc_k")]),
+    # dK/dV: the Q and dO loads (the ring's barriers still turn)
+    ("dkv_no_q_loads", [
+        ("flash_attention_bwd.cu", "mbar_expect_tx(bar, 2 * QTILE);",
+         "mbar_expect_tx(bar, 0); if (0)")]),
+]
+
+
+def ablation_times(torch):
+    """[ablation_time] line: the bf16 forward and dK/dV of the
+    paddle_tpu_torch first on sys.path, at the BERT and GPT training
+    shapes (mean of 50 launches each, CUDA events)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    out = {}
+    for (bh, t, d), causal, key in ((TRAIN_SHAPE, False, ""),
+                                    (GPT_SHAPE, True, "causal_")):
+        args = _inputs(torch, fa, gen, bh, t, d, torch.bfloat16, causal)
+        q, k, v = args[:3]
+        out[f"{key}fwd_ms"] = cuda_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, causal=causal), iters=50)
+        out[f"{key}dkv_ms"] = cuda_ms(
+            lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
+            iters=50)
+    phase("ablation_time", **{k: f"{v:.4f}" for k, v in out.items()})
+
+
+def ablation_phase():
+    """Build a copy of the package per entry of ABLATIONS (in parallel),
+    then time each (ablation_times) in a process of its own; print
+    `[ablation] <name>` lines."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="ptt_ablation_") as tmp:
+        def prepare(entry):
+            name, edits = entry
+            tree = os.path.join(tmp, name)
+            shutil.copytree(os.path.join(root, "paddle_tpu_torch"),
+                            os.path.join(tree, "paddle_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy(os.path.join(root, "chip_smoke.py"), tree)
+            for source, old, new in edits:
+                path = os.path.join(tree, "paddle_tpu_torch", "csrc", source)
+                with open(path) as f:
+                    text = f.read()
+                check(text.count(old) == 1,
+                      f"ablation {name}: its text is not in {source} once")
+                with open(path, "w") as f:
+                    f.write(text.replace(old, new))
+            env = {**os.environ,
+                   "PADDLE_TPU_TORCH_BUILD_DIR": os.path.join(tree, "b")}
+            subprocess.run([sys.executable, "-c", (
+                "import sys; sys.path.insert(0, '.'); from paddle_tpu_torch"
+                ".ops.cuda import build; [build.build(n) for n in "
+                f"{SOURCES!r}]")], cwd=tree, env=env, check=True,
+                capture_output=True)
+            return name, tree, env
+
+        with ThreadPoolExecutor(4) as pool:
+            trees = list(pool.map(prepare, ABLATIONS))
+        for name, tree, env in trees:
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys, torch; sys.path.insert("
+                 "0, '.'); import chip_smoke as c; c.ablation_times(torch)"],
+                cwd=tree, env=env, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT)
+            for ln in proc.stdout.splitlines():
+                if ln.startswith("[ablation_time]"):
+                    print(f"[ablation] {name} {ln}", flush=True)
+            check(proc.returncode == 0,
+                  f"ablation {name} failed:\n{proc.stdout[-2000:]}")
 
 
 def mutant_phase():
@@ -1489,9 +1677,56 @@ def mutant_phase():
     return missed
 
 
+def time_phase(torch):
+    """[kernel_time] lines of the three bf16 kernels at the shapes their
+    redesign is judged at: the BERT training path's [384, 512, 64], GPT's
+    [384, 511, 64] causal, and [24, 512, 128] in both masks. Takes the
+    wrappers of whichever paddle_tpu_torch is first on sys.path (for
+    --compare, another tree's)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    for shape, causal in ((TRAIN_SHAPE, False), (GPT_SHAPE, True),
+                          (D128_SHAPE, False), (D128_SHAPE, True)):
+        time_kernels(torch, fa, gen, shape, torch.bfloat16, ALL3, causal)
+
+
+def compare_phase(other):
+    """Build and time (time_phase) the kernels of another checkout at
+    `other` and of this one in turns on the same card, other, this, this,
+    other, one process each; print each process's [build] and
+    [kernel_time] lines prefixed `[compare] <tree>`."""
+    script = os.path.abspath(__file__)
+    root = os.path.dirname(script)
+    other = os.path.abspath(other)
+    for label, tree in (("parent", other), ("change", root),
+                        ("change", root), ("parent", other)):
+        code = ("import sys, torch; sys.path.insert(0, {tree!r}); "
+                "import importlib.util as u; "
+                "s = u.spec_from_file_location('chip_smoke', {script!r}); "
+                "c = u.module_from_spec(s); s.loader.exec_module(c); "
+                "c.build_phase(); c.time_phase(torch)").format(
+                    tree=tree, script=script)
+        env = {k: v for k, v in os.environ.items()
+               if k != "PADDLE_TPU_TORCH_BUILD_DIR"}
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                              text=True, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env)
+        for ln in proc.stdout.splitlines():
+            if ln.startswith(("[build]", "[kernel_time]", "  ")):
+                print(f"[compare] {label} {ln}", flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], flush=True)
+        check(proc.returncode == 0, f"the {label} tree's timing failed")
+
+
 def main():
-    if sys.argv[1:] not in ([], ["--mutants"]):
-        print("usage: python3 chip_smoke.py [--mutants]", file=sys.stderr)
+    args = sys.argv[1:]
+    if args not in ([], ["--mutants"], ["--ablations"]) and not (
+            len(args) == 2 and args[0] == "--compare"):
+        print("usage: python3 chip_smoke.py [--mutants | --ablations | "
+              "--compare DIR]", file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
@@ -1510,8 +1745,15 @@ def main():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
+    if args[:1] == ["--compare"]:
+        compare_phase(args[1])
+        return 0
+    if args == ["--ablations"]:
+        ablation_phase()
+        return 0
     build_phase()
-    if sys.argv[1:] == ["--mutants"]:
+    smem_phase()
+    if args == ["--mutants"]:
         missed = mutant_phase()
         check(not missed, f"mutants no check caught: {missed}")
         return 0

@@ -20,15 +20,15 @@
 //
 // The TPU kernels walk a sequential grid dimension and carry dq (or dk,
 // dv) in VMEM scratch between grid steps. Blocks on Hopper run in no
-// order, so each block owns its output tile and loops itself:
+// order, so each block owns output tiles and loops itself:
 //   dq:  one block per (bh, 64-row q tile); 64-row K/V tiles stream
 //        through; in causal mode the loop stops at the tile holding the
 //        diagonal.
-//   dkv: one block per (bh, 64-row k tile); 64-row Q/dO tiles stream
-//        through; in causal mode the loop starts at the tile holding the
-//        diagonal.
-// The ragged tail (T not a multiple of 64) is masked in the kernels, so
-// the caller need not pad T.
+//   dkv: 128-row k tiles (64 in the float32 kernel); 64-row Q/dO tiles
+//        stream through; in causal mode the loop starts at the tile
+//        holding the diagonal.
+// The ragged tail (T not a multiple of the tile) is masked in the
+// kernels, so the caller need not pad T.
 //
 // Bounds. The dq pass does 6*d operations per (q, k) pair and the dk/dv
 // pass 8*d. At the bf16 training path's shape ([bh=384, T=512, d=64]):
@@ -42,25 +42,41 @@
 //
 // Kernels, chosen by dtype in the entry points:
 //
-// dkv_kernel_mma<D> (bfloat16), the FlashAttention-2 design on the tensor
-//   cores. 4 warps, 16 key rows each. K and V are staged once in shared
-//   memory; Q, dO, LSE and delta tiles of 64 query rows stream through a
-//   2-stage cp.async ring. Tiles are bf16 with rows padded to D + 8
-//   elements, so ldmatrix reads no bank twice. Each warp computes its
-//   score tile transposed, so its rows are its own key rows:
+// dkv_kernel_wgmma<D, STAGES> (bfloat16), a Hopper design (wgmma, TMA and
+//   mbarriers; helpers in sm90_bf16.cuh). The transposed formulation:
 //     S^T = K Q^T,  P^T = exp(sm_scale S^T - LSE[q]),
 //     dV += bf16(P^T) dO,  dP^T = V dO^T,
 //     dS^T = P^T (dP^T - delta[q]) sm_scale,  dK += bf16(dS^T) Q,
-//   all with mma.m16n8k16 (bf16 in, float32 out). P^T and dS^T go from
-//   one product's accumulators to the next product's A fragments in
-//   registers (mma_bf16.cuh); Q's and dO's B fragments come by ldmatrix,
-//   plain for S^T and dP^T, .trans for dV and dK. dK and dV accumulate in
-//   float32 registers and leave once, through shared memory, as 16-byte
-//   rows. At d = 128 the two accumulators take 128 registers a thread, so
-//   the score tiles are computed 32 query columns at a time (64 below),
-//   which keeps every instance free of spills.
+//   so every product is a wgmma and neither P^T nor dS^T goes through
+//   shared memory:
+//   - three warpgroups: a producer whose first warp loads each key
+//     tile's K and V and keeps a ring of STAGES 64-row Q and dO tiles
+//     full by TMA (tensor maps over (d, T, bh): a box past T is
+//     zero-filled), its 32 lanes copying each stage's LSE and delta rows
+//     by cp.async (rows of a [bh, T] float32 tensor have no 16-byte
+//     alignment for TMA); two consumers of 64 key rows each, so a block
+//     owns 128 key rows; setmaxnreg moves registers to the consumers;
+//   - S^T and dP^T by SS wgmma (K, V and Q, dO all K-major), P^T and dS^T
+//     from the accumulators into RS wgmma A operands in registers, dV and
+//     dK by RS wgmma with dO and Q as MN-major B operands; LSE and delta
+//     read per accumulator column pair into registers;
+//   - the two consumers overlap each other's softmax with their products
+//     (issuing a tile's S^T and dP^T before the last tile's dV and dK
+//     were retired read no faster, and made ptxas spill);
+//   - persistent: one block an SM walks key tiles, the Q/dO ring runs on
+//     across them, the next tile's K and V load once the last S^T and
+//     dP^T of this one are done, and dK, dV leave through staging tiles
+//     of their own by TMA store (rows past T not written);
+//   - tiles in head chunks (sm90::tile_order) so the Q and dO rows the
+//     key tiles of a head share are read from L2, the top tiles (the
+//     heaviest in causal mode) first.
+//   At d = 128 dK and dV of all 128 columns would take 128 accumulator
+//   registers a thread besides S^T, dP^T and the operands, more than a
+//   consumer has: there a tile sums one 64-column box of dK and dV (two
+//   tiles a key tile), at the price of computing S^T and dP^T twice.
+//   What holds it back is in PERF.md (PR 7).
 //
-// dq_kernel_mma<D> (bfloat16), the transpose of dkv_kernel_mma: 4 warps,
+// dq_kernel_mma<D> (bfloat16), mma.sync m16n8k16 (mma_bf16.cuh): 4 warps,
 //   16 query rows each. Q and dO are staged once and kept as A fragments
 //   in registers; K and V tiles of 64 key rows stream through a 2-stage
 //   cp.async ring (rows past T zero-filled); each lane keeps the LSE and
@@ -77,7 +93,7 @@
 //   and dO fragments take 128 registers a thread, so the score tiles are
 //   computed 32 key columns at a time (64 below).
 //
-// dkv_kernel_tf32x3<D> (float32), dkv_kernel_mma's design on the TF32
+// dkv_kernel_tf32x3<D> (float32), an mma.sync design on the TF32
 //   tensor cores with 3xTF32 products (mma_tf32.cuh): each operand splits
 //   into a tf32 high and low part and each product is lo hi + hi lo + hi
 //   hi with float32 accumulation. One TF32 product keeps 11 bits of each
@@ -120,6 +136,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "sm90_bf16.cuh"
 
 namespace {
 
@@ -127,6 +144,7 @@ constexpr int BQ = 64;            // query rows per tile
 constexpr int BK = 64;            // key rows per tile
 constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF = -1e30f;
 
 // Q, dO, LSE and delta of q tile q0 into one stage of the ring (Q and dO
 // in bfloat16 or float32)
@@ -148,211 +166,341 @@ __device__ __forceinline__ void load_q_stage(T* sQ, T* sdO, float* sL,
 
 // --------------------------------------------------------------- bfloat16
 
-template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  // K and V once, then two stages of Q and dO ([64][D + 8] bf16 each) and
-  // of LSE and delta (64 floats each)
-  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8) + sizeof(float) * 4 * BQ;
+constexpr int WG_THREADS = 128;  // one warpgroup
+// two consumer warpgroups and a producer warpgroup (its first warp issues
+// the loads): 168 registers a thread at launch, then the producer gives
+// all but PRODUCER_REGS of its share to the consumers (setmaxnreg)
+constexpr int WGMMA_THREADS = 3 * WG_THREADS;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(WG_THREADS * (PRODUCER_REGS + 2 * CONSUMER_REGS) <=
+                  WGMMA_THREADS * 168,
+              "the consumers take only what the producer gives up");
+constexpr int WBK = 128;  // key rows per dk/dv block (64 per consumer)
+
+// columns of dK and dV one block sums: all of them up to d = 64; at
+// d = 128 one 64-column box, a grid dimension of two (the head comment)
+__host__ __device__ constexpr int dkv_columns(int d) { return d > 64 ? 64 : d; }
+
+// K and V tiles ([WBK][D] bf16 as swizzled boxes, sm90_bf16.cuh), the dK
+// and dV staging tiles ([WBK][dkv_columns(D)], one box each), then
+// STAGES stages of Q and dO ([BQ][D]) and of LSE and delta (BQ floats
+// each), then the mbarriers: K/V full and empty, and per stage full and
+// empty; 1024 bytes of slack to align the base
+template <int D, int STAGES>
+constexpr size_t dkv_wgmma_smem_bytes() {
+  return 1024 +
+         static_cast<size_t>(2 * WBK * D + 2 * WBK * dkv_columns(D) +
+                             2 * STAGES * BQ * D) *
+             2 +
+         STAGES * 2 * BQ * sizeof(float) + 8 * (2 + 2 * STAGES);
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    dkv_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int t, float sm_scale,
-                   int causal) {
+// S^T = K Q^T and dP^T = V dO^T of QC query columns: the warpgroup's 64
+// key rows (of the K and V tiles at shared addresses k_rows, v_rows) x
+// the QC query rows of the Q and dO tiles at q_tile, do_tile (at a row
+// of a [BQ][D] tile whose 8-row groups stay whole), all operands
+// K-major; two groups. The descriptors are put together here (desc_at):
+// held through the main loop, they spilled.
+template <int D, int QC>
+__device__ __forceinline__ void dkv_issue_sdp(float (&s)[QC / 8][4],
+                                              float (&dp)[QC / 8][4],
+                                              uint32_t k_rows, uint32_t v_rows,
+                                              uint32_t q_tile,
+                                              uint32_t do_tile) {
+  using namespace sm90;
+  const uint64_t kd = kmajor_desc<D>(k_rows, 0);
+  const uint64_t vd = kmajor_desc<D>(v_rows, 0);
+  const uint64_t qd = kmajor_desc<D>(q_tile, 0);
+  const uint64_t dod = kmajor_desc<D>(do_tile, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<QC>(s, desc_at(kstep<D>(kd, WBK, kk)),
+                 desc_at(kstep<D>(qd, BQ, kk)), kk > 0);
+  wgmma_commit();
+  // a fence of its own: S^T's accumulators are written (P^T) while dP^T
+  // is still in flight
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<QC>(dp, desc_at(kstep<D>(vd, WBK, kk)),
+                 desc_at(kstep<D>(dod, BQ, kk)), kk > 0);
+  wgmma_commit();
+}
+
+// key tile `i` of a persistent block's walk: z, the box of dK and dV
+// columns summed (at d = 128 two tiles share a key tile), and by
+// sm90::tile_order within each chunk of heads the tiles nearest the top of
+// every head first (in causal mode they see the most queries). Returns
+// k0; sets bh and z.
+__device__ __forceinline__ int dkv_tile(int i, int heads, int chunk, int nk,
+                                        int nz, int& bh, int& z) {
+  int kt;
+  z = i % nz;
+  sm90::tile_order(i / nz, heads, nk, chunk, bh, kt);
+  return kt * WBK;
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+    dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dk_map,
+                     const __grid_constant__ CUtensorMap dv_map,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, int heads,
+                     int chunk, int t, float sm_scale, int causal) {
   using namespace mma_bf16;
-  constexpr int LD = D + 8;      // padded row stride (elements)
-  constexpr int TILE = BQ * LD;  // elements of one staged tile
-  constexpr int KD = D / 16;     // k steps over d
-  constexpr int ND = D / 8;      // n-blocks over d
-  // query columns of the score tile per compute pass (the head comment)
-  constexpr int QC = D > 64 ? 32 : 64;
-  constexpr int NQ = QC / 8;     // n-blocks of a score pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + TILE;
-  __nv_bfloat16* sQ = sV + TILE;       // [2][BQ][LD]
-  __nv_bfloat16* sdO = sQ + 2 * TILE;  // [2][BQ][LD]
-  float* sL = reinterpret_cast<float*>(sdO + 2 * TILE);  // [2][BQ]
-  float* sD = sL + 2 * BQ;                               // [2][BQ]
+  using namespace sm90;
+  using G = Tile<D>;
+  constexpr int DN = dkv_columns(D);  // columns of dK and dV summed here
+  constexpr int NZ = D / DN;          // key tiles a (head, k0) splits into
+  constexpr int KTILE = WBK * D * 2;  // bytes of the K or V tile
+  constexpr int OTILE = WBK * DN * 2; // bytes of the dK or dV staging tile
+  constexpr int QTILE = BQ * D * 2;   // bytes of one Q or dO stage
+  // query columns of the score tile per pass: a pass's S^T, dP^T, P^T and
+  // dS^T take half the registers of a whole tile's, which keeps the
+  // consumers free of spills
+  constexpr int QC = 32;
+  constexpr int NQ = QC / 8;          // column blocks of a score pass
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sK = wg_smem + (1024 - smem_u32(wg_smem) % 1024) % 1024;
+  float* sL = reinterpret_cast<float*>(sK + 2 * KTILE + 2 * OTILE +
+                                       2 * STAGES * QTILE);
+  float* sD = sL + STAGES * BQ;
+  const uint32_t k_tile = smem_u32(sK), v_tile = k_tile + KTILE;
+  const uint32_t dk_tile = v_tile + KTILE, dv_tile = dk_tile + OTILE;
+  const uint32_t q_tiles = dv_tile + OTILE;
+  const uint32_t do_tiles = q_tiles + STAGES * QTILE;
+  const uint32_t l_rows = smem_u32(sL), d_rows = smem_u32(sD);
+  const uint32_t kv_full = d_rows + STAGES * BQ * sizeof(float);
+  const uint32_t kv_empty = kv_full + 8, full = kv_empty + 8;
+  const uint32_t empty = full + 8 * STAGES;
+  const int ntiles = (t + BQ - 1) / BQ;  // query tiles
+  const int nk = (t + WBK - 1) / WBK;
+  const int total = nk * heads * NZ;     // key tiles of the launch
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int row0 = k0 + warp * 16;  // the warp's first key row
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-  const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* ob = dout + base;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 2 * WG_THREADS);
+    for (int st = 0; st < STAGES; ++st) {
+      // the TMA thread's arrival, and the cp.async warp's 32
+      mbar_init(full + 8 * st, 1 + 32);
+      mbar_init(empty + 8 * st, 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  // causal: query tiles before the one holding the diagonal see no key of
-  // this tile (BQ == BK, so that tile's index is the k tile's own)
-  const int qstart = causal ? k0 / BQ : 0;
-  const int ntiles = (t + BQ - 1) / BQ;
-
-  load_rows_async<BK, D, MMA_THREADS>(sK, k + base, k0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sV, v + base, k0, t);
-  load_q_stage<D>(sQ, sdO, sL, sD, qb, ob, lse + rbase, delta + rbase,
-                  qstart * BQ, t);
-  cp_async_commit();
-
-  const float scale = sm_scale * LOG2E;  // exponents in log2 units
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
-
-  for (int qt = qstart; qt < ntiles; ++qt) {
-    const int q0 = qt * BQ;
-    const int st = (qt - qstart) & 1;
-    if (qt + 1 < ntiles)  // the next tile into the other stage
-      load_q_stage<D>(sQ + (st ^ 1) * TILE, sdO + (st ^ 1) * TILE,
-                      sL + (st ^ 1) * BQ, sD + (st ^ 1) * BQ, qb, ob,
-                      lse + rbase, delta + rbase, q0 + BQ, t);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and K, V) has landed
-    __syncthreads();
-    const __nv_bfloat16* tQ = sQ + st * TILE;
-    const __nv_bfloat16* tdO = sdO + st * TILE;
-    const float* tL = sL + st * BQ;
-    const float* tD = sD + st * BQ;
-    // mask only the ragged last tile and the diagonal tile
-    const bool edge = q0 + BQ > t || (causal && q0 < k0 + BK - 1);
-
-#pragma unroll
-    for (int j0 = 0; j0 < BQ; j0 += QC) {
-      // S^T = K Q^T: the warp's 16 key rows x QC query columns
-      float s[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_addr(sK, LD, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int n2 = 0; n2 < NQ / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, bn_addr(tQ, LD, j0 + n2 * 16, kk * 16, lane));
-          mma_16816(s[2 * n2], a, b[0], b[1]);
-          mma_16816(s[2 * n2 + 1], a, b[2], b[3]);
-        }
-      }
-
-      // P^T = exp(sm_scale S^T - LSE[q]) in float32; masked entries 0.
-      // exp2f rather than mma_bf16.cuh's exp2_approx: as fast here, and
-      // with exp2_approx ptxas spills the d = 128 instance (at 255
-      // registers)
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = j0 + n * 8 + 2 * c + (i & 1);
-          float p = exp2f(fmaf(s[n][i], scale, -tL[qc] * LOG2E));
-          if (edge) {
-            const int qr = q0 + qc;
-            const int kr = row0 + g + (i >> 1) * 8;
-            if (qr >= t || (causal && qr < kr)) p = 0.f;
+  // A persistent block walks key tiles blockIdx.x, blockIdx.x +
+  // gridDim.x, ...; the Q/dO ring runs on across tiles, and the next
+  // tile's K and V load while this one's last dV and dK and its epilogue
+  // run
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // producer: the first thread of its first warp loads K and V and
+    // keeps the ring of Q and dO tiles full by TMA; the 32 lanes of its
+    // second warp copy each stage's LSE and delta rows by cp.async (rows of
+    // a [bh, T] float32 tensor have no 16-byte alignment for TMA), zero
+    // past T. Two warps, so each fits the producer's registers.
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int pw = (threadIdx.x - 2 * WG_THREADS) >> 5;  // producer warp
+    const int lane = threadIdx.x & 31;
+    if (pw == 0 && lane == 0) {
+      int c = 0;  // ring stages walked
+      for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+        int bh, z;
+        const int k0 = dkv_tile(i, heads, chunk, nk, NZ, bh, z);
+        // causal: query tiles before the one holding the tile's first key
+        // see none of its keys
+        const int qstart = causal ? k0 / BQ : 0;
+        mbar_wait(kv_empty, (n & 1) ^ 1);  // the last tile's S^T, dP^T
+        mbar_expect_tx(kv_full, 2 * KTILE);
+        for (int b = 0; b < G::NBOX; ++b)
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t off = (b * WBK + h * 64) * G::ROWB;
+            tma_load_3d(k_tile + off, &k_map, kv_full, b * G::ELEMS,
+                        k0 + h * 64, bh);
+            tma_load_3d(v_tile + off, &v_map, kv_full, b * G::ELEMS,
+                        k0 + h * 64, bh);
           }
-          s[n][i] = p;
-        }
-
-      // dV += bf16(P^T) dO
-#pragma unroll
-      for (int kk = 0; kk < QC / 16; ++kk) {
-        uint32_t a[4];
-        c_to_a<NQ>(a, s, kk);
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b,
-                            bk_addr(tdO, LD, j0 + kk * 16, n2 * 16, lane));
-          mma_16816(acc_v[2 * n2], a, b[0], b[1]);
-          mma_16816(acc_v[2 * n2 + 1], a, b[2], b[3]);
+        for (int qt = qstart; qt < ntiles; ++qt, ++c) {
+          const int st = c % STAGES;
+          mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
+          const uint32_t bar = full + 8 * st;
+          mbar_expect_tx(bar, 2 * QTILE);
+          for (int b = 0; b < G::NBOX; ++b) {
+            const uint32_t off = st * QTILE + b * BQ * G::ROWB;
+            tma_load_3d(q_tiles + off, &q_map, bar, b * G::ELEMS, qt * BQ,
+                        bh);
+            tma_load_3d(do_tiles + off, &do_map, bar, b * G::ELEMS,
+                        qt * BQ, bh);
+          }
         }
       }
-
-      // dP^T = V dO^T
-      float dp[NQ][4];
+    } else if (pw == 1) {
+      int c = 0;
+      for (int i = blockIdx.x; i < total; i += gridDim.x) {
+        int bh, z;
+        const int k0 = dkv_tile(i, heads, chunk, nk, NZ, bh, z);
+        const int qstart = causal ? k0 / BQ : 0;
+        const float* lrow = lse + static_cast<size_t>(bh) * t;
+        const float* drow = delta + static_cast<size_t>(bh) * t;
+        for (int qt = qstart; qt < ntiles; ++qt, ++c) {
+          const int st = c % STAGES;
+          mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dp[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, a_addr(sV, LD, warp * 16, kk * 16, lane));
-#pragma unroll
-        for (int n2 = 0; n2 < NQ / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, bn_addr(tdO, LD, j0 + n2 * 16, kk * 16, lane));
-          mma_16816(dp[2 * n2], a, b[0], b[1]);
-          mma_16816(dp[2 * n2 + 1], a, b[2], b[3]);
-        }
-      }
-
-      // dS^T = P^T (dP^T - delta[q]) sm_scale, from the unrounded P^T
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = j0 + n * 8 + 2 * c + (i & 1);
-          dp[n][i] = s[n][i] * (dp[n][i] - tD[qc]) * sm_scale;
-        }
-
-      // dK += bf16(dS^T) Q
-#pragma unroll
-      for (int kk = 0; kk < QC / 16; ++kk) {
-        uint32_t a[4];
-        c_to_a<NQ>(a, dp, kk);
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, bk_addr(tQ, LD, j0 + kk * 16, n2 * 16, lane));
-          mma_16816(acc_k[2 * n2], a, b[0], b[1]);
-          mma_16816(acc_k[2 * n2 + 1], a, b[2], b[3]);
+          for (int j = 0; j < BQ / 32; ++j) {
+            const int r = j * 32 + lane, q = qt * BQ + r;
+            cp_async_4(sL + st * BQ + r, lrow + (q < t ? q : 0), q < t);
+            cp_async_4(sD + st * BQ + r, drow + (q < t ? q : 0), q < t);
+          }
+          mbar_arrive_cp_async(full + 8 * st);
         }
       }
     }
-    __syncthreads();  // the next iteration refills this stage
-  }
+  } else {
+    // consumer warpgroup wg: key rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, c = lane & 3;
+    const float scale = sm_scale * LOG2E;  // exponents in log2 units
+    // the warpgroup's rows of the K and V tiles
+    const uint32_t k_rows = k_tile + wg * 64 * G::ROWB;
+    const uint32_t v_rows = v_tile + wg * 64 * G::ROWB;
 
-  // dK, dV to bf16, staged in the warp's own rows of sK and sV (only this
-  // warp read them), then stored as 16-byte rows
-  __nv_bfloat16* wK = sK + warp * 16 * LD;
-  __nv_bfloat16* wV = sV + warp * 16 * LD;
+    float acc_k[DN / 8][4], acc_v[DN / 8][4];
+    float s[NQ][4], dp[NQ][4];
+    uint32_t pa[QC / 16][4], da[QC / 16][4];  // bf16 P^T and dS^T
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * c;
-    *reinterpret_cast<uint32_t*>(wK + g * LD + col) =
-        pack_bf16x2(acc_k[n][0], acc_k[n][1]);
-    *reinterpret_cast<uint32_t*>(wK + (g + 8) * LD + col) =
-        pack_bf16x2(acc_k[n][2], acc_k[n][3]);
-    *reinterpret_cast<uint32_t*>(wV + g * LD + col) =
-        pack_bf16x2(acc_v[n][0], acc_v[n][1]);
-    *reinterpret_cast<uint32_t*>(wV + (g + 8) * LD + col) =
-        pack_bf16x2(acc_v[n][2], acc_v[n][3]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 8;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, col = (i % CHUNKS) * 8;
-    if (row0 + r >= t) continue;
-    const size_t off = base + static_cast<size_t>(row0 + r) * D + col;
-    *reinterpret_cast<uint4*>(dk + off) =
-        *reinterpret_cast<const uint4*>(wK + r * LD + col);
-    *reinterpret_cast<uint4*>(dv + off) =
-        *reinterpret_cast<const uint4*>(wV + r * LD + col);
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+
+    int rs = 0;  // ring stages walked
+    for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+      int bh, z;
+      const int k0 = dkv_tile(i, heads, chunk, nk, NZ, bh, z);
+      const int qstart = causal ? k0 / BQ : 0;
+      const int kw0 = k0 + wg * 64;      // the warpgroup's first key row
+      const int row0 = kw0 + warp * 16;  // the warp's first key row
+#pragma unroll
+      for (int nn = 0; nn < DN / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[nn][e] = acc_v[nn][e] = 0.f;
+      mbar_wait(kv_full, n & 1);
+
+      for (int qt = qstart; qt < ntiles; ++qt, ++rs) {
+        const int st = rs % STAGES;
+        const int q0 = qt * BQ;
+        const uint32_t tq = q_tiles + st * QTILE;
+        const uint32_t tdo = do_tiles + st * QTILE;
+        const uint32_t tL = l_rows + st * BQ * sizeof(float);
+        const uint32_t tD = d_rows + st * BQ * sizeof(float);
+        const bool edge = q0 + BQ > t || (causal && q0 < kw0 + 63);
+        mbar_wait(full + 8 * st, (rs / STAGES) & 1);
+        // the tile in passes of QC query columns
+#pragma unroll 1
+        for (int j0 = 0; j0 < BQ; j0 += QC) {
+          dkv_issue_sdp<D, QC>(s, dp, k_rows, v_rows, tq + j0 * G::ROWB,
+                               tdo + j0 * G::ROWB);
+          wgmma_wait<1>();  // S^T has landed
+          fence_regs(s);
+
+          // P^T = exp(sm_scale S^T - LSE[q]) in float32, LSE per column in
+          // registers; masked entries (only in the ragged last tile and the
+          // diagonal tiles) get a score of NEG_INF, so P^T = 0
+          if (edge) {
+#pragma unroll
+            for (int nn = 0; nn < NQ; ++nn)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int qr = q0 + j0 + nn * 8 + 2 * c + (e & 1);
+                const int kr = row0 + g + (e >> 1) * 8;
+                if (qr >= t || (causal && qr < kr)) s[nn][e] = NEG_INF;
+              }
+          }
+#pragma unroll
+          for (int nn = 0; nn < NQ; ++nn) {
+            const float2 lq = lds_f2(tL + (j0 + nn * 8 + 2 * c) * 4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[nn][e] = exp2_approx(
+                  fmaf(s[nn][e], scale, -((e & 1) ? lq.y : lq.x) * LOG2E));
+          }
+
+          // dV += bf16(P^T) dO: P^T's A operand from the accumulators, dO's
+          // columns of this tile MN-major
+#pragma unroll
+          for (int kk = 0; kk < QC / 16; ++kk) c_to_a<NQ>(pa[kk], s, kk);
+          const uint64_t dov = mnmajor_desc<D>(tdo + z * BQ * G::ROWB, BQ);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < QC / 16; ++kk)
+            wgmma_rs<DN>(acc_v, pa[kk],
+                         desc_at(kstep_mn<D>(dov, j0 + kk * 16)), 1);
+          wgmma_commit();
+          wgmma_wait<1>();  // dP^T has landed
+          fence_regs(dp);
+          // the tile's K and V are done with after its last S^T and dP^T
+          if (qt == ntiles - 1 && j0 + QC == BQ) mbar_arrive(kv_empty);
+
+          // dS^T = P^T (dP^T - delta[q]) sm_scale from the unrounded P^T,
+          // delta per column in registers
+#pragma unroll
+          for (int nn = 0; nn < NQ; ++nn) {
+            const float2 dq2 = lds_f2(tD + (j0 + nn * 8 + 2 * c) * 4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float dcol = (e & 1) ? dq2.y : dq2.x;
+              dp[nn][e] = s[nn][e] * (dp[nn][e] - dcol) * sm_scale;
+            }
+          }
+
+          // dK += bf16(dS^T) Q, Q's columns of this tile MN-major
+#pragma unroll
+          for (int kk = 0; kk < QC / 16; ++kk) c_to_a<NQ>(da[kk], dp, kk);
+          const uint64_t qv = mnmajor_desc<D>(tq + z * BQ * G::ROWB, BQ);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < QC / 16; ++kk)
+            wgmma_rs<DN>(acc_k, da[kk],
+                         desc_at(kstep_mn<D>(qv, j0 + kk * 16)), 1);
+          wgmma_commit();
+          // dV and dK of the pass done: their register A operands may be
+          // rewritten from here on (the accumulators are next touched by the
+          // next wgmmas, in order)
+          wgmma_wait<0>();
+          fence_regs(pa);
+          fence_regs(da);
+        }
+        mbar_arrive(empty + 8 * st);  // the stage may be refilled
+      }
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+
+      // dK, dV to bf16 into the warpgroup's rows of the staging tiles
+      // (once the last tile's stores have read them), then one TMA store
+      // each (rows past T are not written)
+      if (tid == 0) tma_store_wait_read();
+      named_barrier(1 + wg, WG_THREADS);
+      stage_rows<D, DN>(dk_tile, WBK, wg * 64 + warp * 16, 0, acc_k, 1.f,
+                        1.f);
+      stage_rows<D, DN>(dv_tile, WBK, wg * 64 + warp * 16, 0, acc_v, 1.f,
+                        1.f);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        const uint32_t off = wg * 64 * G::ROWB;
+        tma_store_3d(&dk_map, dk_tile + off, z * DN, kw0, bh);
+        tma_store_3d(&dv_map, dv_tile + off, z * DN, kw0, bh);
+        tma_store_commit();
+      }
+    }
+    if (tid == 0) tma_store_wait_read();
   }
 }
 
@@ -463,8 +611,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
           mma_16816(s[2 * n2 + 1], qf[kk], b[2], b[3]);
         }
 
-      // P = exp(sm_scale S - LSE) in float32; masked entries 0 (exp2f, as
-      // in dkv_kernel_mma)
+      // P = exp(sm_scale S - LSE) in float32; masked entries 0 (exp2f)
 #pragma unroll
       for (int n = 0; n < NK; ++n)
 #pragma unroll
@@ -1006,23 +1153,33 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+constexpr int DKV_STAGES = 2;  // Q/dO ring stages of the bf16 dK/dV kernel
+
+template <int D, int STAGES = DKV_STAGES>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dk, void* dv, int bh,
                             int t, float sm_scale, int causal,
                             cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  constexpr size_t smem = dkv_mma_smem_bytes<D>();
-  auto kern = dkv_kernel_mma<D>;
+  constexpr size_t smem = dkv_wgmma_smem_bytes<D, STAGES>();
+  auto kern = dkv_kernel_wgmma<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BK - 1) / BK, bh);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), t, sm_scale, causal);
+  // boxes of 64 rows: a Q or dO stage, a consumer's half of K and V
+  CUtensorMap maps[6];
+  const void* ptrs[6] = {q, k, v, dout, dk, dv};
+  for (int i = 0; i < 6; ++i) {
+    const cudaError_t err = sm90::rows_map<D>(&maps[i], ptrs[i], bh, t, 64);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent blocks: one a streaming multiprocessor, or one a tile
+  static const int sms = sm90::sm_count();
+  const int nk = (t + WBK - 1) / WBK;
+  const int tiles = nk * bh * (D / dkv_columns(D));
+  kern<<<tiles < sms ? tiles : sms, WGMMA_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), bh,
+      sm90::head_chunk(sms, nk), t, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -1071,7 +1228,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   }
 }
 
-// float32 runs dkv_kernel_tf32x3, bfloat16 dkv_kernel_mma
+// float32 runs dkv_kernel_tf32x3, bfloat16 dkv_kernel_wgmma
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -1093,5 +1250,21 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
       });
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory the bf16 dK/dV kernel's instance for head dim d
+// takes (0 where there is none); chip_smoke.py's [build] prints it beside
+// ptxas's registers.
+extern "C" long long flash_attention_bwd_dkv_smem(int d) {
+  switch (d) {
+    case 32:
+      return dkv_wgmma_smem_bytes<32, DKV_STAGES>();
+    case 64:
+      return dkv_wgmma_smem_bytes<64, DKV_STAGES>();
+    case 128:
+      return dkv_wgmma_smem_bytes<128, DKV_STAGES>();
+    default:
+      return 0;
   }
 }

@@ -13,11 +13,17 @@ Three kernels replace the three TPU kernels of the JAX package's
   dK, dV in another, each recomputing P from the saved log-sum-exp.
 
 The entry points pick the design by dtype, and every design runs on the
-tensor cores. bfloat16 runs ``fwd_kernel_mma``, ``dq_kernel_mma`` and
-``dkv_kernel_mma``: mma.sync m16n8k16 with float32 accumulation, tiles
-through a cp.async ring, fragment helpers in ``csrc/mma_bf16.cuh``.
+tensor cores. bfloat16 runs ``fwd_kernel_wgmma``, ``dq_kernel_mma`` and
+``dkv_kernel_wgmma``. The forward and dK/dV are Hopper designs
+(``csrc/sm90_bf16.cuh``): a producer warpgroup keeps a ring of TMA tile
+loads in flight (tensor maps over (d, T, bh), so a tile past T reads
+zeros, not the next head), two consumer warpgroups of 64 rows each run
+every product as asynchronous wgmma from the swizzled tiles, with the
+softmax tile turned from accumulator into register operand, and results
+leave by TMA store. dQ stays mma.sync m16n8k16 with float32
+accumulation, tiles through a cp.async ring (``csrc/mma_bf16.cuh``).
 float32 runs ``fwd_kernel_tf32x3``, ``dq_kernel_tf32x3`` and
-``dkv_kernel_tf32x3``, the same designs on mma.m16n8k8 with TF32
+``dkv_kernel_tf32x3``, mma.sync designs on mma.m16n8k8 with TF32
 operands (``csrc/mma_tf32.cuh``): each operand splits into a TF32 high
 and low part and each product is taken as three TF32 products, which
 meets the float32 limit of 1e-4 where one TF32 product does not. The
@@ -156,8 +162,8 @@ def _check_operands(name, *xs):
 
 
 def _dense(x):
-    """x contiguous, with its data on a 16-byte boundary: the bfloat16
-    kernels copy 16 bytes a thread."""
+    """x contiguous, with its data on a 16-byte boundary: TMA's tensor
+    maps and the kernels' 16-byte copies need it."""
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
