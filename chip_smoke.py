@@ -7,8 +7,8 @@
                                          # checkout at DIR and of this
                                          # one in turns (DIR, this, this,
                                          # DIR) on one card
-    python3 chip_smoke.py --ablations  # time the bf16 wgmma kernels with
-                                       # one part of their work dropped
+    python3 chip_smoke.py --ablations  # time the bf16 kernels with one
+                                       # part of their work dropped
 
 Phases, one progress line each; any failure exits non-zero:
 
@@ -31,7 +31,9 @@ Phases, one progress line each; any failure exits non-zero:
              float32 within 1e-4), then time all three kernels at the
              training shape in bf16 beside their plain versions, SDPA's
              forward and the backward of SDPA (one call for dq, dk and dv)
-             as yardsticks, with the achieved TFLOP/s, the two float32
+             as yardsticks, with the achieved TFLOP/s, and the port's
+             whole backward (FlashAttentionFunction's: delta, dq, dk/dv)
+             beside SDPA's, the same work; the two float32
              backward kernels at [384, 512, 64] and [192, 512, 64] beside
              float32 SDPA's backward, and at [192, 512, 64] the float32
              forward beside float32 SDPA's forward, each with its 3xTF32
@@ -61,7 +63,7 @@ Phases, one progress line each; any failure exits non-zero:
              enqueue a step, tokens/s, MFU, and a torch.profiler split of
              one step by kernel class with each flash kernel's symbol and
              launches (the bf16 step must run fwd_kernel_wgmma,
-             dq_kernel_mma and dkv_kernel_wgmma 12 times each, and no
+             dq_kernel_wgmma and dkv_kernel_wgmma 12 times each, and no
              other flash kernel).
 7. train_f32 — the same training in float32 at batch 16 (float32
              activations take twice AMP's memory), 2 warm-up and 5 timed
@@ -366,8 +368,11 @@ def time_kernels(torch, fa, gen, shape, dtype, names, causal=False,
     in `names` (wrappers of the module `fa`) beside its plain version and
     SDPA with the same mask (the forward, or its backward: one call for
     dq, dk and dv); float32 lines also print the CUDA-core bound beside
-    the 3xTF32 one. Returns a record per kernel, with its error from
-    `errs` (by _path_key) where the shape is a training path's."""
+    the 3xTF32 one. With both backward kernels, one more line times
+    FlashAttentionFunction's whole backward (delta = rowsum(dO O), dq,
+    dk/dv: the work of SDPA's one backward call) beside SDPA's backward
+    and the two kernels' sum. Returns a record per kernel, with its error
+    from `errs` (by _path_key) where the shape is a training path's."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     bf16 = torch.bfloat16
     errs = errs or {}
@@ -405,6 +410,17 @@ def time_kernels(torch, fa, gen, shape, dtype, names, causal=False,
         with torch.no_grad():
             library["flash_attention_fwd"] = cuda_ms(
                 lambda: sdpa(q4, k4, v4, is_causal=causal))
+    if set(BWD_KERNELS) <= set(names):
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = fa.FlashAttentionFunction.apply(qg, kg, vg, causal,
+                                              1.0 / math.sqrt(d))
+        whole_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        phase("kernel_time", kernel="FlashAttentionFunction.backward",
+              shape=f"[{bh},{t},{d}] {str(dtype)[6:]}"
+              f"{' causal' if causal else ''}", ms=f"{whole_ms:.4f}",
+              dq_plus_dkv_ms=f"{sum(times[n][0] for n in BWD_KERNELS):.4f}",
+              library_ms=f"{library[BWD_KERNELS[0]]:.4f}")
     records = {}
     elsize = torch.finfo(dtype).bits // 8
     for name, (ms, plain_ms) in times.items():
@@ -640,7 +656,7 @@ KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
 # the tensor-core kernels the bf16 training step must run, the one the
 # float32 serving forward must run, and the three the float32 training
 # step must run
-BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_mma",
+BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_wgmma",
                        "dkv_kernel_wgmma")
 F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
 F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32x3", "dkv_kernel_tf32x3")
@@ -1426,6 +1442,8 @@ def smem_phase():
     for source, fn, kernel in (
             ("flash_attention_fwd", "flash_attention_fwd_smem",
              "fwd_kernel_wgmma"),
+            ("flash_attention_bwd", "flash_attention_bwd_dq_smem",
+             "dq_kernel_wgmma"),
             ("flash_attention_bwd", "flash_attention_bwd_dkv_smem",
              "dkv_kernel_wgmma")):
         query = getattr(build.load(source), fn)
@@ -1466,16 +1484,21 @@ MUTANTS = [
      "if (qr >= t || (causal && qr < kr)) s[nn][e] = NEG_INF;",
      "if (qr >= t) s[nn][e] = NEG_INF;",
      ("bwd_kernel_phase",)),
-    # dQ: dS from the bf16-rounded P
+    # bf16 dQ: dS from the bf16-rounded P
     ("dq_ds_from_rounded_p", "flash_attention_bwd.cu",
      "dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;",
      "dp[n][i] = __bfloat162float(__float2bfloat16(s[n][i])) * "
      "(dp[n][i] - dl[i >> 1]) * sm_scale;", ("bwd_kernel_phase",)),
-    # dQ: keys after the query unmasked on the diagonal tile. (Keys past T
-    # unmasked in the ragged tile change nothing a check can read: their
-    # rows of K are zero-filled, so their dS K terms are exactly 0.)
+    # bf16 dQ: keys after the query unmasked on the diagonal tile. (Keys
+    # past T unmasked in the ragged tile change nothing a check can read:
+    # their rows of K are zero-filled, so their dS K terms are exactly 0.)
     ("dq_no_causal_mask", "flash_attention_bwd.cu",
-     "if (kc >= t || (causal && kc > qr)) p = 0.f;", "if (kc >= t) p = 0.f;",
+     "if (kc >= t || (causal && kc > qr)) s[n][i] = NEG_INF;",
+     "if (kc >= t) s[n][i] = NEG_INF;", ("bwd_kernel_phase",)),
+    # bf16 dQ: a lane takes the LSE and delta of its first accumulator row
+    # (g) for its second (g + 8), the slip the fragment layout invites
+    ("dq_lse_first_row", "flash_attention_bwd.cu",
+     "const int qr = row0 + g + 8 * h;", "const int qr = row0 + g;",
      ("bwd_kernel_phase",)),
     # every float32 kernel (the forward, dQ and dK/dV share mma_1688_x3):
     # one TF32 product (hi hi) instead of three
@@ -1501,7 +1524,7 @@ MUTANTS = [
 # Ablations of the bf16 wgmma kernels: (name, [(source under csrc/,
 # text, replacement), ...]). Each drops one part of a kernel's work (its
 # results are then wrong); `python3 chip_smoke.py --ablations` times the
-# forward and dK/dV of a copy of the package with that part dropped,
+# forward, dQ and dK/dV of a copy of the package with that part dropped,
 # beside the unchanged copy ("none"), which says what holds each kernel
 # back (PERF.md).
 ABLATIONS = [
@@ -1520,10 +1543,12 @@ ABLATIONS = [
         ("flash_attention_fwd.cu",
          "for (int kk = 0; kk < BK / 16; ++kk)\n    wgmma_rs<D>(o_acc",
          "for (int kk = 0; kk < 0; ++kk)\n    wgmma_rs<D>(o_acc")]),
-    # forward: staging and storing O
+    # forward: staging and storing O. The staging is skipped on a test of
+    # the accumulator, not dropped: with no reader of O's accumulator left,
+    # ptxas deletes the P V wgmmas as dead code
     ("fwd_no_epilogue", [
         ("flash_attention_fwd.cu", "stage_rows<D, D>(o_tile,",
-         "if (0) stage_rows<D, D>(o_tile,"),
+         "if (o_acc[0][0] == 0.5f) stage_rows<D, D>(o_tile,"),
         ("flash_attention_fwd.cu", "tma_store_3d(&o_map,",
          "if (0) tma_store_3d(&o_map,")]),
     # forward: the K and V loads (the ring's barriers still turn)
@@ -1539,7 +1564,8 @@ ABLATIONS = [
          "-((e & 1) ? lq.y : lq.x) * LOG2E));",
          "s[nn][e] = fmaf(s[nn][e], scale, -((e & 1) ? lq.y : lq.x) * "
          "LOG2E);")]),
-    # dK/dV: the dV and dK products
+    # dK/dV: the dV and dK products (and with them P^T's and dS^T's bf16
+    # packing, and dS^T, which only they read: ptxas drops dead code)
     ("dkv_no_dv_dk", [
         ("flash_attention_bwd.cu",
          "for (int kk = 0; kk < QC / 16; ++kk)\n            wgmma_rs<DN>(acc_v",
@@ -1551,11 +1577,48 @@ ABLATIONS = [
     ("dkv_no_q_loads", [
         ("flash_attention_bwd.cu", "mbar_expect_tx(bar, 2 * QTILE);",
          "mbar_expect_tx(bar, 0); if (0)")]),
+    # dQ: the exp of P
+    ("dq_no_exp", [
+        ("flash_attention_bwd.cu",
+         "s[n][i] = exp2_approx(fmaf(s[n][i], scale, -lse2[i >> 1]));",
+         "s[n][i] = fmaf(s[n][i], scale, -lse2[i >> 1]);")]),
+    # dQ: the dP = dO V^T products
+    ("dq_no_dp", [
+        ("flash_attention_bwd.cu",
+         "for (int kk = 0; kk < D / 16; ++kk)\n    wgmma_ss<KR>(dp,",
+         "for (int kk = 0; kk < 0; ++kk)\n    wgmma_ss<KR>(dp,")]),
+    # dQ: the dQ += dS K products (and with them dS and its bf16
+    # packing, which only they read)
+    ("dq_no_dsk", [
+        ("flash_attention_bwd.cu",
+         "for (int kk = 0; kk < KR / 16; ++kk)\n    wgmma_rs<D>(acc, da[kk]",
+         "for (int kk = 0; kk < 0; ++kk)\n    wgmma_rs<D>(acc, da[kk]")]),
+    # dQ: the K and V loads (the ring's barriers still turn)
+    ("dq_no_kv_loads", [
+        ("flash_attention_bwd.cu",
+         "mbar_expect_tx(bar, 2 * KTILE);",
+         "mbar_expect_tx(bar, 0); if (0)")]),
+    # dQ: the TMA store of dQ (staged all the same)
+    ("dq_no_store", [
+        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map,",
+         "if (0) tma_store_3d(&dq_map,")]),
+    # dQ: every tile's dQ stored to the first tile of head 0, so the
+    # stores stay in L2 and add no traffic to device memory
+    ("dq_store_one_tile", [
+        ("flash_attention_bwd.cu", "b * G::ELEMS, qw0, bh);",
+         "b * G::ELEMS, wg * 64, 0);")]),
+    # dQ: staging and storing dQ (the staging skipped on a test of the
+    # accumulator, as in fwd_no_epilogue, so the dS K wgmmas stay)
+    ("dq_no_epilogue", [
+        ("flash_attention_bwd.cu", "stage_rows<D, D>(dq_stage,",
+         "if (acc[0][0] == 0.5f) stage_rows<D, D>(dq_stage,"),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map,",
+         "if (0) tma_store_3d(&dq_map,")]),
 ]
 
 
 def ablation_times(torch):
-    """[ablation_time] line: the bf16 forward and dK/dV of the
+    """[ablation_time] line: the bf16 forward, dQ and dK/dV of the
     paddle_tpu_torch first on sys.path, at the BERT and GPT training
     shapes (mean of 50 launches each, CUDA events)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -1568,6 +1631,9 @@ def ablation_times(torch):
         q, k, v = args[:3]
         out[f"{key}fwd_ms"] = cuda_ms(
             lambda: fa.flash_attention_fwd(q, k, v, causal=causal), iters=50)
+        out[f"{key}dq_ms"] = cuda_ms(
+            lambda: fa.flash_attention_bwd_dq(*args, causal=causal),
+            iters=50)
         out[f"{key}dkv_ms"] = cuda_ms(
             lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
             iters=50)

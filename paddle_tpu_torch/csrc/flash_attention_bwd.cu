@@ -21,9 +21,9 @@
 // The TPU kernels walk a sequential grid dimension and carry dq (or dk,
 // dv) in VMEM scratch between grid steps. Blocks on Hopper run in no
 // order, so each block owns output tiles and loops itself:
-//   dq:  one block per (bh, 64-row q tile); 64-row K/V tiles stream
-//        through; in causal mode the loop stops at the tile holding the
-//        diagonal.
+//   dq:  128-row q tiles (64 in the float32 kernel); 64-row K/V tiles
+//        stream through; in causal mode the loop stops at the tile
+//        holding the diagonal.
 //   dkv: 128-row k tiles (64 in the float32 kernel); 64-row Q/dO tiles
 //        stream through; in causal mode the loop starts at the tile
 //        holding the diagonal.
@@ -76,22 +76,51 @@
 //   tiles a key tile), at the price of computing S^T and dP^T twice.
 //   What holds it back is in PERF.md (PR 7).
 //
-// dq_kernel_mma<D> (bfloat16), mma.sync m16n8k16 (mma_bf16.cuh): 4 warps,
-//   16 query rows each. Q and dO are staged once and kept as A fragments
-//   in registers; K and V tiles of 64 key rows stream through a 2-stage
-//   cp.async ring (rows past T zero-filled); each lane keeps the LSE and
-//   delta of its two rows in registers. Per key tile:
+// dq_kernel_wgmma<D, STAGES> (bfloat16), the forward's Hopper design
+//   (fwd_kernel_wgmma) with one more product and no online softmax, since
+//   LSE is known. Per key tile:
 //     S = Q K^T,  P = exp(sm_scale S - LSE),  dP = dO V^T,
-//     dS = P (dP - delta) sm_scale,  dQ += bf16(dS) K,
-//   K's and V's B fragments by plain ldmatrix for S and dP, K's by
-//   ldmatrix.trans for dS K, and dS goes from dP's accumulators to the A
-//   fragment in registers. Only the ragged last tile and the diagonal tile
-//   are masked (a padded key's row of K is zero, so its dS K term is 0
-//   anyway; the mask keeps exp(-LSE) of a padded key from overflowing into
-//   inf * 0). dQ accumulates in float32 registers and leaves once, through
-//   shared memory, as 16-byte rows. At d = 128 the accumulator and the Q
-//   and dO fragments take 128 registers a thread, so the score tiles are
-//   computed 32 key columns at a time (64 below).
+//     dS = P (dP - delta) sm_scale,  dQ += bf16(dS) K:
+//   - three warpgroups: a producer whose first thread loads each query
+//     tile's Q and dO (double-buffered, so the next tile's load while this
+//     one is computed) and keeps a ring of STAGES K and V tiles full by
+//     TMA (tensor maps over (d, T, bh): a box past T is zero-filled), with
+//     full and empty mbarriers. A stage is freed only when dS K of its
+//     tile is retired, one key tile after its S and dP, so two stages are
+//     in use at any time: with STAGES = 2 every load waited on the slot
+//     just freed (PERF.md). Two consumers of 64
+//     query rows each, so a block owns a 128-row query tile; setmaxnreg
+//     moves registers to the consumers. Each consumer lane reads the LSE
+//     and delta of its two rows into registers once a tile (no cp.async
+//     warp: the rows are per query, fixed for the tile);
+//   - S and dP by SS wgmma (Q, K, dO and V all K-major), P and dS on the
+//     accumulators, dS to bf16 A operands in registers, dQ += dS K by RS
+//     wgmma with K as the MN-major B operand (as the forward's P V reads
+//     V);
+//   - S and dP of key tile kt are issued before dS K of tile kt - 1, so
+//     the exp and dS of one tile run while the tensor cores add the last
+//     one;
+//   - persistent: one block an SM walks query tiles, the k/v ring running
+//     on across them; the next tile's first S and dP are issued before
+//     this tile's epilogue, which stages dQ in bf16 in a tile of its own
+//     and stores it by TMA (rows past T not written), so a tile's Q and
+//     dO buffers go back to the producer once its last S and dP are
+//     retired, as in the forward;
+//   - tiles in head chunks (sm90::tile_order) so the K and V rows the
+//     tiles of a head share are read from L2, the bottom tiles (the
+//     heaviest in causal mode) first, and a block takes tiles b and
+//     2 g - 1 - b of every 2 g (dq_walk), so one of a chunk's heaviest
+//     tiles goes with one of its lightest (causal: 0.077 -> 0.072 ms
+//     against blocks taking every g-th tile, PERF.md).
+//   Only the ragged last key tile and the diagonal tile are masked (a
+//   padded key's rows of K and V are zero, so its dS K term is 0 anyway;
+//   the mask keeps exp(-LSE) of a padded key from overflowing into
+//   inf * 0). Key tiles are 64 rows, 32 at d = 128: every register of S,
+//   dP, dS's operand and dQ is an operand of a wgmma in flight at once,
+//   112 a consumer thread at d = 64, and ptxas allocates at most 168 a
+//   thread for the whole kernel, whatever setmaxnreg gives at run time;
+//   at d = 128 64-key tiles (144) spilled and serialized every wgmma,
+//   32-key tiles take 112. What holds it back is in PERF.md §6.
 //
 // dkv_kernel_tf32x3<D> (float32), an mma.sync design on the TF32
 //   tensor cores with 3xTF32 products (mma_tf32.cuh): each operand splits
@@ -122,13 +151,17 @@
 //   d = 128 (one block an SM; the full 2-stage ring of 64-row tiles fits),
 //   105.5 KB at d = 64.
 //
-// dq_kernel_tf32x3<D> (float32), the same for dq_kernel_mma's design: Q
-//   and dO staged once and read from shared memory per k step, K and V
-//   tiles through the ring, S = Q K^T and dP = dO V^T with K's and V's B
-//   fragments by ldmatrix, dS from dP's C fragment into dS K's A fragment
-//   in registers, K's rows for dS K by 32-bit loads; every product 3xTF32.
-//   Masking and early stop as in dq_kernel_mma; 32 key columns a pass at
-//   d = 128; 202.8 KB of shared memory at d = 128, 104.4 KB at d = 64.
+// dq_kernel_tf32x3<D> (float32), the mma.sync design of dkv_kernel_tf32x3
+//   turned around: 4 warps of 16 query rows, one block per (bh, 64-row q
+//   tile); Q and dO staged once and read from shared memory per k step,
+//   K and V tiles of 64 key rows through the 2-stage cp.async ring (rows
+//   past T zero-filled), each lane's LSE and delta rows in registers;
+//   S = Q K^T and dP = dO V^T with K's and V's B fragments by ldmatrix, dS
+//   from dP's C fragment into dS K's A fragment in registers, K's rows for
+//   dS K by 32-bit loads; every product 3xTF32. Masking and early stop as
+//   in dq_kernel_wgmma; 32 key columns a pass at d = 128 (the accumulator
+//   takes 64 registers a thread there); 202.8 KB of shared memory at
+//   d = 128, 104.4 KB at d = 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -504,186 +537,374 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
   }
 }
 
-template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  // Q and dO once, then two stages of K and V, all [64][D + 8] bf16
-  return sizeof(__nv_bfloat16) * 6 * BK * (D + 8);
+constexpr int WBQ = 128;  // query rows per dq tile (64 per consumer)
+// key rows per k/v tile of the dq kernel: 64, or 32 at d = 128 (the
+// registers of the wgmma operands in flight; the head comment)
+__host__ __device__ constexpr int dq_key_rows(int d) {
+  return d > 64 ? 32 : 64;
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    dq_kernel_mma(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int t, float sm_scale,
-                  int causal) {
+// Two Q and two dO tiles and the dQ staging tile ([WBQ][D]), then STAGES
+// K tiles and STAGES V tiles ([dq_key_rows(D)][D]), all bf16 as swizzled
+// boxes (sm90_bf16.cuh), then the mbarriers: per Q/dO buffer full and
+// empty, per stage full and empty; 1024 bytes of slack to align the base
+template <int D, int STAGES>
+constexpr size_t dq_wgmma_smem_bytes() {
+  return 1024 +
+         static_cast<size_t>(5 * WBQ + 2 * STAGES * dq_key_rows(D)) * D * 2 +
+         8 * (4 + 2 * STAGES);
+}
+
+// The p-th query tile of block b's walk over a grid of g blocks: tiles b
+// and 2 g - 1 - b of every 2 g, so a block that takes one of the first,
+// heaviest tiles of a chunk (dq_tile) takes one of its lightest next;
+// positions past the launch's tiles come only at the end of a walk
+__device__ __forceinline__ int dq_walk(int p, int b, int g) {
+  return (p >> 1) * 2 * g + ((p & 1) ? 2 * g - 1 - b : b);
+}
+
+// query tile `i` of a persistent block's walk (sm90::tile_order): within
+// each chunk of heads the heaviest first (the bottom tile of every head,
+// then the one above it, ...; in causal mode the bottom tile sees the
+// most key tiles). Returns q0; sets bh and the number of key tiles of KR
+// rows.
+template <int KR>
+__device__ __forceinline__ int dq_tile(int i, int heads, int chunk, int nq,
+                                       int t, int causal, int& bh,
+                                       int& ntiles) {
+  int j;
+  sm90::tile_order(i, heads, nq, chunk, bh, j);
+  const int q0 = (nq - 1 - j) * WBQ;
+  // causal: keys past the tile's last query row contribute nothing
+  const int kend = causal ? min(t, q0 + WBQ) : t;
+  ntiles = (kend + KR - 1) / KR;
+  return q0;
+}
+
+// LSE in log2 units and delta of this lane's rows of an accumulator whose
+// warp starts at query row row0: rows row0 + g (h = 0) and row0 + g + 8 of
+// the head whose rows start at rbase; 0 past T
+__device__ __forceinline__ void dq_rows(float (&lse2)[2], float (&dl)[2],
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta,
+                                        size_t rbase, int row0, int t) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qr = row0 + g + 8 * h;
+    lse2[h] = qr < t ? lse[rbase + qr] * LOG2E : 0.f;
+    dl[h] = qr < t ? delta[rbase + qr] : 0.f;
+  }
+}
+
+// S = Q K^T and dP = dO V^T of one key tile: the warpgroup's 64 rows of
+// the Q and dO tiles (q_rows, do_rows: a row of a [WBQ][D] tile) x the KR
+// keys of the K and V tiles, all K-major; two groups. The descriptors are
+// put together here (desc_at), as in dkv_issue_sdp.
+template <int D, int KR>
+__device__ __forceinline__ void dq_issue_sdp(float (&s)[KR / 8][4],
+                                             float (&dp)[KR / 8][4],
+                                             uint32_t q_rows,
+                                             uint32_t do_rows,
+                                             uint32_t k_tile,
+                                             uint32_t v_tile) {
+  using namespace sm90;
+  const uint64_t qd = kmajor_desc<D>(q_rows, 0);
+  const uint64_t dod = kmajor_desc<D>(do_rows, 0);
+  const uint64_t kd = kmajor_desc<D>(k_tile, 0);
+  const uint64_t vd = kmajor_desc<D>(v_tile, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<KR>(s, desc_at(kstep<D>(qd, WBQ, kk)),
+                 desc_at(kstep<D>(kd, KR, kk)), kk > 0);
+  wgmma_commit();
+  // a fence of its own: S's accumulators are written (P) while dP is
+  // still in flight
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<KR>(dp, desc_at(kstep<D>(dod, WBQ, kk)),
+                 desc_at(kstep<D>(vd, KR, kk)), kk > 0);
+  wgmma_commit();
+}
+
+// dQ += bf16(dS) K: dS's A operands from registers, the K tile at k_tile
+// as the MN-major B operand (k = key, n = d)
+template <int D, int KR>
+__device__ __forceinline__ void dq_issue_dsk(float (&acc)[D / 8][4],
+                                             const uint32_t (&da)[KR / 16][4],
+                                             uint32_t k_tile) {
+  using namespace sm90;
+  const uint64_t kd = mnmajor_desc<D>(k_tile, KR);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KR / 16; ++kk)
+    wgmma_rs<D>(acc, da[kk], desc_at(kstep_mn<D>(kd, kk * 16)), 1);
+  wgmma_commit();
+}
+
+// P = exp(sm_scale S - LSE) of key tile k0 .. k0 + KR - 1 on S's
+// accumulators, for this lane's rows row0 + g and row0 + g + 8: one FFMA
+// and one ex2 a score. Only the ragged last tile and the diagonal tile
+// (qw0: the warpgroup's first row) are masked, to a score of NEG_INF
+template <int KR>
+__device__ __forceinline__ void dq_p(float (&s)[KR / 8][4],
+                                     const float (&lse2)[2], int k0, int t,
+                                     int causal, int qw0, int row0,
+                                     float scale) {
   using namespace mma_bf16;
-  constexpr int LD = D + 8;      // padded row stride (elements)
-  constexpr int TILE = BK * LD;  // elements of one staged tile
-  constexpr int KD = D / 16;     // k steps over d
-  constexpr int ND = D / 8;      // n-blocks over d
-  // key columns of the score tile per compute pass (the head comment)
-  constexpr int KC = D > 64 ? 32 : 64;
-  constexpr int NK = KC / 8;     // n-blocks of a score pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + TILE;
-  __nv_bfloat16* sK = sdO + TILE;     // [2][BK][LD]
-  __nv_bfloat16* sV = sK + 2 * TILE;  // [2][BK][LD]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int row0 = q0 + warp * 16;  // the warp's first query row
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
-
-  // causal: keys past the block's last query row contribute nothing
-  const int kend = causal ? min(t, q0 + BQ) : t;
-  const int ntiles = (kend + BK - 1) / BK;
-
-  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
-  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout + base, q0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
-  cp_async_commit();
-
-  const float scale = sm_scale * LOG2E;  // exponents in log2 units
-  // this lane's rows g (r = 0) and g + 8: LSE in log2 units, and delta
-  float lse2[2], dl[2];
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  if (k0 + KR > t || (causal && k0 + KR - 1 > qw0)) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = row0 + g + 8 * r;
-    lse2[r] = qr < t ? lse[rbase + qr] * LOG2E : 0.f;
-    dl[r] = qr < t ? delta[rbase + qr] : 0.f;
-  }
-  uint32_t qf[KD][4], of[KD][4];  // Q's and dO's A fragments
-  float acc[ND][4];
+    for (int n = 0; n < KR / 8; ++n)
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    if (kt + 1 < ntiles) {  // the next tile into the other stage
-      const int st = (kt + 1) & 1;
-      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb, k0 + BK, t);
-      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb, k0 + BK, t);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q, dO) has landed
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        ldmatrix_x4(qf[kk], a_addr(sQ, LD, warp * 16, kk * 16, lane));
-        ldmatrix_x4(of[kk], a_addr(sdO, LD, warp * 16, kk * 16, lane));
+      for (int i = 0; i < 4; ++i) {
+        const int kc = k0 + n * 8 + 2 * c + (i & 1);
+        const int qr = row0 + g + (i >> 1) * 8;
+        if (kc >= t || (causal && kc > qr)) s[n][i] = NEG_INF;
       }
+  }
+#pragma unroll
+  for (int n = 0; n < KR / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[n][i] = exp2_approx(fmaf(s[n][i], scale, -lse2[i >> 1]));
+}
+
+// dS = P (dP - delta) sm_scale from the unrounded float32 P, on dP's
+// accumulators
+template <int KR>
+__device__ __forceinline__ void dq_ds(float (&dp)[KR / 8][4],
+                                      const float (&s)[KR / 8][4],
+                                      const float (&dl)[2], float sm_scale) {
+#pragma unroll
+  for (int n = 0; n < KR / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+    dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap dq_map,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, int heads, int chunk,
+                    int nq, int t, float sm_scale, int causal) {
+  using namespace mma_bf16;
+  using namespace sm90;
+  using G = Tile<D>;
+  constexpr int KR = dq_key_rows(D);
+  constexpr int TILE = WBQ * D * 2;  // bytes of a Q or dO tile
+  constexpr int KTILE = KR * D * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sQ = wg_smem + (1024 - smem_u32(wg_smem) % 1024) % 1024;
+  const uint32_t q_tiles = smem_u32(sQ), do_tiles = q_tiles + 2 * TILE;
+  const uint32_t dq_stage = do_tiles + 2 * TILE;
+  const uint32_t k_tiles = dq_stage + TILE;
+  const uint32_t v_tiles = k_tiles + STAGES * KTILE;
+  const uint32_t q_full = v_tiles + STAGES * KTILE, q_empty = q_full + 16;
+  const uint32_t full = q_empty + 16, empty = full + 8 * STAGES;
+  const int total = nq * heads;  // query tiles of the whole launch
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full + 8 * b, 1);
+      mbar_init(q_empty + 8 * b, 2 * WG_THREADS);
     }
-    const __nv_bfloat16* tK = sK + (kt & 1) * TILE;
-    const __nv_bfloat16* tV = sV + (kt & 1) * TILE;
-    // mask only the ragged last tile and the diagonal tile
-    const bool edge = k0 + BK > t || (causal && k0 + BK - 1 > q0);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int j0 = 0; j0 < BK; j0 += KC) {
-      // S = Q K^T: the warp's 16 query rows x KC key columns
-      float s[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-        for (int n2 = 0; n2 < NK / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, bn_addr(tK, LD, j0 + n2 * 16, kk * 16, lane));
-          mma_16816(s[2 * n2], qf[kk], b[0], b[1]);
-          mma_16816(s[2 * n2 + 1], qf[kk], b[2], b[3]);
-        }
-
-      // P = exp(sm_scale S - LSE) in float32; masked entries 0 (exp2f)
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float p = exp2f(fmaf(s[n][i], scale, -lse2[i >> 1]));
-          if (edge) {
-            const int kc = k0 + j0 + n * 8 + 2 * c + (i & 1);
-            const int qr = row0 + g + (i >> 1) * 8;
-            if (kc >= t || (causal && kc > qr)) p = 0.f;
+  // A persistent block walks query tiles dq_walk(0, blockIdx.x,
+  // gridDim.x), dq_walk(1, ...), ...; its k/v ring runs on across tiles,
+  // so the next tile's Q, dO, K and V load while this one is computed and
+  // its dQ is stored
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 2) {
+    // producer: one thread keeps the TMA ring full
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 2 * WG_THREADS) {
+      int n = 0, c = 0;  // tiles and k/v stages walked
+      for (int i = blockIdx.x; i < total;
+           i = dq_walk(++n, blockIdx.x, gridDim.x)) {
+        int bh, ntiles;
+        const int q0 =
+            dq_tile<KR>(i, heads, chunk, nq, t, causal, bh, ntiles);
+        // Q and dO into buffer n % 2, once tile n - 2's last S and dP are
+        // done with it
+        const uint32_t qf = q_full + 8 * (n & 1);
+        const uint32_t buf = (n & 1) * TILE;
+        mbar_wait(q_empty + 8 * (n & 1), ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(qf, 2 * TILE);
+        for (int b = 0; b < G::NBOX; ++b)
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t off = buf + (b * WBQ + h * 64) * G::ROWB;
+            tma_load_3d(q_tiles + off, &q_map, qf, b * G::ELEMS,
+                        q0 + h * 64, bh);
+            tma_load_3d(do_tiles + off, &do_map, qf, b * G::ELEMS,
+                        q0 + h * 64, bh);
           }
-          s[n][i] = p;
-        }
-
-      // dP = dO V^T
-      float dp[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dp[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-        for (int n2 = 0; n2 < NK / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4(b, bn_addr(tV, LD, j0 + n2 * 16, kk * 16, lane));
-          mma_16816(dp[2 * n2], of[kk], b[0], b[1]);
-          mma_16816(dp[2 * n2 + 1], of[kk], b[2], b[3]);
-        }
-
-      // dS = P (dP - delta) sm_scale, from the unrounded P
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dp[n][i] = s[n][i] * (dp[n][i] - dl[i >> 1]) * sm_scale;
-
-      // dQ += bf16(dS) K
-#pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        uint32_t a[4];
-        c_to_a<NK>(a, dp, kk);
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, bk_addr(tK, LD, j0 + kk * 16, n2 * 16, lane));
-          mma_16816(acc[2 * n2], a, b[0], b[1]);
-          mma_16816(acc[2 * n2 + 1], a, b[2], b[3]);
+        for (int kt = 0; kt < ntiles; ++kt, ++c) {
+          const int st = c % STAGES;
+          const uint32_t bar = full + 8 * st;
+          mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
+          mbar_expect_tx(bar, 2 * KTILE);
+          for (int b = 0; b < G::NBOX; ++b) {
+            const uint32_t off = st * KTILE + b * KR * G::ROWB;
+            tma_load_3d(k_tiles + off, &k_map, bar, b * G::ELEMS, kt * KR,
+                        bh);
+            tma_load_3d(v_tiles + off, &v_map, bar, b * G::ELEMS, kt * KR,
+                        bh);
+          }
         }
       }
     }
-    __syncthreads();  // the next iteration refills this stage
-  }
+  } else {
+    // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each query tile
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const float scale = sm_scale * LOG2E;  // exponents in log2 units
+    const uint32_t rows = wg * 64 * G::ROWB;  // the warpgroup's first row
 
-  // dQ to bf16, staged in the warp's own rows of sQ (only this warp read
-  // them), then stored as 16-byte rows
-  __nv_bfloat16* wQ = sQ + warp * 16 * LD;
+    float acc[D / 8][4];                // dQ
+    float s[KR / 8][4], dp[KR / 8][4];  // a key tile's S, then P; dP, dS
+    uint32_t da[KR / 16][4];            // dS in bf16 as dS K's A operand
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * c;
-    *reinterpret_cast<uint32_t*>(wQ + g * LD + col) =
-        pack_bf16x2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(wQ + (g + 8) * LD + col) =
-        pack_bf16x2(acc[n][2], acc[n][3]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 8;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, col = (i % CHUNKS) * 8;
-    if (row0 + r < t)
-      *reinterpret_cast<uint4*>(dq + base +
-                                static_cast<size_t>(row0 + r) * D + col) =
-          *reinterpret_cast<const uint4*>(wQ + r * LD + col);
+    for (int n = 0; n < KR / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+
+    // tn, ks: query tiles and k/v stages walked; st: the stage of the key
+    // tile in hand
+    int tn = 0, ks = 0, st = 0;
+    int i = blockIdx.x, bh, ntiles;
+    int q0 = dq_tile<KR>(i, heads, chunk, nq, t, causal, bh, ntiles);
+    // this lane's rows: LSE in log2 units and delta
+    float lse2[2], dl[2];
+    dq_rows(lse2, dl, lse, delta, static_cast<size_t>(bh) * t,
+            q0 + wg * 64 + warp * 16, t);
+    // the first tile's first S and dP (each later tile's are issued
+    // before the epilogue of the tile before it)
+    mbar_wait(q_full, 0);
+    mbar_wait(full, 0);
+    ++ks;
+    dq_issue_sdp<D, KR>(s, dp, q_tiles + rows, do_tiles + rows, k_tiles,
+                        v_tiles);
+    while (true) {
+      const int qw0 = q0 + wg * 64;      // the warpgroup's first row
+      const int row0 = qw0 + warp * 16;  // the warp's first row
+      const uint32_t buf = (tn & 1) * TILE;
+      const uint32_t q_release = q_empty + 8 * (tn & 1);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+      // key tile 0: P and dS
+      wgmma_wait<1>();  // S
+      fence_regs(s);
+      dq_p<KR>(s, lse2, 0, t, causal, qw0, row0, scale);
+      wgmma_wait<0>();  // dP
+      fence_regs(dp);
+      if (ntiles == 1) mbar_arrive(q_release);  // the tile's last S, dP
+      dq_ds<KR>(dp, s, dl, sm_scale);
+#pragma unroll
+      for (int kk = 0; kk < KR / 16; ++kk) c_to_a<KR / 8>(da[kk], dp, kk);
+
+      // Pipelined over key tiles: S and dP of tile kt are issued before
+      // dS K of tile kt - 1, so P and dS of tile kt are computed while
+      // the tensor cores add dS K
+      for (int kt = 1; kt < ntiles; ++kt) {
+        const int prev = st;
+        st = ks % STAGES;
+        mbar_wait(full + 8 * st, (ks / STAGES) & 1);
+        ++ks;
+        dq_issue_sdp<D, KR>(s, dp, q_tiles + buf + rows,
+                            do_tiles + buf + rows, k_tiles + st * KTILE,
+                            v_tiles + st * KTILE);
+        dq_issue_dsk<D, KR>(acc, da, k_tiles + prev * KTILE);
+        wgmma_wait<2>();  // S of tile kt
+        fence_regs(s);
+        dq_p<KR>(s, lse2, kt * KR, t, causal, qw0, row0, scale);
+        wgmma_wait<1>();  // dP of tile kt
+        fence_regs(dp);
+        if (kt == ntiles - 1) mbar_arrive(q_release);
+        dq_ds<KR>(dp, s, dl, sm_scale);
+        wgmma_wait<0>();  // dS K of tile kt - 1
+        fence_regs(acc);
+        fence_regs(da);
+        mbar_arrive(empty + 8 * prev);  // stage prev may be refilled
+#pragma unroll
+        for (int kk = 0; kk < KR / 16; ++kk) c_to_a<KR / 8>(da[kk], dp, kk);
+      }
+
+      // this tile's last dS K, then the next tile's first S and dP ahead
+      // of this tile's epilogue. After the last tile an S and dP of the
+      // other Q and dO buffers and the last K and V are issued all the
+      // same and dropped: a wgmma issued on a branch makes ptxas serialize
+      // every wgmma of the kernel
+      const int next = dq_walk(tn + 1, blockIdx.x, gridDim.x);
+      const bool more = next < total;
+      const int last = st;
+      int nbh = 0, nntiles = 0, nq0 = 0;
+      float nlse2[2] = {0.f, 0.f}, ndl[2] = {0.f, 0.f};
+      if (more) {
+        nq0 = dq_tile<KR>(next, heads, chunk, nq, t, causal, nbh, nntiles);
+        dq_rows(nlse2, ndl, lse, delta, static_cast<size_t>(nbh) * t,
+                nq0 + wg * 64 + warp * 16, t);
+        mbar_wait(q_full + 8 * ((tn + 1) & 1), ((tn + 1) >> 1) & 1);
+        st = ks % STAGES;
+        mbar_wait(full + 8 * st, (ks / STAGES) & 1);
+        ++ks;
+      }
+      dq_issue_dsk<D, KR>(acc, da, k_tiles + last * KTILE);
+      const uint32_t nbuf = ((tn + 1) & 1) * TILE;
+      dq_issue_sdp<D, KR>(s, dp, q_tiles + nbuf + rows,
+                          do_tiles + nbuf + rows, k_tiles + st * KTILE,
+                          v_tiles + st * KTILE);
+      wgmma_wait<2>();  // this tile's last dS K
+      fence_regs(acc);
+      fence_regs(da);
+      mbar_arrive(empty + 8 * last);
+
+      // dQ to bf16 into the warpgroup's rows of the staging tile (once the
+      // last tile's store, a tile ago, has read them), then one TMA store
+      // a box (rows past T are not written)
+      if (tid == 0) tma_store_wait_read();
+      named_barrier(1 + wg, WG_THREADS);
+      stage_rows<D, D>(dq_stage, WBQ, wg * 64 + warp * 16, 0, acc, 1.f, 1.f);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        for (int b = 0; b < G::NBOX; ++b)
+          tma_store_3d(&dq_map, dq_stage + b * WBQ * G::ROWB + rows,
+                       b * G::ELEMS, qw0, bh);
+        tma_store_commit();
+      }
+      if (!more) break;
+      i = next;
+      ++tn;
+      q0 = nq0;
+      bh = nbh;
+      ntiles = nntiles;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lse2[h] = nlse2[h];
+        dl[h] = ndl[h];
+      }
+    }
+    wgmma_wait<0>();  // the dropped S and dP
+    if (tid == 0) tma_store_wait_read();
   }
 }
 
@@ -1115,22 +1336,34 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+constexpr int DQ_STAGES = 4;  // k/v ring stages of the bf16 dq kernel
+
+template <int D, int STAGES = DQ_STAGES>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dq, int bh, int t,
                            float sm_scale, int causal, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  constexpr size_t smem = dq_mma_smem_bytes<D>();
-  auto kern = dq_kernel_mma<D>;
+  constexpr size_t smem = dq_wgmma_smem_bytes<D, STAGES>();
+  auto kern = dq_kernel_wgmma<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), t, sm_scale, causal);
+  // boxes of 64 rows, each consumer's half of a Q, dO or dQ tile, and of
+  // a key tile's rows for K and V
+  CUtensorMap maps[5];
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  for (int i = 0; i < 5; ++i) {
+    const cudaError_t err = sm90::rows_map<D>(
+        &maps[i], ptrs[i], bh, t, i == 1 || i == 2 ? dq_key_rows(D) : 64);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent blocks: one a streaming multiprocessor, or one a tile
+  static const int sms = sm90::sm_count();
+  const int nq = (t + WBQ - 1) / WBQ;
+  const int tiles = nq * bh;
+  kern<<<tiles < sms ? tiles : sms, WGMMA_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), bh,
+      sm90::head_chunk(sms, nq), nq, t, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -1203,7 +1436,7 @@ bool bad_shape(int bh, int t) { return bh <= 0 || t <= 0 || bh > 65535; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t.
-// float32 runs dq_kernel_tf32x3, bfloat16 dq_kernel_mma
+// float32 runs dq_kernel_tf32x3, bfloat16 dq_kernel_wgmma
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -1253,9 +1486,22 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   }
 }
 
-// Dynamic shared memory the bf16 dK/dV kernel's instance for head dim d
-// takes (0 where there is none); chip_smoke.py's [build] prints it beside
-// ptxas's registers.
+// Dynamic shared memory the bf16 dQ and dK/dV kernels' instances for
+// head dim d take (0 where there is none); chip_smoke.py's [build] prints
+// them beside ptxas's registers.
+extern "C" long long flash_attention_bwd_dq_smem(int d) {
+  switch (d) {
+    case 32:
+      return dq_wgmma_smem_bytes<32, DQ_STAGES>();
+    case 64:
+      return dq_wgmma_smem_bytes<64, DQ_STAGES>();
+    case 128:
+      return dq_wgmma_smem_bytes<128, DQ_STAGES>();
+    default:
+      return 0;
+  }
+}
+
 extern "C" long long flash_attention_bwd_dkv_smem(int d) {
   switch (d) {
     case 32:

@@ -13,16 +13,14 @@ Three kernels replace the three TPU kernels of the JAX package's
   dK, dV in another, each recomputing P from the saved log-sum-exp.
 
 The entry points pick the design by dtype, and every design runs on the
-tensor cores. bfloat16 runs ``fwd_kernel_wgmma``, ``dq_kernel_mma`` and
-``dkv_kernel_wgmma``. The forward and dK/dV are Hopper designs
-(``csrc/sm90_bf16.cuh``): a producer warpgroup keeps a ring of TMA tile
-loads in flight (tensor maps over (d, T, bh), so a tile past T reads
-zeros, not the next head), two consumer warpgroups of 64 rows each run
-every product as asynchronous wgmma from the swizzled tiles, with the
-softmax tile turned from accumulator into register operand, and results
-leave by TMA store. dQ stays mma.sync m16n8k16 with float32
-accumulation, tiles through a cp.async ring (``csrc/mma_bf16.cuh``).
-float32 runs ``fwd_kernel_tf32x3``, ``dq_kernel_tf32x3`` and
+tensor cores. bfloat16 runs ``fwd_kernel_wgmma``, ``dq_kernel_wgmma``
+and ``dkv_kernel_wgmma``, Hopper designs (``csrc/sm90_bf16.cuh``): a
+producer warpgroup keeps a ring of TMA tile loads in flight (tensor maps
+over (d, T, bh), so a tile past T reads zeros, not the next head), two
+consumer warpgroups of 64 rows each run every product as asynchronous
+wgmma from the swizzled tiles, with the softmax or dS tile turned from
+accumulator into register operand, and results leave by TMA store from
+persistent blocks. float32 runs ``fwd_kernel_tf32x3``, ``dq_kernel_tf32x3`` and
 ``dkv_kernel_tf32x3``, mma.sync designs on mma.m16n8k8 with TF32
 operands (``csrc/mma_tf32.cuh``): each operand splits into a TF32 high
 and low part and each product is taken as three TF32 products, which
