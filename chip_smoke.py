@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernels' mutation check
-    python3 chip_smoke.py --compare DIR  # time the bf16 kernels of the
-                                         # checkout at DIR and of this
+    python3 chip_smoke.py --compare DIR  # time the wgmma kernels (bf16,
+                                         # and the float32 backward) of
+                                         # the checkout at DIR and of this
                                          # one in turns (DIR, this, this,
                                          # DIR) on one card
-    python3 chip_smoke.py --ablations  # time the bf16 kernels with one
+    python3 chip_smoke.py --ablations  # time the wgmma kernels with one
                                        # part of their work dropped
 
 Phases, one progress line each; any failure exits non-zero:
@@ -27,10 +28,11 @@ Phases, one progress line each; any failure exits non-zero:
    kernels (backward) — hold the dq and dk/dv kernels against their plain
              versions (the training shapes [384, 512, 64] bf16 and
              [192, 512, 64] f32, and in each dtype causal, ragged T in
-             both masks, T 1024 causal, d 128 in both masks, d 32, bh 12;
-             float32 within 1e-4), then time all three kernels at the
-             training shape in bf16 beside their plain versions, SDPA's
-             forward and the backward of SDPA (one call for dq, dk and dv)
+             both masks at the kernels' tile edges, T 1024 causal, d 128
+             in both masks, d 32, bh 12; float32 within 1e-4), then time
+             all three kernels at the training shape in bf16 beside
+             their plain versions, SDPA's forward and the backward of
+             SDPA (one call for dq, dk and dv)
              as yardsticks, with the achieved TFLOP/s, and the port's
              whole backward (FlashAttentionFunction's: delta, dq, dk/dv)
              beside SDPA's, the same work; the two float32
@@ -69,7 +71,7 @@ Phases, one progress line each; any failure exits non-zero:
              activations take twice AMP's memory), 2 warm-up and 5 timed
              steps, the same gates; MFU against the CUDA cores' float32
              peak, peak memory, and the profiled step must run
-             fwd_kernel_tf32x3, dq_kernel_tf32x3 and dkv_kernel_tf32x3 12
+             fwd_kernel_tf32x3, dq_kernel_tf32wg and dkv_kernel_tf32wg 12
              times each and no other flash kernel.
 8. train_cpu_check — the same model at batch 1, dropout 0, in float32
              and in bf16 AMP: one step on the card and one on the CPU
@@ -137,11 +139,13 @@ TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
 BF16_FLOPS = 989e12      # dense bf16 tensor cores
 # float32 kernels vs their plain versions, max|kernel - plain|. On the
 # H100 the 3xTF32 forward reads at most 4.8e-6 (LSE 2.6e-6) and the 3xTF32
-# dQ, dK and dV at most 7.8e-5 (dV at T 1024 causal, where max|plain| is
+# dQ, dK and dV at most 8.0e-5 (dV at T 1024 causal, where max|plain| is
 # 5.5); with one TF32 product instead of three the forward reads 2.9e-4 to
-# 1.5e-3 and the backward 3.8e-4 to 3.8e-3 in every case; keys past T
+# 1.5e-3 and the backward 3.8e-4 to 3.9e-3 in every case (dQ at d 32
+# causal up to 2.9); the backward's transposed tiles with a zero lo read
+# 1.4e-4 to 1.8e-3, in natural key order 0.75 or more; keys past T
 # unmasked in the forward read 2.5e-2 at T 300, the diagonal unmasked in
-# dQ or dK/dV 1.4e2 or more (MUTANTS below; PERF.md).
+# dQ or dK/dV 1.3e3 or more (MUTANTS below; PERF.md).
 F32_TOL = 1e-4
 # bfloat16 kernels vs their plain versions: max|kernel - plain| /
 # max(1, max|plain|), and the share of elements that differ at all.
@@ -177,6 +181,13 @@ RAGGED_BF16 = [(96, 129, HD, False), (96, 129, HD, True),
                (96, 200, HD, False), (96, 200, HD, True),
                (96, 255, HD, False), (96, 255, HD, True),
                (48, 255, 32, True), (24, 200, 128, True)]
+# float32 kernel cases at the same edges: the float32 dQ's 128-row query
+# tiles (64 at d 128) and 32-key ring stages (16 at d 128), the float32
+# dK/dV's 128-key tiles (64 at d 128) and 16-query ring stages
+RAGGED_F32 = [(96, 129, HD, False), (96, 129, HD, True),
+              (96, 200, HD, False), (96, 200, HD, True),
+              (96, 255, HD, False), (96, 255, HD, True),
+              (48, 255, 32, True), (24, 200, 128, True)]
 
 
 def check(cond, msg):
@@ -465,7 +476,8 @@ def bwd_kernel_phase(torch):
     gen.manual_seed(SEED + 1)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16]
+    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16] + \
+        [(bh, t, d, f32, c) for bh, t, d, c in RAGGED_F32]
     # (bh, T, d, dtype, causal): the training shapes in both dtypes and
     # causal, GPT's ragged causal shape, a ragged T in both masks, T=1024
     # causal, d=128 in both masks, d=32 and bh=12 (one sequence's heads),
@@ -659,7 +671,7 @@ KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
 BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_wgmma",
                        "dkv_kernel_wgmma")
 F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
-F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32x3", "dkv_kernel_tf32x3")
+F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32wg", "dkv_kernel_tf32wg")
 
 
 def _kernel_class(name):
@@ -779,6 +791,7 @@ TRAIN_RUNS = {True: (32, 3, 10, BF16_KERNEL_SYMBOLS, "train"),
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 ALL3 = (*BWD_KERNELS, "flash_attention_fwd")
 D128_SHAPE = (24, T, 128)
+F32_D128_SHAPE = (48, T, 128)
 
 
 def model_flops_per_token(cfg, seq_len):
@@ -1435,8 +1448,8 @@ def build_phase():
 
 
 def smem_phase():
-    """Print the bf16 wgmma kernels' dynamic shared memory per head dim,
-    from the built libraries (ptxas reports only static shared memory)."""
+    """Print the wgmma kernels' dynamic shared memory per head dim, from
+    the built libraries (ptxas reports only static shared memory)."""
     import ctypes
     from paddle_tpu_torch.ops.cuda import build
     for source, fn, kernel in (
@@ -1445,7 +1458,11 @@ def smem_phase():
             ("flash_attention_bwd", "flash_attention_bwd_dq_smem",
              "dq_kernel_wgmma"),
             ("flash_attention_bwd", "flash_attention_bwd_dkv_smem",
-             "dkv_kernel_wgmma")):
+             "dkv_kernel_wgmma"),
+            ("flash_attention_bwd", "flash_attention_bwd_dq_f32_smem",
+             "dq_kernel_tf32wg"),
+            ("flash_attention_bwd", "flash_attention_bwd_dkv_f32_smem",
+             "dkv_kernel_tf32wg")):
         query = getattr(build.load(source), fn)
         query.argtypes, query.restype = [ctypes.c_int], ctypes.c_longlong
         print(f"  {source}: {kernel} dynamic shared memory: " + ", ".join(
@@ -1500,24 +1517,38 @@ MUTANTS = [
     ("dq_lse_first_row", "flash_attention_bwd.cu",
      "const int qr = row0 + g + 8 * h;", "const int qr = row0 + g;",
      ("bwd_kernel_phase",)),
-    # every float32 kernel (the forward, dQ and dK/dV share mma_1688_x3):
-    # one TF32 product (hi hi) instead of three
+    # float32 forward (mma_1688_x3): one TF32 product (hi hi) instead of
+    # three
     ("f32_one_tf32_product", "mma_tf32.cuh",
      "  mma_1688(d0, al, bh[0], bh[1]);\n  mma_1688(d1, al, bh[2], bh[3]);\n"
      "  mma_1688(d0, ah, bl[0], bl[1]);\n  mma_1688(d1, ah, bl[2], bl[3]);\n",
-     "", ("kernel_phase", "bwd_kernel_phase")),
+     "", ("kernel_phase",)),
+    # float32 dQ and dK/dV (the TF32 wgmma issue, sm90_tf32::x3): one TF32
+    # product (hi hi) instead of three
+    ("f32_bwd_one_tf32_product", "sm90_tf32.cuh",
+     "  mma(1, 0);  // lo_a hi_b\n  mma(0, 1);  // hi_a lo_b\n", "",
+     ("bwd_kernel_phase",)),
+    # float32 dQ and dK/dV: the transposed B tiles (K^T; Q^T and dO^T)
+    # written in natural key order, not in the order of the register A
+    # operand made from an accumulator (0, 2, 4, 6, 1, 3, 5, 7)
+    ("f32_bwd_natural_key_order", "sm90_tf32.cuh",
+     "return (j & 1) * 4 + (j >> 1);", "return j;", ("bwd_kernel_phase",)),
+    # float32 dQ and dK/dV: the transposed tiles' lo written as zero (K's
+    # in dQ += dS K; Q's and dO's in dK and dV)
+    ("f32_bwd_transposed_lo_zero", "sm90_tf32.cuh",
+     "sts(lo_t + o, l[e]);", "sts(lo_t + o, 0u);", ("bwd_kernel_phase",)),
     # float32 forward: keys past kv_len unmasked in the ragged last tile
     ("fwd_f32_no_ragged_mask", "flash_attention_fwd.cu",
      "if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;",
      "if (causal && kc > qr) s[n][i] = NEG_INF;", ("kernel_phase",)),
     # float32 dK/dV: queries before the key unmasked on the diagonal tile
     ("dkv_f32_no_causal_mask", "flash_attention_bwd.cu",
-     "if (query >= t || (causal && query < key)) e = 0.f;",
-     "if (query >= t) e = 0.f;", ("bwd_kernel_phase",)),
+     "if (query >= t || (causal && query < key)) s[nn][e] = NEG_INF;",
+     "if (query >= t) s[nn][e] = NEG_INF;", ("bwd_kernel_phase",)),
     # float32 dQ: keys after the query unmasked on the diagonal tile
     ("dq_f32_no_causal_mask", "flash_attention_bwd.cu",
-     "if (key >= t || (causal && key > query)) e = 0.f;",
-     "if (key >= t) e = 0.f;", ("bwd_kernel_phase",)),
+     "if (key >= t || (causal && key > query)) s[n][e] = NEG_INF;",
+     "if (key >= t) s[n][e] = NEG_INF;", ("bwd_kernel_phase",)),
 ]
 
 
@@ -1600,8 +1631,8 @@ ABLATIONS = [
          "mbar_expect_tx(bar, 0); if (0)")]),
     # dQ: the TMA store of dQ (staged all the same)
     ("dq_no_store", [
-        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map,",
-         "if (0) tma_store_3d(&dq_map,")]),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map, dq_stage",
+         "if (0) tma_store_3d(&dq_map, dq_stage")]),
     # dQ: every tile's dQ stored to the first tile of head 0, so the
     # stores stay in L2 and add no traffic to device memory
     ("dq_store_one_tile", [
@@ -1612,15 +1643,58 @@ ABLATIONS = [
     ("dq_no_epilogue", [
         ("flash_attention_bwd.cu", "stage_rows<D, D>(dq_stage,",
          "if (acc[0][0] == 0.5f) stage_rows<D, D>(dq_stage,"),
-        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map,",
-         "if (0) tma_store_3d(&dq_map,")]),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map, dq_stage",
+         "if (0) tma_store_3d(&dq_map, dq_stage")]),
+    # float32 dQ and dK/dV: the split stage (the consumers read the raw
+    # tiles as hi, and lo and transposed tiles as they stand)
+    ("f32_bwd_no_split", [
+        ("sm90_tf32.cuh", "idx < R * C / 4; idx += nthreads",
+         "idx < 0; idx += nthreads")]),
+    # float32 dQ and dK/dV: the two lo products of every 3xTF32 k step
+    ("f32_bwd_no_lo", [
+        ("sm90_tf32.cuh",
+         "  mma(1, 0);  // lo_a hi_b\n  mma(0, 1);  // hi_a lo_b\n", "")]),
+    # float32 dQ and dK/dV: every TMA load, the ring's and the resident
+    # tiles' (the barriers still turn)
+    ("f32_bwd_no_loads", [
+        ("flash_attention_bwd.cu", "mbar_expect_tx(bar, 2 * KT);",
+         "mbar_expect_tx(bar, 0); if (0)"),
+        ("flash_attention_bwd.cu", "mbar_expect_tx(q_full, 2 * NC * CT);",
+         "mbar_expect_tx(q_full, 0); if (0)"),
+        ("flash_attention_bwd.cu", "mbar_expect_tx(bar, 2 * QT);",
+         "mbar_expect_tx(bar, 0); if (0)"),
+        ("flash_attention_bwd.cu", "mbar_expect_tx(kv_full, 2 * NC * CT);",
+         "mbar_expect_tx(kv_full, 0); if (0)")]),
+    # float32 dQ and dK/dV: staging and storing the results (the staging
+    # skipped on a test of each accumulator, so its wgmmas stay)
+    ("f32_bwd_no_epilogue", [
+        ("flash_attention_bwd.cu", "tf::stage_rows<D, D>(qh,",
+         "if (acc[0][0] == 0.5f) tf::stage_rows<D, D>(qh,"),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dq_map, qh",
+         "if (0) tma_store_3d(&dq_map, qh"),
+        ("flash_attention_bwd.cu", "tf::stage_rows<D, DN>(kh,",
+         "if (acc_k[0][0] == 0.5f) tf::stage_rows<D, DN>(kh,"),
+        ("flash_attention_bwd.cu", "tf::stage_rows<D, DN>(vh,",
+         "if (acc_v[0][0] == 0.5f) tf::stage_rows<D, DN>(vh,"),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dk_map, kh",
+         "if (0) tma_store_3d(&dk_map, kh"),
+        ("flash_attention_bwd.cu", "tma_store_3d(&dv_map, vh",
+         "if (0) tma_store_3d(&dv_map, vh")]),
+    # float32 dQ and dK/dV (and forward): hi rounded by integer operations
+    # (the same bits as cvt.rna.tf32 for finite x), a diagnostic of what the
+    # conversion costs
+    ("f32_bwd_int_round", [
+        ("mma_tf32.cuh",
+         '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(y) : "f"(x));',
+         "  y = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;")]),
 ]
 
 
 def ablation_times(torch):
     """[ablation_time] line: the bf16 forward, dQ and dK/dV of the
     paddle_tpu_torch first on sys.path, at the BERT and GPT training
-    shapes (mean of 50 launches each, CUDA events)."""
+    shapes, and the float32 dQ and dK/dV at the float32 BERT training
+    shape (mean of 50 launches each, CUDA events)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
@@ -1637,6 +1711,11 @@ def ablation_times(torch):
         out[f"{key}dkv_ms"] = cuda_ms(
             lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
             iters=50)
+    args = _inputs(torch, fa, gen, *F32_TRAIN_SHAPE, torch.float32, False)
+    out["f32_dq_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args),
+                               iters=50)
+    out["f32_dkv_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args),
+                                iters=50)
     phase("ablation_time", **{k: f"{v:.4f}" for k, v in out.items()})
 
 
@@ -1746,9 +1825,11 @@ def mutant_phase():
 def time_phase(torch):
     """[kernel_time] lines of the three bf16 kernels at the shapes their
     redesign is judged at: the BERT training path's [384, 512, 64], GPT's
-    [384, 511, 64] causal, and [24, 512, 128] in both masks. Takes the
-    wrappers of whichever paddle_tpu_torch is first on sys.path (for
-    --compare, another tree's)."""
+    [384, 511, 64] causal, and [24, 512, 128] in both masks; then of the
+    float32 dQ and dK/dV beside float32 SDPA's backward at the float32
+    training path's [192, 512, 64] and at [48, 512, 128], in both masks.
+    Takes the wrappers of whichever paddle_tpu_torch is first on sys.path
+    (for --compare, another tree's)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
@@ -1756,6 +1837,10 @@ def time_phase(torch):
     for shape, causal in ((TRAIN_SHAPE, False), (GPT_SHAPE, True),
                           (D128_SHAPE, False), (D128_SHAPE, True)):
         time_kernels(torch, fa, gen, shape, torch.bfloat16, ALL3, causal)
+    for shape in (F32_TRAIN_SHAPE, F32_D128_SHAPE):
+        for causal in (False, True):
+            time_kernels(torch, fa, gen, shape, torch.float32, BWD_KERNELS,
+                         causal)
 
 
 def compare_phase(other):

@@ -21,12 +21,13 @@
 // The TPU kernels walk a sequential grid dimension and carry dq (or dk,
 // dv) in VMEM scratch between grid steps. Blocks on Hopper run in no
 // order, so each block owns output tiles and loops itself:
-//   dq:  128-row q tiles (64 in the float32 kernel); 64-row K/V tiles
-//        stream through; in causal mode the loop stops at the tile
-//        holding the diagonal.
-//   dkv: 128-row k tiles (64 in the float32 kernel); 64-row Q/dO tiles
-//        stream through; in causal mode the loop starts at the tile
-//        holding the diagonal.
+//   dq:  128-row q tiles (64 in float32 at d = 128); K/V tiles of 64 rows
+//        (bf16; 32 at d = 128) or 32 (float32; 16 at d = 128) stream
+//        through; in causal mode the loop stops at the tile holding the
+//        diagonal.
+//   dkv: 128-row k tiles (64 in float32 at d = 128); Q/dO tiles of 64 rows
+//        (bf16) or 16 (float32) stream through; in causal mode the loop
+//        starts at the tile holding the diagonal.
 // The ragged tail (T not a multiple of the tile) is masked in the
 // kernels, so the caller need not pad T.
 //
@@ -122,46 +123,59 @@
 //   at d = 128 64-key tiles (144) spilled and serialized every wgmma,
 //   32-key tiles take 112. What holds it back is in PERF.md §6.
 //
-// dkv_kernel_tf32x3<D> (float32), an mma.sync design on the TF32
-//   tensor cores with 3xTF32 products (mma_tf32.cuh): each operand splits
-//   into a tf32 high and low part and each product is lo hi + hi lo + hi
-//   hi with float32 accumulation. One TF32 product keeps 11 bits of each
-//   operand and misses the float32 limit of 1e-4; three meet it. All four
-//   products (S^T, dV, dP^T, dK) are mma.m16n8k8 taken three times, so the
-//   kernel is bound by the tensor cores and by the ALU work of the splits.
-//   4 warps of 16 key rows; K and V staged once, Q, dO, LSE and delta tiles
-//   of 64 query rows through a 2-stage cp.async ring, all float32 with rows
-//   padded to D + 4 words (no bank conflicts for ldmatrix or for 32-bit
-//   reads). K's and V's A fragments and Q's and dO's B fragments for S^T
-//   and dP^T come by b16 ldmatrix (a float32 row of 16 bytes is four
-//   words, the tf32 fragment layout) and are split as they are used. For
-//   dV and dK, dO and Q are the k-by-n operand, which b16 ldmatrix cannot
-//   transpose for words: they come by 32-bit shared loads. P^T and dS^T
-//   stay float32 (the input dtype) and go from one product's C fragment to
-//   the next one's A fragment in registers, with the queries of each
-//   8-query step taken in the order 0, 2, 4, 6, 1, 3, 5, 7 and dO's and Q's
-//   rows read in that order. At d = 128 the dK and dV accumulators of all
-//   128 columns would take 128 registers a thread, and ptxas spills 48 to
-//   56 bytes whether the score tiles are computed 32 or 16 query columns
-//   at a time: so there a block sums one 64-column half of dK and dV (a
-//   grid dimension of two), at the price of computing S^T and dP^T twice;
-//   score tiles 32 query columns at a time (64 below). K's and V's
-//   fragments are read from shared memory per k step rather than held.
-//   Shared memory: 203.8 KB at
-//   d = 128 (one block an SM; the full 2-stage ring of 64-row tiles fits),
-//   105.5 KB at d = 64.
-//
-// dq_kernel_tf32x3<D> (float32), the mma.sync design of dkv_kernel_tf32x3
-//   turned around: 4 warps of 16 query rows, one block per (bh, 64-row q
-//   tile); Q and dO staged once and read from shared memory per k step,
-//   K and V tiles of 64 key rows through the 2-stage cp.async ring (rows
-//   past T zero-filled), each lane's LSE and delta rows in registers;
-//   S = Q K^T and dP = dO V^T with K's and V's B fragments by ldmatrix, dS
-//   from dP's C fragment into dS K's A fragment in registers, K's rows for
-//   dS K by 32-bit loads; every product 3xTF32. Masking and early stop as
-//   in dq_kernel_wgmma; 32 key columns a pass at d = 128 (the accumulator
-//   takes 64 registers a thread there); 202.8 KB of shared memory at
-//   d = 128, 104.4 KB at d = 64.
+// dkv_kernel_tf32wg<D, STAGES> and dq_kernel_tf32wg<D, STAGES> (float32),
+//   the two bf16 Hopper designs above carried over to the TF32 tensor
+//   cores with 3xTF32 products (sm90_tf32.cuh): every operand splits into a
+//   tf32 high and low part, hi = cvt.rna.tf32(x) and lo = tf32(x - hi), and
+//   every product is hi hi + lo hi + hi lo with float32 accumulation, three
+//   m64nNk8 TF32 wgmmas a k step. One TF32 product keeps 11 bits of each
+//   operand and misses the float32 limit of 1e-4; three meet it. P^T, dS
+//   and dS^T stay float32 (the input dtype): no rounding step. What TF32
+//   wgmma forces on the bf16 shape:
+//   - shared-memory operands must be K-major (the transpose flags are for
+//     16-bit types), so dS K, P^T dO and dS^T Q read transposed copies, K^T,
+//     dO^T and Q^T, with each 8-key (8-query) k step's rows in the order 0,
+//     2, 4, 6, 1, 3, 5, 7: the order in which an A operand made from an
+//     accumulator (c_to_a_tf32) holds its k columns;
+//   - a split stage between TMA and wgmma: TMA lands raw float32 tiles (32-
+//     column boxes, the 128-byte swizzle) in a ring, and the producer
+//     warpgroup's warps 1 .. 3 (warp 0 issues the loads) split each stage's
+//     tiles into hi (in place) and lo and write the transposed hi and lo,
+//     fence them for wgmma and arrive on the stage's "ready" mbarrier,
+//     which the consumers wait on. The consumers split the tiles they keep
+//     for a whole output tile (dq: their Q and dO rows; dkv: their K and V
+//     rows) themselves when those land. Each element is split once a tile,
+//     not once per fragment read;
+//   - hi and lo of every operand take twice the bytes of the float32 tile,
+//     so shared memory sets the tiles: two consumer warpgroups of 64 rows up
+//     to d = 64, one at d = 128; dq's ring stages hold 32 keys (16 at d =
+//     128), dkv's 16 queries; STAGES as many as fit (dq 4 / 2 / 2, dkv 4 / 3
+//     / 2 at d 32 / 64 / 128). Results are staged in the consumer's own hi
+//     tile (Q hi, or K hi and V hi) once its last product has read it, then
+//     stored by TMA (rows past T not written); the producer reloads that
+//     tile once the store has read it, loading the next output tile's first
+//     ring stages first;
+//   - shared-memory bandwidth, not the tensor cores, paces the products
+//     (PERF.md §6): an SS wgmma reads its 64-row A operand (2 KB) for
+//     every instruction while N is only 16 or 32. So up to d = 64 the
+//     operand a consumer keeps for its whole tile (dq: Q and dO; dkv: K and
+//     V) has its hi in registers (mma.m16n8k8's TF32 A layout, 64 registers
+//     a thread at d = 64): hi hi and hi lo are RS wgmmas and only lo hi
+//     reads A from shared memory. dq pays for those registers by packing
+//     dS for dS K half a tile at a time, dkv by packing dS^T into P^T's
+//     registers once dV has read them. S, dP (S^T, dP^T), the packed
+//     operands and dQ (dK, dV) then take 144 registers a consumer thread at
+//     d = 64 against ptxas's 168; at d = 128 (one consumer, 64-column
+//     halves of dK and dV as in bf16, grid z = 2) nothing sits in
+//     registers;
+//   - LSE and delta: dq's per row in registers; dkv's per stage written by
+//     the split warps with plain loads ([bh, T] rows have no 16-byte
+//     alignment for TMA).
+//   Each consumer's products of a stage run in order, the two consumers
+//   overlapping each other (issuing the next stage's products early, as
+//   dq_kernel_wgmma does, read slower: PERF.md). Persistent blocks, head
+//   chunks, dq's heavy-light tile pairing, the causal early stop and
+//   masking only the ragged and diagonal tiles are the bf16 designs'.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -170,32 +184,13 @@
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "sm90_bf16.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;            // query rows per tile
-constexpr int BK = 64;            // key rows per tile
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 rows
+constexpr int BQ = 64;  // query rows per Q/dO stage of dkv_kernel_wgmma
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_INF = -1e30f;
-
-// Q, dO, LSE and delta of q tile q0 into one stage of the ring (Q and dO
-// in bfloat16 or float32)
-template <int D, typename T>
-__device__ __forceinline__ void load_q_stage(T* sQ, T* sdO, float* sL,
-                                             float* sD, const T* q,
-                                             const T* dout, const float* lse,
-                                             const float* delta, int q0,
-                                             int t) {
-  using namespace mma_bf16;
-  static_assert(MMA_THREADS == 2 * BQ, "one thread per LSE or delta entry");
-  load_rows_async<BQ, D, MMA_THREADS>(sQ, q, q0, t);
-  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout, q0, t);
-  const int r = threadIdx.x & (BQ - 1);
-  const bool ok = q0 + r < t;
-  const float* src = threadIdx.x < BQ ? lse : delta;
-  cp_async_4((threadIdx.x < BQ ? sL : sD) + r, src + (ok ? q0 + r : 0), ok);
-}
 
 // --------------------------------------------------------------- bfloat16
 
@@ -261,17 +256,18 @@ __device__ __forceinline__ void dkv_issue_sdp(float (&s)[QC / 8][4],
   wgmma_commit();
 }
 
-// key tile `i` of a persistent block's walk: z, the box of dK and dV
-// columns summed (at d = 128 two tiles share a key tile), and by
+// key tile `i` (of KB rows) of a persistent block's walk: z, the box of
+// dK and dV columns summed (at d = 128 two tiles share a key tile), and by
 // sm90::tile_order within each chunk of heads the tiles nearest the top of
 // every head first (in causal mode they see the most queries). Returns
 // k0; sets bh and z.
+template <int KB = WBK>
 __device__ __forceinline__ int dkv_tile(int i, int heads, int chunk, int nk,
                                         int nz, int& bh, int& z) {
   int kt;
   z = i % nz;
   sm90::tile_order(i / nz, heads, nk, chunk, bh, kt);
-  return kt * WBK;
+  return kt * KB;
 }
 
 template <int D, int STAGES>
@@ -563,20 +559,20 @@ __device__ __forceinline__ int dq_walk(int p, int b, int g) {
   return (p >> 1) * 2 * g + ((p & 1) ? 2 * g - 1 - b : b);
 }
 
-// query tile `i` of a persistent block's walk (sm90::tile_order): within
-// each chunk of heads the heaviest first (the bottom tile of every head,
-// then the one above it, ...; in causal mode the bottom tile sees the
-// most key tiles). Returns q0; sets bh and the number of key tiles of KR
-// rows.
-template <int KR>
+// query tile `i` (of QR rows) of a persistent block's walk
+// (sm90::tile_order): within each chunk of heads the heaviest first (the
+// bottom tile of every head, then the one above it, ...; in causal mode
+// the bottom tile sees the most key tiles). Returns q0; sets bh and the
+// number of key tiles of KR rows.
+template <int KR, int QR = WBQ>
 __device__ __forceinline__ int dq_tile(int i, int heads, int chunk, int nq,
                                        int t, int causal, int& bh,
                                        int& ntiles) {
   int j;
   sm90::tile_order(i, heads, nq, chunk, bh, j);
-  const int q0 = (nq - 1 - j) * WBQ;
+  const int q0 = (nq - 1 - j) * QR;
   // causal: keys past the tile's last query row contribute nothing
-  const int kend = causal ? min(t, q0 + WBQ) : t;
+  const int kend = causal ? min(t, q0 + QR) : t;
   ntiles = (kend + KR - 1) / KR;
   return q0;
 }
@@ -910,400 +906,745 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
 
 // ---------------------------------------------------------------- float32
 
-// Columns of dK and dV one dkv_kernel_tf32x3 block sums: all of them up
-// to d = 64; at d = 128 one half, each half by a block of its own
-__host__ __device__ constexpr int dkv_tf32_columns(int d) {
-  return d > 64 ? 64 : d;
+namespace tf = sm90_tf32;
+
+// Consumer warpgroups of the float32 kernels, 64 rows each: two up to d =
+// 64; one at d = 128, where the hi and lo tiles of two consumers' rows
+// would not fit in shared memory beside a ring (the head comment)
+__host__ __device__ constexpr int tf32_consumers(int d) {
+  return d > 64 ? 1 : 2;
+}
+// threads of the producer warpgroup's warps 1 .. 3, which split each ring
+// stage's tiles into tf32 hi and lo (warp 0 issues the TMA loads)
+constexpr int SPLIT_THREADS = 96;
+// registers a thread of the producer warpgroup (the split warps among
+// them) and of a consumer may hold once setmaxnreg has moved them. The
+// split loop's speed follows SPLIT_REGS: at 40 (the bf16 kernels'
+// PRODUCER_REGS) both kernels read 10-25% slower than at 96 with four
+// 16-byte chunks a thread in flight (split_rows; PERF.md §6)
+constexpr int SPLIT_REGS = 96, TF32_CONSUMER_REGS = 192;
+static_assert(WG_THREADS * (SPLIT_REGS + 2 * TF32_CONSUMER_REGS) <=
+                  WGMMA_THREADS * 168,
+              "the consumers take only what the producer gives up");
+
+// key rows per ring stage of dq_kernel_tf32wg: 32 (16 at d = 128), so S,
+// dP, dS's hi and lo A operands, dQ and Q's and dO's hi (dq_q_regs), all
+// operands of wgmmas in flight at once, take 144 registers a consumer
+// thread at d = 64 and 96 at d = 128
+__host__ __device__ constexpr int dq_tf32_key_rows(int d) {
+  return d > 64 ? 16 : 32;
+}
+// ring stages of dq_kernel_tf32wg: as many as fit beside Q and dO
+constexpr int dq_tf32_stages(int d) { return d == 32 ? 4 : 2; }
+
+// The consumers' Q and dO tiles, hi and lo ([64][D] a consumer, float32 as
+// swizzled boxes, sm90_tf32.cuh), then STAGES ring stages of K hi, K lo, V
+// hi, V lo ([KR][D]) and K^T hi, K^T lo ([D][KR]), then the mbarriers: Q/dO
+// full and empty, per stage full, ready and empty; 1024 bytes of slack to
+// align the base
+template <int D, int STAGES>
+constexpr size_t dq_tf32wg_smem_bytes() {
+  return 1024 +
+         static_cast<size_t>(4 * tf32_consumers(D) * 64 * D +
+                             6 * STAGES * dq_tf32_key_rows(D) * D) *
+             4 +
+         8 * (2 + 3 * STAGES);
 }
 
-template <int D>
-constexpr size_t dkv_tf32_smem_bytes() {
-  // K and V once, then two stages of Q and dO ([64][D + 4] float32 each)
-  // and of LSE and delta (64 floats each)
-  return sizeof(float) * (6 * BK * (D + 4) + 4 * BQ);
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    dkv_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dk,
-                      float* __restrict__ dv, int t, float sm_scale,
-                      int causal) {
-  using namespace mma_bf16;
-  using namespace mma_tf32;
-  constexpr int LD = D + 4;      // padded row stride (floats)
-  constexpr int TILE = BQ * LD;  // floats of one staged tile
-  constexpr int KD = D / 8;      // k steps over d
-  // columns of dK and dV this block sums, from c0 (the head comment)
-  constexpr int DH = dkv_tf32_columns(D);
-  constexpr int ND = DH / 8;     // n-blocks of those columns
-  // query columns of the score tile per compute pass
-  constexpr int QC = D > 64 ? 32 : 64;
-  constexpr int NQ = QC / 8;     // n-blocks of a score pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + TILE;
-  float* sQ = sV + TILE;       // [2][BQ][LD]
-  float* sdO = sQ + 2 * TILE;  // [2][BQ][LD]
-  float* sL = sdO + 2 * TILE;  // [2][BQ]
-  float* sD = sL + 2 * BQ;     // [2][BQ]
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int c0 = D > DH ? blockIdx.z * DH : 0;
-  const int row0 = k0 + warp * 16;  // the warp's first key row
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-  const float* qb = q + base;
-  const float* ob = dout + base;
-
-  // causal: query tiles before the one holding the diagonal see no key of
-  // this tile (BQ == BK, so that tile's index is the k tile's own)
-  const int qstart = causal ? k0 / BQ : 0;
-  const int ntiles = (t + BQ - 1) / BQ;
-
-  load_rows_async<BK, D, MMA_THREADS>(sK, k + base, k0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sV, v + base, k0, t);
-  load_q_stage<D>(sQ, sdO, sL, sD, qb, ob, lse + rbase, delta + rbase,
-                  qstart * BQ, t);
-  cp_async_commit();
-
-  const float scale = sm_scale * LOG2E;  // exponents in log2 units
-  float acc_k[ND][4], acc_v[ND][4];
+// P = exp(sm_scale S - LSE) on S's accumulators for this lane's rows row0
+// + g and row0 + g + 8; only the ragged last key tile and the diagonal tile
+// (qw0: the warpgroup's first row) are masked, to a score of NEG_INF
+template <int KR>
+__device__ __forceinline__ void dq_p_f32(float (&s)[KR / 8][4],
+                                         const float (&lse2)[2], int k0,
+                                         int t, int causal, int qw0, int row0,
+                                         float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  if (k0 + KR > t || (causal && k0 + KR - 1 > qw0)) {
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+    for (int n = 0; n < KR / 8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
-
-  for (int qt = qstart; qt < ntiles; ++qt) {
-    const int q0 = qt * BQ;
-    const int st = (qt - qstart) & 1;
-    if (qt + 1 < ntiles)  // the next tile into the other stage
-      load_q_stage<D>(sQ + (st ^ 1) * TILE, sdO + (st ^ 1) * TILE,
-                      sL + (st ^ 1) * BQ, sD + (st ^ 1) * BQ, qb, ob,
-                      lse + rbase, delta + rbase, q0 + BQ, t);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and K, V) has landed
-    __syncthreads();
-    const float* tQ = sQ + st * TILE;
-    const float* tdO = sdO + st * TILE;
-    const float* tL = sL + st * BQ;
-    const float* tD = sD + st * BQ;
-    // mask only the ragged last tile and the diagonal tile
-    const bool edge = q0 + BQ > t || (causal && q0 < k0 + BK - 1);
-
-#pragma unroll
-    for (int j0 = 0; j0 < BQ; j0 += QC) {
-      // S^T = K Q^T: the warp's 16 key rows x QC query columns; K's
-      // fragments are read from shared memory per k step
-      float p[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4], kh[4], kl[4];
-        ldmatrix_x4(a, a_addr(sK, LD, warp * 16, kk * 8, lane));
-        split4(a, kh, kl);
-#pragma unroll
-        for (int n2 = 0; n2 < NQ / 2; ++n2) {
-          uint32_t b[4], qh[4], ql[4];
-          ldmatrix_x4(b, bn_addr(tQ, LD, j0 + n2 * 16, kk * 8, lane));
-          split4(b, qh, ql);
-          mma_1688_x3(p[2 * n2], p[2 * n2 + 1], kh, kl, qh, ql);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * c + (e & 1);
+        const int query = row0 + g + (e >> 1) * 8;
+        if (key >= t || (causal && key > query)) s[n][e] = NEG_INF;
       }
-
-      // P^T = exp(sm_scale S^T - LSE[q]); masked entries 0
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qc = j0 + n * 8 + 2 * c + (i & 1);
-          float e = exp2f(fmaf(p[n][i], scale, -tL[qc] * LOG2E));
-          if (edge) {
-            const int query = q0 + qc;
-            const int key = row0 + g + (i >> 1) * 8;
-            if (query >= t || (causal && query < key)) e = 0.f;
-          }
-          p[n][i] = e;
-        }
-
-      // dV += P^T dO, one 8-query step per n-block j of P^T
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t ph[4], pl[4];
-        c_to_a_tf32(p[j], ph, pl);
-        const float* rows = tdO + (j0 + j * 8 + 2 * c) * LD + c0 + g;
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t oh[4], ol[4];
-          b_from_rows<LD>(rows, n2 * 16, oh, ol);
-          mma_1688_x3(acc_v[2 * n2], acc_v[2 * n2 + 1], ph, pl, oh, ol);
-        }
-      }
-
-      // dP^T = V dO^T
-      float ds[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ds[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4], vh[4], vl[4];
-        ldmatrix_x4(a, a_addr(sV, LD, warp * 16, kk * 8, lane));
-        split4(a, vh, vl);
-#pragma unroll
-        for (int n2 = 0; n2 < NQ / 2; ++n2) {
-          uint32_t b[4], oh[4], ol[4];
-          ldmatrix_x4(b, bn_addr(tdO, LD, j0 + n2 * 16, kk * 8, lane));
-          split4(b, oh, ol);
-          mma_1688_x3(ds[2 * n2], ds[2 * n2 + 1], vh, vl, oh, ol);
-        }
-      }
-
-      // dS^T = P^T (dP^T - delta[q]) sm_scale
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ds[n][i] = p[n][i] *
-                     (ds[n][i] - tD[j0 + n * 8 + 2 * c + (i & 1)]) * sm_scale;
-
-      // dK += dS^T Q
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t sh[4], sl[4];
-        c_to_a_tf32(ds[j], sh, sl);
-        const float* rows = tQ + (j0 + j * 8 + 2 * c) * LD + c0 + g;
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t qh[4], ql[4];
-          b_from_rows<LD>(rows, n2 * 16, qh, ql);
-          mma_1688_x3(acc_k[2 * n2], acc_k[2 * n2 + 1], sh, sl, qh, ql);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
   }
-
-  // dK, dV staged in the warp's own rows of sK and sV (only this warp
-  // read them), then stored as 16-byte rows
-  float* wK = sK + warp * 16 * LD;
-  float* wV = sV + warp * 16 * LD;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * c;
-    *reinterpret_cast<float2*>(wK + g * LD + col) =
-        make_float2(acc_k[n][0], acc_k[n][1]);
-    *reinterpret_cast<float2*>(wK + (g + 8) * LD + col) =
-        make_float2(acc_k[n][2], acc_k[n][3]);
-    *reinterpret_cast<float2*>(wV + g * LD + col) =
-        make_float2(acc_v[n][0], acc_v[n][1]);
-    *reinterpret_cast<float2*>(wV + (g + 8) * LD + col) =
-        make_float2(acc_v[n][2], acc_v[n][3]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = DH / 4;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
-    if (row0 + r >= t) continue;
-    const size_t off = base + static_cast<size_t>(row0 + r) * D + c0 + col;
-    *reinterpret_cast<float4*>(dk + off) =
-        *reinterpret_cast<const float4*>(wK + r * LD + col);
-    *reinterpret_cast<float4*>(dv + off) =
-        *reinterpret_cast<const float4*>(wV + r * LD + col);
-  }
+  for (int n = 0; n < KR / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[n][e] = mma_bf16::exp2_approx(fmaf(s[n][e], scale, -lse2[e >> 1]));
 }
 
-template <int D>
-constexpr size_t dq_tf32_smem_bytes() {
-  // Q and dO once, then two stages of K and V, all [64][D + 4] float32
-  return sizeof(float) * 6 * BK * (D + 4);
+// k steps of Q's and dO's hi that dq_kernel_tf32wg holds in registers as
+// the A operands of S and dP for a whole query tile: all of them up to d =
+// 64 (64 registers a consumer thread at d = 64, paid for by packing dS for
+// dS K half a key tile at a time), none at d = 128 (128 would not fit)
+__host__ __device__ constexpr int dq_q_regs(int d) { return d > 64 ? 0 : d / 8; }
+// key k steps of dS packed as dS K's A operand at once: half the tile's
+// where Q and dO sit in registers
+__host__ __device__ constexpr int dq_ds_steps(int d) {
+  return dq_tf32_key_rows(d) / 8 / (dq_q_regs(d) > 0 ? 2 : 1);
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    dq_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+// S = Q K^T and dP = dO V^T of one ring stage as 3xTF32, all shared-memory
+// operands K-major: the warpgroup's 64 query rows (hi and lo tiles qh, ql,
+// doh, dol; Q's and dO's hi from the registers qa, doa where dq_q_regs
+// says so) x the stage's KR keys (its K hi, K lo, V hi, V lo tiles from
+// s0); two groups (S's accumulators are written, P, while dP is in flight)
+template <int D, int KR>
+__device__ __forceinline__ void dq_issue_sdp_f32(
+    float (&s)[KR / 8][4], float (&dp)[KR / 8][4],
+    const uint32_t (&qa)[dq_q_regs(D) > 0 ? dq_q_regs(D) : 1][4],
+    const uint32_t (&doa)[dq_q_regs(D) > 0 ? dq_q_regs(D) : 1][4],
+    uint32_t qh, uint32_t ql, uint32_t doh, uint32_t dol, uint32_t s0) {
+  constexpr int KT = KR * D * 4;  // bytes of a K or V tile
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    if constexpr (dq_q_regs(D) > 0)
+      tf::wgmma_x3_rss<KR>(s, qa[kk], tf::desc<D>(ql, 64, kk),
+                           tf::desc<D>(s0, KR, kk),
+                           tf::desc<D>(s0 + KT, KR, kk), kk > 0);
+    else
+      tf::wgmma_x3_ss<KR>(s, tf::desc<D>(qh, 64, kk),
+                          tf::desc<D>(ql, 64, kk), tf::desc<D>(s0, KR, kk),
+                          tf::desc<D>(s0 + KT, KR, kk), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    if constexpr (dq_q_regs(D) > 0)
+      tf::wgmma_x3_rss<KR>(dp, doa[kk], tf::desc<D>(dol, 64, kk),
+                           tf::desc<D>(s0 + 2 * KT, KR, kk),
+                           tf::desc<D>(s0 + 3 * KT, KR, kk), kk > 0);
+    else
+      tf::wgmma_x3_ss<KR>(dp, tf::desc<D>(doh, 64, kk),
+                          tf::desc<D>(dol, 64, kk),
+                          tf::desc<D>(s0 + 2 * KT, KR, kk),
+                          tf::desc<D>(s0 + 3 * KT, KR, kk), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// dQ += dS K as 3xTF32 over the key k steps j0 .. j0 + NJ - 1: dS's hi and
+// lo A operands from registers (keys in the 0, 2, 4, 6, 1, 3, 5, 7 order of
+// c_to_a_tf32), the stage's K^T hi and lo tiles (k = key, n = d; from s0)
+// K-major, written in that key order
+template <int D, int KR, int NJ>
+__device__ __forceinline__ void dq_issue_dsk_f32(
+    float (&acc)[D / 8][4], const uint32_t (&dsh)[NJ][4],
+    const uint32_t (&dsl)[NJ][4], uint32_t s0, int j0) {
+  constexpr int KT = KR * D * 4;  // bytes of a K^T tile
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    tf::wgmma_x3_rs<D>(acc, dsh[j], dsl[j],
+                       tf::desc<KR>(s0 + 4 * KT, D, j0 + j),
+                       tf::desc<KR>(s0 + 5 * KT, D, j0 + j));
+  sm90::wgmma_commit();
+}
+
+// dS = P (dP - delta) sm_scale in float32 on dP's accumulators
+template <int KR>
+__device__ __forceinline__ void dq_ds_f32(float (&dp)[KR / 8][4],
+                                          const float (&s)[KR / 8][4],
+                                          const float (&dlt)[2],
+                                          float sm_scale) {
+#pragma unroll
+  for (int nn = 0; nn < KR / 8; ++nn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[nn][e] = s[nn][e] * (dp[nn][e] - dlt[e >> 1]) * sm_scale;
+}
+
+// the hi and lo of an accumulator of NB 8-column blocks as the A operands
+// of NB k steps (mma_tf32::c_to_a_tf32: columns in the order 0, 2, 4, 6,
+// 1, 3, 5, 7 of each step)
+template <int NB>
+__device__ __forceinline__ void c_to_a_x3(const float (&c)[NB][4],
+                                          uint32_t (&hi)[NB][4],
+                                          uint32_t (&lo)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32::c_to_a_tf32(c[n], hi[n], lo[n]);
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+    dq_kernel_tf32wg(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap dq_map,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int t, float sm_scale, int causal) {
+                     const float* __restrict__ delta, int heads, int chunk,
+                     int nq, int t, float sm_scale, int causal) {
   using namespace mma_bf16;
-  using namespace mma_tf32;
-  constexpr int LD = D + 4;      // padded row stride (floats)
-  constexpr int TILE = BK * LD;  // floats of one staged tile
-  constexpr int KD = D / 8;      // k steps over d
-  constexpr int ND = D / 8;      // n-blocks over d
-  // key columns of the score tile per compute pass (the head comment)
-  constexpr int KC = D > 64 ? 32 : 64;
-  constexpr int NK = KC / 8;     // n-blocks of a score pass
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sdO = sQ + TILE;
-  float* sK = sdO + TILE;     // [2][BK][LD]
-  float* sV = sK + 2 * TILE;  // [2][BK][LD]
+  using namespace sm90;
+  constexpr int NC = tf32_consumers(D);
+  constexpr int KR = dq_tf32_key_rows(D);
+  constexpr int QR = 64 * NC;       // query rows a tile
+  constexpr int CT = 64 * D * 4;    // bytes of a consumer's Q or dO tile
+  constexpr int KT = KR * D * 4;    // bytes of a K, V or K^T tile
+  constexpr int NB = D / 32;        // 32-column boxes along d
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t q_hi =
+      smem_u32(wg_smem + (1024 - smem_u32(wg_smem) % 1024) % 1024);
+  const uint32_t q_lo = q_hi + NC * CT, do_hi = q_lo + NC * CT;
+  const uint32_t do_lo = do_hi + NC * CT;
+  // stage st: K hi, K lo, V hi, V lo, K^T hi, K^T lo, KT bytes each
+  const uint32_t ring = do_lo + NC * CT;
+  const uint32_t q_full = ring + STAGES * 6 * KT, q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8, ready = full + 8 * STAGES;
+  const uint32_t empty = ready + 8 * STAGES;
+  const int total = nq * heads;  // query tiles of the whole launch
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int row0 = q0 + warp * 16;  // the warp's first query row
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const size_t rbase = static_cast<size_t>(bh) * t;
-  const float* kb = k + base;
-  const float* vb = v + base;
-
-  // causal: keys past the block's last query row contribute nothing
-  const int kend = causal ? min(t, q0 + BQ) : t;
-  const int ntiles = (kend + BK - 1) / BK;
-
-  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
-  load_rows_async<BQ, D, MMA_THREADS>(sdO, dout + base, q0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
-  cp_async_commit();
-
-  const float scale = sm_scale * LOG2E;  // exponents in log2 units
-  // this lane's rows g (r = 0) and g + 8: LSE in log2 units, and delta
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qr = row0 + g + 8 * r;
-    lse2[r] = qr < t ? lse[rbase + qr] * LOG2E : 0.f;
-    dl[r] = qr < t ? delta[rbase + qr] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    if (kt + 1 < ntiles) {  // the next tile into the other stage
-      const int st = (kt + 1) & 1;
-      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb, k0 + BK, t);
-      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb, k0 + BK, t);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, NC);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(ready + 8 * st, SPLIT_THREADS);
+      mbar_init(empty + 8 * st, NC * WG_THREADS);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q, dO) has landed
-    __syncthreads();
-    const float* tK = sK + (kt & 1) * TILE;
-    const float* tV = sV + (kt & 1) * TILE;
-    // mask only the ragged last tile and the diagonal tile
-    const bool edge = k0 + BK > t || (causal && k0 + BK - 1 > q0);
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int j0 = 0; j0 < BK; j0 += KC) {
-      // S = Q K^T: the warp's 16 query rows x KC key columns; Q's
-      // fragments are read from shared memory per k step
-      float p[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) p[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4], qh[4], ql[4];
-        ldmatrix_x4(a, a_addr(sQ, LD, warp * 16, kk * 8, lane));
-        split4(a, qh, ql);
-#pragma unroll
-        for (int n2 = 0; n2 < NK / 2; ++n2) {
-          uint32_t b[4], kh[4], kl[4];
-          ldmatrix_x4(b, bn_addr(tK, LD, j0 + n2 * 16, kk * 8, lane));
-          split4(b, kh, kl);
-          mma_1688_x3(p[2 * n2], p[2 * n2 + 1], qh, ql, kh, kl);
-        }
-      }
-
-      // P = exp(sm_scale S - LSE); masked entries 0
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float e = exp2f(fmaf(p[n][i], scale, -lse2[i >> 1]));
-          if (edge) {
-            const int key = k0 + j0 + n * 8 + 2 * c + (i & 1);
-            const int query = row0 + g + (i >> 1) * 8;
-            if (key >= t || (causal && key > query)) e = 0.f;
+  // A persistent block walks query tiles dq_walk(0, blockIdx.x,
+  // gridDim.x), dq_walk(1, ...), ...; its k/v ring runs on across tiles
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == NC) {
+    setmaxnreg_dec<SPLIT_REGS>();
+    const int ptid = threadIdx.x - NC * WG_THREADS;
+    if (ptid == 0) {
+      // TMA: each query tile's Q and dO raw into the hi tiles, once the
+      // last tile's dQ store has read them, and a ring of K and V tiles.
+      // The next tile's first stages load before its Q and dO, while the
+      // consumers finish this tile
+      int c = 0;  // ring stages walked
+      for (int i = blockIdx.x, n = 0; i < total;
+           i = dq_walk(++n, blockIdx.x, gridDim.x)) {
+        int bh, ntiles;
+        const int q0 =
+            dq_tile<KR, QR>(i, heads, chunk, nq, t, causal, bh, ntiles);
+        const int pre = min(STAGES, ntiles);
+        for (int kt = 0; kt <= ntiles; ++kt) {
+          if (kt == pre) {
+            mbar_wait(q_empty, (n & 1) ^ 1);
+            mbar_expect_tx(q_full, 2 * NC * CT);
+            for (int w = 0; w < NC; ++w)
+              for (int b = 0; b < NB; ++b) {
+                const uint32_t off = w * CT + b * 64 * 128;
+                tma_load_3d(q_hi + off, &q_map, q_full, b * 32, q0 + 64 * w,
+                            bh);
+                tma_load_3d(do_hi + off, &do_map, q_full, b * 32,
+                            q0 + 64 * w, bh);
+              }
           }
-          p[n][i] = e;
-        }
-
-      // dP = dO V^T
-      float ds[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ds[n][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t a[4], oh[4], ol[4];
-        ldmatrix_x4(a, a_addr(sdO, LD, warp * 16, kk * 8, lane));
-        split4(a, oh, ol);
-#pragma unroll
-        for (int n2 = 0; n2 < NK / 2; ++n2) {
-          uint32_t b[4], vh[4], vl[4];
-          ldmatrix_x4(b, bn_addr(tV, LD, j0 + n2 * 16, kk * 8, lane));
-          split4(b, vh, vl);
-          mma_1688_x3(ds[2 * n2], ds[2 * n2 + 1], oh, ol, vh, vl);
+          if (kt < ntiles) {
+            const int st = c % STAGES;
+            const uint32_t s0 = ring + st * 6 * KT, bar = full + 8 * st;
+            mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar, 2 * KT);
+            for (int b = 0; b < NB; ++b) {
+              tma_load_3d(s0 + b * KR * 128, &k_map, bar, b * 32, kt * KR,
+                          bh);
+              tma_load_3d(s0 + 2 * KT + b * KR * 128, &v_map, bar, b * 32,
+                          kt * KR, bh);
+            }
+            ++c;
+          }
         }
       }
-
-      // dS = P (dP - delta) sm_scale
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ds[n][i] = p[n][i] * (ds[n][i] - dl[i >> 1]) * sm_scale;
-
-      // dQ += dS K, one 8-key step per n-block j of dS
-#pragma unroll
-      for (int j = 0; j < NK; ++j) {
-        uint32_t sh[4], sl[4];
-        c_to_a_tf32(ds[j], sh, sl);
-        const float* rows = tK + (j0 + j * 8 + 2 * c) * LD + g;
-#pragma unroll
-        for (int n2 = 0; n2 < ND / 2; ++n2) {
-          uint32_t kh[4], kl[4];
-          b_from_rows<LD>(rows, n2 * 16, kh, kl);
-          mma_1688_x3(acc[2 * n2], acc[2 * n2 + 1], sh, sl, kh, kl);
+    } else if (ptid >= 32) {
+      // the split stage: each K tile into hi, lo and the transposed K^T hi
+      // and lo (dS K's B operand, keys in key_slot order), each V tile into
+      // hi and lo; then the stage is ready for the consumers
+      const int stid = ptid - 32;
+      int c = 0;
+      for (int i = blockIdx.x, n = 0; i < total;
+           i = dq_walk(++n, blockIdx.x, gridDim.x)) {
+        int bh, ntiles;
+        dq_tile<KR, QR>(i, heads, chunk, nq, t, causal, bh, ntiles);
+        for (int kt = 0; kt < ntiles; ++kt, ++c) {
+          const int st = c % STAGES;
+          const uint32_t s0 = ring + st * 6 * KT;
+          mbar_wait(full + 8 * st, (c / STAGES) & 1);
+          tf::split_rows<KR, D, D>(s0, s0 + KT, s0 + 4 * KT, s0 + 5 * KT, 0,
+                                   stid, SPLIT_THREADS);
+          tf::split_rows<KR, D, 0>(s0 + 2 * KT, s0 + 3 * KT, 0, 0, 0, stid,
+                                   SPLIT_THREADS);
+          fence_async_smem();
+          mbar_arrive(ready + 8 * st);
         }
       }
     }
-    __syncthreads();  // the next iteration refills this stage
-  }
+  } else {
+    // consumer warpgroup wg: query rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<TF32_CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const float scale = sm_scale * LOG2E;  // exponents in log2 units
+    const uint32_t qh = q_hi + wg * CT, ql = q_lo + wg * CT;
+    const uint32_t doh = do_hi + wg * CT, dol = do_lo + wg * CT;
 
-  // dQ staged in the warp's own rows of sQ (only this warp read them),
-  // then stored as 16-byte rows
-  float* wQ = sQ + warp * 16 * LD;
+    float acc[D / 8][4];                // dQ
+    float s[KR / 8][4], dp[KR / 8][4];  // a key tile's S, then P; dP, dS
+    constexpr int NJ = dq_ds_steps(D);
+    uint32_t dsh[NJ][4], dsl[NJ][4];  // dS K's A operand, hi and lo
+    // Q's and dO's hi as the A operands of S and dP
+    uint32_t qa[dq_q_regs(D) > 0 ? dq_q_regs(D) : 1][4];
+    uint32_t doa[dq_q_regs(D) > 0 ? dq_q_regs(D) : 1][4];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * c;
-    *reinterpret_cast<float2*>(wQ + g * LD + col) =
-        make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(wQ + (g + 8) * LD + col) =
-        make_float2(acc[n][2], acc[n][3]);
+    for (int nn = 0; nn < KR / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nn][e] = dp[nn][e] = 0.f;
+    int c = 0;  // ring stages walked
+    for (int i = blockIdx.x, n = 0; i < total;
+         i = dq_walk(++n, blockIdx.x, gridDim.x)) {
+      int bh, ntiles;
+      const int q0 = dq_tile<KR, QR>(i, heads, chunk, nq, t, causal, bh,
+                                     ntiles);
+      const int qw0 = q0 + 64 * wg;      // the warpgroup's first row
+      const int row0 = qw0 + 16 * warp;  // the warp's first row
+      // this lane's rows: LSE in log2 units and delta
+      float lse2[2], dlt[2];
+      dq_rows(lse2, dlt, lse, delta, static_cast<size_t>(bh) * t, row0, t);
+      // the warpgroup's Q and dO rows into hi (in place) and lo
+      mbar_wait(q_full, n & 1);
+      tf::split_rows<64, D, 0>(qh, ql, 0, 0, 0, tid, WG_THREADS);
+      tf::split_rows<64, D, 0>(doh, dol, 0, 0, 0, tid, WG_THREADS);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+#pragma unroll
+      for (int kk = 0; kk < dq_q_regs(D); ++kk) {
+        tf::load_a<D>(qh, 64, 16 * warp, kk, qa[kk]);
+        tf::load_a<D>(doh, 64, 16 * warp, kk, doa[kk]);
+      }
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nn][e] = 0.f;
+
+      for (int kt = 0; kt < ntiles; ++kt, ++c) {
+        const int st = c % STAGES;
+        const uint32_t s0 = ring + st * 6 * KT;
+        mbar_wait(ready + 8 * st, (c / STAGES) & 1);
+        dq_issue_sdp_f32<D, KR>(s, dp, qa, doa, qh, ql, doh, dol, s0);
+        wgmma_wait<1>();  // S
+        fence_regs(s);
+        dq_p_f32<KR>(s, lse2, kt * KR, t, causal, qw0, row0, scale);
+        wgmma_wait<0>();  // dP
+        fence_regs(dp);
+        dq_ds_f32<KR>(dp, s, dlt, sm_scale);
+        // dQ += dS K, NJ key k steps at a time
+#pragma unroll
+        for (int j0 = 0; j0 < KR / 8; j0 += NJ) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            mma_tf32::c_to_a_tf32(dp[j0 + j], dsh[j], dsl[j]);
+          dq_issue_dsk_f32<D, KR, NJ>(acc, dsh, dsl, s0, j0);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(dsh);
+          fence_regs(dsl);
+        }
+        mbar_arrive(empty + 8 * st);  // the stage may be refilled
+      }
+
+      // dQ in float32 into the warpgroup's Q hi tile (its last S has been
+      // retired), one TMA store a box (rows past T are not written); the Q
+      // and dO tiles go back to the producer once the store has read them
+      tf::stage_rows<D, D>(qh, 64, 16 * warp, 0, acc);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        for (int b = 0; b < NB; ++b)
+          tma_store_3d(&dq_map, qh + b * 64 * 128, b * 32, qw0, bh);
+        tma_store_commit();
+        tma_store_wait_read();
+        mbar_arrive(q_empty);
+      }
+    }
   }
-  __syncwarp();
-  constexpr int CHUNKS = D / 4;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
-    if (row0 + r < t)
-      *reinterpret_cast<float4*>(dq + base +
-                                 static_cast<size_t>(row0 + r) * D + col) =
-          *reinterpret_cast<const float4*>(wQ + r * LD + col);
+}
+
+// query rows per ring stage of dkv_kernel_tf32wg: S^T, dP^T, P^T's and
+// dS^T's hi and lo A operands, dK and dV of 16 query columns take 112
+// registers a consumer thread at d = 64
+constexpr int DKV_TF32_QROWS = 16;
+// ring stages of dkv_kernel_tf32wg: as many as fit beside K and V
+constexpr int dkv_tf32_stages(int d) { return d == 32 ? 4 : d == 64 ? 3 : 2; }
+
+// The consumers' K and V tiles, hi and lo ([64][D] a consumer), then STAGES
+// ring stages of Q hi, Q lo, dO hi, dO lo ([BQ][D]) and Q^T hi, Q^T lo, dO^T
+// hi, dO^T lo ([dkv_columns(D)][BQ]), then per stage LSE and delta (BQ
+// floats each), then the mbarriers: K/V full and empty, per stage full,
+// ready and empty; 1024 bytes of slack to align the base
+template <int D, int STAGES>
+constexpr size_t dkv_tf32wg_smem_bytes() {
+  return 1024 +
+         static_cast<size_t>(4 * tf32_consumers(D) * 64 * D +
+                             4 * STAGES * DKV_TF32_QROWS *
+                                 (D + dkv_columns(D)) +
+                             2 * STAGES * DKV_TF32_QROWS) *
+             4 +
+         8 * (2 + 3 * STAGES);
+}
+
+// k steps of K's and V's hi that dkv_kernel_tf32wg holds in registers as
+// the A operands of S^T and dP^T for a whole key tile: all of them up to d
+// = 64 (64 registers a consumer thread at d = 64, paid for by packing P^T
+// and dS^T into the same registers), none at d = 128
+__host__ __device__ constexpr int dkv_k_regs(int d) {
+  return d > 64 ? 0 : d / 8;
+}
+
+// S^T = K Q^T and dP^T = V dO^T of one ring stage as 3xTF32, all
+// shared-memory operands K-major: the warpgroup's 64 key rows (hi and lo
+// tiles kh, kl, vh, vl; K's hi from the registers ka where dkv_k_regs says
+// so) x the stage's DKV_TF32_QROWS query rows (its Q hi, Q lo, dO hi, dO lo
+// tiles from s0); two groups (S^T's accumulators are written, P^T, while
+// dP^T is in flight)
+template <int D>
+__device__ __forceinline__ void dkv_issue_sdp_f32(
+    float (&s)[DKV_TF32_QROWS / 8][4], float (&dp)[DKV_TF32_QROWS / 8][4],
+    const uint32_t (&ka)[dkv_k_regs(D) > 0 ? dkv_k_regs(D) : 1][4],
+    const uint32_t (&va)[dkv_k_regs(D) > 0 ? dkv_k_regs(D) : 1][4],
+    uint32_t kh, uint32_t kl, uint32_t vh, uint32_t vl, uint32_t s0) {
+  constexpr int QB = DKV_TF32_QROWS;
+  constexpr int QT = QB * D * 4;  // bytes of a Q or dO tile
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    if constexpr (dkv_k_regs(D) > 0)
+      tf::wgmma_x3_rss<QB>(s, ka[kk], tf::desc<D>(kl, 64, kk),
+                           tf::desc<D>(s0, QB, kk),
+                           tf::desc<D>(s0 + QT, QB, kk), kk > 0);
+    else
+      tf::wgmma_x3_ss<QB>(s, tf::desc<D>(kh, 64, kk),
+                          tf::desc<D>(kl, 64, kk), tf::desc<D>(s0, QB, kk),
+                          tf::desc<D>(s0 + QT, QB, kk), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    if constexpr (dkv_k_regs(D) > 0)
+      tf::wgmma_x3_rss<QB>(dp, va[kk], tf::desc<D>(vl, 64, kk),
+                           tf::desc<D>(s0 + 2 * QT, QB, kk),
+                           tf::desc<D>(s0 + 3 * QT, QB, kk), kk > 0);
+    else
+      tf::wgmma_x3_ss<QB>(dp, tf::desc<D>(vh, 64, kk),
+                          tf::desc<D>(vl, 64, kk),
+                          tf::desc<D>(s0 + 2 * QT, QB, kk),
+                          tf::desc<D>(s0 + 3 * QT, QB, kk), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// dV += P^T dO as 3xTF32: P^T's hi and lo from registers (queries in the
+// c_to_a_tf32 order), the stage's dO^T hi and lo tiles (k = query, n = the
+// tile's dK and dV columns) K-major, written in that order; s0: the stage
+template <int D>
+__device__ __forceinline__ void dkv_issue_dv_f32(
+    float (&acc)[dkv_columns(D) / 8][4],
+    const uint32_t (&ph)[DKV_TF32_QROWS / 8][4],
+    const uint32_t (&pl)[DKV_TF32_QROWS / 8][4], uint32_t s0) {
+  constexpr int QB = DKV_TF32_QROWS, DN = dkv_columns(D);
+  const uint32_t t0 = s0 + 4 * QB * D * 4;  // the stage's transposed tiles
+  constexpr int TT = DN * QB * 4;           // bytes of one
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < QB / 8; ++j)
+    tf::wgmma_x3_rs<DN>(acc, ph[j], pl[j], tf::desc<QB>(t0 + 2 * TT, DN, j),
+                        tf::desc<QB>(t0 + 3 * TT, DN, j));
+  sm90::wgmma_commit();
+}
+
+// dK += dS^T Q as 3xTF32, as dkv_issue_dv_f32 with the stage's Q^T tiles
+template <int D>
+__device__ __forceinline__ void dkv_issue_dk_f32(
+    float (&acc)[dkv_columns(D) / 8][4],
+    const uint32_t (&dsh)[DKV_TF32_QROWS / 8][4],
+    const uint32_t (&dsl)[DKV_TF32_QROWS / 8][4], uint32_t s0) {
+  constexpr int QB = DKV_TF32_QROWS, DN = dkv_columns(D);
+  const uint32_t t0 = s0 + 4 * QB * D * 4;
+  constexpr int TT = DN * QB * 4;
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < QB / 8; ++j)
+    tf::wgmma_x3_rs<DN>(acc, dsh[j], dsl[j], tf::desc<QB>(t0, DN, j),
+                        tf::desc<QB>(t0 + TT, DN, j));
+  sm90::wgmma_commit();
+}
+
+// P^T = exp(sm_scale S^T - LSE[q]) in float32 on S^T's accumulators for
+// this lane's key rows row0 + g and row0 + g + 8 and the stage's query
+// columns q0 ..; LSE per column from the stage's rows at tr. Only the
+// ragged last stage and the diagonal stages (kw0: the warpgroup's first
+// key) are masked, to a score of NEG_INF
+__device__ __forceinline__ void dkv_p_f32(
+    float (&s)[DKV_TF32_QROWS / 8][4], uint32_t tr, int q0, int t,
+    int causal, int kw0, int row0, float scale) {
+  constexpr int QB = DKV_TF32_QROWS;
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  if (q0 + QB > t || (causal && q0 < kw0 + 63)) {
+#pragma unroll
+    for (int nn = 0; nn < QB / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int query = q0 + nn * 8 + 2 * c + (e & 1);
+        const int key = row0 + g + (e >> 1) * 8;
+        if (query >= t || (causal && query < key)) s[nn][e] = NEG_INF;
+      }
+  }
+#pragma unroll
+  for (int nn = 0; nn < QB / 8; ++nn) {
+    const float2 lq = sm90::lds_f2(tr + (nn * 8 + 2 * c) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[nn][e] = mma_bf16::exp2_approx(
+          fmaf(s[nn][e], scale, -((e & 1) ? lq.y : lq.x) * LOG2E));
+  }
+}
+
+// dS^T = P^T (dP^T - delta[q]) sm_scale in float32 on dP^T's accumulators,
+// delta per column from the stage's rows at tr
+__device__ __forceinline__ void dkv_ds_f32(
+    float (&dp)[DKV_TF32_QROWS / 8][4],
+    const float (&s)[DKV_TF32_QROWS / 8][4], uint32_t tr, float sm_scale) {
+  constexpr int QB = DKV_TF32_QROWS;
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int nn = 0; nn < QB / 8; ++nn) {
+    const float2 dq2 = sm90::lds_f2(tr + (QB + nn * 8 + 2 * c) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[nn][e] =
+          s[nn][e] * (dp[nn][e] - ((e & 1) ? dq2.y : dq2.x)) * sm_scale;
+  }
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+    dkv_kernel_tf32wg(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map,
+                      const __grid_constant__ CUtensorMap dk_map,
+                      const __grid_constant__ CUtensorMap dv_map,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, int heads, int chunk,
+                      int t, float sm_scale, int causal) {
+  using namespace mma_bf16;
+  using namespace sm90;
+  constexpr int NC = tf32_consumers(D);
+  constexpr int QB = DKV_TF32_QROWS;  // query rows a stage
+  constexpr int DN = dkv_columns(D);  // columns of dK and dV summed here
+  constexpr int NZ = D / DN;          // key tiles a (head, k0) splits into
+  constexpr int KB = 64 * NC;         // key rows a tile
+  constexpr int CT = 64 * D * 4;      // bytes of a consumer's K or V tile
+  constexpr int QT = QB * D * 4;      // bytes of a Q or dO tile
+  constexpr int TT = DN * QB * 4;     // bytes of a Q^T or dO^T tile
+  constexpr int SB = 4 * QT + 4 * TT; // bytes of a stage's tiles
+  constexpr int NB = D / 32;          // 32-column boxes along d
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t k_hi =
+      smem_u32(wg_smem + (1024 - smem_u32(wg_smem) % 1024) % 1024);
+  const uint32_t k_lo = k_hi + NC * CT, v_hi = k_lo + NC * CT;
+  const uint32_t v_lo = v_hi + NC * CT;
+  // stage st: Q hi, Q lo, dO hi, dO lo, then Q^T hi, Q^T lo, dO^T hi, dO^T
+  // lo; its LSE and delta rows at rows + 8 QB st
+  const uint32_t ring = v_lo + NC * CT;
+  const uint32_t rows = ring + STAGES * SB;
+  const uint32_t kv_full = rows + STAGES * 2 * QB * 4;
+  const uint32_t kv_empty = kv_full + 8, full = kv_empty + 8;
+  const uint32_t ready = full + 8 * STAGES, empty = ready + 8 * STAGES;
+  const int ntiles = (t + QB - 1) / QB;  // query tiles
+  const int nk = (t + KB - 1) / KB;
+  const int total = nk * heads * NZ;     // key tiles of the launch
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, NC);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(ready + 8 * st, SPLIT_THREADS);
+      mbar_init(empty + 8 * st, NC * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // A persistent block walks key tiles blockIdx.x, blockIdx.x +
+  // gridDim.x, ...; the Q/dO ring runs on across tiles
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == NC) {
+    setmaxnreg_dec<SPLIT_REGS>();
+    const int ptid = threadIdx.x - NC * WG_THREADS;
+    if (ptid == 0) {
+      // TMA: each key tile's K and V raw into the hi tiles, once the last
+      // tile's dK and dV stores have read them, and a ring of Q and dO
+      // tiles. The next key tile's first stages load before its K and V
+      int c = 0;  // ring stages walked
+      for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+        int bh, z;
+        const int k0 = dkv_tile<KB>(i, heads, chunk, nk, NZ, bh, z);
+        // causal: query tiles before the tile's first key see none of it
+        const int qstart = causal ? k0 / QB : 0;
+        const int pre = min(STAGES, ntiles - qstart);
+        for (int qt = qstart; qt <= ntiles; ++qt) {
+          if (qt - qstart == pre) {
+            mbar_wait(kv_empty, (n & 1) ^ 1);
+            mbar_expect_tx(kv_full, 2 * NC * CT);
+            for (int w = 0; w < NC; ++w)
+              for (int b = 0; b < NB; ++b) {
+                const uint32_t off = w * CT + b * 64 * 128;
+                tma_load_3d(k_hi + off, &k_map, kv_full, b * 32, k0 + 64 * w,
+                            bh);
+                tma_load_3d(v_hi + off, &v_map, kv_full, b * 32, k0 + 64 * w,
+                            bh);
+              }
+          }
+          if (qt < ntiles) {
+            const int st = c % STAGES;
+            const uint32_t s0 = ring + st * SB, bar = full + 8 * st;
+            mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar, 2 * QT);
+            for (int b = 0; b < NB; ++b) {
+              tma_load_3d(s0 + b * QB * 128, &q_map, bar, b * 32, qt * QB,
+                          bh);
+              tma_load_3d(s0 + 2 * QT + b * QB * 128, &do_map, bar, b * 32,
+                          qt * QB, bh);
+            }
+            ++c;
+          }
+        }
+      }
+    } else if (ptid >= 32) {
+      // the split stage: each Q and dO tile into hi, lo and the transposed
+      // hi and lo of the tile's dK and dV columns (the B operands of dK += dS^T Q and dV += P^T dO,
+      // queries in key_slot order); the stage's LSE and delta rows (0 past
+      // T) by plain loads: [bh, T] float32 rows have no 16-byte alignment
+      // for TMA
+      const int stid = ptid - 32;
+      int c = 0;
+      for (int i = blockIdx.x; i < total; i += gridDim.x) {
+        int bh, z;
+        const int k0 = dkv_tile<KB>(i, heads, chunk, nk, NZ, bh, z);
+        const int qstart = causal ? k0 / QB : 0;
+        for (int qt = qstart; qt < ntiles; ++qt, ++c) {
+          const int st = c % STAGES;
+          const uint32_t s0 = ring + st * SB, t0 = s0 + 4 * QT;
+          mbar_wait(full + 8 * st, (c / STAGES) & 1);
+          tf::split_rows<QB, D, DN>(s0, s0 + QT, t0, t0 + TT, z * DN, stid,
+                                    SPLIT_THREADS);
+          tf::split_rows<QB, D, DN>(s0 + 2 * QT, s0 + 3 * QT, t0 + 2 * TT,
+                                    t0 + 3 * TT, z * DN, stid,
+                                    SPLIT_THREADS);
+          if (stid < 2 * QB) {
+            const int q = qt * QB + stid % QB;
+            const float* src = stid < QB ? lse : delta;
+            tf::sts(rows + (st * 2 * QB + stid) * 4,
+                    __float_as_uint(
+                        q < t ? src[static_cast<size_t>(bh) * t + q] : 0.f));
+          }
+          fence_async_smem();
+          mbar_arrive(ready + 8 * st);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: key rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<TF32_CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const float scale = sm_scale * LOG2E;  // exponents in log2 units
+    const uint32_t kh = k_hi + wg * CT, kl = k_lo + wg * CT;
+    const uint32_t vh = v_hi + wg * CT, vl = v_lo + wg * CT;
+
+    float acc_k[DN / 8][4], acc_v[DN / 8][4];
+    float s[QB / 8][4], dp[QB / 8][4];  // S^T, then P^T; dP^T, then dS^T
+    // P^T's, then dS^T's, hi and lo as the A operands of dV, then dK
+    uint32_t ah[QB / 8][4], al[QB / 8][4];
+    // K's and V's hi as the A operands of S^T and dP^T
+    uint32_t ka[dkv_k_regs(D) > 0 ? dkv_k_regs(D) : 1][4];
+    uint32_t va[dkv_k_regs(D) > 0 ? dkv_k_regs(D) : 1][4];
+#pragma unroll
+    for (int nn = 0; nn < QB / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nn][e] = dp[nn][e] = 0.f;
+    int rs = 0;  // ring stages walked
+    for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+      int bh, z;
+      const int k0 = dkv_tile<KB>(i, heads, chunk, nk, NZ, bh, z);
+      const int qstart = causal ? k0 / QB : 0;
+      const int kw0 = k0 + 64 * wg;      // the warpgroup's first key row
+      const int row0 = kw0 + 16 * warp;  // the warp's first key row
+      // the warpgroup's K and V rows into hi (in place) and lo
+      mbar_wait(kv_full, n & 1);
+      tf::split_rows<64, D, 0>(kh, kl, 0, 0, 0, tid, WG_THREADS);
+      tf::split_rows<64, D, 0>(vh, vl, 0, 0, 0, tid, WG_THREADS);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+#pragma unroll
+      for (int kk = 0; kk < dkv_k_regs(D); ++kk) {
+        tf::load_a<D>(kh, 64, 16 * warp, kk, ka[kk]);
+        tf::load_a<D>(vh, 64, 16 * warp, kk, va[kk]);
+      }
+#pragma unroll
+      for (int nn = 0; nn < DN / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_k[nn][e] = acc_v[nn][e] = 0.f;
+
+      for (int qt = qstart; qt < ntiles; ++qt, ++rs) {
+        const int st = rs % STAGES;
+        const uint32_t s0 = ring + st * SB;
+        const uint32_t tr = rows + st * 2 * QB * 4;  // LSE, delta rows
+        mbar_wait(ready + 8 * st, (rs / STAGES) & 1);
+        dkv_issue_sdp_f32<D>(s, dp, ka, va, kh, kl, vh, vl, s0);
+        wgmma_wait<1>();  // S^T
+        fence_regs(s);
+        dkv_p_f32(s, tr, qt * QB, t, causal, kw0, row0, scale);
+        c_to_a_x3(s, ah, al);
+        dkv_issue_dv_f32<D>(acc_v, ah, al, s0);
+        wgmma_wait<0>();  // dP^T, and dV: its A registers are free
+        fence_regs(dp);
+        fence_regs(ah);
+        fence_regs(al);
+        dkv_ds_f32(dp, s, tr, sm_scale);
+        c_to_a_x3(dp, ah, al);
+        dkv_issue_dk_f32<D>(acc_k, ah, al, s0);
+        wgmma_wait<0>();
+        fence_regs(ah);
+        fence_regs(al);
+        mbar_arrive(empty + 8 * st);  // the stage may be refilled
+      }
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+
+      // dK and dV in float32 into the warpgroup's K hi and V hi tiles (the
+      // tile's last S^T and dP^T have been retired), one TMA store a box
+      // (rows past T are not written); K and V go back to the producer
+      // once the stores have read them
+      tf::stage_rows<D, DN>(kh, 64, 16 * warp, 0, acc_k);
+      tf::stage_rows<D, DN>(vh, 64, 16 * warp, 0, acc_v);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        for (int b = 0; b < DN / 32; ++b) {
+          tma_store_3d(&dk_map, kh + b * 64 * 128, z * DN + b * 32, kw0, bh);
+          tma_store_3d(&dv_map, vh + b * 64 * 128, z * DN + b * 32, kw0, bh);
+        }
+        tma_store_commit();
+        tma_store_wait_read();
+        mbar_arrive(kv_empty);
+      }
+    }
   }
 }
 
@@ -1318,21 +1659,33 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
+template <int D, int STAGES = dq_tf32_stages(D)>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int bh, int t,
                           float sm_scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_tf32_smem_bytes<D>();
-  auto kern = dq_kernel_tf32x3<D>;
+  constexpr int NC = tf32_consumers(D);
+  constexpr size_t smem = dq_tf32wg_smem_bytes<D, STAGES>();
+  auto kern = dq_kernel_tf32wg<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), t, sm_scale, causal);
+  // boxes of 64 rows, a consumer's Q, dO or dQ rows, and of a ring
+  // stage's key rows for K and V
+  CUtensorMap maps[5];
+  const void* ptrs[5] = {q, k, v, dout, dq};
+  for (int i = 0; i < 5; ++i) {
+    const cudaError_t err = sm90_tf32::rows_map<D>(
+        &maps[i], ptrs[i], bh, t, i == 1 || i == 2 ? dq_tf32_key_rows(D) : 64);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent blocks: one a streaming multiprocessor, or one a tile
+  static const int sms = sm90::sm_count();
+  const int nq = (t + 64 * NC - 1) / (64 * NC);
+  const int tiles = nq * bh;
+  kern<<<tiles < sms ? tiles : sms, (NC + 1) * WG_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), bh,
+      sm90::head_chunk(sms, nq), nq, t, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -1367,22 +1720,34 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int STAGES = dkv_tf32_stages(D)>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dk, void* dv, int bh,
                            int t, float sm_scale, int causal,
                            cudaStream_t stream) {
-  constexpr size_t smem = dkv_tf32_smem_bytes<D>();
-  auto kern = dkv_kernel_tf32x3<D>;
+  constexpr int NC = tf32_consumers(D);
+  constexpr size_t smem = dkv_tf32wg_smem_bytes<D, STAGES>();
+  auto kern = dkv_kernel_tf32wg<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BK - 1) / BK, bh, D / dkv_tf32_columns(D));
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), t, sm_scale, causal);
+  // boxes of a ring stage's query rows for Q and dO, of 64 rows (a
+  // consumer's key rows) for K, V, dK and dV
+  CUtensorMap maps[6];
+  const void* ptrs[6] = {q, k, v, dout, dk, dv};
+  for (int i = 0; i < 6; ++i) {
+    const cudaError_t err = sm90_tf32::rows_map<D>(
+        &maps[i], ptrs[i], bh, t, i == 0 || i == 3 ? DKV_TF32_QROWS : 64);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent blocks: one a streaming multiprocessor, or one a tile
+  static const int sms = sm90::sm_count();
+  const int nk = (t + 64 * NC - 1) / (64 * NC);
+  const int tiles = nk * bh * (D / dkv_columns(D));
+  kern<<<tiles < sms ? tiles : sms, (NC + 1) * WG_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), bh,
+      sm90::head_chunk(sms, nk), t, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -1436,7 +1801,7 @@ bool bad_shape(int bh, int t) { return bh <= 0 || t <= 0 || bh > 65535; }
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns the launch's cudaError_t.
-// float32 runs dq_kernel_tf32x3, bfloat16 dq_kernel_wgmma
+// float32 runs dq_kernel_tf32wg, bfloat16 dq_kernel_wgmma
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -1461,7 +1826,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   }
 }
 
-// float32 runs dkv_kernel_tf32x3, bfloat16 dkv_kernel_wgmma
+// float32 runs dkv_kernel_tf32wg, bfloat16 dkv_kernel_wgmma
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -1486,9 +1851,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   }
 }
 
-// Dynamic shared memory the bf16 dQ and dK/dV kernels' instances for
-// head dim d take (0 where there is none); chip_smoke.py's [build] prints
-// them beside ptxas's registers.
+// Dynamic shared memory the dQ and dK/dV kernels' instances for head dim
+// d take (0 where there is none), bf16 and float32; chip_smoke.py's
+// smem_phase prints them beside ptxas's registers.
 extern "C" long long flash_attention_bwd_dq_smem(int d) {
   switch (d) {
     case 32:
@@ -1510,6 +1875,32 @@ extern "C" long long flash_attention_bwd_dkv_smem(int d) {
       return dkv_wgmma_smem_bytes<64, DKV_STAGES>();
     case 128:
       return dkv_wgmma_smem_bytes<128, DKV_STAGES>();
+    default:
+      return 0;
+  }
+}
+
+extern "C" long long flash_attention_bwd_dq_f32_smem(int d) {
+  switch (d) {
+    case 32:
+      return dq_tf32wg_smem_bytes<32, dq_tf32_stages(32)>();
+    case 64:
+      return dq_tf32wg_smem_bytes<64, dq_tf32_stages(64)>();
+    case 128:
+      return dq_tf32wg_smem_bytes<128, dq_tf32_stages(128)>();
+    default:
+      return 0;
+  }
+}
+
+extern "C" long long flash_attention_bwd_dkv_f32_smem(int d) {
+  switch (d) {
+    case 32:
+      return dkv_tf32wg_smem_bytes<32, dkv_tf32_stages(32)>();
+    case 64:
+      return dkv_tf32wg_smem_bytes<64, dkv_tf32_stages(64)>();
+    case 128:
+      return dkv_tf32wg_smem_bytes<128, dkv_tf32_stages(128)>();
     default:
       return 0;
   }

@@ -25,9 +25,10 @@
 // float32, so only the dropped lo lo term and the float32 sums round; one
 // TF32 product (hi hi only) keeps 11 bits of each operand.
 //
-// c_to_a_tf32 and b_from_rows below carry the k order above: the first makes
-// the A fragment of a C tile, the second reads the right operand's rows
-// to match, by 32-bit shared loads.
+// c_to_a_tf32 below carries the k order above: it makes the A fragment of
+// a C tile (which is also a TF32 wgmma's register A operand, warp by
+// warp); the right operand's rows must be read, or written, in that
+// order (sm90_tf32.cuh's transposed tiles).
 #pragma once
 
 #include <stdint.h>
@@ -83,28 +84,13 @@ __device__ __forceinline__ void mma_1688_x3(
 // The A fragment of an 8-wide k step of a product whose left operand is
 // the 16 x 8 float32 C tile c of an earlier product, split for 3xTF32:
 // columns c and c + 4 of the fragment take the tile's columns 2c and 2c + 1
-// (above), so the right operand's rows must be read in that order
-// (b_from_rows).
+// (above), so the right operand's rows must be in that order.
 __device__ __forceinline__ void c_to_a_tf32(const float (&c)[4],
                                             uint32_t (&hi)[4],
                                             uint32_t (&lo)[4]) {
   const uint32_t a[4] = {__float_as_uint(c[0]), __float_as_uint(c[2]),
                          __float_as_uint(c[1]), __float_as_uint(c[3])};
   split4(a, hi, lo);
-}
-
-// The B fragments of two n-blocks (columns n0 .. n0 + 15) of a float32 tile
-// stored k by n with row stride LD, split for 3xTF32, for a left operand
-// from c_to_a_tf32: `rows` points at row 2c of the 8-row k step, column g.
-// 32-bit loads: b16 ldmatrix cannot transpose words.
-template <int LD>
-__device__ __forceinline__ void b_from_rows(const float* rows, int n0,
-                                            uint32_t (&hi)[4],
-                                            uint32_t (&lo)[4]) {
-  split(rows[n0], hi[0], lo[0]);
-  split(rows[LD + n0], hi[1], lo[1]);
-  split(rows[n0 + 8], hi[2], lo[2]);
-  split(rows[LD + n0 + 8], hi[3], lo[3]);
 }
 
 }  // namespace mma_tf32

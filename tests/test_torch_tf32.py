@@ -1,6 +1,6 @@
 """The float32 backward kernels' arithmetic, emulated on the CPU.
 
-`dq_kernel_tf32x3` and `dkv_kernel_tf32x3` (csrc/flash_attention_bwd.cu)
+`dq_kernel_tf32wg` and `dkv_kernel_tf32wg` (csrc/flash_attention_bwd.cu)
 take every product on the TF32 tensor cores as 3xTF32: x = hi + lo with
 hi = tf32(x), lo = tf32(x - hi), and a b = lo_a hi_b + hi_a lo_b + hi_a
 hi_b, each product exact and every sum float32. Here the same products
@@ -9,8 +9,13 @@ from zero, low 13 bits cleared: `cvt.rna.tf32.f32`), and the gradients
 are held against the plain versions the card checks them with: within the
 float32 limit of 1e-4 (chip_smoke.F32_TOL) with three products, and
 outside it with one (hi hi only), which is why the kernels take three.
-The kernels sum in another order than this emulation, so it shows the
-size of the error, not the card's bits.
+A second emulation follows the kernels' order: tiles of 32 keys (dQ) and
+16 queries (dK/dV), every product summed one 8-wide k step at a time, and
+the products whose A operand comes from an accumulator (dS K, P^T dO,
+dS^T Q) with the k columns of each step in the order 0, 2, 4, 6, 1, 3, 5,
+7 on both operands, as the kernels' transposed B tiles are written
+(sm90_tf32.cuh, key_slot). The kernels sum in another order than these
+emulations, so they show the size of the error, not the card's bits.
 """
 import math
 import os
@@ -85,6 +90,102 @@ def test_three_tf32_products_meet_the_float32_limit(causal):
            zip(_emulated_grads(*args, causal, 1), want)]
     assert max(three) <= F32_TOL, three
     assert max(one) > F32_TOL, one
+
+
+# the key (or query) that column p of an 8-wide k step holds in a register
+# A operand made from an accumulator: 0, 2, 4, 6 in columns 0 .. 3, then
+# 1, 3, 5, 7
+SLOT_KEYS = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _slot_order(n):
+    """Indices that put each 8-wide group of n keys in slot order."""
+    return torch.tensor([8 * (i // 8) + SLOT_KEYS[i % 8] for i in range(n)])
+
+
+def _mm_steps(a, b, products, a_order=None, b_order=None):
+    """a [.., m, k] @ b [.., k, n] as the kernels sum it: one 8-wide k step
+    at a time into a float32 accumulator, tf32 operands; a's k columns
+    taken in a_order and b's k rows in b_order (natural by default)."""
+    if a_order is not None:
+        a = a[..., a_order]
+    if b_order is not None:
+        b = b[..., b_order, :]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        out = out + _mm("...mk,...kn->...mn", a[..., k0:k0 + 8],
+                        b[..., k0:k0 + 8, :], products)
+    return out
+
+
+def _tiled_grads(q, k, v, do, lse, delta, causal, products,
+                 b_order="slots"):
+    """dQ, dK, dV in the kernels' order: dQ over key tiles of 32, dK and
+    dV over query tiles of 16; S, dP, S^T and dP^T summed over d in k
+    steps; dS K, P^T dO and dS^T Q with the A operand's k columns in slot
+    order and the B operand's rows in `b_order` ("slots", as the kernels
+    write their transposed tiles, or "natural")."""
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    t = q.shape[1]
+    pos = torch.arange(t)
+
+    def tile(rows, cols):
+        s = _mm_steps(q[:, rows], k[:, cols].transpose(1, 2), products)
+        s = s * sm_scale
+        if causal:
+            s = torch.where(pos[rows, None] >= pos[None, cols], s,
+                            s.new_full((), -math.inf))
+        p = torch.exp(s - lse[:, rows, None])
+        dp = _mm_steps(do[:, rows], v[:, cols].transpose(1, 2), products)
+        return p, p * (dp - delta[:, rows, None]) * sm_scale
+
+    def ordered(a, b, n):
+        order = _slot_order(n)
+        return _mm_steps(a, b, products, order,
+                         order if b_order == "slots" else None)
+
+    every = torch.arange(t)
+    dq = sum(ordered(tile(every, cols)[1], k[:, cols], 32)
+             for cols in every.split(32))
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    for rows in every.split(16):
+        p, ds = tile(rows, every)
+        dv = dv + ordered(p.transpose(1, 2), do[:, rows], 16)
+        dk = dk + ordered(ds.transpose(1, 2), q[:, rows], 16)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_order_3xtf32_meets_the_float32_limit(causal):
+    """The float32 kernels' order (tiles, k steps, the slot order on both
+    operands of the register-A products): with three TF32 products dQ,
+    dK, dV within 1e-4 of the plain versions, with one outside it; and a
+    transposed tile left in natural key order (the mutant the card check
+    catches) far outside it."""
+    args = _inputs(2, 128, 64, causal, seed=11)
+    want = (tfa.flash_attention_bwd_dq_reference(*args, causal=causal),
+            *tfa.flash_attention_bwd_dkv_reference(*args, causal=causal))
+    three = [_rel(g, w) for g, w in
+             zip(_tiled_grads(*args, causal, 3), want)]
+    one = [_rel(g, w) for g, w in
+           zip(_tiled_grads(*args, causal, 1), want)]
+    natural = [_rel(g, w) for g, w in
+               zip(_tiled_grads(*args, causal, 3, "natural"), want)]
+    assert max(three) <= F32_TOL, three
+    assert max(one) > F32_TOL, one
+    # dQ, dK and dV each read a transposed tile
+    assert min(natural) > 100 * F32_TOL, natural
+
+
+def test_slot_order_is_the_accumulator_to_operand_order():
+    """An accumulator holds columns 2c and 2c + 1 of each 8-column block
+    in lane c; a TF32 A operand holds columns c and c + 4. Slot c takes
+    column 2c, slot c + 4 column 2c + 1."""
+    for c in range(4):
+        assert SLOT_KEYS[c] == 2 * c and SLOT_KEYS[c + 4] == 2 * c + 1
+    assert _slot_order(16).tolist() == [0, 2, 4, 6, 1, 3, 5, 7,
+                                        8, 10, 12, 14, 9, 11, 13, 15]
 
 
 def test_tf32_rounding_clears_the_low_bits_to_nearest():
