@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --mutants    # the kernels' mutation check
-    python3 chip_smoke.py --compare DIR  # time the wgmma kernels (bf16,
-                                         # and the float32 backward) of
-                                         # the checkout at DIR and of this
-                                         # one in turns (DIR, this, this,
-                                         # DIR) on one card
+    python3 chip_smoke.py --compare DIR  # time the wgmma kernels (bf16
+                                         # and float32) of the checkout at
+                                         # DIR and of this one in turns
+                                         # (DIR, this, this, DIR) on one
+                                         # card
     python3 chip_smoke.py --ablations  # time the wgmma kernels with one
                                        # part of their work dropped
 
@@ -20,8 +20,9 @@ Phases, one progress line each; any failure exits non-zero:
              registers and fail if one spills.
 3. kernels — hold the forward kernel against its plain PyTorch version on
              the card at the shapes the serving and both training paths
-             give it (and ragged T, T 1024, d 32 and 128, bh 12; float32
-             within 1e-4, bfloat16 by relative error and differing share),
+             give it (and ragged T at the tile edges, T 1024, d 32 and
+             128, bh 12; float32 O and LSE within 1e-4, bfloat16 by
+             relative error and differing share),
              and time it at the serving shape beside the plain version and
              one PyTorch library call that computes the same function (a
              yardstick only; the port never calls it).
@@ -53,7 +54,7 @@ Phases, one progress line each; any failure exits non-zero:
              predictor's run time and the forward's card time, and at
              batch 8 a torch.profiler breakdown of device time by kernel
              class with the device's busy share (the float32 forward must
-             run fwd_kernel_tf32x3 12 times a forward, and the scalar
+             run fwd_kernel_tf32wg 12 times a forward, and the scalar
              fwd_kernel never).
 6. train   — BERT-base training at full width through build_train (batch
              32, T 512, bf16 AMP, AdamW lr 1e-4, dropout 0.1): startup on
@@ -71,7 +72,7 @@ Phases, one progress line each; any failure exits non-zero:
              activations take twice AMP's memory), 2 warm-up and 5 timed
              steps, the same gates; MFU against the CUDA cores' float32
              peak, peak memory, and the profiled step must run
-             fwd_kernel_tf32x3, dq_kernel_tf32wg and dkv_kernel_tf32wg 12
+             fwd_kernel_tf32wg, dq_kernel_tf32wg and dkv_kernel_tf32wg 12
              times each and no other flash kernel.
 8. train_cpu_check — the same model at batch 1, dropout 0, in float32
              and in bf16 AMP: one step on the card and one on the CPU
@@ -137,15 +138,17 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
 BF16_FLOPS = 989e12      # dense bf16 tensor cores
-# float32 kernels vs their plain versions, max|kernel - plain|. On the
-# H100 the 3xTF32 forward reads at most 4.8e-6 (LSE 2.6e-6) and the 3xTF32
-# dQ, dK and dV at most 8.0e-5 (dV at T 1024 causal, where max|plain| is
-# 5.5); with one TF32 product instead of three the forward reads 2.9e-4 to
-# 1.5e-3 and the backward 3.8e-4 to 3.9e-3 in every case (dQ at d 32
+# float32 kernels vs their plain versions, max|kernel - plain| (O, and
+# the forward's LSE too). On the H100 the 3xTF32 forward reads at most
+# 5.1e-6 (LSE 4.3e-6) and the 3xTF32 dQ, dK and dV at most 8.0e-5 (dV at
+# T 1024 causal, where max|plain| is 5.5); the forward's S by one TF32
+# product reads 3.2e-4 to 1.2e-3 (up to d 64), every product by one 2.8e-4
+# to 1.5 in the forward and 3.8e-4 to 3.9e-3 in the backward (dQ at d 32
 # causal up to 2.9); the backward's transposed tiles with a zero lo read
-# 1.4e-4 to 1.8e-3, in natural key order 0.75 or more; keys past T
-# unmasked in the forward read 2.5e-2 at T 300, the diagonal unmasked in
-# dQ or dK/dV 1.3e3 or more (MUTANTS below; PERF.md).
+# 1.4e-4 to 1.8e-3, transposed tiles in natural key order 0.75 or more;
+# keys past T unmasked in the forward 0.11 at T 129, its diagonal unmasked
+# 3.8, its O not rescaled 1.5 or more, the diagonal unmasked in dQ or
+# dK/dV 1.3e3 or more (MUTANTS below; PERF.md).
 F32_TOL = 1e-4
 # bfloat16 kernels vs their plain versions: max|kernel - plain| /
 # max(1, max|plain|), and the share of elements that differ at all.
@@ -181,9 +184,10 @@ RAGGED_BF16 = [(96, 129, HD, False), (96, 129, HD, True),
                (96, 200, HD, False), (96, 200, HD, True),
                (96, 255, HD, False), (96, 255, HD, True),
                (48, 255, 32, True), (24, 200, 128, True)]
-# float32 kernel cases at the same edges: the float32 dQ's 128-row query
-# tiles (64 at d 128) and 32-key ring stages (16 at d 128), the float32
-# dK/dV's 128-key tiles (64 at d 128) and 16-query ring stages
+# float32 kernel cases at the same edges: the float32 forward's and dQ's
+# 128-row query tiles (64 at d 128) and 32-key ring stages (dQ's 16 at d
+# 128), the float32 dK/dV's 128-key tiles (64 at d 128) and 16-query ring
+# stages
 RAGGED_F32 = [(96, 129, HD, False), (96, 129, HD, True),
               (96, 200, HD, False), (96, 200, HD, True),
               (96, 255, HD, False), (96, 255, HD, True),
@@ -267,7 +271,8 @@ def kernel_phase(torch):
                 .to(dtype) for _ in range(3)]
 
     f32, bf16 = torch.float32, torch.bfloat16
-    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16]
+    ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16] + \
+        [(bh, t, d, f32, c) for bh, t, d, c in RAGGED_F32]
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
     # (many tiles through the kernels' ring), d=32 and d=128, and the
@@ -305,9 +310,10 @@ def kernel_phase(torch):
         if dtype == f32:
             phase("kernel", case=case, max_abs_err=f"{err:.3e}", tol=F32_TOL,
                   lse_err=f"{lse_err:.3e}")
-            check(math.isfinite(err) and err <= F32_TOL,
+            check(math.isfinite(err) and err <= F32_TOL and
+                  lse_err <= F32_TOL,
                   f"flash_attention disagrees with its plain version: "
-                  f"{err} > {F32_TOL}")
+                  f"{err} or lse {lse_err} > {F32_TOL}")
         else:
             phase("kernel", case=case, rel_err=f"{rel:.3e}",
                   diff_share=f"{share:.3e}", max_abs_err=f"{err:.3e}",
@@ -670,7 +676,7 @@ KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
 # step must run
 BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_wgmma",
                        "dkv_kernel_wgmma")
-F32_FWD_SYMBOL = "fwd_kernel_tf32x3"
+F32_FWD_SYMBOL = "fwd_kernel_tf32wg"
 F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32wg", "dkv_kernel_tf32wg")
 
 
@@ -789,7 +795,8 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
 TRAIN_RUNS = {True: (32, 3, 10, BF16_KERNEL_SYMBOLS, "train"),
               False: (16, 2, 5, F32_KERNEL_SYMBOLS, "train_f32")}
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-ALL3 = (*BWD_KERNELS, "flash_attention_fwd")
+FWD = ("flash_attention_fwd",)
+ALL3 = (*BWD_KERNELS, *FWD)
 D128_SHAPE = (24, T, 128)
 F32_D128_SHAPE = (48, T, 128)
 
@@ -1455,6 +1462,8 @@ def smem_phase():
     for source, fn, kernel in (
             ("flash_attention_fwd", "flash_attention_fwd_smem",
              "fwd_kernel_wgmma"),
+            ("flash_attention_fwd", "flash_attention_fwd_f32_smem",
+             "fwd_kernel_tf32wg"),
             ("flash_attention_bwd", "flash_attention_bwd_dq_smem",
              "dq_kernel_wgmma"),
             ("flash_attention_bwd", "flash_attention_bwd_dkv_smem",
@@ -1479,10 +1488,10 @@ MUTANTS = [
     ("fwd_no_alpha", "flash_attention_fwd.cu",
      "o_acc[n][e] *= alpha[e >> 1];", "o_acc[n][e] *= 1.f;",
      ("kernel_phase",)),
-    # bf16 forward: LSE left in log2 units
+    # bf16 and float32 forward: LSE left in log2 units
     ("fwd_lse_log2", "flash_attention_fwd.cu",
-     "mrow[r] * sm_scale + logf(l_safe)", "mrow[r] * scale + log2f(l_safe)",
-     ("kernel_phase",)),
+     "mrow[r] * sm_scale + logf(l_safe)",
+     "mrow[r] * sm_scale * LOG2E + log2f(l_safe)", ("kernel_phase",)),
     # bf16 forward: keys past kv_len unmasked in the ragged last tile
     ("fwd_no_ragged_mask", "flash_attention_fwd.cu",
      "if (kc >= kv_len || (causal && kc > qr)) sc[n][i] = NEG_INF;",
@@ -1517,30 +1526,42 @@ MUTANTS = [
     ("dq_lse_first_row", "flash_attention_bwd.cu",
      "const int qr = row0 + g + 8 * h;", "const int qr = row0 + g;",
      ("bwd_kernel_phase",)),
-    # float32 forward (mma_1688_x3): one TF32 product (hi hi) instead of
-    # three
-    ("f32_one_tf32_product", "mma_tf32.cuh",
-     "  mma_1688(d0, al, bh[0], bh[1]);\n  mma_1688(d1, al, bh[2], bh[3]);\n"
-     "  mma_1688(d0, ah, bl[0], bl[1]);\n  mma_1688(d1, ah, bl[2], bl[3]);\n",
-     "", ("kernel_phase",)),
-    # float32 dQ and dK/dV (the TF32 wgmma issue, sm90_tf32::x3): one TF32
-    # product (hi hi) instead of three
+    # float32 forward: S = Q K^T by one TF32 product (hi hi) instead of
+    # three, P V as it is
+    ("f32_one_tf32_product", "flash_attention_fwd.cu",
+     "tf::wgmma_x3_rs<KR>(s, qa[kk], ql[kk], tf::desc<D>(s0, KR, kk),\n"
+     "                          tf::desc<D>(s0 + KT, KR, kk), kk > 0);",
+     "tf::wgmma_rs<KR>(s, qa[kk], tf::desc<D>(s0, KR, kk), kk > 0);",
+     ("kernel_phase",)),
+    # float32 forward, dQ and dK/dV (the TF32 wgmma issue, sm90_tf32::x3):
+    # one TF32 product (hi hi) instead of three
     ("f32_bwd_one_tf32_product", "sm90_tf32.cuh",
      "  mma(1, 0);  // lo_a hi_b\n  mma(0, 1);  // hi_a lo_b\n", "",
-     ("bwd_kernel_phase",)),
-    # float32 dQ and dK/dV: the transposed B tiles (K^T; Q^T and dO^T)
-    # written in natural key order, not in the order of the register A
-    # operand made from an accumulator (0, 2, 4, 6, 1, 3, 5, 7)
+     ("kernel_phase", "bwd_kernel_phase")),
+    # float32 forward, dQ and dK/dV: the transposed B tiles (V^T; K^T; Q^T
+    # and dO^T) written in natural key order, not in the order of the
+    # register A operand made from an accumulator (0, 2, 4, 6, 1, 3, 5, 7)
     ("f32_bwd_natural_key_order", "sm90_tf32.cuh",
-     "return (j & 1) * 4 + (j >> 1);", "return j;", ("bwd_kernel_phase",)),
+     "return (j & 1) * 4 + (j >> 1);", "return j;",
+     ("kernel_phase", "bwd_kernel_phase")),
     # float32 dQ and dK/dV: the transposed tiles' lo written as zero (K's
     # in dQ += dS K; Q's and dO's in dK and dV)
     ("f32_bwd_transposed_lo_zero", "sm90_tf32.cuh",
      "sts(lo_t + o, l[e]);", "sts(lo_t + o, 0u);", ("bwd_kernel_phase",)),
     # float32 forward: keys past kv_len unmasked in the ragged last tile
+    # (its softmax told that every key of the tile is below kv_len)
     ("fwd_f32_no_ragged_mask", "flash_attention_fwd.cu",
-     "if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;",
-     "if (causal && kc > qr) s[n][i] = NEG_INF;", ("kernel_phase",)),
+     "fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, causal, qw0,",
+     "fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len + KR, causal, qw0,",
+     ("kernel_phase",)),
+    # float32 forward: keys after the query unmasked on the diagonal tile
+    ("fwd_f32_no_causal_mask", "flash_attention_fwd.cu",
+     "fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, causal, qw0,",
+     "fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, 0, qw0,",
+     ("kernel_phase",)),
+    # float32 forward: O not rescaled when the running max grows
+    ("fwd_f32_no_alpha", "flash_attention_fwd.cu",
+     "o[nn][e] *= alpha[e >> 1];", "o[nn][e] *= 1.f;", ("kernel_phase",)),
     # float32 dK/dV: queries before the key unmasked on the diagonal tile
     ("dkv_f32_no_causal_mask", "flash_attention_bwd.cu",
      "if (query >= t || (causal && query < key)) s[nn][e] = NEG_INF;",
@@ -1552,12 +1573,12 @@ MUTANTS = [
 ]
 
 
-# Ablations of the bf16 wgmma kernels: (name, [(source under csrc/,
-# text, replacement), ...]). Each drops one part of a kernel's work (its
-# results are then wrong); `python3 chip_smoke.py --ablations` times the
-# forward, dQ and dK/dV of a copy of the package with that part dropped,
-# beside the unchanged copy ("none"), which says what holds each kernel
-# back (PERF.md).
+# Ablations of the wgmma kernels: (name, [(source under csrc/, text,
+# replacement), ...]). Each drops one part of a kernel's work (its results
+# are then wrong); `python3 chip_smoke.py --ablations` times the bf16 and
+# float32 forward, dQ and dK/dV of a copy of the package with that part
+# dropped, beside the unchanged copy ("none"), which says what holds each
+# kernel back (PERF.md).
 ABLATIONS = [
     ("none", []),
     # forward: the online softmax (masking, max, exp, sums)
@@ -1580,8 +1601,8 @@ ABLATIONS = [
     ("fwd_no_epilogue", [
         ("flash_attention_fwd.cu", "stage_rows<D, D>(o_tile,",
          "if (o_acc[0][0] == 0.5f) stage_rows<D, D>(o_tile,"),
-        ("flash_attention_fwd.cu", "tma_store_3d(&o_map,",
-         "if (0) tma_store_3d(&o_map,")]),
+        ("flash_attention_fwd.cu", "tma_store_3d(&o_map, o_tile",
+         "if (0) tma_store_3d(&o_map, o_tile")]),
     # forward: the K and V loads (the ring's barriers still turn)
     ("fwd_no_kv_loads", [
         ("flash_attention_fwd.cu", "mbar_expect_tx(k_full + 8 * st, KTILE);",
@@ -1645,12 +1666,13 @@ ABLATIONS = [
          "if (acc[0][0] == 0.5f) stage_rows<D, D>(dq_stage,"),
         ("flash_attention_bwd.cu", "tma_store_3d(&dq_map, dq_stage",
          "if (0) tma_store_3d(&dq_map, dq_stage")]),
-    # float32 dQ and dK/dV: the split stage (the consumers read the raw
-    # tiles as hi, and lo and transposed tiles as they stand)
+    # float32 forward, dQ and dK/dV: the split stage (the consumers read
+    # the raw tiles as hi, and lo and transposed tiles as they stand)
     ("f32_bwd_no_split", [
         ("sm90_tf32.cuh", "idx < R * C / 4; idx += nthreads",
          "idx < 0; idx += nthreads")]),
-    # float32 dQ and dK/dV: the two lo products of every 3xTF32 k step
+    # float32 forward, dQ and dK/dV: the two lo products of every 3xTF32 k
+    # step
     ("f32_bwd_no_lo", [
         ("sm90_tf32.cuh",
          "  mma(1, 0);  // lo_a hi_b\n  mma(0, 1);  // hi_a lo_b\n", "")]),
@@ -1687,14 +1709,54 @@ ABLATIONS = [
         ("mma_tf32.cuh",
          '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(y) : "f"(x));',
          "  y = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;")]),
+    # float32 forward alone: the split warps' work (K into hi and lo, V into
+    # V^T's hi and lo); Q's split in the consumers' registers stays
+    ("f32_fwd_no_split", [
+        ("flash_attention_fwd.cu", "tf::split_transposed_task<KR, D>(",
+         "if (0) tf::split_transposed_task<KR, D>("),
+        ("flash_attention_fwd.cu", "tf::split_chunk<KR, D>(",
+         "if (0) tf::split_chunk<KR, D>(")]),
+    # float32 forward alone: S and P V by hi hi only (up to d = 64)
+    ("f32_fwd_no_lo", [
+        ("flash_attention_fwd.cu",
+         "tf::wgmma_x3_rs<KR>(s, qa[kk], ql[kk], tf::desc<D>(s0, KR, kk),\n"
+         "                          tf::desc<D>(s0 + KT, KR, kk), kk > 0);",
+         "tf::wgmma_rs<KR>(s, qa[kk], tf::desc<D>(s0, KR, kk), kk > 0);"),
+        ("flash_attention_fwd.cu",
+         "tf::wgmma_x3_rs<D>(o, ph[j], pl[j], tf::desc<KR>(s0 + 3 * KT, D, j),"
+         "\n                       tf::desc<KR>(s0 + 4 * KT, D, j));",
+         "tf::wgmma_rs<D>(o, ph[j], tf::desc<KR>(s0 + 3 * KT, D, j), 1);")]),
+    # float32 forward: every TMA load, Q's and the ring's (the barriers
+    # still turn)
+    ("f32_fwd_no_loads", [
+        ("flash_attention_fwd.cu", "mbar_expect_tx(q_full, NC * CT);",
+         "mbar_expect_tx(q_full, 0); if (0)"),
+        ("flash_attention_fwd.cu", "mbar_expect_tx(bar, 2 * KT);",
+         "mbar_expect_tx(bar, 0); if (0)")]),
+    # float32 forward: the online softmax (masking, max, exp, sums); P V
+    # takes the raw scores
+    ("f32_fwd_no_softmax", [
+        ("flash_attention_fwd.cu", "l[2] = {0.f, 0.f}, alpha[2];",
+         "l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};"),
+        ("flash_attention_fwd.cu",
+         "fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, causal, qw0,",
+         "if (0) fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, causal, "
+         "qw0,")]),
+    # float32 forward: staging and storing O (the staging skipped on a test
+    # of the accumulator, so the P V wgmmas stay)
+    ("f32_fwd_no_epilogue", [
+        ("flash_attention_fwd.cu", "tf::stage_rows<D, D>(stage,",
+         "if (o[0][0] == 0.5f) tf::stage_rows<D, D>(stage,"),
+        ("flash_attention_fwd.cu", "tma_store_3d(&o_map, stage",
+         "if (0) tma_store_3d(&o_map, stage")]),
 ]
 
 
 def ablation_times(torch):
     """[ablation_time] line: the bf16 forward, dQ and dK/dV of the
     paddle_tpu_torch first on sys.path, at the BERT and GPT training
-    shapes, and the float32 dQ and dK/dV at the float32 BERT training
-    shape (mean of 50 launches each, CUDA events)."""
+    shapes, and the float32 forward, dQ and dK/dV at the float32 BERT
+    training shape (mean of 50 launches each, CUDA events)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 3)
@@ -1712,6 +1774,9 @@ def ablation_times(torch):
             lambda: fa.flash_attention_bwd_dkv(*args, causal=causal),
             iters=50)
     args = _inputs(torch, fa, gen, *F32_TRAIN_SHAPE, torch.float32, False)
+    q, k, v = args[:3]
+    out["f32_fwd_ms"] = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v),
+                                iters=50)
     out["f32_dq_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args),
                                iters=50)
     out["f32_dkv_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args),
@@ -1826,10 +1891,12 @@ def time_phase(torch):
     """[kernel_time] lines of the three bf16 kernels at the shapes their
     redesign is judged at: the BERT training path's [384, 512, 64], GPT's
     [384, 511, 64] causal, and [24, 512, 128] in both masks; then of the
-    float32 dQ and dK/dV beside float32 SDPA's backward at the float32
-    training path's [192, 512, 64] and at [48, 512, 128], in both masks.
-    Takes the wrappers of whichever paddle_tpu_torch is first on sys.path
-    (for --compare, another tree's)."""
+    three float32 kernels beside float32 SDPA's forward and backward at
+    the float32 training path's [192, 512, 64] and at [48, 512, 128], and
+    of the float32 forward at the serving path's batch 8 and 1, [96, 512,
+    64] and [12, 512, 64], each in both masks. Takes the wrappers of
+    whichever paddle_tpu_torch is first on sys.path (for --compare,
+    another tree's)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda")
@@ -1837,10 +1904,10 @@ def time_phase(torch):
     for shape, causal in ((TRAIN_SHAPE, False), (GPT_SHAPE, True),
                           (D128_SHAPE, False), (D128_SHAPE, True)):
         time_kernels(torch, fa, gen, shape, torch.bfloat16, ALL3, causal)
-    for shape in (F32_TRAIN_SHAPE, F32_D128_SHAPE):
+    for shape, names in ((F32_TRAIN_SHAPE, ALL3), (F32_D128_SHAPE, ALL3),
+                         ((96, T, HD), FWD), ((12, T, HD), FWD)):
         for causal in (False, True):
-            time_kernels(torch, fa, gen, shape, torch.float32, BWD_KERNELS,
-                         causal)
+            time_kernels(torch, fa, gen, shape, torch.float32, names, causal)
 
 
 def compare_phase(other):

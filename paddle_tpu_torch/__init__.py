@@ -16,6 +16,22 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
+# torch's CPU transcendental functions (sin, cos, exp, log, tanh, erf,
+# sqrt, ...) call MKL's vector math, which sets up its CPU dispatch on its
+# first call in a process. When that first call is split across intra-op
+# threads, a thread can take another code path and return other last bits
+# (a fresh process's first sin of a [129, 32] float32 tensor: 8 of 600
+# differed), so a float32 program's CPU results would vary between runs.
+# One call each on a single element sets the dispatch up on one thread.
+for _fn in (_torch.sin, _torch.cos, _torch.tan, _torch.asin, _torch.acos,
+            _torch.atan, _torch.sinh, _torch.cosh, _torch.tanh, _torch.exp,
+            _torch.expm1, _torch.log, _torch.log2, _torch.log10,
+            _torch.log1p, _torch.erf, _torch.erfc, _torch.sqrt,
+            _torch.lgamma):
+    for _dtype in (_torch.float32, _torch.float64):
+        _fn(_torch.full((1,), 0.5, dtype=_dtype))
+del _fn, _dtype
+
 from . import ops  # noqa: F401,E402  — registers every op lowering
 from .framework import (  # noqa: F401,E402
     Program, program_guard, default_main_program, default_startup_program,

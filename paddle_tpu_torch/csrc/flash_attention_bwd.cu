@@ -908,25 +908,6 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
 
 namespace tf = sm90_tf32;
 
-// Consumer warpgroups of the float32 kernels, 64 rows each: two up to d =
-// 64; one at d = 128, where the hi and lo tiles of two consumers' rows
-// would not fit in shared memory beside a ring (the head comment)
-__host__ __device__ constexpr int tf32_consumers(int d) {
-  return d > 64 ? 1 : 2;
-}
-// threads of the producer warpgroup's warps 1 .. 3, which split each ring
-// stage's tiles into tf32 hi and lo (warp 0 issues the TMA loads)
-constexpr int SPLIT_THREADS = 96;
-// registers a thread of the producer warpgroup (the split warps among
-// them) and of a consumer may hold once setmaxnreg has moved them. The
-// split loop's speed follows SPLIT_REGS: at 40 (the bf16 kernels'
-// PRODUCER_REGS) both kernels read 10-25% slower than at 96 with four
-// 16-byte chunks a thread in flight (split_rows; PERF.md §6)
-constexpr int SPLIT_REGS = 96, TF32_CONSUMER_REGS = 192;
-static_assert(WG_THREADS * (SPLIT_REGS + 2 * TF32_CONSUMER_REGS) <=
-                  WGMMA_THREADS * 168,
-              "the consumers take only what the producer gives up");
-
 // key rows per ring stage of dq_kernel_tf32wg: 32 (16 at d = 128), so S,
 // dP, dS's hi and lo A operands, dQ and Q's and dO's hi (dq_q_regs), all
 // operands of wgmmas in flight at once, take 144 registers a consumer
@@ -945,7 +926,7 @@ constexpr int dq_tf32_stages(int d) { return d == 32 ? 4 : 2; }
 template <int D, int STAGES>
 constexpr size_t dq_tf32wg_smem_bytes() {
   return 1024 +
-         static_cast<size_t>(4 * tf32_consumers(D) * 64 * D +
+         static_cast<size_t>(4 * tf::consumers(D) * 64 * D +
                              6 * STAGES * dq_tf32_key_rows(D) * D) *
              4 +
          8 * (2 + 3 * STAGES);
@@ -1060,17 +1041,6 @@ __device__ __forceinline__ void dq_ds_f32(float (&dp)[KR / 8][4],
       dp[nn][e] = s[nn][e] * (dp[nn][e] - dlt[e >> 1]) * sm_scale;
 }
 
-// the hi and lo of an accumulator of NB 8-column blocks as the A operands
-// of NB k steps (mma_tf32::c_to_a_tf32: columns in the order 0, 2, 4, 6,
-// 1, 3, 5, 7 of each step)
-template <int NB>
-__device__ __forceinline__ void c_to_a_x3(const float (&c)[NB][4],
-                                          uint32_t (&hi)[NB][4],
-                                          uint32_t (&lo)[NB][4]) {
-#pragma unroll
-  for (int n = 0; n < NB; ++n) mma_tf32::c_to_a_tf32(c[n], hi[n], lo[n]);
-}
-
 template <int D, int STAGES>
 __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     dq_kernel_tf32wg(const __grid_constant__ CUtensorMap q_map,
@@ -1083,7 +1053,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
                      int nq, int t, float sm_scale, int causal) {
   using namespace mma_bf16;
   using namespace sm90;
-  constexpr int NC = tf32_consumers(D);
+  constexpr int NC = tf::consumers(D);
   constexpr int KR = dq_tf32_key_rows(D);
   constexpr int QR = 64 * NC;       // query rows a tile
   constexpr int CT = 64 * D * 4;    // bytes of a consumer's Q or dO tile
@@ -1106,7 +1076,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     mbar_init(q_empty, NC);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(ready + 8 * st, SPLIT_THREADS);
+      mbar_init(ready + 8 * st, tf::SPLIT_THREADS);
       mbar_init(empty + 8 * st, NC * WG_THREADS);
     }
     mbar_init_fence();
@@ -1117,7 +1087,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
   // gridDim.x), dq_walk(1, ...), ...; its k/v ring runs on across tiles
   const int wg = threadIdx.x / WG_THREADS;
   if (wg == NC) {
-    setmaxnreg_dec<SPLIT_REGS>();
+    setmaxnreg_dec<tf::SPLIT_REGS>();
     const int ptid = threadIdx.x - NC * WG_THREADS;
     if (ptid == 0) {
       // TMA: each query tile's Q and dO raw into the hi tiles, once the
@@ -1174,9 +1144,9 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
           const uint32_t s0 = ring + st * 6 * KT;
           mbar_wait(full + 8 * st, (c / STAGES) & 1);
           tf::split_rows<KR, D, D>(s0, s0 + KT, s0 + 4 * KT, s0 + 5 * KT, 0,
-                                   stid, SPLIT_THREADS);
+                                   stid, tf::SPLIT_THREADS);
           tf::split_rows<KR, D, 0>(s0 + 2 * KT, s0 + 3 * KT, 0, 0, 0, stid,
-                                   SPLIT_THREADS);
+                                   tf::SPLIT_THREADS);
           fence_async_smem();
           mbar_arrive(ready + 8 * st);
         }
@@ -1184,7 +1154,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     }
   } else {
     // consumer warpgroup wg: query rows 64 wg .. 64 wg + 63 of each tile
-    setmaxnreg_inc<TF32_CONSUMER_REGS>();
+    setmaxnreg_inc<tf::CONSUMER_REGS>();
     const int tid = threadIdx.x % WG_THREADS;
     const int warp = tid >> 5;
     const float scale = sm_scale * LOG2E;  // exponents in log2 units
@@ -1287,7 +1257,7 @@ constexpr int dkv_tf32_stages(int d) { return d == 32 ? 4 : d == 64 ? 3 : 2; }
 template <int D, int STAGES>
 constexpr size_t dkv_tf32wg_smem_bytes() {
   return 1024 +
-         static_cast<size_t>(4 * tf32_consumers(D) * 64 * D +
+         static_cast<size_t>(4 * tf::consumers(D) * 64 * D +
                              4 * STAGES * DKV_TF32_QROWS *
                                  (D + dkv_columns(D)) +
                              2 * STAGES * DKV_TF32_QROWS) *
@@ -1442,7 +1412,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
                       int t, float sm_scale, int causal) {
   using namespace mma_bf16;
   using namespace sm90;
-  constexpr int NC = tf32_consumers(D);
+  constexpr int NC = tf::consumers(D);
   constexpr int QB = DKV_TF32_QROWS;  // query rows a stage
   constexpr int DN = dkv_columns(D);  // columns of dK and dV summed here
   constexpr int NZ = D / DN;          // key tiles a (head, k0) splits into
@@ -1473,7 +1443,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     mbar_init(kv_empty, NC);
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(full + 8 * st, 1);
-      mbar_init(ready + 8 * st, SPLIT_THREADS);
+      mbar_init(ready + 8 * st, tf::SPLIT_THREADS);
       mbar_init(empty + 8 * st, NC * WG_THREADS);
     }
     mbar_init_fence();
@@ -1484,7 +1454,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
   // gridDim.x, ...; the Q/dO ring runs on across tiles
   const int wg = threadIdx.x / WG_THREADS;
   if (wg == NC) {
-    setmaxnreg_dec<SPLIT_REGS>();
+    setmaxnreg_dec<tf::SPLIT_REGS>();
     const int ptid = threadIdx.x - NC * WG_THREADS;
     if (ptid == 0) {
       // TMA: each key tile's K and V raw into the hi tiles, once the last
@@ -1542,10 +1512,10 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
           const uint32_t s0 = ring + st * SB, t0 = s0 + 4 * QT;
           mbar_wait(full + 8 * st, (c / STAGES) & 1);
           tf::split_rows<QB, D, DN>(s0, s0 + QT, t0, t0 + TT, z * DN, stid,
-                                    SPLIT_THREADS);
+                                    tf::SPLIT_THREADS);
           tf::split_rows<QB, D, DN>(s0 + 2 * QT, s0 + 3 * QT, t0 + 2 * TT,
                                     t0 + 3 * TT, z * DN, stid,
-                                    SPLIT_THREADS);
+                                    tf::SPLIT_THREADS);
           if (stid < 2 * QB) {
             const int q = qt * QB + stid % QB;
             const float* src = stid < QB ? lse : delta;
@@ -1560,7 +1530,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     }
   } else {
     // consumer warpgroup wg: key rows 64 wg .. 64 wg + 63 of each tile
-    setmaxnreg_inc<TF32_CONSUMER_REGS>();
+    setmaxnreg_inc<tf::CONSUMER_REGS>();
     const int tid = threadIdx.x % WG_THREADS;
     const int warp = tid >> 5;
     const float scale = sm_scale * LOG2E;  // exponents in log2 units
@@ -1610,14 +1580,14 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
         wgmma_wait<1>();  // S^T
         fence_regs(s);
         dkv_p_f32(s, tr, qt * QB, t, causal, kw0, row0, scale);
-        c_to_a_x3(s, ah, al);
+        tf::c_to_a_x3(s, ah, al);
         dkv_issue_dv_f32<D>(acc_v, ah, al, s0);
         wgmma_wait<0>();  // dP^T, and dV: its A registers are free
         fence_regs(dp);
         fence_regs(ah);
         fence_regs(al);
         dkv_ds_f32(dp, s, tr, sm_scale);
-        c_to_a_x3(dp, ah, al);
+        tf::c_to_a_x3(dp, ah, al);
         dkv_issue_dk_f32<D>(acc_k, ah, al, s0);
         wgmma_wait<0>();
         fence_regs(ah);
@@ -1664,7 +1634,7 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int bh, int t,
                           float sm_scale, int causal, cudaStream_t stream) {
-  constexpr int NC = tf32_consumers(D);
+  constexpr int NC = tf::consumers(D);
   constexpr size_t smem = dq_tf32wg_smem_bytes<D, STAGES>();
   auto kern = dq_kernel_tf32wg<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
@@ -1726,7 +1696,7 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* delta, void* dk, void* dv, int bh,
                            int t, float sm_scale, int causal,
                            cudaStream_t stream) {
-  constexpr int NC = tf32_consumers(D);
+  constexpr int NC = tf::consumers(D);
   constexpr size_t smem = dkv_tf32wg_smem_bytes<D, STAGES>();
   auto kern = dkv_kernel_tf32wg<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);

@@ -54,27 +54,60 @@
 //     tiles ends the launch.
 //   What holds it back is in PERF.md (PR 7).
 //
-// fwd_kernel_tf32x3<D> (float32, the serving path), the same
-//   FlashAttention-2 design on the TF32 tensor cores with 3xTF32 products
-//   (mma_tf32.cuh): each operand splits into a tf32 high and low part and
-//   each product is lo hi + hi lo + hi hi with float32 accumulation. One
-//   TF32 product keeps 11 bits of each operand and misses the float32
-//   limit of 1e-4 on O (on the H100 it reads 2.9e-4 to 1.5e-3 over the
-//   chip check's float32 cases); three read at most 4.4e-6. 4 warps of
-//   16 query rows, k/v tiles of BK = 64 rows through the same 2-stage
-//   cp.async ring; Q, K and V staged as float32 with rows padded to D + 4
-//   words, which keeps both the ldmatrix reads of Q and K and the 32-bit
-//   reads of V free of bank conflicts. Q's and K's fragments come by b16
-//   ldmatrix (a float32 row of 16 bytes is four words, the tf32 fragment
-//   layout) and are split as they are used. P stays float32, as the TPU
-//   kernel keeps it when V is float32, and is split too; its C fragment
-//   becomes P V's A fragment with the keys of each 8-key step taken in
-//   the order 0, 2, 4, 6, 1, 3, 5, 7, and V's rows are read in that order.
-//   Softmax, masking, early stop and LSE as in the bf16 kernel. Bound at
-//   the serving path's shape ([bh=96, T=512, d=64] float32): 6.4 GFLOP,
-//   three times over, 39 us at the 494.7 TFLOP/s TF32 peak (96 us if one
-//   counts 6.4 GFLOP at the 67 TFLOP/s float32 peak of the CUDA cores),
-//   against 50.5 MB (15 us at 3.35 TB/s): bound by operations.
+// fwd_kernel_tf32wg<D, STAGES> (float32: the serving path and float32
+//   training), the bf16 design above carried over to the TF32 tensor cores
+//   with 3xTF32 products (sm90_tf32.cuh): every operand splits into a tf32
+//   high and low part, hi = cvt.rna.tf32(x) and lo = tf32(x - hi), and
+//   every product is hi hi + lo hi + hi lo with float32 accumulation, three
+//   m64nNk8 TF32 wgmmas a k step. One TF32 product keeps 11 bits of each
+//   operand and misses the float32 limit of 1e-4 on O; three meet it. P
+//   stays float32, as the TPU kernel keeps it when V is float32. Bound at
+//   the float32 training path's shape ([bh=192, T=512, d=64]): 12.9 GFLOP,
+//   three times over, 0.078 ms at the 494.7 TFLOP/s TF32 peak (0.192 ms
+//   for the same work at the CUDA cores' 67 TFLOP/s float32 peak), against
+//   101 MB of Q, K, V, O and LSE (0.030 ms at 3.35 TB/s): bound by
+//   operations; at the serving path's [96, 512, 64], 0.039 ms. What TF32
+//   wgmma forces on the bf16 design:
+//   - shared-memory operands must be K-major (the transpose flags are for
+//     16-bit types). S = Q K^T reads K as it lands, but in O += P V the k
+//     index is the key and V is stored [keys][d], so P V reads a
+//     transposed copy V^T [d][keys], whose k columns follow the order in
+//     which P's register A operand, made from S's accumulator
+//     (c_to_a_tf32), holds each 8-key step: 0, 2, 4, 6, 1, 3, 5, 7
+//     (key_slot);
+//   - a split stage between TMA and wgmma: TMA lands raw float32 K and V
+//     tiles (32-column boxes, the 128-byte swizzle) in a ring of STAGES
+//     32-key stages, and the producer warpgroup's warps 1 .. 3 (warp 0
+//     issues the loads) split K into hi (in place) and lo and V into V^T's
+//     hi and lo only (16-byte loads and stores: a thread takes four keys
+//     of one parity, whose slots are adjacent), fence them for wgmma and
+//     arrive on the stage's "ready" mbarrier. Each element is split once a
+//     stage, not once per fragment read by every warp. The split paces
+//     the kernel (PERF.md §6), so the three split warps take equal
+//     shares of a stage (split_share): dealt round-robin, one warp held a
+//     third more and the stage waited for it;
+//   - registers for the operand a consumer keeps for its tile: up to d =
+//     64 it reads its Q rows into registers once a tile and splits them
+//     there (64 registers a thread at d = 64), so every product is an RS
+//     wgmma and no A operand is reread from shared memory; its Q tile goes
+//     back to the producer at once, and the next tile's Q loads while this
+//     one is computed. S (32 keys), P's hi and lo, O and Q's hi and lo take
+//     144 registers a consumer thread at d = 64 against ptxas's 168;
+//   - shared memory sets the rest: a stage is K hi, K lo, the raw V and V^T
+//     hi and lo (40 KB at d = 64), beside a Q and an O tile per consumer
+//     (32 KB each for two consumers), so four stages fill 225 KB of the
+//     227 KB. At d = 128 (one consumer, O alone 64 registers) Q's hi and
+//     lo stay in shared memory (SS wgmmas), O is staged in Q's hi, and two
+//     stages fit;
+//   - each consumer's S, softmax and P V of a stage run in order, the two
+//     consumers overlapping each other (S of the next stage issued before
+//     P V, as the bf16 kernel does, spilled at d = 64 and 128 and read
+//     slower; the consumers taking turns to issue S read no faster:
+//     PERF.md). The online softmax, masking only
+//     the ragged last tile and the causal diagonal tile, the causal early
+//     stop, LSE, persistent blocks over head chunks (heaviest tiles first)
+//     and O's TMA store are the bf16 kernel's.
+//   What holds it back is in PERF.md §6.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -83,11 +116,10 @@
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "sm90_bf16.cuh"
+#include "sm90_tf32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // key rows per k/v tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -125,15 +157,15 @@ constexpr size_t wgmma_smem_bytes() {
 // each chunk of heads the heaviest first (the bottom tile of every head,
 // then the one above it, ...; in causal mode tile x does x + 1 key tiles'
 // work). Returns q0, sets bh and the number of key tiles.
-template <int BK>
+template <int BK, int QR = ROWS>
 __device__ __forceinline__ int fwd_tile(int i, int heads, int chunk, int nq,
                                         int kv_len, int causal, int& bh,
                                         int& ntiles) {
   int j;
   sm90::tile_order(i, heads, nq, chunk, bh, j);
-  const int q0 = (nq - 1 - j) * ROWS;
+  const int q0 = (nq - 1 - j) * QR;
   // causal: keys past the tile's last query row contribute nothing
-  const int kend = causal ? min(kv_len, q0 + ROWS) : kv_len;
+  const int kend = causal ? min(kv_len, q0 + QR) : kv_len;
   ntiles = (kend + BK - 1) / BK;
   return q0;
 }
@@ -211,6 +243,29 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[BK / 8][4],
       sum += sc[n][2 * r] + sc[n][2 * r + 1];
     }
     l[r] = alpha[r] * l[r] + sum;
+  }
+}
+
+// this lane's rows row0 + g (r = 0) and row0 + g + 8 at the end of a
+// query tile: the row sums over the quad, their inverse into inv, and LSE
+// in natural-log units (rows past T not written)
+__device__ __forceinline__ void fwd_rows_out(const float (&mrow)[2],
+                                             const float (&l)[2],
+                                             float (&inv)[2], float* lse,
+                                             int bh, int t, int row0,
+                                             float sm_scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float l_safe = fmaxf(sum, 1e-20f);
+    inv[r] = 1.f / l_safe;
+    const int qr = row0 + g + 8 * r;
+    if (c == 0 && qr < t)
+      lse[static_cast<size_t>(bh) * t + qr] =
+          mrow[r] * sm_scale + logf(l_safe);
   }
 }
 
@@ -298,8 +353,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
     // consumer warpgroup wg: rows 64 wg .. 64 wg + 63 of each query tile
     setmaxnreg_inc<CONSUMER_REGS>();
     const int tid = threadIdx.x % WG_THREADS;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, c = lane & 3;
+    const int warp = tid >> 5;
     const float scale = sm_scale * LOG2E;  // exponents in log2 units
 
     float o_acc[D / 8][4];
@@ -401,18 +455,7 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
       // the last tile's store has read them), then one TMA store a box
       // (rows past T are not written); LSE in natural log
       float inv[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float sum = l[r];
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        const float l_safe = fmaxf(sum, 1e-20f);
-        inv[r] = 1.f / l_safe;
-        const int qr = row0 + g + 8 * r;
-        if (c == 0 && qr < t)
-          lse[static_cast<size_t>(bh) * t + qr] =
-              mrow[r] * sm_scale + logf(l_safe);
-      }
+      fwd_rows_out(mrow, l, inv, lse, bh, t, row0, sm_scale);
       if (tid == 0) tma_store_wait_read();
       named_barrier(1 + wg, WG_THREADS);
       stage_rows<D, D>(o_tile, ROWS, wg * 64 + warp * 16, 0, o_acc, inv[0],
@@ -439,193 +482,314 @@ __global__ void __launch_bounds__(WGMMA_THREADS, 1)
 
 // ---------------------------------------------------------------- float32
 
-constexpr int MMA_THREADS = 128;  // 4 warps
+namespace tf = sm90_tf32;
 
-template <int D>
-constexpr size_t tf32_smem_bytes() {
-  // Q (BQ rows), then two stages each of K and V (BK rows), all float32
-  // with rows of D + 4
-  return sizeof(float) * (BQ + 4 * BK) * (D + 4);
+// key rows per ring stage of fwd_kernel_tf32wg: S, P's hi and lo A
+// operands, O and Q's hi and lo (fwd_q_regs) take 144 registers a
+// consumer thread at d = 64 against ptxas's 168
+constexpr int FWD_TF32_KEYS = 32;
+// ring stages: as many as fit beside Q and O (the head comment)
+__host__ __device__ constexpr int fwd_tf32_stages(int d) {
+  return d > 64 ? 2 : 4;
+}
+// whether a consumer holds Q's hi and lo in registers, as the A operands
+// of S for the whole query tile: up to d = 64 (64 registers a thread at d
+// = 64); at d = 128 (128 registers) Q stays in shared memory
+__host__ __device__ constexpr bool fwd_q_regs(int d) { return d <= 64; }
+
+// Per consumer a Q tile and an O staging tile ([64][D] float32 as swizzled
+// boxes, sm90_tf32.cuh; at d = 128 Q's hi and lo, and O is staged in Q's
+// hi), then STAGES ring stages of K hi, K lo and the raw V tile
+// ([FWD_TF32_KEYS][D]) and V^T hi, V^T lo ([D][FWD_TF32_KEYS]), then the
+// mbarriers: Q full and empty, per stage full, ready and empty; 1024 bytes
+// of slack to align the base
+template <int D, int STAGES>
+constexpr size_t tf32wg_smem_bytes() {
+  return 1024 +
+         static_cast<size_t>(2 * tf::consumers(D) * 64 * D +
+                             5 * STAGES * FWD_TF32_KEYS * D) *
+             4 +
+         8 * (2 + 3 * STAGES);
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int t, int kv_len,
-                      float sm_scale, int causal) {
+// The split warps' share of a ring stage, in blocks of 32 tasks a warp:
+// NV blocks of V^T tasks (split_transposed_task, 16 elements each) and NK
+// of K chunks (split_chunk, 4 elements). V blocks go round the three warps;
+// K blocks follow in one contiguous run a warp, cut so that each warp's
+// elements come nearest a third of the stage's (a warp that waits for
+// another's share holds the stage back). Sets warp w's K blocks [k0, k1).
+__device__ __forceinline__ void split_share(int nv, int nk, int w, int& k0,
+                                            int& k1) {
+  // warp u's V blocks u, u + 3, ..., 4 K chunks' worth each
+  auto v_units = [&](int u) { return 4 * ((nv - u + 2) / 3); };
+  // where warp u's K run ends: warps 0 .. u then hold (u + 1) / 3 of it
+  auto k_end = [&](int u) {
+    int v = 0;
+    for (int x = 0; x <= u; ++x) v += v_units(x);
+    return u == 2 ? nk
+                  : min(max(((u + 1) * (4 * nv + nk) + 1) / 3 - v, 0), nk);
+  };
+  k0 = w == 0 ? 0 : k_end(w - 1);
+  k1 = max(k_end(w), k0);
+}
+
+// S = Q K^T of one ring stage as 3xTF32 over the warpgroup's 64 query rows
+// x the stage's KR keys (its K hi and K lo tiles from s0, K-major): Q's hi
+// and lo from the registers qa, ql (fwd_q_regs), else from the tiles qh,
+// ql_tile (all RS, or all SS)
+template <int D, int KR>
+__device__ __forceinline__ void fwd_issue_s_f32(
+    float (&s)[KR / 8][4], const uint32_t (&qa)[fwd_q_regs(D) ? D / 8 : 1][4],
+    const uint32_t (&ql)[fwd_q_regs(D) ? D / 8 : 1][4], uint32_t qh,
+    uint32_t ql_tile, uint32_t s0) {
+  constexpr int KT = KR * D * 4;  // bytes of a K tile
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    if constexpr (fwd_q_regs(D))
+      tf::wgmma_x3_rs<KR>(s, qa[kk], ql[kk], tf::desc<D>(s0, KR, kk),
+                          tf::desc<D>(s0 + KT, KR, kk), kk > 0);
+    else
+      tf::wgmma_x3_ss<KR>(s, tf::desc<D>(qh, 64, kk),
+                          tf::desc<D>(ql_tile, 64, kk),
+                          tf::desc<D>(s0, KR, kk),
+                          tf::desc<D>(s0 + KT, KR, kk), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P V as 3xTF32: P's hi and lo A operands from registers (keys in the
+// 0, 2, 4, 6, 1, 3, 5, 7 order of c_to_a_tf32), the stage's V^T hi and lo
+// tiles (k = key, n = d; from s0) K-major, written in that key order
+template <int D, int KR>
+__device__ __forceinline__ void fwd_issue_pv_f32(float (&o)[D / 8][4],
+                                                 const uint32_t (&ph)[KR / 8][4],
+                                                 const uint32_t (&pl)[KR / 8][4],
+                                                 uint32_t s0) {
+  constexpr int KT = KR * D * 4;  // bytes of a V^T tile
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < KR / 8; ++j)
+    tf::wgmma_x3_rs<D>(o, ph[j], pl[j], tf::desc<KR>(s0 + 3 * KT, D, j),
+                       tf::desc<KR>(s0 + 4 * KT, D, j));
+  sm90::wgmma_commit();
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(WGMMA_THREADS, 1)
+    fwd_kernel_tf32wg(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap o_map,
+                      float* __restrict__ lse, int heads, int chunk, int nq,
+                      int t, int kv_len, float sm_scale, int causal) {
   using namespace mma_bf16;
-  using namespace mma_tf32;
-  constexpr int LD = D + 4;      // padded row stride (floats)
-  constexpr int TILE = BK * LD;  // floats of one staged K or V tile
-  constexpr int KD = D / 8;      // k steps of Q K^T
-  constexpr int NB = BK / 8;     // n-blocks of the score tile
-  constexpr int ND = D / 8;      // n-blocks of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sK = sQ + BQ * LD;   // [2][BK][LD]
-  float* sV = sK + 2 * TILE;  // [2][BK][LD]
+  using namespace sm90;
+  constexpr int NC = tf::consumers(D);
+  constexpr int KR = FWD_TF32_KEYS;
+  constexpr bool QREG = fwd_q_regs(D);
+  constexpr int QR = 64 * NC;     // query rows a tile
+  constexpr int CT = 64 * D * 4;  // bytes of a consumer's Q or O tile
+  constexpr int KT = KR * D * 4;  // bytes of a K, V or V^T tile
+  constexpr int NB = D / 32;      // 32-column boxes along d
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // q_tiles: the raw Q rows (QREG) or Q's hi; o_tiles: O's staging tiles
+  // (QREG) or Q's lo
+  const uint32_t q_tiles =
+      smem_u32(wg_smem + (1024 - smem_u32(wg_smem) % 1024) % 1024);
+  const uint32_t o_tiles = q_tiles + NC * CT;
+  // stage st: K hi, K lo, V (raw), V^T hi, V^T lo, KT bytes each
+  const uint32_t ring = o_tiles + NC * CT;
+  const uint32_t q_full = ring + STAGES * 5 * KT, q_empty = q_full + 8;
+  const uint32_t full = q_empty + 8, ready = full + 8 * STAGES;
+  const uint32_t empty = ready + 8 * STAGES;
+  const int total = nq * heads;  // query tiles of the whole launch
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int row0 = q0 + warp * 16;  // the warp's first query row
-  const size_t base = static_cast<size_t>(bh) * t * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
-
-  // causal: keys past the block's last query row contribute nothing
-  const int kend = causal ? min(kv_len, q0 + BQ) : kv_len;
-  const int ntiles = (kend + BK - 1) / BK;
-
-  load_rows_async<BQ, D, MMA_THREADS>(sQ, q + base, q0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sK, kb, 0, t);
-  load_rows_async<BK, D, MMA_THREADS>(sV, vb, 0, t);
-  cp_async_commit();
-
-  const float scale = sm_scale * LOG2E;  // exponents in log2 units
-  float acc[ND][4];
-  // m: running max of the unscaled scores; l: this lane's share of the
-  // row sums; rows g (r = 0) and g + 8
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    if (kt + 1 < ntiles) {  // the next tile into the other stage
-      const int st = (kt + 1) & 1;
-      load_rows_async<BK, D, MMA_THREADS>(sK + st * TILE, kb,
-                                                    k0 + BK, t);
-      load_rows_async<BK, D, MMA_THREADS>(sV + st * TILE, vb,
-                                                    k0 + BK, t);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    // QREG: every consumer thread, once Q is in its registers; else each
+    // consumer's first thread, once its O store has read Q's hi tile
+    mbar_init(q_empty, QREG ? NC * WG_THREADS : NC);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(ready + 8 * st, tf::SPLIT_THREADS);
+      mbar_init(empty + 8 * st, NC * WG_THREADS);
     }
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile (and Q) has landed
-    __syncthreads();
-    const float* tK = sK + (kt & 1) * TILE;
-    const float* tV = sV + (kt & 1) * TILE;
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // S = Q K^T, 16 rows x BK keys per warp; Q's fragments are read from
-    // shared memory per k step (kept in registers, they take D / 2 a
-    // thread, and the D = 128 instance spills)
-    float s[NB][4];
-#pragma unroll
-    for (int n = 0; n < NB; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t a[4], ah[4], al[4];
-      ldmatrix_x4(a, a_addr(sQ, LD, warp * 16, kk * 8, lane));
-      split4(a, ah, al);
-#pragma unroll
-      for (int n2 = 0; n2 < NB / 2; ++n2) {
-        uint32_t b[4], kh[4], kl[4];
-        ldmatrix_x4(b, bn_addr(tK, LD, n2 * 16, kk * 8, lane));
-        split4(b, kh, kl);
-        mma_1688_x3(s[2 * n2], s[2 * n2 + 1], ah, al, kh, kl);
-      }
-    }
-
-    // mask only the ragged last tile and the diagonal tile
-    if (k0 + BK > kv_len || (causal && k0 + BK - 1 > q0)) {
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kc = k0 + n * 8 + 2 * c + (i & 1);
-          const int qr = row0 + g + (i >> 1) * 8;
-          if (kc >= kv_len || (causal && kc > qr)) s[n][i] = NEG_INF;
+  // A persistent block walks query tiles blockIdx.x, blockIdx.x +
+  // gridDim.x, ...; its k/v ring runs on across tiles
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == NC) {
+    setmaxnreg_dec<tf::SPLIT_REGS>();
+    const int ptid = threadIdx.x - NC * WG_THREADS;
+    if (ptid == 0) {
+      // TMA: each query tile's Q raw, and a ring of K and V tiles. With Q
+      // in registers its tile is free as soon as the consumers have read
+      // it, and the next tile's Q loads first; else once the last tile's
+      // O store has read it, after the next tile's first ring stages
+      int c = 0;  // ring stages walked
+      for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+        int bh, ntiles;
+        const int q0 = fwd_tile<KR, QR>(i, heads, chunk, nq, kv_len, causal,
+                                        bh, ntiles);
+        const int pre = QREG ? 0 : min(STAGES, ntiles);
+        for (int kt = 0; kt <= ntiles; ++kt) {
+          if (kt == pre) {
+            mbar_wait(q_empty, (n & 1) ^ 1);
+            mbar_expect_tx(q_full, NC * CT);
+            for (int w = 0; w < NC; ++w)
+              for (int b = 0; b < NB; ++b)
+                tma_load_3d(q_tiles + w * CT + b * 64 * 128, &q_map, q_full,
+                            b * 32, q0 + 64 * w, bh);
+          }
+          if (kt < ntiles) {
+            const int st = c % STAGES;
+            const uint32_t s0 = ring + st * 5 * KT, bar = full + 8 * st;
+            mbar_wait(empty + 8 * st, ((c / STAGES) & 1) ^ 1);
+            mbar_expect_tx(bar, 2 * KT);
+            for (int b = 0; b < NB; ++b) {
+              tma_load_3d(s0 + b * KR * 128, &k_map, bar, b * 32, kt * KR,
+                          bh);
+              tma_load_3d(s0 + 2 * KT + b * KR * 128, &v_map, bar, b * 32,
+                          kt * KR, bh);
+            }
+            ++c;
+          }
         }
-    }
-
-    // online softmax against the running max, as in the bf16 kernel
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int n = 0; n < NB; ++n)
-        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = exp2_approx((m[r] - mx) * scale);
-      const float mx_scaled = mx * scale;
-      m[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        s[n][2 * r] = exp2_approx(fmaf(s[n][2 * r], scale, -mx_scaled));
-        s[n][2 * r + 1] =
-            exp2_approx(fmaf(s[n][2 * r + 1], scale, -mx_scaled));
-        sum += s[n][2 * r] + s[n][2 * r + 1];
       }
-      l[r] = alpha * l[r] + sum;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * r] *= alpha;
-        acc[n][2 * r + 1] *= alpha;
-      }
-    }
-
-    // O += P V, one 8-key step per n-block j of S. The A fragment takes
-    // this lane's keys 2c and 2c + 1 as columns c and c + 4 (mma_tf32.cuh),
-    // so the B fragment reads V's rows 2c and 2c + 1.
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const uint32_t p[4] = {
-          __float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
-          __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
-      uint32_t ph[4], pl[4];
-      split4(p, ph, pl);
-      const float* vr = tV + (j * 8 + 2 * c) * LD + g;
-#pragma unroll
-      for (int n2 = 0; n2 < ND / 2; ++n2) {
-        uint32_t vh[4], vl[4];
-        split(vr[n2 * 16], vh[0], vl[0]);
-        split(vr[LD + n2 * 16], vh[1], vl[1]);
-        split(vr[n2 * 16 + 8], vh[2], vl[2]);
-        split(vr[LD + n2 * 16 + 8], vh[3], vl[3]);
-        mma_1688_x3(acc[2 * n2], acc[2 * n2 + 1], ph, pl, vh, vl);
+    } else if (ptid >= 32) {
+      // the split stage: each K tile into hi (in place) and lo, each V tile
+      // into the transposed V^T hi and lo only (P V's B operand, keys in
+      // key_slot order); then the stage is ready for the consumers
+      constexpr int NV = KR * D / 512, NK = KR * D / 128;  // 32-task blocks
+      const int sw = ptid / 32 - 1, lane = ptid % 32;
+      int k0, k1;
+      split_share(NV, NK, sw, k0, k1);
+      int c = 0;
+      for (int i = blockIdx.x; i < total; i += gridDim.x) {
+        int bh, ntiles;
+        fwd_tile<KR, QR>(i, heads, chunk, nq, kv_len, causal, bh, ntiles);
+        for (int kt = 0; kt < ntiles; ++kt, ++c) {
+          const int st = c % STAGES;
+          const uint32_t s0 = ring + st * 5 * KT;
+          mbar_wait(full + 8 * st, (c / STAGES) & 1);
+          for (int v = sw; v < NV; v += 3)
+            tf::split_transposed_task<KR, D>(s0 + 2 * KT, s0 + 3 * KT,
+                                             s0 + 4 * KT, 32 * v + lane);
+#pragma unroll 4
+          for (int b = k0; b < k1; ++b)
+            tf::split_chunk<KR, D>(s0, s0 + KT, 32 * b + lane);
+          fence_async_smem();
+          mbar_arrive(ready + 8 * st);
+        }
       }
     }
-    __syncthreads();  // the next iteration refills this stage
-  }
+  } else {
+    // consumer warpgroup wg: query rows 64 wg .. 64 wg + 63 of each tile
+    setmaxnreg_inc<tf::CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid >> 5;
+    const float scale = sm_scale * LOG2E;  // exponents in log2 units
+    const uint32_t qw = q_tiles + wg * CT, ow = o_tiles + wg * CT;
 
-  // O = acc / l, staged in the warp's own rows of sQ, then 16-byte rows
-  float* sO = sQ + warp * 16 * LD;
-  float inv[2];
+    float o[D / 8][4];
+    float s[KR / 8][4];                   // a stage's S, then P
+    uint32_t ph[KR / 8][4], pl[KR / 8][4];  // P V's A operand, hi and lo
+    // Q's hi and lo as the A operands of S
+    uint32_t qa[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float l_safe = fmaxf(sum, 1e-20f);
-    inv[r] = 1.f / l_safe;
-    const int qr = row0 + g + 8 * r;
-    if (c == 0 && qr < t)
-      lse[static_cast<size_t>(bh) * t + qr] = m[r] * sm_scale + logf(l_safe);
-  }
+    for (int nn = 0; nn < KR / 8; ++nn)
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * c;
-    *reinterpret_cast<float2*>(sO + g * LD + col) =
-        make_float2(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<float2*>(sO + (g + 8) * LD + col) =
-        make_float2(acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
-  __syncwarp();
-  constexpr int CHUNKS = D / 4;
-  for (int i = lane; i < 16 * CHUNKS; i += 32) {
-    const int r = i / CHUNKS, col = (i % CHUNKS) * 4;
-    if (row0 + r < t)
-      *reinterpret_cast<float4*>(o + base +
-                                 static_cast<size_t>(row0 + r) * D + col) =
-          *reinterpret_cast<const float4*>(sO + r * LD + col);
+      for (int e = 0; e < 4; ++e) s[nn][e] = 0.f;
+    int rs = 0;  // ring stages walked
+    for (int i = blockIdx.x, n = 0; i < total; i += gridDim.x, ++n) {
+      int bh, ntiles;
+      const int q0 = fwd_tile<KR, QR>(i, heads, chunk, nq, kv_len, causal,
+                                      bh, ntiles);
+      const int qw0 = q0 + 64 * wg;      // the warpgroup's first row
+      const int row0 = qw0 + 16 * warp;  // the warp's first row
+      mbar_wait(q_full, n & 1);
+      if constexpr (QREG) {
+        // the warp's Q rows into registers, split; the tile goes back to
+        // the producer
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          tf::load_a<D>(qw, 64, 16 * warp, kk, qa[kk]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mma_tf32::split(__uint_as_float(qa[kk][e]), qa[kk][e],
+                            ql[kk][e]);
+        }
+        mbar_arrive(q_empty);
+      } else {
+        // the warpgroup's Q rows into hi (in place) and lo
+        tf::split_rows<64, D, 0>(qw, ow, 0, 0, 0, tid, WG_THREADS);
+        fence_async_smem();
+        named_barrier(1 + wg, WG_THREADS);
+      }
+      // mrow: running max of the unscaled scores; l: this lane's share of
+      // the row sums; rows g (r = 0) and g + 8
+      float mrow[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+
+      for (int kt = 0; kt < ntiles; ++kt, ++rs) {
+        const int st = rs % STAGES;
+        const uint32_t s0 = ring + st * 5 * KT;
+        mbar_wait(ready + 8 * st, (rs / STAGES) & 1);
+        fwd_issue_s_f32<D, KR>(s, qa, ql, qw, ow, s0);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fwd_softmax<KR>(s, mrow, l, alpha, kt * KR, kv_len, causal, qw0,
+                        row0, scale);
+        // rescale O to the new running max
+#pragma unroll
+        for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nn][e] *= alpha[e >> 1];
+        tf::c_to_a_x3(s, ph, pl);
+        fwd_issue_pv_f32<D, KR>(o, ph, pl, s0);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(ph);
+        fence_regs(pl);
+        mbar_arrive(empty + 8 * st);  // the stage may be refilled
+      }
+
+      // O = acc / l and LSE in natural log; O staged in the warpgroup's O
+      // tile (once the last tile's store has read it), or in its Q hi tile
+      // (its last S has been retired), then one TMA store a box (rows past
+      // T are not written)
+      float inv[2];
+      fwd_rows_out(mrow, l, inv, lse, bh, t, row0, sm_scale);
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nn][e] *= inv[e >> 1];
+      const uint32_t stage = QREG ? ow : qw;
+      if constexpr (QREG) {
+        if (tid == 0) tma_store_wait_read();
+        named_barrier(1 + wg, WG_THREADS);
+      }
+      tf::stage_rows<D, D>(stage, 64, 16 * warp, 0, o);
+      fence_async_smem();
+      named_barrier(1 + wg, WG_THREADS);
+      if (tid == 0) {
+        for (int b = 0; b < NB; ++b)
+          tma_store_3d(&o_map, stage + b * 64 * 128, b * 32, qw0, bh);
+        tma_store_commit();
+        if constexpr (!QREG) {
+          tma_store_wait_read();
+          mbar_arrive(q_empty);
+        }
+      }
+    }
+    if (tid == 0) tma_store_wait_read();
   }
 }
 
@@ -640,19 +804,31 @@ cudaError_t allow_smem(K kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int D>
+template <int D, int STAGES = fwd_tf32_stages(D)>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t, int kv_len, float sm_scale,
                        int causal, cudaStream_t stream) {
-  constexpr size_t smem = tf32_smem_bytes<D>();
-  auto kern = fwd_kernel_tf32x3<D>;
+  constexpr int NC = tf::consumers(D);
+  constexpr size_t smem = tf32wg_smem_bytes<D, STAGES>();
+  auto kern = fwd_kernel_tf32wg<D, STAGES>;
   static const cudaError_t attr_err = allow_smem(kern, smem);
   if (attr_err != cudaSuccess) return attr_err;
-  const dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), t, kv_len, sm_scale, causal);
+  // boxes of 64 rows, a consumer's Q or O rows, and of a ring stage's key
+  // rows for K and V
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = tf::rows_map<D>(
+        &maps[i], ptrs[i], bh, t, i == 1 || i == 2 ? FWD_TF32_KEYS : 64);
+    if (err != cudaSuccess) return err;
+  }
+  // persistent blocks: one a streaming multiprocessor, or one a tile
+  static const int sms = sm90::sm_count();
+  const int nq = (t + 64 * NC - 1) / (64 * NC);
+  const int tiles = nq * bh;
+  kern<<<tiles < sms ? tiles : sms, (NC + 1) * WG_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), bh,
+      sm90::head_chunk(sms, nq), nq, t, kv_len, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -699,7 +875,7 @@ cudaError_t with_head_dim(int d, F&& f) {
 
 }  // namespace
 
-// dtype: 0 = float32 (fwd_kernel_tf32x3), 1 = bfloat16 (fwd_kernel_wgmma).
+// dtype: 0 = float32 (fwd_kernel_tf32wg), 1 = bfloat16 (fwd_kernel_wgmma).
 // Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int bh,
@@ -724,9 +900,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   }
 }
 
-// Dynamic shared memory the bf16 kernel's instance for head dim d takes
-// (0 where there is none); chip_smoke.py's [build] prints it beside
-// ptxas's registers.
+// Dynamic shared memory the bf16 and float32 kernels' instances for head
+// dim d take (0 where there is none); chip_smoke.py's smem_phase prints
+// them beside ptxas's registers.
 extern "C" long long flash_attention_fwd_smem(int d) {
   switch (d) {
     case 32:
@@ -735,6 +911,19 @@ extern "C" long long flash_attention_fwd_smem(int d) {
       return wgmma_smem_bytes<64, FWD_STAGES>();
     case 128:
       return wgmma_smem_bytes<128, FWD_STAGES>();
+    default:
+      return 0;
+  }
+}
+
+extern "C" long long flash_attention_fwd_f32_smem(int d) {
+  switch (d) {
+    case 32:
+      return tf32wg_smem_bytes<32, fwd_tf32_stages(32)>();
+    case 64:
+      return tf32wg_smem_bytes<64, fwd_tf32_stages(64)>();
+    case 128:
+      return tf32wg_smem_bytes<128, fwd_tf32_stages(128)>();
     default:
       return 0;
   }

@@ -44,6 +44,25 @@
 
 namespace sm90_tf32 {
 
+// ------------------------------------------------------------ warp roles
+
+// The float32 kernels launch three warpgroups' worth of threads (ptxas
+// then allocates at most 168 registers a thread). Consumer warpgroups of
+// 64 rows each: two up to d = 64; one at d = 128, where the hi and lo
+// tiles of two consumers' rows would not fit in shared memory beside a
+// ring. The producer warpgroup's warp 0 issues the TMA loads and its warps
+// 1 .. 3 (SPLIT_THREADS) split each ring stage into tf32 hi and lo.
+__host__ __device__ constexpr int consumers(int d) { return d > 64 ? 1 : 2; }
+constexpr int SPLIT_THREADS = 96;
+// registers a thread of the producer warpgroup (the split warps among
+// them) and of a consumer may hold once setmaxnreg has moved them. The
+// split loop's speed follows SPLIT_REGS: at 40 (the bf16 kernels'
+// producer) the backward kernels read 10-25% slower than at 96 with four
+// 16-byte chunks a thread in flight (split_rows; PERF.md §6)
+constexpr int SPLIT_REGS = 96, CONSUMER_REGS = 192;
+static_assert(128 * (SPLIT_REGS + 2 * CONSUMER_REGS) <= 384 * 168,
+              "the consumers take only what the producer gives up");
+
 // ----------------------------------------------------------------- tiles
 
 // swizzled geometry of a float32 tile of COLS columns
@@ -234,14 +253,15 @@ __device__ __forceinline__ void wgmma_x3_ss(float (&d)[N / 8][4], uint64_t ah,
   });
 }
 
-// d += A B over one k step as 3xTF32, A's hi and lo from registers
+// d (+)= A B over one k step as 3xTF32, A's hi and lo from registers
 template <int N>
 __device__ __forceinline__ void wgmma_x3_rs(float (&d)[N / 8][4],
                                             const uint32_t (&ah)[4],
                                             const uint32_t (&al)[4],
-                                            uint64_t bh, uint64_t bl) {
+                                            uint64_t bh, uint64_t bl,
+                                            int scale_d = 1) {
   x3([&](int la, int lb) {
-    wgmma_rs<N>(d, *(la ? &al : &ah), lb ? bl : bh, 1);
+    wgmma_rs<N>(d, *(la ? &al : &ah), lb ? bl : bh, la | lb ? 1 : scale_d);
   });
 }
 
@@ -340,6 +360,71 @@ __device__ __forceinline__ void split_rows(uint32_t hi, uint32_t lo,
       }
     }
   }
+}
+
+// One 16-byte chunk of split_rows' work without the transposed copy: chunk
+// idx (row idx % R, columns idx / R * 4 ..) of a tile landed raw at `hi`
+// into its hi in place and its lo at `lo`. A warp's 32 consecutive chunks
+// are a column of chunks: its reads and writes land on distinct banks.
+template <int R, int C>
+__device__ __forceinline__ void split_chunk(uint32_t hi, uint32_t lo,
+                                            int idx) {
+  const uint32_t off = tile_offset<C>(R, idx % R, idx / R * 4);
+  float x[4];
+  uint32_t h[4], l[4];
+  lds4(hi + off, x);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) mma_tf32::split(x[e], h[e], l[e]);
+  sts4(hi + off, h);
+  sts4(lo + off, l);
+}
+
+// One task of splitting a float32 tile of R rows (keys) by C columns that
+// TMA landed raw at `raw` (boxes of R rows) into its transposed hi and lo
+// only, at hi_t and lo_t: [C][R] tiles whose k columns (keys) are in each
+// 8-key group's key_slot order, as split_rows writes its transposed tiles.
+// Keys j, j + 2, j + 4, j + 6 of a group (one parity) take the four slots
+// from key_slot(j) on, so task `task` reads those four keys' rows of one
+// 16-byte chunk (four columns) and writes each column's four slots as one
+// 16-byte store: 4 loads and 8 stores of 16 bytes for 16 elements, tasks
+// 0 .. 16 (R / 8) (C / 32) - 1. A warp's 32 consecutive tasks are the 8
+// chunks of a box for both parities of two key groups, so its loads cover
+// four whole rows and its stores four 128-byte rows' worth: no bank
+// conflict beyond the 512 bytes' four wavefronts.
+template <int R, int C>
+__device__ __forceinline__ void split_transposed_task(uint32_t raw,
+                                                      uint32_t hi_t,
+                                                      uint32_t lo_t,
+                                                      int task) {
+  constexpr int NG = R / 8;  // key groups
+  const int cc = task % 8, p = task / 8 % 2, g = task / 16 % NG;
+  const int col = task / (16 * NG) * 32 + cc * 4;
+  float x[4][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    lds4(raw + tile_offset<C>(R, 8 * g + p + 2 * m, col), x[m]);
+  // the first of parity p's four adjacent slots
+  const int slot = 8 * g + (key_slot(p) & ~3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) mma_tf32::split(x[m][i], h[m], l[m]);
+    const uint32_t o = tile_offset<R>(C, col + i, slot);
+    sts4(hi_t + o, h);
+    sts4(lo_t + o, l);
+  }
+}
+
+// the hi and lo of an accumulator of NB 8-column blocks as the A operands
+// of NB k steps (mma_tf32::c_to_a_tf32: columns in the order 0, 2, 4, 6,
+// 1, 3, 5, 7 of each step)
+template <int NB>
+__device__ __forceinline__ void c_to_a_x3(const float (&c)[NB][4],
+                                          uint32_t (&hi)[NB][4],
+                                          uint32_t (&lo)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32::c_to_a_tf32(c[n], hi[n], lo[n]);
 }
 
 // rows r0 + g and r0 + g + 8 of an accumulator of N columns (this lane's C

@@ -23,14 +23,13 @@ accumulator into register operand, and results leave by TMA store from
 persistent blocks. float32 takes every product as 3xTF32: each operand
 splits into a TF32 high and low part and each product is taken as three
 TF32 products, which meets the float32 limit of 1e-4 where one TF32
-product does not. Its backward runs ``dq_kernel_tf32wg`` and
-``dkv_kernel_tf32wg``, the same Hopper designs on TF32 wgmma
+product does not. It runs ``fwd_kernel_tf32wg``, ``dq_kernel_tf32wg``
+and ``dkv_kernel_tf32wg``, the same Hopper designs on TF32 wgmma
 (``csrc/sm90_tf32.cuh``), with a stage between TMA and wgmma that splits
 each tile into hi and lo and writes the transposed copies TF32 wgmma
-needs; its forward runs ``fwd_kernel_tf32x3``, an mma.sync design on
-mma.m16n8k8 (``csrc/mma_tf32.cuh``). The kernels sum in another order
-than the plain versions, so they agree with them to rounding, not bit
-for bit.
+needs (the forward's Vᵀ, with its keys in the order of P's register
+operand). The kernels sum in another order than the plain versions, so
+they agree with them to rounding, not bit for bit.
 
 ``FlashAttentionFunction`` takes the place of the JAX package's
 ``_flash`` ``custom_vjp``: its forward saves q, k, v, o and the

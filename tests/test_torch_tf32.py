@@ -1,7 +1,8 @@
-"""The float32 backward kernels' arithmetic, emulated on the CPU.
+"""The float32 kernels' arithmetic, emulated on the CPU.
 
-`dq_kernel_tf32wg` and `dkv_kernel_tf32wg` (csrc/flash_attention_bwd.cu)
-take every product on the TF32 tensor cores as 3xTF32: x = hi + lo with
+`fwd_kernel_tf32wg` (csrc/flash_attention_fwd.cu), `dq_kernel_tf32wg` and
+`dkv_kernel_tf32wg` (csrc/flash_attention_bwd.cu) take every product on
+the TF32 tensor cores as 3xTF32: x = hi + lo with
 hi = tf32(x), lo = tf32(x - hi), and a b = lo_a hi_b + hi_a lo_b + hi_a
 hi_b, each product exact and every sum float32. Here the same products
 are taken in float32 on tf32-rounded operands (round to nearest, ties away
@@ -14,7 +15,10 @@ A second emulation follows the kernels' order: tiles of 32 keys (dQ) and
 the products whose A operand comes from an accumulator (dS K, P^T dO,
 dS^T Q) with the k columns of each step in the order 0, 2, 4, 6, 1, 3, 5,
 7 on both operands, as the kernels' transposed B tiles are written
-(sm90_tf32.cuh, key_slot). The kernels sum in another order than these
+(sm90_tf32.cuh, key_slot). The forward's emulation walks its 32-key
+stages with the online softmax (running max, rescaled sums and O), S
+summed over d in k steps, and P V with the keys of each step in slot
+order on both P and V^T. The kernels sum in another order than these
 emulations, so they show the size of the error, not the card's bits.
 """
 import math
@@ -178,6 +182,67 @@ def test_kernel_order_3xtf32_meets_the_float32_limit(causal):
     assert min(natural) > 100 * F32_TOL, natural
 
 
+def _tiled_fwd(q, k, v, causal, products, v_order="slots"):
+    """O and LSE as fwd_kernel_tf32wg computes them: 32-key stages (K and
+    V zero past T, those keys masked), S = Q K^T in 8-wide k steps over
+    d, the online softmax (running max on the raw scores, p = exp(sm_scale
+    (s - m)), O and the row sums rescaled by exp(sm_scale (m_old - m))),
+    O += P V in 8-key k steps with P's columns in slot order and V^T's
+    rows in `v_order` ("slots", as the split stage writes V^T, or
+    "natural"), then O / l and LSE = sm_scale m + ln l."""
+    bh, t, d = q.shape
+    sm_scale = 1.0 / math.sqrt(d)
+    kr = 32
+    pad = -t % kr
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    rows = torch.arange(t)[:, None]
+    m = torch.full((bh, t, 1), -1e30)
+    l = torch.zeros(bh, t, 1)
+    o = torch.zeros(bh, t, d)
+    order = _slot_order(kr)
+    for k0 in range(0, t + pad, kr):
+        keys = torch.arange(k0, k0 + kr)[None, :]
+        s = _mm_steps(q, k[:, k0:k0 + kr].transpose(1, 2), products)
+        dead = (keys >= t) | (causal & (keys > rows))
+        s = torch.where(dead, s.new_full((), -1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(sm_scale * (m - m_new))
+        p = torch.exp(sm_scale * (s - m_new))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        o = alpha * o + _mm_steps(p, v[:, k0:k0 + kr], products, order,
+                                  order if v_order == "slots" else None)
+        m = m_new
+    return o / l, (sm_scale * m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("variant", ["3xtf32", "one_product",
+                                     "natural_order"])
+def test_kernel_order_forward(variant, causal):
+    """The float32 forward's order (32-key stages at a ragged T, k steps,
+    the online softmax, P V with the slot order on both operands): with
+    three TF32 products O and LSE within 1e-4 of the plain version; with
+    one TF32 product O outside it; with V^T left in natural key order (the
+    mutant the card check catches) far outside it."""
+    r = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(r.randn(2, 100, 64).astype(np.float32))
+               for _ in range(3))
+    want_o, want_lse = tfa.flash_attention_fwd_reference(q, k, v,
+                                                         causal=causal)
+    products, order = {"3xtf32": (3, "slots"), "one_product": (1, "slots"),
+                       "natural_order": (3, "natural")}[variant]
+    o, lse = _tiled_fwd(q, k, v, causal, products, order)
+    err = (o - want_o).abs().max().item()
+    if variant == "3xtf32":
+        assert err <= F32_TOL, err
+        assert (lse - want_lse).abs().max().item() <= F32_TOL
+    elif variant == "one_product":
+        assert err > F32_TOL, err
+    else:
+        assert err > 100 * F32_TOL, err
+
+
 def test_slot_order_is_the_accumulator_to_operand_order():
     """An accumulator holds columns 2c and 2c + 1 of each 8-column block
     in lane c; a TF32 A operand holds columns c and c + 4. Slot c takes
@@ -209,6 +274,21 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+@pytest.mark.parametrize("bh,ms,cuda_core_ms", [
+    (192, 0.0781, 0.1923), (96, 0.0391, 0.0962)])
+def test_float32_forward_bound_is_3xtf32(bh, ms, cuda_core_ms):
+    """The float32 forward's bound at the float32 training path's [192,
+    512, 64] and the serving path's [96, 512, 64]: three TF32 products per
+    product at the TF32 tensor-core peak, bound by operations (4 d
+    operations a query-key pair); the CUDA-core bound beside it."""
+    c = _chip_smoke()
+    bound, by = c.attention_bound_ms("flash_attention_fwd", bh, 512, 64,
+                                     False, 4)
+    assert by == "operations" and round(bound, 4) == ms
+    assert round(c.cuda_core_bound_ms("flash_attention_fwd", bh, 512, 64,
+                                      False), 4) == cuda_core_ms
 
 
 @pytest.mark.parametrize("kernel,ms,cuda_core_ms", [
