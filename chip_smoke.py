@@ -49,7 +49,12 @@ Phases, one progress line each; any failure exits non-zero:
              executor cache entry after warmup, each kernel's launch count
              set to 0 just before the requests and read just after, and one
              answer checked against the same saved model run on the CPU
-             through the plain versions.
+             through the plain versions. Then the same requests through a
+             new engine with the monitor, tracing and goodput on
+             ([serve_hooks]): the same answers and gates, the stats the
+             JAX package's engine records (SERVE_STATS), each request's
+             and batch's span tree, the goodput ledger summing to its wall
+             clock, and requests/s with the hooks off and on.
 5. buckets — after the serving run: per batch bucket (1, 2, 4, 8) the
              predictor's run time and the forward's card time, and at
              batch 8 a torch.profiler breakdown of device time by kernel
@@ -98,6 +103,17 @@ Phases, one progress line each; any failure exits non-zero:
              chunked-prefill sibling over one pool, driven by
              paged_generate below; the streams must be equal, the decode
              steps' logits within 1e-4, and no flash kernel launched.
+12. gen_serve — the same scope served through GenerationEngine (8 slots,
+             max_seq 512, paged KV in blocks of 16), spec decode off and
+             then on: 20 concurrent requests (gen_requests below) whose
+             greedy streams must equal serial kv_generate and whose
+             spec-on streams must equal the spec-off ones, with prefix
+             hits, a verify step, no cache entry after warmup, no block
+             held after stop, no flash launch, the breaker closed, the
+             engine's stats, and bounded memory; then a run under
+             injected transient faults that must retry and give the same
+             streams. Prints TTFT, inter-token time, tokens/s and each
+             step's host and card time.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
@@ -122,6 +138,7 @@ H, HD = 12, 64           # heads, head dim
 MAX_BATCH = 8            # EngineConfig(max_batch_size=8)
 N_REQUESTS = 16
 N_THREADS = 4
+HOOK_PAIRS = 5           # hooks off/on passes that time the hooks' cost
 # published H100 SXM peaks (NVIDIA data sheet, 700 W)
 TRAIN_SHAPE = (384, T, HD)  # b32 x 12 heads, the training path's shape
 F32_TRAIN_SHAPE = (192, T, HD)  # b16 x 12 heads, the float32 training path
@@ -654,9 +671,210 @@ def _serve(torch, card, model_dir):
           p50_ms=f"{lat[len(lat) // 2] * 1e3:.2f}",
           max_ms=f"{lat[-1] * 1e3:.2f}", cpu_max_abs_err=f"{cpu_err:.3e}",
           card=f"'{card}'")
+    serve_hooks_phase(card, model_dir, reqs, answers, cfg.n_layers,
+                      N_REQUESTS / wall)
     bucket_phase(torch, card, cfg, engine.predictor, exe, scope,
                  main.clone(for_test=True), hidden.name, rng)
     return {"flash_attention_fwd": launches}
+
+
+# what the JAX package's serving engine, batcher and executor record for
+# one serving run with the monitor, tracing and goodput on
+# (tests/test_torch_serving.py holds these names to the JAX engine's),
+# and the device-memory gauges the executor samples on a card
+SERVE_STATS = {
+    "counters": (
+        "serving.requests", "serving.batches", "serving.warmup_shapes",
+        "executor.compile_cache_hit", "executor.compile_cache_miss",
+        "executor.feed_bytes", "executor.feed_host_bytes",
+        "exec.feed_presharded", "executor.flight_records",
+        "trace.spans_started", "trace.spans_kept",
+        "goodput.serving_busy_seconds", "goodput.serving_idle_seconds"),
+    "gauges": (
+        "serving.queue_depth", "executor.compile_cache_size",
+        "executor.compile_cache_capacity", "trace.ring_spans",
+        "goodput.wall_seconds", "goodput.fraction",
+        "goodput.device_compute_seconds", "goodput.fetch_sync_seconds"),
+    "histograms": (
+        "serving.e2e_ms", "serving.queue_wait_ms", "serving.batch_size",
+        "serving.pad_waste_frac", "serving.warmup_seconds",
+        "executor.step_seconds", "executor.fetch_block_seconds",
+        "executor.compile_first_step_seconds",
+        "executor.compile_build_seconds", "executor.feed_stage_seconds"),
+}
+MEMORY_GAUGES = ("memory.device_bytes_in_use", "memory.device_peak_bytes",
+                 "memory.device_bytes_limit")
+
+def _hooks(on):
+    """The monitor, every trace and goodput on (or back to off), with
+    the registries emptied."""
+    from paddle_tpu_torch import goodput, monitor, trace
+    from paddle_tpu_torch.core.flags import set_flags
+    set_flags({"FLAGS_enable_monitor": on, "FLAGS_enable_trace": on,
+               "FLAGS_trace_sample": 1.0 if on else 0.05,
+               "FLAGS_enable_goodput": on})
+    monitor.reset_stats()
+    trace.reset()
+    goodput.reset()
+
+
+def _missing_stats(snap, want):
+    return [n for kind, names in want.items() for n in names
+            if n not in snap[kind]]
+
+
+def serve_hooks_phase(card, model_dir, reqs, answers, n_layers,
+                      req_per_s_off):
+    """The serving run again, on a new engine over the same saved model
+    with the monitor, tracing (every trace kept) and goodput on from its
+    warmup: the same answers, no cache entry after warmup, each kernel
+    launch counted, and the hooks' output gated: the stats in
+    SERVE_STATS and the device-memory gauges are recorded, each
+    request's span tree is serving.request -> queue and execute, each
+    batch span has the executor's feed, dispatch and fetch children, and
+    the goodput ledger's categories sum to its wall clock. Prints
+    requests/s with the hooks off (the run before) and on; the host
+    clock varies too much between calls for a gate on the two. Then
+    HOOK_PAIRS alternating passes with the hooks off and on, on one
+    engine, give each setting's median requests/s and range."""
+    import statistics
+
+    import numpy as np
+    from paddle_tpu_torch import goodput, monitor, trace
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+
+    _hooks(True)
+    try:
+        goodput.start_run("serve")
+        engine = ServingEngine(EngineConfig(max_batch_size=MAX_BATCH),
+                               predictor=create_paddle_predictor(
+                                   AnalysisConfig(model_dir)))
+        engine.start()
+        warm = engine.cache_stats()["misses"]
+        _zero_launch_counts()
+        batches0 = engine.batches
+        got, wall = _serve_pass(engine, reqs)
+        launches = flash_attention.launches
+        batches = engine.batches - batches0
+        misses = engine.cache_stats()["misses"]
+        health = engine.health()
+        engine.stop()
+        snap = goodput.end_run()
+        stats = monitor.get_stats_snapshot()
+        spans = trace.drain_spans()
+    finally:
+        _hooks(False)
+    # batches may form differently between the two runs
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, answers))
+    check(err <= 2e-3, f"hooked answers differ from the run without hooks "
+          f"by {err}")
+    check(misses == warm, f"executor cache misses moved after warmup: "
+          f"{warm} -> {misses}")
+    check(batches > 0 and launches == n_layers * batches,
+          f"flash_attention_fwd launches {launches} != {n_layers} x "
+          f"{batches} batches")
+    check(health["state"] == "ready" and health["breaker"] == "closed",
+          f"engine health {health}")
+    missing = _missing_stats(stats, SERVE_STATS) + \
+        [n for n in MEMORY_GAUGES if n not in stats["gauges"]]
+    check(not missing, f"stats not recorded: {missing}")
+    by_id = {sp["span_id"]: sp for sp in spans}
+    kids = {}
+    for sp in spans:
+        parent = by_id.get(sp["parent_id"])
+        if parent is not None:
+            kids.setdefault(parent["span_id"], set()).add(sp["name"])
+    roots = [sp for sp in spans if sp["name"] == "serving.request"]
+    bspans = [sp for sp in spans if sp["name"] == "serving.batch"]
+    check(len(roots) == len(reqs) and all(
+        kids.get(r["span_id"]) == {"queue", "execute"} for r in roots),
+        f"request span trees: {len(roots)} of {len(reqs)} requests with "
+        f"children {[sorted(kids.get(r['span_id'], ())) for r in roots]}")
+    want = {"executor.feed", "executor.dispatch", "executor.fetch"}
+    check(len(bspans) == batches and all(
+        kids.get(b["span_id"]) == want for b in bspans),
+        f"batch span trees: {len(bspans)} spans for {batches} batches")
+    check(goodput.check_invariant(snap),
+          f"goodput categories do not sum to the wall clock: {snap}")
+    off, on = _hooks_cost(model_dir, reqs)
+    h = stats["histograms"]
+    phase("serve_hooks", requests=len(reqs), batches=batches,
+          launches=launches, misses_after_warmup=misses - warm,
+          req_per_s_hooks_off=f"{req_per_s_off:.3f}",
+          req_per_s_hooks_on=f"{len(reqs) / wall:.3f}",
+          pairs=HOOK_PAIRS,
+          req_per_s_off_median=statistics.median(off),
+          req_per_s_off_range=f"{min(off)}-{max(off)}",
+          req_per_s_on_median=statistics.median(on),
+          req_per_s_on_range=f"{min(on)}-{max(on)}",
+          e2e_p50_ms=f"{h['serving.e2e_ms']['p50']:.2f}",
+          spans=len(spans), goodput_wall_s=snap["wall_s"],
+          goodput_sum_frac_err=snap["sum_frac_err"],
+          device_bytes_in_use=stats["gauges"].get(MEMORY_GAUGES[0]),
+          card=f"'{card}'")
+
+
+def _serve_pass(engine, reqs):
+    """Send `reqs` to `engine` from N_THREADS threads, each waiting for
+    its answer before it sends its next request. Returns the answers and
+    the wall time; raises the first request's failure."""
+    got, errors = [None] * len(reqs), []
+
+    def client(idx):
+        for i in idx:
+            try:
+                got[i] = engine.predict({"tokens": reqs[i]},
+                                        timeout_ms=60000)[0]
+            except Exception as e:  # recorded and re-raised below
+                errors.append(e)
+                return
+
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(reqs), N_THREADS),))
+               for j in range(N_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads),
+          "a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return got, wall
+
+
+def _hooks_cost(model_dir, reqs):
+    """Requests/s of HOOK_PAIRS alternating passes of `reqs` on one
+    engine over the saved model, the hooks off then on in each pair,
+    after one untimed pass: ([off req/s], [on req/s])."""
+    from paddle_tpu_torch import goodput
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+
+    engine = ServingEngine(EngineConfig(max_batch_size=MAX_BATCH),
+                           predictor=create_paddle_predictor(
+                               AnalysisConfig(model_dir)))
+    engine.start()
+    rates = {False: [], True: []}
+    try:
+        _serve_pass(engine, reqs)  # untimed: the engine's first batches
+        for _ in range(HOOK_PAIRS):
+            for on in (False, True):
+                _hooks(on)
+                if on:
+                    goodput.start_run("serve")
+                rates[on].append(round(len(reqs) / _serve_pass(engine,
+                                                               reqs)[1], 3))
+    finally:
+        _hooks(False)
+        engine.stop()
+    return rates[False], rates[True]
 
 
 def _model_flops(cfg, batch):
@@ -1374,6 +1592,359 @@ def gpt_generate_phase(torch, card, scope, cfg):
           f"{err} > {GEN_LOGIT_TOL}")
     check(not any(launches.values()),
           f"the decode programs launched flash kernels: {launches}")
+    return prompts, serial
+
+
+# [gen_serve]: GenerationEngine over the trained GPT-small, 8 slots,
+# paged KV in blocks of GEN_BLOCK, first without and then with
+# speculative decoding (FLAGS_spec_decode_k drafts)
+GEN_SLOTS = 8
+GEN_PREFIX = 128                   # tokens shared by GEN_SUFFIX_LENS
+GEN_SUFFIX_LENS = (8, 24, 40, 64)
+GEN_SEGMENT = 16                   # a segment the repeat prompts repeat
+GEN_REPEATS = (2, 3, 4, 5)
+GEN_SAMPLED_LENS = (5, 40, 90, 150)
+GEN_TEMPERATURE, GEN_TOP_K = 0.8, 40
+GEN_MEMORY_SLACK = 64 << 20        # allocated bytes after a run vs warmup
+# a fault run: transient faults at the engine's decode and prefill sites
+# and at the executor, from a fixed seed, on GEN_FAULT_PROMPTS of the
+# [gpt_generate] prompts
+GEN_FAULT_SPEC = ("transient_fail:p=0.2:site=generation,"
+                  "transient_fail:p=0.2:site=gen_prefill,"
+                  "transient_fail:p=0.05:site=executor")
+GEN_FAULT_SEED = 7
+GEN_FAULT_PROMPTS = 4
+# what the JAX package's generation engine records for this traffic
+# (tests/test_torch_generation.py holds these names to the JAX
+# engine's); GEN_SPEC_STATS only where a verify step ran
+GEN_STATS = {
+    "counters": ("serving.gen_requests", "serving.gen_steps",
+                 "serving.gen_tokens", "serving.gen_chunked_prefills",
+                 "serving.gen_prefix_hits", "serving.gen_prefix_misses"),
+    "gauges": ("serving.gen_queue_depth", "serving.gen_active_slots",
+               "serving.gen_kv_blocks_total", "serving.gen_kv_blocks_free"),
+    "histograms": ("serving.gen_ttft_ms", "serving.gen_inter_token_ms",
+                   "serving.gen_e2e_ms", "serving.gen_slot_occupancy"),
+}
+GEN_SPEC_STATS = {
+    "counters": ("serving.gen_spec_steps", "serving.gen_spec_draft_proposed",
+                 "serving.gen_spec_draft_accepted"),
+    "gauges": ("serving.gen_spec_k_effective",),
+    "histograms": ("serving.gen_spec_acceptance_rate",
+                   "serving.gen_spec_tokens_per_step"),
+}
+
+
+def gen_requests(vocab, prompts):
+    """[gen_serve]'s traffic: the [gpt_generate] prompts, greedy; prompts
+    that share a GEN_PREFIX-token prefix (the first of them is sent
+    first, so the others can find its blocks), greedy; prompts in which
+    a GEN_SEGMENT-token segment repeats (the n-gram drafter's food),
+    greedy; and sampled prompts (GEN_TEMPERATURE, GEN_TOP_K, a seed
+    each). Returns [(prompt, {temperature, top_k, seed})], the shared
+    prefix's first request first."""
+    import numpy as np
+    rng = np.random.RandomState(SEED + 1)
+    prefix = rng.randint(0, vocab, GEN_PREFIX).tolist()
+    shared = [prefix + rng.randint(0, vocab, n).tolist()
+              for n in GEN_SUFFIX_LENS]
+    seg = rng.randint(0, vocab, GEN_SEGMENT).tolist()
+    repeat = [rng.randint(0, vocab, 8).tolist() + seg * r
+              for r in GEN_REPEATS]
+    sampled = [rng.randint(0, vocab, n).tolist() for n in GEN_SAMPLED_LENS]
+    greedy = {"temperature": 0.0, "top_k": 0, "seed": 0}
+    return ([(p, greedy) for p in shared + list(prompts) + repeat] +
+            [(p, {"temperature": GEN_TEMPERATURE, "top_k": GEN_TOP_K,
+                  "seed": 100 + i}) for i, p in enumerate(sampled)])
+
+
+def _percentiles(xs):
+    import numpy as np
+    return tuple(float(np.percentile(xs, q)) for q in (50, 99)) if xs \
+        else (math.nan, math.nan)
+
+
+def gen_serve_run(ptt, eng, requests):
+    """Start `eng`, send `requests` ([(prompt, sampling kwargs)]): the
+    first alone until its first token, then the rest submitted at once
+    from N_THREADS threads, none waiting for an answer before it sends
+    its next request, so that more requests are live than the engine
+    has slots; each token's time is recorded by its stream_cb. Stops
+    the engine. Returns a dict of the streams, results, errors, token
+    times, allocated bytes after warmup and after the run, the engine's
+    program runs, and the wall time."""
+    import torch
+    from paddle_tpu_torch.serving import GenerationRequest
+
+    eng.start()
+    mem_warm = torch.cuda.memory_allocated()
+    n = len(requests)
+    results, errors, futures = [None] * n, [None] * n, [None] * n
+    submitted, times = [0.0] * n, [[] for _ in range(n)]
+    first_token = threading.Event()
+
+    def send(i):
+        prompt, kw = requests[i]
+
+        def cb(tok, i=i):
+            times[i].append(time.perf_counter())
+            if i == 0:
+                first_token.set()
+
+        submitted[i] = time.perf_counter()
+        try:
+            futures[i] = eng.submit(GenerationRequest(
+                prompt, GEN_NEW, timeout_ms=600000, stream_cb=cb, **kw))
+        except Exception as e:  # reported by the caller's gates
+            errors[i] = e
+            first_token.set()
+
+    t0 = time.perf_counter()
+    send(0)
+    first_token.wait(300)
+    threads = [threading.Thread(
+        target=lambda idx: [send(i) for i in idx],
+        args=(range(1 + j, n, N_THREADS),)) for j in range(N_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    hung = any(th.is_alive() for th in threads)
+    for i, fut in enumerate(futures):
+        if fut is not None:
+            try:
+                results[i] = fut.result(timeout=600)
+            except Exception as e:  # reported by the caller's gates
+                errors[i] = e
+    wall = time.perf_counter() - t0
+    mem_run = torch.cuda.memory_allocated()
+    runs = {name: eng.exe._step_counters.get(prog.fingerprint(), 0) - 1
+            for name, prog in (("decode", eng._prog),
+                               ("prefill", eng._prefill_prog),
+                               ("verify", eng._spec_prog))
+            if prog is not None}
+    compiles = eng.post_warmup_compiles()
+    eng.stop()
+    ttft = [(ts[0] - t) * 1e3 for ts, t in zip(times, submitted) if ts]
+    # requests live (submitted, last token not yet out) at each submission
+    live = max(sum(1 for j in range(n) if submitted[j] <= t and times[j]
+                   and times[j][-1] > t) for t in submitted)
+    itl = [(b - a) * 1e3 for ts in times for a, b in zip(ts, ts[1:])]
+    return {"streams": [r["tokens"] if r else None for r in results],
+            "results": results, "errors": errors, "hung": hung,
+            "ttft": _percentiles(ttft), "itl": _percentiles(itl),
+            "tokens": sum(len(ts) for ts in times), "wall": wall,
+            "live": live,
+            "mem": (mem_warm, mem_run), "runs": runs,
+            "compiles": compiles, "kv": eng.kv_block_stats(),
+            "breaker": eng.breaker.state}
+
+
+def _step_times(torch, eng):
+    """Host and card milliseconds of one decode step, one prefill chunk
+    and one verify step of `eng` (stopped) with all GEN_SLOTS rows live
+    at position 200 (half of max_seq if that is less): host time around the executor's run with the fetch
+    to numpy (median of 10); CUDA events around 10 runs with the fetch
+    left on the card (mean); and the card's busy time a step from
+    torch.profiler (its kernels' device time)."""
+    import statistics
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import blocks_for_tokens
+
+    B, bs = GEN_SLOTS, eng.block_size
+    mb = eng.step.max_blocks_per_slot
+    pos = min(200, eng.max_seq // 2)
+    per_slot = blocks_for_tokens(pos + eng.spec_k + 1, bs)
+    table = np.zeros((B, mb), np.int64)
+    for i in range(B):
+        table[i, :per_slot] = np.arange(1 + i * per_slot,
+                                        1 + (i + 1) * per_slot)
+    out = {}
+    for what, prog, step, t, start in (
+            ("decode", eng._prog, eng.step, 1, pos),
+            ("prefill", eng._prefill_prog, eng.prefill_step, bs, pos - bs),
+            ("verify", eng._spec_prog, eng.spec_step, eng.spec_k + 1, pos)):
+        feed = {step.token_var.name: np.ones((B, t), np.int64),
+                step.table_var.name: table,
+                step.start_var.name: np.full(B, start, np.int64),
+                step.nvalid_var.name: np.full(B, t, np.int64)}
+
+        def run(numpy):
+            return eng.exe.run(prog, feed=feed, fetch_list=[step.logits_var],
+                               scope=eng.scope, return_numpy=numpy)
+
+        host = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run(True)
+            host.append((time.perf_counter() - t0) * 1e3)
+        event = cuda_ms(lambda: run(False), iters=10, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run(False)
+            torch.cuda.synchronize()
+        busy = sum(ms for ms, _ in _device_ms(prof).values()) / 10
+        out[what] = (statistics.median(host), event, busy)
+    return out
+
+
+def gen_serve_phase(torch, card, scope, cfg, prompts, serial):
+    """GenerationEngine serving the trained GPT-small (float32, the
+    [gpt_generate] weights) on the card: 8 slots, max_seq GPT_SEQ, paged
+    KV in blocks of GEN_BLOCK, the traffic of gen_requests with GEN_NEW
+    tokens each, first with spec_decode off and then on (the default
+    FLAGS_spec_decode_k), the monitor on. Gates: every request finishes;
+    each greedy stream equals its serial slab kv_generate stream (the
+    [gpt_generate] ones reused); each spec-on stream, sampled ones too,
+    equals its spec-off stream; a verify step ran; prefix-cache hits;
+    no new executor cache entry after warmup in either engine; after
+    stop no KV block held by a slot; no flash kernel launched; the
+    breaker closed; more requests live at once than the engine has
+    slots; the stats of GEN_STATS (and GEN_SPEC_STATS for the
+    spec engine) recorded; allocated card memory after each run within
+    GEN_MEMORY_SLACK of its value after warmup. Then a fault run
+    (GEN_FAULT_SPEC, GEN_FAULT_SEED) must retry and give the same greedy
+    streams. Prints TTFT, inter-token time and tokens/s, the step
+    counts, the acceptance rate, the prefix-hit blocks and each step's
+    host and card time."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.core.flags import FLAGS, set_flags
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.resilience import reset_injector
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    requests = gen_requests(cfg.vocab_size, prompts)
+    greedy = [i for i, (_, kw) in enumerate(requests)
+              if kw["temperature"] == 0.0]
+    # serial slab references: the [gpt_generate] streams, and the others
+    # computed the same way
+    want = dict(zip((tuple(p) for p in prompts), serial))
+    slab_prog, slab = _build_decode(ptt, gpt.build_decode_step, cfg, 1,
+                                    GPT_SEQ)
+    exe = ptt.Executor()  # the card
+    for i in greedy:
+        p = tuple(requests[i][0])
+        if p not in want:
+            want[p] = gpt.kv_generate(exe, scope, slab_prog, *slab,
+                                      list(p), GEN_NEW)
+
+    def engine(spec):
+        return GenerationEngine(cfg, scope, exe=ptt.Executor(),
+                                max_slots=GEN_SLOTS, max_seq=GPT_SEQ,
+                                paged=True, block_size=GEN_BLOCK,
+                                spec_decode=spec)
+
+    runs, stats = {}, {}
+    set_flags({"FLAGS_enable_monitor": True})
+    _zero_launch_counts()
+    try:
+        for spec in (False, True):
+            monitor.reset_stats()
+            eng = engine(spec)
+            runs[spec] = gen_serve_run(ptt, eng, requests)
+            stats[spec] = monitor.get_stats_snapshot()
+        launches = _launch_counts()
+        step_ms = _step_times(torch, eng)
+        monitor.reset_stats()
+        set_flags({"FLAGS_fault_spec": GEN_FAULT_SPEC,
+                   "FLAGS_fault_seed": GEN_FAULT_SEED})
+        reset_injector()
+        fault_reqs = [(p, {"temperature": 0.0, "top_k": 0, "seed": 0})
+                      for p in prompts[:GEN_FAULT_PROMPTS]]
+        fault = gen_serve_run(ptt, engine(False), fault_reqs)
+        fault_stats = monitor.get_stats_snapshot()["counters"]
+    finally:
+        set_flags({"FLAGS_enable_monitor": False, "FLAGS_fault_spec": ""})
+        reset_injector()
+
+    for spec, r in runs.items():
+        c, h = stats[spec]["counters"], stats[spec]["histograms"]
+        proposed = c.get("serving.gen_spec_draft_proposed", 0)
+        accepted = c.get("serving.gen_spec_draft_accepted", 0)
+        phase("gen_serve", spec_decode=spec,
+              spec_k=FLAGS.spec_decode_k if spec else 0,
+              requests=len(requests), new_tokens=GEN_NEW,
+              tokens=r["tokens"], seconds=f"{r['wall']:.3f}",
+              tokens_per_s=f"{r['tokens'] / r['wall']:.1f}",
+              ttft_p50_ms=f"{r['ttft'][0]:.2f}",
+              ttft_p99_ms=f"{r['ttft'][1]:.2f}",
+              inter_token_p50_ms=f"{r['itl'][0]:.2f}",
+              inter_token_p99_ms=f"{r['itl'][1]:.2f}",
+              decode_steps=r["runs"]["decode"],
+              prefill_chunks=r["runs"]["prefill"],
+              verify_steps=r["runs"].get("verify", 0),
+              acceptance=f"{accepted / proposed:.4f}" if proposed else "-",
+              prefix_hit_blocks=sum(x["cached_tokens"] for x in
+                                    r["results"] if x) // GEN_BLOCK,
+              engine_ttft_p50_ms=h.get("serving.gen_ttft_ms", {}).get("p50"),
+              slot_occupancy_p50=h.get("serving.gen_slot_occupancy",
+                                       {}).get("p50"),
+              live_requests_peak=r["live"], slots=GEN_SLOTS,
+              mem_after_warmup=r["mem"][0], mem_after_run=r["mem"][1],
+              post_warmup_compiles=r["compiles"], card=f"'{card}'")
+    for what, (host, event, busy) in step_ms.items():
+        phase("gen_step", step=what, rows=GEN_SLOTS,
+              host_ms=f"{host:.3f}", event_ms=f"{event:.3f}",
+              busy_ms=f"{busy:.3f}", card=f"'{card}'")
+    phase("gen_faults", spec=f"'{GEN_FAULT_SPEC}'", seed=GEN_FAULT_SEED,
+          requests=len(fault_reqs),
+          retries=fault_stats.get("resilience.retries", 0),
+          faults=fault_stats.get("resilience.fault_transient", 0),
+          step_failures=fault_stats.get("resilience.gen_step_failures", 0),
+          seconds=f"{fault['wall']:.3f}", card=f"'{card}'")
+
+    for spec, r in list(runs.items()) + [("fault", fault)]:
+        failed = [(i, repr(e)) for i, e in enumerate(r["errors"]) if e]
+        check(not failed and not r["hung"],
+              f"[gen_serve] spec={spec}: requests failed {failed}")
+        check(r["compiles"] == 0, f"[gen_serve] spec={spec}: "
+              f"{r['compiles']} executor cache entries after warmup")
+        kv = r["kv"]
+        check(kv["blocks_total"] - kv["blocks_free"] == kv["prefix_entries"],
+              f"[gen_serve] spec={spec}: blocks held by slots after stop: "
+              f"{kv}")
+        check(r["breaker"] == "closed", f"[gen_serve] spec={spec}: breaker "
+              f"{r['breaker']}")
+        check(r["mem"][1] - r["mem"][0] <= GEN_MEMORY_SLACK,
+              f"[gen_serve] spec={spec}: allocated {r['mem'][1]} bytes "
+              f"after the run, {r['mem'][0]} after warmup")
+    for spec in runs:
+        wrong = [i for i in greedy
+                 if runs[spec]["streams"][i] != want[tuple(requests[i][0])]]
+        check(not wrong, f"[gen_serve] spec={spec}: greedy streams differ "
+              f"from the slab kv_generate streams for requests {wrong}")
+        missing = _missing_stats(stats[spec], GEN_STATS) + (
+            _missing_stats(stats[spec], GEN_SPEC_STATS) if spec else [])
+        check(not missing, f"[gen_serve] spec={spec}: stats not recorded: "
+              f"{missing}")
+        check(stats[spec]["counters"]["serving.gen_prefix_hits"] > 0,
+              f"[gen_serve] spec={spec}: no prefix-cache hit")
+        check(runs[spec]["live"] > GEN_SLOTS,
+              f"[gen_serve] spec={spec}: at most {runs[spec]['live']} "
+              f"requests were live, so none waited for one of the "
+              f"{GEN_SLOTS} slots")
+    differ = [i for i, (a, b) in enumerate(zip(runs[False]["streams"],
+                                               runs[True]["streams"]))
+              if a != b]
+    check(not differ, f"[gen_serve] spec-on streams differ from spec-off "
+          f"for requests {differ}")
+    check(runs[True]["runs"]["verify"] > 0 and
+          stats[True]["counters"]["serving.gen_spec_steps"] > 0,
+          "[gen_serve] the spec engine never ran its verify step")
+    check(not any(launches.values()),
+          f"[gen_serve] the generation path launched flash kernels: "
+          f"{launches}")
+    check(fault_stats.get("resilience.retries", 0) > 0,
+          "[gen_serve] the fault run retried nothing")
+    wrong = [i for i, (p, _) in enumerate(fault_reqs)
+             if fault["streams"][i] != want[tuple(p)]]
+    check(not wrong, f"[gen_serve] the fault run's streams differ for "
+          f"requests {wrong}")
 
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
@@ -1986,7 +2557,8 @@ def main():
     checked_f32 = train_cpu_check(torch)
     gpt_trained, gpt_scope, gpt_cfg = gpt_train_phase(torch, card)
     gpt_cpu_check(torch)
-    gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
+    prompts, serial = gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
+    gen_serve_phase(torch, card, gpt_scope, gpt_cfg, prompts, serial)
     del gpt_scope
 
     # launches on the main paths, per dtype: the bf16 kernels' over the

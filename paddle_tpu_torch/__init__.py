@@ -37,6 +37,7 @@ from .framework import (  # noqa: F401,E402
     Program, program_guard, default_main_program, default_startup_program,
     ParamAttr, unique_name, Variable, Parameter)
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
+from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
 from .executor import Executor  # noqa: F401,E402
 from . import layers  # noqa: F401,E402

@@ -15,7 +15,8 @@ import os
 import threading
 from typing import Any, Dict
 
-__all__ = ["FLAGS", "get_flags", "set_flags", "reload_from_env"]
+__all__ = ["FLAGS", "get_flags", "set_flags", "reload_from_env",
+           "flag_handle"]
 
 
 class _Flag:
@@ -112,6 +113,13 @@ def set_flags(kv: Dict[str, Any]):
         setattr(FLAGS, key, v)
 
 
+def flag_handle(name: str) -> _Flag:
+    """The mutable _Flag record for `name`. The monitor's, trace's and
+    goodput's disabled fast paths cache this handle, so every hook costs
+    one attribute read instead of a registry lookup."""
+    return _REGISTRY[name]
+
+
 _define("check_nan_inf", False, bool,
         "Debug mode: after every op, verify each floating-point output "
         "is finite; raises naming the op, its block/op index and the "
@@ -131,3 +139,127 @@ _define("serving_queue_capacity", 256, int,
 _define("serving_default_timeout_ms", 1000.0, float,
         "Default EngineConfig.default_timeout_ms: per-request deadline; "
         "0 = no deadline.")
+
+# -- observability (monitor.py, trace.py, goodput.py) ------------------------
+_define("enable_monitor", False, bool,
+        "Enable the runtime stats registry (monitor.py): executor step "
+        "timing, serving and generation stats, device memory gauges. Off = "
+        "every STAT_* call is a near-zero-cost no-op.")
+_define("monitor_export_path", "", str,
+        "Default JSONL file for monitor snapshots (append mode, one JSON "
+        "object per line), used by monitor.snapshot_to_jsonl and "
+        "start_exporter when no explicit path is given.")
+_define("monitor_flush_interval_s", 10.0, float,
+        "Interval of the background JSONL snapshot exporter "
+        "(monitor.start_exporter).")
+_define("monitor_http_port", 0, int,
+        "When > 0, monitor.serve_prometheus() binds a stdlib HTTP scrape "
+        "endpoint on 127.0.0.1:<port> serving prometheus_text(). 0 = "
+        "disabled.")
+_define("flight_recorder", True, bool,
+        "Keep a bounded in-memory ring of per-step flight records (step "
+        "index, program, cache hit/miss, timings, stat deltas) that "
+        "monitor.dump_flight_recorder writes as JSONL on demand, on an "
+        "unhandled exception or on SIGTERM.")
+_define("flight_recorder_capacity", 512, int,
+        "Max records kept in the flight-recorder ring (oldest dropped "
+        "first).")
+_define("flight_recorder_path", "", str,
+        "Default path for monitor.dump_flight_recorder; empty = "
+        "flight_recorder.jsonl in the working directory.")
+_define("enable_trace", False, bool,
+        "Per-request tracing (trace.py): spans with W3C traceparent "
+        "propagation across the batcher -> engine -> executor path. Off, "
+        "every trace entry point returns after one cached-flag read.")
+_define("trace_sample", 0.05, float,
+        "Head-sampling keep probability for request traces (decided once "
+        "per root span). Errored requests and requests slower than the "
+        "tail threshold are always kept. 1.0 keeps every trace.")
+_define("trace_ring_capacity", 8192, int,
+        "Bounded in-process span ring: kept spans past this count evict "
+        "oldest-first.")
+_define("trace_tail_slow_ms", 0.0, float,
+        "Absolute tail-sampling slow threshold (ms): a request whose e2e "
+        "exceeds it is kept regardless of head sampling. 0 = rolling p95 "
+        "over the last trace window.")
+_define("enable_goodput", False, bool,
+        "Run-level goodput accounting (goodput.py): classify the wall "
+        "clock of a run into exclusive categories that sum to it, and "
+        "serving busy/idle/pad-waste seconds. Off = every goodput hook "
+        "is one cached-flag read.")
+_define("goodput_starved_ms", 50.0, float,
+        "Input-starvation threshold: a reader batch wait above this many "
+        "milliseconds counts as input-starved "
+        "(goodput.input_starved_steps).")
+
+# -- resilience (resilience/*.py) ----------------------------------------------
+_define("fault_spec", "", str,
+        "Deterministic fault-injection spec (resilience/faults.py): "
+        "comma-separated kind:param list, e.g. 'step_nan:p=0.01,"
+        "slow_step:ms=500,transient_fail:p=0.02,preempt_at:step=40'. "
+        "Empty = injection disabled.")
+_define("fault_seed", 0, int,
+        "Seed of the fault-injection decisions, which derive from (seed, "
+        "site, kind, per-site invocation counter): a spec and seed inject "
+        "the same faults at the same steps whatever the timing.")
+_define("retry_max_attempts", 3, int,
+        "Default RetryPolicy attempt budget (resilience/retry.py): total "
+        "tries, first included.")
+_define("retry_base_ms", 10.0, float,
+        "Default RetryPolicy base backoff (ms): attempt n sleeps about "
+        "base * 2^(n-1), jittered, capped by FLAGS_retry_max_ms.")
+_define("retry_max_ms", 1000.0, float,
+        "Default RetryPolicy backoff cap (ms).")
+_define("serving_breaker_threshold", 5, int,
+        "Circuit breaker (resilience/breaker.py): consecutive batch or "
+        "step failures before the serving/generation breaker trips "
+        "CLOSED -> OPEN and submissions shed with OverloadedError. 0 "
+        "disables the breaker.")
+_define("serving_breaker_cooldown_ms", 1000.0, float,
+        "How long an OPEN breaker sheds load before admitting half-open "
+        "probe traffic.")
+_define("serving_nan_guard", True, bool,
+        "Serving output hygiene: a batch with a non-finite float output is "
+        "treated as a transient fault (retried, then failed) instead of "
+        "being served; a generation step with non-finite logits fails its "
+        "slots.")
+
+# -- generation serving (serving/generation.py, serving/spec_decode.py) -------
+_define("gen_paged_kv", True, bool,
+        "Generation engine KV layout: True = block-table paged KV cache "
+        "(serving/kv_blocks.py + models/gpt.build_paged_decode_step) with "
+        "prefix caching and chunked prefill; False = the contiguous "
+        "[max_slots, max_seq] slab decode.")
+_define("gen_kv_block_size", 16, int,
+        "Paged KV cache: tokens per physical block, and the chunk width "
+        "of the chunked-prefill program.")
+_define("gen_kv_pool_blocks", 0, int,
+        "Paged KV cache: physical blocks in the pool (one is the scratch "
+        "block). 0 = from FLAGS_gen_kv_pool_bytes when set, else full "
+        "capacity (max_slots x ceil(max_seq/block_size) + scratch).")
+_define("gen_kv_pool_bytes", 0, int,
+        "Paged KV cache: device-memory budget for the K/V pools across "
+        "all layers; the engine sizes the pool as budget // block_bytes "
+        "blocks. 0 = unset.")
+_define("gen_spec_decode", False, bool,
+        "Generation engine default for speculative decoding "
+        "(serving/spec_decode.py): a paged engine builds the [max_slots, "
+        "k+1] verify program at start() and drafts with the n-gram "
+        "drafter every decode iteration. GenerationRequest.spec_decode "
+        "overrides per request.")
+_define("spec_decode_k", 4, int,
+        "Speculative decoding: the most draft tokens proposed per slot per "
+        "iteration; the verify program is built at [max_slots, k+1].")
+_define("spec_decode_ngram", 3, int,
+        "Speculative decoding: longest context suffix the n-gram drafter "
+        "matches against the slot's prompt + generated tokens; 0 disables "
+        "drafting.")
+_define("spec_decode_adaptive", True, bool,
+        "Acceptance-aware adaptive draft length (spec_decode.update_spec_k): "
+        "each slot shrinks its draft budget toward 1 while its acceptance "
+        "EWMA is below FLAGS_spec_adapt_low and grows it back toward "
+        "FLAGS_spec_decode_k above FLAGS_spec_adapt_high.")
+_define("spec_adapt_low", 0.3, float,
+        "Adaptive spec_k shrink threshold on a slot's acceptance EWMA.")
+_define("spec_adapt_high", 0.8, float,
+        "Adaptive spec_k grow threshold on a slot's acceptance EWMA.")

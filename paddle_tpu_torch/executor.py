@@ -20,20 +20,43 @@ Two modes, chosen when a run is prepared:
   enabled and record their autograd graph for it (core/lowering.py).
 
 Any var of the block can be fetched, a gradient (``…@GRAD``) included.
+
+Instrumentation, as in the JAX package's executor: the ``executor.*``
+stats (FLAGS_enable_monitor), the goodput ledger's step split
+(FLAGS_enable_goodput), ``executor.feed`` / ``executor.dispatch`` /
+``executor.fetch`` sub-spans under the current span (FLAGS_enable_trace),
+one flight-recorder record per step, and ``last_step_timings``. The ops
+run eagerly, so the split reads differently on a card: "dispatch" is the
+host enqueueing the step's kernels (with the write-back of state to the
+scope), and "fetch" is the copy of the fetches to the host, which
+includes the wait for the card to finish them. No sync is added to make
+them look otherwise. A fault spec (FLAGS_fault_spec) may fire an injected
+TransientFault at the ``executor`` site before a step is dispatched; it
+is retried here. Real dispatch errors, a CUDA error included, are never
+retried.
 """
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from . import goodput as _goodput
+from . import trace as _trace
 from .core.dtypes import as_torch_dtype
 from .core.lowering import LowerCtx, lower_block
 from .core.place import Place, default_place
 from .core.scope import Scope, global_scope, scope_guard, tensor_to_numpy
 from .framework import Program, Variable
+from .monitor import STAT_ADD, STAT_OBSERVE, STAT_SET
+from .monitor import enabled as _monitor_on
+from .monitor import flight_step as _flight_step
+from .resilience.faults import TransientFault
+from .resilience.faults import injector as _fault_injector
+from .resilience.retry import RetryPolicy
 
 __all__ = ["Executor", "global_scope", "scope_guard"]
 
@@ -54,6 +77,9 @@ class _PreparedStep:
         self.drop_after = drop_after
         # op id -> outputs no later op reads and nobody fetches
         self.unread = unread
+        # runs of this entry; the first is warmup for the goodput ledger
+        # and the executor.compile_first_step_seconds stat
+        self.runs = 0
 
 
 class Executor:
@@ -65,6 +91,13 @@ class Executor:
         self._step_counters: Dict[str, int] = {}
         self._cache_hits = 0
         self._cache_misses = 0
+        self._last_cache_hit = False
+        # Sub-step timing of the most recent run() (feed staging /
+        # dispatch / fetch, seconds). The generation engine reads this
+        # after each step to attribute fetch time to the request spans
+        # of the slots in flight.
+        self.last_step_timings: Optional[Dict[str, float]] = None
+        self._last_feed_s = 0.0
 
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, scope: Optional[Scope] = None,
@@ -77,23 +110,34 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         block = program.global_block()
+        t_run0 = time.perf_counter()
         feeds = self._prepare_feed(block, feed)
 
+        build_s = 0.0
         key = self._cache_key(program, feeds, fetch_names)
         step = self._cache.get(key) if use_program_cache else None
+        self._last_cache_hit = step is not None
         if step is not None:
             self._cache.move_to_end(key)
             self._cache_hits += 1
+            STAT_ADD("executor.compile_cache_hit")
         else:
             self._cache_misses += 1
+            STAT_ADD("executor.compile_cache_miss")
+            t0 = time.perf_counter()
             step = self._prepare(program, block, scope, fetch_names)
+            build_s = time.perf_counter() - t0
+            STAT_OBSERVE("executor.compile_build_seconds", build_s)
             self._cache[key] = step
             from .core.flags import FLAGS
             cap = FLAGS.executor_cache_capacity
             while cap > 0 and len(self._cache) > cap:
                 self._cache.popitem(last=False)
+                STAT_ADD("executor.compile_cache_evictions")
+            STAT_SET("executor.compile_cache_size", len(self._cache))
+            STAT_SET("executor.compile_cache_capacity", cap)
 
-        env = {}
+        state = {}
         for n in step.state_in_names:
             v = scope.find_var(n)
             if v is None:
@@ -106,16 +150,46 @@ class Executor:
                     f"persistable var {n!r} lies on {where} but this "
                     f"executor runs on {self.device}; place it with "
                     f"convert.scope_from_numpy")
-            env[n] = v
-        env.update(feeds)
+            state[n] = v
 
         fp = program.fingerprint()
         step_idx = self._step_counters.get(fp, 0)
         self._step_counters[fp] = step_idx + 1
-        ctx = LowerCtx(self.device, seed=program.random_seed, step=step_idx,
-                       record_ids=step.record_ids, unread=step.unread)
-        with torch.inference_mode() if step.inference else torch.no_grad():
-            lower_block(block, env, ctx, step.drop_after)
+        first_run = step.runs == 0
+        step.runs += 1
+
+        # goodput: retry backoff inside the dispatch span is attributed
+        # by RetryPolicy itself, so it is subtracted from dispatch below
+        gled = _goodput.active()
+        bk0 = gled.category_seconds("retry_backoff") \
+            if gled is not None else 0.0
+
+        def dispatch():
+            env = dict(state)
+            env.update(feeds)
+            ctx = LowerCtx(self.device, seed=program.random_seed,
+                           step=step_idx, record_ids=step.record_ids,
+                           unread=step.unread)
+            # set here, not by the caller: grad mode is thread-local, and
+            # serving engines run steps on worker threads
+            with torch.inference_mode() if step.inference \
+                    else torch.no_grad():
+                lower_block(block, env, ctx, step.drop_after)
+            return env
+
+        t_disp0 = time.perf_counter()
+        inj = _fault_injector()
+        if inj is None:
+            env = dispatch()
+        else:
+            # an injected TransientFault fires before any op runs, so a
+            # retry replays nothing; a real dispatch error is not retried
+            def attempt():
+                inj.pre_step("executor", step=step_idx)
+                return dispatch()
+
+            env = RetryPolicy(is_retryable=lambda e: isinstance(
+                e, TransientFault)).call(attempt)
         for n in fetch_names:
             if n not in env:
                 raise KeyError(f"fetch var {n!r} was not computed")
@@ -123,23 +197,80 @@ class Executor:
             if n in env:
                 scope.set(n, env[n].detach())
         fetches = [env[n].detach() for n in fetch_names]
+
+        t_fetch0 = time.perf_counter()
         if return_numpy:
-            return [tensor_to_numpy(f) for f in fetches]
-        return fetches
+            # the copy to the host waits for the card: on a card this is
+            # where the step's device time lands
+            out = [tensor_to_numpy(f) for f in fetches]
+            if inj is not None:
+                # step_nan corrupts only these host copies; the state
+                # written back above stays clean
+                inj.corrupt_fetches("executor", out)
+        else:
+            out = fetches
+        now = time.perf_counter()
+        self.last_step_timings = {
+            "feed_s": self._last_feed_s,
+            "dispatch_s": t_fetch0 - t_disp0,
+            "fetch_s": now - t_fetch0,
+            "total_s": now - t_run0,
+        }
+        if gled is not None:
+            gled.note_step(
+                feed_s=self._last_feed_s, dispatch_s=t_fetch0 - t_disp0,
+                fetch_s=now - t_fetch0, total_s=now - t_run0,
+                build_s=build_s, first_run=first_run,
+                backoff_s=gled.category_seconds("retry_backoff") - bk0)
+        if _monitor_on():
+            tid = _trace.current_trace_id()
+            STAT_OBSERVE("executor.fetch_block_seconds", now - t_fetch0,
+                         exemplar=tid)
+            STAT_OBSERVE("executor.step_seconds", now - t_run0,
+                         exemplar=tid)
+            if first_run:
+                STAT_OBSERVE("executor.compile_first_step_seconds",
+                             now - t_run0, exemplar=tid)
+            _record_device_memory(self.device)
+        cur = _trace.current_span()
+        if cur is not None:
+            # retroactive sub-spans under the current span (the batch
+            # span in a serving worker), wall-clock endpoints rebuilt from
+            # the perf deltas
+            wall_end = time.time()
+            w_fetch0 = wall_end - (now - t_fetch0)
+            w_disp0 = wall_end - (now - t_disp0)
+            w_run0 = wall_end - (now - t_run0)
+            if self._last_feed_s > 0:
+                _trace.record_span("executor.feed", w_run0,
+                                   w_run0 + self._last_feed_s, cur)
+            _trace.record_span("executor.dispatch", w_disp0, w_fetch0,
+                               cur, attrs={"first_run": first_run})
+            _trace.record_span("executor.fetch", w_fetch0, wall_end, cur)
+        _flight_step(step=step_idx, program=fp[:12],
+                     cache_hit=self._last_cache_hit, first_run=first_run,
+                     step_seconds=round(now - t_run0, 6),
+                     fetch_block_seconds=round(now - t_fetch0, 6),
+                     fetches=len(fetch_names))
+        return out
 
     def _prepare_feed(self, block, feed) -> Dict[str, torch.Tensor]:
         """Feeds as tensors on the place, in the declared dtype. Integer
         ids stay int64 (torch indexing wants int64; the JAX package
         narrows them to int32 on the device)."""
+        t0 = time.perf_counter()
         out = {}
+        total = host = presharded = 0
         for name, val in feed.items():
             t = val if isinstance(val, torch.Tensor) else \
                 torch.from_numpy(np.ascontiguousarray(np.asarray(val)))
+            staged = not isinstance(val, torch.Tensor)
             if block.has_var(name):
                 var = block.var(name)
                 want = as_torch_dtype(var.dtype)
                 if t.dtype != want:
                     t = t.to(want)
+                    staged = True
                 declared = var.shape
                 if declared and t.dim() != len(declared):
                     raise ValueError(
@@ -148,7 +279,22 @@ class Executor:
                         f"declares rank {len(declared)} (shape "
                         f"{list(declared)}); reshape the feed or fix the "
                         f"data layer")
+            nbytes = t.numel() * t.element_size()
+            total += nbytes
+            if t.device != self.device:
+                host += nbytes if t.device.type == "cpu" else 0
+                staged = True
+            if not staged:
+                presharded += 1
             out[name] = t.to(self.device, non_blocking=True)
+        self._last_feed_s = time.perf_counter() - t0
+        if _monitor_on():
+            STAT_ADD("executor.feed_bytes", total)
+            STAT_ADD("executor.feed_host_bytes", host)
+            # feeds that arrived on the place in their dtype, untouched
+            STAT_ADD("exec.feed_presharded", presharded)
+            STAT_OBSERVE("executor.feed_stage_seconds", self._last_feed_s,
+                         exemplar=_trace.current_trace_id())
         return out
 
     @staticmethod
@@ -202,3 +348,18 @@ class Executor:
     def close(self):
         self._cache.clear()
 
+
+
+def _record_device_memory(device):
+    """The card's allocator bytes as gauges (memory.device_bytes_in_use,
+    memory.device_peak_bytes, memory.device_bytes_limit), sampled once a
+    step while the monitor is on, from torch's CUDA caching allocator.
+    The CPU reports nothing, as in the JAX package."""
+    if device.type != "cuda":
+        return
+    STAT_SET("memory.device_bytes_in_use",
+             torch.cuda.memory_allocated(device))
+    STAT_SET("memory.device_peak_bytes",
+             torch.cuda.max_memory_allocated(device))
+    STAT_SET("memory.device_bytes_limit",
+             torch.cuda.get_device_properties(device).total_memory)

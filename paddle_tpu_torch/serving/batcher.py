@@ -4,15 +4,14 @@
 sequence buckets (the same shapes `ServingEngine.warmup` runs first), and
 `DynamicBatcher` coalesces compatible requests into one padded batch,
 flushing on max-batch-size or max-wait-micros, with per-request
-deadlines, bounded-queue backpressure, and graceful drain.
+deadlines, bounded-queue backpressure, and graceful drain. The
+`serving.*` stats and the `serving.request` / `queue` / `execute` spans
+are the JAX package's.
 
 Threading model: any number of producer threads call `submit`; one (or a
 few) consumer threads call `next_batch`. One lock + condition guards the
 pending map; request completion happens outside the lock via per-request
 events, so a slow client can never stall the dispatch path.
-
-The JAX package's monitor stats and trace spans on this path are not
-ported yet.
 """
 from __future__ import annotations
 
@@ -22,8 +21,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
+from ..monitor import STAT_ADD, STAT_OBSERVE, STAT_SET
+from ..monitor import enabled as _monitor_on
+
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
-           "EngineClosedError", "BucketLadder", "DynamicBatcher"]
+           "EngineClosedError", "OverloadedError", "BucketLadder",
+           "DynamicBatcher", "MS_BUCKETS", "FRACTION_BUCKETS",
+           "BATCH_BUCKETS_HIST"]
+
+# Histogram bucket sets for the serving.* stats (milliseconds and
+# fractions — the monitor default is seconds-oriented).
+MS_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0,
+              250.0, 500.0, 1000.0, 2500.0, 5000.0, 10000.0, 30000.0)
+FRACTION_BUCKETS = (0.0, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8,
+                    0.9, 0.95)
+BATCH_BUCKETS_HIST = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
 class ServingError(RuntimeError):
@@ -40,6 +53,15 @@ class DeadlineExceededError(ServingError):
 
 class EngineClosedError(ServingError):
     """Submitted to (or pending in) a batcher that has shut down."""
+
+
+class OverloadedError(ServingError):
+    """Shed by an OPEN circuit breaker (resilience/breaker.py): the
+    backend is failing, retry after `retry_after_s`."""
+
+    def __init__(self, msg: str, retry_after_s: float = 0.0):
+        super().__init__(msg)
+        self.retry_after_s = float(retry_after_s)
 
 
 class BucketLadder:
@@ -114,20 +136,26 @@ class BucketLadder:
 class _Response:
     """Future-ish handle returned by DynamicBatcher.submit."""
 
-    __slots__ = ("_event", "_value", "_error", "t_done")
+    __slots__ = ("_event", "_value", "_error", "span")
 
     def __init__(self):
         self._event = threading.Event()
         self._value = None
         self._error = None
-        self.t_done = None  # perf_counter at completion
+        # Request span, completed in _complete — the one funnel every
+        # success and failure path flows through, so the trace is
+        # finished exactly once no matter which path filled us in.
+        self.span = None
 
     def done(self) -> bool:
         return self._event.is_set()
 
     def _complete(self, value=None, error=None):
         self._value, self._error = value, error
-        self.t_done = time.perf_counter()
+        if self.span is not None:
+            err = None if error is None else \
+                f"{type(error).__name__}: {error}"
+            trace.complete_request(self.span, error=err)
         self._event.set()
 
     def result(self, timeout: Optional[float] = None):
@@ -141,7 +169,8 @@ class _Response:
 
 
 class _Request:
-    __slots__ = ("feed", "rows", "response", "t_enqueue", "deadline")
+    __slots__ = ("feed", "rows", "response", "t_enqueue", "deadline",
+                 "span", "qspan")
 
     def __init__(self, feed, rows, deadline):
         self.feed = feed          # {name: seq-padded ndarray}
@@ -149,6 +178,11 @@ class _Request:
         self.response = _Response()
         self.t_enqueue = time.perf_counter()
         self.deadline = deadline  # perf_counter deadline or None
+        # Request span + its queue-wait child. Spans cross the
+        # submit -> worker thread hand-off ON this object (contextvars
+        # do not follow requests across threads).
+        self.span = None
+        self.qspan = None
 
 
 class _Batch:
@@ -187,9 +221,20 @@ class _Batch:
         member requests (the padded tail rows are dropped) and complete
         their responses."""
         offset = 0
+        now = time.perf_counter()
+        t_end = time.time()
+        # Wall-clock start of the execute interval (dispatch -> now),
+        # recorded retroactively under each member request's span.
+        t_exec0 = t_end - (now - self.t_dispatch)
         for r in self.requests:
+            trace.record_span("execute", t_exec0, t_end, r.span,
+                              attrs={"batch_rows": self.rows})
             r.response._complete(
                 [np.asarray(o[offset:offset + r.rows]) for o in outputs])
+            if _monitor_on():
+                STAT_OBSERVE("serving.e2e_ms",
+                             (now - r.t_enqueue) * 1e3, buckets=MS_BUCKETS,
+                             exemplar=r.span.trace_id if r.span else None)
             offset += r.rows
 
     def fail(self, error: Exception):
@@ -263,16 +308,35 @@ class DynamicBatcher:
         deadline = time.perf_counter() + timeout_ms / 1e3 \
             if timeout_ms else None
         req = _Request(arrays, rows, deadline)
-        with self._cond:
-            if self._closed:
-                raise EngineClosedError("batcher is shut down")
-            if self._rows + rows > self.queue_capacity:
-                raise QueueFullError(
-                    f"queue at capacity ({self._rows}/"
-                    f"{self.queue_capacity} rows pending)")
-            self._pending.setdefault(sig, []).append(req)
-            self._rows += rows
-            self._cond.notify_all()
+        if trace.enabled():
+            # Child of the caller's span (http.request) when one is
+            # current, else a new root trace.
+            req.span = trace.start_span("serving.request",
+                                        attrs={"rows": rows})
+            req.response.span = req.span
+            req.qspan = trace.start_span("queue", parent=req.span)
+        try:
+            with self._cond:
+                if self._closed:
+                    raise EngineClosedError("batcher is shut down")
+                if self._rows + rows > self.queue_capacity:
+                    STAT_ADD("serving.rejected")
+                    raise QueueFullError(
+                        f"queue at capacity ({self._rows}/"
+                        f"{self.queue_capacity} rows pending)")
+                self._pending.setdefault(sig, []).append(req)
+                self._rows += rows
+                STAT_ADD("serving.requests")
+                STAT_SET("serving.queue_depth", self._rows)
+                self._cond.notify_all()
+        except ServingError as e:
+            # Rejected before it was visible to any worker: the raise IS
+            # the completion, so finish the trace here (errored -> the
+            # tail rules keep it).
+            trace.end_span(req.qspan, error=type(e).__name__)
+            trace.complete_request(req.span,
+                                   error=f"{type(e).__name__}: {e}")
+            raise
         return req.response
 
     # -- consumer side --------------------------------------------------
@@ -350,10 +414,21 @@ class DynamicBatcher:
                         else min(wait, remaining)
                 # no pending work and no timeout: sleep until notified
                 self._cond.wait(wait)
+            if batch is not None:
+                STAT_SET("serving.queue_depth", self._rows)
         for r in expired:
+            STAT_ADD("serving.timeouts")
+            trace.end_span(r.qspan, error="DeadlineExceededError")
             r.response._complete(error=DeadlineExceededError(
                 f"request waited past its "
                 f"{'deadline' if r.deadline else 'timeout'}"))
+        if batch is not None:
+            for r in batch.requests:
+                trace.end_span(r.qspan)
+                if _monitor_on():
+                    STAT_OBSERVE("serving.queue_wait_ms",
+                                 (batch.t_dispatch - r.t_enqueue) * 1e3,
+                                 buckets=MS_BUCKETS)
         return batch
 
     # -- lifecycle ------------------------------------------------------
@@ -374,6 +449,7 @@ class DynamicBatcher:
                     failed.extend(reqs)
                 self._pending.clear()
                 self._rows = 0
+            STAT_SET("serving.queue_depth", self._rows)
             self._cond.notify_all()
         for r in failed:
             r.response._complete(error=EngineClosedError(

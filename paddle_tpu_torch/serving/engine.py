@@ -6,19 +6,37 @@ seq-bucket) cell before traffic arrives, and the worker only ever feeds
 ladder shapes, so after warmup the predictor's executor sees no new
 cache entry (`cache_stats()["misses"]` stays put).
 
-Not ported yet (listed in ROADMAP.md): the monitor's serving.* stats, the
-trace spans, goodput accounting, the resilience circuit breaker and
-retry, and the analysis gates the JAX package runs in `warmup`.
+As in the JAX package's engine: transient batch failures (an injected
+TransientFault, or a non-finite output under FLAGS_serving_nan_guard)
+retry through a RetryPolicy; failures that exhaust it trip a circuit
+breaker, and while it is open `submit` sheds with OverloadedError;
+`health()` reports the state. Each batch gets a `serving.batch` span (the
+executor's sub-spans hang under it), the `serving.*` stats and the
+serving goodput counters. A CUDA error is a RuntimeError, which is
+neither retried nor counted against the breaker: it fails its batch.
+
+Not ported yet (ROADMAP.md): the analysis gates the JAX package runs in
+`warmup`, and the HTTP front end.
 """
 from __future__ import annotations
 
 import itertools
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .batcher import BucketLadder, DynamicBatcher, EngineClosedError
+from .. import goodput as _goodput
+from .. import trace
+from ..monitor import STAT_ADD, STAT_OBSERVE
+from ..resilience.breaker import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
+from ..resilience.faults import TransientFault
+from ..resilience.faults import injector as _fault_injector
+from ..resilience.retry import RetryPolicy, is_transient
+from .batcher import (BATCH_BUCKETS_HIST, BucketLadder, DynamicBatcher,
+                      EngineClosedError, FRACTION_BUCKETS,
+                      OverloadedError)
 
 __all__ = ["EngineConfig", "ServingEngine"]
 
@@ -73,7 +91,7 @@ class EngineConfig:
 
 
 class ServingEngine:
-    """Batched, warmed inference service.
+    """Batched, warmed, instrumented inference service.
 
     Lifecycle: construct (loads the model), `start()` (warmup + worker
     threads), `submit`/`predict` from any thread, `stop(drain=True)`.
@@ -98,10 +116,17 @@ class ServingEngine:
         # the executor is not reentrant: serialize the device run; extra
         # workers still overlap host-side pad/concat/scatter
         self._infer_lock = threading.Lock()
+        self._ready = threading.Event()
         self._stopping = False
         self._warmed_shapes: List[tuple] = []
         # batches dispatched by the workers (warmup not included)
         self.batches = 0
+        # resilience: transient batch failures retry invisibly; repeated
+        # failures trip the breaker and submissions shed with
+        # OverloadedError until a half-open probe succeeds
+        self._breaker = CircuitBreaker(name="serving")
+        self._retry = RetryPolicy()
+        self._state = "warming"  # warming -> ready -> stopped
 
     # -- shape spec ------------------------------------------------------
     def _feed_spec(self) -> Dict[str, Tuple[tuple, str]]:
@@ -159,8 +184,12 @@ class ServingEngine:
                         f"feed {name!r} has a seq dim but the ladder "
                         f"has no seq_buckets")
                 feed[name] = np.zeros(dims, dtype=dtype)
+            t0 = time.perf_counter()
             with self._infer_lock:
                 self.predictor.run_dict(feed)
+            STAT_OBSERVE("serving.warmup_seconds",
+                         time.perf_counter() - t0)
+            STAT_ADD("serving.warmup_shapes")
             self._warmed_shapes.append((bb, sb))
         return len(shapes)
 
@@ -170,6 +199,7 @@ class ServingEngine:
         worker thread(s) and mark the engine ready."""
         if self._workers:
             return self
+        self._state = "warming"
         if self.config.warmup:
             self.warmup()
         self._stopping = False
@@ -179,21 +209,53 @@ class ServingEngine:
                                  daemon=True)
             w.start()
             self._workers.append(w)
+        self._state = "ready"
+        self._ready.set()
         return self
 
     def stop(self, drain: bool = True, timeout: Optional[float] = 30.0):
         """Shut down: reject new submissions, then either finish queued
         requests (drain=True) or fail them, and join the workers."""
+        self._ready.clear()
+        self._state = "stopped"
         self._stopping = True
         self._batcher.close(drain=drain)
         for w in self._workers:
             w.join(timeout)
         self._workers = []
 
+    @property
+    def ready(self) -> bool:
+        return self._ready.is_set()
+
+    @property
+    def breaker(self) -> CircuitBreaker:
+        return self._breaker
+
+    def health(self) -> Dict[str, object]:
+        """Load-balancer health view: ``state`` is one of warming /
+        ready / degraded (half-open probing) / open (shedding) /
+        stopped, plus the raw breaker state and the Retry-After
+        seconds while open."""
+        if self._state != "ready":
+            return {"state": self._state, "breaker": self._breaker.state,
+                    "retry_after_s": 0.0}
+        b = self._breaker.state
+        state = {OPEN: "open", HALF_OPEN: "degraded",
+                 CLOSED: "ready"}[b]
+        return {"state": state, "breaker": b,
+                "retry_after_s": self._breaker.retry_after_s()}
+
     # -- request path ----------------------------------------------------
     def submit(self, feed: Dict[str, np.ndarray],
                timeout_ms: Optional[float] = None):
-        """Enqueue; returns a response handle (`.result()` blocks)."""
+        """Enqueue; returns a response handle (`.result()` blocks).
+        Raises OverloadedError while the circuit breaker is OPEN
+        (load shedding: don't queue work the backend cannot do)."""
+        if not self._breaker.allow():
+            raise OverloadedError(
+                "serving backend is unhealthy (circuit breaker open)",
+                retry_after_s=self._breaker.retry_after_s())
         return self._batcher.submit(feed, timeout_ms=timeout_ms)
 
     def predict(self, feed: Dict[str, np.ndarray],
@@ -209,21 +271,85 @@ class ServingEngine:
         return self.predictor._exe.cache_stats()
 
     # -- worker ----------------------------------------------------------
+    def _execute(self, feed):
+        """One dispatch attempt: fault hook, device run, output
+        hygiene. A non-finite float output (FLAGS_serving_nan_guard)
+        raises TransientFault: a host-side corruption leaves the
+        executor's state untouched, so re-running the same feed is a
+        valid cure, and the RetryPolicy wrapping this call turns a
+        glitched batch into a clean answer instead of a wrong one."""
+        inj = _fault_injector()
+        if inj is not None:
+            inj.pre_step("serving")
+        with self._infer_lock:
+            outputs = self.predictor.run_dict(feed)
+            self.batches += 1
+        if inj is not None:
+            outputs = list(outputs)
+            inj.corrupt_fetches("serving", outputs)
+        from ..core.flags import FLAGS
+        if FLAGS.serving_nan_guard:
+            for o in outputs:
+                o = np.asarray(o)
+                if np.issubdtype(o.dtype, np.floating) and o.size \
+                        and not np.all(np.isfinite(o)):
+                    STAT_ADD("resilience.nan_batches_retried")
+                    raise TransientFault(
+                        "non-finite value in batch outputs")
+        return outputs
+
     def _worker_loop(self):
         while True:
+            # serving goodput: time blocked in next_batch is idle;
+            # everything from batch receipt to scatter is busy; pad waste
+            # is execute time x the ladder's padded-row fraction
+            t_wait0 = time.perf_counter()
             batch = self._batcher.next_batch(timeout=0.1)
+            _goodput.serving_idle(time.perf_counter() - t_wait0)
             if batch is None:
                 if self._stopping and self._batcher.pending_rows() == 0:
                     return
                 continue
+            t_busy0 = time.perf_counter()
             try:
-                feed, _, _ = batch.build_feed(self._ladder)
-                with self._infer_lock:
-                    outputs = self.predictor.run_dict(feed)
-                    self.batches += 1
+                # one span per batch; it links the member request spans
+                # (they live in other traces), and being current, the
+                # executor's sub-spans attach under it
+                bspan = trace.start_span(
+                    "serving.batch", attrs={"rows": batch.rows})
+                if bspan is not None:
+                    for r in batch.requests:
+                        bspan.add_link(r.span)
+                try:
+                    with trace.use_span(bspan):
+                        feed, bucket, waste = batch.build_feed(
+                            self._ladder)
+                        t_exec0 = time.perf_counter()
+                        outputs = self._retry.call(self._execute, feed)
+                        _goodput.serving_pad_waste(
+                            waste * (time.perf_counter() - t_exec0))
+                except Exception as e:  # noqa: BLE001 — close the batch
+                    # trace, then let the handler below fail the batch
+                    trace.finish_trace(bspan,
+                                       error=f"{type(e).__name__}: {e}",
+                                       record_latency=False)
+                    raise
+                trace.finish_trace(bspan, record_latency=False)
+                STAT_ADD("serving.batches")
+                STAT_OBSERVE("serving.batch_size", batch.rows,
+                             buckets=BATCH_BUCKETS_HIST)
+                STAT_OBSERVE("serving.pad_waste_frac", waste,
+                             buckets=FRACTION_BUCKETS)
                 batch.scatter(outputs)
+                self._breaker.record_success()
+                _goodput.serving_busy(time.perf_counter() - t_busy0)
             except Exception as e:  # noqa: BLE001 — a poison batch must
                 # fail ITS requests, not kill the worker thread
+                if is_transient(e):
+                    # exhausted-retry transients mean the backend is
+                    # sick; poison (a bad request, a CUDA error) must not
+                    # trip the breaker
+                    self._breaker.record_failure()
                 batch.fail(e if isinstance(e, EngineClosedError)
                            else RuntimeError(f"batch execution failed: "
                                              f"{e!r}"))

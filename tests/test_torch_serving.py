@@ -201,3 +201,200 @@ def test_scope_from_numpy_reads_bfloat16_bit_for_bit():
     np.testing.assert_array_equal(t.float().numpy(),
                                   arr.astype(np.float32))
     assert scope.get_numpy("w").dtype == np.float32
+
+
+# --- the engine's hooks: stats, spans, goodput, the breaker ------------------
+
+def _hooked_serving(pkg, mon, tr, gp, d, cpu_predictor):
+    """Three requests one after another through a ServingEngine of `pkg`
+    with the monitor, every trace and goodput on: the stat names by
+    kind, the span trees as sorted (name, parent name) lists, and the
+    goodput snapshot."""
+    pkg.set_flags({"FLAGS_enable_monitor": True, "FLAGS_enable_trace": True,
+                   "FLAGS_trace_sample": 1.0, "FLAGS_enable_goodput": True})
+    gp.start_run("serve")
+    engine = pkg.serving.ServingEngine(
+        pkg.serving.EngineConfig(max_batch_size=2,
+                                 default_timeout_ms=30000),
+        predictor=cpu_predictor(d))
+    engine.start()
+    assert engine.health()["state"] == "ready"
+    try:
+        for rows in (1, 2, 1):
+            engine.predict({"tokens": _tokens(rows, seed=rows)})
+    finally:
+        engine.stop()
+    assert engine.health()["state"] == "stopped"
+    ledger = gp.end_run()
+    snap = mon.get_stats_snapshot()
+    # not ported: the analysis gates (ROADMAP A9) and the Pallas tile
+    # autotuner's flash.* stats (A7; the Hopper kernels fix their tiles)
+    names = {k: {n for n in snap[k]
+                 if not n.startswith(("analysis.", "flash."))}
+             for k in ("counters", "gauges", "histograms")}
+    spans = tr.drain_spans()
+    by_id = {s["span_id"]: s for s in spans}
+    trees = {}
+    for s in spans:
+        parent = by_id.get(s["parent_id"])
+        trees.setdefault(s["trace_id"], []).append(
+            (s["name"], parent["name"] if parent else None))
+    return names, sorted(sorted(t) for t in trees.values()), ledger
+
+
+def _reset_hooks():
+    from paddle_tpu import goodput as jgp, monitor as jmon, trace as jtr
+    from paddle_tpu import resilience as jres
+    from paddle_tpu_torch import goodput as tgp, monitor as tmon
+    from paddle_tpu_torch import resilience as tres, trace as ttr
+    for pkg in (fj, ft):
+        pkg.set_flags({"FLAGS_enable_monitor": False,
+                       "FLAGS_enable_trace": False,
+                       "FLAGS_trace_sample": 0.05,
+                       "FLAGS_enable_goodput": False,
+                       "FLAGS_fault_spec": "",
+                       "FLAGS_serving_breaker_threshold": 5,
+                       "FLAGS_serving_breaker_cooldown_ms": 1000.0,
+                       "FLAGS_retry_max_attempts": 3})
+    for m in (jmon, tmon):
+        m.reset_stats()
+    for m in (jtr, ttr, jgp, tgp):
+        m.reset()
+    jres.reset_injector()
+    tres.reset_injector()
+
+
+@pytest.fixture
+def hooks_off():
+    _reset_hooks()
+    yield
+    _reset_hooks()
+
+
+def test_engine_stats_and_span_trees_match_jax(jax_model_dir, hooks_off):
+    from paddle_tpu import goodput as jgp, monitor as jmon, trace as jtr
+    from paddle_tpu_torch import goodput as tgp, monitor as tmon
+    from paddle_tpu_torch import trace as ttr
+    import paddle_tpu.serving  # noqa: F401
+    import paddle_tpu_torch.serving  # noqa: F401
+    d, _, _ = jax_model_dir
+
+    def jax_predictor(path):
+        return fj.inference.create_paddle_predictor(
+            fj.inference.AnalysisConfig(path))
+
+    names_j, trees_j, _ = _hooked_serving(fj, jmon, jtr, jgp, d,
+                                          jax_predictor)
+    names_t, trees_t, snap = _hooked_serving(ft, tmon, ttr, tgp, d,
+                                             _cpu_predictor)
+    assert names_t == names_j
+    assert trees_t == trees_j
+    # a request's tree, and a batch's with the executor's sub-spans
+    assert sorted([("execute", "serving.request"),
+                   ("queue", "serving.request"),
+                   ("serving.request", None)]) in trees_t
+    assert sorted([("executor.dispatch", "serving.batch"),
+                   ("executor.feed", "serving.batch"),
+                   ("executor.fetch", "serving.batch"),
+                   ("serving.batch", None)]) in trees_t
+    for n in ("serving.requests", "serving.batches", "serving.warmup_shapes",
+              "goodput.serving_busy_seconds", "executor.compile_cache_hit"):
+        assert n in names_t["counters"], n
+    assert {"serving.e2e_ms", "serving.queue_wait_ms", "serving.batch_size",
+            "serving.pad_waste_frac", "serving.warmup_seconds",
+            "executor.step_seconds"} <= names_t["histograms"]
+    assert tgp.check_invariant(snap)
+    # chip_smoke.py's [serve_hooks] gate lists only what the JAX engine
+    # records
+    from test_torch_generate import _chip_smoke
+    for kind, want in _chip_smoke().SERVE_STATS.items():
+        assert set(want) <= names_j[kind], kind
+
+
+def test_breaker_sheds_after_injected_faults_and_recovers(jax_model_dir,
+                                                          hooks_off):
+    import time
+    from paddle_tpu_torch import monitor as tmon
+    from paddle_tpu_torch import resilience as tres
+    from paddle_tpu_torch.serving import OverloadedError
+    d, _, _ = jax_model_dir
+    ft.set_flags({"FLAGS_enable_monitor": True,
+                  "FLAGS_serving_breaker_threshold": 2,
+                  "FLAGS_serving_breaker_cooldown_ms": 300.0,
+                  "FLAGS_retry_max_attempts": 1})
+    engine = ServingEngine(EngineConfig(max_batch_size=2,
+                                        default_timeout_ms=30000),
+                           predictor=_cpu_predictor(d)).start()
+    try:
+        want = engine.predict({"tokens": _tokens(1)})[0]
+        ft.set_flags({"FLAGS_fault_spec":
+                      "transient_fail:p=1.0:site=serving"})
+        tres.reset_injector()
+        for _ in range(2):
+            with pytest.raises(RuntimeError, match="batch execution"):
+                engine.predict({"tokens": _tokens(1)})
+        assert engine.breaker.state == tres.OPEN
+        assert engine.health()["state"] == "open"
+        with pytest.raises(OverloadedError) as ei:
+            engine.predict({"tokens": _tokens(1)})
+        assert ei.value.retry_after_s > 0
+        snap = tmon.get_stats_snapshot()
+        assert snap["counters"]["resilience.breaker_opens"] == 1
+        assert snap["counters"]["resilience.breaker_shed"] >= 1
+        assert snap["counters"]["resilience.fault_transient"] == 2
+        assert snap["gauges"]["resilience.breaker_state"] == 2.0
+        ft.set_flags({"FLAGS_fault_spec": ""})
+        time.sleep(0.35)
+        assert engine.health()["state"] == "degraded"
+        got = engine.predict({"tokens": _tokens(1)})[0]   # the probe
+        np.testing.assert_allclose(got, want, atol=0)
+        assert engine.breaker.state == tres.CLOSED
+    finally:
+        engine.stop()
+
+
+def test_nan_guard_retries_a_corrupted_batch(jax_model_dir, hooks_off):
+    from paddle_tpu_torch import monitor as tmon
+    from paddle_tpu_torch import resilience as tres
+    d, _, _ = jax_model_dir
+    ft.set_flags({"FLAGS_enable_monitor": True})
+    engine = ServingEngine(EngineConfig(max_batch_size=2,
+                                        default_timeout_ms=30000),
+                           predictor=_cpu_predictor(d)).start()
+    try:
+        want = engine.predict({"tokens": _tokens(2)})[0]
+        ft.set_flags({"FLAGS_fault_spec": "step_nan:at=1:site=serving"})
+        tres.reset_injector()
+        got = engine.predict({"tokens": _tokens(2)})[0]
+        np.testing.assert_allclose(got, want, atol=0)
+        c = tmon.get_stats_snapshot()["counters"]
+        assert c["resilience.nan_batches_retried"] == 1
+        assert c["resilience.fault_nan"] == 1
+    finally:
+        engine.stop()
+
+
+def test_a_runtime_error_fails_the_batch_not_the_breaker(jax_model_dir,
+                                                         hooks_off,
+                                                         monkeypatch):
+    """A RuntimeError from the run (what a CUDA error is) fails its
+    batch once, unretried, and leaves the breaker closed."""
+    d, _, _ = jax_model_dir
+    ft.set_flags({"FLAGS_serving_breaker_threshold": 1})
+    engine = ServingEngine(EngineConfig(max_batch_size=2,
+                                        default_timeout_ms=30000),
+                           predictor=_cpu_predictor(d)).start()
+    calls = []
+
+    def cuda_error(feed):
+        calls.append(1)
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    try:
+        monkeypatch.setattr(engine.predictor, "run_dict", cuda_error)
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            engine.predict({"tokens": _tokens(1)})
+        assert calls == [1]
+        assert engine.health()["state"] == "ready"
+    finally:
+        engine.stop()
