@@ -40,7 +40,8 @@ Phases, one progress line each; any failure exits non-zero:
              backward kernels at [384, 512, 64] and [192, 512, 64] beside
              float32 SDPA's backward, and at [192, 512, 64] the float32
              forward beside float32 SDPA's forward, each with its 3xTF32
-             bound and its CUDA-core bound.
+             bound and its CUDA-core bound; and the three bf16 kernels at
+             NMT's [512, 256, 64] in both masks.
 4. serve   — build BERT-base (12 layers, d 768, 12 heads, d_ff 3072, vocab
              30522) with tokens [-1, 512] through the port, run its startup
              program on the card from a fixed seed, save it as an inference
@@ -114,11 +115,36 @@ Phases, one progress line each; any failure exits non-zero:
              injected transient faults that must retry and give the same
              streams. Prints TTFT, inter-token time, tokens/s and each
              step's host and card time.
+13. resnet_train — ResNet-50 (models/resnet.build_train) at bench.py's
+             step: batch 64, 3x224x224, 1000 classes, bf16 AMP, Momentum
+             lr 0.1, momentum 0.9, the feed from RandomState(0); 3
+             warm-up and 10 timed steps: images/s, MFU (3 x
+             flops_per_image a training image), peak memory, device ms by
+             class (conv, matmul, norm, other); finite losses, no flash
+             launch, no cache miss after the first step, every running
+             mean and variance moved and finite.
+14. resnet_cpu_check — the same ResNet-50 at batch 2, one step on the
+             card and one on the CPU from the same startup values, in
+             float32 and bf16 AMP: the loss, every parameter's gradient
+             and every batch_norm's running statistics (RESNET_*_BARS).
+15. lenet_train — LeNet (models/lenet convolutional_neural_network) as
+             examples/train_mnist.py trains it: batch 128, Adam lr 1e-3,
+             float32; images/s and step time, then one step card vs CPU.
+16. nmt_train — Transformer-big NMT (models/nmt.build_train) at bench.py's
+             step: 6+6 layers, d 1024, 16 heads, d_ff 4096, vocab 32000,
+             batch 32, source and target 256, bf16 AMP, dropout 0.1,
+             AdamW lr 1e-4; 3 warm-up and 10 timed steps: tokens/s, MFU
+             from flops_per_step, each bf16 flash kernel 12 times a step
+             at [512, 256, 64] (cross-attention takes the plain path);
+             then one batch-1 step with dropout 0 card vs CPU under the
+             AMP limits.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound; the bf16 entries count the BERT and the GPT training runs and
-carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys;
+bound; the bf16 entries count the BERT, GPT and NMT training runs and
+carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys
+and NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
+(decoder) keys;
 the float32 instances as entries of their own, with the serving, float32
 training and float32 check-step launches) and the result line
 {"ok": true, "device": {...}}.
@@ -151,6 +177,16 @@ GEN_PROMPT_LENS = (1, 2, 17, 64, 129, 200, 255, 300)
 GEN_NEW = 32
 GEN_BLOCK = 16
 GEN_LOGIT_TOL = 1e-4
+# Transformer-big NMT, bench.py's step: batch 32, source and target 256,
+# 16 heads of 64: the flash kernels at [512, 256, 64], the encoder's
+# unmasked and the decoder's causal
+NMT_BATCH, NMT_LEN, NMT_HEADS = 32, 256, 16
+NMT_SHAPE = (NMT_BATCH * NMT_HEADS, NMT_LEN, HD)
+# ResNet-50, bench.py's step: batch 64, 3x224x224, 1000 classes; the
+# card-vs-CPU check step at batch 2; LeNet as examples/train_mnist.py
+# trains it, at batch 128
+RESNET_BATCH, RESNET_CHECK_BATCH, LENET_BATCH = 64, 2, 128
+RESNET_IMAGE, RESNET_CLASSES = (3, 224, 224), 1000
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12        # float32 outside the tensor cores
 TF32_FLOPS = 494.7e12    # dense TF32 tensor cores
@@ -293,7 +329,8 @@ def kernel_phase(torch):
     # (bh, T, d, dtype, causal): the serving path's batch buckets 8 and 1
     # (96 and 12 rows x heads) in both dtypes and masks, ragged T, T=1024
     # (many tiles through the kernels' ring), d=32 and d=128, and the
-    # training paths' shapes: bfloat16, float32, and GPT's ragged causal
+    # training paths' shapes: bfloat16, float32, GPT's ragged causal and
+    # NMT's [512, 256, 64] in both masks
     cases = [(96, T, HD, f32, False), (96, T, HD, f32, True),
              (96, T, HD, bf16, False), (96, T, HD, bf16, True),
              (12, T, HD, f32, False), (12, T, HD, bf16, False),
@@ -304,7 +341,8 @@ def kernel_phase(torch):
              (24, T, 128, f32, False), (24, T, 128, f32, True),
              (24, T, 128, bf16, False), (24, T, 128, bf16, True),
              (*TRAIN_SHAPE, bf16, False), (*F32_TRAIN_SHAPE, f32, False),
-             (*GPT_SHAPE, bf16, True), *ragged]
+             (*GPT_SHAPE, bf16, True), (*NMT_SHAPE, bf16, False),
+             (*NMT_SHAPE, bf16, True), *ragged]
     # each training path's shape: max|kernel - plain|, by PATH_CASES key
     train_errs = {}
     for bh, t, d, dtype, causal in cases:
@@ -378,11 +416,14 @@ def _rel_err(got, want):
 
 def _path_key(torch, bh, t, d, dtype, causal):
     """The training path whose attention shape a kernel case is (the key
-    of its records), or None: bf16 BERT, float32 BERT, or bf16 GPT at
-    its ragged causal T."""
+    of its records), or None: bf16 BERT, float32 BERT, bf16 GPT at its
+    ragged causal T, or bf16 NMT's encoder (nmt) and decoder
+    (nmt_causal) self-attention."""
     return {(*TRAIN_SHAPE, torch.bfloat16, False): "bfloat16",
             (*F32_TRAIN_SHAPE, torch.float32, False): "float32",
-            (*GPT_SHAPE, torch.bfloat16, True): "bfloat16_causal"}.get(
+            (*GPT_SHAPE, torch.bfloat16, True): "bfloat16_causal",
+            (*NMT_SHAPE, torch.bfloat16, False): "nmt",
+            (*NMT_SHAPE, torch.bfloat16, True): "nmt_causal"}.get(
                 (bh, t, d, dtype, causal))
 
 
@@ -430,7 +471,7 @@ def time_kernels(torch, fa, gen, shape, dtype, names, causal=False,
     times = {n: (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
              for n in names}
     # yardsticks in the [b, h, T, d] layout SDPA's flash backend takes
-    shape4 = (bh // H, H, t, d)
+    shape4 = (bh // H, H, t, d) if bh % H == 0 else (1, bh, t, d)
     q4, k4, v4 = (x.view(shape4).detach().requires_grad_() for x in
                   (q, k, v))
     library = {}
@@ -490,8 +531,9 @@ def bwd_kernel_phase(torch):
     and at the float32 training path's [192, 512, 64], where the float32
     forward is timed too; then all three bf16 kernels at GPT's causal
     [384, 511, 64] beside causal SDPA, and at [24, 512, 128] in both
-    masks. Returns the records per training
-    path (_path_key): bfloat16 and float32 BERT, bfloat16_causal GPT."""
+    masks, and at NMT's [512, 256, 64] in both. Returns the records per
+    training path (_path_key): bfloat16 and float32 BERT, bfloat16_causal
+    GPT, nmt and nmt_causal."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     dev = torch.device("cuda", 0)
@@ -502,9 +544,9 @@ def bwd_kernel_phase(torch):
     ragged = [(bh, t, d, bf16, c) for bh, t, d, c in RAGGED_BF16] + \
         [(bh, t, d, f32, c) for bh, t, d, c in RAGGED_F32]
     # (bh, T, d, dtype, causal): the training shapes in both dtypes and
-    # causal, GPT's ragged causal shape, a ragged T in both masks, T=1024
-    # causal, d=128 in both masks, d=32 and bh=12 (one sequence's heads),
-    # in each dtype
+    # causal, GPT's ragged causal shape, NMT's in both masks, a ragged T
+    # in both masks, T=1024 causal, d=128 in both masks, d=32 and bh=12
+    # (one sequence's heads), in each dtype
     cases = [(*TRAIN_SHAPE, bf16, False), (*TRAIN_SHAPE, f32, False),
              (*TRAIN_SHAPE, bf16, True), (96, 300, HD, f32, True),
              (96, 300, HD, bf16, False), (96, 300, HD, bf16, True),
@@ -514,7 +556,8 @@ def bwd_kernel_phase(torch):
              (12, T, HD, bf16, False), (96, 300, HD, f32, False),
              (12, 1024, HD, f32, True), (24, T, 128, f32, True),
              (12, T, HD, f32, False), (*F32_TRAIN_SHAPE, f32, False),
-             (*GPT_SHAPE, bf16, True), *ragged]
+             (*GPT_SHAPE, bf16, True), (*NMT_SHAPE, bf16, False),
+             (*NMT_SHAPE, bf16, True), *ragged]
     # each path's shape: max|kernel - plain| per kernel, by _path_key
     errs = {}
     for bh, t, d, dtype, causal in cases:
@@ -558,6 +601,9 @@ def bwd_kernel_phase(torch):
     timed(TRAIN_SHAPE, f32, BWD_KERNELS)
     records["float32"] = timed(F32_TRAIN_SHAPE, f32, ALL3)
     records["bfloat16_causal"] = timed(GPT_SHAPE, bf16, ALL3, causal=True)
+    # NMT's self-attention: the encoder's unmasked, the decoder's causal
+    records["nmt"] = timed(NMT_SHAPE, bf16, ALL3)
+    records["nmt_causal"] = timed(NMT_SHAPE, bf16, ALL3, causal=True)
     # d 128 in both masks (the bf16 kernels' widest instance)
     for causal in (False, True):
         timed(D128_SHAPE, bf16, ALL3, causal=causal)
@@ -898,27 +944,74 @@ F32_FWD_SYMBOL = "fwd_kernel_tf32wg"
 F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32wg", "dkv_kernel_tf32wg")
 
 
-def _kernel_class(name):
+# A kernel's class is that of the op that launched it: the innermost aten
+# op above the launch (the profiler links every kernel to the op running
+# when it was launched) that is a convolution, a norm or a matrix
+# product, else other. So a cuDNN convolution's GEMM-named kernels and
+# its layout transposes count as conv whatever their names say. The
+# flash kernels go by their own symbols.
+OP_CLASSES = {
+    "conv": ("aten::conv2d", "aten::convolution", "aten::_convolution",
+             "aten::cudnn_convolution", "aten::convolution_backward"),
+    "norm": ("aten::batch_norm", "aten::_batch_norm_impl_index",
+             "aten::native_batch_norm", "aten::cudnn_batch_norm",
+             "aten::native_batch_norm_backward",
+             "aten::cudnn_batch_norm_backward", "aten::layer_norm",
+             "aten::native_layer_norm", "aten::native_layer_norm_backward"),
+    "matmul": ("aten::linear", "aten::matmul", "aten::mm", "aten::addmm",
+               "aten::bmm", "aten::baddbmm", "aten::_addmm_activation"),
+}
+
+
+def _flash_class(name):
     for key, cls in KERNEL_CLASSES.items():
         if key in name:
             return cls
-    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "matmul",
-                                       "nvjet")):
-        return "matmul"
+    return None
+
+
+def _op_class(ev):
+    """The class of the innermost op in OP_CLASSES at or above the
+    profiler event `ev`, else other."""
+    while ev is not None:
+        for cls, ops in OP_CLASSES.items():
+            if ev.name in ops:
+                return cls
+        ev = ev.cpu_parent
     return "other"
 
 
 def _device_ms(prof):
-    """(device milliseconds, launches) per kernel name from a
-    torch.profiler run."""
-    out = {}
+    """{(class, kernel name): (device milliseconds, launches)} from a
+    torch.profiler run: each kernel's launches split by the class of the
+    op that launched it (_op_class); a flash kernel's class is its own.
+    Launches the profiler links to no op count as class "unlinked"."""
+    launched, linked = {}, {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
         if dev_us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            ms, n = out.get(ev.key, (0.0, 0))
-            out[ev.key] = (ms + dev_us / 1e3, n + ev.count)
+            ms, n = launched.get(ev.key, (0.0, 0))
+            launched[ev.key] = (ms + dev_us / 1e3, n + ev.count)
+    for ev in prof.events():
+        if ev.kernels and str(ev.device_type).endswith("CPU"):
+            cls = _op_class(ev)
+            for k in ev.kernels:
+                parts = linked.setdefault(k.name, {})
+                ms, n = parts.get(cls, (0.0, 0))
+                parts[cls] = (ms + k.duration / 1e3, n + 1)
+    out = {}
+    for name, (ms, n) in launched.items():
+        parts = dict(linked.get(name, {}))
+        rest_n = n - sum(k for _, k in parts.values())
+        if rest_n > 0:
+            parts["unlinked"] = (max(ms - sum(m for m, _ in parts.values()),
+                                     0.0), rest_n)
+        for cls, (m, k) in parts.items():
+            key = (_flash_class(name) or cls, name)
+            m0, k0 = out.get(key, (0.0, 0))
+            out[key] = (m0 + m, k0 + k)
     return out
 
 
@@ -926,25 +1019,29 @@ def _symbol_launches(per_name, pattern):
     """Launches of the kernels whose profiler name matches `pattern` (a
     regular expression; a symbol matches itself)."""
     import re
-    return sum(n for name, (_, n) in per_name.items()
+    return sum(n for (_, name), (_, n) in per_name.items()
                if re.search(pattern, name))
 
 
 def _print_flash_symbols(per_name):
     """The flash kernels' symbols from _device_ms's table: which design
     ran, and how often."""
-    for name, (ms, n) in sorted(per_name.items()):
-        if _kernel_class(name) in KERNEL_CLASSES.values():
+    for (cls, name), (ms, n) in sorted(per_name.items()):
+        if cls in KERNEL_CLASSES.values():
             print(f"  flash: {n} launches  {ms:.3f} ms  {name[:100]}",
                   flush=True)
 
 
 def _device_ms_by_class(per_name, classes):
-    """Device milliseconds per kernel class from _device_ms's table."""
+    """Device milliseconds per kernel class from _device_ms's table, and
+    the unlinked launches' milliseconds; a class not in `classes`
+    (unlinked too) counts as other."""
     by_class = dict.fromkeys(classes, 0.0)
-    for name, (ms, _) in per_name.items():
-        by_class[_kernel_class(name)] += ms
-    return by_class
+    unlinked = 0.0
+    for (cls, _), (ms, _) in per_name.items():
+        by_class[cls if cls in by_class else "other"] += ms
+        unlinked += ms if cls == "unlinked" else 0.0
+    return by_class, unlinked
 
 
 def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
@@ -986,7 +1083,7 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name = _device_ms(prof)
-    by_class = _device_ms_by_class(
+    by_class, unlinked = _device_ms_by_class(
         per_name, ("flash_attention_fwd", "matmul", "other"))
     busy = sum(by_class.values())
     # no device time recorded means the profiler could not trace the card
@@ -994,7 +1091,9 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
           wall_ms=f"{wall_ms:.3f}",
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms_per_forward": f"{v / iters:.3f}"
-             for k, v in by_class.items()}, card=f"'{card}'")
+             for k, v in by_class.items()},
+          unlinked_ms_per_forward=f"{unlinked / iters:.3f}",
+          card=f"'{card}'")
     _print_flash_symbols(per_name)
     if busy:
         # the float32 forward runs the 3xTF32 kernel, never the scalar one
@@ -1087,15 +1186,19 @@ def train_phase(torch, card, amp=True):
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
               warmup, steps, symbols, tokens_per_step, flops_per_token,
-              peak):
-    """A training run's warm-up and timed steps: losses finite and
-    falling, each kernel in `symbols` launched once a layer a timed step
-    (every count set to 0 just before the timed steps and read just
-    after), no executor cache miss after the first step; the [tag] line
-    (median step time, host enqueue, tokens/s, model TFLOP/s and MFU
-    against `peak`, peak memory). Then one step under torch.profiler,
-    split by kernel class: each of `symbols` must run once a layer, and
-    no other flash kernel. Returns the timed steps' launches."""
+              peak, unit="tokens", must_fall=True,
+              classes=("matmul", "flash_attention_fwd", *BWD_KERNELS,
+                       "other")):
+    """A training run's warm-up and timed steps: losses finite (and
+    falling, with `must_fall`), each flash kernel launched `n_layers`
+    times a timed step (every count set to 0 just before the timed steps
+    and read just after; 0 for a model without attention), no executor
+    cache miss after the first step; the [tag] line (median step time,
+    host enqueue, `unit`s (tokens or images) a second, model TFLOP/s and
+    MFU against `peak`, peak memory). Then one step under
+    torch.profiler, split by kernel class (`classes`): each of `symbols`
+    must run `n_layers` times, and no other flash kernel. Returns the
+    timed steps' launches."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
@@ -1129,7 +1232,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
 
     check(all(math.isfinite(x) for x in losses),
           f"non-finite training loss: {losses}")
-    check(losses[-1] < losses[0],
+    check(not must_fall or losses[-1] < losses[0],
           f"loss did not fall: {losses[0]} -> {losses[-1]}")
     for name, n in launches.items():
         check(n == n_layers * steps,
@@ -1143,12 +1246,14 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
     phase(tag, steps=steps, step_ms_median=f"{step_ms:.3f}",
           step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
           host_ms_median=f"{statistics.median(host_times):.3f}",
-          tokens_per_step=tokens_per_step, tokens_per_s=f"{tok_s:.1f}",
-          model_mflop_per_token=f"{flops_per_token / 1e6:.2f}",
+          **{f"{unit}_per_step": tokens_per_step,
+             f"{unit}_per_s": f"{tok_s:.1f}",
+             f"model_mflop_per_{unit[:-1]}": f"{flops_per_token / 1e6:.2f}"},
           model_tflops=f"{flops_per_token * tok_s / 1e12:.2f}",
           mfu=f"{flops_per_token * tok_s / peak:.4f}",
           loss_first=f"{losses[0]:.4f}", loss_last=f"{losses[-1]:.4f}",
           launches_per_step=launches["flash_attention_fwd"] // steps,
+          losses=",".join(f"{x:.4f}" for x in losses),
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1159,13 +1264,13 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_name = _device_ms(prof)
-    by_class = _device_ms_by_class(
-        per_name, ("matmul", "flash_attention_fwd", *BWD_KERNELS, "other"))
+    by_class, unlinked = _device_ms_by_class(per_name, classes)
     busy = sum(by_class.values())
     phase(f"{tag}_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
           busy_share=f"{busy / wall_ms:.4f}" if busy else "not measured",
           **{f"{k}_ms": f"{v:.3f}" for k, v in by_class.items()},
-          device_ms=f"{busy:.3f}", card=f"'{card}'")
+          unlinked_ms=f"{unlinked:.3f}", device_ms=f"{busy:.3f}",
+          card=f"'{card}'")
     _print_flash_symbols(per_name)
     if busy:
         for sym in symbols:
@@ -1173,14 +1278,15 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
             check(n == n_layers, f"{sym} ran {n} times in the profiled "
                   f"step, not {n_layers}")
         # no other flash kernel (another design, or a scalar one) ran
-        n = sum(n for name, (_, n) in per_name.items()
-                if _kernel_class(name) in KERNEL_CLASSES.values())
+        n = sum(n for (cls, _), (_, n) in per_name.items()
+                if cls in KERNEL_CLASSES.values())
         check(n == len(symbols) * n_layers,
               f"{n} flash kernel launches in the profiled step, not "
               f"{len(symbols)} x {n_layers} of {symbols}")
-    for cls, n in (("matmul", 4), ("other", 8)):
-        top = sorted(((ms, k, name) for name, (ms, k) in per_name.items()
-                      if _kernel_class(name) == cls), reverse=True)
+    for cls, n in (("conv", 4), ("norm", 4), ("matmul", 4), ("other", 8),
+                   ("unlinked", 4)):
+        top = sorted(((ms, k, name) for (c, name), (ms, k) in
+                      per_name.items() if c == cls), reverse=True)
         for ms, k, name in top[:n]:
             print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
                   flush=True)
@@ -1245,14 +1351,20 @@ def _check_grads(cfg):
             f"layer_{cfg.n_layers - 1}.ffn.fc2.w@GRAD"]
 
 
-def _card_and_cpu(ptt, progs, startup, feed, grads, n_layers):
+def _card_and_cpu(ptt, progs, startup, feed, grads, n_layers,
+                  prepare=None, perturb=None):
     """One step of each program in `progs` ({amp: (main, loss)}) on the
     card and one on the CPU, each from the same startup values (the
-    startup program run once on the card). Flash attention's outputs
-    must be bfloat16 under AMP and float32 without, and each kernel must
-    launch once a layer on the card and never on the CPU. Returns ({(amp,
-    "card" | "cpu"): [loss, *grads] as float32 numpy}, {amp: the card
-    step's launches})."""
+    startup program run once on the card, then `prepare(values)` where
+    given), fetching the loss and the vars named in `grads`. The outputs
+    of flash attention and conv2d (the white-list ops that take the
+    tensor cores) must be bfloat16 under AMP and float32 without, and
+    each flash kernel must launch `n_layers` times on the card and never
+    on the CPU. With `perturb` ((values, feed) -> (values, feed)), each
+    AMP program also takes one card step from the perturbed values and
+    feed: how far bf16 rounding alone moves the results. Returns ({(amp,
+    "card" | "cpu" | "card_perturbed"): [loss, *grads] as float32 numpy},
+    {amp: the card step's launches})."""
     from paddle_tpu_torch.convert import scope_from_numpy
 
     card_exe, cpu_exe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
@@ -1260,11 +1372,23 @@ def _card_and_cpu(ptt, progs, startup, feed, grads, n_layers):
     card_exe.run(startup, scope=init_scope)
     init = {n: init_scope.get_numpy(n) for n in init_scope.names()}
     del init_scope
+    if prepare is not None:
+        init = prepare(init)
     out, launches = {}, {}
     for amp, (main, loss) in progs.items():
-        # flash attention's outputs: bfloat16 under AMP, float32 without
-        attn = [op.output("Out")[0] for op in main.global_block().ops
-                if op.type == "flash_attention"]
+        if amp and perturb is not None:
+            values, fd = perturb(init, feed)
+            scope = scope_from_numpy(values, ptt.Scope(), ptt.CUDAPlace(0))
+            got = card_exe.run(main, feed=fd, fetch_list=[loss] + grads,
+                               scope=scope, return_numpy=False)
+            out[amp, "card_perturbed"] = [x.float().cpu().numpy()
+                                          for x in got]
+            del scope, got, values
+        # flash attention's and conv2d's outputs: bfloat16 under AMP,
+        # float32 without
+        attn = [op.output("Out" if op.type == "flash_attention" else
+                          "Output")[0] for op in main.global_block().ops
+                if op.type in ("flash_attention", "conv2d")]
         want = "torch.bfloat16" if amp else "torch.float32"
         for where, exe, place in (("card", card_exe, ptt.CUDAPlace(0)),
                                   ("cpu", cpu_exe, ptt.CPUPlace())):
@@ -1274,8 +1398,8 @@ def _card_and_cpu(ptt, progs, startup, feed, grads, n_layers):
                           scope=scope, return_numpy=False)
             counts = _launch_counts()
             dtypes = {str(x.dtype) for x in got[1 + len(grads):]}
-            check(dtypes == {want}, f"flash attention ran in {dtypes} on "
-                  f"the {where} with amp={amp}; want {want}")
+            check(dtypes == {want}, f"flash attention or conv2d ran in "
+                  f"{dtypes} on the {where} with amp={amp}; want {want}")
             # each kernel once a layer on the card, none on the CPU
             n = n_layers if where == "card" else 0
             check(all(x == n for x in counts.values()),
@@ -1300,29 +1424,31 @@ def _grad_rel(grads, a, b):
             for n, x, y in zip(grads, a[1:], b[1:])}
 
 
-def _amp_check(tag, out, grads, t0, vs_f32=None):
+def _amp_check(tag, out, grads, t0, vs_f32=None, grad_tol=AMP_GRAD_RTOL):
     """The AMP step on the card against the one on the CPU: the loss
-    within AMP_LOSS_RTOL, each gradient's Frobenius gap within
-    AMP_GRAD_RTOL of its norm; with `vs_f32` (the CPU's float32 step),
-    the same readings against it printed beside."""
+    within AMP_LOSS_RTOL, each gradient's Frobenius gap within `grad_tol`
+    of its norm; with `vs_f32` (the CPU's float32 step), the same
+    readings against it printed beside, and so for the card's perturbed
+    AMP step against the card's where _card_and_cpu took one."""
     card, cpu = out[True, "card"], out[True, "cpu"]
     amp_loss, amp_grads = _loss_rel(card, cpu), _grad_rel(grads, card, cpu)
     beside = {}
-    if vs_f32 is not None:
-        beside = {"vs_f32_loss_rel": f"{_loss_rel(card, vs_f32):.3e}",
-                  **{f"vs_f32_{n}_rel": f"{e:.3e}" for n, e in
-                     _grad_rel(grads, card, vs_f32).items()}}
+    for key, other in (("vs_f32", vs_f32),
+                       ("card_pert", out.get((True, "card_perturbed")))):
+        if other is not None:
+            beside.update({f"{key}_loss_rel": f"{_loss_rel(card, other):.3e}",
+                           **{f"{key}_{n}_rel": f"{e:.3e}" for n, e in
+                              _grad_rel(grads, card, other).items()}})
     phase(tag, batch=1, amp=True,
           loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
           loss_rel=f"{amp_loss:.3e}", loss_tol=AMP_LOSS_RTOL,
           **{f"{n}_rel": f"{e:.3e}" for n, e in amp_grads.items()},
-          grad_tol=AMP_GRAD_RTOL, **beside,
+          grad_tol=grad_tol, **beside,
           seconds=f"{time.perf_counter() - t0:.2f}")
     check(amp_loss <= AMP_LOSS_RTOL,
           f"AMP card vs CPU loss differs by {amp_loss} > {AMP_LOSS_RTOL}")
-    check(all(e <= AMP_GRAD_RTOL for e in amp_grads.values()),
-          f"AMP card vs CPU gradients differ: {amp_grads} > "
-          f"{AMP_GRAD_RTOL}")
+    check(all(e <= grad_tol for e in amp_grads.values()),
+          f"AMP card vs CPU gradients differ: {amp_grads} > {grad_tol}")
 
 
 def _gpt_cfg(**kw):
@@ -1947,6 +2073,370 @@ def gen_serve_phase(torch, card, scope, cfg, prompts, serial):
           f"requests {wrong}")
 
 
+# --- ResNet-50, LeNet and Transformer-big NMT training -----------------
+
+# One ResNet-50 step, card against CPU, from the same startup values with
+# the scale of every batch_norm that ends a residual branch cut to 0.1 of
+# its start (RESNET_BRANCH_SCALE, so each block starts near the
+# identity): the loss's relative gap, each parameter gradient's Frobenius
+# gap over its norm, and each running mean and variance's max|gap| /
+# max|value|. From the startup values as they are, the network amplifies
+# rounding: under bf16 AMP a change of 1e-3 in the image moves the JAX
+# package's own step-1 gradients by 0.05-1.69 of their norm (median 1.28,
+# 3x64x64, batch 4), above the 1.0 an all-zero gradient reads; with the
+# branch scales cut, by at most 0.30 (tools/torch_rounding_sensitivity.py
+# resnet). The
+# phase prints the same reading on the card (card_pert_*: the card's AMP
+# step with the image moved by 1e-3). Measured on the H100 (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md): float32 loss 0, gradients at most
+# 2.0e-2, statistics 3.9e-7; AMP loss 3.1e-6, gradients at most 0.21
+# (the card's own 1e-3 reading up to 0.40), statistics 1.9e-3.
+RESNET_F32_BARS = {"loss": 1e-4, "grad": 0.1, "stat": 1e-4}
+RESNET_AMP_BARS = {"loss": 1e-4, "grad": 0.5, "stat": 2e-2}
+# NMT's card-vs-CPU gradients, Frobenius gap over the norm. Float32: at
+# most 4.4e-4 (src_emb). bf16 AMP: relu in the feed-forward layers stops
+# or passes a gradient by the sign of a bf16-rounded input, so at
+# Transformer-big width bf16 rounding alone moves the embeddings' and
+# the first layers' gradients by about 6%: on the H100 the card's AMP
+# step moves by 6.6% (src_emb), 5.1% (enc_0.att.q.w), 5.8% (trg_emb) when
+# both embedding tables move by 1e-3 of each value, and parts from the
+# CPU's float32 step by 6.9%, 5.1%, 6.4%; the card against the CPU's AMP
+# step reads 6.2%, 5.3%, 5.7% (PERF.md). On the CPU at narrower widths
+# the JAX package's own gradients move as far under the same change as
+# the port's part from them (tools/torch_rounding_sensitivity.py nmt).
+# The AMP bar is 1.5 times the largest of those readings; it holds the
+# gap to the CPU's AMP step and to its float32 step.
+NMT_AMP_GRAD_RTOL = 0.1
+NMT_F32_GRAD_RTOL = 1e-3
+
+
+RESNET_BRANCH_SCALE = 0.1
+
+
+def _branch_end_scales(main):
+    """The scale of each batch_norm that ends a residual branch (its
+    output is the Y of the block's elementwise_add)."""
+    ops = main.global_block().ops
+    add_y = {op.input("Y")[0] for op in ops if op.type == "elementwise_add"}
+    return [op.input("Scale")[0] for op in ops if op.type == "batch_norm"
+            and op.output("Y")[0] in add_y]
+
+
+def _stat_names(main):
+    """Every batch_norm's running mean and variance var, in program
+    order."""
+    return [op.input(s)[0] for op in main.global_block().ops
+            if op.type == "batch_norm" for s in ("Mean", "Variance")]
+
+
+def _build_resnet(ptt, amp):
+    """ResNet-50 as bench.py's build_resnet50_bench builds it: 3x224x224,
+    1000 classes, Momentum lr 0.1, momentum 0.9."""
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _, _ = resnet.build_train(img_shape=RESNET_IMAGE,
+                                        class_dim=RESNET_CLASSES, amp=amp)
+    return main, startup, loss
+
+
+def _resnet_feed(batch, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, *RESNET_IMAGE).astype(np.float32),
+            "label": rng.randint(0, RESNET_CLASSES, (batch, 1))
+            .astype(np.int64)}
+
+
+def resnet_train_phase(torch, card):
+    """ResNet-50 training at bench.py's step through the port's entry
+    points: build_train (batch 64, bf16 AMP, Momentum lr 0.1, momentum
+    0.9), the startup program on the card, the feed from RandomState(0)
+    as bench.py makes it, then 3 warm-up and 10 timed steps through
+    run_steps: images/s, MFU (3 x flops_per_image x 64 a step against
+    the bf16 peak), peak memory and device ms by class (conv, matmul,
+    norm, other). Gates: finite losses (bench.py's lr makes them rise, in
+    the JAX package too, so a fall is not asked for), no flash launch,
+    no executor cache miss after the first step, and every batch_norm's
+    running mean and variance moved from its start (0, 1) and finite.
+    Returns the timed steps' launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    main, startup, loss = _build_resnet(ptt, True)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    ops = main.global_block().ops
+    phase("resnet_train_build", depth=50, batch=RESNET_BATCH,
+          image="x".join(map(str, RESNET_IMAGE)), classes=RESNET_CLASSES,
+          amp=True, ops=len(ops),
+          conv2d=sum(op.type == "conv2d" for op in ops),
+          casts=sum(op.type == "cast" for op in ops),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    launches = run_steps(
+        torch, card, "resnet_train", exe, main, scope,
+        _resnet_feed(RESNET_BATCH, 0), loss, 0, 3, 10, (), RESNET_BATCH,
+        3 * resnet.flops_per_image(50, RESNET_IMAGE[1], RESNET_CLASSES),
+        BF16_FLOPS, unit="images",
+        must_fall=False, classes=("conv", "matmul", "norm", "other"))
+    stats = _stat_names(main)
+    moved = finite = 0
+    for i, n in enumerate(stats):
+        t = scope.get(n)
+        start = 1.0 if i % 2 else 0.0  # mean, variance, mean, ...
+        finite += bool(torch.isfinite(t).all())
+        moved += bool((t != start).any())
+    phase("resnet_stats", vars=len(stats), moved=moved, finite=finite)
+    check(finite == len(stats), f"{len(stats) - finite} running "
+          f"statistics are not finite")
+    check(moved == len(stats), f"{len(stats) - moved} running statistics "
+          f"never moved from their start")
+    return launches
+
+
+def resnet_cpu_check(torch):
+    """ResNet-50 at full width, batch 2, one step on the card and one on
+    the CPU from the same startup values with the residual branches'
+    last batch_norm scales cut (RESNET_BRANCH_SCALE), in float32 and in
+    bf16 AMP (_card_and_cpu: the convolutions' outputs bfloat16 under
+    AMP, float32 without, on both devices): the loss, the gradient of
+    every parameter and the running mean and variance of every
+    batch_norm (MeanOut and VarianceOut, after the step) within
+    RESNET_F32_BARS and RESNET_AMP_BARS. Beside the AMP readings, the
+    card's AMP step with the image moved by 1e-3 against the card's
+    (card_pert_*). The float32 step takes full float32 convolutions (the
+    package keeps cudnn.allow_tf32 off)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    check(not torch.backends.cudnn.allow_tf32,
+          "cudnn.allow_tf32 is on: the float32 convolutions would be TF32")
+    progs = {amp: _build_resnet(ptt, amp) for amp in (False, True)}
+    check(progs[False][1].fingerprint() == progs[True][1].fingerprint(),
+          "the float32 and AMP startup programs differ")
+    main = progs[False][0]
+    pnames = sorted(p.name for p in main.all_parameters())
+    stats = _stat_names(main)
+    scales = _branch_end_scales(main)
+    check(len(scales) == 16, f"{len(scales)} residual branches, not 16")
+    fetch = [f"{p}@GRAD" for p in pnames] + stats
+
+    def prepare(values):
+        return {**values, **{n: values[n] * RESNET_BRANCH_SCALE
+                             for n in scales}}
+
+    def perturb(values, feed):
+        noise = np.random.RandomState(5).randn(*feed["image"].shape)
+        return values, {**feed, "image": (feed["image"] + 1e-3 * noise)
+                        .astype(np.float32)}
+
+    t0 = time.perf_counter()
+    out, _ = _card_and_cpu(
+        ptt, {amp: (m, loss) for amp, (m, _, loss) in progs.items()},
+        progs[False][1], _resnet_feed(RESNET_CHECK_BATCH, 1), fetch, 0,
+        prepare=prepare, perturb=perturb)
+    n = len(pnames)
+    for amp, bars in ((False, RESNET_F32_BARS), (True, RESNET_AMP_BARS)):
+        card, cpu = out[amp, "card"], out[amp, "cpu"]
+        loss_rel = _loss_rel(card, cpu)
+        grads = list(_grad_rel(fetch[:n], card[:1 + n], cpu[:1 + n])
+                     .values())
+        # max|gap| / max|value| of each running mean and variance
+        stat = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(card[1 + n:], cpu[1 + n:])]
+        beside = {}
+        if amp:
+            pert = list(_grad_rel(fetch[:n], out[amp, "card_perturbed"]
+                                  [:1 + n], card[:1 + n]).values())
+            loss_pert = _loss_rel(out[amp, "card_perturbed"], card)
+            beside = {"card_pert_loss_rel": f"{loss_pert:.3e}",
+                      "card_pert_grad_gap_median": f"{np.median(pert):.3e}",
+                      "card_pert_grad_gap_max": f"{max(pert):.3e}"}
+        phase("resnet_cpu_check", batch=RESNET_CHECK_BATCH, amp=amp,
+              loss_card=f"{float(card[0]):.6f}",
+              loss_cpu=f"{float(cpu[0]):.6f}", loss_rel=f"{loss_rel:.3e}",
+              grad_gap_median=f"{np.median(grads):.3e}",
+              grad_gap_max=f"{max(grads):.3e}",
+              stat_gap_median=f"{np.median(stat):.3e}",
+              stat_gap_max=f"{max(stat):.3e}", **beside,
+              bars=",".join(f"{k}:{v}" for k, v in bars.items()),
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        check(all(np.isfinite(x).all() for x in card),
+              f"non-finite values in the card's step (amp={amp})")
+        check(loss_rel <= bars["loss"], f"ResNet card vs CPU loss differs "
+              f"by {loss_rel} > {bars['loss']} (amp={amp})")
+        check(max(grads) <= bars["grad"], f"ResNet card vs CPU gradients "
+              f"differ by {max(grads)} > {bars['grad']} (amp={amp})")
+        check(max(stat) <= bars["stat"], f"ResNet card vs CPU running "
+              f"statistics differ by {max(stat)} > {bars['stat']} "
+              f"(amp={amp})")
+
+
+def _lenet_flops():
+    """Operations of one LeNet forward image: 2 per multiply-add of the
+    two 5x5 convolutions (20 maps of 24x24 from 1, 50 of 8x8 from 20)
+    and the head (800 -> 10)."""
+    return 2 * (25 * 1 * 20 * 24 * 24 + 25 * 20 * 50 * 8 * 8 + 800 * 10)
+
+
+def lenet_train_phase(torch, card):
+    """LeNet (models/lenet.py convolutional_neural_network, [1, 28, 28])
+    as examples/train_mnist.py trains it: cross_entropy, accuracy, Adam
+    lr 1e-3, float32, at batch 128 of seeded images in [0, 1): 3
+    warm-up and 10 timed steps through run_steps (images/s, step ms; the
+    loss must fall), then one step on the card against one on the CPU
+    from the same startup values: the loss within rtol 1e-4 and every
+    parameter's gradient within rtol 1e-3, atol 1e-6."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import lenet
+
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        img = ptt.layers.data("img", shape=[1, 28, 28], dtype="float32")
+        label = ptt.layers.data("label", shape=[1], dtype="int64")
+        loss, predict = lenet.convolutional_neural_network(img, label)
+        ptt.layers.accuracy(predict, label)
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32),
+            "label": rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)}
+    run_steps(torch, card, "lenet_train", exe, main, scope, feed, loss, 0,
+              3, 10, (), LENET_BATCH, 3 * _lenet_flops(), F32_FLOPS,
+              unit="images", classes=("conv", "matmul", "norm", "other"))
+    grads = [f"{p.name}@GRAD" for p in main.all_parameters()]
+    out, _ = _card_and_cpu(ptt, {False: (main, loss)}, startup, feed,
+                           grads, 0)
+    card, cpu = out[False, "card"], out[False, "cpu"]
+    errs = [float(np.abs(a - b).max()) for a, b in zip(card[1:], cpu[1:])]
+    loss_rel = _loss_rel(card, cpu)
+    phase("lenet_cpu_check", batch=LENET_BATCH, loss_rel=f"{loss_rel:.3e}",
+          grad_max_abs_err=f"{max(errs):.3e}", params=len(grads))
+    check(loss_rel <= 1e-4, f"LeNet card vs CPU loss differs by {loss_rel}")
+    for name, a, b in zip(grads, card[1:], cpu[1:]):
+        check(np.allclose(a, b, rtol=1e-3, atol=1e-6),
+              f"{name}: LeNet card vs CPU differ by "
+              f"{float(np.abs(a - b).max())}")
+
+
+def _build_nmt(ptt, cfg, batch, amp=True):
+    from paddle_tpu_torch.models import nmt
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = nmt.build_train(cfg, batch, NMT_LEN, NMT_LEN, lr=1e-4,
+                                  amp=amp)
+    return main, startup, loss
+
+
+def _nmt_feed(cfg, batch, seed):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"src_tokens": rng.randint(0, cfg.vocab_size, (batch, NMT_LEN))
+            .astype(np.int64),
+            "trg_tokens": rng.randint(0, cfg.vocab_size,
+                                      (batch, NMT_LEN + 1)).astype(np.int64)}
+
+
+def nmt_train_phase(torch, card):
+    """Transformer-big NMT training as bench.py's build_transformer_bench
+    (6+6 layers, d 1024, 16 heads, d_ff 4096, vocab 32000, batch 32,
+    source and target 256, bf16 AMP, dropout 0.1, attention dropout 0,
+    label smoothing 0.1, AdamW lr 1e-4, tokens from RandomState(0)): 3
+    warm-up and 10 timed steps through run_steps, with tokens a step =
+    batch x target length and MFU from flops_per_step. Each bf16 flash
+    kernel must run 12 times a step (6 encoder and 6 decoder
+    self-attentions; cross-attention takes the plain path), and no other
+    flash kernel. Then nmt_cpu_check. Returns the timed steps'
+    launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import nmt
+
+    cfg = nmt.transformer_big_nmt(dropout=0.1, attn_dropout=0.0,
+                                  use_flash=True)
+    t0 = time.perf_counter()
+    main, startup, loss = _build_nmt(ptt, cfg, NMT_BATCH)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    phase("nmt_train_build", layers=f"{cfg.n_layers}+{cfg.n_layers}",
+          d_model=cfg.d_model, heads=cfg.n_heads, d_ff=cfg.d_ff,
+          vocab=cfg.vocab_size, batch=NMT_BATCH, src_len=NMT_LEN,
+          trg_len=NMT_LEN, amp=True, ops=len(main.global_block().ops),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    tokens = NMT_BATCH * NMT_LEN
+    flops = nmt.flops_per_step(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)
+    launches = run_steps(torch, card, "nmt_train", exe, main, scope,
+                         _nmt_feed(cfg, NMT_BATCH, 0), loss,
+                         2 * cfg.n_layers, 3, 10, BF16_KERNEL_SYMBOLS,
+                         tokens, flops / tokens, BF16_FLOPS)
+    del scope, exe
+
+    nmt_cpu_check(ptt, nmt)
+    return launches
+
+
+def nmt_cpu_check(ptt, nmt):
+    """Transformer-big at batch 1, dropout 0, one step on the card and
+    one on the CPU from the same startup values, in float32 and in bf16
+    AMP. Float32: the loss within rtol 1e-4 and each gradient's Frobenius
+    gap within NMT_F32_GRAD_RTOL of its norm. AMP: the loss within
+    AMP_LOSS_RTOL, the gradients within NMT_AMP_GRAD_RTOL of the CPU's
+    AMP step and of its float32 step (vs_f32_*); beside them, against
+    the card's AMP step with both embedding tables moved by 1e-3 of each
+    value (card_pert_*): how far bf16 rounding alone moves each gradient
+    at this size."""
+    import numpy as np
+
+    cfg = nmt.transformer_big_nmt(dropout=0.0, attn_dropout=0.0,
+                                  use_flash=True)
+    progs = {amp: _build_nmt(ptt, cfg, 1, amp) for amp in (False, True)}
+    check(progs[False][1].fingerprint() == progs[True][1].fingerprint(),
+          "the float32 and AMP startup programs differ")
+    grads = ["src_emb@GRAD", "enc_0.att.q.w@GRAD",
+             f"dec_{cfg.n_layers - 1}.ffn.fc2.w@GRAD", "trg_emb@GRAD",
+             "nmt_head.w@GRAD"]
+
+    def perturb(values, feed):
+        rng = np.random.RandomState(5)
+        return {**values, **{n: (values[n] * (1 + 1e-3 * rng.randn(
+            *values[n].shape))).astype(np.float32)
+            for n in ("src_emb", "trg_emb")}}, feed
+
+    t0 = time.perf_counter()
+    out, launches = _card_and_cpu(
+        ptt, {amp: (main, loss) for amp, (main, _, loss) in progs.items()},
+        progs[False][1], _nmt_feed(cfg, 1, 1), grads, 2 * cfg.n_layers,
+        perturb=perturb)
+    card, cpu = out[False, "card"], out[False, "cpu"]
+    f32_loss, f32_grads = _loss_rel(card, cpu), _grad_rel(grads, card, cpu)
+    phase("nmt_cpu_check", batch=1, amp=False,
+          loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
+          loss_rel=f"{f32_loss:.3e}",
+          **{f"{n}_rel": f"{e:.3e}" for n, e in f32_grads.items()},
+          grad_tol=NMT_F32_GRAD_RTOL,
+          launches_per_kernel=launches[False]["flash_attention_fwd"])
+    check(f32_loss <= 1e-4, f"NMT card vs CPU loss differs by {f32_loss}")
+    check(all(e <= NMT_F32_GRAD_RTOL for e in f32_grads.values()),
+          f"NMT card vs CPU float32 gradients differ: {f32_grads} > "
+          f"{NMT_F32_GRAD_RTOL}")
+    _amp_check("nmt_cpu_check", out, grads, t0, vs_f32=cpu,
+               grad_tol=NMT_AMP_GRAD_RTOL)
+    vs_f32 = _grad_rel(grads, out[True, "card"], cpu)
+    check(all(e <= NMT_AMP_GRAD_RTOL for e in vs_f32.values()),
+          f"NMT card AMP vs CPU float32 gradients differ: {vs_f32} > "
+          f"{NMT_AMP_GRAD_RTOL}")
+
+
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 # kernel -> (its source under csrc/, the line of the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -2560,15 +3050,20 @@ def main():
     prompts, serial = gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
     gen_serve_phase(torch, card, gpt_scope, gpt_cfg, prompts, serial)
     del gpt_scope
+    resnet_train_phase(torch, card)
+    resnet_cpu_check(torch)
+    lenet_train_phase(torch, card)
+    nmt_trained = nmt_train_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
-    # BERT and the GPT bf16 training runs; the float32 kernels' over the
+    # BERT, GPT and NMT bf16 training runs; the float32 kernels' over the
     # float32 training run and the float32 check step, and the float32
     # forward's over the serving run too
-    def entry(name, rec, launches, dtype=None, causal=None):
+    def entry(name, rec, launches, dtype=None, **shapes):
         """One kernel's record; a dtype instance of its own is named
-        <name>_<dtype> and carries its dtype; `causal` (the GPT path's
-        record) adds its shape's numbers under causal_* keys."""
+        <name>_<dtype> and carries its dtype; each of `shapes` (the GPT
+        path's record as causal, NMT's as nmt and nmt_causal) adds its
+        shape's numbers under <key>_* keys."""
         source, line = KERNEL_SOURCES[name]
         own = {"dtype": dtype} if dtype else {}
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2578,11 +3073,14 @@ def main():
             "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": launches, **own, **{k: rec[k] for k in keys},
-            **({f"causal_{k}": causal[k] for k in keys} if causal else {})}
+            **{f"{tag}_{k}": other[k] for tag, other in shapes.items()
+               for k in keys}}
 
     out = [entry(name, records["bfloat16"][name],
-                 trained[name] + gpt_trained[name],
-                 causal=records["bfloat16_causal"][name])
+                 trained[name] + gpt_trained[name] + nmt_trained[name],
+                 causal=records["bfloat16_causal"][name],
+                 nmt=records["nmt"][name],
+                 nmt_causal=records["nmt_causal"][name])
            for name in KERNEL_SOURCES]
     out += [entry(name, records["float32"][name],
                   served.get(name, 0) + trained_f32[name] +

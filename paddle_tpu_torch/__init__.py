@@ -41,6 +41,7 @@ from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
 from .executor import Executor  # noqa: F401,E402
 from . import layers  # noqa: F401,E402
+from . import nets  # noqa: F401,E402
 from . import initializer  # noqa: F401,E402
 from . import io  # noqa: F401,E402
 from . import inference  # noqa: F401,E402

@@ -1,7 +1,7 @@
 """layers.nn — graph-building functions over the op library.
 
-The functions the transformer encoder, its training losses and the GPT
-decode steps call.
+The functions the transformer models (BERT, GPT, NMT), their training
+losses, the GPT decode steps and the vision models (ResNet, LeNet) call.
 Each emits the same op types and attrs as its counterpart in the JAX
 package, so programs built by the two packages serialize identically.
 """
@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import math
 
-from ..initializer import Constant
+from ..framework import unique_name
+from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
 from .math_ops import elementwise_add  # noqa: F401
 
@@ -17,7 +18,9 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "add_position_encoding", "flash_attention", "reshape",
            "transpose", "gelu", "elementwise_add", "mean",
            "softmax_with_cross_entropy", "gather", "softmax", "matmul",
-           "scale", "slice", "one_hot", "reduce_mean"]
+           "scale", "slice", "one_hot", "reduce_mean", "conv2d", "pool2d",
+           "batch_norm", "relu", "tanh", "topk", "cross_entropy",
+           "label_smooth"]
 
 
 def _unary_layer(op_type):
@@ -32,6 +35,8 @@ def _unary_layer(op_type):
 
 
 gelu = _unary_layer("gelu")
+relu = _unary_layer("relu")
+tanh = _unary_layer("tanh")
 
 
 def mean(x, name=None):
@@ -84,6 +89,111 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                      attrs={"padding_idx": (-1 if padding_idx is None
                                             else padding_idx)})
     return out
+
+
+def _conv_base(op_type, input, num_filters, filter_size, stride, padding,
+               dilation, groups, param_attr, bias_attr, act, name):
+    helper = LayerHelper(op_type, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    groups = groups or 1
+    if isinstance(filter_size, int):
+        filter_size = [filter_size] * 2
+    if isinstance(stride, int):
+        stride = [stride] * 2
+    if isinstance(padding, int):
+        padding = [padding] * 2
+    if isinstance(dilation, int):
+        dilation = [dilation] * 2
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (math.prod(filter_size) * num_channels)) ** 0.5
+    w = helper.create_parameter(helper.param_attr, filter_shape, input.dtype,
+                                default_initializer=Normal(0.0, std))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type=op_type,
+                     inputs={"Input": [input.name], "Filter": [w.name]},
+                     outputs={"Output": [out.name]},
+                     attrs={"strides": stride, "paddings": padding,
+                            "dilations": dilation, "groups": groups})
+    pre_act = helper.append_bias_op(out, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           act=None, name=None, data_format="NCHW"):
+    return _conv_base("conv2d", input, num_filters, filter_size, stride,
+                      padding, dilation, groups, param_attr, bias_attr, act,
+                      name)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True):
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    if isinstance(pool_stride, int):
+        pool_stride = [pool_stride, pool_stride]
+    if isinstance(pool_padding, int):
+        pool_padding = [pool_padding, pool_padding]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pool2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "strides": pool_stride,
+                            "paddings": pool_padding,
+                            "global_pooling": global_pooling,
+                            "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def _create_persistable_stat(helper, name_hint, shape, dtype, init_value):
+    """A non-trainable persistable var in both programs, initialised in
+    the startup program (batch_norm's running mean and variance)."""
+    name = unique_name.generate(name_hint)
+    sp = helper.startup_program.global_block()
+    sv = sp.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
+                       stop_gradient=True)
+    Constant(init_value)(sv, sp)
+    return helper.main_program.global_block().create_var(
+        name=name, shape=shape, dtype=dtype, persistable=True,
+        stop_gradient=True)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, name=None, moving_mean_name=None,
+               moving_variance_name=None, do_model_average_for_mean_and_var=
+               False, use_global_stats=False):
+    """MeanOut and VarianceOut name the running Mean and Variance vars
+    themselves: a training step updates them in the Scope."""
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(helper.param_attr, [c], input.dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(helper.bias_attr, [c], input.dtype,
+                                   is_bias=True)
+    mean = _create_persistable_stat(helper, f"{helper.name}.mean", [c],
+                                    input.dtype, 0.0)
+    var = _create_persistable_stat(helper, f"{helper.name}.var", [c],
+                                   input.dtype, 1.0)
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_m = helper.create_variable_for_type_inference(input.dtype, True)
+    saved_v = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input.name], "Scale": [scale.name],
+                "Bias": [bias.name], "Mean": [mean.name],
+                "Variance": [var.name]},
+        outputs={"Y": [y.name], "MeanOut": [mean.name],
+                 "VarianceOut": [var.name], "SavedMean": [saved_m.name],
+                 "SavedVariance": [saved_v.name]},
+        attrs={"momentum": momentum, "epsilon": epsilon,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -193,6 +303,41 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input.name], "Label": [label.name]},
+                     outputs={"Y": [out.name]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label.name]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist.name]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out.name]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(type="top_k", inputs={"X": [input.name]},
+                     outputs={"Out": [values.name],
+                              "Indices": [indices.name]},
+                     attrs={"k": k})
+    return values, indices
 
 
 def gather(input, index, overwrite=True):

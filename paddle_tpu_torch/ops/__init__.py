@@ -6,6 +6,7 @@ from . import attention  # noqa: F401
 from . import elementwise  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import math  # noqa: F401
+from . import metrics_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce  # noqa: F401

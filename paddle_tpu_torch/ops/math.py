@@ -1,5 +1,5 @@
 """Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, gather, slice, reshape2, transpose2.
+cast, gather, slice, top_k, reshape2, transpose2.
 
 The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
 the card), as the JAX package leaves them to XLA. Float32 products are
@@ -89,6 +89,17 @@ def _slice(ctx, ins, attrs):
     if attrs.get("decrease_axis"):
         out = out.squeeze(tuple(attrs["decrease_axis"]))
     return {"Out": [out]}
+
+
+@register_op("top_k", nondiff_outputs=("Indices",))
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis, largest first. A stable sort
+    keeps the lower index first among equal values, as jax.lax.top_k
+    does; torch.topk promises no order among ties."""
+    k = attrs.get("k", 1)
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True,
+                           stable=True)
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
 
 
 def _with_xshape(name, fn):

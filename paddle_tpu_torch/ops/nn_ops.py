@@ -1,7 +1,16 @@
-"""Softmax, normalisation, dropout and position-encoding ops."""
+"""Softmax, convolution, pooling, normalisation, dropout and
+position-encoding ops.
+
+The JAX package leaves conv2d, pool2d and batch_norm to XLA, so here
+they are torch's library calls: cuDNN's convolution, and torch's pooling
+and batch normalisation, on the card. Each keeps the reference's
+semantics where those differ from torch's defaults (4-entry paddings,
+pool2d's floored output size, batch_norm's running statistics).
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_op
 
@@ -9,6 +18,102 @@ from ..core.registry import register_op
 @register_op("softmax")
 def _softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW input (AnyLayout reads as NCHW) and OIHW filter. `paddings` is
+    [h, w] or [top, bottom, left, right]; uneven pads are applied by
+    F.pad, as F.conv2d pads symmetrically only. The output keeps the
+    input's dtype."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    fmt = attrs.get("data_format", "NCHW")
+    if fmt not in ("NCHW", "AnyLayout", "ANYLAYOUT"):
+        # the layers write no data_format; NHWC programs are not ported
+        raise NotImplementedError(f"conv2d data_format {fmt!r}")
+    pads = list(attrs.get("paddings", [0, 0]))
+    if len(pads) == 4:
+        top, bottom, left, right = pads
+        if (top, left) != (bottom, right):
+            x = F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        pads = [top, left]
+    out = F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
+                   padding=tuple(pads),
+                   dilation=tuple(attrs.get("dilations", [1, 1])),
+                   groups=attrs.get("groups", 1)).to(x.dtype)
+    return {"Output": [out]}
+
+
+@register_op("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """Max or average pooling over NCHW. As in the JAX package: strides
+    default to the window only when the attr is absent, `ceil_mode` is
+    not read (output sizes are floored), and an exclusive average
+    divides by the unpadded count only when there is padding. Padding
+    beyond half the window raises (torch's limit)."""
+    x = ins["X"][0]
+    ptype = attrs.get("pooling_type", "max")
+    ksize = list(attrs.get("ksize", [2, 2]))
+    adaptive = attrs.get("adaptive", False)
+    # the reference's precedence: global, or (adaptive and a 1x1 output)
+    if attrs.get("global_pooling", False) or adaptive \
+            and list(attrs.get("ksize")) == [1, 1]:
+        if ptype == "max":
+            return {"Out": [torch.amax(x, dim=(2, 3), keepdim=True)]}
+        return {"Out": [torch.mean(x, dim=(2, 3), keepdim=True)]}
+    if adaptive:
+        raise NotImplementedError("adaptive pool2d is not ported yet")
+    strides = list(attrs.get("strides", ksize))
+    pads = list(attrs.get("paddings", [0, 0]))
+    if ptype == "max":
+        out = F.max_pool2d(x, ksize, strides, pads)
+    else:
+        exclusive = attrs.get("exclusive", True) and any(pads)
+        out = F.avg_pool2d(x, ksize, strides, pads,
+                           count_include_pad=not exclusive)
+    return {"Out": [out]}
+
+
+@register_op("batch_norm", nondiff_inputs=("Mean", "Variance"),
+             nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                              "SavedVariance"))
+def _batch_norm(ctx, ins, attrs):
+    """Batch normalisation over every axis but the channel's.
+
+    Training normalises by the batch's mean and biased variance, and
+    writes the running statistics as the JAX package does:
+    ``running * momentum + batch * (1 - momentum)``, with the biased
+    variance; SavedVariance is ``rsqrt(var + eps)``. torch's own running
+    update differs (the unbiased variance, the other momentum
+    convention), so it is used only to read the batch statistics out:
+    with momentum 1 it leaves the batch mean and the unbiased variance in
+    zeroed buffers, and the biased variance is that times (n - 1) / n.
+    `is_test`, `use_global_stats` or a test run normalise by the running
+    statistics and pass them through."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    nhwc = attrs.get("data_layout", "NCHW") == "NHWC" and x.dim() > 2
+    if nhwc:
+        x = x.movedim(-1, 1)
+    if ctx.is_test or attrs.get("use_global_stats", False):
+        y = F.batch_norm(x, mean, var, scale, bias, training=False,
+                         eps=eps)
+        outs = {"MeanOut": [mean], "VarianceOut": [var],
+                "SavedMean": [mean], "SavedVariance": [var]}
+    else:
+        n = x.numel() // x.shape[1]
+        m, v = torch.zeros_like(mean), torch.zeros_like(var)
+        y = F.batch_norm(x, m, v, scale, bias, training=True, momentum=1.0,
+                         eps=eps)
+        v = v * ((n - 1) / n)
+        outs = {"MeanOut": [mean * momentum + m * (1 - momentum)],
+                "VarianceOut": [var * momentum + v * (1 - momentum)],
+                "SavedMean": [m], "SavedVariance": [torch.rsqrt(v + eps)]}
+    return {"Y": [y.movedim(1, -1) if nhwc else y], **outs}
 
 
 @register_op("layer_norm")

@@ -1,5 +1,5 @@
-"""Tensor creation / init / random ops, assign, one_hot and the
-embedding lookups.
+"""Tensor creation / init / random ops, assign, one_hot, label_smooth
+and the embedding lookups.
 
 Random ops draw from the op's own generator (core/lowering.py), seeded
 from the program seed with the step and the op id folded in, so runs are
@@ -76,6 +76,16 @@ def _one_hot(ctx, ins, attrs):
         x = x.reshape(x.shape[:-1])
     depth = torch.arange(int(attrs["depth"]), device=x.device)
     return {"Out": [(x[..., None] == depth).to(torch.float32)]}
+
+
+@register_op("label_smooth")
+def _label_smooth(ctx, ins, attrs):
+    """(1 - eps) * X + eps * PriorDist, or + eps / C without a prior."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if "PriorDist" in ins:
+        return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0]]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
 
 
 def _lookup(w, ids, attrs, out_lead):

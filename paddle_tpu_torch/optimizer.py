@@ -1,8 +1,9 @@
 """Optimizers: build backward and update ops into the program.
 
-The JAX package's static-graph optimizers, as far as the training path
-needs them: the ``Optimizer`` base (learning-rate var, accumulators,
-``backward`` / ``apply_gradients`` / ``minimize``) and AdamW. The
+The JAX package's static-graph optimizers, as far as the training paths
+need them: the ``Optimizer`` base (learning-rate var, accumulators,
+``backward`` / ``apply_gradients`` / ``minimize``), SGD, Momentum, Adam
+and AdamW. The
 programs they build are the JAX package's to the byte. Regularization and
 gradient clipping are not ported yet and raise; the eager (dygraph)
 path is not ported.
@@ -15,7 +16,9 @@ from .backward import append_backward
 from .framework import Variable, default_main_program, unique_name
 from .layers.tensor import create_global_var
 
-__all__ = ["Optimizer", "AdamW", "AdamWOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum",
+           "MomentumOptimizer", "Adam", "AdamOptimizer", "AdamW",
+           "AdamWOptimizer"]
 
 
 class Optimizer:
@@ -101,6 +104,43 @@ def _lr_input(self, param):
     return self._lr_var
 
 
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        return block.append_op(
+            "sgd",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "LearningRate": [_lr_input(self, p).name]},
+            outputs={"ParamOut": [p.name]}, infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            inputs={"Param": [p.name], "Grad": [g.name],
+                    "Velocity": [v.name],
+                    "LearningRate": [_lr_input(self, p).name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov}, infer_shape=False)
+
+
 class _AdamBase(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, regularization=None):
@@ -131,6 +171,18 @@ class _AdamBase(Optimizer):
         return ins, outs
 
 
+class AdamOptimizer(_AdamBase):
+    type = "adam"
+
+    def _append_optimize_op(self, block, pg):
+        p, g = pg
+        ins, outs = self._adam_io(p, g)
+        return block.append_op(
+            "adam", inputs=ins, outputs=outs,
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon}, infer_shape=False)
+
+
 class AdamWOptimizer(_AdamBase):
     type = "adamw"
 
@@ -148,4 +200,7 @@ class AdamWOptimizer(_AdamBase):
             infer_shape=False)
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer
 AdamW = AdamWOptimizer

@@ -1,0 +1,179 @@
+"""How far rounding alone moves a training step's gradients, on the CPU,
+in the JAX package and in its PyTorch port (paddle_tpu_torch).
+
+One step of a model from the JAX package's startup values, carried to
+the port by convert.scope_from_numpy, and for every parameter's
+step-1 gradient, each gap as ||a - b|| / ||b|| (Frobenius):
+
+- port_amp: the port's bf16 AMP gradient against the JAX package's;
+- jax_pert: the JAX package's AMP gradient with the input moved by
+  1e-3 (ResNet: the image plus 1e-3 of seeded noise; NMT: both
+  embedding tables times 1 + 1e-3 of seeded noise) against the
+  unmoved one, how far bf16 rounding alone moves it;
+- jax_amp_vs_f32: the JAX package's AMP gradient against its float32
+  one; port_amp_vs_f32 likewise for the port against the JAX float32;
+- port_f32: the port's float32 gradient against the JAX package's.
+
+Usage (both packages on the path, JAX on the CPU):
+
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py resnet \\
+        [--batch 4] [--branch-scale 0.1]
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py nmt \\
+        --d-model 128 --layers 2 --vocab 32000 --len 256
+
+ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
+--branch-scale multiplies the scale of every batch_norm that ends a
+residual branch (as tests/test_torch_resnet.py's AMP case does). NMT
+runs the Transformer-big shape at the given width, depth, vocab and
+source = target length, batch 1, dropout 0, AdamW lr 1e-4. Prints one
+line per parameter and the largest of each reading, the attention key
+biases left out (their gradients are zero but for rounding).
+"""
+import argparse
+import sys
+
+import numpy as np
+
+import paddle_tpu as fj
+import paddle_tpu_torch as ft
+from paddle_tpu_torch.convert import scope_from_numpy
+
+READINGS = ("port_amp", "jax_pert", "jax_amp_vs_f32", "port_amp_vs_f32",
+            "port_f32")
+
+
+def _fro(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _resnet(args):
+    from paddle_tpu.models import resnet as rj
+    from paddle_tpu_torch.models import resnet as rt
+
+    def build(f, mod, amp):
+        main, startup = f.Program(), f.Program()
+        startup.random_seed = 11
+        with f.program_guard(main, startup), f.unique_name.guard():
+            loss, _, _ = mod.build_train(img_shape=(3, 64, 64),
+                                         class_dim=10, lr=0.1, amp=amp)
+        return main, startup, loss
+
+    progs = {(pkg, amp): build(f, mod, amp)
+             for pkg, f, mod in (("j", fj, rj), ("t", ft, rt))
+             for amp in (False, True)}
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.randn(args.batch, 3, 64, 64).astype(np.float32),
+            "label": rng.randint(0, 10, (args.batch, 1)).astype(np.int64)}
+    noise = np.random.RandomState(5).randn(*feed["image"].shape)
+    moved = dict(feed, image=(feed["image"] + 1e-3 * noise)
+                 .astype(np.float32))
+    init = _jax_init(progs["j", False][1])
+    ops = progs["t", False][0].global_block().ops
+    add_y = {op.input("Y")[0] for op in ops if op.type == "elementwise_add"}
+    for op in ops:
+        if op.type == "batch_norm" and op.output("Y")[0] in add_y:
+            name = op.input("Scale")[0]
+            init[name] = (init[name] * args.branch_scale).astype(np.float32)
+    return progs, init, (init, feed), (init, moved)
+
+
+def _nmt(args):
+    from paddle_tpu.models import nmt as nj
+    from paddle_tpu_torch.models import nmt as nt
+
+    def build(f, mod, amp):
+        cfg = mod.transformer_big_nmt(
+            vocab_size=args.vocab, d_model=args.d_model,
+            n_heads=max(args.d_model // 64, 1), n_layers=args.layers,
+            d_ff=4 * args.d_model, dropout=0.0, attn_dropout=0.0,
+            use_flash=True)
+        main, startup = f.Program(), f.Program()
+        startup.random_seed = 13
+        with f.program_guard(main, startup), f.unique_name.guard():
+            loss, _ = mod.build_train(cfg, 1, args.len, args.len, lr=1e-4,
+                                      amp=amp)
+        return main, startup, loss
+
+    progs = {(pkg, amp): build(f, mod, amp)
+             for pkg, f, mod in (("j", fj, nj), ("t", ft, nt))
+             for amp in (False, True)}
+    rng = np.random.RandomState(1)
+    feed = {"src_tokens": rng.randint(0, args.vocab, (1, args.len))
+            .astype(np.int64),
+            "trg_tokens": rng.randint(0, args.vocab, (1, args.len + 1))
+            .astype(np.int64)}
+    init = _jax_init(progs["j", False][1])
+    noise = np.random.RandomState(5)
+    moved = dict(init)
+    for name in ("src_emb", "trg_emb"):
+        moved[name] = (init[name] * (1 + 1e-3 * noise.randn(
+            *init[name].shape))).astype(np.float32)
+    return progs, init, (init, feed), (moved, feed)
+
+
+def _jax_init(startup):
+    scope = fj.Scope()
+    with fj.scope_guard(scope):
+        fj.Executor(fj.CPUPlace()).run(startup)
+    return {n: np.asarray(scope.get(n)) for n in scope.names()
+            if scope.find_var(n) is not None}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="model", required=True)
+    r = sub.add_parser("resnet")
+    r.add_argument("--batch", type=int, default=4)
+    r.add_argument("--branch-scale", type=float, default=1.0)
+    n = sub.add_parser("nmt")
+    n.add_argument("--d-model", type=int, default=128)
+    n.add_argument("--layers", type=int, default=2)
+    n.add_argument("--vocab", type=int, default=32000)
+    n.add_argument("--len", type=int, default=256)
+    args = ap.parse_args(argv)
+    progs, init, base, moved = (_resnet if args.model == "resnet"
+                                else _nmt)(args)
+    names = [p.name for p in progs["t", False][0].all_parameters()]
+    fetch = [f"{p}@GRAD" for p in names]
+
+    def jax_step(amp, state_feed):
+        state, feed = state_feed
+        main, _, loss = progs["j", amp]
+        scope = fj.Scope()
+        for k, v in state.items():
+            scope.set(k, v)
+        with fj.scope_guard(scope):
+            out = fj.Executor(fj.CPUPlace()).run(
+                main, feed=feed, fetch_list=[loss.name] + fetch)
+        return [np.asarray(x, np.float32) for x in out]
+
+    def port_step(amp, state_feed):
+        state, feed = state_feed
+        main, _, loss = progs["t", amp]
+        scope = scope_from_numpy(state, ft.Scope(), ft.CPUPlace())
+        out = ft.Executor(ft.CPUPlace()).run(
+            main, feed=feed, fetch_list=[loss.name] + fetch, scope=scope)
+        return [np.asarray(x, np.float32) for x in out]
+
+    ja, jp, j32 = jax_step(True, base), jax_step(True, moved), \
+        jax_step(False, base)
+    ta, t32 = port_step(True, base), port_step(False, base)
+    print(f"loss: jax amp {ja[0]} moved {jp[0]} f32 {j32[0]}; "
+          f"port amp {ta[0]} f32 {t32[0]}")
+    top = dict.fromkeys(READINGS, 0.0)
+    for i, name in enumerate(names, 1):
+        row = dict(zip(READINGS, (_fro(ta[i], ja[i]), _fro(jp[i], ja[i]),
+                                  _fro(ja[i], j32[i]), _fro(ta[i], j32[i]),
+                                  _fro(t32[i], j32[i]))))
+        print(f"{name:28s} " + " ".join(f"{k} {v:.3e}"
+                                        for k, v in row.items()))
+        if name.endswith(".k.b"):
+            continue  # zero but for rounding: softmax ignores the shift
+        for k, v in row.items():
+            top[k] = max(top[k], v)
+    print("max " + " ".join(f"{k} {v:.3e}" for k, v in top.items()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
