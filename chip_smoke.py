@@ -138,6 +138,32 @@ Phases, one progress line each; any failure exits non-zero:
              at [512, 256, 64] (cross-attention takes the plain path);
              then one batch-1 step with dropout 0 card vs CPU under the
              AMP limits.
+17. http_serve — (after gen_serve, on the serve phase's saved BERT-base
+             and the trained GPT-small) one ServingHTTPServer over a
+             ServingEngine and a GenerationEngine: the serve requests to
+             /v1/predict and the gpt_generate prompts to /v1/generate
+             from 4 threads, answers held to the engines' own and to the
+             serial streams, the float32 forward 12 times a forward,
+             /healthz, a 400, the /v1/kv/export 404, and a threshold
+             rule in FLAGS_alert_rules that must fire (ALERTS on
+             /metrics, /alertz, one incident bundle); req/s and p50/p99
+             over HTTP beside the direct numbers.
+18. deeplab_train — DeepLabv3+ (models/deeplab.build_train) at bench.py's
+             step: batch 8, 3x513x513, 19 classes, bf16 AMP, Momentum
+             lr 1e-3, momentum 0.9; 3 warm-up and 10 timed steps:
+             images/s, MFU, peak memory, device ms by class; every
+             running statistic moved and finite.
+19. profiler — profiler.profiler() around two deeplab_train steps: the
+             summary's total within 10% of the profiled step's device
+             time, classes adding up, the conv2d op scopes named, a
+             chrome trace written.
+20. deeplab_cpu_check — DeepLabv3+ at batch 1, 3x65x65 (one value a
+             channel in the image-pooling branch's batch_norm), card vs
+             CPU in float32 and AMP from the branch-scaled state.
+21. guard_train — TrainerGuard around LeNet (batch 128, Adam): a NaN
+             batch rolled back, a preemption checkpointed, a fresh
+             guard's resume, resumed losses against an uninterrupted
+             run's.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
@@ -145,8 +171,9 @@ bound; the bf16 entries count the BERT, GPT and NMT training runs and
 carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys
 and NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
 (decoder) keys;
-the float32 instances as entries of their own, with the serving, float32
-training and float32 check-step launches) and the result line
+the float32 instances as entries of their own, with the serving (direct
+and over HTTP), float32 training and float32 check-step launches), a
+[done] line with the run's length before them, and the result line
 {"ok": true, "device": {...}}.
 """
 import json
@@ -610,12 +637,11 @@ def bwd_kernel_phase(torch):
     return records
 
 
-def serve_phase(torch, card):
-    with tempfile.TemporaryDirectory(prefix="ptt_bert_") as model_dir:
-        return _serve(torch, card, model_dir)
-
-
-def _serve(torch, card, model_dir):
+def serve_phase(torch, card, model_dir):
+    """[serve], [serve_hooks] and [bucket] over BERT-base saved into
+    `model_dir` (kept for [http_serve]). Returns the flash launches of
+    the serving run, its requests and answers, and its requests/s and
+    latency percentiles."""
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.inference import (AnalysisConfig,
@@ -710,6 +736,9 @@ def _serve(torch, card, model_dir):
     check(cpu_err <= 2e-3, f"card vs CPU answer differs by {cpu_err}")
 
     lat = sorted(latency)
+    p50, p99 = _percentiles(lat)
+    direct = {"req_per_s": N_REQUESTS / wall, "p50_ms": p50 * 1e3,
+              "p99_ms": p99 * 1e3}
     phase("serve", requests=N_REQUESTS, rows=sum(r.shape[0] for r in reqs),
           batches=batches, launches=launches,
           misses_after_warmup=misses - warm["misses"],
@@ -721,7 +750,7 @@ def _serve(torch, card, model_dir):
                       N_REQUESTS / wall)
     bucket_phase(torch, card, cfg, engine.predictor, exe, scope,
                  main.clone(for_test=True), hidden.name, rng)
-    return {"flash_attention_fwd": launches}
+    return {"flash_attention_fwd": launches}, reqs, answers, direct
 
 
 # what the JAX package's serving engine, batcher and executor record for
@@ -932,9 +961,6 @@ def _model_flops(cfg, batch):
     return 2.0 * batch * T * linear + attn
 
 
-KERNEL_CLASSES = {"fwd_kernel": "flash_attention_fwd",
-                  "dq_kernel": "flash_attention_bwd_dq",
-                  "dkv_kernel": "flash_attention_bwd_dkv"}
 # the tensor-core kernels the bf16 training step must run, the one the
 # float32 serving forward must run, and the three the float32 training
 # step must run
@@ -942,77 +968,6 @@ BF16_KERNEL_SYMBOLS = ("fwd_kernel_wgmma", "dq_kernel_wgmma",
                        "dkv_kernel_wgmma")
 F32_FWD_SYMBOL = "fwd_kernel_tf32wg"
 F32_KERNEL_SYMBOLS = (F32_FWD_SYMBOL, "dq_kernel_tf32wg", "dkv_kernel_tf32wg")
-
-
-# A kernel's class is that of the op that launched it: the innermost aten
-# op above the launch (the profiler links every kernel to the op running
-# when it was launched) that is a convolution, a norm or a matrix
-# product, else other. So a cuDNN convolution's GEMM-named kernels and
-# its layout transposes count as conv whatever their names say. The
-# flash kernels go by their own symbols.
-OP_CLASSES = {
-    "conv": ("aten::conv2d", "aten::convolution", "aten::_convolution",
-             "aten::cudnn_convolution", "aten::convolution_backward"),
-    "norm": ("aten::batch_norm", "aten::_batch_norm_impl_index",
-             "aten::native_batch_norm", "aten::cudnn_batch_norm",
-             "aten::native_batch_norm_backward",
-             "aten::cudnn_batch_norm_backward", "aten::layer_norm",
-             "aten::native_layer_norm", "aten::native_layer_norm_backward"),
-    "matmul": ("aten::linear", "aten::matmul", "aten::mm", "aten::addmm",
-               "aten::bmm", "aten::baddbmm", "aten::_addmm_activation"),
-}
-
-
-def _flash_class(name):
-    for key, cls in KERNEL_CLASSES.items():
-        if key in name:
-            return cls
-    return None
-
-
-def _op_class(ev):
-    """The class of the innermost op in OP_CLASSES at or above the
-    profiler event `ev`, else other."""
-    while ev is not None:
-        for cls, ops in OP_CLASSES.items():
-            if ev.name in ops:
-                return cls
-        ev = ev.cpu_parent
-    return "other"
-
-
-def _device_ms(prof):
-    """{(class, kernel name): (device milliseconds, launches)} from a
-    torch.profiler run: each kernel's launches split by the class of the
-    op that launched it (_op_class); a flash kernel's class is its own.
-    Launches the profiler links to no op count as class "unlinked"."""
-    launched, linked = {}, {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            ms, n = launched.get(ev.key, (0.0, 0))
-            launched[ev.key] = (ms + dev_us / 1e3, n + ev.count)
-    for ev in prof.events():
-        if ev.kernels and str(ev.device_type).endswith("CPU"):
-            cls = _op_class(ev)
-            for k in ev.kernels:
-                parts = linked.setdefault(k.name, {})
-                ms, n = parts.get(cls, (0.0, 0))
-                parts[cls] = (ms + k.duration / 1e3, n + 1)
-    out = {}
-    for name, (ms, n) in launched.items():
-        parts = dict(linked.get(name, {}))
-        rest_n = n - sum(k for _, k in parts.values())
-        if rest_n > 0:
-            parts["unlinked"] = (max(ms - sum(m for m, _ in parts.values()),
-                                     0.0), rest_n)
-        for cls, (m, k) in parts.items():
-            key = (_flash_class(name) or cls, name)
-            m0, k0 = out.get(key, (0.0, 0))
-            out[key] = (m0 + m, k0 + k)
-    return out
 
 
 def _symbol_launches(per_name, pattern):
@@ -1024,8 +979,9 @@ def _symbol_launches(per_name, pattern):
 
 
 def _print_flash_symbols(per_name):
-    """The flash kernels' symbols from _device_ms's table: which design
-    ran, and how often."""
+    """The flash kernels' symbols from device_kernels's table: which
+    design ran, and how often."""
+    from paddle_tpu_torch.profiler import KERNEL_CLASSES
     for (cls, name), (ms, n) in sorted(per_name.items()):
         if cls in KERNEL_CLASSES.values():
             print(f"  flash: {n} launches  {ms:.3f} ms  {name[:100]}",
@@ -1033,8 +989,8 @@ def _print_flash_symbols(per_name):
 
 
 def _device_ms_by_class(per_name, classes):
-    """Device milliseconds per kernel class from _device_ms's table, and
-    the unlinked launches' milliseconds; a class not in `classes`
+    """Device milliseconds per kernel class from device_kernels's table,
+    and the unlinked launches' milliseconds; a class not in `classes`
     (unlinked too) counts as other."""
     by_class = dict.fromkeys(classes, 0.0)
     unlinked = 0.0
@@ -1052,6 +1008,8 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
     the device's busy share of the traced wall time."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import device_kernels
 
     iters = 10
 
@@ -1082,7 +1040,7 @@ def bucket_phase(torch, card, cfg, predictor, exe, scope, prog, fetch, rng):
             forward(feed_t)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_name = _device_ms(prof)
+    per_name = device_kernels(prof)
     by_class, unlinked = _device_ms_by_class(
         per_name, ("flash_attention_fwd", "matmul", "other"))
     busy = sum(by_class.values())
@@ -1181,7 +1139,7 @@ def train_phase(torch, card, amp=True):
                      {"tokens": toks, "labels": toks}, loss, cfg.n_layers,
                      warmup, steps, symbols, batch * T,
                      model_flops_per_token(cfg, T),
-                     BF16_FLOPS if amp else F32_FLOPS)
+                     BF16_FLOPS if amp else F32_FLOPS)[0]
 
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
@@ -1198,10 +1156,12 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
     MFU against `peak`, peak memory). Then one step under
     torch.profiler, split by kernel class (`classes`): each of `symbols`
     must run `n_layers` times, and no other flash kernel. Returns the
-    timed steps' launches."""
+    timed steps' launches and the profiled step's device ms."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import KERNEL_CLASSES, device_kernels
 
     def step():
         """One step: (loss, host ms to enqueue it, ms until the loss is on
@@ -1263,7 +1223,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    per_name = _device_ms(prof)
+    per_name = device_kernels(prof)
     by_class, unlinked = _device_ms_by_class(per_name, classes)
     busy = sum(by_class.values())
     phase(f"{tag}_profile", steps=1, wall_ms=f"{wall_ms:.3f}",
@@ -1290,7 +1250,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         for ms, k, name in top[:n]:
             print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
                   flush=True)
-    return launches
+    return launches, busy
 
 
 def train_cpu_check(torch):
@@ -1418,9 +1378,16 @@ def _loss_rel(a, b):
 
 
 def _grad_rel(grads, a, b):
+    """{name: ||x - y|| / ||y||} over the gradients after the loss; where
+    y is exactly 0, 0 if x is too, else inf."""
     import numpy as np
-    return {n.split("@")[0]: float(np.linalg.norm(x - y) /
-                                   np.linalg.norm(y))
+
+    def rel(x, y):
+        ny = np.linalg.norm(y)
+        if ny == 0:
+            return 0.0 if not np.any(x) else math.inf
+        return float(np.linalg.norm(x - y) / ny)
+    return {n.split("@")[0]: rel(x, y)
             for n, x, y in zip(grads, a[1:], b[1:])}
 
 
@@ -1496,10 +1463,10 @@ def gpt_train_phase(torch, card):
     t = GPT_SEQ - 1
     flops_tok = model_flops_per_token(cfg, t) - 6 * cfg.n_layers * t * \
         cfg.d_model
-    launches = run_steps(torch, card, "gpt_train", exe, main, scope,
-                         {"tokens": toks}, loss, cfg.n_layers, 3, 10,
-                         BF16_KERNEL_SYMBOLS, GPT_BATCH * t, flops_tok,
-                         BF16_FLOPS)
+    launches, _ = run_steps(torch, card, "gpt_train", exe, main, scope,
+                            {"tokens": toks}, loss, cfg.n_layers, 3, 10,
+                            BF16_KERNEL_SYMBOLS, GPT_BATCH * t, flops_tok,
+                            BF16_FLOPS)
     return launches, scope, cfg
 
 
@@ -1878,6 +1845,7 @@ def _step_times(torch, eng):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.profiler import device_kernels
     from paddle_tpu_torch.serving import blocks_for_tokens
 
     B, bs = GEN_SLOTS, eng.block_size
@@ -1913,7 +1881,7 @@ def _step_times(torch, eng):
             for _ in range(10):
                 run(False)
             torch.cuda.synchronize()
-        busy = sum(ms for ms, _ in _device_ms(prof).values()) / 10
+        busy = sum(ms for ms, _ in device_kernels(prof).values()) / 10
         out[what] = (statistics.median(host), event, busy)
     return out
 
@@ -2177,7 +2145,7 @@ def resnet_train_phase(torch, card):
           conv2d=sum(op.type == "conv2d" for op in ops),
           casts=sum(op.type == "cast" for op in ops),
           seconds=f"{time.perf_counter() - t0:.2f}")
-    launches = run_steps(
+    launches, _ = run_steps(
         torch, card, "resnet_train", exe, main, scope,
         _resnet_feed(RESNET_BATCH, 0), loss, 0, 3, 10, (), RESNET_BATCH,
         3 * resnet.flops_per_image(50, RESNET_IMAGE[1], RESNET_CLASSES),
@@ -2375,10 +2343,10 @@ def nmt_train_phase(torch, card):
           seconds=f"{time.perf_counter() - t0:.2f}")
     tokens = NMT_BATCH * NMT_LEN
     flops = nmt.flops_per_step(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)
-    launches = run_steps(torch, card, "nmt_train", exe, main, scope,
-                         _nmt_feed(cfg, NMT_BATCH, 0), loss,
-                         2 * cfg.n_layers, 3, 10, BF16_KERNEL_SYMBOLS,
-                         tokens, flops / tokens, BF16_FLOPS)
+    launches, _ = run_steps(torch, card, "nmt_train", exe, main, scope,
+                            _nmt_feed(cfg, NMT_BATCH, 0), loss,
+                            2 * cfg.n_layers, 3, 10, BF16_KERNEL_SYMBOLS,
+                            tokens, flops / tokens, BF16_FLOPS)
     del scope, exe
 
     nmt_cpu_check(ptt, nmt)
@@ -2435,6 +2403,514 @@ def nmt_cpu_check(ptt, nmt):
     check(all(e <= NMT_AMP_GRAD_RTOL for e in vs_f32.values()),
           f"NMT card AMP vs CPU float32 gradients differ: {vs_f32} > "
           f"{NMT_AMP_GRAD_RTOL}")
+
+# [http_serve]: the serving model and the trained GPT-small behind one
+# ServingHTTPServer; a threshold rule over the front end's own request
+# counter fires once the monitor counts a request, and writes one
+# incident bundle
+HTTP_ALERT_RULE = "http_requests:threshold:serving.http_requests >= 1"
+HTTP_ALERT_WAIT_S = 30.0
+
+
+def _http(url, body=None, raw=None):
+    """(status, parsed JSON or text, bytes of the answer's body) of one
+    request; an HTTP error status is an answer, not an exception."""
+    import urllib.error
+    import urllib.request
+    data = raw if raw is not None else (
+        None if body is None else json.dumps(body).encode())
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, ctype, payload = (r.status, r.headers["Content-Type"],
+                                      r.read())
+    except urllib.error.HTTPError as e:
+        status, ctype, payload = (e.code, e.headers["Content-Type"],
+                                  e.read())
+    text = payload.decode()
+    return (status, json.loads(text) if ctype == "application/json"
+            else text, len(payload))
+
+
+def _http_pass(url, path, bodies):
+    """POST `bodies` to url+path from N_THREADS threads, each waiting
+    for its answer before it sends its next: (answers, latencies in
+    seconds, wall seconds)."""
+    got, lat, errors = [None] * len(bodies), [None] * len(bodies), []
+
+    def client(idx):
+        for i in idx:
+            t0 = time.perf_counter()
+            try:
+                got[i] = _http(url + path, bodies[i])
+            except Exception as e:  # recorded and re-raised below
+                errors.append(e)
+                return
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client,
+                                args=(range(j, len(bodies), N_THREADS),))
+               for j in range(N_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads),
+          "an HTTP client thread did not finish")
+    if errors:
+        raise errors[0]
+    return got, lat, wall
+
+
+def http_serve_phase(torch, card, model_dir, served, gpt_scope, gpt_cfg,
+                     prompts, serial):
+    """The HTTP front end (serving.serve) over a ServingEngine on the
+    saved BERT-base (float32, T 512, max batch 8) and a GenerationEngine
+    on the trained GPT-small (8 slots, max_seq 512, paged KV in blocks
+    of GEN_BLOCK), on an ephemeral port. From N_THREADS threads: the
+    [serve] requests to /v1/predict (answers within 2e-3 of the
+    engine's own [serve] answers, which [serve] holds to the CPU's), then
+    the [gpt_generate] prompts to /v1/generate, greedy, GEN_NEW tokens
+    (streams equal to the serial kv_generate ones). Gates: each forward
+    launches the float32 flash forward 12 times (counts set to 0 just
+    before the requests, read just after); /healthz 200; a malformed
+    body 400; /v1/kv/export 404 (not ported); HTTP_ALERT_RULE, set in
+    FLAGS_alert_rules with the monitor off during the timed traffic,
+    fires once the monitor counts a request: ALERTS{...} on /metrics,
+    the rule firing on /alertz, and exactly one incident bundle in a
+    temporary FLAGS_alert_bundle_dir. Prints req/s and p50/p99 over
+    HTTP beside [serve]'s direct numbers. Returns the float32 flash
+    forward's launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor_alerts
+    from paddle_tpu_torch.core.flags import get_flags, set_flags
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from paddle_tpu_torch.serving import (EngineConfig, GenerationEngine,
+                                          ServingEngine, serve)
+
+    _, reqs, answers, direct = served
+    bundles = tempfile.TemporaryDirectory(prefix="ptt_bundles_")
+    alert_flags = {"FLAGS_alert_rules": HTTP_ALERT_RULE,
+                   "FLAGS_alert_eval_interval_s": 0.2,
+                   "FLAGS_alert_bundle_dir": bundles.name,
+                   "FLAGS_enable_monitor": False}
+    keep = get_flags(list(alert_flags))
+    set_flags(alert_flags)
+    engine = ServingEngine(EngineConfig(max_batch_size=MAX_BATCH),
+                           predictor=create_paddle_predictor(
+                               AnalysisConfig(model_dir)))
+    gen = GenerationEngine(gpt_cfg, gpt_scope, exe=ptt.Executor(),
+                           max_slots=GEN_SLOTS, max_seq=GPT_SEQ, paged=True,
+                           block_size=GEN_BLOCK)
+    t0 = time.perf_counter()
+    srv = serve(engine, port=0, gen_engine=gen)
+    start_s = time.perf_counter() - t0
+    try:
+        bodies = [{"inputs": {"tokens": r.tolist()}, "timeout_ms": 60000}
+                  for r in reqs]
+        _zero_launch_counts()
+        batches0 = engine.batches
+        got, lat, wall = _http_pass(srv.url, "/v1/predict", bodies)
+        launches = flash_attention.launches
+        batches = engine.batches - batches0
+        gen_bodies = [{"prompt": p, "max_new_tokens": GEN_NEW,
+                       "timeout_ms": 120000} for p in prompts]
+        gen_got, gen_lat, gen_wall = _http_pass(srv.url, "/v1/generate",
+                                                gen_bodies)
+        health = _http(srv.url + "/healthz")
+        bad = _http(srv.url + "/v1/predict", raw=b"{not json")
+        kv = _http(srv.url + "/v1/kv/export", {"prompt": prompts[0]})
+        # the monitor on: the front end's request counter moves and the
+        # background evaluator fires the rule
+        set_flags({"FLAGS_enable_monitor": True})
+        _http(srv.url + "/healthz")
+        deadline = time.perf_counter() + HTTP_ALERT_WAIT_S
+        while monitor_alerts.firing_count() == 0 and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        metrics = _http(srv.url + "/metrics")[1]
+        alertz = _http(srv.url + "/alertz")[1]
+        n_bundles = len([f for f in os.listdir(bundles.name)
+                         if f.startswith("incident_")])
+    finally:
+        srv.close()
+        engine.stop()
+        gen.stop()
+        monitor_alerts.stop_alerts()
+        set_flags(keep)
+        bundles.cleanup()
+
+    statuses = sorted({st for st, _, _ in got} |
+                      {st for st, _, _ in gen_got})
+    errs = [float(np.max(np.abs(np.asarray(body["outputs"][name],
+                                           np.float32) - want)))
+            for (st, body, _), want in zip(got, answers) if st == 200
+            for name in body["outputs"]]
+    streams = [st == 200 and body["tokens"] == want
+               for (st, body, _), want in zip(gen_got, serial)]
+    p50, p99 = _percentiles(lat)
+    g50, g99 = _percentiles(gen_lat)
+    alert_line = 'ALERTS{alertname="http_requests",alertstate="firing"} 1'
+    phase("http_serve", requests=len(bodies), batches=batches,
+          launches=launches, statuses=",".join(map(str, statuses)),
+          max_abs_err_vs_engine=f"{max(errs, default=math.inf):.3e}",
+          req_per_s=f"{len(bodies) / wall:.3f}",
+          p50_ms=f"{p50 * 1e3:.2f}", p99_ms=f"{p99 * 1e3:.2f}",
+          answer_mb=f"{sum(n for _, _, n in got) / 1e6:.1f}",
+          direct_req_per_s=f"{direct['req_per_s']:.3f}",
+          direct_p50_ms=f"{direct['p50_ms']:.2f}",
+          direct_p99_ms=f"{direct['p99_ms']:.2f}",
+          generate_requests=len(gen_bodies),
+          streams_equal=sum(streams),
+          generate_tokens_per_s=f"{len(gen_bodies) * GEN_NEW / gen_wall:.1f}",
+          generate_p50_ms=f"{g50 * 1e3:.2f}",
+          generate_p99_ms=f"{g99 * 1e3:.2f}",
+          healthz=health[0], malformed=bad[0], kv_export=kv[0],
+          alerts_firing=alertz["firing"], bundles=n_bundles,
+          start_s=f"{start_s:.2f}", card=f"'{card}'")
+    check(statuses == [200], f"HTTP statuses {statuses}, not all 200")
+    check(len(errs) == len(bodies) and max(errs) <= 2e-3,
+          f"HTTP answers differ from the engine's by {max(errs)}")
+    check(all(streams), f"{len(streams) - sum(streams)} HTTP generate "
+          f"streams differ from the serial kv_generate ones")
+    n_layers = transformer.bert_base().n_layers
+    check(batches > 0 and launches == n_layers * batches,
+          f"fwd_kernel_tf32wg launches {launches} != {n_layers} x "
+          f"{batches} forwards")
+    check(health[0] == 200 and health[1]["state"] == "ok",
+          f"/healthz answered {health}")
+    check(bad[0] == 400, f"a malformed body answered {bad[0]}, not 400")
+    check(kv[0] == 404 and kv[1].get("not_ported"),
+          f"/v1/kv/export answered {kv}")
+    check(alert_line in metrics, "no firing ALERTS series on /metrics")
+    check(alertz["firing"] == 1 and alertz["rules"][0]["state"] == "firing",
+          f"/alertz shows {alertz['rules']}")
+    check(n_bundles == 1, f"{n_bundles} incident bundles, not 1")
+    return launches
+
+
+# DeepLabv3+ (models/deeplab.py) at bench.py's step (build_deeplab_bench):
+# batch 8, 3x513x513, 19 classes, bf16 AMP, Momentum 1e-3 / 0.9
+DEEPLAB_BATCH, DEEPLAB_HW = 8, 513
+# [deeplab_cpu_check] at bench.py's CPU-validate size, batch 1 at 65x65
+# (the image-pooling branch's batch_norm sees one value a channel there),
+# from the startup values with each residual branch's last batch_norm
+# scale cut to RESNET_BRANCH_SCALE. The bars are those that
+# tests/test_torch_deeplab.py holds the port to against the JAX package
+# at this size, derived from the JAX package's own gradients under a
+# 1e-3 change of the image (up to 0.39 of their norm under AMP; its
+# docstring). The card's own reading under that change prints beside.
+DEEPLAB_CHECK_BATCH, DEEPLAB_CHECK_HW = 1, 65
+DEEPLAB_F32_BARS = {"loss": 1e-4, "grad": 0.05, "stat": 3e-4}
+DEEPLAB_AMP_BARS = {"loss": 2e-3, "grad": 0.6, "stat": 0.03}
+
+
+def _build_deeplab(ptt, hw, batch, amp):
+    from paddle_tpu_torch.models import deeplab
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = deeplab.build_train(hw, batch, amp=amp)
+    return main, startup, loss
+
+
+def _deeplab_feed(hw, batch, seed):
+    """Images and per-pixel labels as bench.py makes them."""
+    import numpy as np
+    from paddle_tpu_torch.models import deeplab
+    rng = np.random.RandomState(seed)
+    return {"image": rng.randn(batch, 3, hw, hw).astype(np.float32),
+            "label": rng.randint(0, deeplab.N_CLASSES, (batch, hw, hw))
+            .astype(np.int64)}
+
+
+def deeplab_train_phase(torch, card):
+    """DeepLabv3+ training at bench.py's step through the port's entry
+    points, nothing cut: build_train (batch 8, 3x513x513, 19 classes,
+    bf16 AMP, Momentum lr 1e-3, momentum 0.9), the startup program on
+    the card, the feed from RandomState(0) as bench.py makes it, then 3
+    warm-up and 10 timed steps through run_steps: images/s, MFU (3 x
+    flops_per_image(513) x 8 a step against the bf16 peak), peak memory,
+    busy share and device ms by class. Gates: finite losses, no flash
+    launch, no executor cache miss after the first step, and every
+    batch_norm's running mean and variance (62 of each) moved and
+    finite. Returns (executor, program, scope, feed, loss, the profiled
+    step's device ms) for [profiler]."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import deeplab
+
+    t0 = time.perf_counter()
+    main, startup, loss = _build_deeplab(ptt, DEEPLAB_HW, DEEPLAB_BATCH,
+                                         True)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    ops = main.global_block().ops
+    phase("deeplab_train_build", batch=DEEPLAB_BATCH,
+          image=f"3x{DEEPLAB_HW}x{DEEPLAB_HW}", classes=deeplab.N_CLASSES,
+          amp=True, ops=len(ops),
+          **{t: sum(op.type == t for op in ops)
+             for t in ("conv2d", "batch_norm", "bilinear_interp", "concat",
+                       "cast")},
+          params=len(main.all_parameters()),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    feed = _deeplab_feed(DEEPLAB_HW, DEEPLAB_BATCH, 0)
+    _, device_ms = run_steps(
+        torch, card, "deeplab_train", exe, main, scope, feed, loss, 0, 3, 10,
+        (), DEEPLAB_BATCH, 3 * deeplab.flops_per_image(DEEPLAB_HW),
+        BF16_FLOPS, unit="images", must_fall=False,
+        classes=("conv", "matmul", "norm", "other"))
+    stats = _stat_names(main)
+    moved = finite = 0
+    for i, n in enumerate(stats):
+        t = scope.get(n)
+        start = 1.0 if i % 2 else 0.0  # mean, variance, mean, ...
+        finite += bool(torch.isfinite(t).all())
+        moved += bool((t != start).any())
+    phase("deeplab_stats", vars=len(stats), moved=moved, finite=finite)
+    check(len(stats) == 124, f"{len(stats)} running statistics, not 124")
+    check(finite == len(stats), f"{len(stats) - finite} running "
+          f"statistics are not finite")
+    check(moved == len(stats), f"{len(stats) - moved} running statistics "
+          f"never moved from their start")
+    return exe, main, scope, feed, loss, device_ms
+
+
+def profiler_phase(torch, card, exe, main, scope, feed, loss, step_ms):
+    """profiler.profiler() (the port's torch.profiler front end) around
+    two [deeplab_train] steps, each under record_event. Gates: the
+    summary's total_us within 10% of twice the device ms of
+    [deeplab_train_profile]'s step, its classes adding up to total_us,
+    by_framework_op naming the forward convolutions' 'conv2d:0/<idx>'
+    scopes (63), and a chrome trace written."""
+    from paddle_tpu_torch import profiler
+
+    with tempfile.TemporaryDirectory(prefix="ptt_prof_") as d:
+        t0 = time.perf_counter()
+        with profiler.profiler(profile_path=d):
+            for _ in range(2):
+                with profiler.record_event("deeplab_step"):
+                    float(exe.run(main, feed=feed, fetch_list=[loss],
+                                  scope=scope, return_numpy=False)[0])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        path = profiler.last_trace_path()
+        trace_mb = os.path.getsize(path) / 1e6 if path and \
+            os.path.exists(path) else 0.0
+        summary = profiler.summarize_profile()
+    total_ms = summary["total_us"] / 1e3
+    cats = summary["by_category"]
+    fw = summary.get("by_framework_op", {})
+    convs = [k for k in fw if k.startswith("conv2d:0/")]
+    attributed = sum(r["device_us"] for k, r in fw.items()
+                     if k != "(unattributed)") / 1e3
+    phase("profiler", steps=2, wall_ms=f"{wall_ms:.3f}",
+          total_ms=f"{total_ms:.3f}",
+          train_profile_ms_x2=f"{2 * step_ms:.3f}",
+          **{f"{k}_ms": f"{v / 1e3:.3f}" for k, v in cats.items()},
+          framework_ops=len(fw), conv2d_scopes=len(convs),
+          attributed_ms=f"{attributed:.3f}", trace_mb=f"{trace_mb:.1f}",
+          host_phases=",".join(sorted(profiler.host_phase_stats())),
+          card=f"'{card}'")
+    top = sorted(fw.items(), key=lambda kv: -kv[1]["device_us"])[:6]
+    for key, row in top:
+        print(f"  op: {row['device_us'] / 1e3:.3f} ms  {row['calls']} "
+              f"kernels  {key}", flush=True)
+    profiler.reset_profiler()
+    check(abs(total_ms - 2 * step_ms) <= 0.1 * 2 * step_ms,
+          f"the profiler's total {total_ms} ms is not within 10% of "
+          f"{2 * step_ms} ms")
+    check(abs(sum(cats.values()) - summary["total_us"])
+          <= 1e-6 * summary["total_us"],
+          "the profiler's classes do not add up to its total")
+    check(len(convs) == 63, f"{len(convs)} conv2d scopes, not 63")
+    check(trace_mb > 0, "no chrome trace written")
+
+
+def deeplab_cpu_check(torch):
+    """DeepLabv3+ at bench.py's CPU-validate size (batch 1, 3x65x65), one
+    step on the card and one on the CPU from the same startup values
+    with the residual branches' last batch_norm scales cut
+    (RESNET_BRANCH_SCALE), in float32 and in bf16 AMP (_card_and_cpu:
+    the convolutions' outputs bfloat16 under AMP, float32 without): the
+    loss, every parameter's gradient (Frobenius gap over the norm; a
+    gradient that is exactly 0 on the CPU must be 0 on the card) and
+    every batch_norm's running mean and variance within
+    DEEPLAB_F32_BARS and DEEPLAB_AMP_BARS. The image-pooling branch's
+    batch_norm sees one value a channel here. Beside the AMP readings,
+    the card's AMP step with the image moved by 1e-3 (card_pert_*)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    hw, batch = DEEPLAB_CHECK_HW, DEEPLAB_CHECK_BATCH
+    progs = {amp: _build_deeplab(ptt, hw, batch, amp) for amp in (False,
+                                                                  True)}
+    check(progs[False][1].fingerprint() == progs[True][1].fingerprint(),
+          "the float32 and AMP startup programs differ")
+    main = progs[False][0]
+    pnames = sorted(p.name for p in main.all_parameters())
+    stats = _stat_names(main)
+    scales = _branch_end_scales(main)
+    check(len(scales) == 16, f"{len(scales)} residual branches, not 16")
+    fetch = [f"{p}@GRAD" for p in pnames] + stats
+
+    def prepare(values):
+        return {**values, **{n: values[n] * RESNET_BRANCH_SCALE
+                             for n in scales}}
+
+    def perturb(values, feed):
+        noise = np.random.RandomState(5).randn(*feed["image"].shape)
+        return values, {**feed, "image": (feed["image"] + 1e-3 * noise)
+                        .astype(np.float32)}
+
+    t0 = time.perf_counter()
+    out, _ = _card_and_cpu(
+        ptt, {amp: (m, loss) for amp, (m, _, loss) in progs.items()},
+        progs[False][1], _deeplab_feed(hw, batch, 1), fetch, 0,
+        prepare=prepare, perturb=perturb)
+    n = len(pnames)
+    for amp, bars in ((False, DEEPLAB_F32_BARS), (True, DEEPLAB_AMP_BARS)):
+        card, cpu = out[amp, "card"], out[amp, "cpu"]
+        loss_rel = _loss_rel(card, cpu)
+        grads = list(_grad_rel(fetch[:n], card[:1 + n], cpu[:1 + n])
+                     .values())
+        stat = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(card[1 + n:], cpu[1 + n:])]
+        beside = {}
+        if amp:
+            pert = list(_grad_rel(fetch[:n], out[amp, "card_perturbed"]
+                                  [:1 + n], card[:1 + n]).values())
+            loss_pert = _loss_rel(out[amp, "card_perturbed"], card)
+            beside = {"card_pert_loss_rel": f"{loss_pert:.3e}",
+                      "card_pert_grad_gap_median": f"{np.median(pert):.3e}",
+                      "card_pert_grad_gap_max": f"{max(pert):.3e}"}
+        phase("deeplab_cpu_check", batch=batch, image=f"3x{hw}x{hw}",
+              amp=amp, loss_card=f"{float(card[0]):.6f}",
+              loss_cpu=f"{float(cpu[0]):.6f}", loss_rel=f"{loss_rel:.3e}",
+              grad_gap_median=f"{np.median(grads):.3e}",
+              grad_gap_max=f"{max(grads):.3e}",
+              zero_grads=sum(not np.any(g) for g in cpu[1:1 + n]),
+              stat_gap_median=f"{np.median(stat):.3e}",
+              stat_gap_max=f"{max(stat):.3e}", **beside,
+              bars=",".join(f"{k}:{v}" for k, v in bars.items()),
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        check(all(np.isfinite(x).all() for x in card),
+              f"non-finite values in the card's step (amp={amp})")
+        check(loss_rel <= bars["loss"], f"DeepLab card vs CPU loss differs "
+              f"by {loss_rel} > {bars['loss']} (amp={amp})")
+        check(max(grads) <= bars["grad"], f"DeepLab card vs CPU gradients "
+              f"differ by {max(grads)} > {bars['grad']} (amp={amp})")
+        check(max(stat) <= bars["stat"], f"DeepLab card vs CPU running "
+              f"statistics differ by {max(stat)} > {bars['stat']} "
+              f"(amp={amp})")
+
+
+# [guard_train]: TrainerGuard around LeNet on the card; a NaN batch at
+# GUARD_NAN_AT, a preemption requested before GUARD_PREEMPT_AT. The
+# resumed losses against an uninterrupted run's: cuDNN's float32
+# convolution backward may add in another order from run to run (the
+# package leaves cudnn.deterministic at torch's default), so within rtol
+# GUARD_LOSS_RTOL, not bit for bit.
+GUARD_STEPS, GUARD_NAN_AT, GUARD_PREEMPT_AT = 8, 3, 5
+GUARD_LOSS_RTOL = 1e-5
+
+
+def guard_train_phase(torch, card):
+    """TrainerGuard (resilience/trainer_guard.py) around LeNet on the
+    card (batch 128, float32, Adam lr 1e-3), GUARD_STEPS seeded batches
+    with a NaN in the batch at GUARD_NAN_AT. An uninterrupted run: that
+    step returns None and leaves every persistable equal to the state
+    before it (the step-2 snapshot). A second run: request_preemption()
+    before step GUARD_PREEMPT_AT writes a checkpoint and raises
+    PreemptedError with that many batches consumed; a fresh guard's
+    resume() returns the count, and its losses over the rest of the
+    batches equal the uninterrupted run's within GUARD_LOSS_RTOL."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.models import lenet
+    from paddle_tpu_torch.resilience import PreemptedError, TrainerGuard
+
+    def build():
+        main, startup = ptt.Program(), ptt.Program()
+        startup.random_seed = SEED
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            img = ptt.layers.data("img", shape=[1, 28, 28], dtype="float32")
+            label = ptt.layers.data("label", shape=[1], dtype="int64")
+            loss, _ = lenet.convolutional_neural_network(img, label)
+            ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+        return main, startup, loss
+
+    main, startup, _ = build()
+    init_scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=init_scope)
+    init = {n: init_scope.get_numpy(n) for n in init_scope.names()}
+    persist = [v.name for v in main.list_vars()
+               if v.persistable and not v.is_data]
+    rng = np.random.RandomState(0)
+    batches = [{"img": rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32),
+                "label": rng.randint(0, 10, (LENET_BATCH, 1))
+                .astype(np.int64)} for _ in range(GUARD_STEPS)]
+    batches[GUARD_NAN_AT]["img"][0, 0, 0, 0] = np.nan
+
+    def guard(**kw):
+        main, _, loss = build()
+        scope = scope_from_numpy(init, ptt.Scope(), ptt.CUDAPlace(0))
+        return TrainerGuard(ptt.Executor(), main, scope=scope,
+                            fetch_list=[loss], install_sigterm=False, **kw)
+
+    t0 = time.perf_counter()
+    losses, rolled_back = [], None
+    with guard() as g:
+        for i, b in enumerate(batches):
+            before = {n: g.scope.get(n).clone() for n in persist} \
+                if i == GUARD_NAN_AT else None
+            out = g.step(b)
+            if before is not None:
+                rolled_back = out is None and all(
+                    torch.equal(g.scope.get(n), t) for n, t in before.items())
+            losses.append(None if out is None else float(out[0]))
+        skips = g.nan_skips
+    with tempfile.TemporaryDirectory(prefix="ptt_guard_") as ck:
+        consumed = None
+        with guard(checkpoint_dir=ck) as g:
+            try:
+                for i, b in enumerate(batches):
+                    if i == GUARD_PREEMPT_AT:
+                        g.request_preemption()
+                    g.step(b)
+            except PreemptedError as e:
+                consumed = e.global_step
+        with guard(checkpoint_dir=ck) as g:
+            resumed = g.resume(ck)
+            tail = [float(g.step(b)[0]) for b in batches[resumed:]]
+    gaps = [abs(a - b) / abs(a) for a, b in zip(losses[resumed:], tail)]
+    phase("guard_train", batch=LENET_BATCH, steps=GUARD_STEPS,
+          nan_at=GUARD_NAN_AT, nan_skips=skips, rolled_back=rolled_back,
+          preempted_at=consumed, resumed_at=resumed,
+          resumed_loss_gap_max=f"{max(gaps):.3e}", tol=GUARD_LOSS_RTOL,
+          cudnn_deterministic=torch.backends.cudnn.deterministic,
+          losses=",".join("skip" if x is None else f"{x:.4f}"
+                          for x in losses),
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    check(skips == 1 and rolled_back, "the NaN step was not skipped and "
+          "rolled back to the state before it")
+    check(all(x is not None and math.isfinite(x)
+              for i, x in enumerate(losses) if i != GUARD_NAN_AT),
+          f"non-finite losses: {losses}")
+    check(consumed == GUARD_PREEMPT_AT and resumed == consumed,
+          f"preempted after {consumed} batches, resumed at {resumed}; "
+          f"want {GUARD_PREEMPT_AT}")
+    check(max(gaps) <= GUARD_LOSS_RTOL, f"resumed losses differ from the "
+          f"uninterrupted run's by {max(gaps)} > {GUARD_LOSS_RTOL}")
+
 
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
@@ -3007,6 +3483,7 @@ def main():
         print("usage: python3 chip_smoke.py [--mutants | --ablations | "
               "--compare DIR]", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3041,7 +3518,8 @@ def main():
     records = bwd_kernel_phase(torch)
     for key, err in fwd_errs.items():
         records[key]["flash_attention_fwd"]["max_abs_err"] = err
-    served = serve_phase(torch, card)
+    bert_dir = tempfile.TemporaryDirectory(prefix="ptt_bert_")
+    served = serve_phase(torch, card, bert_dir.name)
     trained = train_phase(torch, card)
     trained_f32 = train_phase(torch, card, amp=False)
     checked_f32 = train_cpu_check(torch)
@@ -3049,16 +3527,24 @@ def main():
     gpt_cpu_check(torch)
     prompts, serial = gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
     gen_serve_phase(torch, card, gpt_scope, gpt_cfg, prompts, serial)
+    http_served = http_serve_phase(torch, card, bert_dir.name, served,
+                                   gpt_scope, gpt_cfg, prompts, serial)
+    bert_dir.cleanup()
     del gpt_scope
     resnet_train_phase(torch, card)
     resnet_cpu_check(torch)
     lenet_train_phase(torch, card)
     nmt_trained = nmt_train_phase(torch, card)
+    deeplab = deeplab_train_phase(torch, card)
+    profiler_phase(torch, card, *deeplab)
+    del deeplab
+    deeplab_cpu_check(torch)
+    guard_train_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
     # BERT, GPT and NMT bf16 training runs; the float32 kernels' over the
     # float32 training run and the float32 check step, and the float32
-    # forward's over the serving run too
+    # forward's over the serving runs (direct and over HTTP) too
     def entry(name, rec, launches, dtype=None, **shapes):
         """One kernel's record; a dtype instance of its own is named
         <name>_<dtype> and carries its dtype; each of `shapes` (the GPT
@@ -3083,9 +3569,12 @@ def main():
                  nmt_causal=records["nmt_causal"][name])
            for name in KERNEL_SOURCES]
     out += [entry(name, records["float32"][name],
-                  served.get(name, 0) + trained_f32[name] +
-                  checked_f32[name], "float32")
+                  served[0].get(name, 0) + trained_f32[name] +
+                  checked_f32[name] +
+                  (http_served if name == "flash_attention_fwd" else 0),
+                  "float32")
             for name in KERNEL_SOURCES]
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -263,3 +263,50 @@ _define("spec_adapt_low", 0.3, float,
         "Adaptive spec_k shrink threshold on a slot's acceptance EWMA.")
 _define("spec_adapt_high", 0.8, float,
         "Adaptive spec_k grow threshold on a slot's acceptance EWMA.")
+
+# -- front end, profiler, alerts (serving/http.py, profiler.py,
+# monitor_alerts.py, goodput.py) ---------------------------------------------
+_define("serving_http_port", 0, int,
+        "Default EngineConfig.http_port for serving.serve(): the port of "
+        "the JSON front end (/v1/predict, /healthz, /metrics). 0 binds an "
+        "ephemeral port.")
+_define("profiler_trace_dir", "", str,
+        "When set, profiler.start_profiler writes its chrome traces here "
+        "by default.")
+_define("op_trace_scopes", True, bool,
+        "While a torch profiler records, run each lowered op under "
+        "record_function('{op.type}:{block}/{op_idx}') so device kernels "
+        "attribute back to Program ops (profiler.summarize_profile's "
+        "by_framework_op). Without a profiler the scopes are not entered "
+        "and cost nothing.")
+_define("goodput_alert_windows", "15s,60s", str,
+        "Multi-window spec of the default input_starvation burn-rate rule "
+        "(short,long; both must breach before the alert fires, the "
+        "monitor_alerts.py burn semantics). Only read when "
+        "goodput.install_starvation_alert builds the default rule.")
+_define("alert_rules", "", str,
+        "Declarative SLO alert rules for monitor_alerts.py, "
+        "semicolon-separated. Grammar per rule: "
+        "'name:threshold:STAT OP VALUE[:for=DUR]' over a counter/gauge, "
+        "'name:ratio:NUM/DEN OP VALUE[:for=DUR]' over two counters, or "
+        "'name:burn:HIST:pQQ OP VALUE:windows=W1,W2' multi-window burn "
+        "rate over a histogram percentile (fires only when EVERY window "
+        "breaches). OP is one of > >= < <=; durations accept s/m/h "
+        "suffixes. Empty (default) disables the evaluator entirely.")
+_define("alert_eval_interval_s", 5.0, float,
+        "Period of the background alert evaluator thread (seconds). Each "
+        "tick snapshots the monitor registry once and evaluates every "
+        "FLAGS_alert_rules rule against it; <= 0 disables the background "
+        "thread (rules still evaluate via AlertEngine.evaluate_once(), "
+        "which tests drive with a fake clock).")
+_define("alert_bundle_dir", "", str,
+        "Directory for incident bundles: on each pending->firing "
+        "transition the alert engine writes exactly one atomic JSON "
+        "bundle correlating the rule, the full stats snapshot, breaching-"
+        "bucket trace exemplars, the kept-trace ring, and the flight-"
+        "recorder ring. Empty (default) = bundles disabled; alerts still "
+        "fire and expose via /alertz and ALERTS exposition.")
+_define("alert_bundle_max_spans", 512, int,
+        "Cap on kept-trace-ring spans embedded in one incident bundle "
+        "(newest kept spans win, after breaching-bucket exemplar traces "
+        "are included first). Bounds bundle size on busy servers.")

@@ -14,6 +14,13 @@ its differentiable inputs detached into leaves, and its (leaves, outputs)
 are recorded in the run's context. Its grad op runs
 ``torch.autograd.grad`` over that record and drops it, so the forward's
 saved tensors are freed as the backward walks.
+
+Op scopes: while a torch profiler records (and FLAGS_op_trace_scopes is
+on), each op runs under ``record_function("{op.type}:{block}/{idx}")``,
+so the profiler links every kernel to its Program op. The JAX package
+stamps the same scope into compiled metadata at no run-time cost; here
+a scope would cost every eager step a host call an op, so none is
+entered without a profiler.
 """
 from __future__ import annotations
 
@@ -118,21 +125,15 @@ def run_op(op, env, ctx, op_idx=None):
         if vals:
             ins[slot] = vals
     opctx = _OpCtx(ctx, op)
-    try:
-        if op.id in ctx.record_ids:
-            ins = _with_leaves(opdef, ins)
-            with torch.enable_grad():
-                outs = opdef.lower(opctx, ins, op.attrs)
-            ctx.records[op.id] = (ins, outs)
-        else:
-            outs = opdef.lower(opctx, ins, op.attrs)
-    except Exception as e:
-        # name the program op, its input shapes and attrs on failure
-        shapes = {s: [tuple(getattr(v, "shape", ())) for v in vs]
-                  for s, vs in ins.items()}
-        e.add_note(f"[operator {op.type!r}] inputs {shapes} -> outputs "
-                   f"{dict(op.outputs)}, attrs {op.attrs}")
-        raise
+    if torch.autograd._profiler_enabled() and FLAGS.op_trace_scopes:
+        # FLAGS_op_trace_scopes: the profiler links each kernel to the op
+        # that launched it (profiler.summarize_profile's by_framework_op);
+        # without a profiler no scope is entered
+        with torch.profiler.record_function(
+                f"{op.type}:{blk}/{'?' if op_idx is None else op_idx}"):
+            outs = _lower(op, opdef, opctx, ins, ctx)
+    else:
+        outs = _lower(op, opdef, opctx, ins, ctx)
     check = FLAGS.check_nan_inf and ctx.device.type != "meta"
     for slot, names in op.outputs.items():
         if slot not in outs:
@@ -142,6 +143,26 @@ def run_op(op, env, ctx, op_idx=None):
                 env[name] = val
                 if check and val.is_floating_point():
                     _nan_inf_check(op, name, val, op_idx)
+
+
+def _lower(op, opdef, opctx, ins, ctx):
+    """The op's lowering on `ins`; a forward op named in the run's
+    record_ids runs on leaves under autograd and leaves its record."""
+    try:
+        if op.id in ctx.record_ids:
+            ins = _with_leaves(opdef, ins)
+            with torch.enable_grad():
+                outs = opdef.lower(opctx, ins, op.attrs)
+            ctx.records[op.id] = (ins, outs)
+            return outs
+        return opdef.lower(opctx, ins, op.attrs)
+    except Exception as e:
+        # name the program op, its input shapes and attrs on failure
+        shapes = {s: [tuple(getattr(v, "shape", ())) for v in vs]
+                  for s, vs in ins.items()}
+        e.add_note(f"[operator {op.type!r}] inputs {shapes} -> outputs "
+                   f"{dict(op.outputs)}, attrs {op.attrs}")
+        raise
 
 
 class _OpCtx:

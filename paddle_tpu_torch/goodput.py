@@ -118,6 +118,33 @@ def enabled() -> bool:
     return f.value
 
 
+def default_starvation_rule() -> str:
+    """The default input-starvation burn-rate rule for FLAGS_alert_rules."""
+    from .core.flags import FLAGS
+
+    thresh = float(FLAGS.goodput_starved_ms)
+    windows = FLAGS.goodput_alert_windows
+    return ("input_starvation:burn:goodput.input_wait_ms:p50 > "
+            "%g:windows=%s" % (thresh, windows))
+
+
+def install_starvation_alert() -> str:
+    """Append the default input_starvation rule to FLAGS_alert_rules.
+
+    No-op when a rule named input_starvation is already configured, so
+    operators can override the threshold/windows without fighting the
+    default.  Returns the resulting rule string.
+    """
+    from .core.flags import FLAGS
+
+    rules = FLAGS.alert_rules or ""
+    if "input_starvation" in rules:
+        return rules
+    rule = default_starvation_rule()
+    FLAGS.alert_rules = (rules + ";" + rule) if rules else rule
+    return FLAGS.alert_rules
+
+
 class GoodputLedger:
     """Thread-safe exclusive wall-clock ledger for one run."""
 
@@ -282,12 +309,15 @@ _ACTIVE_LOCK = threading.Lock()
 def start_run(label: str = "run") -> Optional[GoodputLedger]:
     """Install a fresh ledger when FLAGS_enable_goodput is on.
 
-    Returns None (and installs nothing) when goodput is disabled, so
-    callers can invoke this unconditionally.
+    Also appends the default input_starvation alert rule to
+    FLAGS_alert_rules so the detector has a firing path.  Returns None
+    (and installs nothing) when goodput is disabled, so callers can
+    invoke this unconditionally.
     """
     global _ACTIVE
     if not enabled():
         return None
+    install_starvation_alert()
     led = GoodputLedger(label=label)
     with _ACTIVE_LOCK:
         _ACTIVE = led

@@ -1,7 +1,8 @@
 """layers.nn — graph-building functions over the op library.
 
 The functions the transformer models (BERT, GPT, NMT), their training
-losses, the GPT decode steps and the vision models (ResNet, LeNet) call.
+losses, the GPT decode steps and the vision models (ResNet, LeNet, DeepLabv3+)
+call.
 Each emits the same op types and attrs as its counterpart in the JAX
 package, so programs built by the two packages serialize identically.
 """
@@ -20,7 +21,8 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "softmax_with_cross_entropy", "gather", "softmax", "matmul",
            "scale", "slice", "one_hot", "reduce_mean", "conv2d", "pool2d",
            "batch_norm", "relu", "tanh", "topk", "cross_entropy",
-           "label_smooth"]
+           "label_smooth", "image_resize", "resize_bilinear",
+           "resize_nearest"]
 
 
 def _unary_layer(op_type):
@@ -411,3 +413,31 @@ def reduce_mean(input, dim=None, keep_dim=False, name=None):
                      attrs={"dim": dim, "keep_dim": keep_dim,
                             "reduce_all": reduce_all})
     return out
+
+
+def image_resize(input, out_shape=None, scale=None, name=None,
+                 resample="BILINEAR", align_corners=True, align_mode=1):
+    op = {"BILINEAR": "bilinear_interp",
+          "NEAREST": "nearest_interp"}[resample]
+    helper = LayerHelper(op, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    attrs = {"align_corners": align_corners, "align_mode": align_mode}
+    if out_shape is not None:
+        attrs["out_h"], attrs["out_w"] = int(out_shape[0]), int(out_shape[1])
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type=op, inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]}, attrs=attrs)
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    align_corners=True, align_mode=1):
+    return image_resize(input, out_shape, scale, name, "BILINEAR",
+                        align_corners, align_mode)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   align_corners=True):
+    return image_resize(input, out_shape, scale, name, "NEAREST",
+                        align_corners)

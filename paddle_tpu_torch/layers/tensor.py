@@ -1,6 +1,6 @@
 """layers.tensor — the creation and conversion builders the training
 and decode paths use (global vars for optimizer and decode state, cast
-for mixed precision, constants, ranges and assign)."""
+for mixed precision, concat, constants, ranges and assign)."""
 from __future__ import annotations
 
 import math
@@ -10,7 +10,8 @@ from ..framework import (Variable, default_main_program,
 from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
-__all__ = ["create_global_var", "cast", "assign", "fill_constant", "range"]
+__all__ = ["create_global_var", "cast", "concat", "assign", "fill_constant",
+           "range"]
 
 
 def create_global_var(shape, value, dtype, persistable=False, name=None):
@@ -32,6 +33,15 @@ def cast(x, dtype):
     helper.append_op(type="cast", inputs={"X": [x.name]},
                      outputs={"Out": [out.name]},
                      attrs={"out_dtype": dtype})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat",
+                     inputs={"X": [v.name for v in input]},
+                     outputs={"Out": [out.name]}, attrs={"axis": axis})
     return out
 
 

@@ -13,8 +13,8 @@ before doing any work.
 
 Stat names are dotted lowercase (`executor.step_seconds`); their
 descriptions come from the inventory in docs/observability.md. The
-Prometheus text carries no ALERTS series: the SLO alert engine
-(`monitor_alerts.py`) is not ported yet.
+Prometheus text ends with the SLO alert engine's ALERTS series
+(`monitor_alerts.py`).
 """
 from __future__ import annotations
 
@@ -199,7 +199,7 @@ def reset_stats(name: Optional[str] = None):
 
 
 # ---------------------------------------------------------------------------
-# Host-phase accounting
+# Host-phase accounting (profiler.record_event feeds this)
 # ---------------------------------------------------------------------------
 
 def push_phase(name: str):
@@ -528,6 +528,16 @@ def prometheus_text() -> str:
             out.append(f'{m}_bucket{{le="{le_s}"}} {cum}')
         out.append(f"{m}_sum {h['sum']}")
         out.append(f"{m}_count {h['count']}")
+    # Prometheus ALERTS series from the SLO engine (monitor_alerts.py),
+    # so one scrape carries both the stats and the alert states. Lazy
+    # import: monitor_alerts imports this module at its top level.
+    try:
+        from .monitor_alerts import prometheus_alerts_text
+        alerts = prometheus_alerts_text()
+    except Exception:  # noqa: BLE001 — the scrape path never fails
+        alerts = ""
+    if alerts:
+        out.append(alerts.rstrip("\n"))
     return "\n".join(out) + "\n"
 
 

@@ -1,5 +1,5 @@
 """Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, gather, slice, top_k, reshape2, transpose2.
+cast, concat, gather, slice, top_k, reshape2, transpose2.
 
 The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
 the card), as the JAX package leaves them to XLA. Float32 products are
@@ -68,6 +68,12 @@ def _mean(ctx, ins, attrs):
 @register_op("cast")
 def _cast(ctx, ins, attrs):
     return {"Out": [ins["X"][0].to(as_torch_dtype(attrs["out_dtype"]))]}
+
+
+@register_op("concat")
+def _concat(ctx, ins, attrs):
+    """Mixed input dtypes promote as jnp.concatenate promotes them."""
+    return {"Out": [torch.cat(ins["X"], dim=attrs.get("axis", 0))]}
 
 
 @register_op("gather", nondiff_inputs=("Index",))

@@ -1,11 +1,12 @@
-"""Softmax, convolution, pooling, normalisation, dropout and
+"""Softmax, convolution, pooling, resizing, normalisation, dropout and
 position-encoding ops.
 
 The JAX package leaves conv2d, pool2d and batch_norm to XLA, so here
 they are torch's library calls: cuDNN's convolution, and torch's pooling
 and batch normalisation, on the card. Each keeps the reference's
 semantics where those differ from torch's defaults (4-entry paddings,
-pool2d's floored output size, batch_norm's running statistics).
+pool2d's floored output size, batch_norm's running statistics). The
+resizes are written as the reference's gathers, in plain torch.
 """
 from __future__ import annotations
 
@@ -75,6 +76,73 @@ def _pool2d(ctx, ins, attrs):
     return {"Out": [out]}
 
 
+def _interp_src(od, d, align, mode, device):
+    """Source coordinates, float32, as the JAX package computes them:
+    align_corners -> dst*(d-1)/(od-1); else align_mode 0 (half-pixel)
+    -> (dst+0.5)*d/od - 0.5 clamped at 0; align_mode 1 (the default) ->
+    dst*d/od. F.interpolate follows the half-pixel convention only and
+    accumulates in float32, so the gathers are explicit."""
+    i = torch.arange(od, dtype=torch.float32, device=device)
+    if align:
+        return i * ((d - 1) / max(od - 1, 1))
+    if mode == 0:
+        return torch.clamp_min((i + 0.5) * (d / od) - 0.5, 0.0)
+    return i * (d / od)
+
+
+def _linear_interp_axis(x, od, axis, align, mode):
+    d = x.shape[axis]
+    f = _interp_src(od, d, align, mode, x.device)
+    i0 = torch.clamp(torch.floor(f).long(), 0, d - 1)
+    i1 = torch.clamp_max(i0 + 1, d - 1)
+    # the weight in the input's dtype, as the reference rounds it
+    w = (f - i0).to(x.dtype)
+    shape = [1] * x.dim()
+    shape[axis] = od
+    w = w.reshape(shape)
+    return (torch.index_select(x, axis, i0) * (1 - w)
+            + torch.index_select(x, axis, i1) * w)
+
+
+def _nearest_interp_axis(x, od, axis, align):
+    d = x.shape[axis]
+    i = torch.arange(od, dtype=torch.float32, device=x.device)
+    if align:
+        idx = torch.round(i * ((d - 1) / max(od - 1, 1)))
+    else:
+        idx = torch.floor(i * (d / od))
+    return torch.index_select(x, axis, torch.clamp(idx.long(), 0, d - 1))
+
+
+def _interp(x, attrs, method):
+    """Resize the two spatial axes of NCHW `x` to (out_h, out_w), or by
+    `scale` when out_h is absent or not positive: one pair of gathers
+    per axis, H then W."""
+    oh = attrs.get("out_h", -1)
+    ow = attrs.get("out_w", -1)
+    scale = attrs.get("scale", 0.0)
+    if (oh is None or oh <= 0) and scale:
+        oh = int(x.shape[2] * scale)
+        ow = int(x.shape[3] * scale)
+    align = attrs.get("align_corners", True)
+    if method == "nearest":
+        x = _nearest_interp_axis(x, oh, 2, align)
+        return _nearest_interp_axis(x, ow, 3, align)
+    mode = attrs.get("align_mode", 1)
+    x = _linear_interp_axis(x, oh, 2, align, mode)
+    return _linear_interp_axis(x, ow, 3, align, mode)
+
+
+@register_op("bilinear_interp")
+def _bilinear_interp(ctx, ins, attrs):
+    return {"Out": [_interp(ins["X"][0], attrs, "bilinear")]}
+
+
+@register_op("nearest_interp")
+def _nearest_interp(ctx, ins, attrs):
+    return {"Out": [_interp(ins["X"][0], attrs, "nearest")]}
+
+
 @register_op("batch_norm", nondiff_inputs=("Mean", "Variance"),
              nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
                               "SavedVariance"))
@@ -89,6 +157,8 @@ def _batch_norm(ctx, ins, attrs):
     convention), so it is used only to read the batch statistics out:
     with momentum 1 it leaves the batch mean and the unbiased variance in
     zeroed buffers, and the biased variance is that times (n - 1) / n.
+    With one value a channel (a batch of 1 after a global pool), where
+    torch raises, Y follows the JAX package's formula and equals Bias.
     `is_test`, `use_global_stats` or a test run normalise by the running
     statistics and pass them through."""
     x = ins["X"][0]
@@ -102,18 +172,27 @@ def _batch_norm(ctx, ins, attrs):
     if ctx.is_test or attrs.get("use_global_stats", False):
         y = F.batch_norm(x, mean, var, scale, bias, training=False,
                          eps=eps)
-        outs = {"MeanOut": [mean], "VarianceOut": [var],
+        return {"Y": [y.movedim(1, -1) if nhwc else y],
+                "MeanOut": [mean], "VarianceOut": [var],
                 "SavedMean": [mean], "SavedVariance": [var]}
+    if x.numel() == x.shape[1]:
+        # one value a channel, where torch's batch norm raises: the JAX
+        # package's formula (variance 0, so Y is Bias)
+        red = [i for i in range(x.dim()) if i != 1]
+        v, m = torch.var_mean(x, dim=red, correction=0)
+        bshape = [1, -1] + [1] * (x.dim() - 2)
+        y = (x - m.reshape(bshape)) * torch.rsqrt(v.reshape(bshape) + eps) \
+            * scale.reshape(bshape) + bias.reshape(bshape)
     else:
         n = x.numel() // x.shape[1]
         m, v = torch.zeros_like(mean), torch.zeros_like(var)
         y = F.batch_norm(x, m, v, scale, bias, training=True, momentum=1.0,
                          eps=eps)
         v = v * ((n - 1) / n)
-        outs = {"MeanOut": [mean * momentum + m * (1 - momentum)],
-                "VarianceOut": [var * momentum + v * (1 - momentum)],
-                "SavedMean": [m], "SavedVariance": [torch.rsqrt(v + eps)]}
-    return {"Y": [y.movedim(1, -1) if nhwc else y], **outs}
+    return {"Y": [y.movedim(1, -1) if nhwc else y],
+            "MeanOut": [mean * momentum + m * (1 - momentum)],
+            "VarianceOut": [var * momentum + v * (1 - momentum)],
+            "SavedMean": [m], "SavedVariance": [torch.rsqrt(v + eps)]}
 
 
 @register_op("layer_norm")

@@ -56,7 +56,8 @@ class EngineConfig:
                  seq_axis: int = 1,
                  feed_spec: Optional[Dict[str, Tuple[tuple, str]]] = None,
                  warmup: bool = True,
-                 num_workers: int = 1):
+                 num_workers: int = 1,
+                 http_port: Optional[int] = None):
         from ..core.flags import FLAGS
         self.model_dir = model_dir
         self.max_batch_size = int(max_batch_size
@@ -84,6 +85,8 @@ class EngineConfig:
         self.feed_spec = feed_spec
         self.warmup = warmup
         self.num_workers = max(1, int(num_workers))
+        self.http_port = int(http_port if http_port is not None
+                             else FLAGS.serving_http_port)
 
     def ladder(self) -> BucketLadder:
         return BucketLadder(self.batch_buckets, self.seq_buckets,
@@ -263,6 +266,9 @@ class ServingEngine:
         """Blocking submit+wait: the outputs sliced to this request's
         rows, in `get_output_names()` order."""
         return self.submit(feed, timeout_ms=timeout_ms).result()
+
+    def output_names(self) -> List[str]:
+        return self.predictor.get_output_names()
 
     def cache_stats(self) -> Dict[str, int]:
         """The predictor executor's per-instance cache counters. With

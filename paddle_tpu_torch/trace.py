@@ -439,6 +439,19 @@ def ring_spans() -> List[dict]:
         return list(_RING)
 
 
+def spans_for_trace_ids(trace_ids) -> List[dict]:
+    """Kept-ring spans belonging to any of `trace_ids`, ring order
+    (oldest first). This is the exemplar -> incident-bundle linkage:
+    a histogram exemplar in a breaching bucket is a trace_id, and the
+    alert engine (monitor_alerts.py) pulls the full trace behind it
+    into the bundle with this."""
+    want = set(trace_ids)
+    if not want:
+        return []
+    with _LOCK:
+        return [s for s in _RING if s.get("trace_id") in want]
+
+
 def drain_spans() -> List[dict]:
     """Copy-and-clear the ring (exporters call this so a periodic dump
     never writes a span twice)."""

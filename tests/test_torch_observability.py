@@ -51,6 +51,13 @@ SLICE_FLAGS = (
     "spec_decode_k", "spec_decode_ngram", "spec_decode_adaptive",
     "spec_adapt_low", "spec_adapt_high")
 
+# the flags of the alert engine, the HTTP front end and the profiler
+# (goodput.start_run appends a rule to FLAGS_alert_rules)
+ENGINE_FLAGS = ("alert_rules", "alert_eval_interval_s", "alert_bundle_dir",
+                "alert_bundle_max_spans", "goodput_alert_windows",
+                "serving_http_port", "profiler_trace_dir",
+                "op_trace_scopes")
+
 PKGS = {
     "jax": types.SimpleNamespace(
         monitor=jmon, trace=jtrace, goodput=jgood, res=jres,
@@ -66,7 +73,7 @@ def reset_globals():
     registry (stats, phases, flight ring, span ring, goodput ledger,
     fault injector) emptied, in both packages."""
     for p in PKGS.values():
-        for name in SLICE_FLAGS + ("flight_recorder",):
+        for name in SLICE_FLAGS + ENGINE_FLAGS + ("flight_recorder",):
             h = p.flags.flag_handle(name)
             h.value = h.default
         p.monitor.reset_stats()

@@ -1,7 +1,11 @@
 """The ops the vision and NMT training slice adds, each against the JAX
 package's lowering on the same seeded numpy inputs: relu, tanh, conv2d,
 pool2d, batch_norm, top_k, accuracy, cross_entropy, label_smooth, and one
-update each of sgd, momentum (with and without Nesterov) and adam.
+update each of sgd, momentum (with and without Nesterov) and adam; and
+the ops DeepLabv3+ adds: bilinear_interp and nearest_interp (every
+source-coordinate convention, `scale`, bfloat16), concat (mixed input
+dtypes), and batch_norm over one value a channel (torch's own batch norm
+raises there).
 
 Where an op is differentiated in training, the gradients of its
 differentiable inputs are compared too: jax.vjp of the JAX lowering
@@ -14,7 +18,10 @@ measured at most 3.9e-7); batch_norm's statistics within rtol 1e-5
 (measured at most 8.8e-7); integer and index outputs exactly; bfloat16
 conv2d's output and its input and filter gradients within 2e-2 of
 max(1, max|reference|) (each side rounds its float32 sums to bfloat16
-once; measured equal here).
+once; measured equal here); bfloat16 resizes and one-value batch_norm
+within the same 2e-2 (bfloat16 products rounded at other points: the
+resizes' backward adds up to five contributions a source pixel an
+axis).
 """
 import types
 
@@ -226,6 +233,9 @@ BN_CASES = {
     "is_test": ((4, 5, 3, 3), {"is_test": True}, False),
     "use_global_stats": ((4, 5, 3, 3), {"use_global_stats": True}, False),
     "test_run": ((4, 5, 3, 3), {}, True),
+    # one value a channel: DeepLab's image-pooling branch at batch 1
+    "train_one_value": ((1, 5, 1, 1), {}, False),
+    "train_one_value_2d": ((1, 5), {}, False),
 }
 
 
@@ -381,3 +391,160 @@ def test_every_new_op_is_registered_in_both():
         assert set(tdef.nondiff_inputs) == set(jdef.nondiff_inputs), t
         assert set(tdef.nondiff_outputs) == set(jdef.nondiff_outputs), t
         assert tdef.inplace == jdef.inplace, t
+
+
+def test_batch_norm_one_value_bfloat16():
+    """[1, C, 1, 1] in bfloat16 (X, Scale and Bias), training: Y equals
+    Bias, SavedVariance rsqrt(eps), and the gradients follow jax.vjp of
+    the JAX lowering; the running statistics stay float32 and move
+    toward the batch's own values."""
+    rng = np.random.RandomState(6)
+    ins = {"X": [_randn(rng, 1, 4, 1, 1, scale=2.0)],
+           "Scale": [_randn(rng, 4, scale=0.3, shift=1.0)],
+           "Bias": [_randn(rng, 4)],
+           "Mean": [_randn(rng, 4, scale=0.1)],
+           "Variance": [np.abs(_randn(rng, 4)) + 0.5]}
+    ot = compare("batch_norm", ins, BN_ATTRS, ["Y"], ["X", "Scale", "Bias"],
+                 "Y", tol=BF16_TOL, bf16=("X", "Scale", "Bias"))
+    y = ot["Y"][0].detach()
+    assert y.dtype == torch.bfloat16
+    bias = torch.from_numpy(ins["Bias"][0]).to(torch.bfloat16)
+    assert torch.equal(y.reshape(-1), bias)
+    oj = _jax_outs("batch_norm", {
+        s: [jnp.asarray(a).astype(jnp.bfloat16) if s in ("X", "Scale",
+                                                         "Bias")
+            else jnp.asarray(a) for a in vs] for s, vs in ins.items()},
+        BN_ATTRS, False)
+    for s in BN_STATS:
+        # the running statistics mix float32 state with bfloat16 batch
+        # values: BF16_TOL of max(1, max|JAX|), as the outputs
+        a, b = _as_np(oj[s][0]), ot[s][0].detach().float().numpy()
+        assert str(oj[s][0].dtype) == str(ot[s][0].dtype).split(".")[-1], s
+        np.testing.assert_allclose(b, a, rtol=0, err_msg=s,
+                                   atol=BF16_TOL * max(1.0, np.abs(a).max()))
+    saved_v = ot["SavedVariance"][0].detach().float().numpy()
+    np.testing.assert_allclose(saved_v, np.float32(1e-5) ** -0.5, rtol=1e-2)
+
+
+# (X shape, attrs): every source-coordinate convention, DeepLab's odd
+# sizes (9 -> 33 as 33 -> 129 and 129 -> 513, 3 -> 1 as a pooled map
+# going the other way), shrinking, `scale` with no out_h, and the attrs'
+# defaults (align_corners true, align_mode 1)
+INTERP_CASES = {
+    "align_corners": ((2, 3, 5, 7), {"out_h": 9, "out_w": 12,
+                                     "align_corners": True}),
+    "half_pixel": ((2, 3, 9, 9), {"out_h": 33, "out_w": 33,
+                                  "align_corners": False, "align_mode": 0}),
+    "half_pixel_from_1x1": ((2, 3, 1, 1), {"out_h": 5, "out_w": 5,
+                                           "align_corners": False,
+                                           "align_mode": 0}),
+    "half_pixel_shrink": ((1, 2, 9, 7), {"out_h": 4, "out_w": 3,
+                                         "align_corners": False,
+                                         "align_mode": 0}),
+    "mode_1": ((2, 3, 6, 5), {"out_h": 13, "out_w": 11,
+                              "align_corners": False, "align_mode": 1}),
+    "defaults": ((1, 2, 4, 4), {"out_h": 7, "out_w": 5}),
+    "scale": ((1, 2, 5, 6), {"scale": 2.5, "align_corners": False,
+                             "align_mode": 0}),
+    "scale_ignored_with_out_h": ((1, 2, 5, 6), {"out_h": 3, "out_w": 4,
+                                                "scale": 2.0}),
+}
+
+
+@pytest.mark.parametrize("method", ["bilinear", "nearest"])
+@pytest.mark.parametrize("case", sorted(INTERP_CASES))
+def test_interp(method, case):
+    """The output and its X gradient (the gathers' scatter-add) against
+    the JAX lowering."""
+    shape, attrs = INTERP_CASES[case]
+    x = _randn(np.random.RandomState(8), *shape)
+    ot = compare(f"{method}_interp", {"X": [x]}, attrs, ["Out"], ["X"],
+                 "Out")
+    oh = attrs.get("out_h") or int(shape[2] * attrs["scale"])
+    ow = attrs.get("out_w") or int(shape[3] * attrs["scale"])
+    assert ot["Out"][0].shape == (*shape[:2], oh, ow)
+
+
+@pytest.mark.parametrize("align,mode", [(True, 1), (False, 0), (False, 1)],
+                         ids=["align_corners", "half_pixel", "mode_1"])
+def test_interp_source_coordinates_equal_jax(align, mode):
+    """The float32 source coordinates of every convention, bit for bit,
+    for every input side up to 40 and output side up to 40, and
+    DeepLab's 129 and 513."""
+    from paddle_tpu.ops import nn_ops as jnn
+    from paddle_tpu_torch.ops import nn_ops as tnn
+    for d in range(1, 41):
+        for od in list(range(1, 41)) + [129, 513]:
+            want = np.asarray(jnn._interp_src(od, d, align, mode))
+            got = tnn._interp_src(od, d, align, mode, "cpu").numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f"{d}->{od}")
+
+
+@pytest.mark.parametrize("case", ["half_pixel", "mode_1", "align_corners"])
+def test_bilinear_interp_bfloat16(case):
+    """DeepLab's last resize takes the bf16 logits under AMP: the output
+    stays bfloat16 and the weights are rounded to it, as the reference
+    rounds them; output and X gradient against jax.vjp."""
+    shape, attrs = INTERP_CASES[case]
+    x = _randn(np.random.RandomState(10), *shape)
+    ot = compare("bilinear_interp", {"X": [x]}, attrs, ["Out"], ["X"],
+                 "Out", tol=BF16_TOL, bf16=("X",))
+    assert ot["Out"][0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("dtypes,axis", [
+    (("float32", "float32", "float32"), 1),
+    (("bfloat16", "bfloat16"), 1),
+    (("float32", "bfloat16"), 1),
+    (("bfloat16", "float32", "bfloat16"), -1),
+    (("float32", "float16"), 0),
+    (("int32", "float32"), 1),
+])
+def test_concat_promotes_as_jax(dtypes, axis):
+    """Mixed input dtypes give jnp.concatenate's result dtype; values
+    exact, and the float inputs' gradients are the cotangent's slices
+    in each input's own dtype, as jax.vjp gives them."""
+    rng = np.random.RandomState(12)
+    shapes = [[2, 3, 4] for _ in dtypes]
+    for i, sh in enumerate(shapes):
+        sh[axis] = i + 1
+    arrays = [(rng.randn(*sh) * 4).astype(np.float32) for sh in shapes]
+    jins = [jnp.asarray(a).astype(d) for a, d in zip(arrays, dtypes)]
+    tins = [torch.from_numpy(a).to(getattr(torch, d))
+            for a, d in zip(arrays, dtypes)]
+    attrs = {"axis": axis}
+    oj = _jax_outs("concat", {"X": jins}, attrs, False)["Out"][0]
+    ctx = tlow._OpCtx(tlow.LowerCtx("cpu"), _op(attrs))
+    floats = [t.is_floating_point() for t in tins]
+    for t, fl in zip(tins, floats):
+        t.requires_grad_(fl)
+    with torch.enable_grad():
+        ot = TREG.get("concat").lower(ctx, {"X": tins}, attrs)["Out"][0]
+    assert str(ot.dtype).split(".")[-1] == str(oj.dtype)
+    np.testing.assert_array_equal(ot.detach().float().numpy(),
+                                  _as_np(oj).astype(np.float32))
+    cot = rng.randn(*oj.shape).astype(np.float32)
+    diff = [i for i, fl in enumerate(floats) if fl]
+
+    def f(*xs):
+        ins = list(jins)
+        for i, x in zip(diff, xs):
+            ins[i] = x
+        return _jax_outs("concat", {"X": ins}, attrs, False)["Out"][0]
+
+    _, vjp = jax.vjp(f, *[jins[i] for i in diff])
+    gj = vjp(jnp.asarray(cot).astype(oj.dtype))
+    gt = torch.autograd.grad(ot, [tins[i] for i in diff],
+                             torch.from_numpy(cot).to(ot.dtype))
+    for a, b in zip(gj, gt):
+        assert str(b.dtype).split(".")[-1] == str(a.dtype)
+        np.testing.assert_array_equal(b.float().numpy(),
+                                      _as_np(a).astype(np.float32))
+
+
+def test_deeplab_ops_registered_in_both():
+    for t in ("bilinear_interp", "nearest_interp", "concat"):
+        assert TREG.has(t) and JREG.get(t) is not None, t
+        jdef, tdef = JREG.get(t), TREG.get(t)
+        assert set(tdef.nondiff_inputs) == set(jdef.nondiff_inputs), t
+        assert set(tdef.nondiff_outputs) == set(jdef.nondiff_outputs), t

@@ -7,8 +7,8 @@ step-1 gradient, each gap as ||a - b|| / ||b|| (Frobenius):
 
 - port_amp: the port's bf16 AMP gradient against the JAX package's;
 - jax_pert: the JAX package's AMP gradient with the input moved by
-  1e-3 (ResNet: the image plus 1e-3 of seeded noise; NMT: both
-  embedding tables times 1 + 1e-3 of seeded noise) against the
+  1e-3 (ResNet and DeepLab: the image plus 1e-3 of seeded noise; NMT:
+  both embedding tables times 1 + 1e-3 of seeded noise) against the
   unmoved one, how far bf16 rounding alone moves it;
 - jax_amp_vs_f32: the JAX package's AMP gradient against its float32
   one; port_amp_vs_f32 likewise for the port against the JAX float32;
@@ -20,10 +20,14 @@ Usage (both packages on the path, JAX on the CPU):
         [--batch 4] [--branch-scale 0.1]
     JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py nmt \\
         --d-model 128 --layers 2 --vocab 32000 --len 256
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py deeplab \\
+        --hw 33 --batch 2 [--branch-scale 0.1]
 
 ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
 --branch-scale multiplies the scale of every batch_norm that ends a
-residual branch (as tests/test_torch_resnet.py's AMP case does). NMT
+residual branch (as tests/test_torch_resnet.py's AMP case does).
+DeepLab runs DeepLabv3+ (19 classes, Momentum lr 1e-3) at the given
+image side and batch, with the same --branch-scale. NMT
 runs the Transformer-big shape at the given width, depth, vocab and
 source = target length, batch 1, dropout 0, AdamW lr 1e-4. Prints one
 line per parameter and the largest of each reading, the attention key
@@ -67,14 +71,48 @@ def _resnet(args):
     noise = np.random.RandomState(5).randn(*feed["image"].shape)
     moved = dict(feed, image=(feed["image"] + 1e-3 * noise)
                  .astype(np.float32))
-    init = _jax_init(progs["j", False][1])
-    ops = progs["t", False][0].global_block().ops
+    init = _scale_branch_ends(_jax_init(progs["j", False][1]),
+                              progs["t", False][0], args.branch_scale)
+    return progs, init, (init, feed), (init, moved)
+
+
+def _deeplab(args):
+    from paddle_tpu.models import deeplab as dj
+    from paddle_tpu_torch.models import deeplab as dt
+
+    def build(f, mod, amp):
+        main, startup = f.Program(), f.Program()
+        startup.random_seed = 11
+        with f.program_guard(main, startup), f.unique_name.guard():
+            loss, _ = mod.build_train(args.hw, args.batch, amp=amp)
+        return main, startup, loss
+
+    progs = {(pkg, amp): build(f, mod, amp)
+             for pkg, f, mod in (("j", fj, dj), ("t", ft, dt))
+             for amp in (False, True)}
+    rng = np.random.RandomState(0)
+    shape = (args.batch, 3, args.hw, args.hw)
+    feed = {"image": rng.randn(*shape).astype(np.float32),
+            "label": rng.randint(0, dj.N_CLASSES, (args.batch, args.hw,
+                                                   args.hw)).astype(np.int64)}
+    noise = np.random.RandomState(5).randn(*shape)
+    moved = dict(feed, image=(feed["image"] + 1e-3 * noise)
+                 .astype(np.float32))
+    init = _scale_branch_ends(_jax_init(progs["j", False][1]),
+                              progs["t", False][0], args.branch_scale)
+    return progs, init, (init, feed), (init, moved)
+
+
+def _scale_branch_ends(init, main, factor):
+    """`init` with the scale of every batch_norm that ends a residual
+    branch (its Y is an elementwise_add's Y) multiplied by `factor`."""
+    ops = main.global_block().ops
     add_y = {op.input("Y")[0] for op in ops if op.type == "elementwise_add"}
     for op in ops:
         if op.type == "batch_norm" and op.output("Y")[0] in add_y:
             name = op.input("Scale")[0]
-            init[name] = (init[name] * args.branch_scale).astype(np.float32)
-    return progs, init, (init, feed), (init, moved)
+            init[name] = (init[name] * factor).astype(np.float32)
+    return init
 
 
 def _nmt(args):
@@ -130,9 +168,13 @@ def main(argv=None):
     n.add_argument("--layers", type=int, default=2)
     n.add_argument("--vocab", type=int, default=32000)
     n.add_argument("--len", type=int, default=256)
+    d = sub.add_parser("deeplab")
+    d.add_argument("--hw", type=int, default=33)
+    d.add_argument("--batch", type=int, default=2)
+    d.add_argument("--branch-scale", type=float, default=1.0)
     args = ap.parse_args(argv)
-    progs, init, base, moved = (_resnet if args.model == "resnet"
-                                else _nmt)(args)
+    progs, init, base, moved = {"resnet": _resnet, "nmt": _nmt,
+                                "deeplab": _deeplab}[args.model](args)
     names = [p.name for p in progs["t", False][0].all_parameters()]
     fetch = [f"{p}@GRAD" for p in names]
 
