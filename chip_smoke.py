@@ -86,17 +86,40 @@ Phases, one progress line each; any failure exits non-zero:
              three parameters' gradients must agree, and attention must
              run in bf16 under AMP; the float32 card step must launch each
              kernel 12 times.
-9. gpt_train — GPT-small (12 layers, d 768, 12 heads, d_ff 3072, vocab
+9. bert_recipe — BERT-base MLM pretraining as bench.py's MLM step (b32,
+             T512, 80 masked positions, bf16 AMP, dropout 0.1) under
+             BERT's published recipe: AdamW (weight decay 0.01, epsilon
+             1e-6), 1e-4 warmed up over 10k steps then decayed linearly
+             to 0 at 1M, a global-norm clip of 1.0 (RECIPES["bert"]); the
+             step counter set so that 3 warm-up and 10 timed steps read
+             9995-10007. run_steps' gates, losses need not fall; each
+             step's rate equal to the closed form (recipe_lr) within 1e-6
+             relative across the end of warmup (0.995e-4 at 10000), the
+             global norm finite and positive, parameters moved; the op
+             count (1632) and host ms beside [train]'s, and the profiled
+             step's device ms by part (schedule, regularizer and clip,
+             update, model).
+10. bert_lamb — the same with Lamb (weight decay 0.01) under NVIDIA's
+             phase-1 LAMB recipe (6e-3, warmup 2000 of 7038 steps,
+             power 0.5; RECIPES["lamb"]), the steps across step 2000.
+11. recipe_cpu_check — BERT-base at batch 1, float32, dropout 0: two
+             AdamW recipe steps from counter 9999 and one LAMB step at
+             2000, each on the card and on the CPU from the same startup
+             values: loss and global norm within 1e-4, the rates equal
+             and on the closed form, every clipped gradient within 1e-3
+             (Frobenius), every parameter's update within
+             RECIPE_UPDATE_RTOL.
+12. gpt_train — GPT-small (12 layers, d 768, 12 heads, d_ff 3072, vocab
              32000) through models/gpt.build_train at bench.py's GPT step:
              batch 32, seq_len 512 (the in-graph shift leaves T 511,
              causal), bf16 AMP, AdamW lr 3e-4, dropout 0.1; 3 warm-up and
              10 timed steps with the same gates as train (each bf16 kernel
              12 times a step at [384, 511, 64] causal); MFU from bench.py's
              causal count.
-10. gpt_cpu_check — the same GPT at batch 1, dropout 0, bf16 AMP: one
+13. gpt_cpu_check — the same GPT at batch 1, dropout 0, bf16 AMP: one
              step on the card against one on the CPU, under train_cpu_check's
              AMP limits.
-11. gpt_generate — from the trained GPT scope, in float32 with the same
+14. gpt_generate — from the trained GPT scope, in float32 with the same
              weights: serial greedy kv_generate through the slab decode step
              (batch 1, max_seq 512) for 8 prompts of 1 to 300 tokens and 32
              new tokens each, then the same 8 prompts as the slots of the
@@ -104,7 +127,7 @@ Phases, one progress line each; any failure exits non-zero:
              chunked-prefill sibling over one pool, driven by
              paged_generate below; the streams must be equal, the decode
              steps' logits within 1e-4, and no flash kernel launched.
-12. gen_serve — the same scope served through GenerationEngine (8 slots,
+15. gen_serve — the same scope served through GenerationEngine (8 slots,
              max_seq 512, paged KV in blocks of 16), spec decode off and
              then on: 20 concurrent requests (gen_requests below) whose
              greedy streams must equal serial kv_generate and whose
@@ -115,7 +138,7 @@ Phases, one progress line each; any failure exits non-zero:
              injected transient faults that must retry and give the same
              streams. Prints TTFT, inter-token time, tokens/s and each
              step's host and card time.
-13. resnet_train — ResNet-50 (models/resnet.build_train) at bench.py's
+16. resnet_train — ResNet-50 (models/resnet.build_train) at bench.py's
              step: batch 64, 3x224x224, 1000 classes, bf16 AMP, Momentum
              lr 0.1, momentum 0.9, the feed from RandomState(0); 3
              warm-up and 10 timed steps: images/s, MFU (3 x
@@ -123,14 +146,22 @@ Phases, one progress line each; any failure exits non-zero:
              class (conv, matmul, norm, other); finite losses, no flash
              launch, no cache miss after the first step, every running
              mean and variance moved and finite.
-14. resnet_cpu_check — the same ResNet-50 at batch 2, one step on the
+17. resnet_cpu_check — the same ResNet-50 at batch 2, one step on the
              card and one on the CPU from the same startup values, in
              float32 and bf16 AMP: the loss, every parameter's gradient
              and every batch_norm's running statistics (RESNET_*_BARS).
-15. lenet_train — LeNet (models/lenet convolutional_neural_network) as
+18. resnet_recipe — ResNet-50 at bench.py's b64 AMP step under
+             PaddlePaddle/models' recipe: Momentum 0.9 with L2 decay 1e-4
+             and piecewise_decay 0.1 / 0.01 / 0.001 / 0.0001 at epochs
+             30, 60, 90 (5005 steps an epoch at batch 256); 3 warm-up and
+             5 timed steps from 4 before the first boundary: each rate
+             on the closed form (0.055 at the boundary), the running
+             statistics moved and finite, ops and host ms beside
+             [resnet_train]'s.
+19. lenet_train — LeNet (models/lenet convolutional_neural_network) as
              examples/train_mnist.py trains it: batch 128, Adam lr 1e-3,
              float32; images/s and step time, then one step card vs CPU.
-16. nmt_train — Transformer-big NMT (models/nmt.build_train) at bench.py's
+20. nmt_train — Transformer-big NMT (models/nmt.build_train) at bench.py's
              step: 6+6 layers, d 1024, 16 heads, d_ff 4096, vocab 32000,
              batch 32, source and target 256, bf16 AMP, dropout 0.1,
              AdamW lr 1e-4; 3 warm-up and 10 timed steps: tokens/s, MFU
@@ -138,7 +169,7 @@ Phases, one progress line each; any failure exits non-zero:
              at [512, 256, 64] (cross-attention takes the plain path);
              then one batch-1 step with dropout 0 card vs CPU under the
              AMP limits.
-17. http_serve — (after gen_serve, on the serve phase's saved BERT-base
+21. http_serve — (after gen_serve, on the serve phase's saved BERT-base
              and the trained GPT-small) one ServingHTTPServer over a
              ServingEngine and a GenerationEngine: the serve requests to
              /v1/predict and the gpt_generate prompts to /v1/generate
@@ -148,31 +179,32 @@ Phases, one progress line each; any failure exits non-zero:
              rule in FLAGS_alert_rules that must fire (ALERTS on
              /metrics, /alertz, one incident bundle); req/s and p50/p99
              over HTTP beside the direct numbers.
-18. deeplab_train — DeepLabv3+ (models/deeplab.build_train) at bench.py's
+22. deeplab_train — DeepLabv3+ (models/deeplab.build_train) at bench.py's
              step: batch 8, 3x513x513, 19 classes, bf16 AMP, Momentum
              lr 1e-3, momentum 0.9; 3 warm-up and 10 timed steps:
              images/s, MFU, peak memory, device ms by class; every
              running statistic moved and finite.
-19. profiler — profiler.profiler() around two deeplab_train steps: the
+23. profiler — profiler.profiler() around two deeplab_train steps: the
              summary's total within 10% of the profiled step's device
              time, classes adding up, the conv2d op scopes named, a
              chrome trace written.
-20. deeplab_cpu_check — DeepLabv3+ at batch 1, 3x65x65 (one value a
+24. deeplab_cpu_check — DeepLabv3+ at batch 1, 3x65x65 (one value a
              channel in the image-pooling branch's batch_norm), card vs
              CPU in float32 and AMP from the branch-scaled state.
-21. guard_train — TrainerGuard around LeNet (batch 128, Adam): a NaN
+25. guard_train — TrainerGuard around LeNet (batch 128, Adam): a NaN
              batch rolled back, a preemption checkpointed, a fresh
              guard's resume, resumed losses against an uninterrupted
              run's.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound; the bf16 entries count the BERT, GPT and NMT training runs and
-carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys
-and NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
+bound; the bf16 entries count the BERT (build_train and both recipes),
+GPT and NMT training runs and carry the GPT path's [384, 511, 64]
+causal shape under `causal_*` keys and NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
 (decoder) keys;
 the float32 instances as entries of their own, with the serving (direct
-and over HTTP), float32 training and float32 check-step launches), a
+and over HTTP), float32 training and float32 check-step launches, the
+recipe check's included), a
 [done] line with the run's length before them, and the result line
 {"ok": true, "device": {...}}.
 """
@@ -184,6 +216,7 @@ import sys
 import tempfile
 import threading
 import time
+from typing import NamedTuple
 
 SEED = 1234
 T = 512                  # BERT-base sequence length
@@ -1113,6 +1146,7 @@ def train_phase(torch, card, amp=True):
     build_train (bf16 AMP or float32, AdamW at lr 1e-4, dropout 0.1), the
     startup program on the card, then TRAIN_RUNS[amp]'s warm-up and
     timed steps on seeded random tokens with labels = tokens (run_steps).
+    Returns (the timed steps' launches, {ops, host_ms, device_ms}).
     MFU is against the peak of the units the step's products run on: the
     bf16 tensor cores under AMP, the CUDA cores' float32 peak in float32
     (cuBLAS takes full float32 products: allow_tf32 stays False)."""
@@ -1135,18 +1169,32 @@ def train_phase(torch, card, amp=True):
           seconds=f"{time.perf_counter() - t0:.2f}")
     rng = np.random.RandomState(0)
     toks = rng.randint(0, cfg.vocab_size, (batch, T)).astype("int64")
-    return run_steps(torch, card, tag, exe, main, scope,
-                     {"tokens": toks, "labels": toks}, loss, cfg.n_layers,
-                     warmup, steps, symbols, batch * T,
-                     model_flops_per_token(cfg, T),
-                     BF16_FLOPS if amp else F32_FLOPS)[0]
+    run = run_steps(torch, card, tag, exe, main, scope,
+                    {"tokens": toks, "labels": toks}, loss, cfg.n_layers,
+                    warmup, steps, symbols, batch * T,
+                    model_flops_per_token(cfg, T),
+                    BF16_FLOPS if amp else F32_FLOPS,
+                    parts=_step_parts(main) if amp else None)
+    return run.launches, {"ops": len(main.global_block().ops),
+                          "host_ms": run.host_ms,
+                          "device_ms": run.device_ms}
+
+
+class Run(NamedTuple):
+    """What run_steps measured: the timed steps' launches, the profiled
+    step's device ms, the median host ms to enqueue a timed step, and
+    per step (warm-up, timed, profiled) the values of `fetch`."""
+    launches: dict
+    device_ms: float
+    host_ms: float
+    fetched: list
 
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
               warmup, steps, symbols, tokens_per_step, flops_per_token,
               peak, unit="tokens", must_fall=True,
               classes=("matmul", "flash_attention_fwd", *BWD_KERNELS,
-                       "other")):
+                       "other"), fetch=(), parts=None):
     """A training run's warm-up and timed steps: losses finite (and
     falling, with `must_fall`), each flash kernel launched `n_layers`
     times a timed step (every count set to 0 just before the timed steps
@@ -1155,8 +1203,11 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
     host enqueue, `unit`s (tokens or images) a second, model TFLOP/s and
     MFU against `peak`, peak memory). Then one step under
     torch.profiler, split by kernel class (`classes`): each of `symbols`
-    must run `n_layers` times, and no other flash kernel. Returns the
-    timed steps' launches and the profiled step's device ms."""
+    must run `n_layers` times, and no other flash kernel. With `parts`
+    ({name: op indices}, _step_parts), the [tag_parts] line splits the
+    profiled step's device ms, and the host ms of the ops' scopes (their
+    enqueue, under the profiler), by those parts of the program. Each step also fetches the vars of `fetch` (as
+    float64 numpy). Returns a Run."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
@@ -1168,11 +1219,14 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         the host). exe.run returns the loss tensor before the card is
         done; reading it waits for the card."""
         t0 = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
-                      return_numpy=False)[0]
+        out = exe.run(main, feed=feed, fetch_list=[loss, *fetch],
+                      scope=scope, return_numpy=False)
         t_host = time.perf_counter()
-        value = float(out)
+        value = float(out[0])
+        fetched.append([x.double().cpu().numpy() for x in out[1:]])
         return value, (t_host - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    fetched = []
 
     losses = [step()[0]]
     misses_after_first = exe.cache_stats()["misses"]
@@ -1202,10 +1256,11 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           f"{misses_after_first} -> {misses}")
 
     step_ms = statistics.median(times)
+    host_ms = statistics.median(host_times)
     tok_s = tokens_per_step / (step_ms / 1e3)
     phase(tag, steps=steps, step_ms_median=f"{step_ms:.3f}",
           step_ms_min=f"{min(times):.3f}", step_ms_max=f"{max(times):.3f}",
-          host_ms_median=f"{statistics.median(host_times):.3f}",
+          host_ms_median=f"{host_ms:.3f}",
           **{f"{unit}_per_step": tokens_per_step,
              f"{unit}_per_s": f"{tok_s:.1f}",
              f"model_mflop_per_{unit[:-1]}": f"{flops_per_token / 1e6:.2f}"},
@@ -1232,6 +1287,33 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           unlinked_ms=f"{unlinked:.3f}", device_ms=f"{busy:.3f}",
           card=f"'{card}'")
     _print_flash_symbols(per_name)
+    if parts:
+        from paddle_tpu_torch.profiler import (extract_op_scope,
+                                               summarize_profile)
+        by_part = dict.fromkeys(parts, 0.0)
+        host = dict.fromkeys(parts, 0.0)
+        table = summarize_profile(prof).get("by_framework_op", {})
+        for row in table.values():
+            for name, ids in parts.items():
+                if row["op"] in ids:
+                    by_part[name] += row["device_us"] / 1e3
+        # each op scope's host interval on the executor's thread: the
+        # op's enqueue, under the profiler's own cost
+        for ev in prof.events():
+            scope = extract_op_scope(ev.name)
+            if scope is None or ev.name != "%s:%d/%d" % scope or \
+                    not str(ev.device_type).endswith("CPU"):
+                continue
+            for name, ids in parts.items():
+                if scope[2] in ids:
+                    host[name] += (ev.time_range.end -
+                                   ev.time_range.start) / 1e3
+        # outside every op's scope: the feed's copies to the card
+        phase(f"{tag}_parts", **{f"{k}_ops": len(v) for k, v in
+                                 parts.items()},
+              **{f"{k}_ms": f"{v:.3f}" for k, v in by_part.items()},
+              outside_ops_ms=f"{busy - sum(by_part.values()):.3f}",
+              **{f"{k}_host_ms": f"{v:.3f}" for k, v in host.items()})
     if busy:
         for sym in symbols:
             n = _symbol_launches(per_name, sym)
@@ -1250,7 +1332,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         for ms, k, name in top[:n]:
             print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
                   flush=True)
-    return launches, busy
+    return Run(launches, busy, host_ms, fetched)
 
 
 def train_cpu_check(torch):
@@ -1418,6 +1500,372 @@ def _amp_check(tag, out, grads, t0, vs_f32=None, grad_tol=AMP_GRAD_RTOL):
           f"AMP card vs CPU gradients differ: {amp_grads} > {grad_tol}")
 
 
+# -- the training recipes ------------------------------------------------
+
+# ImageNet-1k's 1,281,167 training images at batch 256: 5005 steps an
+# epoch, as PaddlePaddle/models' image classification train.py counts
+# them (step = ceil(total_images / batch_size))
+IMAGENET_IMAGES = 1281167
+RESNET_STEPS_PER_EPOCH = -(-IMAGENET_IMAGES // 256)
+RECIPES = {
+    # BERT pretraining (Devlin et al. 2019, Appendix A.2, and its
+    # reference code's optimization.py): AdamW with weight decay 0.01
+    # and epsilon 1e-6; 1e-4 warmed up linearly over 10k steps, then
+    # decayed linearly to 0 at 1M; a global-norm clip of 1.0. The 13
+    # steps read counters 9995-10007, across the end of warmup
+    "bert": {"lr": 1e-4, "decay_steps": 1_000_000, "power": 1.0,
+             "warmup": 10_000, "first_step": 9995},
+    # NVIDIA DeepLearningExamples' BERT phase-1 LAMB recipe: 6e-3, a
+    # polynomial decay of power 0.5 over 7038 steps, warmup 0.2843 of
+    # them (2000); the steps cross step 2000
+    "lamb": {"lr": 6e-3, "decay_steps": 7038, "power": 0.5,
+             "warmup": 2000, "first_step": 1995},
+    # PaddlePaddle/models' ResNet-50: Momentum 0.9, L2 decay 1e-4, 0.1
+    # cut tenfold at epochs 30, 60 and 90; the 8 steps start 4 before
+    # the first boundary and read it fifth (0.055, both sides' mean)
+    "resnet": {"boundaries": [e * RESNET_STEPS_PER_EPOCH
+                              for e in (30, 60, 90)],
+               "values": [0.1, 0.01, 0.001, 0.0001],
+               "first_step": 30 * RESNET_STEPS_PER_EPOCH - 4},
+}
+LR_RTOL = 1e-6
+N_MASK = 80    # bench.py's MLM positions at T 512: 15%, up to a multiple of 8
+# [recipe_cpu_check]: the card's float32 recipe steps against the CPU's.
+# The loss and the global norm within RECIPE_RTOL, each clipped gradient's
+# Frobenius gap within RECIPE_GRAD_RTOL of its norm ([train_cpu_check]'s
+# float32 bar), and each parameter's update (after the steps, minus the
+# start) within RECIPE_UPDATE_RTOL of the CPU's update, Frobenius, the
+# attention key biases left out (their gradient is 0 but for rounding,
+# so Adam's step there is the sign of rounding noise). On the CPU (tools/
+# torch_rounding_sensitivity.py recipe: d 128, 2 layers, T 128, two
+# AdamW steps of this recipe) the JAX package's own updates move by at
+# most 1.0e-5, 2.8e-5 and 5.7e-5 when the word embedding moves by 1e-6,
+# 1e-5 and 1e-4 of each value, and the port's part from the JAX
+# package's by 1.5e-5; the bar is the gradient bar, 17 times the largest
+RECIPE_RTOL = 1e-4
+RECIPE_GRAD_RTOL = 1e-3
+RECIPE_UPDATE_RTOL = 1e-3
+
+
+def recipe_lr(recipe, step):
+    """The recipe's rate at `step` in closed form (float64), as the
+    port's schedules compute it: linear_lr_warmup and piecewise_decay
+    select through sign masks, so at a step exactly on a boundary the
+    rate is the mean of the two sides."""
+    def above(x):  # sign(x) * 0.5 + 0.5
+        return 0.5 * (x > 0) + 0.5 * (x >= 0)
+    if "boundaries" in recipe:
+        bounds = [0.0, *recipe["boundaries"], 1e30]
+        return sum(v * above(step - bounds[i]) * above(bounds[i + 1] - step)
+                   for i, v in enumerate(recipe["values"]))
+    lr, warm = recipe["lr"], recipe["warmup"]
+    frac = min(step, recipe["decay_steps"]) / recipe["decay_steps"]
+    poly = lr * (1.0 - frac) ** recipe["power"]
+    done = above(step / warm - 1.0)
+    return min(max(step / warm, 0.0), 1.0) * lr * (1.0 - done) + poly * done
+
+
+def _recipe_lr_var(ptt, recipe):
+    """The recipe's schedule as the port's LR ops."""
+    L = ptt.layers
+    if "boundaries" in recipe:
+        return L.piecewise_decay(recipe["boundaries"], recipe["values"])
+    return L.linear_lr_warmup(
+        L.polynomial_decay(recipe["lr"], decay_steps=recipe["decay_steps"],
+                           end_learning_rate=0.0, power=recipe["power"]),
+        warmup_steps=recipe["warmup"], start_lr=0.0, end_lr=recipe["lr"])
+
+
+def _start_counter(torch, scope, step):
+    """Set @STEP_COUNTER@ so that the next step reads `step`, as a run
+    resumed from a checkpoint does."""
+    c = scope.get("@STEP_COUNTER@")
+    scope.set("@STEP_COUNTER@", torch.full_like(c, step - 1))
+
+
+def _step_parts(main, lr=None):
+    """A training program's op indices by part: "schedule" (the ops the
+    LR var `lr` is computed from), "after_backward" (between the last
+    grad op and the first update: the regularizers and the gradient
+    clip, the loss scaling's unscale), "update" (from the first
+    optimizer update op on) and "model" (the rest: forward, backward)."""
+    from paddle_tpu_torch.core.registry import REGISTRY
+    ops = main.global_block().ops
+    last_grad = max(i for i, op in enumerate(ops)
+                    if op.type == "grad::generic")
+    first_update = min(i for i, op in enumerate(ops)
+                       if REGISTRY.get(op.type).inplace)
+    schedule, want = set(), {lr.name} if lr is not None else set()
+    for i in range(len(ops) - 1, -1, -1):
+        if want & set(ops[i].output_names()) and i < first_update:
+            schedule.add(i)
+            want |= {n for n in ops[i].input_names() if n}
+    after = set(range(last_grad + 1, first_update)) - schedule
+    update = set(range(first_update, len(ops)))
+    model = set(range(len(ops))) - schedule - after - update
+    return {"schedule": schedule, "after_backward": after,
+            "update": update, "model": model}
+
+
+def _build_bert_recipe(ptt, transformer, cfg, batch, amp, name):
+    """BERT-base MLM pretraining as bench.py's build_bert_bench builds it
+    with BENCH_MLM=1 (build_train_mlm, N_MASK positions a sequence),
+    trained by RECIPES[name] ("bert": AdamW, "lamb": Lamb) with its
+    schedule, built first (its ops come before the forward), and the
+    global-norm clip of 1.0. The clip is process-global: it is set back
+    to None however the build ends. Returns (main, startup, loss, the LR
+    var, the global norm's var, {parameter: its clipped gradient's
+    var})."""
+    import functools
+    opt = ptt.optimizer
+    opt_cls = (functools.partial(opt.Lamb, lamb_weight_decay=0.01)
+               if name == "lamb" else
+               functools.partial(opt.AdamW, weight_decay=0.01, epsilon=1e-6))
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    ptt.clip.set_gradient_clip(ptt.clip.GradientClipByGlobalNorm(1.0))
+    try:
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            lr = _recipe_lr_var(ptt, RECIPES[name])
+            loss, _ = transformer.build_train_mlm(
+                cfg, batch, T, N_MASK, lr=lr, optimizer_cls=opt_cls, amp=amp)
+    finally:
+        ptt.clip.set_gradient_clip(None)
+    return (main, startup, loss, lr, *_clip_vars(main))
+
+
+def _clip_vars(main):
+    """GradientClipByGlobalNorm's norm (its sqrt op's output) and the
+    clipped gradients ({parameter: the elementwise_mul output by the
+    clip's factor})."""
+    ops = main.global_block().ops
+    at = max(i for i, op in enumerate(ops) if op.type == "sqrt")
+    norm = ops[at].output("Out")[0]
+    factor = next(op for op in ops[at:] if op.type == "elementwise_div")
+    factor = factor.output("Out")[0]
+    return norm, {op.input("X")[0].split("@GRAD")[0]: op.output("Out")[0]
+                  for op in ops if op.type == "elementwise_mul" and
+                  op.input("Y") == [factor]}
+
+
+def _mlm_feed(cfg, batch, seed):
+    """bench.py's MLM feed: tokens from RandomState(seed), N_MASK masked
+    positions a sequence and their labels."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, cfg.vocab_size, (batch, T)).astype(np.int64)
+    pos = np.stack([rng.choice(T, N_MASK, replace=False) + i * T
+                    for i in range(batch)]).reshape(-1).astype(np.int32)
+    return {"tokens": toks, "mask_pos": pos,
+            "mask_label": toks.reshape(-1)[pos].reshape(-1, 1)}
+
+
+def _lr_gate(tag, recipe, lrs):
+    """Each step's rate against recipe_lr from the recipe's first step;
+    returns the largest relative gap."""
+    want = [recipe_lr(recipe, recipe["first_step"] + i)
+            for i in range(len(lrs))]
+    errs = [abs(a - b) / abs(b) for a, b in zip(lrs, want)]
+    check(max(errs) <= LR_RTOL, f"[{tag}] learning rates {lrs} differ "
+          f"from the closed form {want} by up to {max(errs)} > {LR_RTOL}")
+    return max(errs)
+
+
+def bert_recipe_phase(torch, card, train, name="bert"):
+    """[bert_recipe] (AdamW, RECIPES["bert"]) or [bert_lamb] (Lamb with
+    weight decay 0.01, RECIPES["lamb"]): BERT-base MLM pretraining at
+    bench.py's step (b32, T512, N_MASK, bf16 AMP, dropout 0.1) through
+    _build_bert_recipe, the startup program on the card, the step
+    counter set so that the steps read the recipe's first_step on, then
+    3 warm-up and 10 timed steps through run_steps (its gates; losses
+    need not fall at these rates), fetching the LR var and the global
+    norm each step. Gates: each step's rate equals recipe_lr within
+    LR_RTOL, the global norm finite and positive, three parameters
+    moved. Prints the op count and host ms beside [train]'s (`train`).
+    Returns the timed steps' launches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer
+
+    tag = "bert_recipe" if name == "bert" else "bert_lamb"
+    recipe = RECIPES[name]
+    batch = TRAIN_RUNS[True][0]
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
+                                use_flash=True)
+    t0 = time.perf_counter()
+    main, startup, loss, lr, norm, clipped = _build_bert_recipe(
+        ptt, transformer, cfg, batch, True, name)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    _start_counter(torch, scope, recipe["first_step"])
+    watched = [g.split("@")[0] for g in _check_grads(cfg)]
+    before = {n: scope.get(n).clone() for n in watched}
+    torch.cuda.synchronize()
+    ops = main.global_block().ops
+    params = main.all_parameters()
+    phase(f"{tag}_build", ops=len(ops), train_ops=train["ops"],
+          squared_l2_norm=sum(op.type == "squared_l2_norm" for op in ops),
+          clipped=len(clipped), params=len(params),
+          param_elements=sum(math.prod(p.shape) for p in params),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    # the LM head runs at the N_MASK positions only
+    flops_tok = model_flops_per_token(cfg, T) - \
+        6 * cfg.vocab_size * cfg.d_model * (1 - N_MASK / T)
+    run = run_steps(torch, card, tag, exe, main, scope,
+                    _mlm_feed(cfg, batch, 0), loss, cfg.n_layers, 3, 10,
+                    BF16_KERNEL_SYMBOLS, batch * T, flops_tok, BF16_FLOPS,
+                    must_fall=False, fetch=[lr.name, norm],
+                    parts=_step_parts(main, lr))
+    lrs = [float(f[0][0]) for f in run.fetched]
+    norms = [float(f[1][0]) for f in run.fetched]
+    moved = [n for n in watched if not torch.equal(scope.get(n), before[n])]
+    phase(f"{tag}_lr", first_step=recipe["first_step"],
+          lr=",".join(f"{x:.7e}" for x in lrs),
+          lr_max_rel_err=f"{_lr_gate(tag, recipe, lrs):.3e}",
+          global_norm=",".join(f"{x:.4f}" for x in norms),
+          ops=len(ops), train_ops=train["ops"],
+          host_ms_median=f"{run.host_ms:.3f}",
+          train_host_ms_median=f"{train['host_ms']:.3f}",
+          device_ms=f"{run.device_ms:.3f}",
+          train_device_ms=f"{train['device_ms']:.3f}", card=f"'{card}'")
+    check(all(math.isfinite(x) and x > 0 for x in norms),
+          f"[{tag}] global norms not finite and positive: {norms}")
+    check(moved == watched, f"[{tag}] parameters that did not move: "
+          f"{sorted(set(watched) - set(moved))}")
+    return run.launches
+
+
+def _recipe_steps(ptt, exe, place, main, init, feed, fetch, steps,
+                  params):
+    """`steps` steps of `main` on `place` from the values `init`:
+    ([per step: fetched values as float64 numpy], {param: its update,
+    after the steps minus `init`'s})."""
+    from paddle_tpu_torch.convert import scope_from_numpy
+    scope = scope_from_numpy(init, ptt.Scope(), place, program=main)
+    out = [[x.double().cpu().numpy() for x in
+            exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                    return_numpy=False)] for _ in range(steps)]
+    return out, {p: scope.get_numpy(p) - init[p] for p in params}
+
+
+def _fro(a, b):
+    import numpy as np
+    nb = float(np.linalg.norm(b))
+    return float(np.linalg.norm(a - b)) / nb if nb else \
+        (0.0 if not np.any(a) else math.inf)
+
+
+def recipe_cpu_check(torch):
+    """[recipe_cpu_check]: BERT-base at full width, batch 1, dropout 0,
+    float32, through the recipes with the global-norm clip: two AdamW
+    steps of RECIPES["bert"] from counter 9999 (across the end of
+    warmup) and one Lamb step of RECIPES["lamb"] at counter 2000 (at
+    9999 its rate is exactly 0, past its 7038 decay steps), each on the
+    card and on the CPU (plain versions) from the same startup values.
+    Per step: the loss and the global norm within RECIPE_RTOL, the rate
+    equal on both and to recipe_lr within LR_RTOL, each clipped gradient
+    within RECIPE_GRAD_RTOL (Frobenius; the attention key biases', 0 but
+    for rounding, printed apart); after the steps, each
+    parameter's update within RECIPE_UPDATE_RTOL of the CPU's
+    (Frobenius; the attention key biases printed apart). Beside it, the
+    card's own update gap when the word embedding moves by 1e-6 of each
+    value (card_pert). The card launches
+    each float32 kernel 12 times a step. Returns the card's launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                use_flash=True)
+    feed = _mlm_feed(cfg, 1, 1)
+    card_exe, cpu_exe = ptt.Executor(), ptt.Executor(ptt.CPUPlace())
+    launches = {k: 0 for k in _launch_counts()}
+    for name, steps, first in (("bert", 2, 9999), ("lamb", 1, 2000)):
+        t0 = time.perf_counter()
+        recipe = RECIPES[name]
+        main, startup, loss, lr, norm, clipped = _build_bert_recipe(
+            ptt, transformer, cfg, 1, False, name)
+        params = sorted(p.name for p in main.all_parameters())
+        scope = ptt.Scope()
+        card_exe.run(startup, scope=scope)
+        _start_counter(torch, scope, first)
+        init = {n: scope.get_numpy(n) for n in scope.names()}
+        del scope
+        # the clipped gradients of the parameters held to the bar first;
+        # the attention key biases' (0 but for rounding) last
+        held = [p for p in params if not p.endswith(".k.b")]
+        fetch = [loss.name, lr.name, norm,
+                 *(clipped[p] for p in held + [p for p in params
+                                              if p not in held])]
+        _zero_launch_counts()
+        card, d_card = _recipe_steps(ptt, card_exe, ptt.CUDAPlace(0), main,
+                                     init, feed, fetch, steps, params)
+        counts = _launch_counts()
+        cpu, d_cpu = _recipe_steps(ptt, cpu_exe, ptt.CPUPlace(), main, init,
+                                   feed, fetch, steps, params)
+        noise = np.random.RandomState(5).randn(*init["word_emb"].shape)
+        moved = {**init, "word_emb": (init["word_emb"] * (1 + 1e-6 * noise))
+                 .astype(np.float32)}
+        _, d_pert = _recipe_steps(ptt, card_exe, ptt.CUDAPlace(0), main,
+                                  moved, feed, fetch[:1], steps, params)
+        check(all(n == cfg.n_layers * steps for n in counts.values()),
+              f"[recipe_cpu_check] card launches {counts}, not "
+              f"{cfg.n_layers} x {steps} each")
+        for k, n in counts.items():
+            launches[k] += n
+        loss_rel = max(abs(float(a[0]) - float(b[0])) / abs(float(b[0]))
+                       for a, b in zip(card, cpu))
+        norm_rel = max(abs(float(a[2][0]) - float(b[2][0])) / float(b[2][0])
+                       for a, b in zip(card, cpu))
+        lrs = [float(a[1][0]) for a in card]
+        lr_gap = max(abs(float(a[1][0]) - float(b[1][0])) / float(b[1][0])
+                     for a, b in zip(card, cpu))
+        n = 3 + len(held)
+        grad = max(_fro(x, y) for a, b in zip(card, cpu)
+                   for x, y in zip(a[3:n], b[3:n]))
+        upd = {p: _fro(d_card[p], d_cpu[p]) for p in held}
+        pert = {p: _fro(d_pert[p], d_card[p]) for p in held}
+        key_bias = max(_fro(d_card[p], d_cpu[p]) for p in params
+                       if p not in held)
+        key_bias_grad = max(_fro(x, y) for a, b in zip(card, cpu)
+                            for x, y in zip(a[n:], b[n:]))
+        worst = max(upd, key=upd.get)
+        phase("recipe_cpu_check", recipe=name, steps=steps, first_step=first,
+              loss_card=f"{float(card[-1][0]):.6f}",
+              loss_cpu=f"{float(cpu[-1][0]):.6f}",
+              loss_rel=f"{loss_rel:.3e}", lr=",".join(f"{x:.7e}"
+                                                      for x in lrs),
+              lr_card_vs_cpu=f"{lr_gap:.3e}",
+              global_norm=",".join(f"{float(a[2][0]):.4f}" for a in card),
+              global_norm_rel=f"{norm_rel:.3e}", clipped=len(clipped),
+              clipped_grad_max_rel=f"{grad:.3e}",
+              key_bias_clipped_grad_max_rel=f"{key_bias_grad:.3e}",
+              update_gap_median=f"{np.median(list(upd.values())):.3e}",
+              update_gap_max=f"{upd[worst]:.3e}", update_gap_worst=worst,
+              key_bias_update_gap_max=f"{key_bias:.3e}",
+              card_pert_update_gap_median=(
+                  f"{np.median(list(pert.values())):.3e}"),
+              card_pert_update_gap_max=f"{max(pert.values()):.3e}",
+              bars=f"loss:{RECIPE_RTOL},lr:{LR_RTOL},grad:"
+                   f"{RECIPE_GRAD_RTOL},update:{RECIPE_UPDATE_RTOL}",
+              seconds=f"{time.perf_counter() - t0:.2f}")
+        recipe = dict(recipe, first_step=first)
+        _lr_gate("recipe_cpu_check", recipe, lrs)
+        check(lr_gap <= LR_RTOL, f"[recipe_cpu_check] {name}: card and CPU "
+              f"rates differ by {lr_gap}")
+        check(loss_rel <= RECIPE_RTOL, f"[recipe_cpu_check] {name}: loss "
+              f"differs by {loss_rel} > {RECIPE_RTOL}")
+        check(norm_rel <= RECIPE_RTOL, f"[recipe_cpu_check] {name}: global "
+              f"norm differs by {norm_rel} > {RECIPE_RTOL}")
+        check(grad <= RECIPE_GRAD_RTOL, f"[recipe_cpu_check] {name}: "
+              f"clipped gradients differ by {grad} > {RECIPE_GRAD_RTOL}")
+        check(upd[worst] <= RECIPE_UPDATE_RTOL, f"[recipe_cpu_check] "
+              f"{name}: {worst}'s update differs by {upd[worst]} > "
+              f"{RECIPE_UPDATE_RTOL}")
+        del card, cpu, d_card, d_cpu, d_pert, init, moved
+    return launches
+
+
 def _gpt_cfg(**kw):
     """GPT-small as bench.py's GPT step builds it."""
     from paddle_tpu_torch.models import gpt
@@ -1463,10 +1911,10 @@ def gpt_train_phase(torch, card):
     t = GPT_SEQ - 1
     flops_tok = model_flops_per_token(cfg, t) - 6 * cfg.n_layers * t * \
         cfg.d_model
-    launches, _ = run_steps(torch, card, "gpt_train", exe, main, scope,
+    launches = run_steps(torch, card, "gpt_train", exe, main, scope,
                             {"tokens": toks}, loss, cfg.n_layers, 3, 10,
                             BF16_KERNEL_SYMBOLS, GPT_BATCH * t, flops_tok,
-                            BF16_FLOPS)
+                            BF16_FLOPS).launches
     return launches, scope, cfg
 
 
@@ -2128,7 +2576,7 @@ def resnet_train_phase(torch, card):
     the JAX package too, so a fall is not asked for), no flash launch,
     no executor cache miss after the first step, and every batch_norm's
     running mean and variance moved from its start (0, 1) and finite.
-    Returns the timed steps' launches."""
+    Returns (the timed steps' launches, {ops, host_ms, device_ms})."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import resnet
 
@@ -2145,12 +2593,21 @@ def resnet_train_phase(torch, card):
           conv2d=sum(op.type == "conv2d" for op in ops),
           casts=sum(op.type == "cast" for op in ops),
           seconds=f"{time.perf_counter() - t0:.2f}")
-    launches, _ = run_steps(
+    run = run_steps(
         torch, card, "resnet_train", exe, main, scope,
         _resnet_feed(RESNET_BATCH, 0), loss, 0, 3, 10, (), RESNET_BATCH,
         3 * resnet.flops_per_image(50, RESNET_IMAGE[1], RESNET_CLASSES),
         BF16_FLOPS, unit="images",
-        must_fall=False, classes=("conv", "matmul", "norm", "other"))
+        must_fall=False, classes=("conv", "matmul", "norm", "other"),
+        parts=_step_parts(main))
+    _check_stats(torch, "resnet_stats", main, scope)
+    return run.launches, {"ops": len(ops), "host_ms": run.host_ms,
+                          "device_ms": run.device_ms}
+
+
+def _check_stats(torch, tag, main, scope):
+    """Every batch_norm's running mean and variance moved from its start
+    (0, 1) and finite; the [tag] line. Returns their count."""
     stats = _stat_names(main)
     moved = finite = 0
     for i, n in enumerate(stats):
@@ -2158,12 +2615,12 @@ def resnet_train_phase(torch, card):
         start = 1.0 if i % 2 else 0.0  # mean, variance, mean, ...
         finite += bool(torch.isfinite(t).all())
         moved += bool((t != start).any())
-    phase("resnet_stats", vars=len(stats), moved=moved, finite=finite)
+    phase(tag, vars=len(stats), moved=moved, finite=finite)
     check(finite == len(stats), f"{len(stats) - finite} running "
           f"statistics are not finite")
     check(moved == len(stats), f"{len(stats) - moved} running statistics "
           f"never moved from their start")
-    return launches
+    return len(stats)
 
 
 def resnet_cpu_check(torch):
@@ -2242,6 +2699,78 @@ def resnet_cpu_check(torch):
         check(max(stat) <= bars["stat"], f"ResNet card vs CPU running "
               f"statistics differ by {max(stat)} > {bars['stat']} "
               f"(amp={amp})")
+
+
+def _build_resnet_recipe(ptt, amp):
+    """ResNet-50 at bench.py's shape trained by RECIPES["resnet"]:
+    models/resnet.py's build_train line for line, its Momentum swapped
+    for Momentum(piecewise_decay(...), 0.9, regularization=L2Decay(1e-4))
+    (build_train takes no regularization). Returns (main, startup, loss,
+    the LR var)."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models import resnet
+    L = ptt.layers
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        img = L.data("image", shape=list(RESNET_IMAGE), dtype="float32")
+        label = L.data("label", shape=[1], dtype="int64")
+        logits = resnet.resnet(img, RESNET_CLASSES, 50)
+        loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+        L.accuracy(L.softmax(logits), label)
+        lr = _recipe_lr_var(ptt, RECIPES["resnet"])
+        opt_inst = ptt.optimizer.Momentum(
+            learning_rate=lr, momentum=0.9,
+            regularization=ptt.regularizer.L2Decay(1e-4))
+        if amp:
+            opt_inst = mp.decorate(opt_inst)
+        opt_inst.minimize(loss)
+    return main, startup, loss, lr
+
+
+def resnet_recipe_phase(torch, card, train):
+    """[resnet_recipe]: ResNet-50 at bench.py's b64 AMP step through
+    _build_resnet_recipe, the step counter set so that the steps read
+    RECIPES["resnet"]["first_step"] on, 3 warm-up and 5 timed steps
+    through run_steps (its gates), fetching the LR var each step. Gates:
+    each step's rate equals recipe_lr within LR_RTOL (0.1, then 0.055 at
+    the boundary, then 0.01), every running statistic moved and finite.
+    Prints the op count and host ms beside [resnet_train]'s (`train`)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+
+    recipe = RECIPES["resnet"]
+    t0 = time.perf_counter()
+    main, startup, loss, lr = _build_resnet_recipe(ptt, True)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    _start_counter(torch, scope, recipe["first_step"])
+    torch.cuda.synchronize()
+    ops = main.global_block().ops
+    phase("resnet_recipe_build", ops=len(ops), train_ops=train["ops"],
+          decayed=sum(op.type == "scale" and op.attrs.get("scale") == 1e-4
+                      for op in ops),
+          boundaries=",".join(map(str, recipe["boundaries"])),
+          steps_per_epoch=RESNET_STEPS_PER_EPOCH,
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    run = run_steps(
+        torch, card, "resnet_recipe", exe, main, scope,
+        _resnet_feed(RESNET_BATCH, 0), loss, 0, 3, 5, (), RESNET_BATCH,
+        3 * resnet.flops_per_image(50, RESNET_IMAGE[1], RESNET_CLASSES),
+        BF16_FLOPS, unit="images", must_fall=False,
+        classes=("conv", "matmul", "norm", "other"), fetch=[lr.name],
+        parts=_step_parts(main, lr))
+    lrs = [float(f[0][0]) for f in run.fetched]
+    phase("resnet_recipe_lr", first_step=recipe["first_step"],
+          lr=",".join(f"{x:.7e}" for x in lrs),
+          lr_max_rel_err=f"{_lr_gate('resnet_recipe', recipe, lrs):.3e}",
+          ops=len(ops), train_ops=train["ops"],
+          host_ms_median=f"{run.host_ms:.3f}",
+          train_host_ms_median=f"{train['host_ms']:.3f}",
+          device_ms=f"{run.device_ms:.3f}",
+          train_device_ms=f"{train['device_ms']:.3f}", card=f"'{card}'")
+    _check_stats(torch, "resnet_recipe_stats", main, scope)
 
 
 def _lenet_flops():
@@ -2343,10 +2872,10 @@ def nmt_train_phase(torch, card):
           seconds=f"{time.perf_counter() - t0:.2f}")
     tokens = NMT_BATCH * NMT_LEN
     flops = nmt.flops_per_step(cfg, NMT_BATCH, NMT_LEN, NMT_LEN)
-    launches, _ = run_steps(torch, card, "nmt_train", exe, main, scope,
-                            _nmt_feed(cfg, NMT_BATCH, 0), loss,
-                            2 * cfg.n_layers, 3, 10, BF16_KERNEL_SYMBOLS,
-                            tokens, flops / tokens, BF16_FLOPS)
+    launches = run_steps(torch, card, "nmt_train", exe, main, scope,
+                         _nmt_feed(cfg, NMT_BATCH, 0), loss,
+                         2 * cfg.n_layers, 3, 10, BF16_KERNEL_SYMBOLS,
+                         tokens, flops / tokens, BF16_FLOPS).launches
     del scope, exe
 
     nmt_cpu_check(ptt, nmt)
@@ -2663,24 +3192,13 @@ def deeplab_train_phase(torch, card):
           params=len(main.all_parameters()),
           seconds=f"{time.perf_counter() - t0:.2f}")
     feed = _deeplab_feed(DEEPLAB_HW, DEEPLAB_BATCH, 0)
-    _, device_ms = run_steps(
+    device_ms = run_steps(
         torch, card, "deeplab_train", exe, main, scope, feed, loss, 0, 3, 10,
         (), DEEPLAB_BATCH, 3 * deeplab.flops_per_image(DEEPLAB_HW),
         BF16_FLOPS, unit="images", must_fall=False,
-        classes=("conv", "matmul", "norm", "other"))
-    stats = _stat_names(main)
-    moved = finite = 0
-    for i, n in enumerate(stats):
-        t = scope.get(n)
-        start = 1.0 if i % 2 else 0.0  # mean, variance, mean, ...
-        finite += bool(torch.isfinite(t).all())
-        moved += bool((t != start).any())
-    phase("deeplab_stats", vars=len(stats), moved=moved, finite=finite)
-    check(len(stats) == 124, f"{len(stats)} running statistics, not 124")
-    check(finite == len(stats), f"{len(stats) - finite} running "
-          f"statistics are not finite")
-    check(moved == len(stats), f"{len(stats) - moved} running statistics "
-          f"never moved from their start")
+        classes=("conv", "matmul", "norm", "other")).device_ms
+    n = _check_stats(torch, "deeplab_stats", main, scope)
+    check(n == 124, f"{n} running statistics, not 124")
     return exe, main, scope, feed, loss, device_ms
 
 
@@ -3520,9 +4038,12 @@ def main():
         records[key]["flash_attention_fwd"]["max_abs_err"] = err
     bert_dir = tempfile.TemporaryDirectory(prefix="ptt_bert_")
     served = serve_phase(torch, card, bert_dir.name)
-    trained = train_phase(torch, card)
-    trained_f32 = train_phase(torch, card, amp=False)
+    trained, train_info = train_phase(torch, card)
+    trained_f32, _ = train_phase(torch, card, amp=False)
     checked_f32 = train_cpu_check(torch)
+    recipe_bert = bert_recipe_phase(torch, card, train_info)
+    recipe_lamb = bert_recipe_phase(torch, card, train_info, "lamb")
+    checked_recipe = recipe_cpu_check(torch)
     gpt_trained, gpt_scope, gpt_cfg = gpt_train_phase(torch, card)
     gpt_cpu_check(torch)
     prompts, serial = gpt_generate_phase(torch, card, gpt_scope, gpt_cfg)
@@ -3531,8 +4052,9 @@ def main():
                                    gpt_scope, gpt_cfg, prompts, serial)
     bert_dir.cleanup()
     del gpt_scope
-    resnet_train_phase(torch, card)
+    _, resnet_info = resnet_train_phase(torch, card)
     resnet_cpu_check(torch)
+    resnet_recipe_phase(torch, card, resnet_info)
     lenet_train_phase(torch, card)
     nmt_trained = nmt_train_phase(torch, card)
     deeplab = deeplab_train_phase(torch, card)
@@ -3542,9 +4064,10 @@ def main():
     guard_train_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
-    # BERT, GPT and NMT bf16 training runs; the float32 kernels' over the
-    # float32 training run and the float32 check step, and the float32
-    # forward's over the serving runs (direct and over HTTP) too
+    # BERT (build_train and both recipes), GPT and NMT bf16 training
+    # runs; the float32 kernels' over the float32 training run, the
+    # float32 check step and the recipe check's card steps, and the
+    # float32 forward's over the serving runs (direct and over HTTP) too
     def entry(name, rec, launches, dtype=None, **shapes):
         """One kernel's record; a dtype instance of its own is named
         <name>_<dtype> and carries its dtype; each of `shapes` (the GPT
@@ -3563,14 +4086,15 @@ def main():
                for k in keys}}
 
     out = [entry(name, records["bfloat16"][name],
-                 trained[name] + gpt_trained[name] + nmt_trained[name],
+                 trained[name] + gpt_trained[name] + nmt_trained[name] +
+                 recipe_bert[name] + recipe_lamb[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name])
            for name in KERNEL_SOURCES]
     out += [entry(name, records["float32"][name],
                   served[0].get(name, 0) + trained_f32[name] +
-                  checked_f32[name] +
+                  checked_f32[name] + checked_recipe[name] +
                   (http_served if name == "flash_attention_fwd" else 0),
                   "float32")
             for name in KERNEL_SOURCES]

@@ -48,4 +48,8 @@ from . import inference  # noqa: F401,E402
 from . import convert  # noqa: F401,E402
 from . import backward  # noqa: F401,E402
 from . import optimizer  # noqa: F401,E402
+from . import regularizer  # noqa: F401,E402
+from . import clip  # noqa: F401,E402
+from . import average  # noqa: F401,E402
+from .clip import set_gradient_clip  # noqa: F401,E402
 from . import contrib  # noqa: F401,E402

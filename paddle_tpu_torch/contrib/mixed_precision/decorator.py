@@ -4,9 +4,14 @@
 and black-list ops consume fp32, exactly as the JAX package's does (same
 cast ops, var names and dtypes, so the two packages' programs stay
 byte-identical). Master weights stay fp32 in the Scope: the cast ops'
-gradients return fp32 gradients to the parameters. Loss scaling is not
-needed with bf16's range and is not ported: a scale other than 1.0
-raises.
+gradients return fp32 gradients to the parameters.
+
+Loss scaling as the JAX package does it: with ``init_loss_scaling`` other
+than 1, ``backward`` scales the loss and unscales each gradient with
+``scale`` ops, before ``apply_gradients`` (so the regularizers and the
+gradient clip see unscaled float32 gradients). bf16 has float32's range,
+so dynamic loss scaling degenerates to the static scale; its arguments
+are taken for source compatibility.
 """
 from __future__ import annotations
 
@@ -90,27 +95,48 @@ def rewrite_program(main_prog, amp_lists=None):
 
 
 class OptimizerWithMixedPrecision:
-    def __init__(self, optimizer, amp_lists=None, init_loss_scaling=1.0):
-        if float(init_loss_scaling) != 1.0:
-            raise NotImplementedError(
-                "loss scaling (init_loss_scaling != 1.0) needs the scale "
-                "op, which is not ported yet; bf16 does not need it")
+    def __init__(self, optimizer, amp_lists=None, init_loss_scaling=1.0,
+                 use_dynamic_loss_scaling=False, incr_every_n_steps=1000,
+                 decr_every_n_nan_or_inf=2, incr_ratio=2.0, decr_ratio=0.8):
         self._optimizer = optimizer
         self._amp_lists = amp_lists or AutoMixedPrecisionLists()
+        self._loss_scaling = float(init_loss_scaling)
 
-    def backward(self, loss, parameter_list=None, no_grad_set=None,
-                 callbacks=None):
+    def get_loss_scaling(self):
+        return self._loss_scaling
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        from ... import layers
         rewrite_program(loss.block.program, self._amp_lists)
-        return append_backward(loss, parameter_list, no_grad_set, callbacks)
+        scaled = loss
+        if self._loss_scaling != 1.0:
+            scaled = layers.scale(loss, scale=self._loss_scaling)
+        params_grads = append_backward(scaled, parameter_list, no_grad_set,
+                                       callbacks)
+        if self._loss_scaling != 1.0:
+            inv = 1.0 / self._loss_scaling
+            params_grads = [(p, layers.scale(g, scale=inv))
+                            for p, g in params_grads]
+        return params_grads
 
-    def minimize(self, loss, parameter_list=None, no_grad_set=None):
-        params_grads = self.backward(loss, parameter_list, no_grad_set)
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
         opt_ops = self._optimizer.apply_gradients(params_grads)
         return opt_ops, params_grads
 
 
-def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0):
-    """fluid.contrib.mixed_precision.decorate, bf16 only: no loss scaling
-    (dynamic scaling and its schedule are not ported)."""
-    return OptimizerWithMixedPrecision(optimizer, amp_lists,
-                                       init_loss_scaling)
+def decorate(optimizer, amp_lists=None, init_loss_scaling=1.0,
+             incr_every_n_steps=1000, decr_every_n_nan_or_inf=2,
+             incr_ratio=2.0, decr_ratio=0.8,
+             use_dynamic_loss_scaling=False):
+    """fluid.contrib.mixed_precision.decorate, bf16: static loss scaling
+    (dynamic scaling degenerates to it)."""
+    return OptimizerWithMixedPrecision(
+        optimizer, amp_lists, init_loss_scaling, use_dynamic_loss_scaling,
+        incr_every_n_steps, decr_every_n_nan_or_inf, incr_ratio, decr_ratio)

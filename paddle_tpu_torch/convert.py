@@ -4,6 +4,12 @@
 parameters, given as numpy arrays under their variable names, as tensors
 on `place` in the port's Scope. ``io.load_inference_model`` goes through
 it, so a model directory saved by the JAX package is itself a carry path.
+
+A training scope carries its optimizer state the same way: moments,
+``beta*_pow``, EMA shadows, ModelAverage sums and counts, and the step
+counters. The JAX package runs with 64-bit types off, so its scope holds
+``@STEP_COUNTER@`` (declared int64) as int32; given the `program`, an
+array of a var the program declares 64-bit is widened back to it.
 """
 from __future__ import annotations
 
@@ -14,6 +20,10 @@ import torch
 
 from .core.place import Place
 from .core.scope import Scope
+
+# declared 64-bit dtype -> (the dtype a JAX scope holds it in, its own)
+_NARROWED = {"int64": (torch.int32, torch.int64),
+             "float64": (torch.float32, torch.float64)}
 
 
 def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
@@ -31,10 +41,19 @@ def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def scope_from_numpy(params: Dict[str, np.ndarray], scope: Scope,
-                     place: Place) -> Scope:
+                     place: Place, program=None) -> Scope:
     """Set every array of `params` in `scope` under its own name, as a
-    tensor on `place`. Returns the scope."""
+    tensor on `place`; with `program`, an array narrowed from a 64-bit
+    var of the program's global block is widened back. Returns the
+    scope."""
     device = place.torch_device()
+    block = program.global_block() if program is not None else None
     for name, arr in params.items():
-        scope.set(name, tensor_from_numpy(arr, device))
+        t = tensor_from_numpy(arr, device)
+        declared = block.var(name).dtype \
+            if block is not None and block.has_var(name) else None
+        narrow, wide = _NARROWED.get(declared, (None, None))
+        if t.dtype == narrow:
+            t = t.to(wide)
+        scope.set(name, t)
     return scope

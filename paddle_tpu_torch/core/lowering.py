@@ -175,6 +175,7 @@ class _OpCtx:
         self.is_test = ctx.is_test or bool(op.attrs.get("is_test", False))
         self.block = getattr(op, "block", None)
         self.attrs = op.attrs
+        self.inputs = getattr(op, "inputs", {})
         self.outputs = getattr(op, "outputs", {})
 
     def wants(self, slot):
@@ -182,6 +183,12 @@ class _OpCtx:
         slot. An op may leave an unwanted optional output out."""
         dead = self._ctx.unread.get(self._op.id, ())
         return any(n and n not in dead for n in self.outputs.get(slot, ()))
+
+    def persistable(self, name):
+        """Whether the op's block declares `name` a persistable var."""
+        v = self.block._find_var_recursive(name) \
+            if self.block is not None else None
+        return v is not None and v.persistable
 
     def pop_record(self, fwd_id):
         """The forward op's (inputs, outputs) record, removed from the

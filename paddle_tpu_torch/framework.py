@@ -94,6 +94,28 @@ class Variable:
     def is_parameter(self):
         return isinstance(self, Parameter)
 
+    # -- operator sugar, so schedules read like fluid: a scalar operand
+    # becomes one `scale` op, as in the JAX package --------------------
+    def _binary(self, other, op):
+        from .layers import math_ops
+        return math_ops.elementwise_binary(op, self, other)
+
+    def __add__(self, o):
+        return self._binary(o, "elementwise_add")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "elementwise_sub")
+
+    def __mul__(self, o):
+        return self._binary(o, "elementwise_mul")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
     def __repr__(self):
         p = " persistable" if self.persistable else ""
         return f"Var({self.name}: {self.dtype}{list(self.shape or [])}{p})"

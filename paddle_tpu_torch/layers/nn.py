@@ -13,7 +13,9 @@ import math
 from ..framework import unique_name
 from ..initializer import Constant, Normal
 from ..layer_helper import LayerHelper
-from .math_ops import elementwise_add  # noqa: F401
+from .math_ops import (elementwise_add, elementwise_div,  # noqa: F401
+                       elementwise_max, elementwise_min, elementwise_mul,
+                       elementwise_sub)
 
 __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "add_position_encoding", "flash_attention", "reshape",
@@ -22,7 +24,10 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "scale", "slice", "one_hot", "reduce_mean", "conv2d", "pool2d",
            "batch_norm", "relu", "tanh", "topk", "cross_entropy",
            "label_smooth", "image_resize", "resize_bilinear",
-           "resize_nearest"]
+           "resize_nearest", "exp", "sqrt", "square", "sign", "pow",
+           "clip", "clip_by_norm", "sums", "elementwise_sub",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min"]
 
 
 def _unary_layer(op_type):
@@ -39,6 +44,34 @@ def _unary_layer(op_type):
 gelu = _unary_layer("gelu")
 relu = _unary_layer("relu")
 tanh = _unary_layer("tanh")
+exp = _unary_layer("exp")
+sqrt = _unary_layer("sqrt")
+square = _unary_layer("square")
+sign = _unary_layer("sign")
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary_layer("pow")(x, name=name, factor=factor)
+
+
+def clip(x, min, max, name=None):
+    return _unary_layer("clip")(x, name=name, min=float(min), max=float(max))
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary_layer("clip_by_norm")(x, name=name,
+                                        max_norm=float(max_norm))
+
+
+def sums(input, out=None):
+    """Out = the sum of the vars of `input` (one `sum` op)."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="sum",
+                     inputs={"X": [v.name for v in input]},
+                     outputs={"Out": [out.name]})
+    return out
 
 
 def mean(x, name=None):

@@ -11,7 +11,9 @@ from ..initializer import Constant
 from ..layer_helper import LayerHelper
 
 __all__ = ["create_global_var", "cast", "concat", "assign", "fill_constant",
-           "range"]
+           "range", "sums"]
+
+from .nn import sums  # noqa: F401,E402
 
 
 def create_global_var(shape, value, dtype, persistable=False, name=None):

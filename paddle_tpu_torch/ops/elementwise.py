@@ -29,11 +29,27 @@ def _binary(name, fn):
     return _low
 
 
+# elementwise_mod and elementwise_floordiv round toward -inf, as
+# jnp.mod and jnp.floor_divide do; elementwise_div of integers is true
+# division, as jnp.divide is
 _binary("elementwise_add", torch.add)
+_binary("elementwise_sub", torch.sub)
 _binary("elementwise_mul", torch.mul)
+_binary("elementwise_div", torch.div)
+_binary("elementwise_max", torch.maximum)
+_binary("elementwise_min", torch.minimum)
+_binary("elementwise_pow", torch.pow)
+_binary("elementwise_mod", torch.remainder)
+_binary("elementwise_floordiv", torch.floor_divide)
 
 
-@register_op("less_equal", nondiff_outputs=("Out",))
-def _less_equal(ctx, ins, attrs):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": [torch.le(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+def _compare(name, fn):
+    @register_op(name, nondiff_outputs=("Out",))
+    def _low(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [_fn(x, broadcast_y(x, y, attrs.get("axis", -1)))]}
+    return _low
+
+
+_compare("less_equal", torch.le)
+_compare("equal", torch.eq)

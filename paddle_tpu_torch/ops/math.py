@@ -1,5 +1,6 @@
 """Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, concat, gather, slice, top_k, reshape2, transpose2.
+cast, concat, gather, slice, top_k, reshape2, transpose2, and the
+gradient clips' clip, clip_by_norm and squared_l2_norm.
 
 The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
 the card), as the JAX package leaves them to XLA. Float32 products are
@@ -106,6 +107,25 @@ def _top_k(ctx, ins, attrs):
     vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True,
                            stable=True)
     return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs["min"], attrs["max"])]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    # X * (max_norm / ||X||) where the norm exceeds max_norm, else X
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    return {"Out": [torch.where(norm > max_norm, x * (max_norm / norm), x)]}
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}
 
 
 def _with_xshape(name, fn):

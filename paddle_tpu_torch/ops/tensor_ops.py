@@ -52,7 +52,23 @@ def _uniform_random(ctx, ins, attrs):
 
 @register_op("assign")
 def _assign(ctx, ins, attrs):
-    return {"Out": [ins["X"][0]]}
+    # Out = X. The optimizers update persistables in place, so Out gets a
+    # copy of a persistable X (Lookahead's slow weights, assigned from
+    # the parameters in the startup program), else a later update of X
+    # would reach Out
+    x = ins["X"][0]
+    src = ctx.inputs.get("X", [""])[0]
+    if src not in ctx.outputs.get("Out", ()) and ctx.persistable(src):
+        x = x.clone()
+    return {"Out": [x]}
+
+
+@register_op("increment")
+def _increment(ctx, ins, attrs):
+    # Out = X + step in X's own dtype (an int64 step counter stays int64)
+    x = ins["X"][0]
+    step = attrs.get("step", 1.0)
+    return {"Out": [x + (step if x.is_floating_point() else int(step))]}
 
 
 @register_op("range", nondiff_outputs=("Out",))

@@ -22,6 +22,8 @@ Usage (both packages on the path, JAX on the CPU):
         --d-model 128 --layers 2 --vocab 32000 --len 256
     JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py deeplab \\
         --hw 33 --batch 2 [--branch-scale 0.1]
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py recipe \\
+        --d-model 128 --layers 2 --len 128 [--steps 2]
 
 ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
 --branch-scale multiplies the scale of every batch_norm that ends a
@@ -32,6 +34,16 @@ runs the Transformer-big shape at the given width, depth, vocab and
 source = target length, batch 1, dropout 0, AdamW lr 1e-4. Prints one
 line per parameter and the largest of each reading, the attention key
 biases left out (their gradients are zero but for rounding).
+
+`recipe` reads parameter updates instead of gradients: a BERT MLM model
+(vocab 30522, the given width, depth and length, batch 1, dropout 0,
+float32) under chip_smoke.py's BERT recipe (AdamW with weight decay 0.01
+and epsilon 1e-6, the warmup and linear decay, the global-norm clip 1.0)
+takes --steps steps from counter 9999, and each parameter's update
+(after the steps minus before) is read: port_update, the port's against
+the JAX package's; jax_pert_update, the JAX package's with the word
+embedding moved by --pert (default 1e-6) of each value (seeded noise)
+against the unmoved one. chip_smoke.py's RECIPE_UPDATE_RTOL comes from these.
 """
 import argparse
 import sys
@@ -149,6 +161,89 @@ def _nmt(args):
     return progs, init, (init, feed), (moved, feed)
 
 
+def _recipe(args):
+    """The BERT recipe's parameter updates (see the module docstring)."""
+    import functools
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
+    import chip_smoke
+    from paddle_tpu.models import transformer as tj
+    from paddle_tpu_torch.models import transformer as tt
+
+    recipe = chip_smoke.RECIPES["bert"]
+    n_mask = 16
+
+    def build(f, mod):
+        cfg = mod.bert_base(vocab_size=30522, d_model=args.d_model,
+                            n_heads=max(args.d_model // 64, 1),
+                            n_layers=args.layers, d_ff=4 * args.d_model,
+                            max_seq_len=args.len, dropout=0.0,
+                            attn_dropout=0.0, use_flash=True)
+        L = f.layers
+        main, startup = f.Program(), f.Program()
+        startup.random_seed = 11
+        f.clip.set_gradient_clip(f.clip.GradientClipByGlobalNorm(1.0))
+        try:
+            with f.program_guard(main, startup), f.unique_name.guard():
+                lr = L.linear_lr_warmup(L.polynomial_decay(
+                    recipe["lr"], decay_steps=recipe["decay_steps"],
+                    end_learning_rate=0.0, power=recipe["power"]),
+                    warmup_steps=recipe["warmup"], start_lr=0.0,
+                    end_lr=recipe["lr"])
+                loss, _ = mod.build_train_mlm(
+                    cfg, 1, args.len, n_mask, lr=lr,
+                    optimizer_cls=functools.partial(
+                        f.optimizer.AdamW, weight_decay=0.01, epsilon=1e-6))
+        finally:
+            f.clip.set_gradient_clip(None)
+        return main, startup, loss
+
+    (mj, sj, lj), (mt, _, lt) = build(fj, tj), build(ft, tt)
+    init = _jax_init(sj)
+    init["@STEP_COUNTER@"] = np.array([9998], np.int32)
+    rng = np.random.RandomState(1)
+    toks = rng.randint(0, 30522, (1, args.len)).astype(np.int64)
+    pos = rng.choice(args.len, n_mask, replace=False).astype(np.int32)
+    feed = {"tokens": toks, "mask_pos": pos,
+            "mask_label": toks.reshape(-1)[pos].reshape(-1, 1)}
+    noise = np.random.RandomState(5).randn(*init["word_emb"].shape)
+    moved = dict(init, word_emb=(init["word_emb"] * (1 + args.pert * noise))
+                 .astype(np.float32))
+    names = [p.name for p in mt.all_parameters()]
+
+    def jax_updates(state):
+        scope = fj.Scope()
+        for k, v in state.items():
+            scope.set(k, v)
+        exe = fj.Executor(fj.CPUPlace())
+        with fj.scope_guard(scope):
+            losses = [float(np.asarray(exe.run(mj, feed=feed,
+                                               fetch_list=[lj])[0]))
+                      for _ in range(args.steps)]
+        return losses, {n: np.asarray(scope.get(n)) - state[n]
+                        for n in names}
+
+    scope = scope_from_numpy(init, ft.Scope(), ft.CPUPlace(), program=mt)
+    exe = ft.Executor(ft.CPUPlace())
+    lt_ = [float(exe.run(mt, feed=feed, fetch_list=[lt.name],
+                         scope=scope)[0]) for _ in range(args.steps)]
+    port = {n: scope.get_numpy(n) - init[n] for n in names}
+    lj_, jax = jax_updates(init)
+    _, pert = jax_updates(moved)
+    print(f"losses: jax {lj_} port {lt_}")
+    top = {"port_update": 0.0, "jax_pert_update": 0.0}
+    for n in names:
+        row = {"port_update": _fro(port[n], jax[n]),
+               "jax_pert_update": _fro(pert[n], jax[n])}
+        print(f"{n:28s} " + " ".join(f"{k} {v:.3e}" for k, v in row.items()))
+        if n.endswith(".k.b"):
+            continue  # zero gradient but for rounding
+        for k, v in row.items():
+            top[k] = max(top[k], v)
+    print("max " + " ".join(f"{k} {v:.3e}" for k, v in top.items()))
+    return 0
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -172,7 +267,15 @@ def main(argv=None):
     d.add_argument("--hw", type=int, default=33)
     d.add_argument("--batch", type=int, default=2)
     d.add_argument("--branch-scale", type=float, default=1.0)
+    b = sub.add_parser("recipe")
+    b.add_argument("--d-model", type=int, default=128)
+    b.add_argument("--layers", type=int, default=2)
+    b.add_argument("--len", type=int, default=128)
+    b.add_argument("--steps", type=int, default=2)
+    b.add_argument("--pert", type=float, default=1e-6)
     args = ap.parse_args(argv)
+    if args.model == "recipe":
+        return _recipe(args)
     progs, init, base, moved = {"resnet": _resnet, "nmt": _nmt,
                                 "deeplab": _deeplab}[args.model](args)
     names = [p.name for p in progs["t", False][0].all_parameters()]
