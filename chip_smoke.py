@@ -195,6 +195,39 @@ Phases, one progress line each; any failure exits non-zero:
              batch rolled back, a preemption checkpointed, a fresh
              guard's resume, resumed losses against an uninterrupted
              run's.
+26. dygraph_bert — BERT-base written as a dygraph Layer
+             (make_dygraph_bert: Embedding, Linear, LayerNorm, Dropout
+             0.1, and reshape, transpose, flash_attention and
+             softmax_with_cross_entropy through the layer dispatch) at
+             batch 16, T 512, float32, trained eagerly on the card:
+             loss.backward(), AdamW (weight decay 0.01) with a dygraph
+             PolynomialDecay under the global-norm clip of 1.0; 2 warm-up
+             and 5 timed steps, then one profiled: host and device ms,
+             tokens/s, each step's peak memory (flat within 5% of step
+             2's: no tape keeps a step's activations), the ratio of the
+             peak to [train_f32]'s static step, each float32 flash
+             kernel 12 times a step, two AdamW moments a parameter.
+27. dygraph_trace — TracedLayer.trace of the trained encoder in eval()
+             at batch 8: the captured Program on the card's Executor
+             against the eager output (2e-3), 12 float32 forwards a call,
+             save_inference_model and load_inference_model in a fresh
+             scope, and a traced op on the input alone that must follow
+             a second input.
+28. dygraph_cpu_check — the same model at batch 1, dropout 0, on the
+             card and on the CPU from one state dict: the loss, every
+             gradient and, after two AdamW steps, every update, under
+             [recipe_cpu_check]'s bars; the flash backward runs on the
+             eager autograd path.
+29. dygraph_resnet — ResNet-50 as a dygraph Layer (make_dygraph_resnet)
+             at batch 64, 3x224x224, float32, under Momentum 0.9, L2 1e-4
+             and a dygraph PiecewiseDecay: 2 + 5 steps, then eval() on
+             the batch: images/s, flat peak memory, the running
+             statistics moved and read by eval(), no optimizer state for
+             them.
+30. dygraph_layers — each of the 18 dygraph.nn layers forward and
+             backward on the card against the CPU port from one state
+             dict (1e-4), NCE against its formula on the card's own
+             negatives, Dropout's kept share.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
@@ -204,7 +237,8 @@ causal shape under `causal_*` keys and NMT's [512, 256, 64] under `nmt_*` (encod
 (decoder) keys;
 the float32 instances as entries of their own, with the serving (direct
 and over HTTP), float32 training and float32 check-step launches, the
-recipe check's included), a
+recipe check's and the dygraph BERT's, its check's and its traced
+call's included), a
 [done] line with the run's length before them, and the result line
 {"ok": true, "device": {...}}.
 """
@@ -1177,17 +1211,20 @@ def train_phase(torch, card, amp=True):
                     parts=_step_parts(main) if amp else None)
     return run.launches, {"ops": len(main.global_block().ops),
                           "host_ms": run.host_ms,
-                          "device_ms": run.device_ms}
+                          "device_ms": run.device_ms,
+                          "peak_gb": run.peak_gb}
 
 
 class Run(NamedTuple):
     """What run_steps measured: the timed steps' launches, the profiled
     step's device ms, the median host ms to enqueue a timed step, and
-    per step (warm-up, timed, profiled) the values of `fetch`."""
+    per step (warm-up, timed, profiled) the values of `fetch`, and the
+    timed steps' peak memory in GB."""
     launches: dict
     device_ms: float
     host_ms: float
     fetched: list
+    peak_gb: float
 
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
@@ -1332,7 +1369,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         for ms, k, name in top[:n]:
             print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
                   flush=True)
-    return Run(launches, busy, host_ms, fetched)
+    return Run(launches, busy, host_ms, fetched, peak_gb)
 
 
 def train_cpu_check(torch):
@@ -3431,6 +3468,829 @@ def guard_train_phase(torch, card):
 
 
 
+# --- dygraph: eager BERT-base and ResNet-50 -----------------------------
+
+# [dygraph_bert] at [train_f32]'s batch (float32 activations), 2 warm-up
+# and 5 timed steps; [dygraph_resnet] at bench.py's ResNet-50 batch;
+# [dygraph_trace] traces the trained encoder at batch 8
+DYGRAPH_BATCH, DYGRAPH_WARMUP, DYGRAPH_STEPS = 16, 2, 5
+DYGRAPH_RESNET_BATCH = 64
+DYGRAPH_TRACE_BATCH = 8
+# each step's peak memory within this share of step 2's: no growth, as
+# a tape that kept every step's activations would show
+DYGRAPH_MEM_RTOL = 0.05
+# the traced Program on the card against the eager output: the float32
+# serving bar
+DYGRAPH_TRACE_ATOL = 2e-3
+# [dygraph_layers]: each layer's outputs, gradients and state after the
+# step, card vs CPU, within this share of max(1, max|CPU|) (cuDNN and
+# the CPU sum in other orders; TF32 is off)
+DYGRAPH_LAYER_TOL = 1e-4
+# [dygraph_cpu_check]'s gradient bar: [train_cpu_check]'s float32 one
+DYGRAPH_GRAD_RTOL, DYGRAPH_GRAD_ATOL = 1e-3, 1e-6
+# Dropout(0.3) on 4096 values: the kept share within this of 0.7 (7
+# standard deviations)
+DYGRAPH_KEEP_TOL = 0.05
+# BERT's recipe in eager form (RECIPES["bert"] without its warmup, which
+# the dygraph PolynomialDecay does not have)
+DYGRAPH_BERT_LR, DYGRAPH_BERT_DECAY_STEPS = 1e-4, 1_000_000
+# PaddlePaddle/models' ResNet-50 recipe ([resnet_recipe]): 0.1, divided
+# by 10 at epochs 30, 60 and 90 of RESNET_STEPS_PER_EPOCH steps
+DYGRAPH_RESNET_LRS = (0.1, 0.01, 0.001, 0.0001)
+
+
+def make_dygraph_bert(dg, layers, cfg, seed=SEED):
+    """BERT-base as models/transformer.py shapes it (post-LN blocks of q,
+    k, v and an output projection, then a gelu FFN; sinusoid positions;
+    the LM head at every position), as a dygraph Layer over the package
+    `dg` and its `layers`: Embedding, Linear, LayerNorm and Dropout, with
+    add_position_encoding, reshape, transpose, flash_attention,
+    softmax_with_cross_entropy and mean through the layer dispatch, and
+    the residual sums as VarBase sums (the elementwise layers take a
+    VarBase operand for a Python number in both packages). model(tokens,
+    labels) is the mean LM loss over all
+    positions (labels [b * T, 1]); model.encoder(tokens) the hidden
+    states. Dropout (upscale_in_train) only where cfg.dropout is set;
+    attention dropout stays 0. The weights are drawn from `seed`."""
+    import numpy as np
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+
+    def dropout(x, drop):
+        return drop(x) if cfg.dropout else x
+
+    class Block(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.q = dg.Linear(d, d)
+            self.k = dg.Linear(d, d)
+            self.v = dg.Linear(d, d)
+            self.proj = dg.Linear(d, d)
+            self.ln1 = dg.LayerNorm(normalized_shape=d)
+            self.fc1 = dg.Linear(d, cfg.d_ff, act="gelu")
+            self.fc2 = dg.Linear(cfg.d_ff, d)
+            self.ln2 = dg.LayerNorm(normalized_shape=d)
+            self.drop = dg.Dropout(
+                p=cfg.dropout, dropout_implementation="upscale_in_train")
+
+        def forward(self, x):
+            b, t = x.shape[0], x.shape[1]
+
+            def heads(z):
+                return layers.transpose(layers.reshape(z, [b, t, h, hd]),
+                                        [0, 2, 1, 3])
+
+            ctx = layers.flash_attention(
+                heads(self.q(x)), heads(self.k(x)), heads(self.v(x)),
+                sm_scale=1.0 / math.sqrt(hd))
+            ctx = layers.reshape(layers.transpose(ctx, [0, 2, 1, 3]),
+                                 [b, t, d])
+            x = self.ln1(x + dropout(self.proj(ctx), self.drop))
+            return self.ln2(x + dropout(self.fc2(self.fc1(x)), self.drop))
+
+    class Encoder(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = dg.Embedding(size=[cfg.vocab_size, d])
+            self.drop = dg.Dropout(
+                p=cfg.dropout, dropout_implementation="upscale_in_train")
+            self.blocks = [self.add_sublayer(f"layer_{i}", Block())
+                           for i in range(cfg.n_layers)]
+
+        def forward(self, tokens):
+            x = layers.add_position_encoding(self.emb(tokens), alpha=1.0,
+                                             beta=1.0)
+            x = dropout(x, self.drop)
+            for blk in self.blocks:
+                x = blk(x)
+            return x
+
+    class Bert(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.encoder = Encoder()
+            self.head = dg.Linear(d, cfg.vocab_size, bias_attr=False)
+
+        def forward(self, tokens, labels):
+            logits = layers.reshape(self.head(self.encoder(tokens)),
+                                    [-1, cfg.vocab_size])
+            return layers.mean(
+                layers.softmax_with_cross_entropy(logits, labels))
+
+    model = Bert()
+    # BERT's init, as models/transformer.py writes it: every dense weight
+    # and the embedding drawn from N(0, 0.02) (the layers' own default is
+    # Xavier), biases 0, layer norms 1 and 0
+    rng = np.random.default_rng(seed)
+    model.set_dict({n: (0.02 * rng.standard_normal(p.shape,
+                                                   dtype=np.float32))
+                    for n, p in model.named_parameters()
+                    if n.endswith("weight") and ".ln" not in n})
+    return model
+
+
+def make_dygraph_resnet(dg, layers, class_dim=1000, counts=(3, 4, 6, 3)):
+    """ResNet as models/resnet.py builds ResNet-50 (a 7x7 stem, a max
+    pool, bottleneck stages of `counts` blocks, a global average pool
+    and an FC head), as a dygraph Layer over the package `dg` and its
+    `layers`: Conv2D, BatchNorm, Pool2D and FC, with relu,
+    softmax_with_cross_entropy and mean through the layer dispatch and
+    the residual sums as VarBase sums. model(image, label) is the mean
+    loss."""
+
+    class ConvBN(dg.Layer):
+        def __init__(self, c_in, c_out, k, stride=1, act=None):
+            super().__init__()
+            self.conv = dg.Conv2D(num_channels=c_in, num_filters=c_out,
+                                  filter_size=k, stride=stride,
+                                  padding=(k - 1) // 2, bias_attr=False)
+            self.bn = dg.BatchNorm(num_channels=c_out, act=act)
+
+        def forward(self, x):
+            return self.bn(self.conv(x))
+
+    class Bottleneck(dg.Layer):
+        def __init__(self, c_in, filters, stride):
+            super().__init__()
+            self.conv0 = ConvBN(c_in, filters, 1, act="relu")
+            self.conv1 = ConvBN(filters, filters, 3, stride, act="relu")
+            self.conv2 = ConvBN(filters, filters * 4, 1)
+            self.short = ConvBN(c_in, filters * 4, 1, stride) \
+                if c_in != filters * 4 or stride != 1 else None
+
+        def forward(self, x):
+            y = self.conv2(self.conv1(self.conv0(x)))
+            s = x if self.short is None else self.short(x)
+            return layers.relu(s + y)
+
+    class ResNet(dg.Layer):
+        def __init__(self):
+            super().__init__()
+            self.stem = ConvBN(3, 64, 7, 2, act="relu")
+            self.pool = dg.Pool2D(pool_size=3, pool_type="max",
+                                  pool_stride=2, pool_padding=1)
+            self.blocks = []
+            c_in = 64
+            for stage, n in enumerate(counts):
+                filters = 64 * 2 ** stage
+                for i in range(n):
+                    self.blocks.append(self.add_sublayer(
+                        f"block_{stage}_{i}", Bottleneck(
+                            c_in, filters,
+                            2 if i == 0 and stage > 0 else 1)))
+                    c_in = filters * 4
+            self.gap = dg.Pool2D(pool_type="avg", global_pooling=True)
+            self.fc = dg.FC(size=class_dim)
+
+        def forward(self, image, label):
+            x = self.pool(self.stem(image))
+            for blk in self.blocks:
+                x = blk(x)
+            logits = self.fc(self.gap(x))
+            return layers.mean(
+                layers.softmax_with_cross_entropy(logits, label))
+
+    return ResNet()
+
+
+def dygraph_bert_opt(ptt, dg):
+    """BERT's AdamW recipe in eager form: weight decay 0.01, epsilon
+    1e-6, a dygraph PolynomialDecay from 1e-4 to 0 over 1M steps (the
+    global-norm clip of 1.0 is set by the caller)."""
+    return ptt.optimizer.AdamW(
+        learning_rate=dg.PolynomialDecay(DYGRAPH_BERT_LR,
+                                         DYGRAPH_BERT_DECAY_STEPS,
+                                         end_learning_rate=0.0),
+        weight_decay=0.01, epsilon=1e-6)
+
+
+class GlobalNormClip:
+    """set_gradient_clip(GradientClipByGlobalNorm(norm)) of the package
+    `fluid` for a with block, back to None after it (the clip is
+    process-wide)."""
+
+    def __init__(self, fluid, norm):
+        self._clip = fluid.clip
+        self._norm = norm
+
+    def __enter__(self):
+        self._clip.set_gradient_clip(
+            self._clip.GradientClipByGlobalNorm(self._norm))
+
+    def __exit__(self, *exc):
+        self._clip.set_gradient_clip(None)
+
+
+def _dygraph_step(model, opt, inputs):
+    """One eager training step: forward, backward, minimize, clear. It
+    returns the loss tensor detached, so the step's graph is freed when
+    the function returns."""
+    loss = model(*inputs)
+    loss.backward()
+    opt.minimize(loss, parameter_list=model.parameters())
+    model.clear_gradients()
+    return loss.value.detach()
+
+
+def _dygraph_run(torch, step, n):
+    """`step` run n times: per step (loss, host ms to enqueue it, ms until
+    its loss is on the host, the step's peak memory in GB)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step()
+        t_host = time.perf_counter()
+        value = float(loss)
+        out.append((value, (t_host - t0) * 1e3,
+                    (time.perf_counter() - t0) * 1e3,
+                    torch.cuda.max_memory_allocated() / 1e9))
+    return out
+
+
+def _dygraph_profile(torch, step):
+    """One step under torch.profiler: (device ms, the kernel table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import device_kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        step()
+        torch.cuda.synchronize()
+    per_name = device_kernels(prof)
+    return sum(ms for ms, _ in per_name.values()), per_name
+
+
+def _dygraph_gates(tag, runs):
+    """Finite losses, and each step's peak memory from step 2 on within
+    DYGRAPH_MEM_RTOL of step 2's. Returns the largest move."""
+    losses = [r[0] for r in runs]
+    peaks = [r[3] for r in runs]
+    check(all(math.isfinite(x) for x in losses),
+          f"[{tag}] non-finite loss: {losses}")
+    growth = max(abs(p - peaks[1]) / peaks[1] for p in peaks[1:])
+    check(growth <= DYGRAPH_MEM_RTOL, f"[{tag}] peak memory moves by "
+          f"{growth:.3f} of step 2's across steps: {peaks}")
+    return growth
+
+
+def dygraph_bert_phase(torch, card, static_peak_gb):
+    """[dygraph_bert]: BERT-base at full width (make_dygraph_bert; 12
+    layers, d 768, 12 heads of 64, FFN 3072, vocab 30522, T 512, dropout
+    0.1), batch DYGRAPH_BATCH, float32, on the card through the dygraph
+    entry points: guard(), to_variable, loss.backward(), eager AdamW
+    with a dygraph PolynomialDecay under the global-norm clip of 1.0
+    (dygraph_bert_opt). DYGRAPH_WARMUP warm-up and DYGRAPH_STEPS timed
+    steps (launch counts set to 0 just before those, read just after),
+    then one profiled step. Gates: finite losses; each float32 flash
+    kernel 12 times a timed step and in the profiled step; flat peak
+    memory (_dygraph_gates); two AdamW moments per trainable parameter.
+    Prints host and device ms a step, tokens/s, each step's peak and the
+    largest against [train_f32]'s static step (`static_peak_gb`).
+    Returns (the trained model, the timed steps' launches)."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (DYGRAPH_BATCH, T)).astype(np.int64)
+    t0 = time.perf_counter()
+    with dg.guard(), GlobalNormClip(ptt, 1.0):
+        model = make_dygraph_bert(dg, ptt.layers, cfg)
+        opt = dygraph_bert_opt(ptt, dg)
+        inputs = (dg.to_variable(toks), dg.to_variable(toks.reshape(-1, 1)))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        def step():
+            return _dygraph_step(model, opt, inputs)
+
+        warm = _dygraph_run(torch, step, DYGRAPH_WARMUP)
+        _zero_launch_counts()
+        timed = _dygraph_run(torch, step, DYGRAPH_STEPS)
+        launches = _launch_counts()
+        device_ms, per_name = _dygraph_profile(torch, step)
+        trainable = [p for p in model.parameters() if p.trainable]
+        moments = [sum(isinstance(v, torch.Tensor) for v in
+                       opt._dy_state.get(p.name, {}).values())
+                   for p in trainable]
+    runs = warm + timed
+    growth = _dygraph_gates("dygraph_bert", runs)
+    step_ms = statistics.median(r[2] for r in timed)
+    peak = max(r[3] for r in runs)
+    phase("dygraph_bert", layers=cfg.n_layers, d_model=cfg.d_model,
+          batch=DYGRAPH_BATCH, T=T, params=len(trainable),
+          build_s=f"{build_s:.2f}", steps=DYGRAPH_STEPS,
+          step_ms_median=f"{step_ms:.3f}",
+          host_ms_median=f"{statistics.median(r[1] for r in timed):.3f}",
+          device_ms=f"{device_ms:.3f}" if device_ms else "not measured",
+          tokens_per_s=f"{DYGRAPH_BATCH * T / (step_ms / 1e3):.1f}",
+          launches_per_step=launches["flash_attention_fwd"] // DYGRAPH_STEPS,
+          losses=",".join(f"{r[0]:.4f}" for r in runs),
+          peak_gb=",".join(f"{r[3]:.3f}" for r in runs),
+          peak_growth=f"{growth:.4f}",
+          peak_vs_static=f"{peak / static_peak_gb:.3f}",
+          card=f"'{card}'")
+    _print_flash_symbols(per_name)
+    for name, n in launches.items():
+        check(n == cfg.n_layers * DYGRAPH_STEPS, f"[dygraph_bert] {name} "
+              f"launches {n} != {cfg.n_layers} x {DYGRAPH_STEPS} steps")
+    if device_ms:
+        for sym in F32_KERNEL_SYMBOLS:
+            n = _symbol_launches(per_name, sym)
+            check(n == cfg.n_layers, f"[dygraph_bert] {sym} ran {n} times "
+                  f"in the profiled step, not {cfg.n_layers}")
+    check(moments == [2] * len(trainable), f"[dygraph_bert] AdamW moments "
+          f"a trainable parameter: {sorted(set(moments))}, not 2")
+    return model, launches
+
+
+def _key_bias(name):
+    """An attention key's bias: its gradient is 0 but for rounding (a
+    constant added to a row of scores), so Adam's step there is noise."""
+    return name.endswith(".k.bias")
+
+
+def dygraph_cpu_check(torch):
+    """[dygraph_cpu_check]: the dygraph BERT-base at batch 1, dropout 0,
+    built on the card and carried to the CPU port by its state dict
+    (convert.layer_from_numpy). Step 1 on each: the loss within
+    RECIPE_RTOL and every parameter's gradient within rtol
+    DYGRAPH_GRAD_RTOL, atol DYGRAPH_GRAD_ATOL ([train_cpu_check]'s
+    float32 bars); after two AdamW steps under dygraph_bert_opt and the
+    clip of 1.0, both losses within RECIPE_RTOL and every parameter's
+    update within RECIPE_UPDATE_RTOL (Frobenius; [recipe_cpu_check]'s
+    bar), the attention key biases' printed apart. The card's steps run the flash forward, and its backward on
+    the eager autograd path: each float32 kernel 12 times a step.
+    Returns the card's launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.convert import layer_from_numpy
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0)
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, T))
+    t0 = time.perf_counter()
+    out, launches, init = {}, None, None
+    for where, place in (("card", ptt.CUDAPlace(0)),
+                         ("cpu", ptt.CPUPlace())):
+        with dg.guard(place), GlobalNormClip(ptt, 1.0):
+            model = make_dygraph_bert(dg, ptt.layers, cfg)
+            if init is None:
+                init = model.state_dict()
+            layer_from_numpy(init, model)
+            opt = dygraph_bert_opt(ptt, dg)
+            inputs = (dg.to_variable(toks),
+                      dg.to_variable(toks.reshape(-1, 1)))
+            _zero_launch_counts()
+            loss = model(*inputs)
+            loss.backward()
+            grads = {n: p.gradient() for n, p in model.named_parameters()}
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            losses = [float(loss.numpy())]
+            del loss
+            losses.append(float(_dygraph_step(model, opt, inputs)))
+            if where == "card":
+                launches = _launch_counts()
+            out[where] = (losses, grads, {n: v - init[n] for n, v in
+                                          model.state_dict().items()})
+            del model, opt
+    (l_card, g_card, d_card), (l_cpu, g_cpu, d_cpu) = out["card"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    keys = [n for n in init if _key_bias(n)]
+    held = [n for n in init if not _key_bias(n)]
+    grad = {n: _fro(g_card[n], g_cpu[n]) for n in held}
+    upd = {n: _fro(d_card[n], d_cpu[n]) for n in held}
+    worst_g, worst_u = max(grad, key=grad.get), max(upd, key=upd.get)
+    # [train_cpu_check]'s float32 gradient bar, elementwise, on every
+    # parameter (the key biases' gradients are within atol of 0)
+    grad_off = [n for n in init if not np.allclose(
+        g_card[n], g_cpu[n], rtol=DYGRAPH_GRAD_RTOL, atol=DYGRAPH_GRAD_ATOL)]
+    phase("dygraph_cpu_check", batch=1, T=T, steps=2, params=len(init),
+          loss_card=",".join(f"{x:.6f}" for x in l_card),
+          loss_cpu=",".join(f"{x:.6f}" for x in l_cpu),
+          loss_rel=f"{loss_rel:.3e}",
+          grad_gap_median=f"{np.median(list(grad.values())):.3e}",
+          grad_gap_max=f"{grad[worst_g]:.3e}", grad_gap_worst=worst_g,
+          key_bias_grad_gap_max=(
+              f"{max(_fro(g_card[n], g_cpu[n]) for n in keys):.3e}"),
+          update_gap_median=f"{np.median(list(upd.values())):.3e}",
+          update_gap_max=f"{upd[worst_u]:.3e}", update_gap_worst=worst_u,
+          key_bias_update_gap_max=(
+              f"{max(_fro(d_card[n], d_cpu[n]) for n in keys):.3e}"),
+          grads_off_bar=len(grad_off),
+          launches_per_kernel=launches["flash_attention_fwd"],
+          bars=f"loss:{RECIPE_RTOL},grad:{DYGRAPH_GRAD_RTOL}+"
+               f"{DYGRAPH_GRAD_ATOL},update:{RECIPE_UPDATE_RTOL}",
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    check(all(n == 2 * cfg.n_layers for n in launches.values()),
+          f"[dygraph_cpu_check] card launches {launches}, not "
+          f"{cfg.n_layers} x 2 each")
+    check(loss_rel <= RECIPE_RTOL, f"[dygraph_cpu_check] loss differs by "
+          f"{loss_rel} > {RECIPE_RTOL}")
+    check(not grad_off, f"[dygraph_cpu_check] gradients off the bar "
+          f"(rtol {DYGRAPH_GRAD_RTOL}, atol {DYGRAPH_GRAD_ATOL}): "
+          f"{grad_off}")
+    check(upd[worst_u] <= RECIPE_UPDATE_RTOL, f"[dygraph_cpu_check] "
+          f"{worst_u}'s update differs by {upd[worst_u]} > "
+          f"{RECIPE_UPDATE_RTOL}")
+    return launches
+
+
+def dygraph_trace_phase(torch, card, model):
+    """[dygraph_trace]: TracedLayer.trace of the trained [dygraph_bert]
+    encoder in eval() at batch DYGRAPH_TRACE_BATCH on the card. The
+    captured Program, run by the card's Executor, gives the eager output
+    within DYGRAPH_TRACE_ATOL and runs the float32 flash forward once a
+    layer (counts set to 0 just before the call, read after);
+    save_inference_model, then io.load_inference_model in a fresh scope,
+    gives the same output. Then a traced function that starts with an
+    op on its input alone (scale, then the first encoder block) gives
+    the eager answer on a second, different input (the JAX package's
+    capture freezes that op's first output). Returns the traced call's
+    launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+
+    encoder = model.encoder
+    vocab = encoder.emb.weight.shape[0]
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, vocab, (DYGRAPH_TRACE_BATCH, T)).astype(np.int64)
+    t0 = time.perf_counter()
+    with dg.guard():
+        model.eval()
+        eager, traced = dg.TracedLayer.trace(encoder, [dg.to_variable(toks)])
+        eager = eager.numpy()
+        _zero_launch_counts()
+        got, = traced([toks])
+        counts = _launch_counts()
+        gap = float(np.abs(got - eager).max())
+        with tempfile.TemporaryDirectory(prefix="ptt_traced_") as d:
+            traced.save_inference_model(d)
+            with ptt.scope_guard(ptt.Scope()):
+                exe = ptt.Executor()
+                prog, feeds, fetches = ptt.io.load_inference_model(d, exe)
+                reloaded, = exe.run(prog, feed={feeds[0]: toks},
+                                    fetch_list=fetches)
+        reload_gap = float(np.abs(reloaded - eager).max())
+        x1, x2 = (rng.randn(2, T, eager.shape[-1]).astype(np.float32)
+                  for _ in range(2))
+        block = encoder.blocks[0]
+
+        def f(x):
+            return block(ptt.layers.scale(x, scale=2.0))
+
+        _, traced_f = dg.TracedLayer.trace(f, [dg.to_variable(x1)])
+        second, = traced_f([x2])
+        input_op_gap = float(np.abs(
+            second - f(dg.to_variable(x2)).numpy()).max())
+        model.train()
+    program = traced.program
+    phase("dygraph_trace", batch=DYGRAPH_TRACE_BATCH, T=T,
+          ops=len(program.global_block().ops),
+          persistables=sum(v.persistable for v in program.list_vars()),
+          max_abs_err=f"{gap:.3e}", reloaded_max_abs_err=f"{reload_gap:.3e}",
+          input_op_max_abs_err=f"{input_op_gap:.3e}",
+          tol=DYGRAPH_TRACE_ATOL, fwd_launches=counts["flash_attention_fwd"],
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    n_layers = len(encoder.blocks)
+    check(counts == {"flash_attention_fwd": n_layers,
+                     "flash_attention_bwd_dq": 0,
+                     "flash_attention_bwd_dkv": 0},
+          f"[dygraph_trace] launches of a traced call {counts}; want the "
+          f"forward {n_layers} times")
+    check(gap <= DYGRAPH_TRACE_ATOL, f"[dygraph_trace] traced vs eager "
+          f"{gap} > {DYGRAPH_TRACE_ATOL}")
+    check(reload_gap <= DYGRAPH_TRACE_ATOL, f"[dygraph_trace] reloaded vs "
+          f"eager {reload_gap} > {DYGRAPH_TRACE_ATOL}")
+    check(input_op_gap <= DYGRAPH_TRACE_ATOL, f"[dygraph_trace] a traced "
+          f"input-only op gives {input_op_gap} off eager on a new input")
+    return counts
+
+
+def dygraph_resnet_phase(torch, card):
+    """[dygraph_resnet]: ResNet-50 (make_dygraph_resnet) at bench.py's
+    width (3x224x224, 1000 classes), batch DYGRAPH_RESNET_BATCH, float32,
+    on the card through the dygraph entry points under PaddlePaddle/
+    models' recipe in eager form: Momentum 0.9 with L2Decay(1e-4) and a
+    dygraph PiecewiseDecay (DYGRAPH_RESNET_LRS at epochs 30, 60, 90).
+    DYGRAPH_WARMUP + DYGRAPH_STEPS steps, then eval() on the same batch.
+    Gates: finite losses; flat peak memory; every running mean moved
+    from its start and finite; the eval() loss, which reads the running
+    statistics, differs from a train-mode forward's and leaves them as
+    they were; the optimizer holds state for exactly the trainable
+    parameters, none for a running statistic. Prints images/s."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+
+    rng = np.random.RandomState(0)
+    img = rng.rand(DYGRAPH_RESNET_BATCH, *RESNET_IMAGE).astype(np.float32)
+    label = rng.randint(0, RESNET_CLASSES, (DYGRAPH_RESNET_BATCH, 1))
+    t0 = time.perf_counter()
+    with dg.guard():
+        model = make_dygraph_resnet(dg, ptt.layers, RESNET_CLASSES)
+        inputs = (dg.to_variable(img), dg.to_variable(label))
+        bounds = [e * RESNET_STEPS_PER_EPOCH for e in (30, 60, 90)]
+        opt = ptt.optimizer.Momentum(
+            learning_rate=dg.PiecewiseDecay(bounds, list(DYGRAPH_RESNET_LRS)),
+            momentum=0.9, regularization=ptt.regularizer.L2Decay(1e-4))
+
+        def step():
+            return _dygraph_step(model, opt, inputs)
+
+        with dg.no_grad():
+            model(*inputs)  # FC's weights are made on the first call
+        stats = {n: p for n, p in model.named_parameters()
+                 if not p.trainable}
+        start = {n: p.numpy() for n, p in stats.items()}
+        runs = _dygraph_run(torch, step, DYGRAPH_WARMUP + DYGRAPH_STEPS)
+        with dg.no_grad():
+            train_mode = float(model(*inputs).numpy())
+            model.eval()
+            trained = {n: p.numpy() for n, p in stats.items()}
+            eval_mode = float(model(*inputs).numpy())
+            model.train()
+        after_eval = {n: p.numpy() for n, p in stats.items()}
+        trainable = {p.name for p in model.parameters() if p.trainable}
+        stat_names = {p.name for p in stats.values()}
+        state_names = set(opt._dy_state)
+    growth = _dygraph_gates("dygraph_resnet", runs)
+    timed = runs[DYGRAPH_WARMUP:]
+    step_ms = statistics.median(r[2] for r in timed)
+    means = [n for n in stats if n.endswith("_mean")]
+    moved = sum(not np.array_equal(start[n], trained[n]) for n in means)
+    phase("dygraph_resnet", batch=DYGRAPH_RESNET_BATCH,
+          image="x".join(map(str, RESNET_IMAGE)), classes=RESNET_CLASSES,
+          params=len(trainable), stats=len(stats), steps=DYGRAPH_STEPS,
+          step_ms_median=f"{step_ms:.3f}",
+          host_ms_median=f"{statistics.median(r[1] for r in timed):.3f}",
+          images_per_s=f"{DYGRAPH_RESNET_BATCH / (step_ms / 1e3):.1f}",
+          losses=",".join(f"{r[0]:.4f}" for r in runs),
+          train_mode_loss=f"{train_mode:.4f}", eval_loss=f"{eval_mode:.4f}",
+          means_moved=f"{moved}/{len(means)}",
+          peak_gb=",".join(f"{r[3]:.3f}" for r in runs),
+          peak_growth=f"{growth:.4f}",
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    check(moved == len(means) and all(np.isfinite(v).all()
+                                      for v in trained.values()),
+          f"[dygraph_resnet] {moved} of {len(means)} running means moved")
+    check(train_mode != eval_mode, "[dygraph_resnet] eval() gives the "
+          "train-mode loss: the running statistics were not read")
+    check(all(np.array_equal(trained[n], after_eval[n]) for n in stats),
+          "[dygraph_resnet] eval() changed the running statistics")
+    check(state_names == trainable and not state_names & stat_names,
+          f"[dygraph_resnet] optimizer state for {len(state_names)} "
+          f"parameters ({len(state_names & stat_names)} running "
+          f"statistics); {len(trainable)} trainable")
+
+
+def dygraph_layer_cases(rng):
+    """The 18 dygraph.nn layers at small shapes, for [dygraph_layers] and
+    the CPU parity tests: (name, make(dg) -> layer, inputs as (numpy
+    array, takes a gradient)). NCE and Dropout draw random numbers:
+    dygraph_nce_run and check_dropout check them."""
+    import numpy as np
+
+    def f32(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    edges = np.array([[[1, 2], [1, 3], [2, 4], [2, 5], [0, 0]]],
+                     dtype=np.int64)
+    return [
+        ("Conv2D", lambda dg: dg.Conv2D(num_channels=3, num_filters=4,
+                                        filter_size=3, padding=1,
+                                        act="relu"),
+         [(f32(2, 3, 8, 8), True)]),
+        ("Pool2D", lambda dg: dg.Pool2D(pool_size=2, pool_type="avg",
+                                        pool_stride=2),
+         [(f32(2, 3, 8, 8), True)]),
+        ("FC", lambda dg: dg.FC(size=5, num_flatten_dims=1, act="tanh"),
+         [(f32(3, 4, 2), True)]),
+        ("Linear", lambda dg: dg.Linear(6, 4, act="sigmoid"),
+         [(f32(3, 6), True)]),
+        ("BatchNorm", lambda dg: dg.BatchNorm(num_channels=3, act="relu"),
+         [(f32(4, 3, 5, 5), True)]),
+        ("Embedding", lambda dg: dg.Embedding(size=[11, 6]),
+         [(rng.randint(0, 11, (3, 4)).astype(np.int64), False)]),
+        ("LayerNorm", lambda dg: dg.LayerNorm(normalized_shape=6),
+         [(f32(3, 4, 6), True)]),
+        ("Dropout", lambda dg: dg.Dropout(p=0.3), [(f32(64, 64), True)]),
+        ("GroupNorm", lambda dg: dg.GroupNorm(channels=6, groups=3),
+         [(f32(2, 6, 4, 4), True)]),
+        ("PRelu", lambda dg: dg.PRelu(mode="channel", channel=3),
+         [(f32(2, 3, 4, 4), True)]),
+        ("Conv3D", lambda dg: dg.Conv3D(num_channels=2, num_filters=3,
+                                        filter_size=3, padding=1),
+         [(f32(1, 2, 4, 4, 4), True)]),
+        ("Conv2DTranspose", lambda dg: dg.Conv2DTranspose(
+            num_channels=2, num_filters=3, filter_size=3, stride=2,
+            output_size=[12, 12]), [(f32(1, 2, 5, 5), True)]),
+        ("Conv3DTranspose", lambda dg: dg.Conv3DTranspose(
+            num_channels=2, num_filters=3, filter_size=2, stride=2),
+         [(f32(1, 2, 3, 3, 3), True)]),
+        ("GRUUnit", lambda dg: dg.GRUUnit(size=12),
+         [(f32(2, 12), True), (f32(2, 4), True)]),
+        ("NCE", lambda dg: dg.NCE(num_total_classes=20, dim=6,
+                                  num_neg_samples=5),
+         [(f32(4, 6), True),
+          (rng.randint(0, 20, (4, 1)).astype(np.int64), False)]),
+        ("BilinearTensorProduct", lambda dg: dg.BilinearTensorProduct(
+            size=3, x_dim=4, y_dim=5),
+         [(f32(2, 4), True), (f32(2, 5), True)]),
+        ("SpectralNorm", lambda dg: dg.SpectralNorm(
+            weight_shape=[4, 3, 2], dim=1, power_iters=3),
+         [(f32(4, 3, 2), True)]),
+        ("TreeConv", lambda dg: dg.TreeConv(output_size=4, num_filters=2,
+                                            max_depth=3),
+         [(f32(1, 6, 5), True), (edges, False)]),
+    ]
+
+
+def _set_up_layer(dg, make, arrays, state, carry):
+    """The layer and its input vars in the current guard: one forward
+    without gradients (FC and TreeConv make their weights on the first
+    call), then `state` carried in (`carry(state, layer)`), or taken
+    from the layer where it is None. Returns (layer, vars, state)."""
+    layer = make(dg)
+    xs = [dg.to_variable(a) for a, _ in arrays]
+    for x, (_, differentiable) in zip(xs, arrays):
+        x.stop_gradient = not differentiable
+    with dg.no_grad():
+        layer(*xs)
+    if state is None:
+        state = layer.state_dict()
+    else:
+        carry(state, layer)
+    return layer, xs, state
+
+
+def dygraph_layer_run(dg, make, arrays, place, state=None,
+                      carry=lambda state, layer: layer.set_dict(state)):
+    """One forward and backward of a layer of dygraph_layer_cases on
+    `place` (the package `dg`'s guard; the JAX package ignores it),
+    from `state` (None: the layer's own), the loss the sum of its
+    floating outputs' mean squares. Returns {"state": the state it
+    started from, "out": outputs, "grad": trainable parameters'
+    gradients, "in_grad": differentiable inputs' gradients, "after":
+    the state after the step}, as numpy."""
+    import numpy as np
+    with dg.guard(place):
+        layer, xs, state = _set_up_layer(dg, make, arrays, state, carry)
+        outs = layer(*xs)
+        outs = outs if isinstance(outs, (list, tuple)) else [outs]
+        loss = None
+        for o in outs:
+            if np.issubdtype(o.numpy().dtype, np.floating):
+                term = (o * o).mean()
+                loss = term if loss is None else loss + term
+        loss.backward()
+        return {"state": state, "out": [o.numpy() for o in outs],
+                "grad": {n: p.gradient() for n, p in layer.named_parameters()
+                         if p.trainable},
+                "in_grad": [x.gradient() for x in xs if not x.stop_gradient],
+                "after": layer.state_dict()}
+
+
+def dygraph_nce_run(dg, make, arrays, place, state=None,
+                    carry=lambda state, layer: layer.set_dict(state)):
+    """The NCE case of dygraph_layer_cases on `place`: the nce op run
+    through trace_op on the layer's parameters, for its negatives
+    (SampleLabels) beside its cost; backward from the cost's sum.
+    Returns {"state", "cost", "ids", "grad": {Input, weight, bias}}."""
+    with dg.guard(place):
+        layer, (x, label), state = _set_up_layer(dg, make, arrays, state,
+                                                 carry)
+        outs = dg.trace_op("nce", {"Input": [x], "Label": [label],
+                                   "Weight": [layer.weight],
+                                   "Bias": [layer.bias]}, layer._attrs)
+        outs["Cost"][0].sum().backward()
+        return {"state": state, "cost": outs["Cost"][0].numpy(),
+                "ids": outs["SampleLabels"][0].numpy(),
+                "grad": {"Input": x.gradient(),
+                         "weight": layer.weight.gradient(),
+                         "bias": layer.bias.gradient()}}
+
+
+def nce_formula(x, w, b, ids):
+    """NCE's cost on the negatives `ids` ([B, 1 + n], the true class
+    first) and its gradients in x, w and b, in plain torch on the CPU:
+    logits x · w[id] + b[id] less log(n / total) (total: w's rows), the
+    logistic loss with the true class positive. Returns (cost [B, 1],
+    {Input, weight, bias}) as numpy."""
+    import numpy as np
+    import torch
+    x, w, b = (torch.tensor(a, requires_grad=True) for a in (x, w, b))
+    ids = torch.tensor(np.asarray(ids)).long()
+    logits = torch.einsum("bd,bkd->bk", x, w[ids]) + b[ids] \
+        - math.log((ids.shape[1] - 1) / w.shape[0])
+    pos = torch.zeros_like(logits)
+    pos[:, 0] = 1.0
+    cost = torch.sum(torch.logaddexp(torch.zeros(()), logits)
+                     - logits * pos, dim=1)
+    cost.sum().backward()
+    return cost.detach().numpy()[:, None], {
+        "Input": x.grad.numpy(), "weight": w.grad.numpy(),
+        "bias": b.grad.numpy()}
+
+
+def check_dropout(run, x, p):
+    """A Dropout(p) (downgrade_in_infer) step of dygraph_layer_run on
+    `x`: each output is 0 or its input, the kept share within
+    DYGRAPH_KEEP_TOL of 1 - p, and the input's gradient 2 * out / size
+    (out * out averaged). Returns the kept share."""
+    import numpy as np
+    out, = run["out"]
+    kept = out != 0
+    check(np.array_equal(out[kept], x[kept]),
+          "Dropout changed a value it kept")
+    share = float(kept.mean())
+    check(abs(share - (1 - p)) <= DYGRAPH_KEEP_TOL,
+          f"Dropout({p}) kept {share} of the values")
+    grad, = run["in_grad"]
+    check(np.allclose(grad, 2 * out / out.size, rtol=1e-6, atol=0),
+          "Dropout's input gradient is not the kept mask's")
+    return share
+
+
+def max_gap(got, want):
+    """The largest |got - want| / max(1, max|want|) over matching
+    entries of two nested lists / dicts of arrays (None equal to None)."""
+    import numpy as np
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"keys {sorted(got)} != "
+              f"{sorted(want)}")
+        return max([max_gap(got[k], want[k]) for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        check(len(got) == len(want), "lengths differ")
+        return max([max_gap(a, b) for a, b in zip(got, want)] or [0.0])
+    if want is None or got is None:
+        check(want is None and got is None, "a gradient is missing")
+        return 0.0
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape, f"shapes {got.shape} != {want.shape}")
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    return float(np.abs(got.astype(np.float64) - want).max() / scale) \
+        if want.size else 0.0
+
+
+def dygraph_layers_phase(torch, card):
+    """[dygraph_layers]: each of the 18 dygraph.nn layers
+    (dygraph_layer_cases) forward and backward on the card against the
+    CPU port from one state dict (the CPU's, carried by
+    convert.layer_from_numpy): outputs, parameter and input gradients
+    and the state after the step (a BatchNorm's running statistics)
+    within DYGRAPH_LAYER_TOL of max(1, max|CPU|). NCE against
+    nce_formula on the card's own negatives; Dropout by check_dropout."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.convert import layer_from_numpy
+
+    t0 = time.perf_counter()
+    gaps = {}
+    for name, make, arrays in dygraph_layer_cases(np.random.RandomState(7)):
+        if name == "NCE":
+            run = dygraph_nce_run(dg, make, arrays, ptt.CUDAPlace(0))
+            st = run["state"]
+            cost, grads = nce_formula(arrays[0][0], st["weight"],
+                                      st["bias"], run["ids"])
+            gaps[name] = max(max_gap(run["cost"], cost),
+                             max_gap(run["grad"], grads))
+        elif name == "Dropout":
+            run = dygraph_layer_run(dg, make, arrays, ptt.CUDAPlace(0))
+            gaps[name] = 0.0
+            keep = check_dropout(run, arrays[0][0], 0.3)
+        else:
+            cpu = dygraph_layer_run(dg, make, arrays, ptt.CPUPlace())
+            card_run = dygraph_layer_run(dg, make, arrays, ptt.CUDAPlace(0),
+                                         cpu["state"], layer_from_numpy)
+            gaps[name] = max_gap({k: card_run[k] for k in
+                                  ("out", "grad", "in_grad", "after")},
+                                 {k: cpu[k] for k in
+                                  ("out", "grad", "in_grad", "after")})
+    worst = max(gaps, key=gaps.get)
+    phase("dygraph_layers", layers=len(gaps), max_gap=f"{gaps[worst]:.3e}",
+          worst=worst, tol=DYGRAPH_LAYER_TOL, dropout_kept=f"{keep:.4f}",
+          **{f"{k}_gap": f"{v:.2e}" for k, v in gaps.items()
+             if k != "Dropout"},
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    check(len(gaps) == 18, f"[dygraph_layers] {len(gaps)} layers, not 18")
+    check(gaps[worst] <= DYGRAPH_LAYER_TOL, f"[dygraph_layers] {worst}: "
+          f"card vs CPU {gaps[worst]} > {DYGRAPH_LAYER_TOL}")
+
+
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 # kernel -> (its source under csrc/, the line of the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -4039,7 +4899,7 @@ def main():
     bert_dir = tempfile.TemporaryDirectory(prefix="ptt_bert_")
     served = serve_phase(torch, card, bert_dir.name)
     trained, train_info = train_phase(torch, card)
-    trained_f32, _ = train_phase(torch, card, amp=False)
+    trained_f32, f32_info = train_phase(torch, card, amp=False)
     checked_f32 = train_cpu_check(torch)
     recipe_bert = bert_recipe_phase(torch, card, train_info)
     recipe_lamb = bert_recipe_phase(torch, card, train_info, "lamb")
@@ -4062,12 +4922,21 @@ def main():
     del deeplab
     deeplab_cpu_check(torch)
     guard_train_phase(torch, card)
+    dygraph_model, dygraph_trained = dygraph_bert_phase(
+        torch, card, f32_info["peak_gb"])
+    dygraph_traced = dygraph_trace_phase(torch, card, dygraph_model)
+    del dygraph_model
+    dygraph_checked = dygraph_cpu_check(torch)
+    dygraph_resnet_phase(torch, card)
+    dygraph_layers_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
     # BERT (build_train and both recipes), GPT and NMT bf16 training
     # runs; the float32 kernels' over the float32 training run, the
-    # float32 check step and the recipe check's card steps, and the
-    # float32 forward's over the serving runs (direct and over HTTP) too
+    # float32 check step, the recipe check's card steps, the dygraph
+    # BERT's timed steps and its check's card steps, and the float32
+    # forward's over the serving runs (direct and over HTTP) and the
+    # traced dygraph encoder's call too
     def entry(name, rec, launches, dtype=None, **shapes):
         """One kernel's record; a dtype instance of its own is named
         <name>_<dtype> and carries its dtype; each of `shapes` (the GPT
@@ -4095,6 +4964,8 @@ def main():
     out += [entry(name, records["float32"][name],
                   served[0].get(name, 0) + trained_f32[name] +
                   checked_f32[name] + checked_recipe[name] +
+                  dygraph_trained[name] + dygraph_checked[name] +
+                  dygraph_traced[name] +
                   (http_served if name == "flash_attention_fwd" else 0),
                   "float32")
             for name in KERNEL_SOURCES]

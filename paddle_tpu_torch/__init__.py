@@ -6,7 +6,8 @@ with the Pallas kernels rewritten as hand-written Hopper kernels
 (``csrc/``). It imports torch, numpy and the standard library only.
 
 Entry points run on the card unless the caller asks for the CPU
-(``Executor(CPUPlace())``, ``AnalysisConfig.disable_gpu()``).
+(``Executor(CPUPlace())``, ``AnalysisConfig.disable_gpu()``,
+``dygraph.guard(CPUPlace())``).
 """
 import torch as _torch
 
@@ -35,7 +36,7 @@ del _fn, _dtype
 from . import ops  # noqa: F401,E402  — registers every op lowering
 from .framework import (  # noqa: F401,E402
     Program, program_guard, default_main_program, default_startup_program,
-    ParamAttr, unique_name, Variable, Parameter)
+    ParamAttr, unique_name, Variable, Parameter, in_dygraph_mode)
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
 from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
@@ -53,3 +54,4 @@ from . import clip  # noqa: F401,E402
 from . import average  # noqa: F401,E402
 from .clip import set_gradient_clip  # noqa: F401,E402
 from . import contrib  # noqa: F401,E402
+from . import dygraph  # noqa: F401,E402

@@ -57,3 +57,23 @@ def scope_from_numpy(params: Dict[str, np.ndarray], scope: Scope,
             t = t.to(wide)
         scope.set(name, t)
     return scope
+
+
+def layer_from_numpy(state: Dict[str, np.ndarray], layer):
+    """Set every parameter of the dygraph `layer` from `state` (a
+    ``state_dict()`` of the JAX package's model or of the port's) through
+    ``layer.set_dict``. Raises KeyError if the names differ and
+    ValueError if a shape does. Returns the layer."""
+    params = dict(layer.named_parameters())
+    if set(params) != set(state):
+        raise KeyError(
+            f"state dict and layer differ: missing "
+            f"{sorted(set(params) - set(state))}, unexpected "
+            f"{sorted(set(state) - set(params))}")
+    for name, p in params.items():
+        if tuple(np.shape(state[name])) != p.shape:
+            raise ValueError(f"{name}: state has shape "
+                             f"{tuple(np.shape(state[name]))}, the layer "
+                             f"{p.shape}")
+    layer.set_dict(state)
+    return layer

@@ -25,7 +25,7 @@ from .core.dtypes import convert_dtype
 __all__ = [
     "Variable", "Parameter", "Operator", "Block", "Program",
     "default_main_program", "default_startup_program", "program_guard",
-    "unique_name", "ParamAttr", "grad_var_name",
+    "unique_name", "ParamAttr", "grad_var_name", "in_dygraph_mode",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -463,6 +463,11 @@ def program_guard(main_program, startup_program=None):
         yield
     finally:
         _main_program, _startup_program = old_main, old_startup
+
+
+def in_dygraph_mode():
+    from . import dygraph
+    return dygraph.enabled()
 
 
 class ParamAttr:

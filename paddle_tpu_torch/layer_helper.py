@@ -2,8 +2,12 @@
 
 Creates parameters in the startup program (with their init ops) and the
 main program, appends compute ops to the main program, and applies
-default initializers, bias and activation. Static graph only: the eager
-(dygraph) mode of the JAX package is not ported.
+default initializers, bias and activation. Inside ``dygraph.guard()`` a
+layer's output vars are unbound ``VarBase``s and its ops run at once
+through ``dygraph.trace_op``, their name-keyed slots resolved through
+the guard's var map; a layer with parameters (``fc``, ``embedding``,
+...) then raises the JAX package's KeyError, since its parameters live
+in the static programs.
 """
 from __future__ import annotations
 
@@ -64,11 +68,38 @@ class LayerHelper:
 
     def create_variable_for_type_inference(self, dtype="float32",
                                            stop_gradient=False):
+        from . import dygraph
+        if dygraph.enabled():
+            return dygraph.VarBase(None, stop_gradient=stop_gradient)
         return self.block.create_var(
             name=unique_name.generate(f"{self.name}.tmp"),
             dtype=dtype, stop_gradient=stop_gradient)
 
     def append_op(self, **kwargs):
+        from . import dygraph
+        if dygraph.enabled():
+            vm = dygraph._state["var_map"]
+
+            def resolve(slot_map):
+                out = {}
+                for slot, items in (slot_map or {}).items():
+                    vs = []
+                    for it in items or []:
+                        if isinstance(it, dygraph.VarBase):
+                            vs.append(it)
+                        elif it in vm:
+                            vs.append(vm[it])
+                        else:
+                            raise KeyError(
+                                f"dygraph var {it!r} not found for "
+                                f"{kwargs['type']}.{slot}")
+                    out[slot] = vs
+                return out
+
+            return dygraph.trace_op(kwargs["type"],
+                                    resolve(kwargs.get("inputs")),
+                                    kwargs.get("attrs") or {},
+                                    out_vars=resolve(kwargs.get("outputs")))
         return self.block.append_op(
             kwargs["type"], inputs=kwargs.get("inputs"),
             outputs=kwargs.get("outputs"), attrs=kwargs.get("attrs"))

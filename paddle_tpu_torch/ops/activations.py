@@ -1,8 +1,8 @@
-"""Activation and unary math ops: gelu, relu, tanh, and the unaries the
-LR schedules, the gradient clips and the regularizers reach (exp, abs,
-ceil, floor, cos, reciprocal, square, sqrt, pow, sign). As in the JAX
-registry, none marks a slot non-differentiable: floor, ceil and sign
-have zero gradients by autograd's own rules."""
+"""Activation and unary math ops: gelu, relu, tanh, sigmoid, and the
+unaries the LR schedules, the gradient clips and the regularizers reach
+(exp, abs, ceil, floor, cos, reciprocal, square, sqrt, pow, sign). As in
+the JAX registry, none marks a slot non-differentiable: floor, ceil and
+sign have zero gradients by autograd's own rules."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +25,11 @@ def _relu(ctx, ins, attrs):
 @register_op("tanh")
 def _tanh(ctx, ins, attrs):
     return {"Out": [torch.tanh(ins["X"][0])]}
+
+
+@register_op("sigmoid")
+def _sigmoid(ctx, ins, attrs):
+    return {"Out": [torch.sigmoid(ins["X"][0])]}
 
 
 def _unary(name, fn):

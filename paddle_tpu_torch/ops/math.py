@@ -1,6 +1,7 @@
 """Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, concat, gather, slice, top_k, reshape2, transpose2, and the
-gradient clips' clip, clip_by_norm and squared_l2_norm.
+cast, concat, gather, slice, top_k, reshape2, transpose2,
+bilinear_tensor_product, and the gradient clips' clip, clip_by_norm and
+squared_l2_norm.
 
 The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
 the card), as the JAX package leaves them to XLA. Float32 products are
@@ -126,6 +127,16 @@ def _clip_by_norm(ctx, ins, attrs):
 @register_op("squared_l2_norm")
 def _squared_l2_norm(ctx, ins, attrs):
     return {"Out": [torch.sum(torch.square(ins["X"][0])).reshape(1)]}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs):
+    """Out[b, o] = X[b] · Weight[o] · Y[b] (+ Bias [1, O])."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]
+    out = torch.einsum("bi,oij,bj->bo", x, w, y)
+    if "Bias" in ins:
+        out = out + ins["Bias"][0]
+    return {"Out": [out]}
 
 
 def _with_xshape(name, fn):

@@ -1,12 +1,13 @@
-"""Softmax, convolution, pooling, resizing, normalisation, dropout and
-position-encoding ops.
+"""Softmax, convolution, pooling, resizing, normalisation, dropout,
+prelu and position-encoding ops.
 
-The JAX package leaves conv2d, pool2d and batch_norm to XLA, so here
-they are torch's library calls: cuDNN's convolution, and torch's pooling
-and batch normalisation, on the card. Each keeps the reference's
-semantics where those differ from torch's defaults (4-entry paddings,
-pool2d's floored output size, batch_norm's running statistics). The
-resizes are written as the reference's gathers, in plain torch.
+The JAX package leaves conv2d, conv3d, conv2d_transpose, pool2d and
+batch_norm to XLA, so here they are torch's library calls: cuDNN's
+convolutions, and torch's pooling and batch normalisation, on the card.
+Each keeps the reference's semantics where those differ from torch's
+defaults (4-entry paddings, pool2d's floored output size, batch_norm's
+running statistics). The resizes are written as the reference's
+gathers, in plain torch.
 """
 from __future__ import annotations
 
@@ -243,3 +244,57 @@ def _add_position_encoding(ctx, ins, attrs):
     angle = pos / torch.pow(10000.0, 2 * i / d)
     pe = torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
     return {"Out": [alpha * x + beta * pe[None]]}
+
+
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    """NCDHW input and OIDHW filter, symmetric `paddings` [d, h, w]. The
+    output keeps the input's dtype."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    out = F.conv3d(x, w, stride=tuple(attrs.get("strides", [1, 1, 1])),
+                   padding=tuple(attrs.get("paddings", [0, 0, 0])),
+                   dilation=tuple(attrs.get("dilations", [1, 1, 1])),
+                   groups=attrs.get("groups", 1)).to(x.dtype)
+    return {"Output": [out]}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    from .vision_extra import conv_transpose
+    x, w = ins["Input"][0], ins["Filter"][0]  # w: [C_in, C_out/g, kh, kw]
+    return {"Output": [conv_transpose(x, w, attrs, 2)]}
+
+
+@register_op("group_norm")
+def _group_norm(ctx, ins, attrs):
+    """Normalise each of `groups` channel groups of NC... `X` over its
+    channels and spatial axes (biased variance); Mean and Variance are
+    [N, groups]."""
+    x = ins["X"][0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    v, m = torch.var_mean(xg, dim=tuple(range(2, xg.dim())), keepdim=True,
+                          correction=0)
+    y = ((xg - m) * torch.rsqrt(v + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    if "Scale" in ins:
+        y = y * ins["Scale"][0].reshape(bshape)
+    if "Bias" in ins:
+        y = y + ins["Bias"][0].reshape(bshape)
+    return {"Y": [y], "Mean": [m.reshape(n, g)],
+            "Variance": [v.reshape(n, g)]}
+
+
+@register_op("prelu")
+def _prelu(ctx, ins, attrs):
+    """x where x > 0, else alpha * x; `mode` all (one alpha), channel (one
+    per axis-1 channel) or element (one per element of a sample)."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    mode = attrs.get("mode", "all")
+    if mode == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    elif mode == "element":
+        alpha = alpha.reshape((1,) + tuple(x.shape[1:]))
+    return {"Out": [torch.where(x > 0, x, alpha * x)]}

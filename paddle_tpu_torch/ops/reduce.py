@@ -1,4 +1,8 @@
-"""Reduce ops: reduce_mean."""
+"""Reduce ops: reduce_sum, reduce_mean, reduce_max and reduce_min.
+
+reduce_max and reduce_min take torch.amax and torch.amin, whose
+gradients split evenly among tied elements, as jax's do (torch.max with
+a dim would give all of it to one)."""
 from __future__ import annotations
 
 import torch
@@ -6,12 +10,20 @@ import torch
 from ..core.registry import register_op
 
 
-@register_op("reduce_mean")
-def _reduce_mean(ctx, ins, attrs):
-    x = ins["X"][0]
-    dims = attrs.get("dim", [0])
-    if attrs.get("reduce_all", False) or not dims:
-        dims = range(x.dim())
-    dims = tuple(sorted({d % x.dim() for d in dims}))
-    return {"Out": [torch.mean(x, dim=dims,
-                               keepdim=attrs.get("keep_dim", False))]}
+def _reduce(name, fn):
+    @register_op(name)
+    def _low(ctx, ins, attrs, _fn=fn):
+        x = ins["X"][0]
+        dims = attrs.get("dim", [0])
+        if attrs.get("reduce_all", False) or not dims:
+            dims = range(x.dim())
+        dims = tuple(sorted({d % x.dim() for d in dims}))
+        return {"Out": [_fn(x, dim=dims,
+                            keepdim=attrs.get("keep_dim", False))]}
+    return _low
+
+
+_reduce("reduce_sum", torch.sum)
+_reduce("reduce_mean", torch.mean)
+_reduce("reduce_max", torch.amax)
+_reduce("reduce_min", torch.amin)

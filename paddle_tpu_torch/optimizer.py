@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from .backward import append_backward
 from .clip import get_gradient_clip
 from .core.scope import global_scope
@@ -52,6 +54,13 @@ class Optimizer:
 
     # -- learning rate ---------------------------------------------------
     def _create_lr_var(self):
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+        if isinstance(self._learning_rate, LearningRateDecay):
+            raise TypeError(
+                "dygraph LearningRateDecay objects only work inside "
+                "dygraph.guard(); static-graph programs use "
+                "layers.learning_rate_scheduler.* (exponential_decay, "
+                "piecewise_decay, ...)")
         if isinstance(self._learning_rate, Variable):
             self._lr_var = self._learning_rate
         elif self._lr_var is None:
@@ -125,10 +134,92 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from . import dygraph
+        if dygraph.enabled():
+            return self._minimize_dygraph(parameter_list, no_grad_set)
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         opt_ops = self.apply_gradients(params_grads)
         return opt_ops, params_grads
+
+    # -- eager (dygraph) path --------------------------------------------
+    def _minimize_dygraph(self, parameter_list, no_grad_set=None):
+        """One eager update after loss.backward() filled param.grad:
+        parameters named in no_grad_set, untrainable ones and those
+        without a gradient are skipped; the LR object steps once; then
+        the regularizer, the clip and the update rule, in float32, each
+        result copied into the parameter in its own dtype. Returns ([],
+        [(param, clipped gradient)])."""
+        if parameter_list is None:
+            raise ValueError(
+                "minimize in dygraph mode needs parameter_list "
+                "(e.g. model.parameters())")
+        skip = {getattr(v, "name", v) for v in (no_grad_set or ())}
+        lr = self._dygraph_step_lr()
+        state = self.__dict__.setdefault("_dy_state", {})
+        with torch.no_grad():
+            pgs = []
+            for p in parameter_list:
+                if not getattr(p, "trainable", True) or p.grad is None \
+                        or p.name in skip:
+                    continue
+                w = p.value.float()
+                g = p.grad.float()
+                if self.regularization is not None:
+                    g = g + self._eager_regularization(w)
+                pgs.append((p, w, g))
+            pgs = self._eager_clip(pgs)
+            for p, w, g in pgs:
+                new = self._dygraph_update(w, g, lr,
+                                           state.setdefault(p.name, {}))
+                p.value.copy_(new)
+        return [], [(p, g) for p, _, g in pgs]
+
+    def _eager_regularization(self, w):
+        from .regularizer import L1DecayRegularizer, L2DecayRegularizer
+        reg = self.regularization
+        if isinstance(reg, L2DecayRegularizer):
+            return reg.coeff * w
+        if isinstance(reg, L1DecayRegularizer):
+            return reg.coeff * torch.sign(w)
+        raise NotImplementedError(
+            f"dygraph regularization for {type(reg).__name__}")
+
+    def _eager_clip(self, pgs):
+        from .clip import (GradientClipByGlobalNorm, GradientClipByNorm,
+                           GradientClipByValue)
+        clip = get_gradient_clip()
+        if clip is None or not pgs:
+            return pgs
+        if isinstance(clip, GradientClipByValue):
+            lo = clip.min if clip.min is not None else -clip.max
+            return [(p, w, torch.clamp(g, lo, clip.max)) for p, w, g in pgs]
+        if isinstance(clip, GradientClipByNorm):
+            out = []
+            for p, w, g in pgs:
+                n = torch.linalg.vector_norm(g).double()
+                s = clip.clip_norm / torch.clamp_min(n, clip.clip_norm)
+                out.append((p, w, g * s.to(g.dtype)))
+            return out
+        if isinstance(clip, GradientClipByGlobalNorm):
+            sq = torch.stack([torch.sum(g * g).double() for _, _, g in pgs])
+            gn = torch.sqrt(torch.sum(sq))
+            s = clip.clip_norm / torch.clamp_min(gn, clip.clip_norm)
+            return [(p, w, g * s.to(g.dtype)) for p, w, g in pgs]
+        raise NotImplementedError(
+            f"dygraph gradient clip for {type(clip).__name__}")
+
+    def _dygraph_step_lr(self) -> float:
+        from .dygraph.learning_rate_scheduler import LearningRateDecay
+        if isinstance(self._learning_rate, LearningRateDecay):
+            return self._learning_rate.step()
+        return float(self._learning_rate)
+
+    def _dygraph_update(self, w, g, lr, state):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no eager (dygraph) update rule; "
+            f"train it through the static-graph path or use "
+            f"SGD/Momentum/Adagrad/Adam/AdamW in dygraph mode")
 
 
 def _lr_input(self, param):
@@ -147,6 +238,9 @@ def _lr_input(self, param):
 
 class SGDOptimizer(Optimizer):
     type = "sgd"
+
+    def _dygraph_update(self, w, g, lr, state):
+        return w - lr * g
 
     def _append_optimize_op(self, block, pg):
         p, g = pg
@@ -169,6 +263,14 @@ class MomentumOptimizer(Optimizer):
         for p in parameters:
             self._add_accumulator("velocity", p)
 
+    def _dygraph_update(self, w, g, lr, state):
+        v = state.get("velocity")
+        v = g if v is None else self._momentum * v + g
+        state["velocity"] = v
+        if self._use_nesterov:
+            return w - lr * (g + self._momentum * v)
+        return w - lr * v
+
     def _append_optimize_op(self, block, pg):
         p, g = pg
         v = self._get_accumulator("velocity", p)
@@ -190,6 +292,21 @@ class LarsMomentumOptimizer(MomentumOptimizer):
         super().__init__(learning_rate, momentum, **kw)
         self._lars_coeff = lars_coeff
         self._lars_weight_decay = lars_weight_decay
+
+    def _dygraph_update(self, w, g, lr, state):
+        # LARS: a layer-wise local rate from the float32 norms, taken in
+        # float64 as the JAX package's Python floats take it
+        wn = torch.linalg.vector_norm(w).double()
+        gn = torch.linalg.vector_norm(g).double()
+        wd = self._lars_weight_decay
+        local_lr = torch.where(
+            wn > 0, lr * self._lars_coeff * wn /
+            torch.clamp_min(gn + wd * wn, 1e-12), torch.full_like(wn, lr))
+        v = state.get("velocity")
+        step = local_lr.to(g.dtype) * (g + wd * w)
+        v = step if v is None else self._momentum * v + step
+        state["velocity"] = v
+        return w - v
 
     def _append_optimize_op(self, block, pg):
         p, g = pg
@@ -218,6 +335,13 @@ class AdagradOptimizer(Optimizer):
         for p in parameters:
             self._add_accumulator("moment", p, fill_value=self._init_acc)
 
+    def _dygraph_update(self, w, g, lr, state):
+        acc = state.get("moment")
+        acc = (torch.full_like(g, self._init_acc) if acc is None else acc) \
+            + g * g
+        state["moment"] = acc
+        return w - lr * g / (torch.sqrt(acc) + self._epsilon)
+
     def _append_optimize_op(self, block, pg):
         p, g = pg
         m = self._get_accumulator("moment", p)
@@ -236,6 +360,13 @@ class DecayedAdagradOptimizer(AdagradOptimizer):
     def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
         super().__init__(learning_rate, epsilon=epsilon, **kw)
         self._decay = decay
+
+    def _dygraph_update(self, w, g, lr, state):
+        acc = state.get("moment")
+        acc = torch.zeros_like(g) if acc is None else acc
+        acc = self._decay * acc + (1 - self._decay) * g * g
+        state["moment"] = acc
+        return w - lr * g / (torch.sqrt(acc) + self._epsilon)
 
     def _append_optimize_op(self, block, pg):
         p, g = pg
@@ -265,6 +396,21 @@ class _AdamBase(Optimizer):
             self._add_accumulator("beta2_pow", p, fill_value=self._beta2,
                                   shape=[1])
 
+    def _dygraph_adam_step(self, w, g, lr, state):
+        """Adam's bias-corrected step direction; the moments and the
+        step count live in `state` (m1, m2, t)."""
+        t = state.get("t", 0) + 1
+        m1 = state.get("m1")
+        m2 = state.get("m2")
+        m1 = (1 - self._beta1) * g if m1 is None else \
+            self._beta1 * m1 + (1 - self._beta1) * g
+        m2 = (1 - self._beta2) * g * g if m2 is None else \
+            self._beta2 * m2 + (1 - self._beta2) * g * g
+        state.update(m1=m1, m2=m2, t=t)
+        mh = m1 / (1 - self._beta1 ** t)
+        vh = m2 / (1 - self._beta2 ** t)
+        return mh / (torch.sqrt(vh) + self._epsilon)
+
     def _adam_io(self, p, g):
         m1 = self._get_accumulator("moment1", p)
         m2 = self._get_accumulator("moment2", p)
@@ -290,6 +436,9 @@ class _AdamBase(Optimizer):
 class AdamOptimizer(_AdamBase):
     type = "adam"
 
+    def _dygraph_update(self, w, g, lr, state):
+        return w - lr * self._dygraph_adam_step(w, g, lr, state)
+
     def _append_optimize_op(self, block, pg):
         return self._append_adam_op(block, "adam", pg)
 
@@ -300,6 +449,11 @@ class AdamWOptimizer(_AdamBase):
     def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
         super().__init__(learning_rate, **kw)
         self._coeff = weight_decay
+
+    def _dygraph_update(self, w, g, lr, state):
+        # decoupled weight decay: applied to the parameter
+        return w - lr * (self._dygraph_adam_step(w, g, lr, state)
+                         + self._coeff * w)
 
     def _append_optimize_op(self, block, pg):
         return self._append_adam_op(block, "adamw", pg,
