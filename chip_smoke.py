@@ -185,8 +185,10 @@ Phases, one progress line each; any failure exits non-zero:
              images/s, MFU, peak memory, device ms by class; every
              running statistic moved and finite.
 23. profiler — profiler.profiler() around two deeplab_train steps: the
-             summary's total within 10% of the profiled step's device
-             time, classes adding up, the conv2d op scopes named, a
+             summary's device time inside op scopes within 10% of
+             twice the profiled step's (profiler_gate; both sides'
+             kernels outside every scope, the feed's copies, printed
+             apart), classes adding up, the conv2d op scopes named, a
              chrome trace written.
 24. deeplab_cpu_check — DeepLabv3+ at batch 1, 3x65x65 (one value a
              channel in the image-pooling branch's batch_norm), card vs
@@ -228,10 +230,41 @@ Phases, one progress line each; any failure exits non-zero:
              backward on the card against the CPU port from one state
              dict (1e-4), NCE against its formula on the card's own
              negatives, Dropout's kept share.
+31. loader_bert — [train]'s BERT-base step fed by
+             fluid.io.DataLoader.from_generator (capacity 2,
+             set_batch_generator, a fresh RandomState(step) batch a
+             step), 3 + 10 steps with goodput on: run_steps' gates,
+             reader.batches, the goodput ledger summing to its wall
+             clock, and losses equal to the same arrays fed directly
+             from the same startup state (torch's deterministic
+             algorithms on); host and device ms beside [train]'s, the
+             input wait's p50 and max.
+32. loader_starved — the same loader for 4 steps under a reader stall
+             of twice loader_bert's host step (slow_step:site=reader):
+             input_wait the largest goodput category, every step
+             starved.
+33. reader_resnet — ResNet-50 at bench.py's b64 AMP step over a
+             py_reader (read_file(double_buffer(py_reader))), fed by
+             io.batch(xmap_readers(normalize, ImageNet-shaped uint8
+             samples, 4, 16, order=True), 64): finite losses, one cache
+             entry, the first batch equal to np.stack of its samples;
+             host and device ms beside [resnet_train]'s, input wait p50.
+34. mnist_book — examples/train_mnist.py's path: LeNet b128 on
+             datasets.mnist through reader_decorator.shuffle, io.batch
+             and DataLoader, 200 steps over 4 epochs; metrics.Accuracy
+             over the last 50 steps > 0.7; io.save / io.load and
+             save_params / load_params into fresh scopes give the
+             continuing run's losses within 1e-6.
+35. data_layers — the new tensor layers, op types and adaptive pool2d
+             (with gradients) on the card against the CPU port (floats
+             1e-6, integers exact), Bilinear and NumpyArray equal, the
+             truncated normal inside 2 standard deviations and MSRA by
+             bound and moments, save_combine / load_combine round trip.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound; the bf16 entries count the BERT (build_train and both recipes),
+bound; the bf16 entries count the BERT (build_train, both recipes and
+the DataLoader-fed run),
 GPT and NMT training runs and carry the GPT path's [384, 511, 64]
 causal shape under `causal_*` keys and NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
 (decoder) keys;
@@ -1219,12 +1252,16 @@ class Run(NamedTuple):
     """What run_steps measured: the timed steps' launches, the profiled
     step's device ms, the median host ms to enqueue a timed step, and
     per step (warm-up, timed, profiled) the values of `fetch`, and the
-    timed steps' peak memory in GB."""
+    timed steps' peak memory in GB; the losses of the warm-up and timed
+    steps, and the profiled step's device ms outside every op scope (the
+    feed's copies)."""
     launches: dict
     device_ms: float
     host_ms: float
     fetched: list
     peak_gb: float
+    losses: list
+    outside_ms: float
 
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
@@ -1244,19 +1281,24 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
     ({name: op indices}, _step_parts), the [tag_parts] line splits the
     profiled step's device ms, and the host ms of the ops' scopes (their
     enqueue, under the profiler), by those parts of the program. Each step also fetches the vars of `fetch` (as
-    float64 numpy). Returns a Run."""
+    float64 numpy). `feed` is a feed dict, or a function that returns
+    each step's feed (a DataLoader's next batch), called before the
+    step's clock starts. Returns a Run."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.profiler import KERNEL_CLASSES, device_kernels
 
+    next_feed = feed if callable(feed) else lambda: feed
+
     def step():
         """One step: (loss, host ms to enqueue it, ms until the loss is on
         the host). exe.run returns the loss tensor before the card is
         done; reading it waits for the card."""
+        step_feed = next_feed()
         t0 = time.perf_counter()
-        out = exe.run(main, feed=feed, fetch_list=[loss, *fetch],
+        out = exe.run(main, feed=step_feed, fetch_list=[loss, *fetch],
                       scope=scope, return_numpy=False)
         t_host = time.perf_counter()
         value = float(out[0])
@@ -1324,12 +1366,14 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           unlinked_ms=f"{unlinked:.3f}", device_ms=f"{busy:.3f}",
           card=f"'{card}'")
     _print_flash_symbols(per_name)
+    from paddle_tpu_torch.profiler import extract_op_scope, summarize_profile
+    table = summarize_profile(prof).get("by_framework_op", {})
+    # device ms outside every op scope: the feed's copies to the card
+    outside_ms = busy - sum(row["device_us"] for key, row in table.items()
+                            if key != "(unattributed)") / 1e3
     if parts:
-        from paddle_tpu_torch.profiler import (extract_op_scope,
-                                               summarize_profile)
         by_part = dict.fromkeys(parts, 0.0)
         host = dict.fromkeys(parts, 0.0)
-        table = summarize_profile(prof).get("by_framework_op", {})
         for row in table.values():
             for name, ids in parts.items():
                 if row["op"] in ids:
@@ -1345,11 +1389,10 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
                 if scope[2] in ids:
                     host[name] += (ev.time_range.end -
                                    ev.time_range.start) / 1e3
-        # outside every op's scope: the feed's copies to the card
         phase(f"{tag}_parts", **{f"{k}_ops": len(v) for k, v in
                                  parts.items()},
               **{f"{k}_ms": f"{v:.3f}" for k, v in by_part.items()},
-              outside_ops_ms=f"{busy - sum(by_part.values()):.3f}",
+              outside_ops_ms=f"{outside_ms:.3f}",
               **{f"{k}_host_ms": f"{v:.3f}" for k, v in host.items()})
     if busy:
         for sym in symbols:
@@ -1369,7 +1412,8 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         for ms, k, name in top[:n]:
             print(f"  {cls}: {ms:.3f} ms  {k} launches  {name[:100]}",
                   flush=True)
-    return Run(launches, busy, host_ms, fetched, peak_gb)
+    return Run(launches, busy, host_ms, fetched, peak_gb, losses,
+               outside_ms)
 
 
 def train_cpu_check(torch):
@@ -3208,7 +3252,8 @@ def deeplab_train_phase(torch, card):
     launch, no executor cache miss after the first step, and every
     batch_norm's running mean and variance (62 of each) moved and
     finite. Returns (executor, program, scope, feed, loss, the profiled
-    step's device ms) for [profiler]."""
+    step's device ms, its device ms outside every op scope) for
+    [profiler]."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import deeplab
 
@@ -3229,23 +3274,38 @@ def deeplab_train_phase(torch, card):
           params=len(main.all_parameters()),
           seconds=f"{time.perf_counter() - t0:.2f}")
     feed = _deeplab_feed(DEEPLAB_HW, DEEPLAB_BATCH, 0)
-    device_ms = run_steps(
+    run = run_steps(
         torch, card, "deeplab_train", exe, main, scope, feed, loss, 0, 3, 10,
         (), DEEPLAB_BATCH, 3 * deeplab.flops_per_image(DEEPLAB_HW),
         BF16_FLOPS, unit="images", must_fall=False,
-        classes=("conv", "matmul", "norm", "other")).device_ms
+        classes=("conv", "matmul", "norm", "other"))
     n = _check_stats(torch, "deeplab_stats", main, scope)
     check(n == 124, f"{n} running statistics, not 124")
-    return exe, main, scope, feed, loss, device_ms
+    return exe, main, scope, feed, loss, run.device_ms, run.outside_ms
 
 
-def profiler_phase(torch, card, exe, main, scope, feed, loss, step_ms):
+def profiler_gate(total_ms, outside_ms, step_ms, step_outside_ms, steps=2,
+                  tol=0.1):
+    """[profiler]'s like-for-like comparison: the device ms inside the
+    op scopes of the profiler's `steps` steps (its total less the kernels
+    outside every scope, chiefly the feed's copies, whose time follows
+    the host) against `steps` times the profiled training step's. Returns
+    (scoped ms, wanted ms, whether they agree within `tol`)."""
+    scoped = total_ms - outside_ms
+    want = steps * (step_ms - step_outside_ms)
+    return scoped, want, abs(scoped - want) <= tol * want
+
+
+def profiler_phase(torch, card, exe, main, scope, feed, loss, step_ms,
+                   step_outside_ms):
     """profiler.profiler() (the port's torch.profiler front end) around
     two [deeplab_train] steps, each under record_event. Gates: the
-    summary's total_us within 10% of twice the device ms of
-    [deeplab_train_profile]'s step, its classes adding up to total_us,
-    by_framework_op naming the forward convolutions' 'conv2d:0/<idx>'
-    scopes (63), and a chrome trace written."""
+    summary's device ms inside op scopes (total_us less the
+    "(unattributed)" kernels) within 10% of twice that of
+    [deeplab_train_profile]'s step (profiler_gate; each side's ms
+    outside the scopes printed apart), its classes adding up to
+    total_us, by_framework_op naming the forward convolutions'
+    'conv2d:0/<idx>' scopes (63), and a chrome trace written."""
     from paddle_tpu_torch import profiler
 
     with tempfile.TemporaryDirectory(prefix="ptt_prof_") as d:
@@ -3266,9 +3326,14 @@ def profiler_phase(torch, card, exe, main, scope, feed, loss, step_ms):
     convs = [k for k in fw if k.startswith("conv2d:0/")]
     attributed = sum(r["device_us"] for k, r in fw.items()
                      if k != "(unattributed)") / 1e3
+    scoped, want, agree = profiler_gate(total_ms, total_ms - attributed,
+                                        step_ms, step_outside_ms)
     phase("profiler", steps=2, wall_ms=f"{wall_ms:.3f}",
           total_ms=f"{total_ms:.3f}",
           train_profile_ms_x2=f"{2 * step_ms:.3f}",
+          scoped_ms=f"{scoped:.3f}", train_scoped_ms_x2=f"{want:.3f}",
+          outside_ms=f"{total_ms - attributed:.3f}",
+          train_outside_ms_x2=f"{2 * step_outside_ms:.3f}",
           **{f"{k}_ms": f"{v / 1e3:.3f}" for k, v in cats.items()},
           framework_ops=len(fw), conv2d_scopes=len(convs),
           attributed_ms=f"{attributed:.3f}", trace_mb=f"{trace_mb:.1f}",
@@ -3279,9 +3344,9 @@ def profiler_phase(torch, card, exe, main, scope, feed, loss, step_ms):
         print(f"  op: {row['device_us'] / 1e3:.3f} ms  {row['calls']} "
               f"kernels  {key}", flush=True)
     profiler.reset_profiler()
-    check(abs(total_ms - 2 * step_ms) <= 0.1 * 2 * step_ms,
-          f"the profiler's total {total_ms} ms is not within 10% of "
-          f"{2 * step_ms} ms")
+    check(agree, f"the profiler's device time inside op scopes, {scoped} "
+          f"ms, is not within 10% of the profiled step's, 2 x "
+          f"{want / 2} ms")
     check(abs(sum(cats.values()) - summary["total_us"])
           <= 1e-6 * summary["total_us"],
           "the profiler's classes do not add up to its total")
@@ -4291,6 +4356,667 @@ def dygraph_layers_phase(torch, card):
           f"card vs CPU {gaps[worst]} > {DYGRAPH_LAYER_TOL}")
 
 
+# -- slice 16: the input pipeline and the static-graph basics -------------
+
+STARVED_STEPS = 4
+READER_THREADS, READER_BUFFER = 4, 16  # xmap_readers(process_num, buffer)
+MNIST_STEPS, MNIST_ACC_BAR, MNIST_SHUFFLE = 200, 0.7, 8192
+CKPT_LOSS_TOL = 1e-6
+DATA_LAYER_TOL = 1e-6
+# ImageNet's per-channel mean and standard deviation, on the 0-255 scale
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+def _bert_batches(vocab, batch, start, n):
+    """A batch generator of n bench-shaped BERT batches: batch i (from
+    `start`) is a fresh RandomState(i) draw of tokens, labels = tokens."""
+    import numpy as np
+
+    def gen():
+        for i in range(start, start + n):
+            toks = np.random.RandomState(i).randint(
+                0, vocab, (batch, T)).astype(np.int64)
+            yield toks, toks
+    return gen
+
+
+def _goodput_waits(snap):
+    """Each step's input wait in ms, from the goodput waterfall."""
+    return [r["input_wait_s"] * 1e3 for r in snap["step_records"]]
+
+
+class _Hooks:
+    """FLAGS_enable_goodput and FLAGS_enable_monitor (and a fault spec)
+    on for a with-block around one goodput run; the flags, stats and
+    ledger put back after it, whether the block passed or raised."""
+
+    def __init__(self, label, fault_spec=""):
+        self.label, self.fault_spec = label, fault_spec
+
+    def __enter__(self):
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import goodput, monitor
+        ptt.set_flags({"enable_goodput": True, "enable_monitor": True,
+                       "fault_spec": self.fault_spec})
+        monitor.reset_stats()
+        goodput.start_run(self.label)
+        return self
+
+    def __exit__(self, *exc):
+        import paddle_tpu_torch as ptt
+        from paddle_tpu_torch import goodput, monitor
+        ptt.set_flags({"enable_goodput": False, "enable_monitor": False,
+                       "fault_spec": ""})
+        goodput.reset()
+        monitor.reset_stats()
+        return False
+
+    def end(self):
+        from paddle_tpu_torch import goodput, monitor
+        return goodput.end_run(), monitor.get_stats_snapshot()
+
+
+def loader_bert_phase(torch, card, train_info):
+    """[loader_bert]: [train]'s BERT-base step (b32, T512, bf16 AMP,
+    AdamW, dropout 0.1) fed by fluid.io.DataLoader.from_generator over
+    the program's data vars (capacity 2) and set_batch_generator, each
+    batch a fresh RandomState(step) draw; 3 warm-up and 10 timed steps
+    through run_steps with FLAGS_enable_goodput on. Gates: run_steps'
+    (flash 12 / 12 / 12 a step, no cache miss after the first step,
+    finite losses), reader.batches equal to the steps run, the goodput
+    ledger summing to its wall clock within 5%, and the losses equal to
+    those of the same program fed the same arrays directly, from the
+    same startup state in a fresh scope (max |diff| 0; where a second
+    direct run differs from the first, their gap is the bar), both runs
+    under torch's deterministic algorithms. Prints
+    host and device ms a step beside [train]'s and the input wait's p50
+    and max. Returns (the timed steps' launches, what [loader_starved]
+    runs on)."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import goodput
+    from paddle_tpu_torch.models import transformer
+
+    batch, warmup, steps, symbols, _ = TRAIN_RUNS[True]
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
+                                use_flash=True)
+    main, startup, loss = _build_train(ptt, transformer, cfg, batch, True)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    blk = main.global_block()
+    n_batches = warmup + steps + 1  # and run_steps' profiled step
+
+    def direct():
+        """The warm-up and timed steps' losses fed directly, from the
+        startup state in a fresh scope and executor."""
+        sc = ptt.Scope()
+        for n, t in init.items():
+            sc.set(n, t.clone())
+        ex = ptt.Executor()
+        return [float(ex.run(main, feed={"tokens": a, "labels": b},
+                             fetch_list=[loss], scope=sc,
+                             return_numpy=False)[0])
+                for a, b in _bert_batches(cfg.vocab_size, batch, 0,
+                                          warmup + steps)()]
+
+    loader = ptt.io.DataLoader.from_generator(
+        feed_list=[blk.var("tokens"), blk.var("labels")], capacity=2)
+    loader.set_batch_generator(
+        _bert_batches(cfg.vocab_size, batch, 0, n_batches))
+    exe = ptt.Executor()
+    # the embedding gradient's index_add sums by atomics unless torch's
+    # deterministic algorithms are on; on, two runs of one feed agree
+    # bit for bit, so the loader's feed can be held to the direct one
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with _Hooks("loader_bert") as hooks:
+            batches = iter(loader)
+            run = run_steps(torch, card, "loader_bert", exe, main, scope,
+                            lambda: next(batches), loss, cfg.n_layers,
+                            warmup, steps, symbols, batch * T,
+                            model_flops_per_token(cfg, T), BF16_FLOPS)
+            snap, stats = hooks.end()
+        check(next(batches, None) is None,
+              "[loader_bert] the loader yielded a batch more")
+        fed = direct()
+        gap = max(abs(a - b) for a, b in zip(run.losses, fed))
+        bar = max(abs(a - b) for a, b in zip(direct(), fed)) if gap else 0.0
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    waits = _goodput_waits(snap)
+    cats = snap["categories"]
+    phase("loader_bert", steps=steps, host_ms_median=f"{run.host_ms:.3f}",
+          train_host_ms=f"{train_info['host_ms']:.3f}",
+          device_ms=f"{run.device_ms:.3f}",
+          train_device_ms=f"{train_info['device_ms']:.3f}",
+          input_wait_ms_p50=f"{statistics.median(waits):.3f}",
+          input_wait_ms_max=f"{max(waits):.3f}",
+          reader_batches=stats["counters"].get("reader.batches"),
+          loss_gap_vs_direct=f"{gap:.3e}", direct_run_gap=f"{bar:.3e}",
+          deterministic_algorithms=True,
+          **{f"goodput_{k}_s": f"{v:.3f}" for k, v in cats.items()},
+          sum_frac_err=snap["sum_frac_err"], card=f"'{card}'")
+    check(gap <= bar, f"[loader_bert] losses differ from the direct-fed "
+          f"run by {gap} (two direct runs by {bar})")
+    check(stats["counters"].get("reader.batches") == n_batches,
+          f"[loader_bert] reader.batches "
+          f"{stats['counters'].get('reader.batches')} != {n_batches}")
+    check(goodput.check_invariant(snap, 0.05),
+          f"[loader_bert] goodput categories do not sum to the wall clock "
+          f"(sum_frac_err {snap['sum_frac_err']})")
+    return run.launches, {"exe": exe, "main": main, "scope": scope,
+                          "loss": loss, "loader": loader, "cfg": cfg,
+                          "batch": batch, "next": n_batches,
+                          "host_ms": run.host_ms}
+
+
+def loader_starved_phase(torch, card, ctx):
+    """[loader_starved]: [loader_bert]'s loader and program for
+    STARVED_STEPS more steps under FLAGS_fault_spec=slow_step:ms=<2 x
+    [loader_bert]'s median host step>:site=reader, a slow data source.
+    Gates: input_wait is the largest goodput category, and every batch
+    counts as starved (goodput_starved_ms 50)."""
+    import statistics
+
+    from paddle_tpu_torch.resilience import faults
+
+    stall_ms = 2 * ctx["host_ms"]
+    ctx["loader"].set_batch_generator(_bert_batches(
+        ctx["cfg"].vocab_size, ctx["batch"], ctx["next"], STARVED_STEPS))
+    t0 = time.perf_counter()
+    with _Hooks("loader_starved",
+                f"slow_step:ms={stall_ms:.1f}:site=reader") as hooks:
+        losses = [float(ctx["exe"].run(
+            ctx["main"], feed=feed, fetch_list=[ctx["loss"]],
+            scope=ctx["scope"], return_numpy=False)[0])
+            for feed in ctx["loader"]]
+        snap, stats = hooks.end()
+    faults.reset_injector()
+    cats = snap["categories"]
+    top = max(cats, key=cats.get)
+    waits = _goodput_waits(snap)
+    phase("loader_starved", steps=len(losses), stall_ms=f"{stall_ms:.1f}",
+          input_wait_ms_p50=f"{statistics.median(waits):.3f}",
+          largest=top, starved_steps=snap["starved_steps"],
+          input_batches=snap["input_batches"],
+          **{f"goodput_{k}_s": f"{v:.3f}" for k, v in cats.items()},
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    check(len(losses) == STARVED_STEPS and
+          all(math.isfinite(x) for x in losses),
+          f"[loader_starved] losses {losses}")
+    check(top == "input_wait", f"[loader_starved] the largest goodput "
+          f"category is {top}, not input_wait: {cats}")
+    check(snap["starved_steps"] == snap["input_batches"] == STARVED_STEPS,
+          f"[loader_starved] {snap['starved_steps']} of "
+          f"{snap['input_batches']} batches starved, not {STARVED_STEPS}")
+
+
+def _imagenet_samples(n, seed):
+    """A sample reader of n ImageNet-shaped samples as a decoder gives
+    them: a uint8 3x224x224 image and an int label, from
+    RandomState(seed)."""
+    import numpy as np
+
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(n):
+            yield (rng.randint(0, 256, RESNET_IMAGE, dtype=np.uint8),
+                   int(rng.randint(0, RESNET_CLASSES)))
+    return reader
+
+
+def _normalize(sample):
+    """Per-sample preprocessing: the image to float32, less the channel
+    mean, over the channel deviation (a 602 KB float32 sample)."""
+    import numpy as np
+    img, label = sample
+    mean = np.asarray(IMAGENET_MEAN, np.float32).reshape(3, 1, 1)
+    std = np.asarray(IMAGENET_STD, np.float32).reshape(3, 1, 1)
+    return (img.astype(np.float32) - mean) / std, label
+
+
+def _build_reader_resnet(ptt):
+    """ResNet-50 as resnet.build_train builds it (bf16 AMP, Momentum lr
+    0.1, momentum 0.9), its image and label from
+    read_file(double_buffer(py_reader(...)))."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.models import resnet
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        reader = ptt.layers.py_reader(
+            capacity=4, shapes=[[-1, *RESNET_IMAGE], [-1, 1]],
+            dtypes=["float32", "int64"], name="imagenet")
+        img, label = ptt.layers.read_file(ptt.layers.double_buffer(reader))
+        logits = resnet.resnet(img, RESNET_CLASSES, 50)
+        loss = ptt.layers.mean(
+            ptt.layers.softmax_with_cross_entropy(logits, label))
+        ptt.layers.accuracy(ptt.layers.softmax(logits), label)
+        mp.decorate(ptt.optimizer.Momentum(0.1, 0.9)).minimize(loss)
+    return main, startup, loss, reader
+
+
+def reader_resnet_phase(torch, card, resnet_info):
+    """[reader_resnet]: ResNet-50 at bench.py's b64 3x224x224 bf16 AMP
+    Momentum step over a py_reader, fed by decorate_sample_list_generator
+    from io.batch(reader_decorator.xmap_readers(_normalize,
+    _imagenet_samples, 4, 16, order=True), 64, drop_last=True), so
+    DataFeeder stacks 64 float32 samples of 602 KB a batch; 3 warm-up
+    and 10 timed steps through run_steps with goodput on. Gates:
+    run_steps' (finite losses, no cache miss after the first step), one
+    executor cache entry, and the first batch equal to np.stack of its
+    64 samples. Prints host and device ms beside [resnet_train]'s and
+    the input wait's p50."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import resnet
+
+    main, startup, loss, reader = _build_reader_resnet(ptt)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    n_batches = 3 + 10 + 1
+    rd = ptt.reader_decorator
+    reader.decorate_sample_list_generator(ptt.io.batch(
+        rd.xmap_readers(_normalize,
+                        _imagenet_samples(RESNET_BATCH * n_batches, 0),
+                        READER_THREADS, READER_BUFFER, order=True),
+        RESNET_BATCH, drop_last=True))
+    exe = ptt.Executor()
+    first = []
+
+    def next_feed():
+        feed = next(batches)
+        if not first:
+            first.append(feed)
+        return feed
+
+    with _Hooks("reader_resnet") as hooks:
+        batches = iter(reader)
+        run = run_steps(
+            torch, card, "reader_resnet", exe, main, scope, next_feed, loss,
+            0, 3, 10, (), RESNET_BATCH,
+            3 * resnet.flops_per_image(50, RESNET_IMAGE[1], RESNET_CLASSES),
+            BF16_FLOPS, unit="images", must_fall=False,
+            classes=("conv", "matmul", "norm", "other"))
+        snap, stats = hooks.end()
+    samples = [_normalize(s) for s in _imagenet_samples(RESNET_BATCH, 0)()]
+    img, label = (v.name for v in reader.feed_list)
+    same = np.array_equal(first[0][img], np.stack([s[0] for s in samples])) \
+        and np.array_equal(first[0][label],
+                           np.array([[s[1]] for s in samples], np.int64))
+    waits = _goodput_waits(snap)
+    phase("reader_resnet", steps=10, host_ms_median=f"{run.host_ms:.3f}",
+          resnet_train_host_ms=f"{resnet_info['host_ms']:.3f}",
+          device_ms=f"{run.device_ms:.3f}",
+          resnet_train_device_ms=f"{resnet_info['device_ms']:.3f}",
+          input_wait_ms_p50=f"{statistics.median(waits):.3f}",
+          input_wait_ms_max=f"{max(waits):.3f}",
+          batch_mb=f"{first[0][img].nbytes / 1e6:.1f}",
+          reader_batches=stats["counters"].get("reader.batches"),
+          cache_entries=exe.cache_stats()["size"],
+          sum_frac_err=snap["sum_frac_err"], card=f"'{card}'")
+    check(same, "[reader_resnet] the first batch is not np.stack of its "
+          "samples")
+    check(exe.cache_stats()["size"] == 1,
+          f"[reader_resnet] {exe.cache_stats()['size']} cache entries")
+
+
+def mnist_book_phase(torch, card):
+    """[mnist_book]: examples/train_mnist.py's path through the port:
+    LeNet (convolutional_neural_network, Adam 1e-3, b128) on
+    datasets.mnist.train() through reader_decorator.shuffle, io.batch
+    and DataLoader.set_sample_list_generator, the loader iterated afresh
+    each epoch, for MNIST_STEPS steps; metrics.Accuracy fed each step's
+    fetched accuracy over the last 50 steps must exceed 0.7 (the JAX
+    package's bar for this corpus). Then checkpoints: io.save and
+    io.load into a fresh Scope, after which two more steps give the
+    continuing run's losses within 1e-6; save_params and load_params
+    into a fresh startup scope, whose for_test loss on a test batch
+    equals the trained scope's within 1e-6."""
+    import random
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import lenet
+
+    random.seed(SEED)
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        img = ptt.layers.data("img", shape=[1, 28, 28], dtype="float32")
+        label = ptt.layers.data("label", shape=[1], dtype="int64")
+        loss, predict = lenet.convolutional_neural_network(img, label)
+        acc = ptt.layers.accuracy(predict, label)
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    scope = ptt.Scope()
+    exe = ptt.Executor()  # the card
+    exe.run(startup, scope=scope)
+    mnist = ptt.datasets.mnist
+    loader = ptt.io.DataLoader.from_generator(feed_list=[img, label],
+                                              capacity=8)
+    loader.set_sample_list_generator(ptt.io.batch(
+        ptt.reader_decorator.shuffle(mnist.train(), MNIST_SHUFFLE),
+        LENET_BATCH, drop_last=True))
+    last50 = ptt.metrics.Accuracy()
+    t0 = time.perf_counter()
+    step = epochs = 0
+    losses = []
+    while step < MNIST_STEPS:
+        epochs += 1
+        for feed in loader:
+            lv, av = exe.run(main, feed=feed, fetch_list=[loss, acc],
+                             scope=scope)
+            step += 1
+            losses.append(float(lv.reshape(-1)[0]))
+            if step > MNIST_STEPS - 50:
+                last50.update(float(av.reshape(-1)[0]), LENET_BATCH)
+            if step >= MNIST_STEPS:
+                break
+    seconds = time.perf_counter() - t0
+    acc50 = last50.eval()
+
+    feeder = ptt.DataFeeder([img, label])
+    test = [feeder.feed(b) for _, b in zip(range(2), ptt.io.batch(
+        mnist.test(), LENET_BATCH)())]
+    test_prog = main.clone(for_test=True)
+    with tempfile.TemporaryDirectory(prefix="ptt_ckpt_") as d:
+        path = os.path.join(d, "lenet")
+        with ptt.scope_guard(scope):
+            ptt.io.save(main, path)
+            ptt.io.save_params(exe, os.path.join(d, "params"), main)
+        loaded = ptt.Scope()
+        with ptt.scope_guard(loaded):
+            ptt.io.load(main, path, exe)
+        params = ptt.Scope()
+        exe.run(startup, scope=params)
+        with ptt.scope_guard(params):
+            ptt.io.load_params(exe, os.path.join(d, "params"), main)
+    eval_gap = abs(
+        float(exe.run(test_prog, feed=test[0], fetch_list=[loss],
+                      scope=params)[0].reshape(-1)[0]) -
+        float(exe.run(test_prog, feed=test[0], fetch_list=[loss],
+                      scope=scope)[0].reshape(-1)[0]))
+    ckpt_gap = max(abs(float(exe.run(main, feed=f, fetch_list=[loss],
+                                     scope=loaded)[0].reshape(-1)[0]) -
+                       float(exe.run(main, feed=f, fetch_list=[loss],
+                                     scope=scope)[0].reshape(-1)[0]))
+                   for f in test)
+    phase("mnist_book", steps=step, epochs=epochs, batch=LENET_BATCH,
+          acc_last50=f"{acc50:.4f}", loss_first=f"{losses[0]:.4f}",
+          loss_last=f"{losses[-1]:.4f}",
+          images_per_s=f"{step * LENET_BATCH / seconds:.1f}",
+          ckpt_loss_gap=f"{ckpt_gap:.3e}",
+          params_eval_loss_gap=f"{eval_gap:.3e}",
+          seconds=f"{seconds:.2f}", card=f"'{card}'")
+    check(step == MNIST_STEPS and epochs == 4,
+          f"[mnist_book] {step} steps over {epochs} epochs")
+    check(acc50 > MNIST_ACC_BAR, f"[mnist_book] accuracy over the last 50 "
+          f"steps {acc50} <= {MNIST_ACC_BAR}")
+    check(ckpt_gap <= CKPT_LOSS_TOL, f"[mnist_book] io.load: loss differs "
+          f"from the continuing run's by {ckpt_gap}")
+    check(eval_gap <= CKPT_LOSS_TOL, f"[mnist_book] load_params: loss "
+          f"differs from the trained scope's by {eval_gap}")
+
+
+def _dl_x(ptt, shape=(2, 3, 8, 8)):
+    x = ptt.layers.data("x", list(shape[1:]), dtype="float32")
+    x.stop_gradient = False
+    return x
+
+
+def _dl_loss(ptt, *outs):
+    loss = ptt.layers.mean(outs[0])
+    for o in outs[1:]:
+        loss = loss + ptt.layers.mean(o)
+    ptt.backward.append_backward(loss)
+
+
+def data_layer_cases():
+    """[data_layers]' cases: {name: (build(ptt) -> fetch vars, the names
+    of the vars whose gradients are fetched too, x's shape or None)}."""
+    import numpy as np
+
+    def arg(ptt):
+        x = _dl_x(ptt)
+        return [ptt.layers.argmax(x, axis=1), ptt.layers.argmin(x, axis=-1),
+                ptt.layers.argmax(x)]
+
+    def fills(ptt):
+        x = _dl_x(ptt)
+        return [ptt.layers.fill_constant_batch_size_like(
+                    x, [-1, 5], "float32", 2.5),
+                ptt.layers.fill_constant_batch_size_like(
+                    x, [4, -1], "int64", 7, input_dim_idx=1,
+                    output_dim_idx=1),
+                ptt.layers.zeros_like(x), ptt.layers.ones_like(x),
+                ptt.layers.ones([2, 3], "float32"),
+                ptt.layers.zeros([4], "int64")]
+
+    def ranges(ptt):
+        return [ptt.layers.linspace(-3.5, 11.25, 33, "float32"),
+                ptt.layers.eye(3, 5), ptt.layers.eye(4, 2, dtype="int64"),
+                ptt.layers.diag(ptt.layers.assign(
+                    np.array([1.5, -2.0, 3.25], np.float32))),
+                ptt.layers.assign(np.arange(6, dtype=np.int64)
+                                  .reshape(2, 3))]
+
+    def checks(ptt):
+        # x is finite; sqrt(x) has NaNs (x < 0), x * 1e60 infinities
+        x = _dl_x(ptt)
+        nan = ptt.layers.sqrt(x)
+        inf = ptt.layers.scale(ptt.layers.scale(x, 1e30), 1e30)
+        return [ptt.layers.isfinite(x), ptt.layers.has_inf(x),
+                ptt.layers.has_nan(x), ptt.layers.isfinite(nan),
+                ptt.layers.has_nan(nan), ptt.layers.has_inf(inf),
+                ptt.layers.has_nan(inf)]
+
+    def reverse_diag(ptt):
+        x = _dl_x(ptt)
+        r1, r2 = ptt.layers.reverse(x, 1), ptt.layers.reverse(x, [2, 3])
+        v = ptt.layers.reshape(ptt.layers.slice(
+            x, [1, 2, 3], [0, 0, 0], [1, 1, 1]), [-1])
+        d = ptt.layers.diag(v)
+        _dl_loss(ptt, r1 * r1, r2, d * d)
+        return [r1, r2, d]
+
+    def create(ptt):
+        t = ptt.layers.create_tensor("float32", name="t0")
+        p = ptt.layers.create_parameter(
+            [8, 4], "float32", name="p0",
+            default_initializer=ptt.initializer.Constant(0.5))
+        b = ptt.layers.create_parameter([4], "float32", is_bias=True)
+        x = _dl_x(ptt, (2, 8))
+        y = ptt.layers.elementwise_add(ptt.layers.matmul(x, p), b)
+        ptt.layers.assign(y, t)
+        _dl_loss(ptt, y * y)
+        return [t, y]
+
+    def adaptive(ptype):
+        def build(ptt):
+            x = _dl_x(ptt)
+            a = ptt.layers.adaptive_pool2d(x, [2, 4], ptype)
+            b = ptt.layers.adaptive_pool2d(x, 4, ptype)
+            _dl_loss(ptt, a * a, b * b)
+            return [a, b]
+        return build
+
+    def inits(ptt):
+        init = ptt.initializer
+        return [ptt.layers.create_parameter(
+                    [2, 3, 4, 4], "float32", name="bl",
+                    default_initializer=init.Bilinear()),
+                ptt.layers.create_parameter(
+                    [3, 4], "float32", name="na",
+                    default_initializer=init.NumpyArrayInitializer(
+                        np.linspace(-2, 2, 12).reshape(3, 4)))]
+
+    return {"arg": (arg, (), (2, 3, 8, 8)),
+            "fills": (fills, (), (2, 3, 8, 8)),
+            "ranges": (ranges, (), None),
+            "checks": (checks, (), (2, 3, 8, 8)),
+            "reverse_diag": (reverse_diag, ("x",), (2, 3, 8, 8)),
+            "create": (create, ("x", "p0.w_0"), (2, 8)),
+            "adaptive_max": (adaptive("max"), ("x",), (2, 3, 8, 8)),
+            "adaptive_avg": (adaptive("avg"), ("x",), (2, 3, 8, 8)),
+            "inits": (inits, (), None)}
+
+
+def data_layer_run(ptt, build, grads, shape, place, state=None):
+    """One case's fetches (and gradients) on `place`: the startup run
+    there, then its state replaced by `state` (numpy, when given), then
+    one run of the program on x from RandomState(3). Returns (the fetched
+    arrays, the startup state as numpy)."""
+    import numpy as np
+    from paddle_tpu_torch.convert import scope_from_numpy
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        fetch = build(ptt)
+    exe = ptt.Executor(place)
+    scope = ptt.Scope()
+    exe.run(startup, scope=scope)
+    own = {n: scope.get_numpy(n) for n in scope.names()}
+    if state is not None:
+        scope_from_numpy(state, scope, place, program=main)
+    feed = {} if shape is None else {"x": np.random.RandomState(3).randn(
+        *shape).astype(np.float32)}
+    names = [v.name for v in fetch] + [f"{n}@GRAD" for n in grads]
+    return exe.run(main, feed=feed, fetch_list=names, scope=scope), own
+
+
+def data_layer_gap(got, want):
+    """The largest gap over the arrays: floats relative to max(1,
+    max|want|); integers and bools as 0 when equal, else inf."""
+    import numpy as np
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape:
+            return float("inf")
+        if b.dtype.kind == "f":
+            worst = max(worst, float(np.abs(a - b).max(initial=0.0)) /
+                        max(1.0, float(np.abs(b).max(initial=0.0))))
+        elif not np.array_equal(a, b):
+            return float("inf")
+    return worst
+
+
+def random_init_gaps(ptt, place):
+    """TruncatedNormal(0.5, 0.02) and MSRA (uniform and normal) drawn by
+    the startup program on `place`: (the largest |z| of the truncated
+    draws in standard deviations, which must be <= 2, and each moment's
+    relative gap to its closed form)."""
+    import numpy as np
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        tn = ptt.layers.create_parameter(
+            [512, 512], "float32", name="tn",
+            default_initializer=ptt.initializer.TruncatedNormal(0.5, 0.02))
+        mu = ptt.layers.create_parameter(
+            [512, 512], "float32", name="mu",
+            default_initializer=ptt.initializer.MSRA())
+        mn = ptt.layers.create_parameter(
+            [64, 32, 3, 3], "float32", name="mn",
+            default_initializer=ptt.initializer.MSRA(uniform=False))
+    scope = ptt.Scope()
+    ptt.Executor(place).run(startup, scope=scope)
+    z = (scope.get_numpy(tn.name).astype(np.float64) - 0.5) / 0.02
+    trunc_std = math.sqrt(1 - 4 * math.exp(-2) / math.sqrt(2 * math.pi)
+                          / math.erf(2 / math.sqrt(2)))
+    u = scope.get_numpy(mu.name).astype(np.float64)
+    g = scope.get_numpy(mn.name).astype(np.float64)
+    lim = math.sqrt(6.0 / 512)
+    return float(np.abs(z).max()), {
+        "trunc_std": abs(z.std() / trunc_std - 1),
+        "trunc_mean": abs(z.mean()) / trunc_std,
+        "msra_uniform_bound": float(np.abs(u).max()) / lim,
+        "msra_uniform_std": abs(u.std() / (lim / math.sqrt(3)) - 1),
+        "msra_normal_std": abs(g.std() / math.sqrt(2.0 / (32 * 9)) - 1)}
+
+
+def data_layers_phase(torch, card):
+    """[data_layers]: each new tensor layer and op type and adaptive
+    pool2d (max and avg, with gradients) on the card against the port on
+    the CPU from the CPU's startup state (data_layer_cases; floats within
+    DATA_LAYER_TOL of max(1, max|CPU|), integers, indices and bools
+    exact); the deterministic initializers (Bilinear, NumpyArray) equal;
+    the random ones by distribution (random_init_gaps: the truncated
+    normal inside 2 standard deviations, exactly, its mean and standard
+    deviation, MSRA's bound and standard deviations); and the save_combine
+    and load_combine ops round-tripping a card tensor through a file."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    gaps = {}
+    for name, (build, grads, shape) in data_layer_cases().items():
+        cpu, state = data_layer_run(ptt, build, grads, shape,
+                                    ptt.CPUPlace())
+        if name == "inits":  # the card's own startup, not the CPU's
+            card_out, card_state = data_layer_run(ptt, build, grads, shape,
+                                                  ptt.CUDAPlace(0))
+            gaps[name] = data_layer_gap(
+                [card_state[k] for k in sorted(state)],
+                [state[k] for k in sorted(state)])
+        else:
+            card_out, _ = data_layer_run(ptt, build, grads, shape,
+                                         ptt.CUDAPlace(0), state)
+            gaps[name] = data_layer_gap(card_out, cpu)
+    zmax, moments = random_init_gaps(ptt, ptt.CUDAPlace(0))
+    with tempfile.TemporaryDirectory(prefix="ptt_io_ops_") as d:
+        main = ptt.Program()
+        blk = main.global_block()
+        vals = {"a": np.arange(12, dtype=np.float32).reshape(3, 4) / 7,
+                "b": np.arange(5, dtype=np.int64) - 2}
+        for n, v in vals.items():
+            blk.create_var(name=n, shape=list(v.shape), dtype=str(v.dtype),
+                           is_data=True)
+            blk.create_var(name=f"l{n}", shape=list(v.shape),
+                           dtype=str(v.dtype))
+        blk.create_var(name="tok", shape=[], dtype="int32")
+        blk.append_op("save_combine", inputs={"X": ["a", "b"]},
+                      outputs={"Out": ["tok"]},
+                      attrs={"file_path": os.path.join(d, "ab"),
+                             "var_names": ["a", "b"]}, infer_shape=False)
+        blk.append_op("load_combine", inputs={}, outputs={"Out": ["la",
+                                                                  "lb"]},
+                      attrs={"file_path": os.path.join(d, "ab"),
+                             "var_names": ["a", "b"],
+                             "shapes": [[3, 4], [5]],
+                             "dtypes": ["float32", "int64"]},
+                      infer_shape=False)
+        la, lb = ptt.Executor().run(main, feed=vals, fetch_list=["la", "lb"],
+                                    scope=ptt.Scope())
+    io_ok = np.array_equal(la, vals["a"]) and np.array_equal(lb, vals["b"])
+    worst = max(gaps, key=gaps.get)
+    phase("data_layers", cases=len(gaps), max_gap=f"{gaps[worst]:.3e}",
+          worst=worst, tol=DATA_LAYER_TOL,
+          **{f"{k}_gap": f"{v:.2e}" for k, v in gaps.items()},
+          trunc_max_z=f"{zmax:.6f}",
+          **{k: f"{v:.2e}" for k, v in moments.items()},
+          io_ops_equal=io_ok, seconds=f"{time.perf_counter() - t0:.2f}",
+          card=f"'{card}'")
+    check(gaps[worst] <= DATA_LAYER_TOL, f"[data_layers] {worst}: card vs "
+          f"CPU {gaps[worst]} > {DATA_LAYER_TOL}")
+    check(zmax <= 2.0, f"[data_layers] a truncated normal draw at "
+          f"{zmax} standard deviations")
+    check(moments["msra_uniform_bound"] <= 1.0,
+          "[data_layers] an MSRA draw outside its bound")
+    for k in ("trunc_std", "trunc_mean", "msra_uniform_std",
+              "msra_normal_std"):
+        check(moments[k] < 0.02, f"[data_layers] {k} off by {moments[k]}")
+    check(io_ok, "[data_layers] save_combine / load_combine round trip "
+          "differs")
+
+
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 # kernel -> (its source under csrc/, the line of the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -4929,10 +5655,17 @@ def main():
     dygraph_checked = dygraph_cpu_check(torch)
     dygraph_resnet_phase(torch, card)
     dygraph_layers_phase(torch, card)
+    loader_trained, loader = loader_bert_phase(torch, card, train_info)
+    loader_starved_phase(torch, card, loader)
+    del loader
+    reader_resnet_phase(torch, card, resnet_info)
+    mnist_book_phase(torch, card)
+    data_layers_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
-    # BERT (build_train and both recipes), GPT and NMT bf16 training
-    # runs; the float32 kernels' over the float32 training run, the
+    # BERT (build_train, both recipes and the DataLoader-fed run), GPT
+    # and NMT bf16 training runs; the float32 kernels' over the float32
+    # training run, the
     # float32 check step, the recipe check's card steps, the dygraph
     # BERT's timed steps and its check's card steps, and the float32
     # forward's over the serving runs (direct and over HTTP) and the
@@ -4956,7 +5689,8 @@ def main():
 
     out = [entry(name, records["bfloat16"][name],
                  trained[name] + gpt_trained[name] + nmt_trained[name] +
-                 recipe_bert[name] + recipe_lamb[name],
+                 recipe_bert[name] + recipe_lamb[name] +
+                 loader_trained[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name])

@@ -36,7 +36,8 @@ del _fn, _dtype
 from . import ops  # noqa: F401,E402  — registers every op lowering
 from .framework import (  # noqa: F401,E402
     Program, program_guard, default_main_program, default_startup_program,
-    ParamAttr, unique_name, Variable, Parameter, in_dygraph_mode)
+    ParamAttr, WeightNormParamAttr, unique_name, Variable, Parameter,
+    in_dygraph_mode, name_scope, cpu_places)
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
 from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
@@ -55,3 +56,15 @@ from . import average  # noqa: F401,E402
 from .clip import set_gradient_clip  # noqa: F401,E402
 from . import contrib  # noqa: F401,E402
 from . import dygraph  # noqa: F401,E402
+from . import metrics  # noqa: F401,E402
+from . import datasets  # noqa: F401,E402
+from . import reader_decorator  # noqa: F401,E402
+from .data_feeder import DataFeeder  # noqa: F401,E402
+from .reader import DataLoader, PyReader  # noqa: F401,E402
+
+
+def data(name, shape, dtype="float32", lod_level=0):
+    """fluid.data: the batch dim is not prepended (the shape is the fed
+    array's)."""
+    return layers.data(name, shape, append_batch_size=False, dtype=dtype,
+                       lod_level=lod_level)

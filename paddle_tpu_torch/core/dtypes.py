@@ -52,5 +52,12 @@ def as_torch_dtype(dtype) -> torch.dtype:
     return _TORCH[convert_dtype(dtype)]
 
 
+def as_np_dtype(dtype) -> np.dtype:
+    """The numpy dtype a host array of this dtype takes: bfloat16 as
+    float32 (exactly representable), to be cast on the device."""
+    name = convert_dtype(dtype)
+    return np.dtype("float32" if name == "bfloat16" else name)
+
+
 def is_floating(dtype) -> bool:
     return convert_dtype(dtype) in _FLOATING

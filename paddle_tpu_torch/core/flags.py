@@ -127,6 +127,9 @@ _define("check_nan_inf", False, bool,
 _define("executor_cache_capacity", 64, int,
         "Max prepared (program, feed shapes, fetches) entries kept per "
         "Executor, LRU evicted.")
+_define("reader_queue_depth", 2, int,
+        "Default prefetch queue capacity of DataLoader/PyReader when the "
+        "caller passes none (the reader's double-buffering depth).")
 _define("serving_max_batch_size", 8, int,
         "Default EngineConfig.max_batch_size: the most request rows the "
         "serving engine coalesces into one padded batch.")

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Iterator, Tuple
 
+import numpy as np
 import torch
 
 from . import VarBase, _state, current_device
@@ -138,6 +139,10 @@ def _materialise_init(init, shape, gen):
         return _uniform(shape, init.low, init.high, gen)
     if isinstance(init, I.NormalInitializer):
         return torch.randn(shape, generator=gen) * init.scale + init.loc
+    if isinstance(init, I.TruncatedNormalInitializer):
+        from ..ops.tensor_ops import truncated_normal
+        return truncated_normal(torch.rand(shape, generator=gen)) * \
+            init.scale + init.loc
     if isinstance(init, I.XavierInitializer):
         fin, fout = I._fans(_Shaped(shape))
         fin = init.fan_in if init.fan_in is not None else fin
@@ -147,6 +152,16 @@ def _materialise_init(init, shape, gen):
             return _uniform(shape, -lim, lim, gen)
         return torch.randn(shape, generator=gen) * math.sqrt(
             2.0 / (fin + fout))
+    if isinstance(init, I.MSRAInitializer):
+        fin, _ = I._fans(_Shaped(shape))
+        fin = init.fan_in if init.fan_in is not None else fin
+        if init.uniform:
+            lim = math.sqrt(6.0 / fin)
+            return _uniform(shape, -lim, lim, gen)
+        return torch.randn(shape, generator=gen) * math.sqrt(2.0 / fin)
+    if isinstance(init, I.NumpyArrayInitializer):
+        return torch.from_numpy(np.asarray(init.value, np.float32)
+                                .reshape(shape).copy())
     raise TypeError(f"unsupported initializer {init!r} in dygraph")
 
 

@@ -25,7 +25,8 @@ from .core.dtypes import convert_dtype
 __all__ = [
     "Variable", "Parameter", "Operator", "Block", "Program",
     "default_main_program", "default_startup_program", "program_guard",
-    "unique_name", "ParamAttr", "grad_var_name", "in_dygraph_mode",
+    "unique_name", "ParamAttr", "WeightNormParamAttr", "grad_var_name",
+    "in_dygraph_mode", "name_scope", "cpu_places",
 ]
 
 GRAD_SUFFIX = "@GRAD"
@@ -70,6 +71,19 @@ class _UniqueNameModule:
 
 
 unique_name = _UniqueNameModule()
+
+_name_scope_stack: List[str] = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix):
+    """A named scope for the ops built inside it. Names are recorded on a
+    stack only; they change no var or op name, as in the JAX package."""
+    _name_scope_stack.append(prefix)
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 class Variable:
@@ -470,6 +484,11 @@ def in_dygraph_mode():
     return dygraph.enabled()
 
 
+def cpu_places(n=1):
+    from .core.place import CPUPlace
+    return [CPUPlace() for _ in range(n)]
+
+
 class ParamAttr:
     """Parameter attribute bundle."""
 
@@ -498,3 +517,16 @@ class ParamAttr:
         if isinstance(arg, Initializer):
             return ParamAttr(initializer=arg)
         raise TypeError(f"bad ParamAttr spec {arg!r}")
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight-normalized parameter attribute (w = g * v / ||v||). `dim` is
+    recorded; the layers treat it as a plain ParamAttr, as the JAX
+    package does (no reparameterisation is built)."""
+
+    def __init__(self, dim=None, name=None, initializer=None,
+                 learning_rate=1.0, regularizer=None, trainable=True,
+                 do_model_average=False, gradient_clip=None):
+        super().__init__(name, initializer, learning_rate, regularizer,
+                         trainable, do_model_average, gradient_clip)
+        self.dim = dim

@@ -1,11 +1,17 @@
-"""Checkpointing + inference-model export.
+"""Checkpointing, inference-model export, and the fluid.io reader names.
 
 The JAX package's on-disk format, unchanged: ``save_inference_model``
 writes ``__model__.json`` (the feed→fetch-pruned program plus feed and
-fetch names) and one ``<var>.npy`` per persistable. A directory saved by
-either package loads in the other. Every file is written to a temp name,
-fsynced, then renamed over the target, so a crash mid-save never leaves
-a half-written file behind.
+fetch names) and one ``<var>.npy`` per persistable; ``save`` writes
+``<path>.pdparams`` (an npz of every persistable) and ``<path>.pdmodel``
+(the program's JSON). A checkpoint saved by either package loads in the
+other. Every file is written to a temp name, fsynced, then renamed over
+the target, so a crash mid-save never leaves a half-written file
+behind. Loads place the arrays on the executor's device (the card when
+no executor is given).
+
+``DataLoader``, ``PyReader`` and ``batch`` are here as fluid.io names
+them.
 """
 from __future__ import annotations
 
@@ -17,11 +23,15 @@ import numpy as np
 
 from .convert import scope_from_numpy
 from .core.scope import global_scope
+from .core.place import default_place
 from .framework import Program, Variable
+from .reader import DataLoader, PyReader  # noqa: F401  (fluid.io.DataLoader)
+from .reader_decorator import batch  # noqa: F401  (fluid.io.batch)
 
-__all__ = ["save_vars", "save_persistables", "load_vars",
-           "load_persistables", "save_inference_model",
-           "load_inference_model"]
+__all__ = ["DataLoader", "PyReader",
+           "save_vars", "save_params", "save_persistables", "load_vars",
+           "load_params", "load_persistables", "save_inference_model",
+           "load_inference_model", "save", "load", "batch"]
 
 
 def _var_path(dirname, name):
@@ -84,6 +94,15 @@ def _is_persistable(v: Variable):
     return v.persistable and not v.is_data
 
 
+def _is_param(v: Variable):
+    return v.is_parameter
+
+
+def save_params(executor, dirname, main_program=None, filename=None):
+    return save_vars(executor, dirname, main_program, None, _is_param,
+                     filename)
+
+
 def save_persistables(executor, dirname, main_program=None, filename=None):
     return save_vars(executor, dirname, main_program, None, _is_persistable,
                      filename)
@@ -106,6 +125,11 @@ def load_vars(executor, dirname, main_program=None, vars=None,
             if os.path.exists(path):
                 params[v.name] = np.load(path)
     scope_from_numpy(params, global_scope(), executor.place)
+
+
+def load_params(executor, dirname, main_program=None, filename=None):
+    return load_vars(executor, dirname, main_program, None, _is_param,
+                     filename)
 
 
 def load_persistables(executor, dirname, main_program=None, filename=None):
@@ -170,3 +194,31 @@ def load_inference_model(dirname, executor, model_filename=None,
     block = program.global_block()
     fetch_vars = [block.var(n) for n in meta["fetch_names"]]
     return program, meta["feed_names"], fetch_vars
+
+
+def save(program, model_path):
+    """Every persistable of `program` held by the current scope into
+    ``<model_path>.pdparams``, and the program into
+    ``<model_path>.pdmodel``."""
+    os.makedirs(os.path.dirname(model_path) or ".", exist_ok=True)
+    scope = global_scope()
+    blob = {v.name: scope.get_numpy(v.name)
+            for v in program.list_vars()
+            if v.persistable and scope.has(v.name)}
+    atomic_np_savez(model_path + ".pdparams", blob)
+    atomic_write_text(model_path + ".pdmodel", program.to_json())
+
+
+def load(program, model_path, executor=None):
+    """Every array of ``<model_path>.pdparams`` (or of the older
+    ``<model_path>.pdparams.npz``) into the current scope, on the
+    executor's device; an array the JAX package narrowed from a 64-bit
+    var of `program` (a step counter) is widened back."""
+    path = model_path + ".pdparams"
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path += ".npz"  # checkpoint written before the atomic rewrite
+    place = executor.place if executor is not None else default_place()
+    with np.load(path) as blob:
+        params = {name: blob[name] for name in blob.files}
+    scope_from_numpy(params, global_scope(), place, program=program)
+

@@ -22,6 +22,7 @@ __all__ = ["fc", "embedding", "layer_norm", "dropout",
            "transpose", "gelu", "elementwise_add", "mean",
            "softmax_with_cross_entropy", "gather", "softmax", "matmul",
            "scale", "slice", "one_hot", "reduce_mean", "conv2d", "pool2d",
+           "adaptive_pool2d",
            "batch_norm", "relu", "tanh", "topk", "cross_entropy",
            "label_smooth", "image_resize", "resize_bilinear",
            "resize_nearest", "exp", "sqrt", "square", "sign", "pow",
@@ -180,6 +181,26 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
                             "paddings": pool_padding,
                             "global_pooling": global_pooling,
                             "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False,
+                    name=None):
+    """Pool to a fixed output size (`pool_size`): the pool2d op with
+    `adaptive` set. The max pool's indices (`require_index`) are not
+    computed; asking for them raises."""
+    if require_index:
+        raise NotImplementedError(
+            "adaptive_pool2d(require_index=True): the max pool's indices "
+            "are not computed")
+    helper = LayerHelper("pool2d", name=name)
+    if isinstance(pool_size, int):
+        pool_size = [pool_size, pool_size]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pool2d", inputs={"X": [input.name]},
+                     outputs={"Out": [out.name]},
+                     attrs={"pooling_type": pool_type, "ksize": pool_size,
+                            "adaptive": True})
     return out
 
 

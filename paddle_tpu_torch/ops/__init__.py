@@ -8,6 +8,7 @@ from . import loss_extra  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import math  # noqa: F401
 from . import metrics_ops  # noqa: F401
+from . import misc_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import reduce  # noqa: F401

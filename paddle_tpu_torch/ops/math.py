@@ -1,5 +1,5 @@
 """Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, concat, gather, slice, top_k, reshape2, transpose2,
+cast, concat, gather, slice, top_k, arg_max, arg_min, reshape2, transpose2,
 bilinear_tensor_product, and the gradient clips' clip, clip_by_norm and
 squared_l2_norm.
 
@@ -153,3 +153,14 @@ def _with_xshape(name, fn):
 _with_xshape("reshape2", lambda x, a: torch.reshape(
     x, [int(s) for s in a.get("shape", [])]))
 _with_xshape("transpose2", lambda x, a: x.permute(*a.get("axis")))
+
+
+@register_op("arg_max", nondiff_outputs=("Out",))
+def _arg_max(ctx, ins, attrs):
+    # the first of tied maxima, as jnp.argmax
+    return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("arg_min", nondiff_outputs=("Out",))
+def _arg_min(ctx, ins, attrs):
+    return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))]}

@@ -53,7 +53,10 @@ def _pool2d(ctx, ins, attrs):
     default to the window only when the attr is absent, `ceil_mode` is
     not read (output sizes are floored), and an exclusive average
     divides by the unpadded count only when there is padding. Padding
-    beyond half the window raises (torch's limit)."""
+    beyond half the window raises (torch's limit). An adaptive pool
+    (`ksize` is the output size) takes equal windows: the input is
+    reshaped to [N, C, oh, H/oh, ow, W/ow] and reduced over dims 3 and
+    5; sizes that do not divide raise, as in the JAX package."""
     x = ins["X"][0]
     ptype = attrs.get("pooling_type", "max")
     ksize = list(attrs.get("ksize", [2, 2]))
@@ -65,7 +68,16 @@ def _pool2d(ctx, ins, attrs):
             return {"Out": [torch.amax(x, dim=(2, 3), keepdim=True)]}
         return {"Out": [torch.mean(x, dim=(2, 3), keepdim=True)]}
     if adaptive:
-        raise NotImplementedError("adaptive pool2d is not ported yet")
+        oh, ow = ksize
+        n, c, h, w = x.shape
+        if h % oh or w % ow:
+            raise NotImplementedError(
+                f"adaptive pool2d needs input sizes {h}x{w} divisible by "
+                f"the output size {oh}x{ow}")
+        xr = x.reshape(n, c, oh, h // oh, ow, w // ow)
+        if ptype == "max":
+            return {"Out": [torch.amax(xr, dim=(3, 5))]}
+        return {"Out": [torch.mean(xr, dim=(3, 5))]}
     strides = list(attrs.get("strides", ksize))
     pads = list(attrs.get("paddings", [0, 0]))
     if ptype == "max":

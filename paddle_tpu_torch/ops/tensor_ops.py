@@ -1,5 +1,6 @@
-"""Tensor creation / init / random ops, assign, one_hot, label_smooth
-and the embedding lookups.
+"""Tensor creation / init / random ops, assign, one_hot, label_smooth,
+the embedding lookups, and the small index and check ops (reverse,
+diag, eye, linspace, isfinite, has_inf, has_nan).
 
 Random ops draw from the op's own generator (core/lowering.py), seeded
 from the program seed with the step and the op id folded in, so runs are
@@ -8,9 +9,12 @@ frameworks' generators give different numbers from the same seed.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
-from ..core.dtypes import as_torch_dtype
+from ..core.dtypes import as_np_dtype, as_torch_dtype
 from ..core.registry import register_op
 
 
@@ -23,6 +27,25 @@ def _fill_constant(ctx, ins, attrs):
     dtype = as_torch_dtype(attrs.get("dtype", "float32"))
     return {"Out": [torch.full(_shape_attr(attrs), attrs.get("value", 0.0),
                                dtype=dtype, device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like", nondiff_inputs=("Input",),
+             nondiff_outputs=("Out",))
+def _fill_constant_bsl(ctx, ins, attrs):
+    # the attr shape with one dim taken from Input's batch dim
+    ref = ins["Input"][0]
+    shape = list(_shape_attr(attrs))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    dtype = as_torch_dtype(attrs.get("dtype", "float32"))
+    return {"Out": [torch.full(shape, attrs.get("value", 0.0),
+                               dtype=dtype, device=ref.device)]}
+
+
+@register_op("fill_zeros_like", nondiff_inputs=("X",),
+             nondiff_outputs=("Out",))
+def _fill_zeros_like(ctx, ins, attrs):
+    return {"Out": [torch.zeros_like(ins["X"][0])]}
 
 
 @register_op("fill_any_like", nondiff_inputs=("X",), nondiff_outputs=("Out",))
@@ -48,6 +71,39 @@ def _uniform_random(ctx, ins, attrs):
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
     out = ctx.rand(_shape_attr(attrs)) * (hi - lo) + lo
     return {"Out": [out.to(dtype)]}
+
+
+# Φ(-2): the truncated normal's draws are the standard normal quantiles
+# of uniform draws on (Φ(-2), Φ(2)), so every value lies in [-2, 2]
+_PHI_M2 = 0.5 * math.erfc(2.0 / math.sqrt(2.0))
+
+
+def truncated_normal(u):
+    """A standard normal truncated to [-2, 2] from uniform [0, 1) draws
+    `u` (float32), by the inverse CDF."""
+    z = torch.special.ndtri(_PHI_M2 + (1.0 - 2.0 * _PHI_M2) * u.double())
+    return torch.clamp(z, -2.0, 2.0).float()
+
+
+@register_op("truncated_gaussian_random", stateful=True,
+             nondiff_outputs=("Out",))
+def _truncated_gaussian(ctx, ins, attrs):
+    """mean + std * a standard normal truncated to [-2, 2], one uniform
+    draw a value."""
+    dtype = as_torch_dtype(attrs.get("dtype", "float32"))
+    z = truncated_normal(ctx.rand(_shape_attr(attrs)))
+    out = z * attrs.get("std", 1.0) + attrs.get("mean", 0.0)
+    return {"Out": [out.to(dtype)]}
+
+
+@register_op("assign_value", nondiff_outputs=("Out",))
+def _assign_value(ctx, ins, attrs):
+    # `values` is the array (or a list), cast to `dtype` on the host
+    dtype = attrs.get("dtype", "float32")
+    arr = np.asarray(attrs.get("values"), dtype=as_np_dtype(dtype))
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return {"Out": [t.to(ctx.device).to(as_torch_dtype(dtype))
+                    .reshape(_shape_attr(attrs))]}
 
 
 @register_op("assign")
@@ -81,6 +137,59 @@ def _range(ctx, ins, attrs):
             "range requires the static_len attr (a static output shape)")
     return {"Out": [s + torch.arange(n, dtype=s.dtype, device=s.device)
                     * st]}
+
+
+@register_op("linspace", nondiff_outputs=("Out",))
+def _linspace(ctx, ins, attrs):
+    """`num` points from Start to Stop, both ends included, in float32
+    for integer ends; computed as jnp.linspace does: Start * (1 - i/(n-1))
+    + Stop * i/(n-1) for i < n-1, then Stop."""
+    s = ins["Start"][0].reshape(())
+    e = ins["Stop"][0].reshape(())
+    n = int(attrs["num"]) if "num" in attrs else int(ins["Num"][0])
+    dtype = s.dtype if s.is_floating_point() else torch.float32
+    s, e = s.to(dtype), e.to(dtype)
+    if n <= 1:
+        return {"Out": [s.reshape(1)[:n]]}
+    step = torch.arange(n - 1, dtype=dtype, device=s.device) / (n - 1)
+    out = s * (1 - step) + e * step
+    return {"Out": [torch.cat([out, e.reshape(1)])]}
+
+
+@register_op("eye", nondiff_outputs=("Out",))
+def _eye(ctx, ins, attrs):
+    n = int(attrs["num_rows"])
+    m = int(attrs.get("num_columns", -1))
+    return {"Out": [torch.eye(n, n if m < 0 else m, device=ctx.device,
+                              dtype=as_torch_dtype(
+                                  attrs.get("dtype", "float32")))]}
+
+
+@register_op("diag")
+def _diag(ctx, ins, attrs):
+    # a vector becomes the diagonal of a square matrix
+    return {"Out": [torch.diag(ins["Diagonal"][0])]}
+
+
+@register_op("reverse")
+def _reverse(ctx, ins, attrs):
+    return {"Out": [torch.flip(ins["X"][0], dims=tuple(attrs["axis"]))]}
+
+
+@register_op("isfinite", nondiff_outputs=("Out",))
+def _isfinite(ctx, ins, attrs):
+    # one bool: every element finite
+    return {"Out": [torch.all(torch.isfinite(ins["X"][0]))]}
+
+
+@register_op("has_inf", nondiff_outputs=("Out",))
+def _has_inf(ctx, ins, attrs):
+    return {"Out": [torch.any(torch.isinf(ins["X"][0]))]}
+
+
+@register_op("has_nan", nondiff_outputs=("Out",))
+def _has_nan(ctx, ins, attrs):
+    return {"Out": [torch.any(torch.isnan(ins["X"][0]))]}
 
 
 @register_op("one_hot", nondiff_inputs=("X",), nondiff_outputs=("Out",))

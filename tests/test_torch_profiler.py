@@ -139,3 +139,35 @@ def test_cuda_profiler_records_like_profiler(lenet_step, tmp_path):
         _step(lenet_step)
     assert profiler.last_trace_path().startswith(str(tmp_path))
     assert profiler.summarize_profile()["total_us"] > 0
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("total,outside,step,step_outside,ok", [
+    # the feed's copies on a slow host: 27.8 ms outside the scopes
+    # against 2 x 2.75 in the training step's profile. The op scopes
+    # agree (105.4 against 103.1 ms), so the gate passes where totals
+    # compared as a whole (133.2 against 108.6) would not
+    (133.2, 27.8, 54.3, 2.75, True),
+    # the same totals, but the op scopes 12% apart: the gate fails
+    (133.2, 10.0, 54.3, 2.75, False),
+    (2 * 50.0 * 1.099 + 7.0, 7.0, 50.0 + 3.0, 3.0, True),
+    (2 * 50.0 * 1.101 + 7.0, 7.0, 50.0 + 3.0, 3.0, False),
+    (2 * 50.0 * 0.899 + 1.0, 1.0, 50.0 + 9.0, 9.0, False),
+])
+def test_profiler_gate_compares_op_scopes(total, outside, step, step_outside,
+                                          ok):
+    scoped, want, agree = _chip_smoke().profiler_gate(total, outside, step,
+                                                      step_outside)
+    assert scoped == pytest.approx(total - outside)
+    assert want == pytest.approx(2 * (step - step_outside))
+    assert agree is ok
