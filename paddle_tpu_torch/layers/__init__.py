@@ -1,8 +1,10 @@
-"""Graph-building layer functions (the subset the transformer and vision
-models, their training losses, the GPT decode steps, the LR schedules,
-the gradient clips and the regularizers use, the in-program readers,
-and the tensor creation and check layers)."""
-from .control_flow import equal, increment, less_equal  # noqa: F401
+"""Graph-building layer functions: every layer of the JAX package's
+layers/nn.py but warpctc, the dense comparisons, the tensor creation
+and check layers, the in-program readers, the LR schedules, accuracy
+and auc, and the dense layers of layers/parity.py."""
+from .control_flow import (equal, greater_equal,  # noqa: F401
+                           greater_than, increment, is_empty, less_equal,
+                           less_than, not_equal)
 from .io import (create_py_reader_by_data, data,  # noqa: F401
                  double_buffer, load, py_reader, read_file)
 from .learning_rate_scheduler import (  # noqa: F401
@@ -13,15 +15,11 @@ from .math_ops import (elementwise_add, elementwise_div,  # noqa: F401
                        elementwise_floordiv, elementwise_max,
                        elementwise_min, elementwise_mod, elementwise_mul,
                        elementwise_pow, elementwise_sub)
-from .metric_op import accuracy  # noqa: F401
-from .nn import (adaptive_pool2d, add_position_encoding,  # noqa: F401
-                 batch_norm, clip, clip_by_norm, conv2d, cross_entropy,
-                 dropout, embedding, exp, fc, flash_attention, gather, gelu,
-                 image_resize, label_smooth, layer_norm, matmul, mean,
-                 one_hot, pool2d, pow, reduce_mean, relu, reshape,
-                 resize_bilinear, resize_nearest, scale, sign, slice,
-                 softmax, softmax_with_cross_entropy, sqrt, square, sums,
-                 tanh, topk, transpose)
+from .metric_op import accuracy, auc  # noqa: F401
+from .nn import *  # noqa: F401,F403
+from .nn import argsort, pixel_shuffle_raw  # noqa: F401
+from .parity import (adaptive_pool3d, pool3d,  # noqa: F401
+                     unique_with_counts)
 from .tensor import (argmax, argmin, assign, cast,  # noqa: F401
                      concat, create_global_var, create_parameter,
                      create_tensor, diag, eye, fill_constant,

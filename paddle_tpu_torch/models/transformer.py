@@ -52,6 +52,26 @@ def bert_base(**kw):
     return TransformerConfig(**kw)
 
 
+def bert_large(**kw):
+    """24 layers, d 1024, 16 heads, d_ff 4096."""
+    kw.setdefault("d_model", 1024)
+    kw.setdefault("n_heads", 16)
+    kw.setdefault("n_layers", 24)
+    kw.setdefault("d_ff", 4096)
+    return TransformerConfig(**kw)
+
+
+def transformer_big(**kw):
+    """Transformer-big's encoder at NMT scale: vocab 32000, 6 layers,
+    d 1024, 16 heads, d_ff 4096."""
+    kw.setdefault("vocab_size", 32000)
+    kw.setdefault("d_model", 1024)
+    kw.setdefault("n_heads", 16)
+    kw.setdefault("n_layers", 6)
+    kw.setdefault("d_ff", 4096)
+    return TransformerConfig(**kw)
+
+
 def _dense(x, size, name, cfg, act=None):
     return layers.fc(x, size=size, num_flatten_dims=2, act=act,
                      param_attr=ParamAttr(name=f"{name}.w",

@@ -1,6 +1,6 @@
-"""Elementwise binary ops and comparisons with fluid's axis-broadcast
-semantics: Y's dims align to X starting at `axis` (default -1 =
-numpy-style trailing alignment)."""
+"""Elementwise binary ops, minus, and the comparisons and logical ops
+with fluid's axis-broadcast semantics: Y's dims align to X starting at
+`axis` (default -1 = numpy-style trailing alignment)."""
 from __future__ import annotations
 
 import torch
@@ -51,5 +51,17 @@ def _compare(name, fn):
     return _low
 
 
+@register_op("minus")
+def _minus(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] - ins["Y"][0]]}
+
+
+_compare("less_than", torch.lt)
 _compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
 _compare("equal", torch.eq)
+_compare("not_equal", torch.ne)
+_compare("logical_and", torch.logical_and)
+_compare("logical_or", torch.logical_or)
+_compare("logical_xor", torch.logical_xor)

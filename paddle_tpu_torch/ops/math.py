@@ -1,7 +1,10 @@
-"""Core math / tensor-manipulation ops: mul, matmul, scale, sum, mean,
-cast, concat, gather, slice, top_k, arg_max, arg_min, reshape2, transpose2,
-bilinear_tensor_product, and the gradient clips' clip, clip_by_norm and
-squared_l2_norm.
+"""Core math / tensor-manipulation ops: mul, matmul, matmul_v2, scale,
+sum, mean, cast, concat, gather, slice, top_k, argsort, arg_max, arg_min,
+the shape ops (reshape, transpose, squeeze, unsqueeze, flatten, their
+XShape forms, split, stack, unstack, expand, expand_as, strided_slice,
+pad, pad2d, shape, size), the scatters and gathers, cumsum, the norms
+(l2_normalize, norm, cos_sim), bilinear_tensor_product, and the
+gradient clips' clip, clip_by_norm and squared_l2_norm.
 
 The large products in `mul` and `matmul` stay `torch.matmul` (cuBLAS on
 the card), as the JAX package leaves them to XLA. Float32 products are
@@ -12,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..core.dtypes import as_torch_dtype
 from ..core.registry import register_op
@@ -150,9 +154,59 @@ def _with_xshape(name, fn):
     return _low
 
 
-_with_xshape("reshape2", lambda x, a: torch.reshape(
-    x, [int(s) for s in a.get("shape", [])]))
-_with_xshape("transpose2", lambda x, a: x.permute(*a.get("axis")))
+def _reshape_to(x, a):
+    return torch.reshape(x, [int(s) for s in a.get("shape", [])])
+
+
+def _squeeze_axes(x, a):
+    """jnp.squeeze: the listed axes (each of size 1, else ValueError), or
+    every size-1 axis when none is listed."""
+    axes = a.get("axes")
+    if not axes:
+        return torch.squeeze(x)
+    dims = tuple(sorted({int(d) % x.dim() for d in axes}))
+    for d in dims:
+        if x.shape[d] != 1:
+            raise ValueError(f"squeeze: axis {d} has size {x.shape[d]}, "
+                             f"not 1")
+    return torch.squeeze(x, dims)
+
+
+def _unsqueeze_axes(x, a):
+    for ax in sorted(a.get("axes", [])):
+        x = torch.unsqueeze(x, ax)
+    return x
+
+
+def _flatten_at(x, a):
+    ax = a.get("axis", 1)
+    return x.reshape(math.prod(x.shape[:ax]), -1)
+
+
+def _permute(x, a):
+    return x.permute(*a.get("axis"))
+
+
+_with_xshape("reshape2", _reshape_to)
+_with_xshape("transpose2", _permute)
+_with_xshape("squeeze2", _squeeze_axes)
+_with_xshape("unsqueeze2", _unsqueeze_axes)
+_with_xshape("flatten2", _flatten_at)
+
+
+def _plain(name, fn):
+    """The XShape-less form of a shape op."""
+    @register_op(name)
+    def _low(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0], attrs)]}
+    return _low
+
+
+_plain("reshape", _reshape_to)
+_plain("transpose", _permute)
+_plain("squeeze", _squeeze_axes)
+_plain("unsqueeze", _unsqueeze_axes)
+_plain("flatten", _flatten_at)
 
 
 @register_op("arg_max", nondiff_outputs=("Out",))
@@ -164,3 +218,200 @@ def _arg_max(ctx, ins, attrs):
 @register_op("arg_min", nondiff_outputs=("Out",))
 def _arg_min(ctx, ins, attrs):
     return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("shape", nondiff_outputs=("Out",))
+def _shape(ctx, ins, attrs):
+    x = ins["Input"][0]
+    return {"Out": [torch.tensor(list(x.shape), dtype=torch.int32,
+                                 device=x.device)]}
+
+
+@register_op("size", nondiff_outputs=("Out",))
+def _size(ctx, ins, attrs):
+    x = ins["Input"][0]
+    return {"Out": [torch.tensor(x.numel(), dtype=torch.int64,
+                                 device=x.device)]}
+
+
+@register_op("split")
+def _split(ctx, ins, attrs):
+    """Into `sections` along `axis`, or `num` equal parts (jnp.split:
+    a size that does not divide raises)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections") or []
+    if sections:
+        return {"Out": list(torch.split(x, list(sections), dim=axis))}
+    num = attrs.get("num", 0) or 1
+    if x.shape[axis] % num:
+        raise ValueError(f"split: axis {axis} of size {x.shape[axis]} "
+                         f"does not divide into {num} equal parts")
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register_op("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(ins["X"], dim=attrs.get("axis", 0))]}
+
+
+@register_op("unstack")
+def _unstack(ctx, ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0], dim=attrs.get("axis", 0)))}
+
+
+@register_op("strided_slice")
+def _strided_slice(ctx, ins, attrs):
+    """x[start:end:stride] on each listed axis by Python's slice rules,
+    as an index gather (torch slices step forward only)."""
+    x = ins["Input"][0]
+    for ax, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                            attrs["strides"]):
+        rows = range(*slice(s, e, st).indices(x.shape[ax]))
+        x = torch.index_select(x, ax, torch.tensor(
+            list(rows), dtype=torch.long, device=x.device))
+    return {"Out": [x]}
+
+
+@register_op("expand")
+def _expand(ctx, ins, attrs):
+    return {"Out": [torch.tile(ins["X"][0], tuple(attrs["expand_times"]))]}
+
+
+@register_op("expand_as")
+def _expand_as(ctx, ins, attrs):
+    x, tgt = ins["X"][0], ins["target_tensor"][0]
+    times = [t // s for t, s in zip(tgt.shape, x.shape)]
+    return {"Out": [torch.tile(x, tuple(times))]}
+
+
+def _index_tuple(idx):
+    # [..., k] int indices -> k index tensors over the leading dims
+    return tuple(torch.unbind(idx.long(), dim=-1))
+
+
+@register_op("gather_nd", nondiff_inputs=("Index",))
+def _gather_nd(ctx, ins, attrs):
+    x, idx = ins["X"][0], ins["Index"][0]
+    return {"Out": [x[_index_tuple(idx)]]}
+
+
+@register_op("scatter", nondiff_inputs=("Ids",))
+def _scatter(ctx, ins, attrs):
+    """Rows `Ids` of X set to Updates (`overwrite`), or Updates added to
+    them."""
+    x, ids, upd = ins["X"][0], ins["Ids"][0], ins["Updates"][0]
+    return {"Out": [x.index_put((ids.reshape(-1).long(),), upd,
+                                accumulate=not attrs.get("overwrite",
+                                                         True))]}
+
+
+@register_op("scatter_nd_add", nondiff_inputs=("Index",))
+def _scatter_nd_add(ctx, ins, attrs):
+    x, idx, upd = ins["X"][0], ins["Index"][0], ins["Updates"][0]
+    return {"Out": [x.index_put(_index_tuple(idx), upd, accumulate=True)]}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """The running sum along `axis` (of the flattened X with `flatten`),
+    from the end with `reverse`; `exclusive` subtracts X, as the JAX
+    lowering does."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    if attrs.get("reverse", False):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive", False):
+        out = out - x
+    return {"Out": [out]}
+
+
+@register_op("argsort", nondiff_outputs=("Indices",))
+def _argsort(ctx, ins, attrs):
+    """A stable ascending sort; `descending` reverses it, so equal values
+    come out in reverse index order, as the JAX lowering flips its
+    stable sort (torch's stable descending sort keeps index order)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    idx = torch.argsort(x, dim=axis, stable=True)
+    if attrs.get("descending", False):
+        idx = torch.flip(idx, (axis,))
+    return {"Out": [torch.take_along_dim(x, idx, dim=axis)],
+            "Indices": [idx]}
+
+
+def _normalize(ctx, ins, attrs, eps_default):
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", eps_default)
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True) + eps)
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register_op("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    return _normalize(ctx, ins, attrs, 1e-12)
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    return _normalize(ctx, ins, attrs, 1e-10)
+
+
+def _torch_pads(pairs):
+    # [(before, after)] per dim, first dim first -> F.pad's last-dim-first
+    return [p for pair in reversed(pairs) for p in pair]
+
+
+@register_op("pad")
+def _pad(ctx, ins, attrs):
+    x = ins["X"][0]
+    p = attrs["paddings"]
+    pairs = [(p[2 * i], p[2 * i + 1]) for i in range(x.dim())]
+    return {"Out": [F.pad(x, _torch_pads(pairs),
+                          value=attrs.get("pad_value", 0.0))]}
+
+
+@register_op("pad2d")
+def _pad2d(ctx, ins, attrs):
+    """`paddings` [top, bottom, left, right] of the spatial axes, NCHW or
+    NHWC; `mode` constant, reflect (the edge not repeated) or edge."""
+    x = ins["X"][0]
+    top, bottom, left, right = attrs["paddings"]
+    mode = attrs.get("mode", "constant")
+    nhwc = attrs.get("data_format", "NCHW") != "NCHW"
+    if nhwc:
+        x = x.movedim(-1, 1)
+    pads = (left, right, top, bottom)
+    if mode == "constant":
+        out = F.pad(x, pads, value=attrs.get("pad_value", 0.0))
+    else:
+        out = F.pad(x, pads, mode={"reflect": "reflect",
+                                   "edge": "replicate"}[mode])
+    return {"Out": [out.movedim(1, -1) if nhwc else out]}
+
+
+@register_op("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    """Cosine similarity of the rows of X and Y (Y may be one row), with
+    the rows' norms."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, -1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, -1, keepdim=True))
+    out = torch.sum(x * y, -1, keepdim=True) / (xn * yn)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
+
+
+@register_op("matmul_v2")
+def _matmul_v2(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [torch.matmul(x, y).to(x.dtype)]}

@@ -1,5 +1,8 @@
-"""Softmax, convolution, pooling, resizing, normalisation, dropout,
-prelu and position-encoding ops.
+"""Softmax and log_softmax, convolution, pooling, resizing,
+normalisation (batch, layer, group, instance, data, lrn), dropout, the
+activations with parameters (prelu, selu), the channel rearrangements
+(pixel_shuffle, space_to_depth, temporal_shift, shuffle_channel,
+affine_channel), unfold and position encoding.
 
 The JAX package leaves conv2d, conv3d, conv2d_transpose, pool2d and
 batch_norm to XLA, so here they are torch's library calls: cuDNN's
@@ -22,13 +25,17 @@ def _softmax(ctx, ins, attrs):
     return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
 
 
-@register_op("conv2d")
-def _conv2d(ctx, ins, attrs):
+@register_op("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    return {"Out": [torch.log_softmax(ins["X"][0],
+                                      dim=attrs.get("axis", -1))]}
+
+
+def _conv2d(x, w, attrs, groups):
     """NCHW input (AnyLayout reads as NCHW) and OIHW filter. `paddings` is
     [h, w] or [top, bottom, left, right]; uneven pads are applied by
     F.pad, as F.conv2d pads symmetrically only. The output keeps the
     input's dtype."""
-    x, w = ins["Input"][0], ins["Filter"][0]
     fmt = attrs.get("data_format", "NCHW")
     if fmt not in ("NCHW", "AnyLayout", "ANYLAYOUT"):
         # the layers write no data_format; NHWC programs are not ported
@@ -40,11 +47,23 @@ def _conv2d(ctx, ins, attrs):
             x = F.pad(x, (left, right, top, bottom))
             top = left = 0
         pads = [top, left]
-    out = F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
-                   padding=tuple(pads),
-                   dilation=tuple(attrs.get("dilations", [1, 1])),
-                   groups=attrs.get("groups", 1)).to(x.dtype)
-    return {"Output": [out]}
+    return F.conv2d(x, w, stride=tuple(attrs.get("strides", [1, 1])),
+                    padding=tuple(pads),
+                    dilation=tuple(attrs.get("dilations", [1, 1])),
+                    groups=groups).to(x.dtype)
+
+
+@register_op("conv2d")
+def _conv2d_op(ctx, ins, attrs):
+    return {"Output": [_conv2d(ins["Input"][0], ins["Filter"][0], attrs,
+                               attrs.get("groups", 1))]}
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    """conv2d with one group a channel, whatever `groups` says."""
+    x = ins["Input"][0]
+    return {"Output": [_conv2d(x, ins["Filter"][0], attrs, x.shape[1])]}
 
 
 @register_op("pool2d")
@@ -310,3 +329,153 @@ def _prelu(ctx, ins, attrs):
     elif mode == "element":
         alpha = alpha.reshape((1,) + tuple(x.shape[1:]))
     return {"Out": [torch.where(x > 0, x, alpha * x)]}
+
+
+@register_op("max_pool2d_with_index", nondiff_outputs=("Mask",))
+def _max_pool2d_with_index(ctx, ins, attrs):
+    """Max pooling and each window's winner as its h * W + w index in
+    the unpadded input map (int32), the first of tied maxima. Strides
+    default to 1, not the window; `global_pooling` and `adaptive`
+    (divisible sizes only, as in the JAX package) set the window."""
+    x = ins["X"][0]
+    h, w = x.shape[2], x.shape[3]
+    if attrs.get("global_pooling", False):
+        k, st, pad = (h, w), (h, w), (0, 0)
+    elif attrs.get("adaptive", False):
+        oh, ow = attrs.get("ksize", [1, 1])
+        if h % oh or w % ow:
+            raise NotImplementedError(
+                f"adaptive max_pool2d_with_index needs input sizes {h}x{w} "
+                f"divisible by the output size {oh}x{ow}")
+        k = st = (h // oh, w // ow)
+        pad = (0, 0)
+    else:
+        k = tuple(attrs.get("ksize", [2, 2]))
+        st = tuple(attrs.get("strides", [1, 1]))
+        pad = tuple(attrs.get("paddings", [0, 0]))
+    out, idx = F.max_pool2d(x, k, st, pad, return_indices=True)
+    return {"Out": [out], "Mask": [idx.to(torch.int32)]}
+
+
+@register_op("instance_norm")
+def _instance_norm(ctx, ins, attrs):
+    """Normalise each sample's channels over their spatial axes (biased
+    variance); SavedMean and SavedVariance are [N, C]."""
+    x = ins["X"][0]
+    v, m = torch.var_mean(x, dim=tuple(range(2, x.dim())), keepdim=True,
+                          correction=0)
+    y = (x - m) * torch.rsqrt(v + attrs.get("epsilon", 1e-5))
+    bshape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+    if "Scale" in ins:
+        y = y * ins["Scale"][0].reshape(bshape)
+    if "Bias" in ins:
+        y = y + ins["Bias"][0].reshape(bshape)
+    lead = tuple(x.shape[:2])
+    return {"Y": [y], "SavedMean": [m.reshape(lead)],
+            "SavedVariance": [v.reshape(lead)]}
+
+
+@register_op("data_norm")
+def _data_norm(ctx, ins, attrs):
+    """(X - BatchSum / BatchSize) * sqrt(BatchSize / BatchSquareSum): the
+    accumulators are raw sums, not a variance estimate."""
+    x = ins["X"][0]
+    size = ins["BatchSize"][0]
+    mean = ins["BatchSum"][0] / size
+    scale = torch.sqrt(size / ins["BatchSquareSum"][0])
+    return {"Y": [(x - mean) * scale], "Means": [mean], "Scales": [scale]}
+
+
+@register_op("selu")
+def _selu(ctx, ins, attrs):
+    x = ins["X"][0]
+    scale = attrs.get("scale", 1.0507009873554805)
+    alpha = attrs.get("alpha", 1.6732632423543772)
+    return {"Out": [scale * torch.where(x > 0, x,
+                                        alpha * (torch.exp(x) - 1))]}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    """X / (k + alpha * the sum of X^2 over the n channels centred on
+    each, zero-padded)^beta. Not F.local_response_norm, which divides
+    alpha by n and pads otherwise."""
+    x = ins["X"][0]  # NCHW
+    n = attrs.get("n", 5)
+    half = n // 2
+    sq_pad = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+    c = x.shape[1]
+    acc = sq_pad[:, 0:c]
+    for i in range(1, n):
+        acc = acc + sq_pad[:, i:i + c]
+    mid = attrs.get("k", 2.0) + attrs.get("alpha", 1e-4) * acc
+    return {"Out": [x / torch.pow(mid, attrs.get("beta", 0.75))],
+            "MidOut": [mid]}
+
+
+@register_op("pixel_shuffle")
+def _pixel_shuffle(ctx, ins, attrs):
+    x = ins["X"][0]
+    r = attrs.get("upscale_factor", 1)
+    n, c, h, w = x.shape
+    out = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return {"Out": [out.reshape(n, c // (r * r), h * r, w * r)]}
+
+
+@register_op("space_to_depth")
+def _space_to_depth(ctx, ins, attrs):
+    x = ins["X"][0]
+    b = attrs.get("blocksize", 1)
+    n, c, h, w = x.shape
+    out = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": [out.reshape(n, c * b * b, h // b, w // b)]}
+
+
+@register_op("temporal_shift")
+def _temporal_shift(ctx, ins, attrs):
+    """Of [N*T, C, H, W]: the first C*ratio channels shifted one step
+    back in time, the next as many one step forward, zeros at the ends."""
+    x = ins["X"][0]
+    t = attrs["seg_num"]
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // t, t, c, h, w)
+    c1 = int(c * attrs.get("shift_ratio", 0.25))
+    fwd = F.pad(xr[:, 1:, :c1], (0, 0, 0, 0, 0, 0, 0, 1))
+    bwd = F.pad(xr[:, :-1, c1:2 * c1], (0, 0, 0, 0, 0, 0, 1, 0))
+    out = torch.cat([fwd, bwd, xr[:, :, 2 * c1:]], dim=2)
+    return {"Out": [out.reshape(nt, c, h, w)]}
+
+
+@register_op("shuffle_channel")
+def _shuffle_channel(ctx, ins, attrs):
+    x = ins["X"][0]
+    g = attrs.get("group", 1)
+    n, c, h, w = x.shape
+    return {"Out": [x.reshape(n, g, c // g, h, w).transpose(1, 2)
+                    .reshape(n, c, h, w)]}
+
+
+@register_op("affine_channel")
+def _affine_channel(ctx, ins, attrs):
+    x = ins["X"][0]
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return {"Out": [x * ins["Scale"][0].reshape(bshape)
+                    + ins["Bias"][0].reshape(bshape)]}
+
+
+@register_op("unfold")
+def _unfold(ctx, ins, attrs):
+    """im2col of NCHW X: [N, C * kh * kw, L], channels slowest. `paddings`
+    is [h, w] or [top, left, bottom, right]."""
+    x = ins["X"][0]
+    p = attrs.get("paddings", [0, 0, 0, 0])
+    top, left = p[0], p[1]
+    bottom = p[2] if len(p) > 2 else top
+    right = p[3] if len(p) > 3 else left
+    if (top, left) != (bottom, right):
+        x = F.pad(x, (left, right, top, bottom))
+        top = left = 0
+    return {"Y": [F.unfold(x, tuple(attrs["kernel_sizes"]),
+                           dilation=tuple(attrs.get("dilations", [1, 1])),
+                           padding=(top, left),
+                           stride=tuple(attrs.get("strides", [1, 1])))]}

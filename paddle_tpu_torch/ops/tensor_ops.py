@@ -1,6 +1,8 @@
-"""Tensor creation / init / random ops, assign, one_hot, label_smooth,
-the embedding lookups, and the small index and check ops (reverse,
-diag, eye, linspace, isfinite, has_inf, has_nan).
+"""Tensor creation / init / random ops (randint, sampling_id and the
+batch-size-like uniform too), assign, one_hot and one_hot_v2,
+label_smooth, the embedding lookups, multiplex, shard_index, and the
+small index and check ops (reverse, diag, eye, linspace, isfinite,
+has_inf, has_nan, is_empty, where_index).
 
 Random ops draw from the op's own generator (core/lowering.py), seeded
 from the program seed with the step and the op id folded in, so runs are
@@ -235,3 +237,83 @@ def _lookup_table(ctx, ins, attrs):
 def _lookup_table_v2(ctx, ins, attrs):
     w, ids = ins["W"][0], ins["Ids"][0]
     return _lookup(w, ids, attrs, ids.shape)
+
+
+@register_op("uniform_random_batch_size_like", stateful=True,
+             nondiff_inputs=("Input",), nondiff_outputs=("Out",))
+def _uniform_random_bsl(ctx, ins, attrs):
+    ref = ins["Input"][0]
+    shape = list(_shape_attr(attrs))
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    out = ctx.rand(shape, device=ref.device) * (hi - lo) + lo
+    return {"Out": [out.to(as_torch_dtype(attrs.get("dtype", "float32")))]}
+
+
+@register_op("randint", stateful=True, nondiff_outputs=("Out",))
+def _randint(ctx, ins, attrs):
+    """Integers uniform on [low, high)."""
+    shape = _shape_attr(attrs)
+    dtype = as_torch_dtype(attrs.get("dtype", "int64"))
+    if ctx.device.type == "meta":
+        return {"Out": [torch.empty(shape, dtype=dtype, device="meta")]}
+    return {"Out": [torch.randint(
+        attrs.get("low", 0), attrs.get("high", 100), shape,
+        generator=ctx.generator, device=ctx.device, dtype=dtype)]}
+
+
+@register_op("sampling_id", stateful=True, nondiff_outputs=("Out",))
+def _sampling_id(ctx, ins, attrs):
+    """One index a row of X [batch, n], drawn with probability
+    proportional to X + 1e-20 (the JAX lowering's categorical over
+    log(X + 1e-20))."""
+    x = ins["X"][0]
+    if x.device.type == "meta":
+        return {"Out": [torch.empty(x.shape[0], dtype=torch.int64,
+                                    device="meta")]}
+    return {"Out": [torch.multinomial(x.float() + 1e-20, 1,
+                                      generator=ctx.generator)
+                    .reshape(-1)]}
+
+
+@register_op("one_hot_v2", nondiff_inputs=("X",), nondiff_outputs=("Out",))
+def _one_hot_v2(ctx, ins, attrs):
+    # every dim of X kept; an index outside [0, depth) gives zeros
+    x = ins["X"][0]
+    depth = torch.arange(int(attrs["depth"]), device=x.device)
+    return {"Out": [(x[..., None] == depth).to(torch.float32)]}
+
+
+@register_op("is_empty", nondiff_outputs=("Out",))
+def _is_empty(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.tensor(x.numel() == 0, device=x.device)]}
+
+
+@register_op("where_index", nondiff_outputs=("Out",))
+def _where_index(ctx, ins, attrs):
+    """The `where` op of misc_ops on Condition (or X)."""
+    from .misc_ops import where_rows
+    cond = ins.get("Condition", ins.get("X"))[0]
+    return {"Out": [where_rows(cond)]}
+
+
+@register_op("multiplex", nondiff_inputs=("Ids",))
+def _multiplex(ctx, ins, attrs):
+    """Row i of Out is row i of X[Ids[i]]."""
+    ids = ins["Ids"][0].reshape(-1).long()
+    stacked = torch.stack(ins["X"], dim=0)
+    rows = torch.arange(stacked.shape[1], device=stacked.device)
+    return {"Out": [stacked[ids, rows]]}
+
+
+@register_op("shard_index", nondiff_inputs=("X",), nondiff_outputs=("Out",))
+def _shard_index(ctx, ins, attrs):
+    """X % shard_size where X lies in shard `shard_id`, else
+    ignore_value; shards of ceil(index_num / nshards) ids."""
+    x = ins["X"][0]
+    size = (attrs["index_num"] + attrs["nshards"] - 1) // attrs["nshards"]
+    in_shard = torch.div(x, size, rounding_mode="floor") == attrs["shard_id"]
+    return {"Out": [torch.where(in_shard, torch.remainder(x, size),
+                                attrs.get("ignore_value", -1))]}

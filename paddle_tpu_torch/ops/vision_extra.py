@@ -1,7 +1,9 @@
 """Vision ops beyond the bench models' set: conv3d_transpose (and the
-transposed convolution conv2d_transpose shares), spectral_norm and
-tree_conv. Plain torch: cuDNN's transposed convolutions on the card,
-and the reference's matrix formulation of the tree convolution."""
+transposed convolution conv2d_transpose shares), pool3d,
+max_pool3d_with_index, grid_sampler, spectral_norm and tree_conv. Plain
+torch: cuDNN's transposed convolutions and torch's pooling and grid
+sampling on the card, and the reference's matrix formulation of the
+tree convolution."""
 from __future__ import annotations
 
 import torch
@@ -115,3 +117,60 @@ def _tree_conv(ctx, ins, attrs):
                + (wt @ feat) @ w2[:, 2]) * active
         outs.append(out.reshape(n, osz, nf))
     return {"Out": [torch.stack(outs)]}
+
+
+@register_op("pool3d")
+def _pool3d(ctx, ins, attrs):
+    """Max or average pooling over NCDHW. Strides default to 2; an
+    exclusive average divides by the count of unpadded elements; an
+    adaptive pool (`ksize` the output size) needs divisible sizes, and
+    `ceil_mode` an exact division, or it raises, as in the JAX package."""
+    x = ins["X"][0]
+    ksize = list(attrs.get("ksize", [2, 2, 2]))
+    strides = list(attrs.get("strides", [2, 2, 2]))
+    pads = list(attrs.get("paddings", [0, 0, 0]))
+    ptype = attrs.get("pooling_type", "max")
+    spatial = list(x.shape[2:])
+    if attrs.get("ceil_mode", False):
+        for s, k, st, p in zip(spatial, ksize, strides, pads):
+            if (s + 2 * p - k) % st:
+                raise NotImplementedError(
+                    "pool3d ceil_mode=True with non-exact division is "
+                    "not supported; pad the input or adjust ksize/strides")
+    if attrs.get("adaptive", False):
+        for s, o in zip(spatial, ksize):
+            if s % o:
+                raise NotImplementedError(
+                    f"adaptive pool3d needs input sizes {tuple(spatial)} "
+                    f"divisible by the output size {tuple(ksize)}")
+        ksize = strides = [s // o for s, o in zip(spatial, ksize)]
+        pads = [0, 0, 0]
+    if attrs.get("global_pooling", False):
+        red = torch.amax if ptype == "max" else torch.mean
+        return {"Out": [red(x, dim=(2, 3, 4), keepdim=True)]}
+    if ptype == "max":
+        return {"Out": [F.max_pool3d(x, ksize, strides, pads)]}
+    return {"Out": [F.avg_pool3d(
+        x, ksize, strides, pads,
+        count_include_pad=not attrs.get("exclusive", True))]}
+
+
+@register_op("max_pool3d_with_index", nondiff_outputs=("Mask",))
+def _max_pool3d_with_index(ctx, ins, attrs):
+    """Max pooling and each window's winner as its (d * H + h) * W + w
+    index in the unpadded input (int32), the first of tied maxima;
+    strides default to 1."""
+    out, idx = F.max_pool3d(
+        ins["X"][0], tuple(attrs.get("ksize", [2, 2, 2])),
+        tuple(attrs.get("strides", [1, 1, 1])),
+        tuple(attrs.get("paddings", [0, 0, 0])), return_indices=True)
+    return {"Out": [out], "Mask": [idx.to(torch.int32)]}
+
+
+@register_op("grid_sampler")
+def _grid_sampler(ctx, ins, attrs):
+    """Bilinear samples of X [N, C, H, W] at Grid [N, H', W', 2] (x, y in
+    [-1, 1], the corners' centres at the ends), zero outside."""
+    return {"Output": [F.grid_sample(ins["X"][0], ins["Grid"][0],
+                                     mode="bilinear", padding_mode="zeros",
+                                     align_corners=True)]}

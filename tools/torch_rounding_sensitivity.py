@@ -24,6 +24,8 @@ Usage (both packages on the path, JAX on the CPU):
         --hw 33 --batch 2 [--branch-scale 0.1]
     JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py recipe \\
         --d-model 128 --layers 2 --len 128 [--steps 2]
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py se_resnext \\
+        [--batch 4] [--steps 2] [--pert 1e-6]
 
 ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
 --branch-scale multiplies the scale of every batch_norm that ends a
@@ -44,6 +46,14 @@ takes --steps steps from counter 9999, and each parameter's update
 the JAX package's; jax_pert_update, the JAX package's with the word
 embedding moved by --pert (default 1e-6) of each value (seeded noise)
 against the unmoved one. chip_smoke.py's RECIPE_UPDATE_RTOL comes from these.
+
+`se_resnext` reads float32 only: SE-ResNeXt at the JAX package's test
+size (3x32x32, 10 classes, stages (1, 1), cardinality 4, base 32,
+Momentum lr 0.01, dropout off: the frameworks draw other masks), batch
+--batch. Per parameter: port_f32 and jax_pert (the image moved by --pert
+of seeded noise) for the step-1 gradient, and port_update and
+jax_pert_update for the update after --steps steps; the largest loss
+gap of each too. chip_smoke.py's SE_RESNEXT_BARS come from these.
 """
 import argparse
 import sys
@@ -244,6 +254,76 @@ def _recipe(args):
     return 0
 
 
+def _se_resnext(args):
+    from paddle_tpu.models import se_resnext as sj
+    from paddle_tpu_torch.models import se_resnext as st
+
+    def build(f, mod):
+        main, startup = f.Program(), f.Program()
+        startup.random_seed = 11
+        drop = f.layers.dropout
+        f.layers.dropout = lambda x, dropout_prob, **kw: drop(x, 0.0, **kw)
+        try:
+            with f.program_guard(main, startup), f.unique_name.guard():
+                loss, _ = mod.build_train(
+                    img_shape=(3, 32, 32), class_dim=10,
+                    layers_per_stage=(1, 1), cardinality=4, base_ch=32,
+                    lr=0.01)
+        finally:
+            f.layers.dropout = drop
+        return main, startup, loss
+
+    (mj, startup, lj), (mt, _, lt) = build(fj, sj), build(ft, st)
+    init = _jax_init(startup)
+    rng = np.random.RandomState(0)
+    feed = {"image": rng.randn(args.batch, 3, 32, 32).astype(np.float32),
+            "label": rng.randint(0, 10, (args.batch, 1)).astype(np.int64)}
+    noise = np.random.RandomState(5).randn(*feed["image"].shape)
+    moved = dict(feed, image=(feed["image"] * (1 + args.pert * noise))
+                 .astype(np.float32))
+    names = sorted(p.name for p in mt.all_parameters())
+    fetch = [f"{p}@GRAD" for p in names]
+
+    def jax_run(fd):
+        scope = fj.Scope()
+        for k, v in init.items():
+            scope.set(k, v)
+        with fj.scope_guard(scope):
+            exe = fj.Executor(fj.CPUPlace())
+            out = [exe.run(mj, feed=fd, fetch_list=[lj.name] + fetch)
+                   for _ in range(args.steps)]
+            after = {n: np.asarray(scope.get(n)) for n in names}
+        return [np.asarray(x, np.float32) for x in out[0]], \
+            [float(o[0]) for o in out], after
+
+    def port_run(fd):
+        scope = scope_from_numpy(init, ft.Scope(), ft.CPUPlace())
+        exe = ft.Executor(ft.CPUPlace())
+        out = [exe.run(mt, feed=fd, fetch_list=[lt.name] + fetch,
+                       scope=scope) for _ in range(args.steps)]
+        return [np.asarray(x, np.float32) for x in out[0]], \
+            [float(o[0]) for o in out], \
+            {n: scope.get_numpy(n) for n in names}
+
+    (jg, jl, ja), (pg, pl, pa) = jax_run(feed), jax_run(moved)
+    tg, tl, ta = port_run(feed)
+    print(f"losses: jax {jl} moved {pl} port {tl}; largest gap port "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(tl, jl)):.3e} "
+          f"moved {max(abs(a - b) / abs(b) for a, b in zip(pl, jl)):.3e}")
+    keys = ("port_f32", "jax_pert", "port_update", "jax_pert_update")
+    top = dict.fromkeys(keys, 0.0)
+    for i, n in enumerate(names, 1):
+        step = ja[n] - init[n]
+        row = dict(zip(keys, (_fro(tg[i], jg[i]), _fro(pg[i], jg[i]),
+                              _fro(ta[n] - init[n], step),
+                              _fro(pa[n] - init[n], step))))
+        print(f"{n:28s} " + " ".join(f"{k} {v:.3e}" for k, v in row.items()))
+        for k, v in row.items():
+            top[k] = max(top[k], v)
+    print("max " + " ".join(f"{k} {v:.3e}" for k, v in top.items()))
+    return 0
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -273,9 +353,15 @@ def main(argv=None):
     b.add_argument("--len", type=int, default=128)
     b.add_argument("--steps", type=int, default=2)
     b.add_argument("--pert", type=float, default=1e-6)
+    s = sub.add_parser("se_resnext")
+    s.add_argument("--batch", type=int, default=4)
+    s.add_argument("--steps", type=int, default=2)
+    s.add_argument("--pert", type=float, default=1e-6)
     args = ap.parse_args(argv)
     if args.model == "recipe":
         return _recipe(args)
+    if args.model == "se_resnext":
+        return _se_resnext(args)
     progs, init, base, moved = {"resnet": _resnet, "nmt": _nmt,
                                 "deeplab": _deeplab}[args.model](args)
     names = [p.name for p in progs["t", False][0].all_parameters()]
