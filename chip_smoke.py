@@ -56,6 +56,17 @@ Phases, one progress line each; any failure exits non-zero:
              JAX package's engine records (SERVE_STATS), each request's
              and batch's span tree, the goodput ledger summing to its wall
              clock, and requests/s with the hooks off and on.
+   serve_gates — (after serve_hooks) the same saved model through a
+             new ServingEngine with FLAGS_program_verify=error and the
+             gate memos empty: warmup's analysis.* stats show one verify,
+             one optimize and one memory plan per ladder cell, no cache
+             miss after warmup, the answers within SERVE_GATE_TOL of
+             [serve]'s, the float32 forward 12 times a batch; then a
+             budget of half the planner's estimate for the largest cell
+             refuses warmup with PTV050, and a copy of the program with
+             an undeclared read refuses Executor.run with PTV010, each
+             with the cache misses and the card's allocated bytes
+             unchanged.
 5. buckets — after the serving run: per batch bucket (1, 2, 4, 8) the
              predictor's run time and the forward's card time, and at
              batch 8 a torch.profiler breakdown of device time by kernel
@@ -80,6 +91,20 @@ Phases, one progress line each; any failure exits non-zero:
              peak, peak memory, and the profiled step must run
              fwd_kernel_tf32wg, dq_kernel_tf32wg and dkv_kernel_tf32wg 12
              times each and no other flash kernel.
+   compiled_train — [train]'s step through
+             CompiledProgram(main).with_data_parallel(loss_name=...) at
+             FLAGS_graph_opt_level 0, 1 and 2, 3 steps each from one
+             startup state under torch's deterministic algorithms: losses
+             and final state at levels 1 and 2 equal to level 0's, each
+             flash kernel 12 times a step, no cache miss after the first
+             step; per level the passes' op counts, fused groups, renamed
+             vars, sunk updates and donation plan, each gate's first-run
+             host seconds, the planner's peak estimate beside the
+             measured peak, host ms a step and one profiled step's device
+             ms.
+   Every training run through run_steps also prints [<tag>_plan]: the
+             static memory planner's peak estimate for its program and
+             feed beside the measured peak (no bar).
 8. train_cpu_check — the same model at batch 1, dropout 0, in float32
              and in bf16 AMP: one step on the card and one on the CPU
              (plain versions) from the same startup values; the loss and
@@ -292,16 +317,16 @@ nothing after that draw is compared, and the flips and margins print.
 
 The last two lines of standard output are one JSON object listing the
 kernels (launches on the serving and training paths, error, times,
-bound; the bf16 entries count the BERT (build_train, both recipes and
-the DataLoader-fed run), GPT, NMT and BERT-large training runs and
-carry the GPT path's [384, 511, 64] causal shape under `causal_*` keys,
-NMT's [512, 256, 64] under `nmt_*` (encoder) and `nmt_causal_*`
-(decoder) keys and BERT-large's [256, 512, 64] under `bert_large_*`;
-the float32 instances as entries of their own, with the serving (direct
-and over HTTP), float32 training and float32 check-step launches, the
-recipe check's and the dygraph BERT's, its check's and its traced
-call's included), a
-[done] line with the run's length before them, and the result line
+bound; the bf16 entries count the BERT (build_train, both recipes, the
+DataLoader-fed run and [compiled_train]'s three levels), GPT, NMT and
+BERT-large training runs and carry the GPT path's [384, 511, 64] causal
+shape under `causal_*` keys, NMT's [512, 256, 64] under `nmt_*`
+(encoder) and `nmt_causal_*` (decoder) keys and BERT-large's [256, 512,
+64] under `bert_large_*`; the float32 instances as entries of their
+own, with the serving (direct, [serve_gates] and over HTTP), float32
+training and float32 check-step launches, the recipe check's and the
+dygraph BERT's, its check's and its traced call's included), a [done]
+line with the run's length before them, and the result line
 {"ok": true, "device": {...}}.
 """
 import json
@@ -384,6 +409,7 @@ BF16_FWD_DIFF_SHARE = 0.6
 # one bf16 AMP training step, card vs CPU: the loss, and each gradient's
 # Frobenius gap over its norm (measured on the H100: 1.2e-5 and at most
 # 8.1e-3, bf16 rounding at different points of the two devices' products)
+SERVE_GATE_TOL = 1e-4      # [serve_gates] vs [serve]: other batchings
 AMP_LOSS_RTOL = 1e-4
 AMP_GRAD_RTOL = 2e-2
 
@@ -1304,6 +1330,18 @@ class Run(NamedTuple):
     peaks: list
 
 
+def planned_peak_bytes(main, feed, fetch):
+    """The static memory planner's peak estimate for the program the
+    executor runs for `main` at `feed` (the optimized one, its memory
+    plan at the feed's shapes): memo hits of the gates the run passed."""
+    from paddle_tpu_torch import Executor
+    from paddle_tpu_torch.analysis import memory_gate, optimize_gate
+    fetch = [getattr(v, "name", v) for v in fetch]
+    sig = Executor.feed_signature(main.global_block(), feed)
+    prog, _ = optimize_gate(main, feed_names=sig.keys(), fetch_names=fetch)
+    return memory_gate(prog, feed_shapes=sig, fetch_names=fetch).peak_bytes
+
+
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
               warmup, steps, symbols, tokens_per_step, flops_per_token,
               peak, unit="tokens", must_fall=True,
@@ -1337,6 +1375,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         the host). exe.run returns the loss tensor before the card is
         done; reading it waits for the card."""
         step_feed = next_feed()
+        last_feed[0] = step_feed
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = exe.run(main, feed=step_feed, fetch_list=[loss, *fetch],
@@ -1348,7 +1387,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         fetched.append([x.double().cpu().numpy() for x in out[1:]])
         return value, (t_host - t0) * 1e3, (t_end - t0) * 1e3
 
-    fetched, peaks = [], []
+    fetched, peaks, last_feed = [], [], [None]
 
     losses = [step()[0]]
     misses_after_first = exe.cache_stats()["misses"]
@@ -1391,6 +1430,11 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           launches_per_step=launches["flash_attention_fwd"] // steps,
           losses=",".join(f"{x:.4f}" for x in losses),
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
+    est = planned_peak_bytes(main, last_feed[0], [loss, *fetch])
+    phase(f"{tag}_plan", est_peak_gb=f"{est / 1e9:.3f}",
+          measured_peak_gb=f"{peak_gb:.3f}",
+          est_over_measured=f"{est / 1e9 / peak_gb:.4f}",
+          card=f"'{card}'")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1456,6 +1500,364 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
                   flush=True)
     return Run(launches, busy, host_ms, fetched, peak_gb, losses,
                outside_ms, peaks)
+
+
+COMPILED_LEVELS = (0, 1, 2)
+COMPILED_STEPS = 3
+
+
+def _reset_gate_memos():
+    """Every gate memo of the port emptied, so the next gates run fresh."""
+    from paddle_tpu_torch.analysis import memory, passes, verifier
+    verifier.reset_memo()
+    memory.reset_memo()
+    passes.reset_memo()
+
+
+def time_executor_gates():
+    """Count the host seconds of every Executor.run's gates from here on
+    (Executor._gates wrapped): returns [seconds, calls], updated in
+    place."""
+    from paddle_tpu_torch.executor import Executor
+    total = [0.0, 0]
+    gates = Executor._gates
+
+    def timed(cls, program, feed, fetch_names):
+        t0 = time.perf_counter()
+        try:
+            return gates(program, feed, fetch_names)
+        finally:
+            total[0] += time.perf_counter() - t0
+            total[1] += 1
+
+    Executor._gates = classmethod(timed)
+    return total
+
+
+def timed_gates(main, feed, fetch):
+    """The executor's three gates on `main` at `feed`, each timed on its
+    first (unmemoized) run: ({gate: host seconds}, optimize report,
+    memory plan). The executor's own gates then hit these memos."""
+    from paddle_tpu_torch import Executor
+    from paddle_tpu_torch.analysis import (memory_gate, optimize_gate,
+                                           verify_gate)
+    _reset_gate_memos()
+    sig = Executor.feed_signature(main.global_block(), feed)
+    secs = {}
+    t0 = time.perf_counter()
+    verify_gate(main, feed_names=sig.keys(), fetch_names=fetch)
+    secs["verify"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog, report = optimize_gate(main, feed_names=sig.keys(),
+                                 fetch_names=fetch)
+    secs["optimize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = memory_gate(prog, feed_shapes=sig, fetch_names=fetch)
+    secs["memory"] = time.perf_counter() - t0
+    return secs, report, plan
+
+
+def compiled_train_phase(torch, card):
+    """[compiled_train]: [train]'s BERT-base step (b32, T512, bf16 AMP,
+    AdamW, dropout 0.1) run as a Fluid script runs it, through
+    CompiledProgram(main).with_data_parallel(loss_name=loss.name), at
+    FLAGS_graph_opt_level 0, 1 and 2: COMPILED_STEPS steps at each level
+    from one startup state copied into a fresh scope, under torch's
+    deterministic algorithms. Gates: the losses and the final parameters
+    and optimizer state at levels 1 and 2 equal level 0's (max |diff| 0;
+    where a second level-0 run differs from the first, their gap is the
+    bar); each flash kernel launches 12 times a step at every level; no
+    executor cache miss after the first step. Prints per level
+    ([compiled_train_level]): the op counts before and after each pass,
+    the fused groups, renamed vars, sunk updates and the donation plan's
+    size; the planner's peak estimate beside the run's measured peak
+    (torch.cuda.max_memory_allocated() over what was allocated before
+    its scope) and their ratio; each gate's
+    first-run host seconds; the median host ms to enqueue a step and
+    one profiled step's device ms. Returns the launches of every level's
+    steps."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.profiler import device_kernels
+
+    batch = TRAIN_RUNS[True][0]
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
+                                use_flash=True)
+    main, startup, loss = _build_train(ptt, transformer, cfg, batch, True)
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    del scope
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, cfg.vocab_size, (batch, T)).astype("int64")
+    feed = {"tokens": toks, "labels": toks}
+    fetch = [loss.name]
+
+    def run(level, profiled, base=None):
+        """COMPILED_STEPS steps at `level` from the startup state: (losses,
+        final state (with `base`, level 0's: its largest gap to it
+        instead), launches, host ms a step, the run's peak bytes over
+        what was allocated before its scope, misses after each step,
+        gate seconds, optimize report, memory plan, device ms of one
+        profiled step after them)."""
+        prev = ptt.get_flags(["FLAGS_graph_opt_level"])
+        ptt.set_flags({"FLAGS_graph_opt_level": level})
+        try:
+            secs, report, plan = timed_gates(main, feed, fetch)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base_bytes = torch.cuda.memory_allocated()
+            sc = ptt.Scope()
+            for n, t in init.items():
+                sc.set(n, t.clone())
+            exe = ptt.Executor()
+            compiled = ptt.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name)
+            losses, host, misses = [], [], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launch_counts()
+            for _ in range(COMPILED_STEPS):
+                t0 = time.perf_counter()
+                out = exe.run(compiled, feed=feed, fetch_list=fetch,
+                              scope=sc, return_numpy=False)
+                host.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(out[0]))
+                misses.append(exe.cache_stats()["misses"])
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base_bytes
+            state = {n: sc.get(n).clone() for n in init}
+            if base is not None:
+                state = gap(base, state)
+            device_ms = None
+            if profiled:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    exe.run(compiled, feed=feed, fetch_list=fetch,
+                            scope=ptt.Scope(sc))
+                    torch.cuda.synchronize()
+                device_ms = sum(ms for ms, _ in
+                                device_kernels(prof).values())
+            return (losses, state, launches, statistics.median(host), peak,
+                    misses, secs, report, plan, device_ms)
+        finally:
+            ptt.set_flags(prev)
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max())
+                   if x.is_floating_point() else
+                   float((x != y).sum()) for x, y in
+                   ((a[n], b[n]) for n in a))
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t_phase = time.perf_counter()
+    try:
+        runs = {0: run(0, profiled=True)}
+        base = runs[0]
+        for level in COMPILED_LEVELS[1:]:
+            runs[level] = run(level, profiled=True, base=base[1])
+        gaps = {level: max(max(abs(a - b) for a, b in
+                               zip(base[0], runs[level][0])),
+                           runs[level][1])
+                for level in COMPILED_LEVELS[1:]}
+        bar = 0.0
+        if any(gaps.values()):
+            again = run(0, profiled=False, base=base[1])
+            bar = max(max(abs(a - b) for a, b in zip(base[0], again[0])),
+                      again[1])
+            del again
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    launches = dict.fromkeys(runs[0][2], 0)
+    for level, (losses, _, lau, host_ms, peak, misses, secs, report,
+                plan, device_ms) in runs.items():
+        passes = (report or {}).get("passes", [])
+        detail = {}
+        for p in passes:
+            detail[f"{p['name']}_ops"] = f"{p['ops_before']}->{p['ops_after']}"
+            for k in ("removed", "folded", "deduped", "groups", "fused_ops",
+                      "merged", "reused_vars", "sunk_updates",
+                      "donated_vars", "donated_bytes"):
+                if k in p:
+                    detail[f"{p['name']}_{k}"] = p[k]
+        ops = (report or {}).get("ops_after", len(main.global_block().ops))
+        phase("compiled_train_level", level=level, ops=ops, **detail,
+              **{f"{g}_gate_s": f"{v:.3f}" for g, v in secs.items()},
+              est_peak_gb=f"{plan.peak_bytes / 1e9:.3f}",
+              measured_peak_gb=f"{peak / 1e9:.3f}",
+              est_over_measured=f"{plan.peak_bytes / peak:.4f}",
+              host_ms_median=f"{host_ms:.3f}",
+              device_ms=f"{device_ms:.3f}" if device_ms else "not measured",
+              losses=",".join(f"{x:.6f}" for x in losses),
+              card=f"'{card}'")
+        for name, n in lau.items():
+            launches[name] += n
+            check(n == cfg.n_layers * COMPILED_STEPS,
+                  f"[compiled_train] level {level}: {name} launches {n} "
+                  f"!= {cfg.n_layers} x {COMPILED_STEPS}")
+        check(misses[-1] == misses[0], f"[compiled_train] level {level}: "
+              f"cache misses after the first step {misses}")
+        check(all(math.isfinite(x) for x in losses),
+              f"[compiled_train] level {level}: losses {losses}")
+    phase("compiled_train", levels=",".join(map(str, COMPILED_LEVELS)),
+          steps=COMPILED_STEPS,
+          **{f"gap_level{lv}_vs_0": f"{g:.3e}" for lv, g in gaps.items()},
+          level0_rerun_gap=f"{bar:.3e}", deterministic_algorithms=True,
+          seconds=f"{time.perf_counter() - t_phase:.1f}", card=f"'{card}'")
+    for level, g in gaps.items():
+        check(g <= bar, f"[compiled_train] level {level} differs from level "
+              f"0 by {g} (two level-0 runs by {bar})")
+    return launches
+
+
+def serve_gates_phase(torch, card, model_dir, reqs, answers):
+    """[serve_gates]: the BERT-base model [serve] saved, served by a new
+    ServingEngine with FLAGS_program_verify=error and the monitor on, its
+    gate memos empty. Gates: warmup ran one verify, one optimize and one
+    memory plan per ladder cell (the analysis.* stats), no cache miss
+    after warmup, [serve]'s requests answered within SERVE_GATE_TOL of
+    [serve]'s answers (the batches coalesce otherwise), and
+    fwd_kernel_tf32wg's wrapper launched 12 times a batch. Then two
+    refusals, each before anything runs: with FLAGS_memory_budget_bytes at
+    half the planner's estimate for the largest cell, a new engine's
+    warmup raises PTV050; under error mode, a copy of the program with
+    one op reading an undeclared var raises PTV010 in Executor.run. After
+    each, cache_stats()["misses"] and torch.cuda.memory_allocated() are
+    unchanged. Returns the flash forward's launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.analysis import (ProgramVerificationError,
+                                           analyze_program_memory,
+                                           optimize_gate)
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from paddle_tpu_torch.serving import EngineConfig, ServingEngine
+
+    def engine():
+        return ServingEngine(EngineConfig(max_batch_size=MAX_BATCH),
+                             predictor=create_paddle_predictor(
+                                 AnalysisConfig(model_dir)))
+
+    prev = ptt.get_flags(["FLAGS_program_verify", "FLAGS_enable_monitor",
+                          "FLAGS_memory_budget_bytes"])
+    ptt.set_flags({"FLAGS_program_verify": "error",
+                   "FLAGS_enable_monitor": True})
+    monitor.reset_stats()
+    _reset_gate_memos()
+    try:
+        eng = engine()
+        t0 = time.perf_counter()
+        eng.start()
+        warm_s = time.perf_counter() - t0
+        cells = len(eng.warmup_shapes())
+        counters = monitor.get_stats_snapshot()["counters"]
+        stats = {k: counters.get(k, 0) for k in (
+            "analysis.programs_verified", "analysis.pass_programs_optimized",
+            "analysis.mem_plans")}
+        warm = eng.cache_stats()["misses"]
+        _zero_launch_counts()
+        batches0 = eng.batches
+        got = [eng.predict({"tokens": r}, timeout_ms=60000)[0]
+               for r in reqs]
+        launches = flash_attention.launches
+        batches = eng.batches - batches0
+        misses = eng.cache_stats()["misses"]
+        pred = eng.predictor
+        eng.stop()
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, answers))
+
+        # refusal 1: a budget of half the largest cell's estimate
+        prog = pred.program()
+        fetches = pred.get_output_names()
+        opt, _ = optimize_gate(prog, feed_names=["tokens"],
+                               fetch_names=fetches)
+        est = analyze_program_memory(
+            opt, ["tokens"], fetches,
+            {"tokens": ((MAX_BATCH, T), "int32")}).peak_bytes
+        big = engine()
+        misses0 = big.predictor._exe.cache_stats()["misses"]
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        ptt.set_flags({"FLAGS_memory_budget_bytes": est // 2})
+        refused = None
+        try:
+            big.warmup()
+        except ProgramVerificationError as e:
+            refused = str(e)
+        ptt.set_flags({"FLAGS_memory_budget_bytes":
+                       prev["FLAGS_memory_budget_bytes"]})
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        misses1 = big.predictor._exe.cache_stats()["misses"]
+
+        # refusal 2: an op reading an undeclared var, in Executor.run
+        bad = prog.clone()
+        op = next(o for o in bad.global_block().ops if "X" in o.inputs)
+        op.inputs["X"] = ["undeclared_var"]
+        exe = pred._exe
+        misses2 = exe.cache_stats()["misses"]
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        refused2 = None
+        try:
+            exe.run(bad, feed={"tokens": reqs[0]}, fetch_list=fetches,
+                    scope=pred._scope)
+        except ProgramVerificationError as e:
+            refused2 = str(e)
+        torch.cuda.synchronize()
+        mem3 = torch.cuda.memory_allocated()
+        misses3 = exe.cache_stats()["misses"]
+    finally:
+        ptt.set_flags(prev)
+        monitor.reset_stats()
+
+    phase("serve_gates", cells=cells, warmup_s=f"{warm_s:.2f}",
+          programs_verified=stats["analysis.programs_verified"],
+          programs_optimized=stats["analysis.pass_programs_optimized"],
+          mem_plans=stats["analysis.mem_plans"],
+          misses_after_warmup=misses - warm, batches=batches,
+          launches=launches, max_abs_diff_vs_serve=f"{err:.3e}",
+          est_peak_gb_largest_cell=f"{est / 1e9:.3f}",
+          budget_refusal="PTV050" in (refused or ""),
+          budget_refusal_misses=misses1 - misses0,
+          budget_refusal_alloc_bytes=mem1 - mem0,
+          verify_refusal="PTV010" in (refused2 or ""),
+          verify_refusal_misses=misses3 - misses2,
+          verify_refusal_alloc_bytes=mem3 - mem2, card=f"'{card}'")
+    check(stats == {"analysis.programs_verified": 1,
+                    "analysis.pass_programs_optimized": 1,
+                    "analysis.mem_plans": cells},
+          f"[serve_gates] warmup gate runs {stats}, not 1 verify, 1 "
+          f"optimize and {cells} memory plans")
+    check(misses == warm, f"[serve_gates] cache misses after warmup: "
+          f"{warm} -> {misses}")
+    check(err <= SERVE_GATE_TOL, f"[serve_gates] answers differ from "
+          f"[serve]'s by {err}")
+    check(batches > 0 and launches == 12 * batches,
+          f"[serve_gates] flash forward launches {launches} != 12 x "
+          f"{batches} batches")
+    check(refused is not None and "PTV050" in refused,
+          f"[serve_gates] warmup under half the estimate did not refuse "
+          f"with PTV050: {refused}")
+    check(misses1 == misses0 and mem1 == mem0,
+          f"[serve_gates] the PTV050 refusal moved misses {misses0} -> "
+          f"{misses1} or allocated bytes {mem0} -> {mem1}")
+    check(refused2 is not None and "PTV010" in refused2,
+          f"[serve_gates] the undeclared read did not refuse with PTV010: "
+          f"{refused2}")
+    check(misses3 == misses2 and mem3 == mem2,
+          f"[serve_gates] the PTV010 refusal moved misses {misses2} -> "
+          f"{misses3} or allocated bytes {mem2} -> {mem3}")
+    return launches
 
 
 def train_cpu_check(torch):
@@ -6582,6 +6984,7 @@ def main():
     if args == ["--ablations"]:
         ablation_phase()
         return 0
+    gate_time = time_executor_gates()
     build_phase()
     smem_phase()
     if args == ["--mutants"]:
@@ -6595,8 +6998,10 @@ def main():
         records[key]["flash_attention_fwd"]["max_abs_err"] = err
     bert_dir = tempfile.TemporaryDirectory(prefix="ptt_bert_")
     served = serve_phase(torch, card, bert_dir.name)
+    gated = serve_gates_phase(torch, card, bert_dir.name, *served[1:3])
     trained, train_info = train_phase(torch, card)
     trained_f32, f32_info = train_phase(torch, card, amp=False)
+    compiled_trained = compiled_train_phase(torch, card)
     checked_f32 = train_cpu_check(torch)
     recipe_bert = bert_recipe_phase(torch, card, train_info)
     recipe_lamb = bert_recipe_phase(torch, card, train_info, "lamb")
@@ -6668,7 +7073,8 @@ def main():
     out = [entry(name, records["bfloat16"][name],
                  trained[name] + gpt_trained[name] + nmt_trained[name] +
                  recipe_bert[name] + recipe_lamb[name] +
-                 loader_trained[name] + large_trained[name],
+                 loader_trained[name] + large_trained[name] +
+                 compiled_trained[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name],
@@ -6679,10 +7085,13 @@ def main():
                   checked_f32[name] + checked_recipe[name] +
                   dygraph_trained[name] + dygraph_checked[name] +
                   dygraph_traced[name] +
-                  (http_served if name == "flash_attention_fwd" else 0),
+                  (http_served + gated if name == "flash_attention_fwd"
+                   else 0),
                   "float32")
             for name in KERNEL_SOURCES]
-    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    phase("done", seconds=f"{time.perf_counter() - t_start:.1f}",
+          executor_gate_s=f"{gate_time[0]:.1f}",
+          executor_gate_calls=gate_time[1])
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

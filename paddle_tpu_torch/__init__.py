@@ -42,6 +42,10 @@ from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
 from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
 from .executor import Executor  # noqa: F401,E402
+from .compiler import (  # noqa: F401,E402
+    BuildStrategy, CompiledProgram, ExecutionStrategy)
+from . import compiler  # noqa: F401,E402
+from . import analysis  # noqa: F401,E402
 from . import layers  # noqa: F401,E402
 from . import nets  # noqa: F401,E402
 from . import initializer  # noqa: F401,E402

@@ -313,3 +313,41 @@ _define("alert_bundle_max_spans", 512, int,
         "Cap on kept-trace-ring spans embedded in one incident bundle "
         "(newest kept spans win, after breaching-bucket exemplar traces "
         "are included first). Bounds bundle size on busy servers.")
+_define("program_verify", "warn", str,
+        "Static program verification (analysis/) before the executor or "
+        "the serving engine prepares a run: 'off' = skip; 'warn' "
+        "(default) = verify once per (program fingerprint, feeds, "
+        "fetches) and surface the findings as one summarized warning; "
+        "'error' = raise ProgramVerificationError on error-severity "
+        "findings, with '{op_type}:{block}/{op_idx}' provenance, before "
+        "the executor's cache records a miss. Shape and dtype inference "
+        "runs each op's lowering on meta tensors: no data, no kernel.")
+_define("graph_opt_level", 1, int,
+        "Program-IR optimization before the run (analysis/passes): 0 = "
+        "run the program as built; 1 (default) = dead-op elimination, "
+        "constant folding and CSE on a verified clone; 2 adds "
+        "elementwise-chain fusion (one fused_elementwise op replaying "
+        "the chain), buffer reuse and the donation plan. The optimized "
+        "program must re-verify clean (error semantics) before it "
+        "replaces the original, and it is what the executor's cache is "
+        "keyed on.")
+_define("memory_budget_bytes", 0, int,
+        "Device-memory budget of the static memory gate "
+        "(analysis/memory.py). 0 (default) = the card's total memory "
+        "(core.memory.device_memory_stats); the CPU reports none, so the "
+        "gate never fires there. -1 = never apply a budget. A positive "
+        "value is the budget in bytes. PTV050 fires when a program's "
+        "estimated peak exceeds it, PTV051 when one tensor alone does.")
+_define("memory_gate", "error", str,
+        "The static memory gate (analysis/memory.py): 'off' = skip; "
+        "'warn' = analyze once per (fingerprint, feed shapes, fetches, "
+        "budget) and surface PTV05x findings as one summarized warning; "
+        "'error' (default) = raise ProgramVerificationError on "
+        "PTV050/PTV051 in Executor.run before the cache records a miss, "
+        "and in ServingEngine.warmup before any ladder cell runs.")
+_define("buffer_reuse", True, bool,
+        "Enable the buffer-reuse rewrite (analysis/passes/reuse.py) at "
+        "FLAGS_graph_opt_level >= 2: transient vars of one shape and "
+        "dtype with disjoint liveness intervals are renamed onto one "
+        "buffer, after each in-place state update is sunk to just past "
+        "its last dependency.")

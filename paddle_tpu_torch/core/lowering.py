@@ -13,12 +13,19 @@ that a grad op names (``fwd_id``) runs under ``torch.enable_grad()`` on
 its differentiable inputs detached into leaves, and its (leaves, outputs)
 are recorded in the run's context. Its grad op runs
 ``torch.autograd.grad`` over that record and drops it, so the forward's
-saved tensors are freed as the backward walks.
+saved tensors are freed as the backward walks. Two rewrites of the graph
+passes (analysis/passes) keep the records reachable: a sub-op of a
+``fused_elementwise`` op records under its own id (ops/fused.py), and
+where CSE merged two forward ops (``program._record_alias``), the
+survivor's record serves the grad ops of both: it is read with its graph
+retained until its last reader.
 
 Op scopes: while a torch profiler records (and FLAGS_op_trace_scopes is
 on), each op runs under ``record_function("{op.type}:{block}/{idx}")``,
-so the profiler links every kernel to its Program op. The JAX package
-stamps the same scope into compiled metadata at no run-time cost; here
+so the profiler links every kernel to its Program op; an op of a fusion
+group (level 2, analysis/passes/fusion.py) takes its group's label in
+front, ``"ewfuse0/fused_elementwise:0/12"``, as in the JAX package,
+which stamps the same scope into compiled metadata at no run-time cost; here
 a scope would cost every eager step a host call an op, so none is
 entered without a profiler.
 """
@@ -39,6 +46,13 @@ GRAD_SUFFIX = "@GRAD"
 # name changes (programs stay byte-identical across the packages); the
 # tensors at run time keep torch's dtypes.
 _IR_DTYPE = {"int64": "int32", "float64": "float32"}
+
+
+def ir_dtype(dtype) -> str:
+    """The IR's name for a dtype (str, numpy or torch): `_IR_DTYPE`'s
+    32-bit name for a 64-bit type, else its own."""
+    name = convert_dtype(dtype)
+    return _IR_DTYPE.get(name, name)
 
 # Placeholder for the dynamic (batch) dimension during build-time shape
 # inference; outputs containing this dim are mapped back to -1. A large
@@ -64,16 +78,22 @@ def _mix(*words) -> int:
 class LowerCtx:
     """Per-run context: the device, random seeds, train/infer mode, the
     autograd records of the forward ops named in `record_ids`, and per op
-    id the outputs that nothing reads (`unread`: an op may skip them)."""
+    id the outputs that nothing reads (`unread`: an op may skip them).
+    `record_alias` maps a forward op id that CSE merged away to its
+    survivor's; `record_readers` counts, per recorded id, the grad ops
+    that read it (1 when absent)."""
 
     def __init__(self, device, seed=0, step=0, is_test=False,
-                 record_ids=frozenset(), unread=None):
+                 record_ids=frozenset(), unread=None, record_alias=None,
+                 record_readers=None):
         self.device = torch.device(device)
         self.seed = int(seed)
         self.step = int(step)
         self.is_test = is_test
         self.record_ids = record_ids
         self.unread = unread or {}
+        self.record_alias = record_alias or {}
+        self.readers_left = dict(record_readers or {})
         # forward op id -> (its inputs with leaves, its outputs)
         self.records = {}
 
@@ -129,8 +149,10 @@ def run_op(op, env, ctx, op_idx=None):
         # FLAGS_op_trace_scopes: the profiler links each kernel to the op
         # that launched it (profiler.summarize_profile's by_framework_op);
         # without a profiler no scope is entered
+        group = getattr(op, "_fusion_group", None)
         with torch.profiler.record_function(
-                f"{op.type}:{blk}/{'?' if op_idx is None else op_idx}"):
+                f"{group + '/' if group else ''}{op.type}:{blk}/"
+                f"{'?' if op_idx is None else op_idx}"):
             outs = _lower(op, opdef, opctx, ins, ctx)
     else:
         outs = _lower(op, opdef, opctx, ins, ctx)
@@ -191,9 +213,16 @@ class _OpCtx:
         return v is not None and v.persistable
 
     def pop_record(self, fwd_id):
-        """The forward op's (inputs, outputs) record, removed from the
-        run's context; None if it left none."""
-        return self._ctx.records.pop(fwd_id, None)
+        """(the forward op's (inputs, outputs) record or None if it left
+        none, whether this is its last reader). The last reader removes
+        it from the run's context."""
+        ctx = self._ctx
+        fwd_id = ctx.record_alias.get(fwd_id, fwd_id)
+        left = ctx.readers_left.get(fwd_id, 1) - 1
+        if left > 0:
+            ctx.readers_left[fwd_id] = left
+            return ctx.records.get(fwd_id), False
+        return ctx.records.pop(fwd_id, None), True
 
     @property
     def generator(self):
@@ -233,7 +262,7 @@ def _generic_grad(ctx, ins, attrs):
     the cotangents of its outputs. Outputs without a cotangent and inputs
     the outputs do not reach get zeros, as jax.vjp gives."""
     fwd_id = attrs["fwd_id"]
-    record = ctx.pop_record(fwd_id)
+    record, last = ctx.pop_record(fwd_id)
     if record is None:
         raise RuntimeError(
             f"grad::generic of {attrs['fwd_type']!r} (forward op id "
@@ -266,7 +295,8 @@ def _generic_grad(ctx, ins, attrs):
                 where.append((gslot, i))
             else:
                 result[gslot][i] = torch.zeros_like(leaf)
-    grads = torch.autograd.grad(outs, targets, cots, allow_unused=True) \
+    grads = torch.autograd.grad(outs, targets, cots, allow_unused=True,
+                                retain_graph=not last) \
         if outs and targets else [None] * len(targets)
     for (gslot, i), leaf, g in zip(where, targets, grads):
         result[gslot][i] = torch.zeros_like(leaf) if g is None else g
@@ -316,6 +346,5 @@ def infer_op_shapes(op, block):
         out = env[name]
         v = block.var(name)
         v.shape = tuple(-1 if d == _DYN_DIM else int(d) for d in out.shape)
-        dtype = convert_dtype(out.dtype)
-        v.dtype = _IR_DTYPE.get(dtype, dtype)
+        v.dtype = ir_dtype(out.dtype)
 

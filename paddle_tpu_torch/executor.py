@@ -21,6 +21,21 @@ Two modes, chosen when a run is prepared:
 
 Any var of the block can be fetched, a gradient (``…@GRAD``) included.
 
+The JAX package's static gates run between the feed and the cache key,
+in its order (analysis/):
+
+1. the verifier (FLAGS_program_verify, default warn);
+2. the graph passes (FLAGS_graph_opt_level, default 1): the optimized
+   program keys the cache and runs;
+3. the memory gate (FLAGS_memory_gate, default error) on the optimized
+   program at the feed's shapes.
+
+Each is memoized per program fingerprint (cached on the Program) and
+signature, so after the first run they cost a few dictionary lookups. A
+program a gate refuses raises before the cache records a miss and
+before a feed is copied to the card. A ``CompiledProgram`` runs as its
+program (compiler.py).
+
 Instrumentation, as in the JAX package's executor: the ``executor.*``
 stats (FLAGS_enable_monitor), the goodput ledger's step split
 (FLAGS_enable_goodput), ``executor.feed`` / ``executor.dispatch`` /
@@ -46,8 +61,10 @@ import torch
 
 from . import goodput as _goodput
 from . import trace as _trace
+from .analysis import memory_gate, optimize_gate, verify_gate
 from .core.dtypes import as_torch_dtype
-from .core.lowering import LowerCtx, lower_block
+from .core.lowering import LowerCtx, ir_dtype, lower_block
+from .core.memory import record_device_memory
 from .core.place import Place, default_place
 from .core.scope import Scope, global_scope, scope_guard, tensor_to_numpy
 from .framework import Program, Variable
@@ -68,10 +85,15 @@ class _PreparedStep:
     grad op)."""
 
     def __init__(self, state_in_names, state_out_names, record_ids,
-                 drop_after, unread):
+                 drop_after, unread, record_alias=None,
+                 record_readers=None):
         self.state_in_names = state_in_names
         self.state_out_names = state_out_names
         self.record_ids = record_ids
+        # CSE-merged forward op id -> survivor id, and per recorded id
+        # the number of grad ops that read its record
+        self.record_alias = record_alias or {}
+        self.record_readers = record_readers or {}
         self.inference = not state_out_names and not record_ids
         # op index -> vars whose last use it is (not fetched, not state)
         self.drop_after = drop_after
@@ -102,19 +124,24 @@ class Executor:
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, scope: Optional[Scope] = None,
             return_numpy=True, use_program_cache=True):
+        from .compiler import CompiledProgram
+
         if program is None:
             from .framework import default_main_program
             program = default_main_program()
+        if isinstance(program, CompiledProgram):
+            program = program.program
         scope = scope or global_scope()
         feed = dict(feed or {})
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        block = program.global_block()
         t_run0 = time.perf_counter()
+        run_prog = self._gates(program, feed, fetch_names)
+        block = run_prog.global_block()
         feeds = self._prepare_feed(block, feed)
 
         build_s = 0.0
-        key = self._cache_key(program, feeds, fetch_names)
+        key = self._cache_key(run_prog, feeds, fetch_names)
         step = self._cache.get(key) if use_program_cache else None
         self._last_cache_hit = step is not None
         if step is not None:
@@ -125,7 +152,7 @@ class Executor:
             self._cache_misses += 1
             STAT_ADD("executor.compile_cache_miss")
             t0 = time.perf_counter()
-            step = self._prepare(program, block, scope, fetch_names)
+            step = self._prepare(run_prog, block, scope, fetch_names)
             build_s = time.perf_counter() - t0
             STAT_OBSERVE("executor.compile_build_seconds", build_s)
             self._cache[key] = step
@@ -169,7 +196,9 @@ class Executor:
             env.update(feeds)
             ctx = LowerCtx(self.device, seed=program.random_seed,
                            step=step_idx, record_ids=step.record_ids,
-                           unread=step.unread)
+                           unread=step.unread,
+                           record_alias=step.record_alias,
+                           record_readers=step.record_readers)
             # set here, not by the caller: grad mode is thread-local, and
             # serving engines run steps on worker threads
             with torch.inference_mode() if step.inference \
@@ -231,7 +260,7 @@ class Executor:
             if first_run:
                 STAT_OBSERVE("executor.compile_first_step_seconds",
                              now - t_run0, exemplar=tid)
-            _record_device_memory(self.device)
+            record_device_memory(self.device)
         cur = _trace.current_span()
         if cur is not None:
             # retroactive sub-spans under the current span (the batch
@@ -253,6 +282,39 @@ class Executor:
                      fetch_block_seconds=round(now - t_fetch0, 6),
                      fetches=len(fetch_names))
         return out
+
+    @staticmethod
+    def feed_signature(block, feed) -> Dict[str, tuple]:
+        """{feed name: (shape, IR dtype name)}: the gates' view of a feed,
+        read from the values as given (nothing is copied). The dtype is
+        the declared var's, in the IR's names (int64 reads int32)."""
+        sig = {}
+        for name, val in feed.items():
+            shape = tuple(val.shape) if hasattr(val, "shape") \
+                else np.shape(val)
+            if block.has_var(name):
+                dtype = block.var(name).dtype
+            else:
+                dtype = val.dtype if hasattr(val, "dtype") \
+                    else np.asarray(val).dtype
+            sig[name] = (tuple(int(d) for d in shape), ir_dtype(dtype))
+        return sig
+
+    @classmethod
+    def _gates(cls, program, feed, fetch_names):
+        """The verify, optimize and memory gates (the JAX package's order
+        and place, before the cache key) on the feed's names, shapes and
+        IR dtypes, read before anything is copied to the card. Returns
+        the program to run: the optimized one."""
+        sig = cls.feed_signature(program.global_block(), feed)
+        verify_gate(program, feed_names=sig.keys(),
+                    fetch_names=fetch_names, where="executor")
+        program, _ = optimize_gate(program, feed_names=sig.keys(),
+                                   fetch_names=fetch_names,
+                                   where="executor")
+        memory_gate(program, feed_shapes=sig, fetch_names=fetch_names,
+                    where="executor")
+        return program
 
     def _prepare_feed(self, block, feed) -> Dict[str, torch.Tensor]:
         """Feeds as tensors on the place, in the declared dtype. Integer
@@ -317,8 +379,16 @@ class Executor:
         state_in = sorted(n for n in persistables
                           if scope.has(n) or n in consumed_first)
         state_out = sorted(persistables & produced)
-        record_ids = frozenset(op.attrs["fwd_id"] for op in block.ops
-                               if op.type == "grad::generic")
+        # the forward ops whose autograd record a grad op reads: a
+        # sub-op of a fused op records under its own id, and an id CSE
+        # merged away resolves to its survivor's record
+        alias = dict(getattr(program, "_record_alias", None) or {})
+        readers = {}
+        for op in block.ops:
+            if op.type == "grad::generic":
+                fid = alias.get(op.attrs["fwd_id"], op.attrs["fwd_id"])
+                readers[fid] = readers.get(fid, 0) + 1
+        record_ids = frozenset(readers)
         last_use, last_read = {}, {}
         for i, op in enumerate(block.ops):
             for n in op.input_names():
@@ -338,7 +408,9 @@ class Executor:
             if dead:
                 unread[op.id] = dead
         return _PreparedStep(state_in, state_out, record_ids, drop_after,
-                             unread)
+                             unread, record_alias=alias,
+                             record_readers={k: n for k, n in
+                                             readers.items() if n > 1})
 
     def cache_stats(self) -> Dict[str, int]:
         """Per-instance prepared-run cache counters."""
@@ -347,19 +419,3 @@ class Executor:
 
     def close(self):
         self._cache.clear()
-
-
-
-def _record_device_memory(device):
-    """The card's allocator bytes as gauges (memory.device_bytes_in_use,
-    memory.device_peak_bytes, memory.device_bytes_limit), sampled once a
-    step while the monitor is on, from torch's CUDA caching allocator.
-    The CPU reports nothing, as in the JAX package."""
-    if device.type != "cuda":
-        return
-    STAT_SET("memory.device_bytes_in_use",
-             torch.cuda.memory_allocated(device))
-    STAT_SET("memory.device_peak_bytes",
-             torch.cuda.max_memory_allocated(device))
-    STAT_SET("memory.device_bytes_limit",
-             torch.cuda.get_device_properties(device).total_memory)

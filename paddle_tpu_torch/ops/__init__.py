@@ -4,6 +4,7 @@ from ..core.registry import REGISTRY
 from . import activations  # noqa: F401
 from . import attention  # noqa: F401
 from . import elementwise  # noqa: F401
+from . import fused  # noqa: F401
 from . import loss_extra  # noqa: F401
 from . import loss_ops  # noqa: F401
 from . import math  # noqa: F401

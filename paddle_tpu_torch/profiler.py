@@ -135,9 +135,11 @@ def cuda_profiler(*a, **kw):  # name kept for source compat
 
 # The FLAGS_op_trace_scopes annotation emitted by core/lowering.run_op:
 # '{op.type}:{block}/{op_idx}', where op.type may itself contain '::'
-# (grad::generic). The LAST match in a path is the innermost (most
-# specific) op.
-_SCOPE_RE = re.compile(r"((?:[A-Za-z0-9_.]|::)+):(\d+)/(\d+)")
+# (grad::generic), behind its fusion group's label ('ewfuse0/') for an
+# op of a level-2 fusion group. The LAST match in a path is the
+# innermost (most specific) op.
+_SCOPE_RE = re.compile(
+    r"(?:ewfuse\d+/)?((?:[A-Za-z0-9_.]|::)+):(\d+)/(\d+)")
 
 
 def extract_op_scope(op_name: str):

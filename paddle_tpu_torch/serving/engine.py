@@ -15,8 +15,11 @@ executor's sub-spans hang under it), the `serving.*` stats and the
 serving goodput counters. A CUDA error is a RuntimeError, which is
 neither retried nor counted against the breaker: it fails its batch.
 
-Not ported yet (ROADMAP.md): the analysis gates the JAX package runs in
-`warmup`, and the HTTP front end.
+`warmup` runs the JAX package's static gates before the first ladder
+cell runs: the verifier once, the graph passes once for the whole
+ladder, and the memory gate once per cell, so a malformed or oversized
+model is refused with the executor's cache still empty. The HTTP front
+end is serving/http.py.
 """
 from __future__ import annotations
 
@@ -175,8 +178,43 @@ class ServingEngine:
         """Run one dummy batch per ladder cell, so every reachable shape
         has its executor cache entry before traffic. Returns the number
         of shapes warmed."""
+        from ..analysis import memory_gate, optimize_gate, verify_gate
+        from ..core.lowering import ir_dtype
+
+        # Static verification before any cell runs (FLAGS_program_verify):
+        # in error mode a malformed model is refused at load, with
+        # cache_stats() still at zero misses.
+        prog = self.predictor.program()
+        feeds = self.predictor.get_input_names()
+        fetches = self.predictor.get_output_names()
+        verify_gate(prog, feed_names=feeds, fetch_names=fetches,
+                    where="serving.warmup")
+        # The graph passes ONCE for the whole ladder (memoized per
+        # fingerprint, level, feeds and fetches): every cell below, and
+        # all traffic, runs the optimized program without a pass run.
+        opt_prog, _ = optimize_gate(prog, feed_names=feeds,
+                                    fetch_names=fetches,
+                                    where="serving.warmup")
         spec = self._feed_spec()
         shapes = self.warmup_shapes()
+        # The memory gate over EVERY cell before the first one runs
+        # (FLAGS_memory_gate): one oversized (batch, seq) corner refuses
+        # the whole ladder. Cells are keyed by the IR dtype names the
+        # executor's own gate uses, so its lookups below hit these plans.
+        for bb, sb in shapes:
+            cell = {}
+            for name, (per_example, dtype) in spec.items():
+                dims = [bb] + [sb if d is None else d
+                               for d in per_example]
+                if any(d is None for d in dims):
+                    raise ValueError(
+                        f"feed {name!r} has a seq dim but the ladder "
+                        f"has no seq_buckets")
+                var = opt_prog.global_block()._find_var_recursive(name)
+                cell[name] = (tuple(dims), ir_dtype(
+                    var.dtype if var is not None else dtype))
+            memory_gate(opt_prog, feed_shapes=cell, fetch_names=fetches,
+                        where="serving.warmup")
         for bb, sb in shapes:
             feed = {}
             for name, (per_example, dtype) in spec.items():
