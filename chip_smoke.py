@@ -1346,7 +1346,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
               warmup, steps, symbols, tokens_per_step, flops_per_token,
               peak, unit="tokens", must_fall=True,
               classes=("matmul", "flash_attention_fwd", *BWD_KERNELS,
-                       "other"), fetch=(), parts=None):
+                       "other"), fetch=(), parts=None, plan_tag=None):
     """A training run's warm-up and timed steps: losses finite (and
     falling, with `must_fall`), each flash kernel launched `n_layers`
     times a timed step (every count set to 0 just before the timed steps
@@ -1361,7 +1361,8 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
     enqueue, under the profiler), by those parts of the program. Each step also fetches the vars of `fetch` (as
     float64 numpy). `feed` is a feed dict, or a function that returns
     each step's feed (a DataLoader's next batch), called before the
-    step's clock starts. Returns a Run."""
+    step's clock starts. `plan_tag` names the [tag_plan] line
+    otherwise. Returns a Run."""
     import statistics
 
     from torch.profiler import ProfilerActivity, profile
@@ -1431,7 +1432,7 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           losses=",".join(f"{x:.4f}" for x in losses),
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
     est = planned_peak_bytes(main, last_feed[0], [loss, *fetch])
-    phase(f"{tag}_plan", est_peak_gb=f"{est / 1e9:.3f}",
+    phase(plan_tag or f"{tag}_plan", est_peak_gb=f"{est / 1e9:.3f}",
           measured_peak_gb=f"{peak_gb:.3f}",
           est_over_measured=f"{est / 1e9 / peak_gb:.4f}",
           card=f"'{card}'")
@@ -6390,6 +6391,707 @@ def dense_layers_phase(torch, card):
           f"share, 1.0 the bar): {bad}")
 
 
+# -- control flow, RNNs and ragged sequences -------------------------------
+
+# RNNsearch-50's published widths (Bahdanau, Cho and Bengio, ICLR 2015):
+# 1000 hidden units, 620-dim embeddings, 30,000-word vocabularies,
+# sentences up to 50 words, minibatches of 80
+S2S_VOCAB = 30000
+S2S_LEN = 50
+S2S_HIDDEN = 1000
+S2S_EMB = 620
+S2S_BATCH = 80
+S2S_CHECK_BATCH = 4
+S2S_BEAM_BATCH = 8
+S2S_BEAM = 4
+# card vs CPU bars of [seq2seq_cpu_check] and [sentiment_lod]: ten times
+# the larger CPU reading of tools/torch_rounding_sensitivity.py seq2seq
+# and sentiment (PERF.md §6): the port's float32 gradients within 7.7e-7
+# of the JAX package's and the JAX package's own moved 1.1e-6 by a 1e-6
+# change of the embeddings; the losses within 9.3e-8 and 8.6e-8
+S2S_BARS = {"loss": 1e-6, "grad": 1e-5}
+SENTIMENT_LOSS_RTOL = 1e-6
+BEAM_FLIP_TOL = 1e-4
+# book chapter 05's stacked_lstm_net: embedding 128, hid_dim 512 (each
+# dynamic_lstm of size 512 is 128 units), 3 stacked layers, 2 classes,
+# Adagrad 0.002; batches of 128 reviews from datasets.imdb
+SENT_EMB = 128
+SENT_HID = 512
+SENT_STACKED = 3
+SENT_BATCH = 128
+SENT_BATCHES = 6
+CF_COUNT = 64          # [control_flow]'s While counts to this
+CF_RNN = (32, 50, 256)  # batch, time, width of its StaticRNN / DynamicRNN
+CF_TOL = 1e-5
+GM_K = 4               # [grad_merge]: k micro-steps of GM_BATCH rows
+GM_BATCH = 8
+GM_RTOL = 1e-5
+
+
+def build_seq2seq(f, lr=1e-3):
+    """models.seq2seq.build_train at RNNsearch-50's widths in package `f`
+    (the port or the JAX package), Adam at `lr` (build_train's default of
+    0.01 overshoots at these widths: the loss rose again by the fifth
+    step on the card): (main, startup, loss)."""
+    from importlib import import_module
+    s2s = import_module(f.__name__ + ".models.seq2seq")
+    main, startup = f.Program(), f.Program()
+    startup.random_seed = SEED
+    with f.program_guard(main, startup), f.unique_name.guard():
+        loss, _ = s2s.build_train(
+            src_vocab=S2S_VOCAB, trg_vocab=S2S_VOCAB, src_len=S2S_LEN,
+            trg_len=S2S_LEN, hidden=S2S_HIDDEN, emb_dim=S2S_EMB, lr=lr)
+    return main, startup, loss
+
+
+def seq2seq_feed(batch, seed=0):
+    """Full rows of token ids from RandomState(seed), as bench.py draws
+    BERT's tokens: every step trains on S2S_LEN tokens a row."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {k: rng.randint(0, S2S_VOCAB, (batch, S2S_LEN)).astype(np.int64)
+            for k in ("src_ids", "trg_in", "trg_next")}
+
+
+def seq2seq_flops_per_token():
+    """Training FLOPs a target token (3 x the forward's products), with
+    source and target of one length: the bi-GRU encoder (input and
+    recurrent products, both directions), the encoder projection, and
+    the decoder's attention (its state's projection, the scores over the
+    source and the context), GRU step and vocabulary projection."""
+    h, e, vocab, length = S2S_HIDDEN, S2S_EMB, S2S_VOCAB, S2S_LEN
+    enc = 2 * (2 * e * 3 * h + 2 * h * 3 * h) + 2 * 2 * h * h
+    dec = (2 * h * h + 2 * h * length + 2 * 2 * h * length +
+           2 * (e + 2 * h) * 3 * h + 2 * h * 3 * h + 2 * h * vocab)
+    return 3 * (enc + dec)
+
+
+def seq2seq_train_phase(torch, card):
+    """[seq2seq_train]: RNNsearch-50 (models.seq2seq at its published
+    widths, float32, Adam) on batch S2S_BATCH of full 50-token rows
+    through Executor.run: run_steps' gates (finite losses, falling over
+    the 5 steps of one repeated batch, no executor cache entry after the
+    first step, no flash kernel), its [seq2seq_train] line and profile,
+    [seq2seq_program] (op counts) and [seq2seq_plan] (the planner's peak
+    over the measured one). Returns the trained scope."""
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_seq2seq(ptt)
+    phase("seq2seq_program", ops_global=len(main.global_block().ops),
+          ops_all_blocks=sum(len(b.ops) for b in main.blocks),
+          blocks=len(main.blocks),
+          params=sum(math.prod(p.shape) for p in main.all_parameters()))
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    run = run_steps(torch, card, "seq2seq_train", exe, main, scope,
+                    seq2seq_feed(S2S_BATCH), loss, 0, 2, 3, (),
+                    S2S_BATCH * S2S_LEN, seq2seq_flops_per_token(),
+                    F32_FLOPS, classes=("matmul", "other"),
+                    plan_tag="seq2seq_plan")
+    phase("seq2seq_train_time", seconds=f"{time.perf_counter() - t0:.1f}",
+          device_ms=f"{run.device_ms:.3f}", host_ms=f"{run.host_ms:.3f}",
+          card=f"'{card}'")
+    return scope
+
+
+def _card_cpu_values(ptt, startup):
+    """The startup program's values, run once on the card, as numpy."""
+    scope = ptt.Scope()
+    ptt.Executor().run(startup, scope=scope)
+    return {n: scope.get_numpy(n) for n in scope.names()}
+
+
+def _run_card_cpu(ptt, main, init, feed, fetch, places=None):
+    """One run of `main` on the card and one on the CPU, each from `init`:
+    {"card" | "cpu": [numpy of each fetch]}."""
+    import numpy as np
+    from paddle_tpu_torch.convert import scope_from_numpy
+    out = {}
+    for where, place in places or (("card", ptt.CUDAPlace(0)),
+                                   ("cpu", ptt.CPUPlace())):
+        scope = scope_from_numpy(init, ptt.Scope(), place)
+        got = ptt.Executor(place).run(main, feed=feed, fetch_list=fetch,
+                                      scope=scope)
+        out[where] = [np.asarray(x) for x in got]
+    return out
+
+
+def _fro_rel(a, b):
+    import numpy as np
+    n = float(np.linalg.norm(b))
+    return float(np.linalg.norm(a - b)) / n if n else \
+        (0.0 if not np.any(a) else math.inf)
+
+
+S2S_CHECK_GRADS = ("embedding_0.w_0", "embedding_1.w_0")
+
+
+def seq2seq_cpu_check(torch):
+    """[seq2seq_cpu_check]: the full-width program at batch
+    S2S_CHECK_BATCH, one step on the card and one on the CPU from one
+    startup: the loss within S2S_BARS["loss"] relative, and the gradients
+    of the two embeddings, the output projection and the decoder GRU's
+    recurrent weight within S2S_BARS["grad"] (Frobenius gap over the
+    norm)."""
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    main, startup, loss = build_seq2seq(ptt)
+    params = [p.name for p in main.all_parameters()]
+    # the two embeddings, the output projection's weight and the decoder
+    # GRU's recurrent weight (the last GRUCell parameter made)
+    grads = [n for n in params if n in S2S_CHECK_GRADS] + [params[-2], [
+        n for n in params if n.startswith("GRUCell") and
+        n.endswith(".w_0")][-1]]
+    fetch = [loss.name] + [f"{n}@GRAD" for n in grads]
+    out = _run_card_cpu(ptt, main, _card_cpu_values(ptt, startup),
+                        seq2seq_feed(S2S_CHECK_BATCH, seed=1), fetch)
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    errs = {n: _fro_rel(a, b) for n, a, b in zip(grads, card[1:], cpu[1:])}
+    phase("seq2seq_cpu_check", batch=S2S_CHECK_BATCH,
+          loss_card=f"{float(card[0]):.6f}", loss_cpu=f"{float(cpu[0]):.6f}",
+          loss_rel=f"{loss_rel:.3e}", loss_tol=S2S_BARS["loss"],
+          **{f"{n}_rel": f"{e:.3e}" for n, e in errs.items()},
+          grad_tol=S2S_BARS["grad"], seconds=f"{time.perf_counter() - t0:.1f}")
+    check(loss_rel <= S2S_BARS["loss"],
+          f"[seq2seq_cpu_check] loss card vs CPU {loss_rel}")
+    check(all(e <= S2S_BARS["grad"] and math.isfinite(e)
+              for e in errs.values()),
+          f"[seq2seq_cpu_check] gradients card vs CPU {errs}")
+
+
+def build_seq2seq_beam(f, batch):
+    """Beam search over build_seq2seq's parameters from public entry
+    points: seq2seq.encoder, an AttentionDecoderCell over the encoder
+    output tiled with BeamSearchDecoder.tile_beam_merge_with_batch, a
+    BeamSearchDecoder (start 0, end 1) embedding with the trained target
+    table and projecting with the trained output layer, and
+    dynamic_decode. Built in the training program's order, so its
+    parameters get the training program's names. Beam S2S_BEAM, up to
+    S2S_LEN steps. Returns (main, [ids, scores, lengths, the per-step
+    selected ids, parents])."""
+    from importlib import import_module
+    s2s = import_module(f.__name__ + ".models.seq2seq")
+    L = f.layers
+    main, startup = f.Program(), f.Program()
+    with f.program_guard(main, startup), f.unique_name.guard():
+        src = L.data("src_ids", shape=[batch, S2S_LEN], dtype="int64",
+                     append_batch_size=False)
+        enc = s2s.encoder(src, S2S_VOCAB, S2S_HIDDEN, S2S_EMB)
+        enc_b = L.rnn.BeamSearchDecoder.tile_beam_merge_with_batch(
+            enc, S2S_BEAM)
+        proj = L.fc(enc_b, size=S2S_HIDDEN, num_flatten_dims=2)
+        cell = s2s.AttentionDecoderCell(S2S_HIDDEN, enc_b, proj)
+        emb_name = f.unique_name.generate("embedding") + ".w_0"
+
+        def embed(ids):
+            return L.embedding(L.unsqueeze(ids, [1]),
+                               size=[S2S_VOCAB, S2S_EMB],
+                               param_attr=f.ParamAttr(name=emb_name))
+
+        names = {}
+
+        def project(h):
+            if not names:
+                names["fc"] = f.unique_name.generate("fc")
+            return L.fc(h, size=S2S_VOCAB,
+                        param_attr=f.ParamAttr(name=names["fc"] + ".w_0"),
+                        bias_attr=f.ParamAttr(name=names["fc"] + ".b_0"))
+
+        dec = L.rnn.BeamSearchDecoder(cell, start_token=0, end_token=1,
+                                      beam_size=S2S_BEAM,
+                                      embedding_fn=embed,
+                                      output_fn=project)
+        init = L.fill_constant([batch, S2S_HIDDEN], "float32", 0.0)
+        ids, scores, lens = L.rnn.dynamic_decode(
+            dec, inits=init, max_step_num=S2S_LEN, return_length=True)
+    rec = [op for op in main.global_block().ops if op.type == "recurrent"][-1]
+    step_ids, step_parents = rec.output("Out")[:2]
+    return main, [ids.name, scores.name, lens.name, step_ids, step_parents]
+
+
+def beam_flips(card, cpu, tol=BEAM_FLIP_TOL):
+    """Rows whose beams differ between the card and the CPU: [(row, first
+    step whose selected (id, parent) pairs differ, the largest gap there
+    between the two sides' selected scores)]. A rounding flip is a near
+    tie: its step's scores agree within `tol`."""
+    import numpy as np
+    ids_c, sc_c, _, sel_c, par_c = card
+    ids_p, sc_p, _, sel_p, par_p = cpu
+    flips = []
+    for b in range(ids_c.shape[0]):
+        if np.array_equal(ids_c[b], ids_p[b]) and \
+                np.array_equal(sel_c[b], sel_p[b]):
+            continue
+        diff = np.nonzero((sel_c[b] != sel_p[b]).any(-1) |
+                          (par_c[b] != par_p[b]).any(-1))[0]
+        t = int(diff[0]) if len(diff) else 0
+        flips.append((b, t, float(np.abs(sc_c[b, t] - sc_p[b, t]).max())))
+    return flips
+
+
+def seq2seq_beam_phase(torch, card, trained):
+    """[seq2seq_beam]: beam search (build_seq2seq_beam, beam S2S_BEAM,
+    50 steps) over [seq2seq_train]'s trained parameters, batch
+    S2S_BEAM_BATCH of source rows, on the card and on the CPU. Gate: the
+    ids equal, or equal up to a first flip whose step's selected scores
+    agree within BEAM_FLIP_TOL on both sides (a rounding flip, the rule
+    of [gen_serve]); the flips are printed."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    main, fetch = build_seq2seq_beam(ptt, S2S_BEAM_BATCH)
+    params = {p.name for p in main.all_parameters()}
+    missing = sorted(params - set(trained.names()))
+    check(not missing, f"[seq2seq_beam] parameters not in the trained "
+          f"scope: {missing}")
+    init = {n: trained.get_numpy(n) for n in params}
+    feed = {"src_ids": seq2seq_feed(S2S_BEAM_BATCH, seed=2)["src_ids"]}
+    out, times = {}, {}
+    for where, place in (("card", ptt.CUDAPlace(0)), ("cpu", ptt.CPUPlace())):
+        t1 = time.perf_counter()
+        out.update(_run_card_cpu(ptt, main, init, feed, fetch,
+                                 [(where, place)]))
+        times[where] = time.perf_counter() - t1
+    flips = beam_flips(out["card"], out["cpu"])
+    phase("seq2seq_beam", batch=S2S_BEAM_BATCH, beam=S2S_BEAM,
+          steps=S2S_LEN, ids_equal_rows=S2S_BEAM_BATCH - len(flips),
+          flips=";".join(f"row{b}@t{t}:{g:.2e}" for b, t, g in flips)
+          or "none",
+          card_s=f"{times['card']:.2f}", cpu_s=f"{times['cpu']:.2f}",
+          mean_len=f"{out['card'][2].mean():.2f}",
+          best_score_mean=f"{out['card'][1][:, -1, 0].mean():.4f}",
+          seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    check(out["card"][0].shape == (S2S_BEAM_BATCH, S2S_LEN, S2S_BEAM),
+          f"[seq2seq_beam] ids shape {out['card'][0].shape}")
+    check(np.isfinite(out["card"][1]).all(), "[seq2seq_beam] scores")
+    check(all(g <= BEAM_FLIP_TOL for _, _, g in flips),
+          f"[seq2seq_beam] beams differ beyond a rounding flip: {flips}")
+
+
+def build_sentiment(f, vocab, lr=0.002):
+    """Book chapter 05's stacked_lstm_net (understand_sentiment) in
+    package `f`: embedding SENT_EMB, fc + dynamic_lstm of size SENT_HID,
+    SENT_STACKED of them alternating direction, a max sequence_pool of
+    the last fc and the last lstm, a softmax fc over 2 classes, Adagrad.
+    The ragged input's lengths companion ("words.lengths") masks every
+    lstm and pool. Returns (main, startup, loss, [words, label])."""
+    L = f.layers
+    main, startup = f.Program(), f.Program()
+    startup.random_seed = SEED
+    with f.program_guard(main, startup), f.unique_name.guard():
+        words = L.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = L.data("label", shape=[1], dtype="int64")
+        lens = main.global_block().var(main.lod_link[words.name])
+        emb = L.embedding(words, size=[vocab, SENT_EMB])
+        fc = L.fc(emb, size=SENT_HID, num_flatten_dims=2)
+        lstm, _ = L.dynamic_lstm(fc, size=SENT_HID, sequence_length=lens)
+        for i in range(2, SENT_STACKED + 1):
+            fc = L.fc([fc, lstm], size=SENT_HID, num_flatten_dims=2)
+            lstm, _ = L.dynamic_lstm(fc, size=SENT_HID,
+                                     is_reverse=(i % 2) == 0,
+                                     sequence_length=lens)
+        pooled = [L.sequence_pool(x, "max", lengths=lens)
+                  for x in (fc, lstm)]
+        pred = L.fc(pooled, size=2, act="softmax")
+        loss = L.mean(L.cross_entropy(pred, label))
+        f.optimizer.Adagrad(learning_rate=lr).minimize(loss)
+    return main, startup, loss, [words, label]
+
+
+def imdb_batches(f, main, feed_vars, n, batch=SENT_BATCH):
+    """`n` DataFeeder feeds of `batch` reviews from f.datasets.imdb's
+    train reader, bucketed by length as a bucketing reader batches them:
+    the reviews sorted by length (stably), batch i the `batch` reviews
+    from the i-th of `n` evenly spaced starts, so the batches' longest
+    reviews, and their padded T, differ. Ragged id rows (LoDTensors) and
+    labels."""
+    import numpy as np
+    from importlib import import_module
+    imdb = import_module(f.__name__ + ".datasets.imdb")
+    feeder = f.DataFeeder(feed_list=feed_vars, program=main)
+    rows = sorted(((np.asarray(ids, np.int64).reshape(-1, 1), [label])
+                   for ids, label in imdb.train()()),
+                  key=lambda r: len(r[0]))
+    starts = [i * (len(rows) - batch) // max(n - 1, 1) for i in range(n)]
+    return [feeder.feed(rows[s:s + batch]) for s in starts]
+
+
+def sentiment_lod_phase(torch, card):
+    """[sentiment_lod]: build_sentiment at the book's widths (vocabulary
+    of the port's datasets.imdb, 5147) on SENT_BATCHES batches of
+    SENT_BATCH ragged reviews (lengths 8-63) through DataFeeder, two
+    passes, on the card. Gates: the feeds name no lengths var, yet the
+    executor feeds each batch's lengths to "words.lengths"; every padded
+    T is a multiple of 8; the executor's cache gains an entry only at a
+    padded T's first step; losses finite, the second pass's mean below
+    the first's; the first batch's loss on the card and on the CPU, from
+    one startup, within SENTIMENT_LOSS_RTOL."""
+    import statistics
+
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.datasets import imdb
+
+    t0 = time.perf_counter()
+    vocab = len(imdb.word_dict())
+    main, startup, loss, feed_vars = build_sentiment(ptt, vocab)
+    batches = imdb_batches(ptt, main, feed_vars, SENT_BATCHES)
+    check(all(set(b) == {"words", "label"} for b in batches),
+          "[sentiment_lod] the feeds name more than words and label")
+    emb = next(op.output("Out")[0] for op in main.global_block().ops
+               if op.type in ("lookup_table", "lookup_table_v2"))
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get_numpy(n) for n in scope.names()}
+    losses, seen, times = [], set(), []
+    for epoch in range(2):
+        for fd in batches:
+            misses = exe.cache_stats()["misses"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lv, lens, e = exe.run(main, feed=fd,
+                                  fetch_list=[loss, "words.lengths", emb],
+                                  scope=scope)
+            times.append(time.perf_counter() - t1)
+            losses.append(float(lv))
+            want = fd["words"].recursive_sequence_lengths()[0]
+            t_pad = e.shape[1]
+            check(list(lens) == list(want), "[sentiment_lod] the lengths "
+                  "fed to words.lengths are not the batch's")
+            check(t_pad % 8 == 0 and max(want) <= t_pad < max(want) + 8,
+                  f"[sentiment_lod] padded T {t_pad} for longest "
+                  f"{max(want)}")
+            new = exe.cache_stats()["misses"] - misses
+            check(new == (t_pad not in seen), f"[sentiment_lod] {new} "
+                  f"cache entries at padded T {t_pad} (seen: {seen})")
+            seen.add(t_pad)
+    n = len(batches)
+    first, second = np.mean(losses[:n]), np.mean(losses[n:])
+    check(all(math.isfinite(x) for x in losses),
+          f"[sentiment_lod] losses {losses}")
+    check(second < first, f"[sentiment_lod] loss did not fall: {first} "
+          f"-> {second}")
+    out = _run_card_cpu(ptt, main, init, batches[0], [loss.name])
+    gap = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    check(gap <= SENTIMENT_LOSS_RTOL,
+          f"[sentiment_lod] card vs CPU loss {out['card']} / {out['cpu']}")
+    tokens = sum(int(np.sum(b["words"].recursive_sequence_lengths()[0]))
+                 for b in batches)
+    step_s = statistics.median(times[n:])
+    phase("sentiment_lod", vocab=vocab, batch=SENT_BATCH, steps=len(losses),
+          padded_ts=",".join(str(t) for t in sorted(seen)),
+          cache_entries=exe.cache_stats()["size"],
+          step_ms_median=f"{step_s * 1e3:.3f}",
+          tokens_per_s=f"{tokens / n / step_s:.1f}",
+          loss_first_pass=f"{first:.5f}", loss_second_pass=f"{second:.5f}",
+          cpu_loss_gap=f"{float(gap):.3e}", tol=SENTIMENT_LOSS_RTOL,
+          seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+
+
+def control_flow_programs(ptt):
+    """[control_flow]'s programs: {name: (main, startup, feed, fetch)}: a
+    While that counts to CF_COUNT and writes a tensor array; IfElse;
+    a Switch with first match (three feeds); StaticRNN (time-major) and
+    DynamicRNN (batch-major) over CF_RNN, each with one SGD step."""
+    import numpy as np
+    L = ptt.layers
+    rng = np.random.RandomState(SEED)
+    b, t, d = CF_RNN
+    progs = {}
+
+    def make(name, body, feeds):
+        main, startup = ptt.Program(), ptt.Program()
+        startup.random_seed = SEED
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            fetch = [v.name for v in body()]
+        progs[name] = (main, startup, feeds, fetch)
+
+    def while_array():
+        x = L.data("x", shape=[d], dtype="float32")
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", CF_COUNT)
+        arr = L.create_array("float32")
+        L.array_write(x, i, array=arr)
+        acc = L.scale(x, scale=1.0)
+        cond = L.less_than(i, n)
+        loop = L.While(cond)
+        with loop.block():
+            L.assign(L.tanh(L.scale(acc, scale=0.9, bias=0.1)), acc)
+            L.array_write(acc, i, array=arr)
+            L.increment(i, in_place=True)
+            L.less_than(i, n, cond=cond)
+        flat, _ = L.tensor_array_to_tensor(arr, axis=0)
+        return [i, acc, L.array_length(arr), flat,
+                L.array_read(arr, L.fill_constant([1], "int64", 40))]
+
+    def if_else():
+        x = L.data("x", shape=[d], dtype="float32")
+        cond = L.greater_than(L.reduce_sum(x, dim=1, keep_dim=True),
+                              L.fill_constant([1], "float32", 0.0))
+        ie = L.IfElse(cond)
+        with ie.true_block():
+            ie.output(L.fc(ie.input(x), size=d, act="relu"))
+        with ie.false_block():
+            ie.output(L.scale(ie.input(x), scale=-1.0))
+        return ie()
+
+    def switch():
+        v = L.data("v", shape=[1], dtype="float32", append_batch_size=False)
+        out = L.fill_constant([1], "float32", -1.0)
+        sw = L.Switch()
+        for k, bound in enumerate((1.0, 2.0)):
+            with sw.case(L.less_than(v, L.fill_constant([1], "float32",
+                                                         bound))):
+                L.assign(L.fill_constant([1], "float32", k + 1.0), out)
+        with sw.default():
+            L.assign(L.fill_constant([1], "float32", 3.0), out)
+        return [out]
+
+    def static_rnn():
+        x = L.data("x", shape=[t, b, d], dtype="float32",
+                   append_batch_size=False)
+        h0 = L.fill_constant([b, d], "float32", 0.0)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            h = rnn.memory(init=h0)
+            nh = L.fc([xt, h], size=d, act="tanh")
+            rnn.update_memory(h, nh)
+            rnn.step_output(nh)
+        out = rnn()
+        loss = L.mean(out)
+        ptt.optimizer.SGD(0.1).minimize(loss)
+        return [loss, out]
+
+    def dynamic_rnn():
+        x = L.data("x", shape=[t, d], dtype="float32")
+        h0 = L.fill_constant_batch_size_like(x, [-1, d], "float32", 0.0)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            xt = drnn.step_input(x)
+            h = drnn.memory(init=h0)
+            nh = L.fc([xt, h], size=d, act="tanh")
+            drnn.update_memory(h, nh)
+            drnn.output(nh)
+        out = drnn()
+        loss = L.mean(out)
+        ptt.optimizer.SGD(0.1).minimize(loss)
+        return [loss, out]
+
+    x2 = rng.randn(b, d).astype(np.float32)
+    make("while_array", while_array, [{"x": x2}])
+    make("if_else", if_else, [{"x": x2}])
+    make("switch", switch, [{"v": np.asarray([v], np.float32)}
+                            for v in (0.5, 1.5, 5.0)])
+    make("static_rnn", static_rnn,
+         [{"x": rng.randn(t, b, d).astype(np.float32)}])
+    make("dynamic_rnn", dynamic_rnn,
+         [{"x": rng.randn(b, t, d).astype(np.float32)}])
+    return progs
+
+
+def control_flow_phase(torch, card):
+    """[control_flow]: control_flow_programs on the card against the same
+    programs on the CPU from one startup: integers exactly, floats within
+    CF_TOL of max(1, max|CPU|); a Switch takes its first matching case;
+    the parameters after the RNNs' SGD step too. Prints the host syncs an
+    iteration of the While (1: its condition's read) and its ms an
+    iteration (the program's run over CF_COUNT iterations, warm)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import controlflow as cf
+
+    t0 = time.perf_counter()
+    gaps = {}
+    for name, (main, startup, feeds, fetch) in \
+            control_flow_programs(ptt).items():
+        init = _card_cpu_values(ptt, startup)
+        params = [p.name for p in main.all_parameters()]
+        for k, fd in enumerate(feeds):
+            out = _run_card_cpu(ptt, main, init, fd, fetch + params)
+            gap = 0.0
+            for a, c in zip(out["card"], out["cpu"]):
+                if a.dtype.kind == "f":
+                    scale = max(1.0, float(np.abs(c).max(initial=0.0)))
+                    gap = max(gap, float(np.abs(a - c).max(initial=0.0))
+                              / scale)
+                else:
+                    check(np.array_equal(a, c), f"[control_flow] {name}: "
+                          f"card {a.ravel()[:8]} vs CPU {c.ravel()[:8]}")
+            gaps[f"{name}{k if len(feeds) > 1 else ''}"] = gap
+            if name == "switch":
+                check(float(out["card"][0][0]) == (1.0, 2.0, 3.0)[k],
+                      f"[control_flow] switch case {k}: {out['card'][0]}")
+            if name == "while_array":
+                check(int(out["card"][0][0]) == CF_COUNT and
+                      int(out["card"][2][0]) == 64,
+                      f"[control_flow] while: i {out['card'][0]}, array "
+                      f"length {out['card'][2]}")
+    main, startup, feeds, fetch = control_flow_programs(ptt)["while_array"]
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scope)
+    before = dict(cf.HOST_SYNCS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    exe.run(main, feed=feeds[0], fetch_list=fetch, scope=scope)
+    per_iter_ms = (time.perf_counter() - t1) * 1e3 / CF_COUNT
+    iters = cf.HOST_SYNCS["while_iterations"] - before["while_iterations"]
+    syncs = cf.HOST_SYNCS["while"] - before["while"]
+    check(iters == CF_COUNT, f"[control_flow] {iters} While iterations")
+    phase("control_flow", **{f"{k}_gap": f"{v:.3e}" for k, v in
+                             gaps.items()},
+          tol=CF_TOL, while_iterations=iters,
+          host_syncs_per_iteration=f"{syncs / iters:.3f}",
+          ms_per_iteration=f"{per_iter_ms:.3f}",
+          seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    check(all(g <= CF_TOL for g in gaps.values()),
+          f"[control_flow] card vs CPU gaps {gaps} > {CF_TOL}")
+
+
+def build_grad_merge(ptt, transformer, cfg, batch, k):
+    """BERT-base MLM (build_train_mlm, N_MASK positions a row, float32,
+    dropout 0) at `batch` under AdamW (lr 1e-4), wrapped in
+    GradientMergeOptimizer(k_steps=k) when k > 1: (main, startup, loss)."""
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+
+    def opt(learning_rate):
+        inner = ptt.optimizer.AdamW(learning_rate=learning_rate)
+        return ptt.optimizer.GradientMergeOptimizer(inner, k_steps=k) \
+            if k > 1 else inner
+
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = transformer.build_train_mlm(cfg, batch, T, N_MASK,
+                                              optimizer_cls=opt)
+    return main, startup, loss
+
+
+def grad_merge_phase(torch, card):
+    """[grad_merge]: BERT-base float32 at T 512 (dropout 0) under
+    GradientMergeOptimizer(AdamW, k_steps=GM_K) on GM_K micro-batches of
+    GM_BATCH rows, against one AdamW step on the GM_K * GM_BATCH rows
+    together, from the same state (the MLM feed masks N_MASK positions a
+    row, so the mean of the micro-batch means is the big batch's mean).
+    Gates: micro-steps 1..k-1 leave every parameter and AdamW moment and
+    beta power bit-equal; the mean of the micro-batch losses is the big
+    batch's; at step k the gradient the update applies, (buffer +
+    gradient) / k, within GM_RTOL (Frobenius gap over the norm) of the
+    big batch's gradient, and after it every parameter within GM_RTOL
+    of the big step's; each float32 flash kernel launches 12 times a
+    micro-step. The attention key biases' gradients (zero but for
+    rounding) and the parameters that start at zero (their value after
+    one AdamW step is the update, +-lr an element even where the
+    gradient is rounding) are printed, not gated. Returns the
+    launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                use_flash=True)
+    rows = _mlm_feed(cfg, GM_K * GM_BATCH, seed=5)
+    micro = []
+    for i in range(GM_K):
+        sl = slice(i * GM_BATCH, (i + 1) * GM_BATCH)
+        pos = rows["mask_pos"].reshape(GM_K * GM_BATCH, N_MASK)[sl]
+        micro.append({"tokens": rows["tokens"][sl],
+                      "mask_pos": (pos - i * GM_BATCH * T).reshape(-1)
+                      .astype(np.int32),
+                      "mask_label": rows["mask_label"].reshape(
+                          GM_K * GM_BATCH, N_MASK, 1)[sl].reshape(-1, 1)})
+    main, startup, loss = build_grad_merge(ptt, transformer, cfg, GM_BATCH,
+                                           GM_K)
+    exe, scope = ptt.Executor(), ptt.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get_numpy(n) for n in scope.names()}
+    params = [p.name for p in main.all_parameters()]
+    merge = {n for n in scope.names() if "_gradient_merge" in n
+             or "@GRADIENT_MERGE_STEP@" in n}
+    watched = [n for n in scope.names() if n not in merge]
+    acc_of = {p: next(n for n in merge if n.startswith(p + "_gradient_merge"))
+              for p in params}
+    grads = [f"{p}@GRAD" for p in params]
+    before = {n: scope.get(n).clone() for n in watched}
+    _zero_launch_counts()
+    losses = []
+    for i, fd in enumerate(micro):
+        last = i == GM_K - 1
+        if last:  # the buffers before the last micro-step adds to them
+            acc = {p: scope.get(acc_of[p]).clone() for p in params}
+        got = exe.run(main, feed=fd, fetch_list=[loss] + (grads if last
+                                                          else []),
+                      scope=scope, return_numpy=False)
+        losses.append(float(got[0]))
+        if last:
+            # the gradient the update applied: (acc + grad) / k, as the
+            # program's elementwise_add and scale compute it
+            applied = {p: ((acc[p] + g) * (1.0 / GM_K)).cpu().numpy()
+                       for p, g in zip(params, got[1:])}
+            del acc, got
+        if not last:
+            changed = [n for n in watched
+                       if not torch.equal(scope.get(n), before[n])]
+            check(not changed, f"[grad_merge] micro-step {i + 1} changed "
+                  f"{changed[:5]}")
+    launches = _launch_counts()
+    check(all(n == 12 * GM_K for n in launches.values()),
+          f"[grad_merge] flash launches {launches}, not 12 x {GM_K}")
+    merged = {n: scope.get_numpy(n) for n in params}
+    del scope, before
+    big_main, big_startup, big_loss = build_grad_merge(
+        ptt, transformer, cfg, GM_K * GM_BATCH, 1)
+    names = {v.name for v in big_startup.list_vars() if v.persistable}
+
+    sc = scope_from_numpy({n: v for n, v in init.items() if n in names},
+                          ptt.Scope(), ptt.CUDAPlace(0))
+    got = exe.run(big_main, feed=rows, fetch_list=[big_loss] + grads,
+                  scope=sc)
+    big = float(got[0])
+    grad_gaps = {n: _fro_rel(applied[n], g) for n, g in zip(params, got[1:])}
+    gaps = {n: _fro_rel(merged[n], sc.get_numpy(n)) for n in params}
+    del got, sc
+    moved = {n: _fro_rel(merged[n], init[n]) for n in params}
+    # held apart: the attention key biases, whose gradients are zero but
+    # for rounding (the softmax ignores a shift of a row's scores), and
+    # the parameters that start at zero (the biases), whose value after
+    # one AdamW step is its update alone: AdamW takes each gradient
+    # element to about +-lr, so an element whose gradient is within
+    # rounding of zero moves by +-lr on rounding alone
+    key_b = {n for n in params if n.endswith(".att.k.b")}
+    zero = {n for n in params if not np.any(init[n])}
+    held_g = {n: g for n, g in grad_gaps.items() if n not in key_b}
+    held_p = {n: g for n, g in gaps.items() if n not in zero}
+    gw, pw = max(held_g, key=held_g.get), max(held_p, key=held_p.get)
+    phase("grad_merge", k=GM_K, micro_batch=GM_BATCH, T=T,
+          micro_losses=",".join(f"{x:.5f}" for x in losses),
+          mean_micro_loss=f"{np.mean(losses):.6f}", big_loss=f"{big:.6f}",
+          max_grad_gap=f"{held_g[gw]:.3e}", grad_worst=gw,
+          median_grad_gap=f"{np.median(list(held_g.values())):.3e}",
+          key_bias_grad_gap_max=f"{max(grad_gaps[n] for n in key_b):.3e}",
+          max_param_gap=f"{held_p[pw]:.3e}", param_worst=pw,
+          zero_init_params=len(zero),
+          zero_init_param_gap_max=f"{max(gaps[n] for n in zero):.3e}",
+          zero_init_over_rtol=sum(gaps[n] > GM_RTOL for n in zero),
+          median_param_move=f"{np.median(list(moved.values())):.3e}",
+          rtol=GM_RTOL,
+          launches_per_micro_step=launches["flash_attention_fwd"] // GM_K,
+          seconds=f"{time.perf_counter() - t0:.1f}", card=f"'{card}'")
+    check(abs(np.mean(losses) - big) <= 1e-5 * abs(big),
+          f"[grad_merge] mean micro loss {np.mean(losses)} vs {big}")
+    check(held_g[gw] <= GM_RTOL, f"[grad_merge] the applied gradient vs "
+          f"the big batch's: {gw} {held_g[gw]}")
+    check(held_p[pw] <= GM_RTOL, f"[grad_merge] parameters after {GM_K} "
+          f"micro-steps vs one big step: {pw} {held_p[pw]}")
+    return launches
+
+
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
 # kernel -> (its source under csrc/, the line of the TPU kernel it replaces)
 KERNEL_SOURCES = {
@@ -7043,13 +7745,21 @@ def main():
                                               records["bert_large"])
     book_models_phase(torch, card)
     dense_layers_phase(torch, card)
+    s2s_scope = seq2seq_train_phase(torch, card)
+    seq2seq_cpu_check(torch)
+    seq2seq_beam_phase(torch, card, s2s_scope)
+    del s2s_scope
+    sentiment_lod_phase(torch, card)
+    control_flow_phase(torch, card)
+    merged = grad_merge_phase(torch, card)
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
     # BERT (build_train, both recipes and the DataLoader-fed run), GPT,
     # NMT and BERT-large bf16 training runs; the float32 kernels' over the
     # float32 training run, the
     # float32 check step, the recipe check's card steps, the dygraph
-    # BERT's timed steps and its check's card steps, and the float32
+    # BERT's timed steps and its check's card steps, the gradient-merge
+    # micro-steps, and the float32
     # forward's over the serving runs (direct and over HTTP) and the
     # traced dygraph encoder's call too
     def entry(name, rec, launches, dtype=None, **shapes):
@@ -7084,7 +7794,7 @@ def main():
                   served[0].get(name, 0) + trained_f32[name] +
                   checked_f32[name] + checked_recipe[name] +
                   dygraph_trained[name] + dygraph_checked[name] +
-                  dygraph_traced[name] +
+                  dygraph_traced[name] + merged[name] +
                   (http_served + gated if name == "flash_attention_fwd"
                    else 0),
                   "float32")

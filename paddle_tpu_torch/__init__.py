@@ -39,6 +39,7 @@ from .framework import (  # noqa: F401,E402
     ParamAttr, WeightNormParamAttr, unique_name, Variable, Parameter,
     in_dygraph_mode, name_scope, cpu_places)
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401,E402
+from .core.lod import LoDTensor, LoDTensorArray  # noqa: F401,E402
 from .core.flags import FLAGS, get_flags, set_flags  # noqa: F401,E402
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401,E402
 from .executor import Executor  # noqa: F401,E402

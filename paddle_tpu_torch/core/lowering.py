@@ -145,6 +145,8 @@ def run_op(op, env, ctx, op_idx=None):
         if vals:
             ins[slot] = vals
     opctx = _OpCtx(ctx, op)
+    # the live env: a skipped conditional block keeps its outputs' values
+    opctx.env = env
     if torch.autograd._profiler_enabled() and FLAGS.op_trace_scopes:
         # FLAGS_op_trace_scopes: the profiler links each kernel to the op
         # that launched it (profiler.summarize_profile's by_framework_op);
@@ -199,6 +201,18 @@ class _OpCtx:
         self.attrs = op.attrs
         self.inputs = getattr(op, "inputs", {})
         self.outputs = getattr(op, "outputs", {})
+
+    def sub_block(self, idx):
+        """Block `idx` of the op's program (a control-flow body)."""
+        return self._op.block.program.blocks[idx]
+
+    def lower_sub_block(self, block, env):
+        """Run a sub-block's ops on `env` in this run's context. Op ids
+        are unique across a program's blocks, so no sub-block op matches
+        the run's record ids or its drop list (both the global block's)."""
+        for i, op in enumerate(block.ops):
+            run_op(op, env, self._ctx, op_idx=i)
+        return env
 
     def wants(self, slot):
         """Whether a later op reads, or a fetch names, a var of the output

@@ -32,6 +32,11 @@ class OpDef:
     inplace: bool = False
     # Semantic version, saved with programs and checked on load.
     version: int = 1
+    # Static shape rule for the analysis (analysis/shape_infer.py):
+    # abstract_eval(op, in_specs, block) -> {out name: spec}, for an op
+    # whose lowering cannot run on meta tensors (control flow reads its
+    # predicate).
+    abstract_eval: Optional[Callable] = None
 
 
 class OpRegistry:
@@ -82,6 +87,17 @@ def register_op(op_type, *, nondiff_inputs=(), nondiff_outputs=(),
             nondiff_inputs=tuple(nondiff_inputs),
             nondiff_outputs=tuple(nondiff_outputs),
             stateful=stateful, inplace=inplace, version=version))
+        return fn
+
+    return deco
+
+
+def register_abstract_eval(op_type):
+    """Attach a static shape rule to a registered op:
+    ``@register_abstract_eval("while") def _specs(op, in_specs, block)``."""
+
+    def deco(fn):
+        REGISTRY.get(op_type).abstract_eval = fn
         return fn
 
     return deco

@@ -136,9 +136,10 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         t_run0 = time.perf_counter()
+        feed, lod_names = self._expand_lod_feeds(program, feed)
         run_prog = self._gates(program, feed, fetch_names)
         block = run_prog.global_block()
-        feeds = self._prepare_feed(block, feed)
+        feeds = self._prepare_feed(block, feed, lod_names)
 
         build_s = 0.0
         key = self._cache_key(run_prog, feeds, fetch_names)
@@ -316,10 +317,53 @@ class Executor:
                     where="executor")
         return program
 
-    def _prepare_feed(self, block, feed) -> Dict[str, torch.Tensor]:
+    @staticmethod
+    def _expand_lod_feeds(program, feed):
+        """(the feed with every LoDTensor made dense, the names exempt from
+        the rank check). A LoDTensor with LoD is padded to [B, T, ...] with
+        T rounded up to a multiple of 8 (ragged batches then share a few
+        shapes), and its lengths go to its var's companion
+        (program.lod_link) unless the feed names the companion; a ragged
+        feed of a var without a companion warns that padding will read as
+        data. A plain array fed to a ragged var gets full lengths (T for
+        every row) in its companion."""
+        block = program.global_block()
+        links = program.lod_link
+        out, ragged = {}, set()
+        for name, val in feed.items():
+            if hasattr(val, "numpy_value"):
+                if val.lod():
+                    padded, lengths = val.to_padded(multiple=8)
+                    ragged.add(name)
+                    ln = links.get(name)
+                    if ln and block.has_var(ln) and ln not in feed:
+                        out[ln] = np.asarray(lengths, np.int64)
+                    elif not ln:
+                        import warnings
+                        warnings.warn(
+                            f"feed {name!r} carries LoD but the program "
+                            f"declares no lengths var for it (was it "
+                            f"created with lod_level=0?); sequence ops "
+                            f"will treat padding as real data")
+                    val = padded
+                else:
+                    val = val.numpy_value()
+            out[name] = val
+        for name, ln in links.items():
+            if (ln not in out and name in out and block.has_var(ln)
+                    and getattr(block.var(ln), "is_data", False)):
+                shape = tuple(out[name].shape)
+                if len(shape) >= 2:
+                    out[ln] = np.full((shape[0],), shape[1], np.int64)
+        return out, set(links) | set(links.values()) | ragged
+
+    def _prepare_feed(self, block, feed, lod_names=()) -> Dict[str,
+                                                               torch.Tensor]:
         """Feeds as tensors on the place, in the declared dtype. Integer
         ids stay int64 (torch indexing wants int64; the JAX package
-        narrows them to int32 on the device)."""
+        narrows them to int32 on the device). The rank check skips the
+        ragged vars and their companions (`lod_names`): a ragged feed is
+        padded to (batch, T, ...) on purpose."""
         t0 = time.perf_counter()
         out = {}
         total = host = presharded = 0
@@ -334,7 +378,8 @@ class Executor:
                     t = t.to(want)
                     staged = True
                 declared = var.shape
-                if declared and t.dim() != len(declared):
+                if declared and name not in lod_names and \
+                        not var.lod_level and t.dim() != len(declared):
                     raise ValueError(
                         f"feed {name!r}: fed array has rank {t.dim()} "
                         f"(shape {list(t.shape)}) but the program "

@@ -314,6 +314,22 @@ class Program:
         self._op_counter += 1
         return self._op_counter
 
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new block under the current one (or `parent_idx`), made
+        current: the body of a While, a conditional block or an RNN
+        step. Op ids stay unique across blocks."""
+        parent = self._current_block_idx if parent_idx is None \
+            else parent_idx
+        blk = Block(self, len(self.blocks), parent_idx=parent)
+        self.blocks.append(blk)
+        self._current_block_idx = blk.idx
+        self._fp_cache = None
+        return blk
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self._current_block_idx = self.current_block().parent_idx
+
     def global_block(self) -> Block:
         return self.blocks[0]
 

@@ -17,6 +17,57 @@ from .initializer import Constant, Xavier
 
 __all__ = ["LayerHelper"]
 
+# Ops through which a sequence-lengths link (program.lod_link) passes
+# from an input to the outputs: those that keep the [batch, time] dims of
+# their primary input. The sequence layers find a ragged input's lengths
+# var through the link, so a program never names the lengths.
+_LOD_PRESERVING = {
+    "lookup_table", "lookup_table_v2", "cast", "scale", "dropout",
+    "relu", "tanh", "sigmoid", "gelu", "leaky_relu", "elu", "selu",
+    "softsign", "softplus", "swish", "hard_swish", "brelu", "abs",
+    "square", "sqrt", "rsqrt", "exp", "log", "pow", "relu6", "clip",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "layer_norm", "softmax", "log_softmax",
+    "sequence_softmax", "sequence_reverse", "emb_eltwise_layernorm",
+    # the recurrent ops keep [batch, time] (dynamic_lstmp is "lstm" too)
+    "lstm", "gru",
+}
+# output slots that never carry sequence data
+_LOD_AUX_SLOTS = {"Mask", "MaxIndex", "Mean", "Variance", "SavedMean",
+                  "SavedVariance", "XShape", "MeanOut", "VarianceOut"}
+
+
+def _propagate_lod_link(block, op_type, inputs, outputs, attrs):
+    prog = block.program
+    if not prog.lod_link:
+        return
+    if op_type == "mul":
+        # keeps [b, t] only when x is flattened after dim >= 2
+        if (attrs or {}).get("x_num_col_dims", 1) < 2:
+            return
+    elif op_type == "concat":
+        # a feature-axis concat keeps [b, t]; a batch or time one does not
+        if (attrs or {}).get("axis", 0) in (0, 1):
+            return
+    elif op_type not in _LOD_PRESERVING:
+        return
+    src = None
+    for names in (inputs or {}).values():
+        for n in names or []:
+            if n in prog.lod_link:
+                src = prog.lod_link[n]
+                break
+        if src:
+            break
+    if not src:
+        return
+    for slot, names in (outputs or {}).items():
+        if slot in _LOD_AUX_SLOTS:
+            continue
+        for n in names or []:
+            prog.lod_link.setdefault(n, src)
+
 
 class LayerHelper:
     def __init__(self, layer_type, **kwargs):
@@ -100,6 +151,9 @@ class LayerHelper:
                                     resolve(kwargs.get("inputs")),
                                     kwargs.get("attrs") or {},
                                     out_vars=resolve(kwargs.get("outputs")))
+        _propagate_lod_link(self.block, kwargs["type"],
+                            kwargs.get("inputs"), kwargs.get("outputs"),
+                            kwargs.get("attrs"))
         return self.block.append_op(
             kwargs["type"], inputs=kwargs.get("inputs"),
             outputs=kwargs.get("outputs"), attrs=kwargs.get("attrs"))

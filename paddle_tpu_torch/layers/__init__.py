@@ -1,10 +1,10 @@
 """Graph-building layer functions: every layer of the JAX package's
-layers/nn.py but warpctc, the dense comparisons, the tensor creation
-and check layers, the in-program readers, the LR schedules, accuracy
-and auc, and the dense layers of layers/parity.py."""
-from .control_flow import (equal, greater_equal,  # noqa: F401
-                           greater_than, increment, is_empty, less_equal,
-                           less_than, not_equal)
+layers/nn.py but warpctc, the control flow, the sequence and RNN
+layers, the tensor creation and check layers, the in-program readers,
+the LR schedules, accuracy and auc, and the dense and beam-search layers
+of layers/parity.py."""
+from . import control_flow  # noqa: F401
+from .control_flow import *  # noqa: F401,F403
 from .io import (create_py_reader_by_data, data,  # noqa: F401
                  double_buffer, load, py_reader, read_file)
 from .learning_rate_scheduler import (  # noqa: F401
@@ -18,8 +18,15 @@ from .math_ops import (elementwise_add, elementwise_div,  # noqa: F401
 from .metric_op import accuracy, auc  # noqa: F401
 from .nn import *  # noqa: F401,F403
 from .nn import argsort, pixel_shuffle_raw  # noqa: F401
-from .parity import (adaptive_pool3d, pool3d,  # noqa: F401
-                     unique_with_counts)
+from .parity import *  # noqa: F401,F403
+from . import rnn  # noqa: F401
+from .rnn import (RNNCell, GRUCell, LSTMCell, birnn,  # noqa: F401
+                  BeamSearchDecoder, Decoder, dynamic_decode,
+                  dynamic_gru, dynamic_lstm, dynamic_lstmp, gru_unit,
+                  lstm_unit, lstm)
+from .rnn import rnn as rnn_fn  # noqa: F401  (module name shadows the fn)
+from . import sequence  # noqa: F401
+from .sequence import *  # noqa: F401,F403
 from .tensor import (argmax, argmin, assign, cast,  # noqa: F401
                      concat, create_global_var, create_parameter,
                      create_tensor, diag, eye, fill_constant,

@@ -9,21 +9,44 @@ __all__ = ["data"]
 def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
          type=None, stop_gradient=True):
     """Declare a feed variable. append_batch_size=True prepends a dynamic
-    batch dim (-1). Ragged (lod_level > 0) data is not ported yet
-    (ROADMAP §A4)."""
-    if lod_level:
-        raise NotImplementedError(
-            "data(lod_level>0): ragged feeds are not ported yet "
-            "(ROADMAP §A4)")
+    batch dim (-1). A ragged var (lod_level=1) is padded on the device,
+    [batch, T, *shape], with a dynamic T, and gets a lengths companion
+    var (`_attach_lengths`); lod_level > 1 raises."""
     shape = list(shape)
     if append_batch_size:
         shape = [-1] + shape
-    blk = default_main_program().global_block()
+    if lod_level > 1:
+        raise NotImplementedError(
+            "data(lod_level>=2): nested ragged levels have no padded "
+            "feed path yet — only one variable-length (time) dimension "
+            "is supported")
+    if lod_level == 1:
+        shape = shape[:1] + [-1] + shape[1:]
+    prog = default_main_program()
+    blk = prog.global_block()
     if blk.has_var(name):
-        return blk.var(name)
-    return blk.create_var(name=name, shape=shape, dtype=dtype,
-                          lod_level=lod_level, stop_gradient=stop_gradient,
-                          is_data=True)
+        v = blk.var(name)
+        if lod_level > 0 and name not in prog.lod_link:
+            _attach_lengths(prog, name)
+        return v
+    v = blk.create_var(name=name, shape=shape, dtype=dtype,
+                       lod_level=lod_level, stop_gradient=stop_gradient,
+                       is_data=True)
+    if lod_level > 0:
+        _attach_lengths(prog, name)
+    return v
+
+
+def _attach_lengths(prog, name):
+    """Declare the ragged var's lengths companion, "<name>.lengths"
+    (int64 [batch]), and link it (program.lod_link): the executor feeds
+    it from a LoDTensor, and the sequence layers read it."""
+    ln = f"{name}.lengths"
+    if not prog.global_block().has_var(ln):
+        prog.global_block().create_var(
+            name=ln, shape=[-1], dtype="int64", lod_level=0,
+            stop_gradient=True, is_data=True)
+    prog.lod_link[name] = ln
 
 
 __all__ += ["read_file", "double_buffer", "py_reader",

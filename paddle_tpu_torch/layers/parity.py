@@ -1,11 +1,15 @@
-"""layers.parity — the dense layers of the JAX package's layers/parity.py:
-pool3d, adaptive_pool3d and unique_with_counts (the rest waits for
-ROADMAP §A8)."""
+"""layers.parity — layers of the JAX package's layers/parity.py: pool3d,
+adaptive_pool3d, unique_with_counts, beam_search and beam_search_decode
+(the rest waits for ROADMAP §A8)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["pool3d", "adaptive_pool3d", "unique_with_counts"]
+__all__ = ["pool3d", "adaptive_pool3d", "unique_with_counts",
+           "beam_search", "beam_search_decode", "im2sequence", "lod_reset",
+           "lod_append", "sequence_enumerate", "gather_tree",
+           "filter_by_instag", "tensor_array_to_tensor",
+           "reorder_lod_tensor_by_rank"]
 
 
 def _one_out(op_type, inputs, attrs=None, dtype=None, ref=None, name=None,
@@ -56,3 +60,111 @@ def unique_with_counts(x, dtype="int32"):
                      outputs={"Out": [out.name], "Index": [index.name],
                               "Count": [count.name]})
     return out, index, count
+
+
+def beam_search(pre_ids, pre_scores, ids, scores, beam_size, end_id,
+                level=0, is_accumulated=True, name=None,
+                return_parent_idx=False):
+    helper = LayerHelper("beam_search", name=name)
+    selected_ids = helper.create_variable_for_type_inference("int64", True)
+    selected_scores = helper.create_variable_for_type_inference(
+        scores.dtype, True)
+    parent_idx = helper.create_variable_for_type_inference("int32", True)
+    ins = {"pre_ids": [pre_ids.name], "pre_scores": [pre_scores.name],
+           "scores": [scores.name]}
+    if ids is not None:
+        ins["ids"] = [ids.name]
+    helper.append_op(
+        type="beam_search", inputs=ins,
+        outputs={"selected_ids": [selected_ids.name],
+                 "selected_scores": [selected_scores.name],
+                 "parent_idx": [parent_idx.name]},
+        attrs={"beam_size": beam_size, "end_id": end_id, "level": level,
+               "is_accumulated": is_accumulated})
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, beam_size, end_id, name=None):
+    helper = LayerHelper("beam_search_decode", name=name)
+    sentence_ids = helper.create_variable_for_type_inference("int64", True)
+    sentence_scores = helper.create_variable_for_type_inference(
+        scores.dtype, True)
+    helper.append_op(type="beam_search_decode",
+                     inputs={"Ids": [ids.name], "Scores": [scores.name]},
+                     outputs={"SentenceIds": [sentence_ids.name],
+                              "SentenceScores": [sentence_scores.name]},
+                     attrs={"beam_size": beam_size, "end_id": end_id})
+    return sentence_ids, sentence_scores
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, input_image_size=None,
+                out_stride=1, name=None):
+    def _2(v):
+        return [v, v] if isinstance(v, int) else list(v)
+    pad = _2(padding)
+    if len(pad) == 2:
+        pad = pad * 2
+    return _one_out("im2sequence", {"X": [input.name]},
+                    {"kernels": _2(filter_size), "strides": _2(stride),
+                     "paddings": pad},
+                    ref=input, name=name)
+
+
+def lod_reset(x, y=None, target_lod=None):
+    ins = {"X": [x.name]}
+    if y is not None:
+        ins["Y"] = [y.name]
+    return _one_out("lod_reset", ins, {"target_lod": target_lod or []},
+                    ref=x)
+
+
+def lod_append(x, level):
+    """The LoD lives on the host (core/lod.py): on the device the tensor
+    is unchanged."""
+    return lod_reset(x)
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None):
+    from .sequence import sequence_enumerate as _se
+    return _se(input, win_size, pad_value, name)
+
+
+def gather_tree(ids, parents):
+    return _one_out("gather_tree",
+                    {"Ids": [ids.name], "Parents": [parents.name]},
+                    ref=ids, stop_gradient=True)
+
+
+def filter_by_instag(ins, ins_tag, filter_tag, is_lod, out_val_if_empty=0):
+    helper = LayerHelper("filter_by_instag")
+    out = helper.create_variable_for_type_inference(ins.dtype)
+    loss_weight = helper.create_variable_for_type_inference("float32", True)
+    index_map = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(type="filter_by_instag",
+                     inputs={"Ins": [ins.name], "Ins_tag": [ins_tag.name],
+                             "Filter_tag": [filter_tag.name]},
+                     outputs={"Out": [out.name],
+                              "LossWeight": [loss_weight.name],
+                              "IndexMap": [index_map.name]},
+                     attrs={"is_lod": is_lod})
+    return out, loss_weight
+
+
+def tensor_array_to_tensor(input, axis=1, name=None, use_stack=False):
+    helper = LayerHelper("tensor_array_to_tensor", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    out_index = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op(type="tensor_array_to_tensor",
+                     inputs={"X": [input.name]},
+                     outputs={"Out": [out.name],
+                              "OutIndex": [out_index.name]},
+                     attrs={"axis": axis, "use_stack": use_stack})
+    return out, out_index
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    return _one_out("reorder_lod_tensor_by_rank",
+                    {"X": [x.name], "RankTable": [rank_table.name]},
+                    ref=x)

@@ -1,12 +1,12 @@
 """Composed blocks of the JAX package's nets.py: simple_img_conv_pool,
-img_conv_group, glu and scaled_dot_product_attention (sequence_conv_pool
-needs LoD and waits for ROADMAP §A4)."""
+img_conv_group, sequence_conv_pool, glu and
+scaled_dot_product_attention."""
 from __future__ import annotations
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
-           "scaled_dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -47,6 +47,20 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                 tmp = layers.dropout(tmp, conv_batchnorm_drop_rate)
     return layers.pool2d(tmp, pool_size=pool_size, pool_stride=pool_stride,
                          pool_type=pool_type)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max"):
+    """sequence_conv (with bias and `act`) then sequence_pool, the pool
+    masked by the input's lengths when it is ragged (its lod_link). The
+    JAX package's raises NotImplementedError; its own layers compose the
+    same program."""
+    conv_out = layers.sequence_conv(input, num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    ln = input.block.program.lod_link.get(input.name)
+    lengths = input.block._find_var_recursive(ln) if ln else None
+    return layers.sequence_pool(conv_out, pool_type, lengths=lengths)
 
 
 def glu(input, dim=-1):

@@ -14,9 +14,10 @@ LR var. The programs they build are the JAX package's to the byte.
 
 Not ported yet: the eager (dygraph) path, with the TypeError the JAX
 package raises for a dygraph ``LearningRateDecay`` passed to a static
-optimizer (both come with the dygraph slice); GradientMergeOptimizer
-(it needs ``conditional_block``); RecomputeOptimizer and
+optimizer (both come with the dygraph slice); RecomputeOptimizer and
 PipelineOptimizer (they need the parallel package).
+GradientMergeOptimizer accumulates k steps' gradients and applies the
+inner optimizer inside a ``conditional_block``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ __all__ = [
     "AdadeltaOptimizer", "RMSProp", "RMSPropOptimizer", "Ftrl",
     "FtrlOptimizer", "Lamb", "LambOptimizer", "Dpsgd", "DpsgdOptimizer",
     "DGCMomentum", "DGCMomentumOptimizer", "ExponentialMovingAverage",
-    "ModelAverage", "LookaheadOptimizer",
+    "ModelAverage", "LookaheadOptimizer", "GradientMergeOptimizer",
 ]
 
 
@@ -802,6 +803,68 @@ class LookaheadOptimizer:
             block.append_op("elementwise_add",
                             inputs={"X": [p.name], "Y": [diff.name]},
                             outputs={"Out": [p.name]}, infer_shape=False)
+        return opt_ops, params_grads
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation over k steps: every step adds each gradient
+    to a persistable buffer (``acc += grad``); every k-th step the inner
+    optimizer's update, on the buffer (divided by k with `avg`), and the
+    buffers' reset run inside one conditional_block on
+    ``every_n_steps(k)``. The block is skipped on the other steps, so the
+    parameters and the optimizer's state are not touched there (the
+    updates write in place only when the block runs): the k steps give
+    the inner optimizer's step on a k-times larger batch."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self.inner = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        return self.inner.backward(loss, startup_program, parameter_list,
+                                   no_grad_set, callbacks)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import nn as nn_layers
+        from .layers.control_flow import _CondBlockGuard
+        from .layers.learning_rate_scheduler import every_n_steps
+
+        params_grads = self.inner.backward(
+            loss, startup_program, parameter_list, no_grad_set)
+        if self.k_steps <= 1:
+            return self.inner.apply_gradients(params_grads), params_grads
+
+        block = default_main_program().current_block()
+        cond = every_n_steps(
+            self.k_steps,
+            counter_name=unique_name.generate("@GRADIENT_MERGE_STEP@"))
+        merged = []
+        for p, g in params_grads:
+            acc = create_global_var(
+                list(p.shape), 0.0, p.dtype, persistable=True,
+                name=unique_name.generate(f"{p.name}_gradient_merge"))
+            block.append_op(  # acc += grad
+                "elementwise_add", inputs={"X": [acc.name], "Y": [g.name]},
+                outputs={"Out": [acc.name]}, attrs={"axis": -1},
+                infer_shape=False)
+            merged.append((p, acc))
+
+        with _CondBlockGuard(cond):
+            applied = []
+            for p, acc in merged:
+                eff = nn_layers.scale(acc, scale=1.0 / self.k_steps) \
+                    if self.avg else acc
+                applied.append((p, eff))
+            opt_ops = self.inner.apply_gradients(applied)
+            sub = default_main_program().current_block()
+            for _, acc in merged:
+                sub.append_op(  # reset the buffer after the update
+                    "scale", inputs={"X": [acc.name]},
+                    outputs={"Out": [acc.name]},
+                    attrs={"scale": 0.0, "bias": 0.0}, infer_shape=False)
         return opt_ops, params_grads
 
 

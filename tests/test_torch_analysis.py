@@ -4,8 +4,7 @@
   same findings in both packages: rule IDs, severities, provenance
   ("{op_type}:{block}/{op_idx}") and vars, in the same order. PTV022 is
   held on a lowering that fails (a product of mismatched shapes) rather
-  than on a swapped-in abstract_eval rule, which the port's registry
-  does not have.
+  than on a swapped-in abstract_eval rule.
 - The tiny training builds of BERT (plain and MLM under AMP), GPT,
   ResNet-50, the Transformer, DeepLab and SE-ResNeXt verify to the same
   findings, and their memory plans at the same feed shapes are equal:
@@ -137,28 +136,14 @@ FIXTURES = {
 }
 
 
-def _unported(keys):
-    """The port's PTV001 findings for op types the JAX package registers
-    (control flow waits for ROADMAP.md §A4), and the other findings."""
-    from paddle_tpu.core.registry import REGISTRY as JREG
-    extra = [k for k in keys if k[0] == "PTV001"
-             and JREG.has(k[2].split(":", 1)[0])]
-    return extra, [k for k in keys if k not in extra]
-
-
 @pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_crafted_programs_give_the_jax_findings(name):
-    """Equal findings, but for one more: an op type the port has not
-    ported yet gives PTV001 there (the deliberate difference of
-    ROADMAP.md §C)."""
+    """Equal findings, `while` included (its shape rule is registered in
+    both packages)."""
     var_specs, op_specs, kw, rule = FIXTURES[name]
     rj = jverify(raw_program(fj, var_specs, op_specs), **kw)
     rt = verify_program(raw_program(ft, var_specs, op_specs), **kw)
-    extra, keys = _unported(finding_keys(rt))
-    assert keys == finding_keys(rj)
-    assert [k[2] for k in extra] == [
-        f"{op[0]}:0/{i}" for i, op in enumerate(op_specs)
-        if op[0] == "while"]
+    assert finding_keys(rt) == finding_keys(rj)
     rules = {d.rule for d in rt.findings}
     if rule is None:
         assert not rt.errors(), rt.summary()

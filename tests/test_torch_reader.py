@@ -309,15 +309,28 @@ def test_queue_depth_flag_and_from_dataset():
         ft.io.DataLoader.from_dataset(object())
 
 
-def test_lod_feeds_raise():
-    main = ft.Program()
-    with ft.program_guard(main, ft.Program()):
-        with pytest.raises(NotImplementedError, match="A4"):
-            ft.layers.data("words", [1], dtype="int64", lod_level=1)
-        v = main.global_block().create_var(name="w", shape=[-1, 1],
-                                           dtype="int64", lod_level=1)
-        with pytest.raises(NotImplementedError, match="A4"):
-            ft.DataFeeder([v])
+def test_lod_feeds_match_jax():
+    """data(lod_level=2) raises in both packages; DataFeeder over a
+    lod_level=1 var gives the JAX package's LoDTensor (offsets and
+    data)."""
+    rows = [(np.arange(n).reshape(n, 1) + 3 * n, [n % 2])
+            for n in (3, 1, 5)]
+    got = []
+    for f in (fj, ft):
+        main = f.Program()
+        with f.program_guard(main, f.Program()):
+            with pytest.raises(NotImplementedError, match="lod_level>=2"):
+                f.layers.data("deep", [1], dtype="int64", lod_level=2)
+            words = f.layers.data("words", [1], dtype="int64", lod_level=1)
+            label = f.layers.data("label", [1], dtype="int64")
+        assert main.lod_link == {"words": "words.lengths"}
+        got.append(f.DataFeeder([words, label], program=main).feed(rows))
+    (jw, jl), (tw, tl) = [(g["words"], g["label"]) for g in got]
+    assert type(tw).__name__ == "LoDTensor"
+    assert tw.lod() == jw.lod() == [[0, 3, 4, 9]]
+    assert tw.recursive_sequence_lengths() == [[3, 1, 5]]
+    np.testing.assert_array_equal(tw.numpy_value(), jw.numpy_value())
+    np.testing.assert_array_equal(tl, jl)
 
 
 def _in_program_readers(f):

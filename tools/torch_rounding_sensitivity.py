@@ -26,6 +26,11 @@ Usage (both packages on the path, JAX on the CPU):
         --d-model 128 --layers 2 --len 128 [--steps 2]
     JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py se_resnext \\
         [--batch 4] [--steps 2] [--pert 1e-6]
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py seq2seq \\
+        [--batch 4] [--pert 1e-6] [--hidden 1000 --emb 620 --vocab 30000
+        --len 50]
+    JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py sentiment \\
+        [--batch 128] [--pert 1e-6]
 
 ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
 --branch-scale multiplies the scale of every batch_norm that ends a
@@ -54,6 +59,17 @@ Momentum lr 0.01, dropout off: the frameworks draw other masks), batch
 of seeded noise) for the step-1 gradient, and port_update and
 jax_pert_update for the update after --steps steps; the largest loss
 gap of each too. chip_smoke.py's SE_RESNEXT_BARS come from these.
+
+`seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
+[seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
+RNNsearch program (build_seq2seq, widths from the flags, RNNsearch-50's
+by default) at batch --batch on seq2seq_feed's rows; the loss and the
+gradients [seq2seq_cpu_check] compares (the two embeddings, the output
+projection, the decoder GRU's recurrent weight), port_f32 and jax_pert
+(both embedding tables times 1 + --pert of seeded noise). sentiment:
+chip_smoke's book stacked LSTM (build_sentiment) on the first of
+imdb_batches' ragged batches of --batch reviews; the loss, port_f32 and
+jax_pert (the embedding table moved likewise).
 """
 import argparse
 import sys
@@ -324,6 +340,97 @@ def _se_resnext(args):
     return 0
 
 
+def _chip_smoke():
+    """chip_smoke.py (the repository root's), loaded by path."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), os.pardir, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _moved(init, names, pert):
+    """init with each of `names` times 1 + pert of seeded noise."""
+    out = dict(init)
+    for i, n in enumerate(names):
+        noise = np.random.RandomState(5 + i).randn(*init[n].shape)
+        out[n] = (init[n] * (1 + pert * noise)).astype(init[n].dtype)
+    return out
+
+
+def _float32_step(progs, init, moved, feeds, fetch):
+    """One step of the JAX program from `init` and from `moved`, and of
+    the port's from `init`, fetching `fetch`: (jax, jax moved, port)
+    lists of float32 numpy."""
+    (mj, lj), (mt, lt) = progs
+
+    def jax_run(state, feed):
+        scope = fj.Scope()
+        for k, v in state.items():
+            scope.set(k, v)
+        with fj.scope_guard(scope):
+            out = fj.Executor(fj.CPUPlace()).run(
+                mj, feed=feed, fetch_list=[lj.name] + fetch)
+        return [np.asarray(x, np.float32) for x in out]
+
+    scope = scope_from_numpy(init, ft.Scope(), ft.CPUPlace())
+    port = ft.Executor(ft.CPUPlace()).run(
+        mt, feed=feeds[1], fetch_list=[lt.name] + fetch, scope=scope)
+    return jax_run(init, feeds[0]), jax_run(moved, feeds[0]), \
+        [np.asarray(x, np.float32) for x in port]
+
+
+def _print_float32(names, jg, pg, tg):
+    keys = ("port_f32", "jax_pert")
+    print(f"loss: jax {jg[0]} moved {pg[0]} port {tg[0]}; gap port "
+          f"{abs(tg[0] - jg[0]) / abs(jg[0]):.3e} moved "
+          f"{abs(pg[0] - jg[0]) / abs(jg[0]):.3e}")
+    top = dict.fromkeys(keys, 0.0)
+    for i, n in enumerate(names, 1):
+        row = dict(zip(keys, (_fro(tg[i], jg[i]), _fro(pg[i], jg[i]))))
+        print(f"{n:28s} " + " ".join(f"{k} {v:.3e}" for k, v in row.items()))
+        for k, v in row.items():
+            top[k] = max(top[k], v)
+    if names:
+        print("max " + " ".join(f"{k} {v:.3e}" for k, v in top.items()))
+    return 0
+
+
+def _seq2seq(args):
+    c = _chip_smoke()
+    c.S2S_HIDDEN, c.S2S_EMB, c.S2S_VOCAB, c.S2S_LEN = \
+        args.hidden, args.emb, args.vocab, args.len
+    (mj, startup, lj), (mt, _, lt) = c.build_seq2seq(fj), c.build_seq2seq(ft)
+    init = _jax_init(startup)
+    params = [p.name for p in mt.all_parameters()]
+    names = [n for n in params if n in c.S2S_CHECK_GRADS] + [params[-2], [
+        n for n in params if n.startswith("GRUCell") and
+        n.endswith(".w_0")][-1]]
+    feed = c.seq2seq_feed(args.batch, seed=1)
+    moved = _moved(init, list(c.S2S_CHECK_GRADS), args.pert)
+    jg, pg, tg = _float32_step(((mj, lj), (mt, lt)), init, moved,
+                               (feed, feed), [f"{n}@GRAD" for n in names])
+    return _print_float32(names, jg, pg, tg)
+
+
+def _sentiment(args):
+    c = _chip_smoke()
+    from paddle_tpu_torch.datasets import imdb
+    vocab = len(imdb.word_dict())
+    mj, startup, lj, vj = c.build_sentiment(fj, vocab)
+    mt, _, lt, vt = c.build_sentiment(ft, vocab)
+    init = _jax_init(startup)
+    feeds = (c.imdb_batches(fj, mj, vj, 1, args.batch)[0],
+             c.imdb_batches(ft, mt, vt, 1, args.batch)[0])
+    emb = [n for n in init if n.startswith("embedding")]
+    jg, pg, tg = _float32_step(((mj, lj), (mt, lt)), init,
+                               _moved(init, emb, args.pert), feeds, [])
+    return _print_float32([], jg, pg, tg)
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -357,7 +464,20 @@ def main(argv=None):
     s.add_argument("--batch", type=int, default=4)
     s.add_argument("--steps", type=int, default=2)
     s.add_argument("--pert", type=float, default=1e-6)
+    q = sub.add_parser("seq2seq")
+    q.add_argument("--batch", type=int, default=4)
+    q.add_argument("--pert", type=float, default=1e-6)
+    q.add_argument("--hidden", type=int, default=1000)
+    q.add_argument("--emb", type=int, default=620)
+    q.add_argument("--vocab", type=int, default=30000)
+    q.add_argument("--len", type=int, default=50)
+    m = sub.add_parser("sentiment")
+    m.add_argument("--batch", type=int, default=128)
+    m.add_argument("--pert", type=float, default=1e-6)
     args = ap.parse_args(argv)
+    if args.model in ("seq2seq", "sentiment"):
+        return {"seq2seq": _seq2seq, "sentiment": _sentiment}[args.model](
+            args)
     if args.model == "recipe":
         return _recipe(args)
     if args.model == "se_resnext":
