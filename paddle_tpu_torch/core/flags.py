@@ -227,6 +227,48 @@ _define("serving_nan_guard", True, bool,
         "being served; a generation step with non-finite logits fails its "
         "slots.")
 
+# -- the serving fleet (serving/router.py, serving/disagg.py) -----------------
+_define("router_redispatch_budget", 2, int,
+        "Multi-replica router (serving/router.py): how many times one "
+        "request may be re-dispatched to a different replica after a "
+        "retryable failure (replica death, 503 shed, connection reset) "
+        "before the error is surfaced to the client. 0 disables "
+        "failover.")
+_define("router_probe_interval_s", 0.5, float,
+        "Router health-probe cadence: every interval the router polls each "
+        "replica's health (/healthz for url= replicas, engine.health() "
+        "in-process) and updates its routing table. 0 disables active "
+        "probing (passive failure accounting still runs).")
+_define("router_failure_threshold", 3, int,
+        "Consecutive dispatch failures before the router's per-replica "
+        "circuit breaker marks that replica unhealthy and routes around "
+        "it. 0 disables the per-replica breaker.")
+_define("router_affinity_max", 4096, int,
+        "Session-affinity table capacity: the router keeps at most this "
+        "many session->replica pins, evicting the least recently used pin "
+        "past the cap, so a long-running router's memory stays bounded "
+        "under a stream of short-lived generation sessions.")
+_define("router_drain_timeout_s", 30.0, float,
+        "Hot-swap / deregister drain deadline: how long the router waits "
+        "for a retired replica's in-flight requests to finish before "
+        "stopping it anyway.")
+_define("router_disagg", False, bool,
+        "Disaggregated prefill/decode dispatch (serving/disagg.py): "
+        "Router.generate() runs two-phase scheduling — pick a decode "
+        "replica, and when the fleet prefix store says it does not "
+        "already own the prompt's full-block chain, have a "
+        "prefill-capable replica export the KV blocks over the wire and "
+        "the decode replica adopt them before the decode dispatch. Off "
+        "(default) = classic single-phase routing; transfer failures "
+        "always fall back to the decode worker re-prefilling locally, so "
+        "answers never change.")
+_define("disagg_fleet_prefix_max", 4096, int,
+        "FleetPrefixStore capacity: at most this many chain-hash entries "
+        "(hash -> owning replica names) are kept on the router, "
+        "LRU-evicted past the cap. Eviction only forgets WHERE a prefix "
+        "lives — the worst case is a redundant re-prefill, never a wrong "
+        "answer.")
+
 # -- generation serving (serving/generation.py, serving/spec_decode.py) -------
 _define("gen_paged_kv", True, bool,
         "Generation engine KV layout: True = block-table paged KV cache "

@@ -305,6 +305,11 @@ class ServingEngine:
         rows, in `get_output_names()` order."""
         return self.submit(feed, timeout_ms=timeout_ms).result()
 
+    def load(self) -> int:
+        """Rows waiting in the batcher: what the router's least-loaded
+        dispatch compares."""
+        return self._batcher.pending_rows()
+
     def output_names(self) -> List[str]:
         return self.predictor.get_output_names()
 

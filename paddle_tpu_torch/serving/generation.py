@@ -346,6 +346,10 @@ class GenerationEngine:
         self._step_retry = RetryPolicy(
             is_retryable=lambda e: isinstance(e, TransientFault))
         self._engine_state = "warming"  # warming -> ready -> stopped
+        # serializes the paged KV structures (BlockPool, PrefixCache and
+        # the pool tensors the scope holds) between the worker's
+        # iteration and a cross-process export/adopt (serving/disagg.py)
+        self._kv_mutex = threading.Lock()
 
     # -- paged-pool sizing ----------------------------------------------
     def kv_block_bytes(self) -> int:
@@ -471,6 +475,13 @@ class GenerationEngine:
                  CLOSED: "ready"}[b]
         return {"state": state, "breaker": b,
                 "retry_after_s": self._breaker.retry_after_s()}
+
+    def load(self) -> int:
+        """Queued + active requests: what the router's least-loaded
+        dispatch compares."""
+        with self._cond:
+            queued = len(self._queue)
+        return queued + self._slots.active_count()
 
     def cache_stats(self):
         """The executor's per-instance cache counters; after `start()`
@@ -773,10 +784,14 @@ class GenerationEngine:
                 # admit queued requests into free slots (iteration-level
                 # scheduling: this runs BETWEEN decode steps, so a slot
                 # — and in paged mode its KV blocks — freed by the
-                # previous step is reusable right now)
-                while self._queue and self._slots.free_count() \
-                        and self._admit_locked():
-                    pass
+                # previous step is reusable right now). Under _kv_mutex
+                # too: admission allocates blocks and reads the
+                # PrefixCache an adopt may be filling (the JAX package's
+                # loop admits without it)
+                with self._kv_mutex:
+                    while self._queue and self._slots.free_count() \
+                            and self._admit_locked():
+                        pass
                 active_idx = [i for i in range(B)
                               if self._state[i] is not None]
                 STAT_SET("serving.gen_queue_depth", len(self._queue))
@@ -820,7 +835,11 @@ class GenerationEngine:
                 continue
             if self.paged:
                 t_busy0 = time.perf_counter()
-                self._paged_iteration()
+                # _kv_mutex: a disagg export/adopt reads and writes the
+                # same pools and PrefixCache between iterations; each
+                # iteration leaves new pool tensors in the scope
+                with self._kv_mutex:
+                    self._paged_iteration()
                 _goodput.gen_busy(time.perf_counter() - t_busy0)
                 continue
 

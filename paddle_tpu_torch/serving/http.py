@@ -19,10 +19,12 @@ its own handler thread, which blocks in `engine.predict` /
   continuous-batching
   GenerationEngine; same 400/503/504 error mapping. 404 when the server
   was started without a generation engine.
-- ``POST /v1/kv/export`` and ``POST /v1/kv/adopt``, the JAX package's
-  disaggregated-fleet transfer hop, need ``serving/disagg.py`` and
-  ``kv_wire.py``, which this package does not have yet: both answer
-  404 with a body that names the route as not ported.
+- ``POST /v1/kv/export`` body ``{"prompt": [token ids],
+  "run_prefill": optional}`` -> a ``kv_wire`` shipment (the prompt's
+  full-block KV prefix, prefilled locally if needed), and
+  ``POST /v1/kv/adopt`` body = a shipment -> adoption summary; the
+  disaggregated-fleet transfer hop (serving/disagg.py). 404 unless a
+  *paged* generation engine is attached.
 - ``GET /healthz``      -> aggregated engine health. 200 with
   ``{"state": "ok"|"degraded", ...}`` while every attached engine is
   ready (degraded = some circuit breaker is half-open and probing);
@@ -80,7 +82,7 @@ class ServingHTTPServer:
 
     def __init__(self, engine: Optional[ServingEngine] = None,
                  port: int = 0, host: str = "127.0.0.1",
-                 gen_engine=None):
+                 gen_engine=None, kv_hook=None):
         import http.server
 
         if engine is None and gen_engine is None:
@@ -95,6 +97,11 @@ class ServingHTTPServer:
         self._inflight = 0
         self._inflight_cv = threading.Condition()
         self._draining = False
+        # kv_hook(route, gen_engine, request, answer): called after each
+        # successful /v1/kv/export ("export") or /v1/kv/adopt ("adopt"),
+        # before the answer goes out (the replica process logs shipment
+        # digests through it)
+        self.kv_hook = kv_hook
         outer = self
 
         class _Handler(http.server.BaseHTTPRequestHandler):
@@ -336,14 +343,58 @@ class ServingHTTPServer:
                 self._reply(200, out)
 
             def _kv(self):
-                """The disaggregated KV transfer routes: not ported (no
-                disagg.py or kv_wire.py in this package yet)."""
-                self._reply(404, {"error": f"{self.path.split('?')[0]} "
-                                           "is not ported: the KV "
-                                           "transfer hop needs "
-                                           "serving/disagg.py and "
-                                           "kv_wire.py",
-                                  "not_ported": True})
+                """Disaggregated KV transfer (serving/disagg.py):
+                /v1/kv/export packs a prompt's full-block prefix into a
+                kv_wire shipment; /v1/kv/adopt unpacks one into the
+                local pool. 404 unless a paged generation engine is
+                attached."""
+                from . import disagg
+                if gen is None or not getattr(gen, "paged", False):
+                    self._reply(404, {"error": "no paged generation "
+                                               "engine attached"})
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(length) or b"{}")
+                except json.JSONDecodeError as e:
+                    self._reply(400, {"error": f"bad request: {e}"})
+                    return
+                try:
+                    if self.path.startswith("/v1/kv/export"):
+                        route = "export"
+                        out = disagg.export_prefix(
+                            gen, req["prompt"],
+                            run_prefill=bool(
+                                req.get("run_prefill", True)))
+                    elif self.path.startswith("/v1/kv/adopt"):
+                        route = "adopt"
+                        out = disagg.adopt_prefix(gen, req)
+                    else:
+                        self._reply(404, {"error":
+                                          f"no route {self.path}"})
+                        return
+                except (KeyError, ValueError, TypeError) as e:
+                    self._reply(400, {"error": f"bad request: {e}"})
+                    return
+                except OverloadedError as e:
+                    self._reply(503, {"error": str(e),
+                                      "retryable": True},
+                                headers=_retry_after_hdr(e))
+                    return
+                except QueueFullError as e:
+                    self._reply(503, {"error": str(e),
+                                      "retryable": True})
+                    return
+                except DeadlineExceededError as e:
+                    self._reply(504, {"error": str(e)})
+                    return
+                except EngineClosedError as e:
+                    self._reply(503, {"error": str(e),
+                                      "retryable": False})
+                    return
+                if outer.kv_hook is not None:
+                    outer.kv_hook(route, gen, req, out)
+                self._reply(200, out)
 
             def log_message(self, *args):
                 pass  # request logging goes through the monitor, not

@@ -10,10 +10,13 @@ trace headers (traceparent, X-Request-Id) must agree, /v1/predict's
 outputs within atol 1e-4 (two layers of float32 products summed in
 other orders) and /v1/generate's greedy tokens exactly. Also:
 /healthz's worst-state aggregation over a warming engine, the alert
-exposure on /alertz, /healthz and /metrics, and the deliberate
-difference: /v1/kv/export and /v1/kv/adopt answer 404 naming the route
-as not ported, even over a paged engine, where the JAX package's
-server would ship KV blocks (ROADMAP §C).
+exposure on /alertz, /healthz and /metrics, and the disaggregated KV
+routes: /v1/kv/export and /v1/kv/adopt over a paged GenerationEngine of
+each package (block 4) answer the JAX server's codes and bodies for
+valid, malformed and refused requests (a shipment's rows within atol
+1e-5: each package computed its own KV), 404 without a paged engine,
+and a shipment exported by either server and adopted by the other
+decodes the slab engines' greedy stream from the adopted prefix.
 """
 import contextlib
 import json
@@ -57,10 +60,25 @@ def _gpt_cfg(g):
 
 
 @pytest.fixture(scope="module")
-def servers():
+def gpt_weights():
+    """The tiny GPT's seeded JAX startup: (JAX scope, {name: array})."""
+    gmain, gstart = fj.Program(), fj.Program()
+    gstart.random_seed = 11
+    gscope = fj.Scope()
+    with fj.program_guard(gmain, gstart), fj.scope_guard(gscope):
+        gj.build_train(_gpt_cfg(gj), batch=2, seq_len=MAX_SEQ)
+        fj.Executor(fj.CPUPlace()).run(gstart)
+    params = {n: np.asarray(gscope.get(n)) for n in gscope.names()
+              if gscope.find_var(n) is not None}
+    return gscope, params
+
+
+@pytest.fixture(scope="module")
+def servers(gpt_weights):
     """{"jax" | "torch": (server, serving engine, generation engine)},
     started; stopped after the module."""
     out = {}
+    gscope, params = gpt_weights
     with tempfile.TemporaryDirectory() as d:
         main, startup = fj.Program(), fj.Program()
         startup.random_seed = 7
@@ -77,14 +95,6 @@ def servers():
             exe.run(startup)
             fj.io.save_inference_model(d, ["tokens"], [hidden], exe,
                                        main_program=main)
-        gmain, gstart = fj.Program(), fj.Program()
-        gstart.random_seed = 11
-        gscope = fj.Scope()
-        with fj.program_guard(gmain, gstart), fj.scope_guard(gscope):
-            gj.build_train(_gpt_cfg(gj), batch=2, seq_len=MAX_SEQ)
-            fj.Executor(fj.CPUPlace()).run(gstart)
-        params = {n: np.asarray(gscope.get(n)) for n in gscope.names()
-                  if gscope.find_var(n) is not None}
 
         pred_cfg = ft.inference.AnalysisConfig(d)
         pred_cfg.disable_gpu()
@@ -195,8 +205,9 @@ def test_same_answer_as_jax(servers, i):
             set(bj["engines"])
         return
     if path.startswith("/v1/kv/"):
-        # the JAX server has no paged engine here either: both refuse
-        assert st == 404 and set(bt) >= {"error"}
+        # a slab engine: both refuse the KV routes alike
+        assert st == 404 and bt == bj == {
+            "error": "no paged generation engine attached"}
         return
     assert _keys(bt) == _keys(bj) if st == 200 else set(bt) == set(bj)
     if path == "/v1/predict" and st == 200:
@@ -298,19 +309,147 @@ def test_healthz_worst_state_and_missing_engines(servers):
         TServer(None, port=0)
 
 
-def test_kv_routes_answer_not_ported_over_a_paged_engine(servers):
-    """The deliberate difference (ROADMAP §C): the KV transfer hop needs
-    serving/disagg.py and kv_wire.py, not ported yet, so even over a
-    paged engine both routes answer 404 naming themselves."""
-    _, eng, gen = servers["torch"]
-    paged = TGen(_gpt_cfg(gt), gen.scope, exe=ft.Executor(ft.CPUPlace()),
-                 max_seq=MAX_SEQ, paged=True,
-                 default_timeout_ms=DEADLINE_MS)
-    with _server(TServer, None, port=0, gen_engine=paged) as srv:
-        for route in ("/v1/kv/export", "/v1/kv/adopt"):
-            code, _, body = _call(srv.url + route, {"prompt": [1, 2]})
-            assert code == 404 and body["not_ported"] is True
-            assert route in body["error"] and "not ported" in body["error"]
+BLOCK = 4
+KV_PROMPT = [5, 9, 2, 7, 1, 8, 3, 6, 4]    # two full blocks of 4
+
+
+@pytest.fixture(scope="module")
+def paged(gpt_weights):
+    """{"jax" | "torch": server over a paged GenerationEngine (block
+    BLOCK) on the tiny GPT's weights}, started; stopped after the
+    module."""
+    gscope, params = gpt_weights
+    out = {}
+    for name in ("jax", "torch"):
+        if name == "jax":
+            scope = fj.Scope()
+            for n, a in params.items():
+                scope.var(n)
+                scope.set(n, np.array(a))
+            gen = JGen(_gpt_cfg(gj), scope,
+                       exe=fj.Executor(fj.CPUPlace()), max_seq=MAX_SEQ,
+                       paged=True, block_size=BLOCK, max_slots=2,
+                       default_timeout_ms=DEADLINE_MS)
+        else:
+            gen = TGen(_gpt_cfg(gt), scope_from_numpy(
+                params, ft.Scope(), ft.CPUPlace()),
+                exe=ft.Executor(ft.CPUPlace()), max_seq=MAX_SEQ,
+                paged=True, block_size=BLOCK, max_slots=2,
+                default_timeout_ms=DEADLINE_MS)
+        gen.start()
+        out[name] = ((JServer if name == "jax" else TServer)(
+            None, port=0, gen_engine=gen), gen)
+    yield out
+    for srv, gen in out.values():
+        srv.close()
+        gen.stop()
+
+
+def _shipment(rows_from, **changes):
+    """A valid shipment of KV_PROMPT exported by the JAX paged server,
+    with `changes` applied."""
+    status, _, body = _call(rows_from + "/v1/kv/export",
+                            {"prompt": KV_PROMPT})
+    assert status == 200
+    return {**body, **changes}
+
+
+KV_CASES = {
+    "export": ("/v1/kv/export", {"prompt": KV_PROMPT}, None),
+    "export_short": ("/v1/kv/export", {"prompt": [1, 2]}, None),
+    "export_not_resident": ("/v1/kv/export",
+                            {"prompt": [9] * 8, "run_prefill": False},
+                            None),
+    "export_no_prompt": ("/v1/kv/export", {}, None),
+    "export_broken_json": ("/v1/kv/export", None, b"{broken"),
+    "adopt_not_a_shipment": ("/v1/kv/adopt", {"prompt": [1]}, None),
+    "adopt_block_size": ("/v1/kv/adopt", "block_size", None),
+    "adopt_version": ("/v1/kv/adopt", "version", None),
+    "adopt_truncated": ("/v1/kv/adopt", "truncated", None),
+    "adopt_rows": ("/v1/kv/adopt", "rows", None),
+    "no_route": ("/v1/kv/nope", {}, None),
+}
+
+
+def _kv_body(case, ref_url):
+    path, body, raw = KV_CASES[case]
+    if body == "block_size":
+        body = _shipment(ref_url, block_size=BLOCK * 2)
+    elif body == "version":
+        body = _shipment(ref_url, version=7)
+    elif body == "truncated":
+        ship = _shipment(ref_url)
+        layer = dict(ship["layers"][0], k=ship["layers"][0]["k"][:16])
+        body = dict(ship, layers=[layer] + ship["layers"][1:])
+    elif body == "rows":
+        ship = _shipment(ref_url)
+        body = dict(ship, shape=[ship["shape"][0], BLOCK, 2, 16],
+                    layers=[{"k": _b64_zeros(ship["shape"][0] * BLOCK * 32),
+                             "v": _b64_zeros(ship["shape"][0] * BLOCK * 32)}
+                            for _ in ship["layers"]])
+    return path, body, raw
+
+
+def _b64_zeros(n):
+    import base64
+    return base64.b64encode(np.zeros(n, np.float32).tobytes()).decode()
+
+
+def _rows(body):
+    from paddle_tpu_torch.serving.kv_wire import unpack_blocks
+    return [r.numpy() for layer in unpack_blocks(body).layers
+            for r in layer]
+
+
+@pytest.mark.parametrize("case", list(KV_CASES))
+def test_kv_routes_match_jax(paged, case):
+    """Each KV request to both paged servers: equal status and body; an
+    export's rows within ATOL_KV of the JAX server's."""
+    ref = paged["jax"][0].url
+    path, body, raw = _kv_body(case, ref)
+    got = {name: _call(srv.url + path, body, raw)
+           for name, (srv, _) in paged.items()}
+    (sj, _, bj), (st, _, bt) = got["jax"], got["torch"]
+    assert st == sj, (case, bt, bj)
+    if case == "export":
+        assert st == 200 and bt["n_blocks"] == 2
+        assert {k: v for k, v in bt.items() if k != "layers"} == \
+            {k: v for k, v in bj.items() if k != "layers"}
+        for a, b in zip(_rows(bt), _rows(bj)):
+            np.testing.assert_allclose(a, b, atol=ATOL_KV, rtol=0)
+        return
+    assert bt == bj
+    assert st == {"export_short": 200, "no_route": 404}.get(case, 400)
+
+
+ATOL_KV = 1e-5
+
+
+@pytest.mark.parametrize("src,dst", [("jax", "torch"), ("torch", "jax")])
+def test_adopted_stream_equals_serial(servers, paged, src, dst):
+    """A shipment exported over HTTP by one package's paged server and
+    adopted over HTTP by the other's: the adopting server decodes the
+    slab engines' greedy stream, with the shipped prefix cached."""
+    # a prompt of each direction's own: each server's prefix cache keeps
+    # what it exported or adopted before
+    prompt = [7, 3, 11, 2, 9, 14, 5, 1, 12, 6] if src == "jax" else \
+        [8, 30, 2, 41, 17, 5, 60, 3, 22]
+    want = {name: _call(srv.url + "/v1/generate",
+                        {"prompt": prompt, "max_new_tokens": 5})[2]
+            ["tokens"] for name, (srv, _, _) in servers.items()}
+    assert want["torch"] == want["jax"]
+    status, _, ship = _call(paged[src][0].url + "/v1/kv/export",
+                            {"prompt": prompt})
+    assert status == 200 and ship["n_blocks"] == 2
+    status, _, res = _call(paged[dst][0].url + "/v1/kv/adopt", ship)
+    assert status == 200 and res == {
+        "adopted": 2, "duplicate": 0, "resident": 2, "blocks": 2,
+        "n_tokens": 2 * BLOCK, "block_size": BLOCK}
+    status, _, out = _call(paged[dst][0].url + "/v1/generate",
+                           {"prompt": prompt, "max_new_tokens": 5})
+    assert status == 200 and out["tokens"] == want["jax"]
+    assert out["cached_tokens"] == 2 * BLOCK
+    assert paged[dst][1].post_warmup_compiles() == 0
 
 
 def test_serve_reads_the_port_from_the_engine_config(servers):
