@@ -147,11 +147,11 @@ Phases, one progress line each; any failure exits non-zero:
 14. gpt_generate — from the trained GPT scope, in float32 with the same
              weights: serial greedy kv_generate through the slab decode step
              (batch 1, max_seq 512) for 8 prompts of 1 to 300 tokens and 32
-             new tokens each, then the same 8 prompts as the slots of the
-             paged decode step (batch 8, block 16, 8 x 32 + 1 blocks) and its
-             chunked-prefill sibling over one pool, driven by
-             paged_generate below; the streams must be equal, the decode
-             steps' logits within 1e-4, and no flash kernel launched.
+             new tokens each, then the same 8 prompts submitted at once to a
+             paged GenerationEngine (8 slots, block 16, chunked prefill)
+             whose steps engine_generate sees through; the streams must be
+             equal, the engine's decode steps' logits within 1e-4 of the
+             slab's, and no flash kernel launched.
 15. gen_serve — the same scope served through GenerationEngine (8 slots,
              max_seq 512, paged KV in blocks of 16), spec decode off and
              then on: 20 concurrent requests (gen_requests below) whose
@@ -1362,16 +1362,60 @@ class Run(NamedTuple):
     peaks: list
 
 
-def planned_peak_bytes(main, feed, fetch):
-    """The static memory planner's peak estimate for the program the
-    executor runs for `main` at `feed` (the optimized one, its memory
-    plan at the feed's shapes): memo hits of the gates the run passed."""
+def planned_plan(main, feed, fetch, layout=None):
+    """The static memory planner's plan for the program the executor runs
+    for `main` at `feed` (the optimized one, at the feed's shapes, per
+    rank under `layout`): memo hits of the gates the run passed. Its
+    `device_peak_bytes` is what the gate prices."""
     from paddle_tpu_torch import Executor
     from paddle_tpu_torch.analysis import memory_gate, optimize_gate
     fetch = [getattr(v, "name", v) for v in fetch]
+    # as Executor.run sees it: ragged feeds padded, lengths added
+    feed, _ = Executor._expand_lod_feeds(main, feed)
     sig = Executor.feed_signature(main.global_block(), feed)
     prog, _ = optimize_gate(main, feed_names=sig.keys(), fetch_names=fetch)
-    return memory_gate(prog, feed_shapes=sig, fetch_names=fetch).peak_bytes
+    return memory_gate(prog, feed_shapes=sig, fetch_names=fetch,
+                       layout=layout)
+
+
+# The planner's device peak over the program's measured peak
+# (plan_gate): at least 1.0 (the gate never admits what the card cannot
+# hold) and at most PLAN_CEILING (PERF.md §6 has the readings it was set
+# from).
+PLAN_CEILING = 2.5
+
+
+def scope_device_bytes(torch, scope):
+    """Bytes of the scope's tensors on the card (each storage once)."""
+    seen, total = set(), 0
+    for v in scope._vars.values():
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            st = v.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    return total
+
+
+def plan_gate(tag, plan, measured_gb, foreign_gb, card):
+    """The [tag] line: the planner's device peak, its parts and the
+    program's measured peak (torch.cuda.max_memory_allocated less what
+    other code held on the card when the step began, `foreign_gb`);
+    fails unless 1.0 <= planned / measured <= PLAN_CEILING."""
+    est = plan.device_peak_bytes / 1e9
+    ratio = est / measured_gb if measured_gb > 0 else float("inf")
+    phase(tag, est_peak_gb=f"{est:.3f}",
+          plan_peak_gb=f"{plan.peak_bytes / 1e9:.3f}",
+          **{f"{k}_gb": f"{v / 1e9:.3f}"
+             for k, v in plan.device_charges.items()},
+          measured_peak_gb=f"{measured_gb:.3f}",
+          foreign_gb=f"{foreign_gb:.3f}",
+          est_over_measured=f"{ratio:.4f}",
+          bar=f"1.0-{PLAN_CEILING}", card=f"'{card}'")
+    check(1.0 <= ratio <= PLAN_CEILING,
+          f"[{tag}] planner over measured peak {ratio:.4f} outside "
+          f"[1.0, {PLAN_CEILING}]")
+    return ratio
 
 
 def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
@@ -1409,6 +1453,9 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         done; reading it waits for the card."""
         step_feed = next_feed()
         last_feed[0] = step_feed
+        torch.cuda.synchronize()
+        foreign = torch.cuda.memory_allocated() - \
+            scope_device_bytes(torch, scope)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = exe.run(main, feed=step_feed, fetch_list=[loss, *fetch],
@@ -1417,10 +1464,13 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
         value = float(out[0])
         t_end = time.perf_counter()
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        program_peaks.append(
+            ((torch.cuda.max_memory_allocated() - foreign) / 1e9,
+             foreign / 1e9))
         fetched.append([x.double().cpu().numpy() for x in out[1:]])
         return value, (t_host - t0) * 1e3, (t_end - t0) * 1e3
 
-    fetched, peaks, last_feed = [], [], [None]
+    fetched, peaks, program_peaks, last_feed = [], [], [], [None]
 
     losses = [step()[0]]
     misses_after_first = exe.cache_stats()["misses"]
@@ -1463,11 +1513,10 @@ def run_steps(torch, card, tag, exe, main, scope, feed, loss, n_layers,
           launches_per_step=launches["flash_attention_fwd"] // steps,
           losses=",".join(f"{x:.4f}" for x in losses),
           peak_mem_gb=f"{peak_gb:.2f}", card=f"'{card}'")
-    est = planned_peak_bytes(main, last_feed[0], [loss, *fetch])
-    phase(plan_tag or f"{tag}_plan", est_peak_gb=f"{est / 1e9:.3f}",
-          measured_peak_gb=f"{peak_gb:.3f}",
-          est_over_measured=f"{est / 1e9 / peak_gb:.4f}",
-          card=f"'{card}'")
+    prog_gb, foreign_gb = max(program_peaks[warmup:])
+    plan_gate(plan_tag or f"{tag}_plan",
+              planned_plan(main, last_feed[0], [loss, *fetch]),
+              prog_gb, foreign_gb, card)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1555,10 +1604,10 @@ def time_executor_gates():
     total = [0.0, 0]
     gates = Executor._gates
 
-    def timed(cls, program, feed, fetch_names):
+    def timed(cls, *args, **kw):
         t0 = time.perf_counter()
         try:
-            return gates(program, feed, fetch_names)
+            return gates(*args, **kw)
         finally:
             total[0] += time.perf_counter() - t0
             total[1] += 1
@@ -2511,96 +2560,38 @@ class _Recorder:
         return out
 
 
-def paged_generate(exe, scope, decode_prog, decode, prefill_prog, prefill,
-                   prompts, max_new_tokens):
-    """Greedy generation of each prompt in a slot of its own through the
-    paged decode program `decode` (seq_tokens 1) and its chunked-prefill
-    sibling `prefill` (seq_tokens = block size) over one pool, driven as
-    a serving scheduler drives them: each slot takes the blocks its
-    prompt and new tokens need from one BlockPool; each iteration runs
-    one prefill chunk (up to a block of prompt[:-1]) for every slot still
-    in its prompt, then one decode step for every slot past it; a slot
-    that has its tokens releases its blocks. Muted rows (n_valid 0) ride
-    along. Returns (the streams, per stream the decode step's logits row
-    at each token, {"prefill" | "decode": milliseconds of each call on
-    the host clock, fetch to the host included})."""
-    import numpy as np
-    from paddle_tpu_torch.models import gpt
-    from paddle_tpu_torch.models.sampling import sample_token
-    from paddle_tpu_torch.serving.kv_blocks import (BlockPool,
-                                                    blocks_for_tokens)
+def engine_generate(engine, prompts, max_new_tokens, timeout_s=600.0):
+    """Greedy generation of `prompts` by a started paged GenerationEngine,
+    all submitted at once, its paged steps seen through: returns (the
+    streams, per stream the decode step's logits row of each new token,
+    {"prefill" | "decode": milliseconds of each step on the host clock,
+    fetch to the host included})."""
+    from paddle_tpu_torch.serving import GenerationRequest
 
-    B, bs = decode.batch, decode.block_size
-    check(len(prompts) <= B and prefill.batch == B and
-          prefill.seq_tokens == bs == prefill.block_size and
-          prefill.cache_names == decode.cache_names,
-          "paged_generate: the decode and prefill steps must share batch, "
-          "block size and pool, with a slot for every prompt")
-    gpt._ensure_decode_state(scope, decode_prog.global_block(),
-                             decode.cache_names, exe.place)
-    pool = BlockPool(decode.num_blocks, bs)
-    slots = []
-    for p in prompts:
-        need = blocks_for_tokens(len(p) + max_new_tokens - 1, bs)
-        blocks = [pool.alloc() for _ in range(need)]
-        check(None not in blocks and need <= decode.max_blocks_per_slot,
-              f"paged_generate: no room for {need} blocks")
-        slots.append({"prompt": [int(t) for t in p], "blocks": blocks,
-                      "fed": 0, "cur": int(p[0]), "out": [], "logits": []})
-    times = {"prefill": [], "decode": []}
+    rows, times = {}, {"prefill": [], "decode": []}
+    run = engine._run_paged
 
-    def run(prog, step, tokens, nvalid, what):
-        table = np.zeros((B, decode.max_blocks_per_slot), np.int64)
-        start = np.zeros(B, np.int64)
-        nv = np.zeros(B, np.int64)
-        for i, n in nvalid.items():
-            table[i, :len(slots[i]["blocks"])] = slots[i]["blocks"]
-            start[i] = slots[i]["fed"]
-            nv[i] = n
+    def recorded(prog, step, tokens, table, start, nvalid):
         t0 = time.perf_counter()
-        out, = exe.run(prog, feed={step.token_var.name: tokens,
-                                   step.table_var.name: table,
-                                   step.start_var.name: start,
-                                   step.nvalid_var.name: nv},
-                       fetch_list=[step.logits_var], scope=scope)
+        out = run(prog, step, tokens, table, start, nvalid)
+        what = "decode" if prog is engine._prog else "prefill"
         times[what].append((time.perf_counter() - t0) * 1e3)
+        if what == "decode":
+            for i, st in enumerate(engine._state):
+                if st is not None and nvalid[i]:
+                    rows.setdefault(id(st.req), []).append(out[i, 0])
         return out
 
-    while any(len(s["out"]) < max_new_tokens for s in slots):
-        chunk = {i: min(bs, len(s["prompt"]) - 1 - s["fed"])
-                 for i, s in enumerate(slots)
-                 if s["fed"] < len(s["prompt"]) - 1}
-        if chunk:
-            tokens = np.zeros((B, bs), np.int64)
-            for i, n in chunk.items():
-                s = slots[i]
-                tokens[i, :n] = s["prompt"][s["fed"]:s["fed"] + n]
-            run(prefill_prog, prefill, tokens, chunk, "prefill")
-            for i, n in chunk.items():
-                slots[i]["fed"] += n
-                slots[i]["cur"] = slots[i]["prompt"][slots[i]["fed"]]
-        live = {i: 1 for i, s in enumerate(slots)
-                if s["fed"] >= len(s["prompt"]) - 1 and
-                len(s["out"]) < max_new_tokens}
-        if not live:
-            continue
-        tokens = np.zeros((B, 1), np.int64)
-        for i in live:
-            tokens[i, 0] = slots[i]["cur"]
-        logits = run(decode_prog, decode, tokens, live, "decode")
-        for i in live:
-            s = slots[i]
-            tok = sample_token(logits[i, 0])
-            s["out"].append(tok)
-            s["logits"].append(logits[i, 0])
-            s["fed"] += 1
-            s["cur"] = tok
-            if len(s["out"]) == max_new_tokens:
-                for bid in s["blocks"]:
-                    pool.decref(bid)
-    check(pool.used_count() == 0, "paged_generate: blocks left allocated")
-    return ([s["out"] for s in slots], [s["logits"] for s in slots],
-            times)
+    engine._run_paged = recorded
+    try:
+        reqs = [GenerationRequest(p, max_new_tokens,
+                                  timeout_ms=timeout_s * 1e3)
+                for p in prompts]
+        pending = [engine.submit(r) for r in reqs]
+        streams = [r.result()["tokens"] for r in pending]
+    finally:
+        del engine._run_paged
+    return streams, [rows.get(id(r), []) for r in reqs], times
 
 
 def _build_decode(ptt, build, *args, **kw):
@@ -2617,29 +2608,23 @@ def gpt_generate_phase(torch, card, scope, cfg):
     weights are float32; the decode programs share their names): serial
     greedy kv_generate through the slab decode step (batch 1, max_seq
     GPT_SEQ) for each of GEN_PROMPT_LENS's seeded prompts and GEN_NEW new
-    tokens, then the same prompts as the slots of the paged decode step
-    (block GEN_BLOCK, one pool of slots x blocks-a-slot + 1 blocks) with
-    its chunked-prefill sibling, driven by paged_generate. Gates: equal
-    streams, the paged decode steps' logits within GEN_LOGIT_TOL of the
-    slab's at every token (both condition on the same tokens), finite
-    logits, and no flash kernel launched (counts set to 0 before the
-    serial run, read after the paged one)."""
+    tokens, then the same prompts submitted at once to a paged
+    GenerationEngine (one slot each, block GEN_BLOCK, chunked prefill),
+    its steps seen through by engine_generate. Gates: equal streams, the
+    engine's decode steps' logits within GEN_LOGIT_TOL of the slab's at
+    every token (both condition on the same tokens), finite logits, and
+    no flash kernel launched (counts set to 0 before the serial run,
+    read after the engine's)."""
     import statistics
 
     import numpy as np
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import GenerationEngine
 
     n_slots = len(GEN_PROMPT_LENS)
-    max_blocks = -(-GPT_SEQ // GEN_BLOCK)
-    n_blocks = n_slots * max_blocks + 1
     slab_prog, slab = _build_decode(ptt, gpt.build_decode_step, cfg, 1,
                                     GPT_SEQ)
-    dec_prog, dec = _build_decode(ptt, gpt.build_paged_decode_step, cfg,
-                                  n_slots, GPT_SEQ, GEN_BLOCK, n_blocks)
-    pre_prog, pre = _build_decode(ptt, gpt.build_paged_decode_step, cfg,
-                                  n_slots, GPT_SEQ, GEN_BLOCK, n_blocks,
-                                  seq_tokens=GEN_BLOCK, with_logits=False)
     rng = np.random.RandomState(SEED)
     prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
                for n in GEN_PROMPT_LENS]
@@ -2656,10 +2641,18 @@ def gpt_generate_phase(torch, card, scope, cfg):
         serial_logits.append(rec.logits[-GEN_NEW:])
         slab_ms += rec.ms
     slab_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    paged, paged_logits, paged_ms = paged_generate(
-        exe, scope, dec_prog, dec, pre_prog, pre, prompts, GEN_NEW)
-    paged_s = time.perf_counter() - t0
+    engine = GenerationEngine(cfg, scope, exe=exe, max_slots=n_slots,
+                              max_seq=GPT_SEQ, paged=True,
+                              block_size=GEN_BLOCK,
+                              state_prefix="gen_check.")
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        paged, paged_logits, paged_ms = engine_generate(engine, prompts,
+                                                        GEN_NEW)
+        paged_s = time.perf_counter() - t0
+    finally:
+        engine.stop()
     launches = _launch_counts()
 
     same = [a == b for a, b in zip(serial, paged)]
@@ -2683,6 +2676,9 @@ def gpt_generate_phase(torch, card, scope, cfg):
           prefill_chunk_ms=f"{statistics.median(paged_ms['prefill']):.3f}",
           paged_tokens_per_s=f"{n_tok / paged_s:.1f}",
           flash_launches=sum(launches.values()), card=f"'{card}'")
+    check(all(len(rows) == GEN_NEW for rows in paged_logits),
+          f"the engine's decode steps: {[len(r) for r in paged_logits]} "
+          f"logits rows, not {GEN_NEW} a stream")
     differ = [n for n, ok in zip(GEN_PROMPT_LENS, same) if not ok]
     check(not differ, f"paged streams differ from the serial slab streams "
           f"for the prompts of lengths {differ}")
@@ -8375,6 +8371,486 @@ def compare_phase(other):
         check(proc.returncode == 0, f"the {label} tree's timing failed")
 
 
+# --- data parallelism: rank processes over torch.distributed ------------
+
+# [dp_train] / [zero_train]: bench.py's BERT-base step (b32 T512 bf16
+# AMP, AdamW, dropout 0 so the ranks' random bits cannot differ from the
+# one-rank run's) over DP_WORLD rank processes, DP_STEPS steps from one
+# startup state, held to the one-rank b32 steps by DP_BARS: the largest
+# loss gap over the steps and the largest parameter gap at the end.
+# tools/torch_rounding_sensitivity.py dp read 2.956e-05 and 2.908e-04 on
+# the CPU (d 256, 2 layers, T 128, b8; PERF.md §6): the loss bar is 33x
+# that; AdamW moves a parameter at most about lr a step, so two runs
+# whose gradients differ by rounding drift at most 2 x lr x steps apart
+DP_WORLD = 2
+DP_STEPS = 5
+DP_BARS = {"loss": 1e-3, "param": 2 * 1e-4 * DP_STEPS}
+DP_TIMEOUT_S = 900.0
+# [dygraph_dp]: make_dygraph_bert at DYGRAPH_DP_LAYERS layers, global
+# batch DYGRAPH_DP_BATCH, DYGRAPH_DP_STEPS eager AdamW steps, float32
+DYGRAPH_DP_LAYERS, DYGRAPH_DP_BATCH, DYGRAPH_DP_STEPS = 2, 16, 3
+# float32 eager steps: the ranks' losses against one process's (the
+# sums over rows run in another order), and the weights within the
+# AdamW drift of rounding, 2 x lr x steps (a gradient that is rounding
+# alone, the key biases', moves its weight about lr a step either way)
+DYGRAPH_DP_BARS = {"loss": 1e-4,
+                   "weight": 2 * DYGRAPH_BERT_LR * DYGRAPH_DP_STEPS}
+# [collectives]: each c_* op on the card against the host's result
+COLLECTIVE_TOL = 1e-5
+
+
+def dp_backend(torch):
+    """(backend, device of each rank): NCCL with one card a rank where
+    the machine has DP_WORLD cards, else gloo with every rank on cuda:0
+    (NCCL refuses two ranks on one card). Chosen here and printed, never
+    switched silently."""
+    if torch.cuda.device_count() >= DP_WORLD:
+        return "nccl", "cuda:rank"
+    return "gloo", "cuda:0"
+
+
+def _dp_feed(vocab, batch, t):
+    import numpy as np
+    toks = np.random.RandomState(0).randint(0, vocab, (batch, t)) \
+        .astype("int64")
+    return {"tokens": toks, "labels": toks}
+
+
+def _dp_build(ptt, spec):
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                use_flash=spec["flash"], **spec["cfg"])
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = transformer.build_train(cfg, spec["batch"], spec["T"],
+                                          lr=1e-4, amp=spec["amp"])
+    return cfg, main, startup, loss
+
+
+def _place(ptt, spec):
+    return ptt.CPUPlace() if spec["place"] == "cpu" else ptt.CUDAPlace(0)
+
+
+def dp_train_run(spec):
+    """The BERT step of `spec` (cfg, batch, T, amp, flash, place, steps,
+    init: an npz of the startup state, mesh: a FLAGS_sharded_mesh for
+    ZeRO or None, ref: an npz of parameters to hold the final ones to,
+    out: where rank 0 (or the one-rank run) writes its final parameters)
+    through CompiledProgram.with_data_parallel in this process: one rank
+    of a process group, or the whole batch without one. Returns the
+    losses (the loss_name fetch: the ranks' mean), per step host and
+    device ms, the flash launches of the steps after the first, gradient
+    and staged bytes a step, the moments' bytes, the program's peak
+    (less what the process held before, scope excluded) beside the
+    planner's per-rank device peak, and the largest parameter gap to
+    `ref`."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import data_parallel as dpm
+    from paddle_tpu_torch.parallel.mesh import world
+
+    cuda = spec["place"] != "cpu"
+    ptt.set_flags({"FLAGS_sharded_exec": spec["mesh"] is not None,
+                   "FLAGS_sharded_mesh": spec["mesh"] or ""})
+    try:
+        cfg, main, startup, loss = _dp_build(ptt, spec)
+        place = _place(ptt, spec)
+        scope = ptt.Scope()
+        exe = ptt.Executor(place)
+        exe.run(startup, scope=scope)
+        init = dict(np.load(spec["init"]))
+        scope_from_numpy(init, scope, place, program=main)
+        prog = ptt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        feed = _dp_feed(cfg.vocab_size, spec["batch"], spec["T"])
+        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0])]
+        coll.reset_counts()
+        dpm.GRAD_SYNC_BYTES["bytes"] = 0
+        _zero_launch_counts()
+        host, device, peaks = [], [], []
+        for _ in range(spec["steps"] - 1):
+            if cuda:
+                torch.cuda.synchronize()
+                foreign = torch.cuda.memory_allocated() - \
+                    scope_device_bytes(torch, scope)
+                torch.cuda.reset_peak_memory_stats()
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+            t0 = time.perf_counter()
+            out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope,
+                          return_numpy=False)
+            host.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(out[0]))
+            if cuda:
+                ev[1].record()
+                torch.cuda.synchronize()
+                device.append(ev[0].elapsed_time(ev[1]))
+                peaks.append((torch.cuda.max_memory_allocated() - foreign)
+                              / 1e9)
+        launches = _launch_counts()
+        n = max(spec["steps"] - 1, 1)
+        params = {v.name: scope.get_numpy(v.name) for v in main.list_vars()
+                  if getattr(v, "is_parameter", False)}
+        gap = None
+        if spec.get("ref"):
+            ref = np.load(spec["ref"])
+            gap = max(float(np.abs(params[k].astype(np.float64)
+                                   - ref[k]).max()) for k in params)
+        size, rank = world()
+        if spec.get("out") and rank == 0:
+            np.savez(spec["out"], **params)
+        moments = sum(int(np.prod(scope.find_var(k).shape)) *
+                      scope.find_var(k).element_size()
+                      for k in scope.names() if "_moment" in k)
+        res = {"rank": rank, "world": size, "losses": losses,
+               "host_ms": host, "device_ms": device, "launches": launches,
+               "grad_bytes_step": dpm.GRAD_SYNC_BYTES["bytes"] // n,
+               "staged_bytes_step": coll.STAGED_BYTES["bytes"] // n,
+               "moment_bytes": moments, "param_gap": gap,
+               "peak_gb": max(peaks) if peaks else None}
+        if prog.layout() is not None or size > 1:
+            from paddle_tpu_torch.parallel.data_parallel import \
+                local_program
+            from paddle_tpu_torch.parallel.layout import MeshDims, \
+                SpecLayout
+            layout = prog.layout()
+            if layout is None:
+                layout = SpecLayout(MeshDims((size,))).add_program(main)
+            res["layout_grad_sync_bytes"] = layout.gradient_sync_bytes(main)
+            res["collective_bytes_estimate"] = \
+                layout.collective_bytes_estimate(main)
+            res["fallbacks"] = len(layout.fallbacks)
+            rows = spec["batch"] // size
+            local = {k: v[rank * rows:(rank + 1) * rows]
+                     for k, v in feed.items()}
+            plan = planned_plan(local_program(main, spec["batch"], rows),
+                                local, [loss], layout=prog.layout())
+            res["plan"] = {"device_peak_bytes": plan.device_peak_bytes,
+                           "peak_bytes": plan.peak_bytes,
+                           "device_charges": plan.device_charges}
+        return res
+    finally:
+        ptt.set_flags({"FLAGS_sharded_exec": False,
+                       "FLAGS_sharded_mesh": ""})
+
+
+def dp_startup_state(spec, path):
+    """Run the startup of `spec`'s program on its place and write every
+    persistable to `path` (an npz)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    _, main, startup, _ = _dp_build(ptt, spec)
+    scope = ptt.Scope()
+    ptt.Executor(_place(ptt, spec)).run(startup, scope=scope)
+    np.savez(path, **{n: scope.get_numpy(n) for n in scope.names()})
+
+
+def _plan_gate_of(tag, res, card):
+    """plan_gate on a rank's result dict."""
+    class _Plan:
+        pass
+    p = _Plan()
+    p.device_peak_bytes = res["plan"]["device_peak_bytes"]
+    p.peak_bytes = res["plan"]["peak_bytes"]
+    p.device_charges = res["plan"]["device_charges"]
+    return plan_gate(tag, p, res["peak_gb"], 0.0, card)
+
+
+def _dp_line(tag, res, ref_losses, backend, card, **extra):
+    """The per-rank line of a data-parallel training phase and its bars:
+    every step's loss within DP_BARS['loss'] of the one-rank run's, the
+    final parameters within DP_BARS['param'] of `ref`, each flash kernel
+    12 times a step."""
+    import statistics
+    loss_gap = max(abs(a - b) for a, b in zip(res["losses"], ref_losses))
+    steps = DP_STEPS - 1
+    phase(tag, rank=res["rank"], world=res["world"], backend=backend,
+          steps=DP_STEPS,
+          host_ms_median=f"{statistics.median(res['host_ms']):.3f}",
+          device_ms_median=f"{statistics.median(res['device_ms']):.3f}",
+          **{f"{k}_launches": v for k, v in res["launches"].items()},
+          grad_bytes_step=res["grad_bytes_step"],
+          layout_gradient_sync_bytes=res["layout_grad_sync_bytes"],
+          collective_bytes_estimate=res["collective_bytes_estimate"],
+          gloo_host_staged_bytes_step=res["staged_bytes_step"],
+          moment_bytes=res["moment_bytes"], fallbacks=res["fallbacks"],
+          loss_gap=f"{loss_gap:.3e}", param_gap=f"{res['param_gap']:.3e}",
+          bars=f"loss {DP_BARS['loss']:g} param {DP_BARS['param']:g}",
+          losses=",".join(f"{x:.4f}" for x in res["losses"]),
+          **extra, card=f"'{card}'")
+    check(loss_gap <= DP_BARS["loss"],
+          f"[{tag}] rank {res['rank']}: loss gap {loss_gap} to the one-rank "
+          f"run > {DP_BARS['loss']}")
+    check(res["param_gap"] <= DP_BARS["param"],
+          f"[{tag}] rank {res['rank']}: parameter gap {res['param_gap']} > "
+          f"{DP_BARS['param']}")
+    for name, n in res["launches"].items():
+        check(n == 12 * steps, f"[{tag}] rank {res['rank']}: {name} "
+              f"launched {n} times, not 12 x {steps}")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"[{tag}] non-finite loss")
+
+
+def collective_rank_check(device):
+    """Every c_* op type on CUDA tensors in this rank process: at world
+    1 the collective functions the ops lower to (ops/collective.py) over
+    the one-rank process group, so its backend itself launches; above 1
+    each op in a program run by the executor on the card, its output and
+    its input's gradient held to the host's numpy result from every
+    rank's inputs. Returns {op type: max abs error}, the staged bytes
+    and the backend."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import collective as coll
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    rng = np.random.RandomState(0)
+    xs = [rng.uniform(0.5, 2.0, (4 * n, 3)).astype(np.float32)
+          for _ in range(n)]
+    xs[-1][0] = xs[0][0]    # a tie for max and min
+    errs = {}
+    coll.reset_counts()
+    if n == 1:
+        x = torch.from_numpy(xs[0]).to(device)
+        for op in ("sum", "max", "min", "prod"):
+            errs[f"c_allreduce_{op}"] = float(
+                (coll.all_reduce(x, None, op) - x).abs().max())
+        errs["c_allgather"] = float((coll.all_gather(x, None) - x)
+                                    .abs().max())
+        errs["c_reducescatter"] = float((coll.reduce_scatter(x, None) - x)
+                                        .abs().max())
+        errs["c_broadcast"] = float((coll.broadcast(x, None, 0) - x)
+                                    .abs().max())
+        errs["c_alltoall"] = float((coll.all_to_all(x, None) - x)
+                                   .abs().max())
+        torch.cuda.synchronize()
+        return errs, 0, dist.get_backend()
+    cs = [rng.randn(4 * n, 3).astype(np.float32) for _ in range(n)]
+    total, sc = sum(xs), sum(cs)
+    rows = 4
+    expect = {
+        "c_allreduce_sum": (total, sc), "allreduce": (total, sc),
+        "c_allreduce_max": (np.maximum.reduce(xs),
+                            sc * (xs[r] == np.maximum.reduce(xs))),
+        "c_allreduce_min": (np.minimum.reduce(xs),
+                            sc * (xs[r] == np.minimum.reduce(xs))),
+        "c_allreduce_prod": (np.prod(xs, 0), sc * np.prod(xs, 0) / xs[r]),
+        "c_broadcast": (xs[0], sc if r == 0 else 0 * sc),
+        "c_reducescatter": (total[r * rows:(r + 1) * rows], None),
+        "c_allgather": (np.concatenate(xs), None),
+        "c_alltoall": (np.concatenate([np.split(x, n)[r] for x in xs]),
+                       None),
+        "c_sync_calc_stream": (xs[r], cs[r]),
+        "c_sync_comm_stream": (xs[r], cs[r]),
+        "shard_hint": (xs[r], cs[r]),
+    }
+    for op_type, (want, want_grad) in expect.items():
+        main, startup = ptt.Program(), ptt.Program()
+        attrs = {"spec": ["dp", None]} if op_type == "shard_hint" else {}
+        with ptt.program_guard(main, startup), ptt.unique_name.guard():
+            xv = ptt.layers.data("x", shape=list(xs[r].shape),
+                                 dtype="float32", append_batch_size=False)
+            xv.stop_gradient = False
+            blk = main.global_block()
+            out = blk.create_var(name="out", shape=None, dtype="float32")
+            blk.append_op(op_type, inputs={"X": [xv.name]},
+                          outputs={"Out": [out.name]}, attrs=attrs,
+                          infer_shape=False)
+            fetch = [out]
+            if want_grad is not None:
+                cv = ptt.layers.data("c", shape=list(cs[r].shape),
+                                     dtype="float32",
+                                     append_batch_size=False)
+                prod = blk.create_var(name="prod", shape=None,
+                                      dtype="float32")
+                loss = blk.create_var(name="loss", shape=None,
+                                      dtype="float32")
+                blk.append_op("elementwise_mul",
+                              inputs={"X": [out.name], "Y": [cv.name]},
+                              outputs={"Out": [prod.name]},
+                              attrs={"axis": -1}, infer_shape=False)
+                blk.append_op("reduce_sum", inputs={"X": [prod.name]},
+                              outputs={"Out": [loss.name]},
+                              attrs={"reduce_all": True, "dim": [0],
+                                     "keep_dim": False}, infer_shape=False)
+                fetch += ptt.backward.gradients([loss], [xv])
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        got = exe.run(main, feed={"x": xs[r], "c": cs[r]}, fetch_list=fetch,
+                      scope=ptt.Scope())
+        err = float(np.abs(got[0] - want).max())
+        if want_grad is not None:
+            err = max(err, float(np.abs(got[1] - want_grad).max()))
+        errs[op_type] = err
+    return errs, coll.STAGED_BYTES["bytes"], dist.get_backend()
+
+
+def dygraph_dp_run(spec):
+    """Eager DataParallel over make_dygraph_bert (spec: layers, batch,
+    steps, init weights npz or None): this rank's rows (all of them
+    without a process group), apply_collective_grads, eager AdamW under
+    the global-norm clip. Returns (the losses: the ranks' mean, the
+    final weights, the flash launches, this rank's rows)."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.dygraph as dg
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel.mesh import world
+
+    n, r = world()
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                n_layers=spec["layers"])
+    rows = spec["batch"] // n
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (spec["batch"], T)).astype(np.int64)
+    toks = toks[r * rows:(r + 1) * rows]
+    with dg.guard(), GlobalNormClip(ptt, 1.0):
+        model = dg.DataParallel(make_dygraph_bert(dg, ptt.layers, cfg))
+        opt = dygraph_bert_opt(ptt, dg)
+        inputs = (dg.to_variable(toks), dg.to_variable(toks.reshape(-1, 1)))
+        _zero_launch_counts()
+        losses = []
+        for _ in range(spec["steps"]):
+            loss = model(*inputs)
+            loss.backward()
+            model.apply_collective_grads()
+            opt.minimize(loss, parameter_list=model.parameters())
+            model.clear_gradients()
+            value = loss.value.detach().reshape(1)
+            if n > 1:
+                value = coll.all_reduce(value, None, "sum") / n
+            losses.append(float(value))
+        launches = _launch_counts()
+        weights = [p.numpy() for p in model.parameters()]
+    torch.cuda.synchronize()
+    return losses, weights, launches, rows
+
+
+def dp_phases(torch, card):
+    """[dp_backend], [dp_train], [zero_train], [collectives] and
+    [dygraph_dp]: the data-parallel paths over DP_WORLD rank processes
+    (spawned once the parent has built the kernels, so no two ranks build
+    at once), each held to the same work in one process. A rank or a
+    build that fails fails the run. Returns the ranks' flash launches:
+    ({kernel: bf16 launches}, {kernel: float32 launches})."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn import RankPool
+
+    backend, device = dp_backend(torch)
+    phase("dp_backend", backend=backend, device=device, world=DP_WORLD,
+          cards=torch.cuda.device_count(),
+          why="one card: NCCL refuses two ranks on one GPU" if
+          backend == "gloo" else "one card a rank", card=f"'{card}'")
+    tmp = tempfile.TemporaryDirectory(prefix="dp_")
+    path = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    spec = {"cfg": {}, "batch": TRAIN_RUNS[True][0], "T": T, "amp": True,
+            "flash": True, "place": "cuda", "steps": DP_STEPS, "mesh": None,
+            "init": path("init.npz"), "ref": None, "out": None}
+    dg_spec = {"layers": DYGRAPH_DP_LAYERS, "batch": DYGRAPH_DP_BATCH,
+               "steps": DYGRAPH_DP_STEPS}
+    bf16 = dict.fromkeys(KERNEL_SOURCES, 0)
+    f32 = dict.fromkeys(KERNEL_SOURCES, 0)
+    try:
+        # the one-process references, from the same startup state
+        dp_startup_state(spec, spec["init"])
+        one = dp_train_run({**spec, "out": path("one.npz")})
+        dg_losses, dg_weights, dg_launches, _ = dygraph_dp_run(dg_spec)
+        for k in bf16:
+            bf16[k] += one["launches"][k]
+            f32[k] += dg_launches[k]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        init = np.load(spec["init"])
+        full = {k: init[k].nbytes for k in init.files if "_moment" in k}
+        half = sum(b // 2 if init[k].shape[0] % DP_WORLD == 0 else b
+                   for k, b in full.items())
+        t0 = time.perf_counter()
+        pool = RankPool(DP_WORLD, path("store"), backend=backend,
+                        timeout_s=DP_TIMEOUT_S, device=device)
+        try:
+            start_s = time.perf_counter() - t0
+            dp = pool.run(dp_train_run, {**spec, "ref": path("one.npz"),
+                                         "out": path("dp.npz")})
+            for res in dp:
+                _dp_line("dp_train", res, one["losses"], backend, card,
+                         start_s=f"{start_s:.1f}",
+                         one_rank_host_ms=f"{np.median(one['host_ms']):.3f}",
+                         one_rank_device_ms=
+                         f"{np.median(one['device_ms']):.3f}")
+                check(res["moment_bytes"] == sum(full.values()),
+                      f"[dp_train] rank {res['rank']}: moments "
+                      f"{res['moment_bytes']} B, not the whole "
+                      f"{sum(full.values())}")
+            zero = pool.run(dp_train_run, {**spec, "mesh": str(DP_WORLD),
+                                           "ref": path("dp.npz")})
+            for res in zero:
+                _dp_line("zero_train", res, one["losses"], backend, card,
+                         moments_vs_dp=f"{res['moment_bytes'] / sum(full.values()):.4f}",
+                         moments_expected=half)
+                check(res["moment_bytes"] == half,
+                      f"[zero_train] rank {res['rank']}: moments "
+                      f"{res['moment_bytes']} B, not {half} (half of each "
+                      f"moment whose dim 0 divides)")
+                _plan_gate_of("zero_train_plan", res, card)
+            for res in dp + zero:
+                for k in bf16:
+                    bf16[k] += res["launches"][k]
+            ranks = pool.run(collective_rank_check, "cuda:0")
+            errs2 = {k: max(r[0][k] for r in ranks) for k in ranks[0][0]}
+            staged = sum(r[1] for r in ranks)
+            be2 = ranks[0][2]
+            dgdp = pool.run(dygraph_dp_run, dg_spec)
+        finally:
+            pool.close()
+        pool1 = RankPool(1, path("store1"), backend="nccl",
+                         timeout_s=DP_TIMEOUT_S, device="cuda:0")
+        try:
+            errs1, _, be1 = pool1.run(collective_rank_check, "cuda:0")[0]
+        finally:
+            pool1.close()
+    finally:
+        tmp.cleanup()
+    for world, errs, be, st in ((1, errs1, be1, 0), (DP_WORLD, errs2, be2,
+                                                    staged)):
+        phase("collectives", world=world, backend=be, ops=len(errs),
+              max_abs_err=f"{max(errs.values()):.3e}",
+              worst=max(errs, key=errs.get), tol=COLLECTIVE_TOL,
+              gloo_host_staged_bytes=st, card=f"'{card}'")
+        check(max(errs.values()) <= COLLECTIVE_TOL,
+              f"[collectives] world {world} over {be}: {errs}")
+    for losses, weights, launches, rows in dgdp:
+        loss_gap = max(abs(a - b) for a, b in zip(losses, dg_losses))
+        w_gap = max(float(np.abs(a - b).max())
+                    for a, b in zip(weights, dg_weights))
+        phase("dygraph_dp", world=DP_WORLD, backend=backend,
+              layers=DYGRAPH_DP_LAYERS, rows=rows, batch=DYGRAPH_DP_BATCH,
+              steps=DYGRAPH_DP_STEPS, loss_gap=f"{loss_gap:.3e}",
+              weight_gap=f"{w_gap:.3e}",
+              bars=f"loss {DYGRAPH_DP_BARS['loss']:g} weight "
+              f"{DYGRAPH_DP_BARS['weight']:g}",
+              **{f"{k}_launches": v for k, v in launches.items()},
+              losses=",".join(f"{x:.5f}" for x in losses),
+              card=f"'{card}'")
+        check(loss_gap <= DYGRAPH_DP_BARS["loss"] and
+              w_gap <= DYGRAPH_DP_BARS["weight"],
+              f"[dygraph_dp] gaps {loss_gap}, {w_gap} over "
+              f"{DYGRAPH_DP_BARS}")
+        for k, n in launches.items():
+            f32[k] += n
+            check(n == DYGRAPH_DP_LAYERS * DYGRAPH_DP_STEPS,
+                  f"[dygraph_dp] {k} launched {n} times")
+    return bf16, f32
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--mutants"], ["--ablations"]) and not (
@@ -8475,6 +8951,7 @@ def main():
     sentiment_lod_phase(torch, card)
     control_flow_phase(torch, card)
     merged = grad_merge_phase(torch, card)
+    dp_bf16, dp_f32 = dp_phases(torch, card)
     # the fleet last: run right after [http_serve], it left the later
     # phases' torch.profiler traces of a flash step one flash forward
     # record short (the launch counters still read every launch), which
@@ -8524,7 +9001,7 @@ def main():
                  trained[name] + gpt_trained[name] + nmt_trained[name] +
                  recipe_bert[name] + recipe_lamb[name] +
                  loader_trained[name] + large_trained[name] +
-                 compiled_trained[name],
+                 compiled_trained[name] + dp_bf16[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name],
@@ -8534,7 +9011,7 @@ def main():
                   served[0].get(name, 0) + trained_f32[name] +
                   checked_f32[name] + checked_recipe[name] +
                   dygraph_trained[name] + dygraph_checked[name] +
-                  dygraph_traced[name] + merged[name] +
+                  dygraph_traced[name] + merged[name] + dp_f32[name] +
                   (http_served + gated + routed
                    if name == "flash_attention_fwd" else 0),
                   "float32")

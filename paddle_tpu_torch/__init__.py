@@ -61,6 +61,10 @@ from . import average  # noqa: F401,E402
 from .clip import set_gradient_clip  # noqa: F401,E402
 from . import contrib  # noqa: F401,E402
 from . import dygraph  # noqa: F401,E402
+from . import distributed  # noqa: F401,E402
+from . import parallel  # noqa: F401,E402
+from . import transpiler  # noqa: F401,E402
+from .parallel.api import ParallelExecutor  # noqa: F401,E402
 from . import metrics  # noqa: F401,E402
 from . import datasets  # noqa: F401,E402
 from . import reader_decorator  # noqa: F401,E402

@@ -16,19 +16,24 @@ The JAX package's ``analysis`` package on the port's IR and lowerings:
   the FLAGS_memory_gate gate (PTV050/051/052) that refuses a program
   over the card's memory before its first run.
 - `passes`: the FLAGS_graph_opt_level pipeline.
+- `sharding`: SpecLayout propagation, the collective cost model
+  (`collective_bytes_per_step`) and the FLAGS_sharding_verify gate
+  (PTV060-063), in the executor and the serving engine.
 
 Every diagnostic carries a stable rule ID (PTVnnn), a severity, and
 provenance in the "{op_type}:{block}/{op_idx}" format of the op trace
 scopes, so a finding and a profiler row name the same op. The rule IDs,
-severities and messages are the JAX package's; PTV060-063 (sharding)
-stay in the catalog, and their analysis waits for the parallel path.
+severities and messages are the JAX package's.
 """
 from .diagnostics import (Diagnostic, ProgramVerificationError, RULES,
                           VerifyResult)
 from .memory import analyze_program_memory, memory_gate
 from .passes import optimize_gate
+from .sharding import (ShardingReport, analyze_program_sharding,
+                       sharding_gate)
 from .verifier import verify_gate, verify_program
 
 __all__ = ["Diagnostic", "VerifyResult", "ProgramVerificationError",
            "RULES", "verify_program", "verify_gate", "optimize_gate",
-           "memory_gate", "analyze_program_memory"]
+           "memory_gate", "analyze_program_memory", "ShardingReport",
+           "analyze_program_sharding", "sharding_gate"]

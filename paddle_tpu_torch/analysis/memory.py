@@ -28,6 +28,29 @@ The liveness model:
   Spec.nbytes' documented lower bound with a `dynamic` marker PTV050
   reports instead of guessing.
 
+What torch holds beyond the liveness plan. `peak_bytes` is the JAX
+package's plan, equal to it byte for byte. `device_peak_bytes` adds what
+the card really holds under the port's eager, recorded execution, and is
+what the gate prices (stricter, never looser):
+
+- the caching allocator's rounding: a block is a multiple of 512 B, and
+  a tensor above 1 MiB is charged whole 2 MiB segments;
+- the cuBLAS and cuBLASLt workspaces of a program that runs a GEMM or a
+  convolution (torch's sm_90 default, 32 MiB each, or what
+  CUBLAS_WORKSPACE_CONFIG sets);
+- the autograd records: a forward op whose grad op reads its record
+  keeps its inputs and outputs until that grad op runs, wherever their
+  last program reader is (core/lowering.py), and the tensors its
+  lowering saves besides (the log-softmax of softmax_with_cross_entropy,
+  dropout's keep mask);
+- an unrolled `recurrent` loop keeps every step's body tensors for its
+  grad op: its sub-block's vars count once per step, at the step
+  input's batch (the plan sizes their dynamic batch dim at 1).
+
+`MemoryPlan.device_charges` splits the difference at the device peak.
+Under a `SpecLayout` (the sharded executor), each persistable's bytes
+divide by its shard count: the per-rank plan.
+
 Consumers: the memory_gate below (Executor.run / ServingEngine.warmup —
 refuse before the cache key), analysis/passes/reuse.py (the rewrite
 that aliases non-overlapping same-spec intervals), and chip_smoke.py's
@@ -61,6 +84,28 @@ _NAME_ATTRS = ("input_vars", "carried_vars", "condition", "output_vars")
 _REUSE_FINDING_MIN_BYTES = 1 << 20
 _REUSE_FINDING_MIN_FRAC = 0.05
 
+# torch's caching allocator: blocks are 512 B multiples; a tensor above
+# 1 MiB is charged whole 2 MiB segments
+ALLOC_BLOCK_BYTES = 512
+ALLOC_LARGE_BYTES = 1 << 20
+ALLOC_SEGMENT_BYTES = 2 << 20
+# torch's default cuBLAS workspace on sm_90 (":4096:8"), and as much for
+# cuBLASLt
+DEFAULT_WORKSPACE_BYTES = 32 << 20
+# tensors a lowering's autograd graph saves beyond the op's inputs and
+# outputs: {op type: (input slot, bytes an element or None for the
+# input's own itemsize)}: the log-softmax of the logits, dropout's keep
+# mask
+_SAVED_BY_LOWERING = {"softmax_with_cross_entropy": ("Logits", None),
+                      "dropout": ("X", 1)}
+# ops that run a cuBLAS GEMM or a cuDNN convolution (forward or grad)
+_GEMM_OPS = frozenset({
+    "mul", "matmul", "matmul_v2", "fc", "bmm", "conv2d",
+    "depthwise_conv2d", "conv2d_transpose", "conv3d", "flash_attention",
+    "multihead_matmul", "recurrent", "gru", "lstm", "dynamic_gru",
+    "dynamic_lstm", "fusion_gru", "fusion_lstm", "sequence_conv",
+})
+
 
 @dataclasses.dataclass
 class VarInterval:
@@ -93,7 +138,8 @@ class MemoryPlan:
     def __init__(self, program, intervals: Dict[str, VarInterval],
                  timeline: List[int], pinned_bytes: int,
                  unsized_vars: int, budget_bytes: int = 0,
-                 reuse_bytes_available: int = 0):
+                 reuse_bytes_available: int = 0, device_peak_bytes=None,
+                 device_charges=None):
         self.fingerprint = program.fingerprint()
         block = program.global_block()
         self.op_count = len(block.ops)
@@ -113,6 +159,12 @@ class MemoryPlan:
             self.peak_op_idx = -1
             self.peak_op = "program"
         self.dynamic = any(iv.dynamic for iv in intervals.values())
+        # what the card holds: the plan plus the allocator's rounding,
+        # the GEMM workspaces, the autograd records and unrolled loops
+        self.device_peak_bytes = int(self.peak_bytes
+                                     if device_peak_bytes is None
+                                     else device_peak_bytes)
+        self.device_charges = dict(device_charges or {})
 
     # -- queries ---------------------------------------------------------
     def residents_at(self, op_idx: int) -> List[VarInterval]:
@@ -173,6 +225,15 @@ class MemoryPlan:
                     op_type=None if self.peak_op_idx < 0 else
                     self.peak_op.split(":", 1)[0],
                     block=0, op_idx=max(self.peak_op_idx, 0))
+        elif budget > 0 and self.device_peak_bytes > budget:
+            res.add("PTV050",
+                    f"estimated device peak "
+                    f"{_fmt_bytes(self.device_peak_bytes)}{bound} "
+                    f"(the plan's {_fmt_bytes(self.peak_bytes)} plus "
+                    + ", ".join(f"{k} {_fmt_bytes(v)}" for k, v in
+                                self.device_charges.items())
+                    + f") exceeds the {_fmt_bytes(budget)} budget "
+                    f"(FLAGS_memory_budget_bytes)")
         if budget > 0:
             over = [iv for iv in self.intervals.values()
                     if iv.nbytes > budget]
@@ -243,14 +304,18 @@ def _spec_of(name, env, block) -> Optional[Spec]:
 def analyze_program_memory(program, feed_names: Iterable[str] = (),
                            fetch_names: Iterable[str] = (),
                            feed_shapes: Optional[Dict] = None,
-                           budget_bytes: int = 0) -> MemoryPlan:
+                           budget_bytes: int = 0,
+                           layout=None) -> MemoryPlan:
     """Liveness + timeline + peak for `program`'s global block.
 
     feed_shapes: {name: (shape, dtype)} of the concrete feed arrays —
     seeded into shape inference so dynamic dims resolve before size
     arithmetic; without it dynamic vars carry the Spec.nbytes lower
     bound and the plan is marked dynamic. feed_names defaults to
-    feed_shapes' keys, else the program's is_data vars.
+    feed_shapes' keys, else the program's is_data vars. layout: a
+    parallel.layout.SpecLayout; each persistable's bytes divide by its
+    shard count (the per-rank plan of the sharded executor, whose feeds
+    are already the rank's rows).
     """
     block = program.global_block()
     n = len(block.ops)
@@ -302,6 +367,9 @@ def analyze_program_memory(program, feed_names: Iterable[str] = (),
             continue
         nbytes, dynamic = spec.nbytes(dyn_defaults=1)
         pinned = name in pin_names
+        var = block.vars.get(name)
+        if layout is not None and var is not None and var.persistable:
+            nbytes //= layout.shard_count(name, tuple(spec.shape))
         iv = VarInterval(
             name=name, shape=tuple(spec.shape), dtype=str(spec.dtype),
             nbytes=nbytes, pinned=pinned, dynamic=dynamic,
@@ -317,10 +385,132 @@ def analyze_program_memory(program, feed_names: Iterable[str] = (),
     timeline = _timeline(intervals.values(), n, pinned_bytes)
     reuse_avail = sum(nb for _, _, nb in reuse_assignments(
         program, intervals, feed_set, fetch_set))
+    device_peak, charges = _device_peak(program, intervals, n, env)
     plan = MemoryPlan(program, intervals, timeline, pinned_bytes,
                       unsized, budget_bytes=budget_bytes,
-                      reuse_bytes_available=reuse_avail)
+                      reuse_bytes_available=reuse_avail,
+                      device_peak_bytes=device_peak,
+                      device_charges=charges)
     return plan
+
+
+def alloc_bytes(nbytes: int) -> int:
+    """The bytes torch's caching allocator charges for a tensor of
+    `nbytes`: 512 B blocks, whole 2 MiB segments above 1 MiB."""
+    if nbytes <= 0:
+        return 0
+    unit = ALLOC_SEGMENT_BYTES if nbytes > ALLOC_LARGE_BYTES \
+        else ALLOC_BLOCK_BYTES
+    return -(-int(nbytes) // unit) * unit
+
+
+def workspace_bytes() -> int:
+    """cuBLAS + cuBLASLt workspace: CUBLAS_WORKSPACE_CONFIG's
+    ':KiB:count' pairs when set, else torch's sm_90 default, each."""
+    import os
+    import re
+    cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG", "")
+    pairs = re.findall(r":(\d+):(\d+)", cfg)
+    one = sum(int(k) * 1024 * int(c) for k, c in pairs) if pairs \
+        else DEFAULT_WORKSPACE_BYTES
+    return 2 * one
+
+
+def _itemsize(dtype) -> int:
+    from ..core.dtypes import as_torch_dtype
+    return as_torch_dtype(dtype).itemsize
+
+
+def _recurrent_steps(op, env, block):
+    """(steps, batch) of a `recurrent` op: its first step input's time
+    and batch dims."""
+    names = [n for n in op.inputs.get("X", ()) if n]
+    spec = _spec_of(names[0], env, block) if names else None
+    if spec is None or len(spec.shape) < 2:
+        return 1, 1
+    t, b = spec.shape[:2]
+    if not op.attrs.get("time_major", False):
+        t, b = b, t
+    return max(int(t), 1), max(int(b), 1)
+
+
+def _device_peak(program, intervals, n_ops, env):
+    """(device peak bytes, {charge: bytes}): the plan's timeline with the
+    autograd records' liveness, the unrolled loops' steps, the
+    allocator's rounding and the GEMM workspaces added in that order;
+    each charge is what it adds to the peak."""
+    block = program.global_block()
+    alias = dict(getattr(program, "_record_alias", None) or {})
+    grad_at = {}
+    for i, op in enumerate(block.ops):
+        if op.type == "grad::generic":
+            fid = op.attrs["fwd_id"]
+            grad_at[alias.get(fid, fid)] = i
+    held = {}       # var -> the grad op index its record holds it to
+    loops = {}      # sub-block local -> (bytes of all steps, grad op)
+    saved = []      # tensors lowerings save: VarIntervals to the grad op
+    gemm = False
+    for i, op in enumerate(block.ops):
+        gemm = gemm or op.type in _GEMM_OPS
+        g = grad_at.get(op.id)
+        if g is None:
+            continue
+        for name in op_names(op, "in") + op_names(op, "out"):
+            if name in intervals:
+                held[name] = max(held.get(name, -1), g)
+        if op.type in _SAVED_BY_LOWERING:
+            slot, per = _SAVED_BY_LOWERING[op.type]
+            src = (op.inputs.get(slot) or [None])[0]
+            iv = intervals.get(src)
+            if iv is not None:
+                nb = iv.nbytes if per is None else \
+                    iv.nbytes // _itemsize(iv.dtype) * per
+                saved.append(VarInterval(
+                    name=f"{src}@saved{i}", shape=iv.shape, dtype=iv.dtype,
+                    nbytes=nb, def_idx=i, last_use=g))
+        if op.type == "recurrent":
+            # a step var's dynamic dim is the batch (sized 1 in the plan)
+            steps, batch = _recurrent_steps(op, env, block)
+            sb = sub_block_index(program, op)
+            for name in (program.blocks[sb].vars if sb is not None
+                         else ()):
+                iv = intervals.get(f"{name}@b{sb}")
+                if iv is not None:
+                    one = Spec(iv.shape, iv.dtype).nbytes(batch)[0]
+                    loops[iv.name] = (one * steps, g)
+
+    def peak(use_held, use_loops, rounded):
+        ivs = list(saved) if use_held else []
+        if rounded:
+            ivs = [dataclasses.replace(iv, nbytes=alloc_bytes(iv.nbytes))
+                   for iv in ivs]
+        pinned = 0
+        for name, iv in intervals.items():
+            nb = iv.nbytes
+            last = iv.last_use
+            if use_held and name in held:
+                last = max(last, held[name])
+            if use_loops and name in loops:
+                nb, grad_op = loops[name]
+                last = max(last, grad_op)
+            if rounded:
+                nb = alloc_bytes(nb)
+            if iv.pinned:
+                pinned += nb
+            else:
+                ivs.append(dataclasses.replace(iv, nbytes=nb,
+                                               last_use=last))
+        tl = _timeline(ivs, n_ops, pinned)
+        return max(tl) if tl else pinned
+
+    steps = [peak(False, False, False), peak(True, False, False),
+             peak(True, True, False), peak(True, True, True)]
+    ws = workspace_bytes() if gemm else 0
+    charges = {"autograd_records": steps[1] - steps[0],
+               "loop_steps": steps[2] - steps[1],
+               "alloc_rounding": steps[3] - steps[2],
+               "workspaces": ws}
+    return steps[3] + ws, charges
 
 
 def _collect_sub_locals(program, op, op_idx, env, out):
@@ -612,12 +802,13 @@ def resolve_budget_bytes() -> int:
 
 
 def memory_gate(program, feed_shapes: Optional[Dict] = None,
-                fetch_names=None, where="executor"
+                fetch_names=None, where="executor", layout=None
                 ) -> Optional[MemoryPlan]:
     """The FLAGS_memory_gate gate: off | warn | error (default error).
 
     Analyzes once per (program fingerprint, concrete feed shapes,
-    fetch names, resolved budget) and memoizes. In 'error' mode PTV050/
+    fetch names, resolved budget, layout's mesh) and memoizes; the gate
+    prices the device peak (`device_peak_bytes`). In 'error' mode PTV050/
     PTV051 raise ProgramVerificationError — callers place this BEFORE
     the executor's cache key, so a program that cannot fit is refused
     with cache_stats() showing no miss and nothing allocated. PTV052 (and
@@ -637,7 +828,10 @@ def memory_gate(program, feed_shapes: Optional[Dict] = None,
         (str(n), tuple(int(d) for d in s[0]), str(s[1]))
         for n, s in (feed_shapes or {}).items()))
     key = (program.fingerprint(), shapes_sig,
-           tuple(str(n) for n in (fetch_names or ())), budget)
+           tuple(str(n) for n in (fetch_names or ())), budget,
+           None if layout is None else tuple(
+               (str(a), int(layout.mesh.shape[a]))
+               for a in layout.mesh.axis_names))
     with _MEMO_LOCK:
         plan = _GATE_MEMO.get(key)
         if plan is not None:
@@ -648,7 +842,7 @@ def memory_gate(program, feed_shapes: Optional[Dict] = None,
             program, feed_names=[n for n, _, _ in shapes_sig],
             fetch_names=key[2], feed_shapes=dict(
                 (n, (shp, dt)) for n, shp, dt in shapes_sig),
-            budget_bytes=budget)
+            budget_bytes=budget, layout=layout)
         with _MEMO_LOCK:
             _GATE_MEMO[key] = plan
             while len(_GATE_MEMO) > _MEMO_CAP:

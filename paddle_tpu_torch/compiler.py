@@ -2,30 +2,30 @@
 
 ``fluid.CompiledProgram(main).with_data_parallel(loss_name=...)`` is how
 most Fluid training scripts hand a program to ``Executor.run``. The JAX
-package jits the step with batch-sharded feeds over a device mesh; the
-port runs one rank on one card, where a data-parallel program is the
-program itself: ``Executor.run`` unwraps it and runs the same gates, the
-same prepared run and the same ops as for the plain program.
+package jits the step with batch-sharded feeds over a device mesh and
+lets GSPMD insert the collectives. The port runs one process per rank, as
+the reference's ParallelExecutor did: at one rank a data-parallel program
+is the program itself, and over N torch.distributed ranks the executor
+splits the batch, broadcasts the parameters on the first run and
+all-reduces the gradients (parallel/data_parallel.py). The caller feeds
+the global batch on every rank, as in the JAX package.
 
-Across ranks there is nothing to run yet: ``with_distributed``, and
-``with_data_parallel`` over more than one device or more than one
-``torch.distributed`` rank, raise NotImplementedError naming ROADMAP.md
-§A7 (parallelism). There is no silent one-card run of a multi-rank
-request.
+``with_distributed(mesh, state_spec_fn, batch_axes)`` takes a Mesh of
+ranks (parallel/mesh.py) and a SpecLayout as state_spec_fn: the
+accumulators its zero_spec splits are ZeRO-sharded over the data axis. A
+mesh with a model (tp) or fsdp axis above one rank raises and names
+ROADMAP §A7b.
 
 The BuildStrategy and ExecutionStrategy knobs are accepted as in the
 JAX package; they configure nothing: the graph passes are
-FLAGS_graph_opt_level's (analysis/passes).
+FLAGS_graph_opt_level's (analysis/passes), and the gradients are always
+averaged over the ranks (GradientScaleStrategy.CoeffNumDevice).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 __all__ = ["CompiledProgram", "BuildStrategy", "ExecutionStrategy"]
-
-_MULTI_RANK = ("runs one rank on one card; data parallelism across "
-               "devices or ranks waits for the parallel path (ROADMAP.md "
-               "§A7)")
 
 
 class BuildStrategy:
@@ -67,12 +67,6 @@ class ExecutionStrategy:
         self.use_experimental_executor = False
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
-    return dist.get_world_size() \
-        if dist.is_available() and dist.is_initialized() else 1
-
-
 class CompiledProgram:
     def __init__(self, program_or_graph, build_strategy: Optional[
             BuildStrategy] = None):
@@ -82,25 +76,16 @@ class CompiledProgram:
         self._is_data_parallel = False
         self._loss_name = None
         self._places = None
+        self._mesh = None
+        self._state_spec_fn = None
+        self._batch_axes = ("dp",)
 
     def with_data_parallel(self, loss_name=None, build_strategy=None,
                            exec_strategy=None, share_vars_from=None,
                            places=None):
-        """Data parallelism at one rank: the program runs as built on the
-        executor's card. More than one place, or more than one
-        torch.distributed rank, raises NotImplementedError."""
-        if places is not None:
-            n = len(places) if isinstance(places, (list, tuple)) else 1
-            if n > 1:
-                raise NotImplementedError(
-                    f"CompiledProgram.with_data_parallel over {n} places: "
-                    f"the port {_MULTI_RANK}")
-        world = _world_size()
-        if world > 1:
-            raise NotImplementedError(
-                f"CompiledProgram.with_data_parallel under "
-                f"torch.distributed with {world} ranks: the port "
-                f"{_MULTI_RANK}")
+        """Data parallelism over the torch.distributed ranks (one card
+        each), or the program itself at one rank. `places` is accepted
+        for compatibility: a process drives its own card."""
         self._is_data_parallel = True
         self._loss_name = loss_name
         if build_strategy is not None:
@@ -109,8 +94,54 @@ class CompiledProgram:
         self._places = places
         return self
 
-    def with_distributed(self, mesh=None, state_spec_fn=None,
+    def with_distributed(self, mesh, state_spec_fn=None,
                          batch_axes=("dp",)):
-        """SPMD over a device mesh: not ported."""
-        raise NotImplementedError(
-            f"CompiledProgram.with_distributed: the port {_MULTI_RANK}")
+        """Data parallelism over a Mesh of ranks with per-var specs:
+        state_spec_fn(var_name) -> PartitionSpec or None (replicated); a
+        SpecLayout ZeRO-shards the accumulators it splits over the data
+        axis. Feeds split dim 0 over batch_axes; a name not in the mesh
+        raises ValueError at the first run."""
+        self._is_data_parallel = True
+        self._mesh = mesh
+        self._state_spec_fn = state_spec_fn
+        self._batch_axes = tuple(batch_axes)
+        return self
+
+    # -- executor hooks ----------------------------------------------------
+    def mesh(self):
+        if self._mesh is None:
+            from .parallel.mesh import get_mesh
+            self._mesh = get_mesh()
+        return self._mesh
+
+    def batch_split(self):
+        """(ranks on the batch axes, this rank's index among them)."""
+        mesh = self.mesh()
+        unknown = [a for a in self._batch_axes if a not in mesh.axis_names]
+        if unknown:
+            raise ValueError(
+                f"batch_axes {unknown} not in mesh axes {mesh.axis_names}")
+        n, idx = 1, 0
+        for a in self._batch_axes:
+            idx = idx * mesh.shape[a] + mesh.axis_index(a)
+            n *= mesh.shape[a]
+        return n, idx
+
+    def feed_rows(self, shape):
+        """This rank's rows [start, stop) of a feed of `shape`: dim 0
+        split over the batch axes when it divides their ranks, else None
+        (the feed is replicated) — the JAX package's feed rule."""
+        if not self._is_data_parallel:
+            return None
+        n, idx = self.batch_split()
+        shape = tuple(shape or ())
+        if n > 1 and shape and shape[0] % n == 0:
+            rows = shape[0] // n
+            return idx * rows, (idx + 1) * rows
+        return None
+
+    def layout(self):
+        """The SpecLayout in scope (state_spec_fn), or None."""
+        from .parallel.layout import SpecLayout
+        fn = self._state_spec_fn
+        return fn if isinstance(fn, SpecLayout) else None

@@ -20,25 +20,28 @@ __all__ = ["FLAGS", "get_flags", "set_flags", "reload_from_env",
 
 
 class _Flag:
-    __slots__ = ("name", "default", "value", "ftype", "help")
+    __slots__ = ("name", "default", "value", "ftype", "help", "traced")
 
-    def __init__(self, name, default, ftype, help_):
+    def __init__(self, name, default, ftype, help_, traced=False):
         self.name = name
         self.default = default
         self.value = default
         self.ftype = ftype
         self.help = help_
+        # a traced flag changes what a prepared run does: its value keys
+        # the executor's cache (traced_values)
+        self.traced = traced
 
 
 _REGISTRY: Dict[str, _Flag] = {}
 _LOCK = threading.Lock()
 
 
-def _define(name, default, ftype, help_):
+def _define(name, default, ftype, help_, traced=False):
     with _LOCK:
         if name in _REGISTRY:
             raise ValueError(f"flag {name!r} already defined")
-        _REGISTRY[name] = _Flag(name, ftype(default), ftype, help_)
+        _REGISTRY[name] = _Flag(name, ftype(default), ftype, help_, traced)
     _load_one_from_env(name)
 
 
@@ -111,6 +114,12 @@ def set_flags(kv: Dict[str, Any]):
         if key not in _REGISTRY:
             raise ValueError(f"unknown flag {n!r}")
         setattr(FLAGS, key, v)
+
+
+def traced_values() -> tuple:
+    """((name, value), ...) of the traced flags: part of the executor's
+    cache key, so flipping one prepares a new run."""
+    return tuple((f.name, f.value) for f in _REGISTRY.values() if f.traced)
 
 
 def flag_handle(name: str) -> _Flag:
@@ -393,3 +402,31 @@ _define("buffer_reuse", True, bool,
         "dtype with disjoint liveness intervals are renamed onto one "
         "buffer, after each in-place state update is sunk to just past "
         "its last dependency.")
+_define("sharding_verify", "warn", str,
+        "The sharding gate (analysis/sharding.py, the PTV06x sibling of "
+        "FLAGS_program_verify / FLAGS_memory_gate): 'off' = skip; 'warn' "
+        "(default) = propagate the SpecLayout through the program graph "
+        "once per (fingerprint, mesh, feed shapes, fetches) and surface "
+        "PTV060-063 findings as one summarized warning; 'error' = raise "
+        "ProgramVerificationError on PTV060 layout-inconsistent ops, in "
+        "Executor.run before the cache records a miss and in "
+        "ServingEngine.warmup before any ladder cell runs. The gate "
+        "engages only when a layout is in scope (the sharded executor's "
+        "SpecLayout, or FLAGS_sharded_mesh set); with no mesh it is a "
+        "no-op. The same pass prices the implied collectives into a "
+        "predicted collective_bytes_per_step.")
+_define("sharded_exec", False, bool,
+        "Sharded execution (parallel/layout.py): when a CompiledProgram "
+        "runs data-parallel, attach a SpecLayout table over the "
+        "FLAGS_sharded_mesh mesh of ranks: feeds split their batch over "
+        "the data axis, and the optimizer moments and the weight update "
+        "are ZeRO-sharded across the ranks (arxiv 2004.13336); each rank "
+        "keeps its dim-0 shard, reduce-scatters the gradient and "
+        "all-gathers the parameter. Off = replicated data parallelism. "
+        "Traced: flipping it prepares a new run.", traced=True)
+_define("sharded_mesh", "", str,
+        "Mesh shape for FLAGS_sharded_exec as 'dp', 'dp,tp' or "
+        "'dp,tp,fsdp' (e.g. '2' or '4,2'); axis 0 is the data axis. "
+        "Empty = the parallel.get_mesh() registry mesh (every rank on a "
+        "1-D data axis). Traced: a shape change prepares a new run.",
+        traced=True)

@@ -96,6 +96,9 @@ class LowerCtx:
         self.readers_left = dict(record_readers or {})
         # forward op id -> (its inputs with leaves, its outputs)
         self.records = {}
+        # the data-parallel run's group: batch_norm all-reduces its
+        # moments over it (the global batch's statistics)
+        self.sync_group = None
 
     def generator_for(self, op_id: int):
         """A fresh generator for one op: seeded from the program seed
@@ -197,6 +200,7 @@ class _OpCtx:
         self._op = op
         self.device = ctx.device
         self.is_test = ctx.is_test or bool(op.attrs.get("is_test", False))
+        self.sync_group = getattr(ctx, "sync_group", None)
         self.block = getattr(op, "block", None)
         self.attrs = op.attrs
         self.inputs = getattr(op, "inputs", {})
@@ -320,15 +324,23 @@ def _generic_grad(ctx, ins, attrs):
 REGISTRY.register(OpDef(type="grad::generic", lower=_generic_grad))
 
 
-def lower_block(block, env: Dict, ctx: LowerCtx, drop_after=None):
+def lower_block(block, env: Dict, ctx: LowerCtx, drop_after=None,
+                hooks=None):
     """Run the block's ops in order. `drop_after` maps an op index to the
     var names whose last use it is: they leave `env` once the op ran, so
     a step holds each activation and gradient only as long as it is
-    needed."""
+    needed. `hooks` maps an op index to a function of `env` run just
+    before that op (index len(ops): after the last), the data-parallel
+    run's collectives."""
+    hooks = hooks or {}
     for i, op in enumerate(block.ops):
+        if i in hooks:
+            hooks[i](env)
         run_op(op, env, ctx, op_idx=i)
         for n in (drop_after or {}).get(i, ()):
             env.pop(n, None)
+    if len(block.ops) in hooks:
+        hooks[len(block.ops)](env)
     return env
 
 

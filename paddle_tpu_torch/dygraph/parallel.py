@@ -1,26 +1,24 @@
-"""Dygraph data parallelism (reference dygraph/parallel.py DataParallel).
+"""Dygraph data parallelism (reference dygraph/parallel.py DataParallel
+and imperative/nccl_context.cc).
 
 ``nranks`` is torch.distributed's world size, or 1 when no process group
-is initialized. At one rank DataParallel is the wrapped layer: the loss
-is not scaled and there are no gradients to reduce. Above one, the
-all-reduce of the gradients is not ported yet (ROADMAP §A10, the
-parallelism slice): apply_collective_grads raises.
+is initialized. At one rank DataParallel is the wrapped layer. Above one,
+each rank runs the layer on its own rows, and after ``loss.backward()``
+``apply_collective_grads`` all-reduces the parameters' gradients in one
+flattened buffer per dtype and divides by the ranks: every rank then
+holds the gradient of the mean loss over the global batch. The reference
+summed instead and expected the loss divided by ``scale_loss``; here the
+average does that division, so a loss passed through ``scale_loss`` as
+well ends up divided twice.
 """
 from __future__ import annotations
 
-import torch.distributed as dist
+import torch
 
+from ..parallel.mesh import world as _world
 from .layers import Layer
 
 __all__ = ["DataParallel", "prepare_context", "Env", "ParallelEnv"]
-
-
-def _world():
-    """(world size, rank) of the default process group; (1, 0) when
-    there is none."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
-    return 1, 0
 
 
 class Env:
@@ -52,10 +50,24 @@ class DataParallel(Layer):
         return loss * (1.0 / n) if n > 1 else loss
 
     def apply_collective_grads(self):
-        if _world()[0] > 1:
-            raise NotImplementedError(
-                "DataParallel.apply_collective_grads over more than one "
-                "rank is not ported yet (ROADMAP §A10: parallelism)")
+        """Average every parameter's gradient over the ranks (one
+        all-reduce a dtype); at one rank, nothing to do."""
+        n = _world()[0]
+        if n == 1:
+            return
+        from ..ops import collective
+        grads = [p.grad for p in self.parameters() if p.grad is not None]
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for gs in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            # group None: the default group, every rank
+            out = collective.all_reduce(flat, None, "sum").div_(n)
+            off = 0
+            for g in gs:
+                g.copy_(out[off:off + g.numel()].view_as(g))
+                off += g.numel()
 
     def state_dict(self, *a, **kw):
         return self._layers.state_dict(*a, **kw)

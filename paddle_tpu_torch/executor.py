@@ -30,11 +30,20 @@ in its order (analysis/):
 3. the memory gate (FLAGS_memory_gate, default error) on the optimized
    program at the feed's shapes.
 
+4. the sharding gate (FLAGS_sharding_verify, default warn), when a
+   SpecLayout is in scope, on the global feed's shapes.
+
 Each is memoized per program fingerprint (cached on the Program) and
 signature, so after the first run they cost a few dictionary lookups. A
 program a gate refuses raises before the cache records a miss and
 before a feed is copied to the card. A ``CompiledProgram`` runs as its
-program (compiler.py).
+program at one rank; over several torch.distributed ranks its
+data-parallel run (parallel/data_parallel.py) splits the global batch
+fed on every rank, syncs the gradients between the backward and the
+update ops and rebuilds the fetches' global values. FLAGS_sharded_exec
+upgrades a data-parallel program to the SpecLayout path (ZeRO-sharded
+optimizer state) before the gates, as the JAX package does; the traced
+flags key the cache.
 
 Instrumentation, as in the JAX package's executor: the ``executor.*``
 stats (FLAGS_enable_monitor), the goodput ledger's step split
@@ -61,7 +70,8 @@ import torch
 
 from . import goodput as _goodput
 from . import trace as _trace
-from .analysis import memory_gate, optimize_gate, verify_gate
+from .analysis import (memory_gate, optimize_gate, sharding_gate,
+                       verify_gate)
 from .core.dtypes import as_torch_dtype
 from .core.lowering import LowerCtx, ir_dtype, lower_block
 from .core.memory import record_device_memory
@@ -86,7 +96,7 @@ class _PreparedStep:
 
     def __init__(self, state_in_names, state_out_names, record_ids,
                  drop_after, unread, record_alias=None,
-                 record_readers=None):
+                 record_readers=None, dp_plan=None):
         self.state_in_names = state_in_names
         self.state_out_names = state_out_names
         self.record_ids = record_ids
@@ -102,6 +112,10 @@ class _PreparedStep:
         # runs of this entry; the first is warmup for the goodput ledger
         # and the executor.compile_first_step_seconds stat
         self.runs = 0
+        # the data-parallel run's plan (parallel/data_parallel.py) and
+        # the scopes whose state rank 0 already broadcast
+        self.dp_plan = dp_plan
+        self.synced_scopes = set()
 
 
 class Executor:
@@ -129,20 +143,34 @@ class Executor:
         if program is None:
             from .framework import default_main_program
             program = default_main_program()
+        compiled = None
         if isinstance(program, CompiledProgram):
-            program = program.program
+            compiled = program
+            program = compiled.program
         scope = scope or global_scope()
         feed = dict(feed or {})
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         t_run0 = time.perf_counter()
         feed, lod_names = self._expand_lod_feeds(program, feed)
-        run_prog = self._gates(program, feed, fetch_names)
+        dp = self._data_parallel(compiled, program)
+        global_sig = self.feed_signature(program.global_block(), feed)
+        rows = (0, 0)
+        layout = compiled.layout() if compiled is not None else None
+        sharding_gate(program, layout=layout, feed_shapes=global_sig,
+                      fetch_names=fetch_names, where="executor")
+        if dp is not None:
+            from .parallel.data_parallel import local_program
+            feed, rows = self._split_feed(compiled, feed)
+            if rows[0] != rows[1]:
+                program = local_program(program, rows[1], rows[0])
+        run_prog = self._gates(program, feed, fetch_names, layout)
         block = run_prog.global_block()
         feeds = self._prepare_feed(block, feed, lod_names)
 
         build_s = 0.0
-        key = self._cache_key(run_prog, feeds, fetch_names)
+        key = self._cache_key(run_prog, feeds, fetch_names) + (
+            None if dp is None else dp[1:3] + (layout is not None,),)
         step = self._cache.get(key) if use_program_cache else None
         self._last_cache_hit = step is not None
         if step is not None:
@@ -154,6 +182,10 @@ class Executor:
             STAT_ADD("executor.compile_cache_miss")
             t0 = time.perf_counter()
             step = self._prepare(run_prog, block, scope, fetch_names)
+            if dp is not None:
+                from .parallel.data_parallel import DataParallelPlan
+                step.dp_plan = DataParallelPlan(run_prog, block, compiled,
+                                                layout, *dp)
             build_s = time.perf_counter() - t0
             STAT_OBSERVE("executor.compile_build_seconds", build_s)
             self._cache[key] = step
@@ -165,6 +197,12 @@ class Executor:
             STAT_SET("executor.compile_cache_size", len(self._cache))
             STAT_SET("executor.compile_cache_capacity", cap)
 
+        plan = step.dp_plan
+        if plan is not None:
+            if id(scope) not in step.synced_scopes:
+                plan.broadcast_state(scope, step.state_in_names)
+                step.synced_scopes.add(id(scope))
+            plan.shard_state(scope)
         state = {}
         for n in step.state_in_names:
             v = scope.find_var(n)
@@ -200,11 +238,14 @@ class Executor:
                            unread=step.unread,
                            record_alias=step.record_alias,
                            record_readers=step.record_readers)
+            if plan is not None:
+                ctx.sync_group = plan.group
             # set here, not by the caller: grad mode is thread-local, and
             # serving engines run steps on worker threads
             with torch.inference_mode() if step.inference \
                     else torch.no_grad():
-                lower_block(block, env, ctx, step.drop_after)
+                lower_block(block, env, ctx, step.drop_after,
+                            hooks=plan.hooks() if plan else None)
             return env
 
         t_disp0 = time.perf_counter()
@@ -227,6 +268,9 @@ class Executor:
             if n in env:
                 scope.set(n, env[n].detach())
         fetches = [env[n].detach() for n in fetch_names]
+        if plan is not None:
+            fetches = [plan.fetch(n, t, block._find_var_recursive(n), rows)
+                       for n, t in zip(fetch_names, fetches)]
 
         t_fetch0 = time.perf_counter()
         if return_numpy:
@@ -302,10 +346,11 @@ class Executor:
         return sig
 
     @classmethod
-    def _gates(cls, program, feed, fetch_names):
+    def _gates(cls, program, feed, fetch_names, layout=None):
         """The verify, optimize and memory gates (the JAX package's order
         and place, before the cache key) on the feed's names, shapes and
-        IR dtypes, read before anything is copied to the card. Returns
+        IR dtypes, read before anything is copied to the card (this
+        rank's rows; the memory plan per rank under `layout`). Returns
         the program to run: the optimized one."""
         sig = cls.feed_signature(program.global_block(), feed)
         verify_gate(program, feed_names=sig.keys(),
@@ -314,8 +359,66 @@ class Executor:
                                    fetch_names=fetch_names,
                                    where="executor")
         memory_gate(program, feed_shapes=sig, fetch_names=fetch_names,
-                    where="executor")
+                    where="executor", layout=layout)
         return program
+
+    @staticmethod
+    def _data_parallel(compiled, program):
+        """(group, data-axis ranks, this rank's index) of a data-parallel
+        run over several ranks, or None. Applies the FLAGS_sharded_exec
+        upgrade first (a SpecLayout over FLAGS_sharded_mesh or the
+        registry mesh), as the JAX package does before its gates."""
+        if compiled is None or not compiled._is_data_parallel:
+            return None
+        from .core.flags import FLAGS
+        from .parallel.mesh import world
+        if FLAGS.sharded_exec and compiled._state_spec_fn is None:
+            from .parallel.layout import SpecLayout, mesh_from_spec
+            mesh = mesh_from_spec(FLAGS.sharded_mesh) \
+                if FLAGS.sharded_mesh else compiled.mesh()
+            layout = SpecLayout(mesh).add_program(program)
+            axes = (layout.data_axis,) if layout.data_axis else ()
+            compiled.with_distributed(mesh, state_spec_fn=layout,
+                                      batch_axes=axes)
+        if compiled._state_spec_fn is not None:
+            STAT_ADD("parallel.sharded_steps")
+        mesh = compiled.mesh()
+        n, _ = compiled.batch_split()
+        wide = [a for a in mesh.axis_names
+                if a not in compiled._batch_axes and mesh.shape[a] > 1]
+        if wide:
+            from .ops.collective import MODEL_PARALLEL
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: axes {wide} above one rank are "
+                f"{MODEL_PARALLEL}")
+        size = world()[0]
+        if mesh.size != size:
+            raise ValueError(f"mesh {mesh.shape} holds {mesh.size} ranks "
+                             f"but the process group has {size}")
+        if size == 1:
+            return None
+        if len(compiled._batch_axes) != 1:
+            raise NotImplementedError(
+                f"batch_axes {compiled._batch_axes}: the port splits the "
+                f"batch over one mesh axis")
+        return (mesh.group(compiled._batch_axes[0]), n,
+                compiled.batch_split()[1])
+
+    @staticmethod
+    def _split_feed(compiled, feed):
+        """(this rank's feed, (its rows, the global rows) of the split
+        feeds): CompiledProgram.feed_rows' rule per feed."""
+        out, rows = {}, (0, 0)
+        for name, val in feed.items():
+            shape = tuple(val.shape) if hasattr(val, "shape") \
+                else np.shape(val)
+            span = compiled.feed_rows(shape)
+            if span is None:
+                out[name] = val
+                continue
+            out[name] = val[span[0]:span[1]]
+            rows = (span[1] - span[0], shape[0])
+        return out, rows
 
     @staticmethod
     def _expand_lod_feeds(program, feed):
@@ -406,9 +509,11 @@ class Executor:
 
     @staticmethod
     def _cache_key(program, feeds, fetch_names):
+        from .core.flags import traced_values
         feed_sig = tuple(sorted(
             (n, tuple(t.shape), str(t.dtype)) for n, t in feeds.items()))
-        return (program.fingerprint(), feed_sig, tuple(fetch_names))
+        return (program.fingerprint(), feed_sig, tuple(fetch_names),
+                traced_values())
 
     @staticmethod
     def _prepare(program, block, scope, fetch_names) -> _PreparedStep:

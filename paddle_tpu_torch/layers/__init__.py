@@ -1,10 +1,12 @@
 """Graph-building layer functions: every layer of the JAX package's
 layers/nn.py but warpctc, the control flow, the sequence and RNN
 layers, the tensor creation and check layers, the in-program readers,
-the LR schedules, accuracy and auc, and the dense and beam-search layers
-of layers/parity.py."""
+the LR schedules, accuracy and auc, the dense and beam-search layers
+of layers/parity.py, and the collective and sharding layers of
+layers/dist.py."""
 from . import control_flow  # noqa: F401
 from .control_flow import *  # noqa: F401,F403
+from .dist import *  # noqa: F401,F403
 from .io import (create_py_reader_by_data, data,  # noqa: F401
                  double_buffer, load, py_reader, read_file)
 from .learning_rate_scheduler import (  # noqa: F401

@@ -1,7 +1,7 @@
 """layers.nn — graph-building functions over the op library.
 
 Every layer of the JAX package's layers/nn.py but ``warpctc``, which
-needs LoD (ROADMAP §A4). Each emits the same op types and attrs as its
+waits for the CRF and CTC slice (ROADMAP §A8a). Each emits the same op types and attrs as its
 counterpart in the JAX package, so programs built by the two packages
 serialize identically.
 """

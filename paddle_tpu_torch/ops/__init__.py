@@ -3,6 +3,7 @@ from ..core.registry import REGISTRY
 
 from . import activations  # noqa: F401
 from . import attention  # noqa: F401
+from . import collective  # noqa: F401
 from . import controlflow  # noqa: F401
 from . import elementwise  # noqa: F401
 from . import fused  # noqa: F401

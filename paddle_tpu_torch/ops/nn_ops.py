@@ -192,7 +192,9 @@ def _batch_norm(ctx, ins, attrs):
     With one value a channel (a batch of 1 after a global pool), where
     torch raises, Y follows the JAX package's formula and equals Bias.
     `is_test`, `use_global_stats` or a test run normalise by the running
-    statistics and pass them through."""
+    statistics and pass them through. In a data-parallel run
+    (ctx.sync_group) the moments are the global batch's: all-reduced
+    over the ranks, as GSPMD computes them in the JAX package."""
     x = ins["X"][0]
     scale, bias = ins["Scale"][0], ins["Bias"][0]
     mean, var = ins["Mean"][0], ins["Variance"][0]
@@ -207,7 +209,9 @@ def _batch_norm(ctx, ins, attrs):
         return {"Y": [y.movedim(1, -1) if nhwc else y],
                 "MeanOut": [mean], "VarianceOut": [var],
                 "SavedMean": [mean], "SavedVariance": [var]}
-    if x.numel() == x.shape[1]:
+    if getattr(ctx, "sync_group", None) is not None:
+        m, v, y = _synced_batch_norm(x, scale, bias, eps, ctx.sync_group)
+    elif x.numel() == x.shape[1]:
         # one value a channel, where torch's batch norm raises: the JAX
         # package's formula (variance 0, so Y is Bias)
         red = [i for i in range(x.dim()) if i != 1]
@@ -225,6 +229,25 @@ def _batch_norm(ctx, ins, attrs):
             "MeanOut": [mean * momentum + m * (1 - momentum)],
             "VarianceOut": [var * momentum + v * (1 - momentum)],
             "SavedMean": [m], "SavedVariance": [torch.rsqrt(v + eps)]}
+
+
+def _synced_batch_norm(x, scale, bias, eps, group):
+    """(mean, biased variance, Y) over every rank's rows: the sums are
+    all-reduced through the differentiable collective, two passes (the
+    mean, then the centred squares)."""
+    from .collective import _AllReduce
+    red = [i for i in range(x.dim()) if i != 1]
+    bshape = [1, -1] + [1] * (x.dim() - 2)
+    cnt = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype,
+                     device=x.device)
+    s1 = _AllReduce.apply(torch.cat([x.sum(red), cnt]), group, "sum")
+    n = s1[-1]
+    m = s1[:-1] / n
+    d = x - m.reshape(bshape)
+    v = _AllReduce.apply((d * d).sum(red), group, "sum") / n
+    y = d * torch.rsqrt(v.reshape(bshape) + eps) * scale.reshape(bshape) \
+        + bias.reshape(bshape)
+    return m, v, y
 
 
 @register_op("layer_norm")

@@ -118,32 +118,39 @@ class RetryPolicy:
         deadline = (time.monotonic() + self.deadline_ms / 1000.0
                     if self.deadline_ms else None)
         last: Optional[BaseException] = None
-        for attempt in range(1, self.max_attempts + 1):
-            try:
-                return fn(*args, **kwargs)
-            except BaseException as e:  # noqa: B036 — taxonomy decides
-                if not self.is_retryable(e):
-                    raise
-                last = e
-            if attempt == self.max_attempts:
-                break
-            delay_ms = self.backoff_ms(attempt)
-            if deadline is not None and \
-                    time.monotonic() + delay_ms / 1000.0 > deadline:
-                STAT_ADD("resilience.retry_giveups")
-                raise RetryExhausted(
-                    f"deadline exhausted after {attempt} attempt(s): "
-                    f"{last!r}") from last
-            STAT_ADD("resilience.retries")
-            STAT_OBSERVE("resilience.retry_backoff_ms", delay_ms,
-                         buckets=_MS_BUCKETS)
-            # goodput ledger: backoff sleep is attributed here at the
-            # source; the executor subtracts the delta from its dispatch
-            # span so the categories stay exclusive
-            from .. import goodput as _goodput
-            _goodput.attribute("retry_backoff", delay_ms / 1000.0)
-            self._sleep(delay_ms / 1000.0)
-        STAT_ADD("resilience.retry_giveups")
-        raise RetryExhausted(
-            f"gave up after {self.max_attempts} attempt(s): {last!r}") \
-            from last
+        try:
+            for attempt in range(1, self.max_attempts + 1):
+                try:
+                    return fn(*args, **kwargs)
+                except BaseException as e:  # noqa: B036 — taxonomy decides
+                    if not self.is_retryable(e):
+                        raise
+                    last = e
+                if attempt == self.max_attempts:
+                    break
+                delay_ms = self.backoff_ms(attempt)
+                if deadline is not None and \
+                        time.monotonic() + delay_ms / 1000.0 > deadline:
+                    STAT_ADD("resilience.retry_giveups")
+                    raise RetryExhausted(
+                        f"deadline exhausted after {attempt} attempt(s): "
+                        f"{last!r}") from last
+                STAT_ADD("resilience.retries")
+                STAT_OBSERVE("resilience.retry_backoff_ms", delay_ms,
+                             buckets=_MS_BUCKETS)
+                # goodput ledger: backoff sleep is attributed here at the
+                # source; the executor subtracts the delta from its
+                # dispatch span so the categories stay exclusive
+                from .. import goodput as _goodput
+                _goodput.attribute("retry_backoff", delay_ms / 1000.0)
+                self._sleep(delay_ms / 1000.0)
+            STAT_ADD("resilience.retry_giveups")
+            raise RetryExhausted(
+                f"gave up after {self.max_attempts} attempt(s): "
+                f"{last!r}") from last
+        finally:
+            # a caught error's traceback holds this frame, whose `last`
+            # holds the error: drop it, so what fn's closure held (a
+            # step's state tensors) is freed now, not at the next cyclic
+            # garbage collection
+            last = None

@@ -178,7 +178,8 @@ class ServingEngine:
         """Run one dummy batch per ladder cell, so every reachable shape
         has its executor cache entry before traffic. Returns the number
         of shapes warmed."""
-        from ..analysis import memory_gate, optimize_gate, verify_gate
+        from ..analysis import (memory_gate, optimize_gate, sharding_gate,
+                                verify_gate)
         from ..core.lowering import ir_dtype
 
         # Static verification before any cell runs (FLAGS_program_verify):
@@ -215,6 +216,11 @@ class ServingEngine:
                     var.dtype if var is not None else dtype))
             memory_gate(opt_prog, feed_shapes=cell, fetch_names=fetches,
                         where="serving.warmup")
+            # the sharding gate per cell (FLAGS_sharding_verify): engages
+            # only when FLAGS_sharded_mesh puts a layout in scope; a
+            # layout-inconsistent model raises PTV060 before any cell runs
+            sharding_gate(opt_prog, feed_shapes=cell, fetch_names=fetches,
+                          where="serving.warmup")
         for bb, sb in shapes:
             feed = {}
             for name, (per_example, dtype) in spec.items():

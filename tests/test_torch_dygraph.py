@@ -471,9 +471,11 @@ def test_data_parallel_at_one_rank(monkeypatch):
     """The forward and the state dict are the wrapped layer's in both
     packages. The port's rank count is torch.distributed's world size (1
     without a process group), so scale_loss returns the loss and
-    apply_collective_grads does nothing; above one rank the all-reduce
-    is not ported and raises. (The JAX package counts its devices, 8 on
-    the test mesh, and divides by them.)"""
+    apply_collective_grads does nothing; above one rank it averages the
+    gradients over the ranks (here two equal ranks, the all-reduce
+    stubbed; tests/test_torch_parallel.py runs two real ones). (The JAX
+    package counts its devices, 8 on the test mesh, and divides by
+    them.)"""
     xb = np.random.RandomState(6).randn(3, 4).astype(np.float32)
     outs = {}
     for pkg in ("jax", "port"):
@@ -493,8 +495,14 @@ def test_data_parallel_at_one_rank(monkeypatch):
                 import paddle_tpu_torch.dygraph.parallel as par
                 monkeypatch.setattr(par, "_world", lambda: (2, 1))
                 _close(dp.scale_loss(loss).numpy(), loss.numpy() * 0.5)
-                with pytest.raises(NotImplementedError, match="A10"):
-                    dp.apply_collective_grads()
+                import paddle_tpu_torch.ops.collective as coll
+                monkeypatch.setattr(coll, "all_reduce",
+                                    lambda x, group, op: x * 2)
+                loss.backward()
+                before = [p.gradient() for p in dp.parameters()]
+                dp.apply_collective_grads()
+                for b, p in zip(before, dp.parameters()):
+                    _close(p.gradient(), b)
     _close(outs["port"], outs["jax"])
 
 

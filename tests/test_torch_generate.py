@@ -14,7 +14,8 @@ carried over with convert.scope_from_numpy.
   changes neither.
 - Greedy kv_generate gives equal streams in both packages and per-step
   logits within 1e-5; the paged decode step with chunked prefill, driven
-  by chip_smoke.paged_generate, gives the slab path's streams and logits
+  by a paged GenerationEngine seen through chip_smoke.engine_generate,
+  gives the slab path's streams and logits
   within 1e-5; greedy_generate (greedy and with temperature) and
   beam_generate agree between packages; sample_token and accept_draft
   draw the same tokens from the same RandomState.
@@ -253,32 +254,37 @@ def test_kv_generate_matches_jax(trained):
 
 
 def test_paged_decode_with_chunked_prefill_matches_slab(trained):
+    """The paged GenerationEngine (one slot a prompt, chunked prefill),
+    its steps seen through by chip_smoke.engine_generate, gives the slab
+    path's streams and, at each new token, its logits."""
+    from paddle_tpu_torch.serving import GenerationEngine
     _, scope_t, _, _ = trained
     smoke = _chip_smoke()
     n = len(PROMPTS)
-    n_blocks = n * (MAX_SEQ // BLOCK) + 1
     dt, _, slab = _programs(ft, gt, gt.build_decode_step, 1, MAX_SEQ)
-    pd, _, dec = _programs(ft, gt, gt.build_paged_decode_step, n, MAX_SEQ,
-                           BLOCK, n_blocks)
-    pp, _, pre = _programs(ft, gt, gt.build_paged_decode_step, n, MAX_SEQ,
-                           BLOCK, n_blocks, seq_tokens=BLOCK,
-                           with_logits=False)
     exe = ft.Executor(ft.CPUPlace())
     serial, serial_logits = [], []
     for prompt in PROMPTS:
         rec = smoke._Recorder(exe)
         serial.append(gt.kv_generate(rec, scope_t, dt, *slab, prompt, 10))
         serial_logits.append(rec.logits[-10:])
-    streams, logits, times = smoke.paged_generate(
-        exe, scope_t, pd, dec, pp, pre, [list(p) for p in PROMPTS], 10)
+    engine = GenerationEngine(tiny_cfg(gt), scope_t, exe=exe, max_slots=n,
+                              max_seq=MAX_SEQ, paged=True, block_size=BLOCK,
+                              state_prefix="gen_check.",
+                              default_timeout_ms=120000)
+    engine.start()
+    try:
+        streams, logits, times = smoke.engine_generate(
+            engine, [list(p) for p in PROMPTS], 10)
+    finally:
+        engine.stop()
     assert streams == serial
     for a, b in zip(logits, serial_logits):
         np.testing.assert_allclose(np.stack(a), np.stack(b),
                                    atol=LOGIT_ATOL, rtol=0)
     # the longest prompt's 23 prefill tokens (prompt[:-1]) take 6 chunks
-    assert len(times["prefill"]) == 6
+    assert len(times["prefill"]) >= 6
     assert len(times["decode"]) >= 10
-    assert exe.cache_stats()["misses"] == 3
 
 
 def test_spec_verify_step_scores_like_serial_decode(trained):

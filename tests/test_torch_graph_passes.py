@@ -21,7 +21,9 @@ the JAX package's, both on the CPU.
 - Level 0 returns the program untouched; the gate memoizes; a broken
   rewrite is discarded.
 - CompiledProgram(...).with_data_parallel runs equal the plain
-  program's, and its multi-rank paths raise NotImplementedError.
+  program's; a mesh of more ranks than the process group, or with a
+  model axis, is refused (the two-rank runs are
+  tests/test_torch_parallel.py's).
 """
 import math
 import warnings
@@ -511,13 +513,22 @@ def test_compiled_program_runs_equal_the_plain_program():
 
 
 def test_compiled_program_refuses_more_than_one_rank(monkeypatch):
-    main, _, _, _, _ = _sgd(ft)
-    with pytest.raises(NotImplementedError, match="§A7"):
-        ft.CompiledProgram(main).with_distributed()
-    with pytest.raises(NotImplementedError, match="2 places"):
-        ft.CompiledProgram(main).with_data_parallel(
-            places=[ft.CPUPlace(), ft.CPUPlace()])
-    from paddle_tpu_torch import compiler
-    monkeypatch.setattr(compiler, "_world_size", lambda: 4)
-    with pytest.raises(NotImplementedError, match="4 ranks"):
-        ft.CompiledProgram(main).with_data_parallel(loss_name="x")
+    """One process without a process group is one rank: a mesh of more
+    ranks is refused at the first run, and a model (tp) axis names
+    ROADMAP §A7b. `places` is accepted (a process drives its card)."""
+    from paddle_tpu_torch.parallel.layout import mesh_from_spec
+    main, feeds, fetch, _, start = _sgd(ft)
+    feed = _crafted_feed(main, feeds)
+    scope = ft.Scope()
+    exe = ft.Executor(ft.CPUPlace())
+    exe.run(start, scope=scope)
+    two = ft.CompiledProgram(main).with_data_parallel(
+        loss_name=fetch[0], places=[ft.CPUPlace(), ft.CPUPlace()])
+    exe.run(two, feed=feed, fetch_list=fetch, scope=scope)
+    with pytest.raises(NotImplementedError, match="§A7b"):
+        exe.run(ft.CompiledProgram(main).with_distributed(
+            mesh_from_spec("1,2")), feed=feed, fetch_list=fetch,
+            scope=scope)
+    with pytest.raises(ValueError, match="4 ranks"):
+        exe.run(ft.CompiledProgram(main).with_distributed(
+            mesh_from_spec("4")), feed=feed, fetch_list=fetch, scope=scope)

@@ -60,6 +60,16 @@ of seeded noise) for the step-1 gradient, and port_update and
 jax_pert_update for the update after --steps steps; the largest loss
 gap of each too. chip_smoke.py's SE_RESNEXT_BARS come from these.
 
+`dp` reads chip_smoke.py's [dp_train] gaps on the CPU: BERT (vocab
+30522, the given width, depth and length, dropout 0, bf16 AMP, AdamW lr
+1e-4) at global batch --batch takes --steps steps from one startup state
+three ways through chip_smoke.dp_train_run: in one process; over two
+gloo rank processes (paddle_tpu_torch.distributed.spawn.RankPool), each
+on half the rows; and in one process from the startup state moved by
+--pert of seeded noise. It prints the largest loss gap and the largest
+parameter gap of the two-rank run and of the moved run to the first:
+chip_smoke.py's DP_BARS come from these.
+
 `seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
 [seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
 RNNsearch program (build_seq2seq, widths from the flags, RNNsearch-50's
@@ -431,6 +441,40 @@ def _sentiment(args):
     return _print_float32([], jg, pg, tg)
 
 
+def _dp(args):
+    import os
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), os.pardir))
+    import chip_smoke
+    from paddle_tpu_torch.distributed.spawn import RankPool
+    tmp = tempfile.TemporaryDirectory()
+    path = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    spec = {"cfg": dict(n_layers=args.layers, d_model=args.d_model,
+                        n_heads=max(args.d_model // 64, 1),
+                        d_ff=4 * args.d_model, max_seq_len=args.len),
+            "batch": args.batch, "T": args.len, "amp": True, "flash": False,
+            "place": "cpu", "steps": args.steps, "mesh": None,
+            "init": path("init.npz"), "ref": None, "out": None}
+    chip_smoke.dp_startup_state(spec, spec["init"])
+    one = chip_smoke.dp_train_run({**spec, "out": path("one.npz")})
+    init = dict(np.load(spec["init"]))
+    params = set(np.load(path("one.npz")).files)
+    rng = np.random.RandomState(0)
+    moved = {k: (v * (1 + args.pert * rng.randn(*v.shape))).astype(v.dtype)
+             if k in params else v for k, v in init.items()}
+    np.savez(path("moved.npz"), **moved)
+    pert = chip_smoke.dp_train_run({**spec, "init": path("moved.npz"),
+                                    "ref": path("one.npz")})
+    with RankPool(2, path("store")) as pool:
+        two = pool.run(chip_smoke.dp_train_run,
+                       {**spec, "ref": path("one.npz")})[0]
+    for tag, res in (("two_ranks", two), ("moved_init", pert)):
+        gap = max(abs(a - b) for a, b in zip(res["losses"], one["losses"]))
+        print(f"{tag}: loss_gap={gap:.3e} param_gap={res['param_gap']:.3e}")
+    tmp.cleanup()
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -471,6 +515,13 @@ def main(argv=None):
     q.add_argument("--emb", type=int, default=620)
     q.add_argument("--vocab", type=int, default=30000)
     q.add_argument("--len", type=int, default=50)
+    g = sub.add_parser("dp")
+    g.add_argument("--d-model", type=int, default=256)
+    g.add_argument("--layers", type=int, default=2)
+    g.add_argument("--len", type=int, default=128)
+    g.add_argument("--batch", type=int, default=8)
+    g.add_argument("--steps", type=int, default=5)
+    g.add_argument("--pert", type=float, default=1e-3)
     m = sub.add_parser("sentiment")
     m.add_argument("--batch", type=int, default=128)
     m.add_argument("--pert", type=float, default=1e-6)
@@ -480,6 +531,8 @@ def main(argv=None):
             args)
     if args.model == "recipe":
         return _recipe(args)
+    if args.model == "dp":
+        return _dp(args)
     if args.model == "se_resnext":
         return _se_resnext(args)
     progs, init, base, moved = {"resnet": _resnet, "nmt": _nmt,
