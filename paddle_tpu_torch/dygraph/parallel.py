@@ -13,8 +13,6 @@ well ends up divided twice.
 """
 from __future__ import annotations
 
-import torch
-
 from ..parallel.mesh import world as _world
 from .layers import Layer
 
@@ -57,17 +55,11 @@ class DataParallel(Layer):
             return
         from ..ops import collective
         grads = [p.grad for p in self.parameters() if p.grad is not None]
-        by_dtype = {}
-        for g in grads:
-            by_dtype.setdefault(g.dtype, []).append(g)
-        for gs in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for g in gs])
-            # group None: the default group, every rank
-            out = collective.all_reduce(flat, None, "sum").div_(n)
-            off = 0
-            for g in gs:
-                g.copy_(out[off:off + g.numel()].view_as(g))
-                off += g.numel()
+        # group None: the default group, every rank
+        for g, avg in zip(grads, collective.coalesced(
+                grads, lambda f: collective.all_reduce(f, None, "sum")
+                .div_(n))):
+            g.copy_(avg.view_as(g))
 
     def state_dict(self, *a, **kw):
         return self._layers.state_dict(*a, **kw)

@@ -112,10 +112,8 @@ class _PreparedStep:
         # runs of this entry; the first is warmup for the goodput ledger
         # and the executor.compile_first_step_seconds stat
         self.runs = 0
-        # the data-parallel run's plan (parallel/data_parallel.py) and
-        # the scopes whose state rank 0 already broadcast
+        # the data-parallel run's plan (parallel/data_parallel.py)
         self.dp_plan = dp_plan
-        self.synced_scopes = set()
 
 
 class Executor:
@@ -199,9 +197,7 @@ class Executor:
 
         plan = step.dp_plan
         if plan is not None:
-            if id(scope) not in step.synced_scopes:
-                plan.broadcast_state(scope, step.state_in_names)
-                step.synced_scopes.add(id(scope))
+            plan.broadcast_state(scope, step.state_in_names)
             plan.shard_state(scope)
         state = {}
         for n in step.state_in_names:

@@ -41,7 +41,7 @@ from ..core.registry import register_op
 from ..monitor import STAT_ADD
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
-           "all_to_all", "COLLECTIVE_BYTES", "STAGED_BYTES",
+           "all_to_all", "coalesced", "COLLECTIVE_BYTES", "STAGED_BYTES",
            "reset_counts", "axis_group"]
 
 MODEL_PARALLEL = ("model parallelism (tensor, sequence or weight "
@@ -173,6 +173,33 @@ def all_to_all(x, group, split_axis=0, concat_axis=0):
     _staged(group, lambda o, i: dist.all_to_all_single(o, i, group=group),
             out, blocks)
     return torch.cat(list(out.unbind(0)), dim=concat_axis)
+
+
+def coalesced(tensors, collective, blocks=1):
+    """Run `collective` (flat tensor -> flat tensor) once a dtype over
+    `tensors` flattened into one buffer; returns, in order, each tensor's
+    part of the result as a (result blocks, piece) view.
+
+    The buffer is block-major: each tensor is cut into `blocks` equal
+    pieces and block b holds every tensor's piece b, which is what a
+    reduce-scatter over `blocks` ranks wants. The result is read the same
+    way with as many blocks as it holds: 1 after an all-reduce, a
+    broadcast or a reduce-scatter, the group's size after an
+    all-gather."""
+    parts = [None] * len(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        pieces = [tensors[i].reshape(blocks, -1) for i in idx]
+        out = collective(torch.cat([p[b] for b in range(blocks)
+                                    for p in pieces]))
+        out = out.view(-1, sum(p.shape[1] for p in pieces))
+        off = 0
+        for i, p in zip(idx, pieces):
+            parts[i] = out[:, off:off + p.shape[1]]
+            off += p.shape[1]
+    return parts
 
 
 class _AllReduce(torch.autograd.Function):

@@ -13,8 +13,10 @@ JAX package computes on the global batch:
   reshape2 of the bench builders) runs as a clone whose dim 0 there,
   and in the declared shapes of its non-persistable vars, reads B/N
   (local_program);
-- the first run of a program in a scope broadcasts every persistable it
-  reads from rank 0;
+- each persistable of a scope is broadcast from rank 0 once, by the
+  first run that reads it, whatever program or cache entry that is: a
+  later broadcast would copy rank 0's rows of a ZeRO accumulator over
+  this rank's own;
 - between the last backward op and the first update op, the parameter
   gradients are summed over the data axis and divided by its size
   (GradientScaleStrategy.CoeffNumDevice), one flattened buffer per
@@ -39,6 +41,7 @@ JAX package computes on the global batch:
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 from typing import Dict, List
 
@@ -60,6 +63,9 @@ _BACKWARD_TYPES = frozenset({"sum", "fill_any_like", "fill_constant",
 # all-reduces and reduce-scatters of the cut)
 GRAD_SYNC_BYTES = {"bytes": 0}
 
+
+# scope -> the persistables rank 0 already broadcast into it
+_SYNCED: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 _LOCAL_LOCK = threading.Lock()
 _LOCAL_MEMO: "OrderedDict[tuple, object]" = OrderedDict()
@@ -93,8 +99,11 @@ def local_program(program, total, local):
         for var in blk.vars.values():
             if var.persistable or var.name.split("@GRAD")[0] in state:
                 continue  # state and its gradients have no batch dim
-            if var.shape and var.shape[0] == total:
-                var.shape = (local, *var.shape[1:])
+            shape = tuple(var.shape or ())
+            # an XShape (reshape2, transpose2, ...) is (0, *x.shape)
+            lead = 1 if len(shape) > 1 and shape[0] == 0 else 0
+            if len(shape) > lead and shape[lead] == total:
+                var.shape = (*shape[:lead], local, *shape[lead + 1:])
                 changed = True
     out = p if changed else program
     with _LOCAL_LOCK:
@@ -186,19 +195,18 @@ class DataParallelPlan:
 
     # -- state ------------------------------------------------------------
     def broadcast_state(self, scope, names):
-        """Rank 0's persistables into every rank, one buffer per dtype."""
-        tensors = {n: scope.find_var(n) for n in sorted(names)}
+        """Rank 0's persistables that `scope` has not had yet into every
+        rank, one buffer per dtype."""
+        synced = _SYNCED.setdefault(scope, set())
+        tensors = {n: scope.find_var(n) for n in sorted(names)
+                   if n not in synced}
         tensors = {n: t for n, t in tensors.items()
                    if isinstance(t, torch.Tensor)}
-        for group in _by_dtype(tensors, tensors).values():
-            ts = [tensors[n] for n in group]
-            flat = torch.cat([t.reshape(-1) for t in ts])
-            out = coll.broadcast(flat, self.group, 0)
-            off = 0
-            for t in ts:
-                n = t.numel()
-                t.copy_(out[off:off + n].view_as(t))
-                off += n
+        synced.update(tensors)
+        ts = list(tensors.values())
+        for t, root in zip(ts, coll.coalesced(
+                ts, lambda f: coll.broadcast(f, self.group, 0))):
+            t.copy_(root.view_as(t))
 
     def shard_state(self, scope):
         """Keep this rank's rows of each ZeRO accumulator in the scope."""
@@ -223,32 +231,19 @@ class DataParallelPlan:
     def _sync_grads(self, env):
         scale = 1.0 / self.dp
         grads = [g for g in self.reduced if g in env]
-        nbytes = 0
-        for names in _by_dtype(grads, env).values():
-            flat = torch.cat([env[n].reshape(-1) for n in names])
-            nbytes += flat.numel() * flat.element_size()
-            out = coll.all_reduce(flat, self.group, "sum").mul_(scale)
-            off = 0
-            for n in names:
-                k = env[n].numel()
-                env[n] = out[off:off + k].view_as(env[n])
-                off += k
+        ts = [env[n] for n in grads]
+        for n, t, avg in zip(grads, ts, coll.coalesced(
+                ts, lambda f: coll.all_reduce(f, self.group, "sum")
+                .mul_(scale))):
+            env[n] = avg.view_as(t)
         scattered = [g for g in self.scattered if g in env]
-        for names in _by_dtype(scattered, env).values():
-            # rank-major: block r holds rank r's rows of every gradient
-            blocks = torch.cat([
-                torch.cat([env[n].reshape(self.dp, -1)[r]
-                           for n in names])
-                for r in range(self.dp)])
-            nbytes += blocks.numel() * blocks.element_size()
-            out = coll.reduce_scatter(blocks, self.group).mul_(scale)
-            off = 0
-            for n in names:
-                full = env[n]
-                k = full.numel() // self.dp
-                env[n] = out[off:off + k].view(
-                    full.shape[0] // self.dp, *full.shape[1:])
-                off += k
+        sts = [env[n] for n in scattered]
+        # block r of the buffer holds rank r's rows of every gradient
+        for n, t, rows in zip(scattered, sts, coll.coalesced(
+                sts, lambda f: coll.reduce_scatter(f, self.group)
+                .mul_(scale), blocks=self.dp)):
+            env[n] = rows.view(t.shape[0] // self.dp, *t.shape[1:])
+        nbytes = sum(t.numel() * t.element_size() for t in ts + sts)
         GRAD_SYNC_BYTES["bytes"] += nbytes
         STAT_ADD("parallel.grad_sync_bytes", nbytes)
 
@@ -269,17 +264,11 @@ class DataParallelPlan:
         dtype, into the full tensors the scope holds."""
         full = getattr(self, "_full", {})
         names = [p for p, *_ in self.zero.values() if p in full]
-        for ps in _by_dtype(names, full).values():
-            local = torch.cat([
-                full[p].reshape(self.dp, -1)[self.index] for p in ps])
-            out = coll.all_gather(local, self.group)
-            per_rank = out.view(self.dp, -1)
-            off = 0
-            for p in ps:
-                k = full[p].numel() // self.dp
-                full[p].view(self.dp, -1).copy_(per_rank[:, off:off + k])
-                off += k
-                env[p] = full[p]
+        local = [full[p].reshape(self.dp, -1)[self.index] for p in names]
+        for p, per_rank in zip(names, coll.coalesced(
+                local, lambda f: coll.all_gather(f, self.group))):
+            full[p].view(self.dp, -1).copy_(per_rank)
+            env[p] = full[p]
         self._full = {}
 
     # -- fetches ----------------------------------------------------------
@@ -295,12 +284,3 @@ class DataParallelPlan:
                 and declared[0] in (-1, total)):
             return coll.all_gather(t, self.group)
         return t
-
-
-def _by_dtype(names, env):
-    """{dtype: [name, ...]}: the names whose tensors (in `env`) share a
-    dtype, in order, one flattened buffer each."""
-    groups: Dict[torch.dtype, list] = {}
-    for n in names:
-        groups.setdefault(env[n].dtype, []).append(n)
-    return groups

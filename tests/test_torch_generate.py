@@ -276,15 +276,22 @@ def test_paged_decode_with_chunked_prefill_matches_slab(trained):
     try:
         streams, logits, times = smoke.engine_generate(
             engine, [list(p) for p in PROMPTS], 10)
+        recompiles = engine.post_warmup_compiles()
     finally:
         engine.stop()
     assert streams == serial
     for a, b in zip(logits, serial_logits):
         np.testing.assert_allclose(np.stack(a), np.stack(b),
                                    atol=LOGIT_ATOL, rtol=0)
-    # the longest prompt's 23 prefill tokens (prompt[:-1]) take 6 chunks
+    # prompt[:-1] prefills in chunks of BLOCK: 0, 4 and 23 tokens take
+    # 0, 1 and 6 chunk steps
+    assert times["chunks"] == [0, 1, 6]
     assert len(times["prefill"]) >= 6
     assert len(times["decode"]) >= 10
+    # no recompile while generating: the slab step and the engine's
+    # warmed decode and prefill steps are the executor's only entries
+    assert recompiles == 0
+    assert exe.cache_stats()["misses"] == 3
 
 
 def test_spec_verify_step_scores_like_serial_decode(trained):

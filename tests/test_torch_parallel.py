@@ -62,16 +62,22 @@ def _tokens():
         0, 64, (jobs.BATCH, jobs.SEQ)).astype(np.int64)
 
 
-@pytest.mark.parametrize("mesh_spec", [None, "2"], ids=["replicated",
-                                                        "zero"])
-def test_tiny_gpt_matches_jax_at_two_ranks(pool, mesh_spec):
+@pytest.mark.parametrize("mesh_spec,second_fetch_at", [
+    (None, None), ("2", None), ("2", 2)],
+    ids=["replicated", "zero", "zero_second_fetch_list"])
+def test_tiny_gpt_matches_jax_at_two_ranks(pool, mesh_spec,
+                                           second_fetch_at):
     """5 AdamW steps: losses and final parameters within 1e-4 of the JAX
     package's single-device run and of its with_data_parallel run; 2
     cache misses (startup, step) and 4 hits a rank; under ZeRO
     (FLAGS_sharded_exec over mesh '2') each rank holds half of each
-    moment whose dim 0 divides, the rest whole."""
+    moment whose dim 0 divides, the rest whole. With a parameter fetched
+    beside the loss at step 3 (a second cache entry on the same scope,
+    3 misses), rank 0's rows of the sharded moments must not be
+    broadcast over rank 1's."""
     init, _, _ = _jax_tiny_gpt(False)
-    got = pool.run(jobs.gpt_train, init, _tokens(), 5, mesh_spec)
+    got = pool.run(jobs.gpt_train, init, _tokens(), 5, mesh_spec,
+                   second_fetch_at)
     for dp in (False, True):
         _, losses, params = _jax_tiny_gpt(dp)
         for r_losses, r_params, _, _ in got:
@@ -84,7 +90,9 @@ def test_tiny_gpt_matches_jax_at_two_ranks(pool, mesh_spec):
                                            err_msg=n)
     full = {n: v.shape for n, v in init.items() if "_moment" in n}
     for _, _, stats, accs in got:
-        assert stats == {"hits": 4, "misses": 2, "size": 2}
+        entries = 2 if second_fetch_at is None else 3
+        assert stats == {"hits": 6 - entries, "misses": entries,
+                         "size": entries}
         assert accs.keys() == full.keys()
         for n, shape in full.items():
             want = shape if mesh_spec is None or shape[0] % 2 else \

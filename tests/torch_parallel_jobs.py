@@ -32,10 +32,12 @@ def tiny_gpt(ptt, optimizer="adamw"):
     return main, startup, loss, cfg
 
 
-def gpt_train(init, toks, steps, mesh_spec=None):
+def gpt_train(init, toks, steps, mesh_spec=None, second_fetch_at=None):
     """`steps` data-parallel AdamW steps of the tiny GPT from `init` (the
     JAX startup's arrays) on the global batch `toks`; ZeRO-sharded over
-    FLAGS_sharded_mesh=`mesh_spec` when given. Returns (losses, final
+    FLAGS_sharded_mesh=`mesh_spec` when given. Step `second_fetch_at`
+    also fetches the first parameter, so that it runs a second cache
+    entry of the program on the same scope. Returns (losses, final
     parameters, cache stats, {accumulator: this rank's shape})."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.convert import scope_from_numpy
@@ -49,9 +51,12 @@ def gpt_train(init, toks, steps, mesh_spec=None):
         scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
         prog = ptt.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name)
+        first = main.all_parameters()[0]
         losses = [float(exe.run(prog, feed={"tokens": toks},
-                                fetch_list=[loss], scope=scope)[0])
-                  for _ in range(steps)]
+                                fetch_list=[loss] + (
+                                    [first] if i == second_fetch_at
+                                    else []), scope=scope)[0])
+                  for i in range(steps)]
         params = {v.name: scope.get_numpy(v.name) for v in main.list_vars()
                   if getattr(v, "is_parameter", False)}
         accs = {n: tuple(scope.find_var(n).shape) for n in scope.names()

@@ -63,12 +63,15 @@ gap of each too. chip_smoke.py's SE_RESNEXT_BARS come from these.
 `dp` reads chip_smoke.py's [dp_train] gaps on the CPU: BERT (vocab
 30522, the given width, depth and length, dropout 0, bf16 AMP, AdamW lr
 1e-4) at global batch --batch takes --steps steps from one startup state
-three ways through chip_smoke.dp_train_run: in one process; over two
-gloo rank processes (paddle_tpu_torch.distributed.spawn.RankPool), each
-on half the rows; and in one process from the startup state moved by
---pert of seeded noise. It prints the largest loss gap and the largest
-parameter gap of the two-rank run and of the moved run to the first:
-chip_smoke.py's DP_BARS come from these.
+through chip_smoke.dp_train_run: in one process; over two gloo rank
+processes (paddle_tpu_torch.distributed.spawn.RankPool), each on half
+the rows; the same two ranks broken as each of chip_smoke.DP_CONTROLS
+(the sync skipped, the gradients summed); and in one process from the
+startup state moved by --pert of seeded noise. It prints, of each run
+against the first, the largest loss gap, the update gap and the first
+step's gradient gap (the gaps DP_BARS bound), and the largest parameter
+gap. chip_smoke.py's dp_phases takes the two-rank and control readings
+again at the cell's own size on the card.
 
 `seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
 [seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
@@ -466,12 +469,17 @@ def _dp(args):
     np.savez(path("moved.npz"), **moved)
     pert = chip_smoke.dp_train_run({**spec, "init": path("moved.npz"),
                                     "ref": path("one.npz")})
+    runs = [("moved_init", pert)]
     with RankPool(2, path("store")) as pool:
-        two = pool.run(chip_smoke.dp_train_run,
-                       {**spec, "ref": path("one.npz")})[0]
-    for tag, res in (("two_ranks", two), ("moved_init", pert)):
-        gap = max(abs(a - b) for a, b in zip(res["losses"], one["losses"]))
-        print(f"{tag}: loss_gap={gap:.3e} param_gap={res['param_gap']:.3e}")
+        for control in (None, *chip_smoke.DP_CONTROLS):
+            runs.append((control or "two_ranks", pool.run(
+                chip_smoke.dp_train_run, {**spec, "ref": path("one.npz"),
+                                          "control": control})[0]))
+    for tag, res in runs:
+        loss, update, grad = chip_smoke._dp_gaps(res, one["losses"],
+                                                 one["grad"])
+        print(f"{tag}: loss_gap={loss:.3e} update_gap={update:.3e} "
+              f"grad_gap={grad:.3e} param_gap={res['param_gap']:.3e}")
     tmp.cleanup()
 
 
