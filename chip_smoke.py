@@ -9025,6 +9025,1019 @@ def dp_phases(torch, card):
     return bf16, f32
 
 
+# --- model parallelism: tensor, sequence and expert sharding, recompute ---
+
+# [tp_train] / [fsdp_train]: bench.py's BERT-base step
+# (transformer.build_train: the LM loss at every position), b16 T512 bf16
+# AMP, AdamW, dropout 0, with the tp/sp hints (sp over the tp axis), over
+# two rank processes on a mesh dp1 x tp2 (the model-parallel rewrite's
+# Megatron layout with sequence parallelism) or a mesh fsdp2 (the batch
+# split over fsdp, every dim-0-divisible weight held as half its rows),
+# MP_STEPS steps from one startup state, each held to the one-rank run of
+# the same program by the loss, update and gradient gaps of DP_BARS'
+# definitions (_dp_gaps), against MP_BARS. Each bar lies between the
+# two-rank run's reading and the controls (MP_CONTROLS, run every time,
+# which must fail a bar): g's backward all-reduced (every gradient
+# upstream of a partial sum n times too large: the grad bar), and g's
+# forward all-reduce skipped (each rank's partial sum taken as the whole:
+# the loss bar). tools/torch_rounding_sensitivity.py tp reads the same
+# gaps on the CPU at a small size (d 128, 2 layers, T 128: tp2 3.147e-05
+# / 2.619e-03 / 2.940e-03, fsdp2 1.621e-05 / 1.457e-03 / 2.327e-03, the
+# controls 1.411e-04 / 2.216e-02 / 1.000 and 5.167 / 3.122e-01 /
+# 7.264e-01). On an H100 80GB HBM3 at 700 W, loss / update / grad: tp2
+# 2.136e-04 / 3.198e-02 / 1.070e-02, fsdp2 2.861e-04 / 2.740e-02 /
+# 9.622e-03; g_bwd_allreduce 7.906e-04 / 5.120e-02 / 1.001, g_fwd_skipped
+# 5.240 / 1.199 / 9.618e-01.
+MP_WORLD = 2
+MP_STEPS = 3
+MP_BATCH = 16
+MP_BARS = {"loss": 1e-3, "update": 0.1, "grad": 0.05}
+MP_CONTROLS = {"g_bwd_allreduce": "grad", "g_fwd_skipped": "loss"}
+# [ring_train] / [ulysses_train]: examples/long_context.py's program at
+# GPT-small widths (d 768, 12 heads, vocab 32000), causal, b1, T 8192 over
+# sp2 (4096 rows a rank), q/k/v cast to bf16 around the attention op, Adam,
+# SEQ_STEPS steps, held to the one-rank run (flash attention over the
+# whole T) by the loss gap and the first step's gradient gap of the qkv
+# weight, against SEQ_BARS; the control drops the ring's off-diagonal
+# blocks and must fail the grad bar (the loss at random init reads
+# ln(vocab) whatever the attention computes). The op-level check holds the ring's
+# and Ulysses' output and dQ/dK/dV on bf16 [1, 12, 8192, 64] inputs to the
+# plain attention in float32 on the card within SEQ_OP_TOL (bf16
+# rounding of the output and of the blocks' outputs before the merge).
+# H100 readings, loss / grad: ring 1.907e-06 / 1.147e-02, Ulysses 0 / 0,
+# the control 0 / 9.581e-01; op errors 6.8e-03-2.3e-02 (bf16). CPU
+# (tools/torch_rounding_sensitivity.py ring: T 512, d 128): ring
+# 4.292e-06 / 1.593e-02, the control 4.048e-04 / 9.735e-01.
+SEQ_T, SEQ_D, SEQ_HEADS, SEQ_VOCAB, SEQ_STEPS = 8192, 768, 12, 32000, 3
+SEQ_BARS = {"loss": 2e-3, "grad": 0.05}
+SEQ_OP_TOL = 3e-2
+# [moe_train]: Switch-Base-8's FFN widths (d_model 768, d_ff 3072, 8
+# experts, top-1; arxiv 2101.03961) in tests/test_parallel.py:474's
+# static program, b8 T512, float32, over ep2, dense and sparse at
+# capacity factor 1.25 (capacity 1.25 x 4096 / 8 = 640), held to one
+# rank's dense run: the dense run's losses within MOE_TOL relative, the
+# sparse run's first-step output: dropped rows exactly 0, kept rows
+# within MOE_TOL of the dense output's largest entry
+MOE_D, MOE_FF, MOE_E, MOE_B, MOE_T = 768, 3072, 8, 8, 512
+MOE_CAPACITY = int(1.25 * MOE_B * MOE_T / MOE_E)
+# and at a tenth of that, where tokens drop: their rows exactly 0
+MOE_TIGHT = MOE_CAPACITY // 10
+MOE_STEPS = 3
+MOE_TOL = 1e-4
+# [recompute_train]: [train]'s step (b32, dropout 0.1, bf16 AMP) with
+# RecomputeOptimizer(AdamW) checkpointed at each layer's output, against
+# the same program without recompute from the same seed, both under
+# torch's deterministic algorithms: the losses equal to RECOMPUTE_TOL
+RECOMPUTE_STEPS = (2, 3)
+RECOMPUTE_TOL = 1e-6
+
+
+def _mp_build(ptt, spec):
+    """BERT-base build_train with the tp/sp hints (sp over tp), dropout
+    0, b MP_BATCH, T512, bf16 AMP, AdamW lr 1e-4."""
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.bert_base(dropout=0.0, attn_dropout=0.0,
+                                use_flash=spec.get("flash", True), tp=True,
+                                sp=True, sp_axis="tp",
+                                **spec.get("cfg", {}))
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, _ = transformer.build_train(cfg, spec["batch"],
+                                          spec.get("T", T), lr=1e-4,
+                                          amp=True)
+    return cfg, main, startup, loss
+
+
+def _mp_control(kind):
+    """Break g on purpose, as a control for MP_BARS: 'g_bwd_allreduce'
+    all-reduces its backward (Megatron's g differentiated like
+    c_allreduce_sum), 'g_fwd_skipped' skips its forward all-reduce. The
+    reduce-scatter of sequence parallelism is broken alike. Returns the
+    function that repairs it."""
+    import torch
+    from paddle_tpu_torch.ops import collective as coll
+    saved = (coll.reduce_from, coll.reduce_scatter_to)
+
+    class _Bwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, scale):
+            ctx.group, ctx.scale = group, scale
+            return coll.all_reduce(x, group) * scale
+
+        @staticmethod
+        def backward(ctx, g):
+            return coll.all_reduce(g, ctx.group) * ctx.scale, None, None
+
+    class _Fwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group, scale):
+            ctx.scale = scale
+            return x.detach() * scale
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * ctx.scale, None, None
+
+    def rs(x, group, sp):
+        import torch.distributed as dist
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        full = _Bwd.apply(x, group, 1.0) if kind == "g_bwd_allreduce" \
+            else _Fwd.apply(x, group, 1.0)
+        return coll.take_block(full, sp, n, r)
+
+    coll.reduce_from = (lambda x, g, scale=1.0: (
+        _Bwd if kind == "g_bwd_allreduce" else _Fwd).apply(x, g, scale))
+    coll.reduce_scatter_to = rs
+
+    def repair():
+        coll.reduce_from, coll.reduce_scatter_to = saved
+    return repair
+
+
+def mp_train_run(spec):
+    """The BERT step of `spec` (batch, steps, init: an npz of the startup
+    state, mesh: "dp,tp,fsdp" sizes or None for one rank, batch_axes,
+    ref: an npz of the one-rank run's parameters, out: where the one-rank
+    run writes its final parameters, control: an _mp_control kind, save:
+    a directory to write a sharded checkpoint of the final state to) in
+    this process. The first step also fetches the gradient of layer 0's
+    FFN-in weight (gathered whole). Returns the losses, that gradient,
+    per step host and device ms, the flash launches of the steps after
+    the first (and the shape of each flash call), the payload and staged
+    bytes of the collectives a step, the analyzer's collective bytes a
+    step, the rank's parameter bytes, the peak beside the planner's, the
+    update gap to `ref`, and with `save` each parameter's sha256 and the
+    loss of one more step."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.mesh import world
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+
+    repair = _mp_control(spec["control"]) if spec.get("control") \
+        else None
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg, main, startup, loss = _mp_build(ptt, spec)
+        cuda = spec.get("place", "cuda") != "cpu"
+        place = _place(ptt, {"place": spec.get("place", "cuda")})
+        scope = ptt.Scope()
+        exe = ptt.Executor(place)
+        exe.run(startup, scope=scope)
+        init = dict(np.load(spec["init"]))
+        # copies: on the CPU the scope would share the arrays
+        scope_from_numpy({k: v.copy() for k, v in init.items()}, scope,
+                         place, program=main)
+        layout = None
+        prog = main
+        if spec["mesh"]:
+            mesh = mesh_from_spec(spec["mesh"])
+            layout = SpecLayout(mesh).add_program(main)
+            prog = ptt.CompiledProgram(main).with_distributed(
+                mesh, state_spec_fn=layout,
+                batch_axes=tuple(spec["batch_axes"]))
+            prog._loss_name = loss.name
+        feed = _dp_feed(cfg.vocab_size, spec["batch"], spec.get("T", T))
+        gname = "layer_0.ffn.fc1.w@GRAD"
+        first = exe.run(prog, feed=feed, fetch_list=[loss, gname],
+                        scope=scope)
+        losses = [float(first[0])]
+        coll.reset_counts()
+        _zero_launch_counts()
+        shapes = set()
+        real_fwd = fa.flash_attention_fwd
+
+        def spy(q, *a, **k):
+            shapes.add(tuple(q.shape))
+            return real_fwd(q, *a, **k)
+        fa.flash_attention_fwd = spy
+        host, device, peaks = [], [], []
+        try:
+            for _ in range(spec["steps"] - 1):
+                if cuda:
+                    torch.cuda.synchronize()
+                    foreign = torch.cuda.memory_allocated() - \
+                        scope_device_bytes(torch, scope)
+                    torch.cuda.reset_peak_memory_stats()
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record()
+                t0 = time.perf_counter()
+                out = exe.run(prog, feed=feed, fetch_list=[loss],
+                              scope=scope, return_numpy=False)
+                host.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(out[0]))
+                if cuda:
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    device.append(ev[0].elapsed_time(ev[1]))
+                    peaks.append((torch.cuda.max_memory_allocated()
+                                  - foreign) / 1e9)
+        finally:
+            fa.flash_attention_fwd = real_fwd
+        launches = _launch_counts()
+        n = max(spec["steps"] - 1, 1)
+        moved = sum(coll.COLLECTIVE_BYTES.values()) // n
+        staged = coll.STAGED_BYTES["bytes"] // n
+        names = [v.name for v in main.list_vars()
+                 if getattr(v, "is_parameter", False)]
+        own = sum(scope.find_var(k).numel() * scope.find_var(k).element_size()
+                  for k in names)
+        params = {k: gather_param(scope, k).cpu().numpy() for k in names}
+        size, rank = world()
+        update_gap = None
+        if spec.get("ref"):
+            update_gap = _rel_gap(params, dict(np.load(spec["ref"])), init)
+        if spec.get("out") and rank == 0:
+            np.savez(spec["out"], **params)
+        res = {"rank": rank, "world": size, "losses": losses,
+               "grad": np.asarray(first[1], np.float32),
+               "update_gap": update_gap, "host_ms": host,
+               "device_ms": device, "launches": launches,
+               "flash_shapes": sorted(shapes), "moved_step": moved,
+               "staged_step": staged, "param_bytes": own,
+               "full_param_bytes": sum(v.nbytes for v in params.values()),
+               "peak_gb": max(peaks) if peaks else None}
+        if layout is not None and cuda:
+            res["collective_bytes_estimate"] = \
+                layout.collective_bytes_estimate(main)
+            res["plan"] = _rank_plan(exe, prog, main, feed, loss)
+        if spec.get("save"):
+            ptt.save_sharded_persistables(exe, spec["save"], main,
+                                          scope=scope)
+            res["sha256"] = {k: _sha(v) for k, v in params.items()}
+            res["next_loss"] = float(exe.run(prog, feed=feed,
+                                             fetch_list=[loss],
+                                             scope=scope)[0])
+        return res
+    finally:
+        if repair is not None:
+            repair()
+        torch.use_deterministic_algorithms(was)
+
+
+def _sha(a):
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _rank_plan(exe, prog, main, feed, loss):
+    """The planner's plan of this rank's program (the model-parallel
+    rewrite's, local shapes) at this rank's feed, as the executor's
+    memory gate priced it."""
+    from paddle_tpu_torch.parallel.mesh import mesh_context
+    from paddle_tpu_torch.parallel.model_parallel import (RankLayout,
+                                                          plan_for)
+    mesh = prog.mesh()
+    mp = plan_for(main, mesh, prog.spec_layout(), prog._batch_axes)
+    n, idx = prog.batch_split()
+    local = {}
+    for k, v in feed.items():
+        span = prog.feed_rows(v.shape)
+        local[k] = v if span is None else v[span[0]:span[1]]
+    with mesh_context(mesh):
+        plan = planned_plan(mp.program, local, [loss],
+                            layout=RankLayout(prog.layout(), mp))
+    return {"device_peak_bytes": plan.device_peak_bytes,
+            "peak_bytes": plan.peak_bytes,
+            "device_charges": plan.device_charges}
+
+
+def mp_load_run(spec):
+    """Load `spec`'s sharded checkpoint (save) at this rank's mesh, each
+    parameter's sha256 reassembled (gathered), and one more step's loss
+    from the loaded state."""
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg, main, startup, loss = _mp_build(ptt, spec)
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        scope = ptt.Scope()
+        mesh = mesh_from_spec(spec["mesh"])
+        layout = SpecLayout(mesh).add_program(main)
+        prog = ptt.CompiledProgram(main).with_distributed(
+            mesh, state_spec_fn=layout, batch_axes=("dp",))
+        prog._loss_name = loss.name
+        ptt.load_sharded_persistables(exe, spec["save"], main, mesh=mesh,
+                                      scope=scope, layout=layout)
+        names = [v.name for v in main.list_vars()
+                 if getattr(v, "is_parameter", False)]
+        own = sum(scope.find_var(k).numel() * 4 for k in names)
+        sha = {k: _sha(gather_param(scope, k).cpu().numpy())
+               for k in names}
+        feed = _dp_feed(cfg.vocab_size, spec["batch"], T)
+        lv = float(exe.run(prog, feed=feed, fetch_list=[loss],
+                           scope=scope)[0])
+        return {"sha256": sha, "next_loss": lv, "own_bytes": own}
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _long_context(ptt, scheme, batch=1, dims=None):
+    """examples/long_context.py's program at GPT-small widths (or
+    `dims`: T, d, heads, vocab) with `scheme` attention ("ring" or
+    "ulysses") on q/k/v cast to bf16."""
+    t, d, heads, vocab = dims or (SEQ_T, SEQ_D, SEQ_HEADS, SEQ_VOCAB)
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    L = ptt.layers
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        tokens = L.data("tokens", shape=[batch, t], dtype="int64",
+                        append_batch_size=False)
+        targets = L.data("targets", shape=[batch, t], dtype="int64",
+                         append_batch_size=False)
+        emb = L.embedding(tokens, size=[vocab, d])
+        qkv = L.fc(emb, size=3 * d, num_flatten_dims=2,
+                   param_attr=ptt.ParamAttr(name="qkv.w"))
+        parts = [L.slice(qkv, axes=[2], starts=[i * d], ends=[(i + 1) * d])
+                 for i in range(3)]
+
+        def heads_first(x):
+            x = L.reshape(x, shape=[batch, t, heads, d // heads])
+            return L.cast(L.transpose(x, perm=[0, 2, 1, 3]), "bfloat16")
+
+        attn = L.ring_attention if scheme == "ring" else \
+            L.ulysses_attention
+        ctxv = attn(*[heads_first(x) for x in parts], causal=True)
+        ctxv = L.transpose(L.cast(ctxv, "float32"), perm=[0, 2, 1, 3])
+        ctxv = L.reshape(ctxv, shape=[batch, t, d])
+        h = L.fc(ctxv, size=d, num_flatten_dims=2, act="relu")
+        logits = L.fc(h, size=vocab, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(
+            logits, L.reshape(targets, shape=[batch, t, 1])))
+        ptt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def seq_train_run(spec):
+    """`spec`'s long-context program (scheme, init, steps, sp: two ranks
+    over a mesh sp2 or one rank, control) in this process: the losses,
+    the first step's qkv weight gradient, per step device ms, the flash
+    launches of the steps after the first and their shapes, and the
+    bytes the ring moved a step; with `op_check`, the op-level check's
+    errors (output, dQ, dK, dV against the plain attention in float32)
+    and the op's output."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel.mesh import make_mesh, world
+    real_blocks = ra._blocks
+    if spec.get("control") == "no_offdiag":
+        ra._blocks = lambda n, r, causal: [
+            b for b in real_blocks(n, r, causal) if b[1] == r]
+    try:
+        dims = spec.get("dims") or (SEQ_T, SEQ_D, SEQ_HEADS, SEQ_VOCAB)
+        main, startup, loss = _long_context(ptt, spec["scheme"], dims=dims)
+        cuda = spec.get("place", "cuda") != "cpu"
+        place = _place(ptt, {"place": spec.get("place", "cuda")})
+        scope = ptt.Scope()
+        exe = ptt.Executor(place)
+        exe.run(startup, scope=scope)
+        init = dict(np.load(spec["init"]))
+        scope_from_numpy(init, scope, place, program=main)
+        prog = main
+        estimate = None
+        if spec["sp"]:
+            from paddle_tpu_torch.parallel.layout import SpecLayout
+            mesh = make_mesh((2,), ("sp",))
+            prog = ptt.CompiledProgram(main).with_distributed(
+                mesh, batch_axes=())
+            estimate = SpecLayout(mesh).add_program(main) \
+                .collective_bytes_estimate(main)
+        toks = np.random.RandomState(0).randint(0, dims[3], (1, dims[0]))
+        feed = {"tokens": toks.astype(np.int64),
+                "targets": np.roll(toks, 1, axis=1).astype(np.int64)}
+        first = exe.run(prog, feed=feed, fetch_list=[loss, "qkv.w@GRAD"],
+                        scope=scope)
+        losses = [float(first[0])]
+        _zero_launch_counts()
+        coll.reset_counts()
+        shapes = set()
+        real_fwd = fa.flash_attention_fwd
+
+        def spy(q, *a, **k):
+            shapes.add(tuple(q.shape))
+            return real_fwd(q, *a, **k)
+        fa.flash_attention_fwd = spy
+        device = []
+        try:
+            for _ in range(spec["steps"] - 1):
+                t0 = time.perf_counter()
+                if cuda:
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    torch.cuda.synchronize()
+                    ev[0].record()
+                losses.append(float(exe.run(prog, feed=feed,
+                                            fetch_list=[loss],
+                                            scope=scope)[0]))
+                if cuda:
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    device.append(ev[0].elapsed_time(ev[1]))
+                else:
+                    device.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            fa.flash_attention_fwd = real_fwd
+        launches = _launch_counts()
+        res = {"rank": world()[1], "losses": losses,
+               "grad": np.asarray(first[1], np.float32),
+               "device_ms": device, "launches": launches,
+               "flash_shapes": sorted(shapes),
+               "moved_step": sum(coll.COLLECTIVE_BYTES.values())
+               // max(spec["steps"] - 1, 1),
+               "staged_step": coll.STAGED_BYTES["bytes"]
+               // max(spec["steps"] - 1, 1),
+               "collective_bytes_estimate": estimate}
+        if spec.get("op_check"):
+            res.update(_seq_op_check(torch, spec["scheme"]))
+        return res
+    finally:
+        ra._blocks = real_blocks
+
+
+def _seq_op_check(torch, scheme):
+    """The scheme's op over sp2 on bf16 [1, 12, 8192, 64] q, k, v (seeded
+    alike on both ranks), causal: its output and dQ/dK/dV against the
+    plain attention in float32 on the same inputs. Launches made here
+    are not the main path's (the caller reads the counts first)."""
+    from paddle_tpu_torch.ops.cuda.flash_attention import \
+        reference_attention
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel import ulysses as ul
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    shape = (1, SEQ_HEADS, SEQ_T, SEQ_D // SEQ_HEADS)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    fn = ra.ring_attention_sharded if scheme == "ring" else \
+        ul.ulysses_attention_sharded
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, make_mesh((2,), ("sp",)), "sp", causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    ref = reference_attention(*[x.reshape(-1, SEQ_T, shape[-1])
+                                for x in ref_leaves], causal=True) \
+        .reshape(shape)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    errs = [float((a.detach().float() - b.detach()).abs().max())
+            for a, b in zip([out, *grads], [ref, *ref_grads])]
+    return {"op_errs": errs, "op_out": out.detach().float().cpu().numpy()}
+
+
+def _moe_dims(spec):
+    """(d_model, d_ff, experts, batch, T) of a MoE run's spec."""
+    return tuple(spec.get("dims") or (MOE_D, MOE_FF, MOE_E, MOE_B, MOE_T))
+
+
+def _moe_build(ptt, capacity, dims=None):
+    """tests/test_parallel.py:474's static program at Switch-Base-8's FFN
+    widths (or `dims`): layers.moe_ffn, the loss mean((y - tanh x)^2),
+    Adam."""
+    d, ff, e, _, t = dims or _moe_dims({})
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data("moe_x", shape=[t, d], dtype="float32")
+        y, load = ptt.layers.moe_ffn(x, num_experts=e, d_ff=ff,
+                                     capacity=capacity)
+        tgt = ptt.layers.data("moe_t", shape=[t, d], dtype="float32")
+        loss = ptt.layers.mean(ptt.layers.square(
+            ptt.layers.elementwise_sub(y, tgt)))
+        ptt.optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return main, startup, loss, load, y
+
+
+def moe_train_run(spec):
+    """The MoE program (capacity, init, steps, ep: two ranks over a mesh
+    ep2 or one rank): the losses, the loads, the first step's output, the
+    rank's expert-weight bytes, per step device ms."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel.mesh import make_mesh, world
+    dims = _moe_dims(spec)
+    main, startup, loss, load, y = _moe_build(ptt, spec["capacity"], dims)
+    cuda = spec.get("place", "cuda") != "cpu"
+    place = _place(ptt, {"place": spec.get("place", "cuda")})
+    scope = ptt.Scope()
+    exe = ptt.Executor(place)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(dict(np.load(spec["init"])), scope, place,
+                     program=main)
+    prog = main
+    estimate = None
+    if spec["ep"]:
+        from paddle_tpu_torch.parallel.layout import SpecLayout
+        mesh = make_mesh((2,), ("ep",))
+        prog = ptt.CompiledProgram(main).with_distributed(
+            mesh, batch_axes=())
+        estimate = SpecLayout(mesh).add_program(main) \
+            .collective_bytes_estimate(main)
+    xv = np.random.RandomState(0).randn(dims[3], dims[4], dims[0]) \
+        .astype(np.float32)
+    feed = {"moe_x": xv, "moe_t": np.tanh(xv)}
+    losses, loads, first, device = [], [], None, []
+    coll.reset_counts()
+    for i in range(spec["steps"]):
+        t0 = time.perf_counter()
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+        out = exe.run(prog, feed=feed,
+                      fetch_list=[loss, load] + ([y] if i == 0 else []),
+                      scope=scope)
+        if cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+            device.append(ev[0].elapsed_time(ev[1]))
+        else:
+            device.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0]))
+        loads.append(float(out[1]))
+        if i == 0:
+            first = np.asarray(out[2], np.float32)
+    experts = sum(scope.find_var(n).numel() * 4 for n in scope.names()
+                  if n.endswith((".w1", ".w2")))
+    return {"rank": world()[1], "losses": losses, "loads": loads,
+            "y": first, "expert_bytes": experts, "device_ms": device,
+            "moved_step": sum(coll.COLLECTIVE_BYTES.values())
+            // spec["steps"], "staged_step": coll.STAGED_BYTES["bytes"]
+            // spec["steps"], "collective_bytes_estimate": estimate}
+
+
+def mp_phases(torch, card):
+    """[tp_train], [tp_control], [tp_train_plan], [fsdp_train],
+    [sharded_ckpt], [ring_train], [ring_control], [ulysses_train] and
+    [moe_train] over MP_WORLD rank processes (gloo on cuda:0 where the
+    machine has one card, as dp_phases), each held to the same work in
+    one process. Returns {kernel: bf16 launches} of the main-path runs."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.distributed.spawn import RankPool
+
+    backend, device = dp_backend(torch)
+    tmp = tempfile.TemporaryDirectory(prefix="mp_")
+    path = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    bf16 = dict.fromkeys(KERNEL_SOURCES, 0)
+    spec = {"batch": MP_BATCH, "steps": MP_STEPS, "init": path("init.npz"),
+            "mesh": None, "batch_axes": ["dp"], "ref": None, "out": None,
+            "control": None, "save": None}
+    try:
+        # one-rank references, from the same startup states
+        _, main, startup, _ = _mp_build(ptt, spec)
+        sc = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(startup, scope=sc)
+        np.savez(spec["init"], **{n: sc.get_numpy(n) for n in sc.names()})
+        del sc, main, startup
+        one = mp_train_run({**spec, "out": path("one.npz")})
+        for k in bf16:
+            bf16[k] += one["launches"][k]
+        seq_init = path("seq_init.npz")
+        sm, ss, _ = _long_context(ptt, "ring")
+        sc = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(ss, scope=sc)
+        np.savez(seq_init, **{n: sc.get_numpy(n) for n in sc.names()})
+        del sc, sm, ss
+        seq_spec = {"scheme": "ring", "init": seq_init, "steps": SEQ_STEPS,
+                    "sp": False}
+        seq_one = seq_train_run(seq_spec)
+        for k in bf16:
+            bf16[k] += seq_one["launches"][k]
+        moe_init = path("moe_init.npz")
+        mm, ms, *_ = _moe_build(ptt, None)
+        sc = ptt.Scope()
+        ptt.Executor(ptt.CUDAPlace(0)).run(ms, scope=sc)
+        np.savez(moe_init, **{n: sc.get_numpy(n) for n in sc.names()})
+        del sc, mm, ms
+        moe_spec = {"capacity": None, "init": moe_init,
+                    "steps": MOE_STEPS, "ep": False}
+        moe_one = moe_train_run(moe_spec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pool = RankPool(MP_WORLD, path("store"), backend=backend,
+                        timeout_s=DP_TIMEOUT_S, device=device)
+        try:
+            start_s = time.perf_counter() - t0
+            tp = pool.run(mp_train_run, {
+                **spec, "mesh": "1,2", "ref": path("one.npz"),
+                "save": path("ckpt")})
+            for res in tp:
+                _mp_line("tp_train", res, one, backend, card,
+                         start_s=f"{start_s:.1f}")
+                _plan_gate_of("tp_train_plan", res, card)
+                for k in bf16:
+                    bf16[k] += res["launches"][k]
+            for kind in MP_CONTROLS:
+                # one step: the first loss and gradient show each fault
+                res = pool.run(mp_train_run, {
+                    **spec, "mesh": "1,2", "control": kind,
+                    "steps": 1})[0]
+                gaps = _dp_gaps(res, one["losses"][:1], one["grad"])
+                gaps = (gaps[0], gaps[2])
+                names = ("loss_gap", "grad_gap")
+                phase("tp_control", control=kind, steps=1,
+                      **{n: f"{v:.3e}" for n, v in zip(names, gaps)},
+                      must_be_rejected_by=MP_CONTROLS[kind],
+                      card=f"'{card}'")
+                v = dict(zip(names, gaps))[MP_CONTROLS[kind] + "_gap"]
+                check(v > MP_BARS[MP_CONTROLS[kind]],
+                      f"[tp_control] the {kind} control passes the "
+                      f"{MP_CONTROLS[kind]} bar ({v})")
+            _sharded_ckpt(pool, spec, tp, path, card)
+            fsdp = pool.run(mp_train_run, {
+                **spec, "mesh": "1,1,2", "batch_axes": ["fsdp"],
+                "ref": path("one.npz")})
+            for res in fsdp:
+                _mp_line("fsdp_train", res, one, backend, card,
+                         param_share=f"{res['param_bytes'] / res['full_param_bytes']:.4f}")
+                for k in bf16:
+                    bf16[k] += res["launches"][k]
+            ring = pool.run(seq_train_run, {**seq_spec, "sp": True,
+                                            "op_check": True})
+            _seq_line("ring_train", ring, seq_one, card)
+            for k in bf16:
+                bf16[k] += sum(r["launches"][k] for r in ring)
+            ctl = pool.run(seq_train_run, {**seq_spec, "sp": True,
+                                           "steps": 1,
+                                           "control": "no_offdiag"})[1]
+            gap = max(abs(a - b) for a, b in zip(ctl["losses"],
+                                                 seq_one["losses"]))
+            ggap = float(np.linalg.norm(ctl["grad"] - seq_one["grad"])
+                         / np.linalg.norm(seq_one["grad"]))
+            phase("ring_control", control="no_offdiag",
+                  loss_gap=f"{gap:.3e}", grad_gap=f"{ggap:.3e}",
+                  grad_bar=SEQ_BARS["grad"], must_be_rejected_by="grad",
+                  card=f"'{card}'")
+            # at random init the loss reads ln(vocab) whatever the
+            # attention computes: the first step's gradient tells
+            check(ggap > SEQ_BARS["grad"],
+                  f"[ring_control] dropping the off-diagonal blocks passes "
+                  f"the grad bar ({ggap})")
+            uly = pool.run(seq_train_run, {**seq_spec, "scheme": "ulysses",
+                                           "sp": True, "op_check": True})
+            _seq_line("ulysses_train", uly, seq_one, card, ring=ring)
+            for k in bf16:
+                bf16[k] += sum(r["launches"][k] for r in uly)
+            moe_dense = pool.run(moe_train_run, {**moe_spec, "ep": True})
+            moe_sparse = pool.run(moe_train_run, {
+                **moe_spec, "ep": True, "capacity": MOE_CAPACITY})
+            # a capacity that drops tokens: the first step's output only
+            moe_tight = pool.run(moe_train_run, {
+                **moe_spec, "ep": True, "capacity": MOE_TIGHT, "steps": 1})
+            _moe_lines(moe_one, moe_dense, moe_sparse, moe_tight, card)
+        finally:
+            pool.close()
+        one_rank_ckpt(spec, tp, path, card)
+        bf16_rc = recompute_phase(torch, card)
+        for k in bf16:
+            bf16[k] += bf16_rc[k]
+    finally:
+        tmp.cleanup()
+    return bf16
+
+
+def _mp_line(tag, res, one, backend, card, **extra):
+    """A tp/fsdp rank's line: the gaps to the one-rank run within
+    MP_BARS, the flash launches (12 a kernel a step, at the local heads'
+    shape under tp), the collectives' bytes a step beside the analyzer's
+    estimate."""
+    import statistics
+    gaps = dict(zip(("loss", "update", "grad"),
+                    _dp_gaps(res, one["losses"], one["grad"])))
+    steps = MP_STEPS - 1
+    phase(tag, rank=res["rank"], world=res["world"], backend=backend,
+          steps=MP_STEPS, batch=MP_BATCH, T=T,
+          host_ms_median=f"{statistics.median(res['host_ms']):.3f}",
+          device_ms_median=f"{statistics.median(res['device_ms']):.3f}",
+          one_rank_device_ms=f"{statistics.median(one['device_ms']):.3f}",
+          **{f"{k}_launches_per_step": v // steps
+             for k, v in res["launches"].items()},
+          flash_shapes=";".join("x".join(map(str, s))
+                                for s in res["flash_shapes"]),
+          collective_bytes_step=res["moved_step"],
+          collective_bytes_per_step_estimate=res.get(
+              "collective_bytes_estimate"),
+          gloo_host_staged_bytes_step=res["staged_step"],
+          param_bytes=res["param_bytes"],
+          **{f"{k}_gap": f"{v:.3e}" for k, v in gaps.items()},
+          **{f"{k}_bar": f"{v:g}" for k, v in MP_BARS.items()},
+          peak_gb=f"{res['peak_gb']:.3f}",
+          losses=",".join(f"{x:.6f}" for x in res["losses"]),
+          **extra, card=f"'{card}'")
+    for k, v in gaps.items():
+        check(v <= MP_BARS[k], f"[{tag}] rank {res['rank']}: {k} gap {v} > "
+              f"{MP_BARS[k]}")
+    for name, n in res["launches"].items():
+        check(n == 12 * steps, f"[{tag}] rank {res['rank']}: {name} "
+              f"launched {n} times, not 12 x {steps}")
+    if tag == "tp_train":
+        check(res["flash_shapes"] == [(MP_BATCH * 6, T, 64)],
+              f"[tp_train] flash shapes {res['flash_shapes']}, not the "
+              f"local heads' [{MP_BATCH * 6}, {T}, 64]")
+    check(all(math.isfinite(x) for x in res["losses"]),
+          f"[{tag}] non-finite loss")
+
+
+def _sharded_ckpt(pool, spec, tp, path, card):
+    """[sharded_ckpt] at two ranks: the checkpoint [tp_train]'s ranks
+    wrote, loaded at two ranks: each parameter's sha256 reassembled
+    equals the one gathered before the save, and the next loss equals
+    [tp_train]'s next loss within its bar."""
+    loaded = pool.run(mp_load_run, {**spec, "mesh": "1,2",
+                                    "save": path("ckpt")})
+    for res, ref in zip(loaded, tp):
+        bad = [k for k, h in ref["sha256"].items()
+               if res["sha256"][k] != h]
+        gap = abs(res["next_loss"] - ref["next_loss"])
+        phase("sharded_ckpt", ranks=MP_WORLD, params=len(ref["sha256"]),
+              sha256_mismatches=len(bad), next_loss=f"{res['next_loss']:.6f}",
+              tp_next_loss=f"{ref['next_loss']:.6f}",
+              loss_gap=f"{gap:.3e}", loss_bar=MP_BARS["loss"],
+              files=len(os.listdir(path("ckpt"))), card=f"'{card}'")
+        check(not bad, f"[sharded_ckpt] sha256 differs for {bad[:3]}")
+        check(gap <= MP_BARS["loss"], f"[sharded_ckpt] next loss gap {gap}")
+
+
+def one_rank_ckpt(spec, tp, path, card):
+    """[sharded_ckpt] at one rank: the two ranks' checkpoint loaded whole
+    in this process, sha256 of each parameter against the gathered one,
+    and one step of the one-rank program from it against [tp_train]'s
+    next loss."""
+    import torch
+    import paddle_tpu_torch as ptt
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg, main, _, loss = _mp_build(ptt, spec)
+        exe = ptt.Executor(ptt.CUDAPlace(0))
+        scope = ptt.Scope()
+        ptt.load_sharded_persistables(exe, path("ckpt"), main, scope=scope)
+        ref = tp[0]
+        bad = [k for k, h in ref["sha256"].items()
+               if _sha(scope.get_numpy(k)) != h]
+        lv = float(exe.run(main, feed=_dp_feed(cfg.vocab_size,
+                                               spec["batch"], T),
+                           fetch_list=[loss], scope=scope)[0])
+    finally:
+        torch.use_deterministic_algorithms(was)
+    gap = abs(lv - ref["next_loss"])
+    phase("sharded_ckpt", ranks=1, params=len(ref["sha256"]),
+          sha256_mismatches=len(bad), next_loss=f"{lv:.6f}",
+          tp_next_loss=f"{ref['next_loss']:.6f}", loss_gap=f"{gap:.3e}",
+          loss_bar=MP_BARS["loss"], card=f"'{card}'")
+    check(not bad, f"[sharded_ckpt] one rank: sha256 differs for {bad[:3]}")
+    check(gap <= MP_BARS["loss"], f"[sharded_ckpt] one rank: next loss "
+          f"gap {gap}")
+
+
+def _seq_line(tag, ranks, one, card, ring=None):
+    """A sequence-parallel cell's lines: each rank's loss and gradient
+    gaps to the one-rank run within SEQ_BARS, its launches a step (ring:
+    rank r runs r + 1 blocks of each kernel at sp2; Ulysses one launch a
+    kernel at [6, 8192, 64]), the op-level errors within SEQ_OP_TOL, and
+    for Ulysses its output against the ring's within that bar too."""
+    import numpy as np
+    steps = SEQ_STEPS - 1
+    for res in ranks:
+        loss_gap = max(abs(a - b) for a, b in zip(res["losses"],
+                                                  one["losses"]))
+        grad_gap = float(np.linalg.norm(res["grad"] - one["grad"])
+                         / np.linalg.norm(one["grad"]))
+        extra = {}
+        if ring is not None:
+            other = ring[res["rank"]]
+            extra["vs_ring_out_max_abs"] = \
+                f"{float(np.abs(res['op_out'] - other['op_out']).max()):.3e}"
+            check(float(extra["vs_ring_out_max_abs"]) <= SEQ_OP_TOL,
+                  f"[{tag}] output vs the ring's {extra}")
+        phase(tag, rank=res["rank"], sp=MP_WORLD, T=SEQ_T,
+              rows_per_rank=SEQ_T // MP_WORLD, d=SEQ_D, heads=SEQ_HEADS,
+              steps=SEQ_STEPS,
+              device_ms_median=f"{sorted(res['device_ms'])[len(res['device_ms']) // 2]:.3f}",
+              one_rank_device_ms=f"{sorted(one['device_ms'])[len(one['device_ms']) // 2]:.3f}",
+              **{f"{k}_launches_per_step": v // steps
+                 for k, v in res["launches"].items()},
+              flash_shapes=";".join("x".join(map(str, s))
+                                    for s in res["flash_shapes"]),
+              collective_bytes_step=res["moved_step"],
+              collective_bytes_per_step_estimate=res[
+                  "collective_bytes_estimate"],
+              gloo_host_staged_bytes_step=res["staged_step"],
+              loss_gap=f"{loss_gap:.3e}", grad_gap=f"{grad_gap:.3e}",
+              **{f"{k}_bar": v for k, v in SEQ_BARS.items()},
+              op_max_abs_err=",".join(f"{e:.3e}" for e in res["op_errs"]),
+              op_tol=SEQ_OP_TOL, **extra,
+              losses=",".join(f"{x:.6f}" for x in res["losses"]),
+              card=f"'{card}'")
+        check(loss_gap <= SEQ_BARS["loss"], f"[{tag}] loss gap {loss_gap}")
+        check(grad_gap <= SEQ_BARS["grad"], f"[{tag}] grad gap {grad_gap}")
+        check(max(res["op_errs"]) <= SEQ_OP_TOL,
+              f"[{tag}] op errors {res['op_errs']}")
+        want = res["rank"] + 1 if tag == "ring_train" else 1
+        for name, n in res["launches"].items():
+            check(n == want * steps, f"[{tag}] rank {res['rank']}: {name} "
+                  f"launched {n} times, not {want} x {steps}")
+        if tag == "ulysses_train":
+            check(res["flash_shapes"] == [(SEQ_HEADS // MP_WORLD, SEQ_T,
+                                           SEQ_D // SEQ_HEADS)],
+                  f"[{tag}] flash shapes {res['flash_shapes']}")
+
+
+def _moe_lines(one, dense, sparse, tight, card):
+    """[moe_train]: the dense run's losses against one rank's within
+    MOE_TOL relative; the sparse runs' first-step output (capacity
+    factor 1.25, and a tenth of it, which drops tokens): dropped rows
+    exactly 0, kept rows within MOE_TOL of the dense output's largest
+    entry; every load in (0, 1]; each rank holds half the experts."""
+    import numpy as np
+    ref = one["y"].reshape(-1, MOE_D)
+    scale = float(np.abs(ref).max())
+    for kind, ranks in (("dense", dense), ("sparse", sparse),
+                        ("sparse_tight", tight)):
+        for res in ranks:
+            rows = res["y"].reshape(-1, MOE_D)
+            zero = np.all(rows == 0.0, axis=-1)
+            kept = ~zero if kind != "dense" else np.ones_like(zero)
+            err = float(np.abs(rows[kept] - ref[kept]).max()) / scale
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(res["losses"], one["losses"]))
+            phase("moe_train", kind=kind, rank=res["rank"], ep=MP_WORLD,
+                  experts=MOE_E, d_model=MOE_D, d_ff=MOE_FF,
+                  tokens=MOE_B * MOE_T,
+                  capacity={"dense": "none", "sparse": MOE_CAPACITY,
+                            "sparse_tight": MOE_TIGHT}[kind],
+                  dropped_rows=int(zero.sum()), kept_rel_err=f"{err:.3e}",
+                  loss_rel_gap=f"{loss_rel:.3e}", tol=MOE_TOL,
+                  loads=",".join(f"{x:.4f}" for x in res["loads"]),
+                  expert_bytes=res["expert_bytes"],
+                  one_rank_expert_bytes=one["expert_bytes"],
+                  collective_bytes_step=res["moved_step"],
+                  collective_bytes_per_step_estimate=res[
+                      "collective_bytes_estimate"],
+                  gloo_host_staged_bytes_step=res["staged_step"],
+                  device_ms=",".join(f"{x:.3f}" for x in res["device_ms"]),
+                  losses=",".join(f"{x:.6f}" for x in res["losses"]),
+                  card=f"'{card}'")
+            check(err <= MOE_TOL, f"[moe_train] {kind}: kept rows {err}")
+            check(all(0.0 < x <= 1.0 for x in res["loads"]),
+                  f"[moe_train] {kind}: loads {res['loads']}")
+            check(res["expert_bytes"] * MP_WORLD == one["expert_bytes"],
+                  f"[moe_train] {kind}: a rank holds {res['expert_bytes']} B "
+                  f"of experts, not half of {one['expert_bytes']}")
+            if kind == "dense":
+                check(not zero.any() and loss_rel <= MOE_TOL,
+                      f"[moe_train] dense: loss gap {loss_rel}")
+            if kind == "sparse_tight":
+                check(zero.any(), "[moe_train] sparse_tight: no token "
+                      "dropped at a tenth of the capacity")
+
+
+def _recompute_build(ptt, recompute):
+    """[train]'s program built by hand as build_train(amp=True) builds
+    it: the encoder and the LM loss, the AMP casts
+    (mixed_precision.rewrite_program, as decorate's backward inserts
+    them), then AdamW through the decorator; with `recompute`,
+    RecomputeOptimizer around it, checkpointed at each layer's output,
+    so the segments hold the casts."""
+    from paddle_tpu_torch.contrib import mixed_precision as mp
+    from paddle_tpu_torch.contrib.mixed_precision.decorator import \
+        rewrite_program
+    from paddle_tpu_torch.models import transformer
+    cfg = transformer.bert_base(dropout=0.1, attn_dropout=0.0,
+                                use_flash=True)
+    batch = TRAIN_RUNS[True][0]
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    L = ptt.layers
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        tokens = L.data("tokens", shape=[batch, T], dtype="int64",
+                        append_batch_size=False)
+        labels = L.data("labels", shape=[batch, T], dtype="int64",
+                        append_batch_size=False)
+        hidden = transformer.encoder(tokens, cfg)
+        loss = transformer.lm_loss(hidden, labels, cfg)
+        rewrite_program(main)
+        opt = mp.decorate(ptt.optimizer.AdamW(learning_rate=1e-4))
+        if recompute:
+            opt = ptt.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints([
+                op.outputs["Y"][0] for op in main.global_block().ops
+                if op.type == "layer_norm"
+                and op.inputs["Scale"][0].endswith(".ln2.w")])
+        opt.minimize(loss)
+    return cfg, main, startup, loss
+
+
+def recompute_phase(torch, card):
+    """[recompute_train]: the plain and the recompute program from one
+    startup state, RECOMPUTE_STEPS (warm-up, timed) steps each under
+    deterministic algorithms; losses equal within RECOMPUTE_TOL, the
+    recompute run's peak below the plain one's, 24 forward / 12 dq / 12
+    dK/dV launches a timed step; [recompute_plan] holds the planner's
+    peak of the recompute program to the measured one. Returns the
+    recompute run's bf16 launches."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    warm, timed = RECOMPUTE_STEPS
+    out = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    init = None
+    try:
+        for rec in (False, True):
+            cfg, main, startup, loss = _recompute_build(ptt, rec)
+            scope = ptt.Scope()
+            exe = ptt.Executor(ptt.CUDAPlace(0))
+            exe.run(startup, scope=scope)
+            if init is None:
+                init = {n: scope.get_numpy(n) for n in scope.names()}
+            else:
+                scope_from_numpy(init, scope, ptt.CUDAPlace(0),
+                                 program=main)
+            toks = np.random.RandomState(0).randint(
+                0, cfg.vocab_size, (TRAIN_RUNS[True][0], T)).astype("int64")
+            feed = {"tokens": toks, "labels": toks}
+            losses, peaks, device = [], [], []
+            for i in range(warm + timed):
+                if i == warm:
+                    _zero_launch_counts()
+                torch.cuda.synchronize()
+                foreign = torch.cuda.memory_allocated() - \
+                    scope_device_bytes(torch, scope)
+                torch.cuda.reset_peak_memory_stats()
+                ev = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                losses.append(float(exe.run(main, feed=feed,
+                                            fetch_list=[loss],
+                                            scope=scope)[0]))
+                ev[1].record()
+                torch.cuda.synchronize()
+                device.append(ev[0].elapsed_time(ev[1]))
+                peaks.append(((torch.cuda.max_memory_allocated() - foreign)
+                              / 1e9, foreign / 1e9))
+            out[rec] = {"losses": losses, "launches": _launch_counts(),
+                        "peak": max(peaks[warm:]), "device_ms": device,
+                        "plan": planned_plan(main, feed, [loss])
+                        if rec else None,
+                        "segments": sum(op.type == "recompute_segment"
+                                        for op in main.global_block().ops)}
+            del scope, exe
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    plain, rec = out[False], out[True]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                  plain["losses"]))
+    phase("recompute_train", batch=TRAIN_RUNS[True][0], T=T, amp=True,
+          dropout=0.1, segments=rec["segments"], steps=warm + timed,
+          **{f"{k}_launches_per_step": v // timed
+             for k, v in rec["launches"].items()},
+          peak_gb=f"{rec['peak'][0]:.3f}",
+          plain_peak_gb=f"{plain['peak'][0]:.3f}",
+          device_ms_median=f"{sorted(rec['device_ms'][warm:])[timed // 2]:.3f}",
+          plain_device_ms_median=f"{sorted(plain['device_ms'][warm:])[timed // 2]:.3f}",
+          loss_rel_gap=f"{gap:.3e}", tol=RECOMPUTE_TOL,
+          losses=",".join(f"{x:.6f}" for x in rec["losses"]),
+          plain_losses=",".join(f"{x:.6f}" for x in plain["losses"]),
+          card=f"'{card}'")
+    check(gap <= RECOMPUTE_TOL, f"[recompute_train] loss gap {gap}")
+    check(rec["peak"][0] < plain["peak"][0],
+          f"[recompute_train] peak {rec['peak'][0]} not below the plain "
+          f"run's {plain['peak'][0]}")
+    want = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 12,
+            "flash_attention_bwd_dkv": 12}
+    for k, n in rec["launches"].items():
+        check(n == want[k] * timed, f"[recompute_train] {k} launched {n} "
+              f"times, not {want[k]} x {timed}")
+    plan_gate("recompute_plan", rec["plan"], rec["peak"][0], rec["peak"][1],
+              card)
+    return rec["launches"]
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--mutants"], ["--ablations"]) and not (
@@ -9126,6 +10139,7 @@ def main():
     control_flow_phase(torch, card)
     merged = grad_merge_phase(torch, card)
     dp_bf16, dp_f32 = dp_phases(torch, card)
+    mp_bf16 = mp_phases(torch, card)
     # the fleet last: run right after [http_serve], it left the later
     # phases' torch.profiler traces of a flash step one flash forward
     # record short (the launch counters still read every launch), which
@@ -9175,7 +10189,8 @@ def main():
                  trained[name] + gpt_trained[name] + nmt_trained[name] +
                  recipe_bert[name] + recipe_lamb[name] +
                  loader_trained[name] + large_trained[name] +
-                 compiled_trained[name] + dp_bf16[name],
+                 compiled_trained[name] + dp_bf16[name] +
+                 mp_bf16[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name],

@@ -51,6 +51,9 @@ from . import layers  # noqa: F401,E402
 from . import nets  # noqa: F401,E402
 from . import initializer  # noqa: F401,E402
 from . import io  # noqa: F401,E402
+from . import io_sharded  # noqa: F401,E402
+from .io_sharded import (save_sharded_persistables,  # noqa: F401,E402
+                         load_sharded_persistables)
 from . import inference  # noqa: F401,E402
 from . import convert  # noqa: F401,E402
 from . import backward  # noqa: F401,E402

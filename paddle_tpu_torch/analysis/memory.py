@@ -348,6 +348,12 @@ def analyze_program_memory(program, feed_names: Iterable[str] = (),
         if op.type in CTRL_FLOW_SUB_BLOCK:
             reads |= sub_block_read_names(program, op)
             _collect_sub_locals(program, op, op_idx, env, sub_local)
+        if op.type == "recompute_segment":
+            # a segment's inner tensors the reads above do not cover
+            # (outputs nothing reads, and what its lowerings keep) live
+            # only while it runs
+            _collect_segment_locals(program, op, op_idx, env, block,
+                                    sub_local, reads)
         for name in reads:
             last_use[name] = op_idx
         for name in op_names(op, "out"):
@@ -385,13 +391,48 @@ def analyze_program_memory(program, feed_names: Iterable[str] = (),
     timeline = _timeline(intervals.values(), n, pinned_bytes)
     reuse_avail = sum(nb for _, _, nb in reuse_assignments(
         program, intervals, feed_set, fetch_set))
-    device_peak, charges = _device_peak(program, intervals, n, env)
+    device_peak, charges = _device_peak(program, intervals, n, env,
+                                        layout)
     plan = MemoryPlan(program, intervals, timeline, pinned_bytes,
                       unsized, budget_bytes=budget_bytes,
                       reuse_bytes_available=reuse_avail,
                       device_peak_bytes=device_peak,
                       device_charges=charges)
     return plan
+
+
+def _hint_aliases(block, intervals):
+    """({hint output: its input}, intervals with each such output of no
+    bytes and its input living while the output is read): a shard_hint
+    without a model-parallel reshard returns its input tensor itself; a
+    view a recompute segment makes holds no bytes either. The device
+    peak's view only; the plan's own intervals stay the JAX package's."""
+    alias, out = {}, dict(intervals)
+    for i, op in enumerate(block.ops):
+        if op.type == "recompute_segment":
+            # a view made inside a segment shares its input's bytes
+            for sop in block.program.blocks[op.attrs["sub_block"]].ops:
+                if sop.type not in _VIEW_OPS:
+                    continue
+                for n in op_names(sop, "out"):
+                    iv = out.get(n)
+                    if iv is not None and iv.def_idx == iv.last_use == i:
+                        out[n] = dataclasses.replace(iv, nbytes=0)
+            continue
+        if op.type != "shard_hint" or (op.attrs.get("_mp") or {}).get("in"):
+            continue
+        src = (op.inputs.get("X") or [None])[0]
+        dst = (op.outputs.get("Out") or [None])[0]
+        a, b = out.get(src), out.get(dst)
+        if a is None or b is None or a.pinned or b.pinned:
+            continue
+        src = alias.get(src, src)
+        a = out[src]
+        alias[dst] = src
+        out[src] = dataclasses.replace(
+            a, last_use=max(a.last_use, b.last_use))
+        out[dst] = dataclasses.replace(b, nbytes=0)
+    return alias, out
 
 
 def alloc_bytes(nbytes: int) -> int:
@@ -434,29 +475,86 @@ def _recurrent_steps(op, env, block):
     return max(int(t), 1), max(int(b), 1)
 
 
-def _device_peak(program, intervals, n_ops, env):
+def _adapter_buffers(op, i, g, intervals):
+    """The tensors a model-parallel rank program's adapters make for op
+    `i` (parallel/model_parallel.py): a gathered input is the whole
+    tensor, held by the op's record to its grad op `g`; a partial sum
+    reduced to the whole output is one more output-sized buffer."""
+    spec = op.attrs.get("_mp") or {}
+    sizes = spec.get("sizes") or {}
+    out = []
+    for side, slots in (("in", op.inputs), ("out", op.outputs)):
+        for slot, per in (spec.get(side) or {}).items():
+            names = slots.get(slot, [])
+            for j, ads in per.items():
+                j = int(j)
+                iv = intervals.get(names[j]) if j < len(names) else None
+                if iv is None:
+                    continue
+                nb = iv.nbytes
+                grown = False
+                for ad in ads:
+                    n = int(sizes.get(ad[1], 1))
+                    if ad[0] in ("gather", "fsdp"):
+                        nb *= n
+                        grown = True
+                    elif ad[0] == "scatter":
+                        nb //= max(n, 1)
+                    elif ad[0] in ("reduce", "rs"):
+                        grown = True
+                if grown:
+                    out.append(VarInterval(
+                        name=f"{names[j]}@mp{i}", shape=iv.shape,
+                        dtype=iv.dtype, nbytes=nb, def_idx=i,
+                        last_use=i if g is None else g))
+    return out
+
+
+def _device_peak(program, intervals, n_ops, env, layout=None):
     """(device peak bytes, {charge: bytes}): the plan's timeline with the
     autograd records' liveness, the unrolled loops' steps, the
-    allocator's rounding and the GEMM workspaces added in that order;
-    each charge is what it adds to the peak."""
+    recompute segments' second run, the model-parallel adapters'
+    buffers, the allocator's rounding and the GEMM workspaces added in
+    that order; each charge is what it adds to the peak."""
     block = program.global_block()
-    alias = dict(getattr(program, "_record_alias", None) or {})
+    rec_alias = dict(getattr(program, "_record_alias", None) or {})
     grad_at = {}
     for i, op in enumerate(block.ops):
         if op.type == "grad::generic":
             fid = op.attrs["fwd_id"]
-            grad_at[alias.get(fid, fid)] = i
+            grad_at[rec_alias.get(fid, fid)] = i
+    alias, intervals = _hint_aliases(block, intervals)
     held = {}       # var -> the grad op index its record holds it to
     loops = {}      # sub-block local -> (bytes of all steps, grad op)
     saved = []      # tensors lowerings save: VarIntervals to the grad op
+    again = []      # recompute segments' inner tensors at their grad op
+    adapted = []    # model-parallel adapters' buffers
     gemm = False
     for i, op in enumerate(block.ops):
         gemm = gemm or op.type in _GEMM_OPS
+        if op.type == "recompute_segment":
+            gemm = gemm or any(
+                sop.type in _GEMM_OPS for sop in
+                program.blocks[op.attrs["sub_block"]].ops)
         g = grad_at.get(op.id)
+        if op.attrs.get("_mp"):
+            adapted.extend(_adapter_buffers(op, i, g, intervals))
         if g is None:
             continue
+        if op.type == "recompute_segment":
+            sb = op.attrs["sub_block"]
+            inner = set(_segment_locals(program, op))
+            for name, iv in intervals.items():
+                base = name.split("@")[0]
+                if f"@b{sb}" in name or (base in inner
+                                         and "@" not in name):
+                    again.append(dataclasses.replace(
+                        iv, name=f"{name}@again", def_idx=g,
+                        last_use=g))
         for name in op_names(op, "in") + op_names(op, "out"):
             if name in intervals:
+                # a hint's output is its input: hold the input
+                name = alias.get(name, name)
                 held[name] = max(held.get(name, -1), g)
         if op.type in _SAVED_BY_LOWERING:
             slot, per = _SAVED_BY_LOWERING[op.type]
@@ -479,8 +577,13 @@ def _device_peak(program, intervals, n_ops, env):
                     one = Spec(iv.shape, iv.dtype).nbytes(batch)[0]
                     loops[iv.name] = (one * steps, g)
 
-    def peak(use_held, use_loops, rounded):
+    def peak(use_held, use_loops, rounded, use_again=True,
+             use_adapted=True):
         ivs = list(saved) if use_held else []
+        if use_held and use_again:
+            ivs += again
+        if use_held and use_adapted:
+            ivs += adapted
         if rounded:
             ivs = [dataclasses.replace(iv, nbytes=alloc_bytes(iv.nbytes))
                    for iv in ivs]
@@ -503,14 +606,76 @@ def _device_peak(program, intervals, n_ops, env):
         tl = _timeline(ivs, n_ops, pinned)
         return max(tl) if tl else pinned
 
-    steps = [peak(False, False, False), peak(True, False, False),
+    steps = [peak(False, False, False),
+             peak(True, False, False, False, False),
+             peak(True, True, False, False, False),
+             peak(True, True, False, True, False),
              peak(True, True, False), peak(True, True, True)]
     ws = workspace_bytes() if gemm else 0
     charges = {"autograd_records": steps[1] - steps[0],
                "loop_steps": steps[2] - steps[1],
-               "alloc_rounding": steps[3] - steps[2],
+               "alloc_rounding": steps[5] - steps[4],
                "workspaces": ws}
-    return steps[3] + ws, charges
+    if again:
+        charges["recompute_segments"] = steps[3] - steps[2]
+    if adapted:
+        charges["collective_buffers"] = steps[4] - steps[3]
+    return steps[5] + ws, charges
+
+
+# ops whose output is a view of their input: inside a recompute segment
+# (every inner tensor held until the segment returns) it adds no bytes
+_VIEW_OPS = frozenset({"reshape2", "reshape", "transpose2", "transpose",
+                       "squeeze2", "unsqueeze2", "flatten2"})
+
+
+def _segment_locals(program, op):
+    """The vars a recompute segment's ops write that it does not
+    output, views of another tensor left out: its inner activations."""
+    keep = set(op.attrs.get("output_vars", ()))
+    names = []
+    for sop in program.blocks[op.attrs["sub_block"]].ops:
+        if sop.type in _VIEW_OPS:
+            continue
+        names += [n for n in op_names(sop, "out")
+                  if n not in keep and n not in names]
+    return names
+
+
+def _collect_segment_locals(program, op, op_idx, env, block, out,
+                            charged):
+    """A recompute segment's inner tensors not in `charged` (the names
+    the segment op's own interval already covers: what its ops read)
+    and the tensors its lowerings keep (_SAVED_BY_LOWERING), charged to
+    its index: the segment holds every inner tensor until it returns."""
+    sb = op.attrs["sub_block"]
+
+    def spec_of(name):
+        var = block._find_var_recursive(name)
+        spec = env.get(name) or (declared_spec(var) if var is not None
+                                 else None)
+        return None if spec is None else Spec(*spec)
+
+    def add(key, spec, nbytes, dynamic):
+        out[key] = VarInterval(
+            name=key, shape=tuple(spec.shape), dtype=str(spec.dtype),
+            nbytes=nbytes, def_idx=op_idx, last_use=op_idx,
+            dynamic=dynamic)
+
+    for name in _segment_locals(program, op):
+        spec = spec_of(name)
+        if spec is not None and name not in charged:
+            add(f"{name}@b{sb}", spec, *spec.nbytes(dyn_defaults=1))
+    for i, sop in enumerate(program.blocks[sb].ops):
+        if sop.type in _SAVED_BY_LOWERING:
+            slot, per = _SAVED_BY_LOWERING[sop.type]
+            src = (sop.inputs.get(slot) or [None])[0]
+            spec = spec_of(src) if src else None
+            if spec is not None:
+                nb, dyn = spec.nbytes(dyn_defaults=1)
+                if per is not None:
+                    nb = nb // _itemsize(spec.dtype) * per
+                add(f"{src}@saved@b{sb}.{i}", spec, nb, dyn)
 
 
 def _collect_sub_locals(program, op, op_idx, env, out):

@@ -11,10 +11,12 @@ all-reduces the gradients (parallel/data_parallel.py). The caller feeds
 the global batch on every rank, as in the JAX package.
 
 ``with_distributed(mesh, state_spec_fn, batch_axes)`` takes a Mesh of
-ranks (parallel/mesh.py) and a SpecLayout as state_spec_fn: the
-accumulators its zero_spec splits are ZeRO-sharded over the data axis. A
-mesh with a model (tp) or fsdp axis above one rank raises and names
-ROADMAP §A7b.
+ranks (parallel/mesh.py) and a SpecLayout (or any function of a var name
+to a PartitionSpec) as state_spec_fn: the accumulators its zero_spec
+splits are ZeRO-sharded over the data axis, and a mesh with a model
+(tp, sp, ep) or fsdp axis above one rank runs this rank's program of the
+model-parallel rewrite (parallel/model_parallel.py). A pipeline (pp)
+axis raises and names ROADMAP §A7c.
 
 The BuildStrategy and ExecutionStrategy knobs are accepted as in the
 JAX package; they configure nothing: the graph passes are
@@ -145,3 +147,16 @@ class CompiledProgram:
         from .parallel.layout import SpecLayout
         fn = self._state_spec_fn
         return fn if isinstance(fn, SpecLayout) else None
+
+    def spec_layout(self):
+        """What the model-parallel rewrite reads the parameters' specs
+        from: the SpecLayout, a plain state_spec_fn wrapped as one
+        (parallel/layout.SpecFnLayout), or None (every state whole)."""
+        fn = self._state_spec_fn
+        if fn is None:
+            return None
+        layout = self.layout()
+        if layout is not None:
+            return layout
+        from .parallel.layout import SpecFnLayout
+        return SpecFnLayout(self.mesh(), fn)

@@ -100,15 +100,17 @@ class LowerCtx:
         # moments over it (the global batch's statistics)
         self.sync_group = None
 
-    def generator_for(self, op_id: int):
+    def generator_for(self, op_id: int, extra=None):
         """A fresh generator for one op: seeded from the program seed
         with the step and the op's stable id folded in, so every op draws
-        its own reproducible stream. None on the meta device (shape
-        inference draws nothing)."""
+        its own reproducible stream (and `extra`, a rank, where given).
+        None on the meta device (shape inference draws nothing)."""
         if self.device.type == "meta":
             return None
         g = torch.Generator(device=self.device)
-        g.manual_seed(_mix(self.seed, self.step, op_id))
+        words = (self.seed, self.step, op_id) if extra is None else \
+            (self.seed, self.step, op_id, int(extra) + 1)
+        g.manual_seed(_mix(*words))
         return g
 
 
@@ -179,10 +181,10 @@ def _lower(op, opdef, opctx, ins, ctx):
         if op.id in ctx.record_ids:
             ins = _with_leaves(opdef, ins)
             with torch.enable_grad():
-                outs = opdef.lower(opctx, ins, op.attrs)
+                outs = _adapted(opdef, opctx, ins, op.attrs)
             ctx.records[op.id] = (ins, outs)
             return outs
-        return opdef.lower(opctx, ins, op.attrs)
+        return _adapted(opdef, opctx, ins, op.attrs)
     except Exception as e:
         # name the program op, its input shapes and attrs on failure
         shapes = {s: [tuple(getattr(v, "shape", ())) for v in vs]
@@ -190,6 +192,19 @@ def _lower(op, opdef, opctx, ins, ctx):
         e.add_note(f"[operator {op.type!r}] inputs {shapes} -> outputs "
                    f"{dict(op.outputs)}, attrs {op.attrs}")
         raise
+
+
+def _adapted(opdef, opctx, ins, attrs):
+    """The lowering, with a model-parallel rank program's adapters
+    (parallel/model_parallel.py) on its inputs and outputs: they run
+    inside the op's autograd record, so its grad op differentiates
+    through them."""
+    spec = attrs.get("_mp")
+    if not spec:
+        return opdef.lower(opctx, ins, attrs)
+    from ..parallel.model_parallel import apply_adapters
+    outs = opdef.lower(opctx, apply_adapters(spec, "in", ins), attrs)
+    return apply_adapters(spec, "out", outs)
 
 
 class _OpCtx:
@@ -205,6 +220,8 @@ class _OpCtx:
         self.attrs = op.attrs
         self.inputs = getattr(op, "inputs", {})
         self.outputs = getattr(op, "outputs", {})
+        # a model-parallel rank program's flags for this op
+        self.mp = op.attrs.get("_mp") or {}
 
     def sub_block(self, idx):
         """Block `idx` of the op's program (a control-flow body)."""
@@ -244,8 +261,15 @@ class _OpCtx:
 
     @property
     def generator(self):
+        """The op's generator; an op on a split activation of a
+        model-parallel run folds its rank on that axis into the seed."""
+        fold = self.mp.get("fold")
+        extra = None
+        if fold and self.device.type != "meta":
+            from ..parallel.mesh import get_mesh
+            extra = get_mesh().axis_index(fold)
         return self._ctx.generator_for(
-            self._op.attrs.get("fwd_id", self._op.id))
+            self._op.attrs.get("fwd_id", self._op.id), extra)
 
     def rand(self, shape, device=None):
         """Uniform [0, 1) float32 draws from this op's generator."""
@@ -268,8 +292,14 @@ def _with_leaves(opdef, ins):
     require grad: the recorded graph starts at this op."""
     out = dict(ins)
     for slot, vals in ins.items():
-        if slot in opdef.nondiff_inputs or \
-                not all(v.is_floating_point() for v in vals):
+        if slot in opdef.nondiff_inputs:
+            continue
+        if opdef.type == "recompute_segment":
+            # a segment's inputs mix ids and floats: each float is a leaf
+            out[slot] = [v.detach().requires_grad_()
+                         if v.is_floating_point() else v for v in vals]
+            continue
+        if not all(v.is_floating_point() for v in vals):
             continue
         out[slot] = [v.detach().requires_grad_() for v in vals]
     return out

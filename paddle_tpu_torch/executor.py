@@ -40,7 +40,10 @@ before a feed is copied to the card. A ``CompiledProgram`` runs as its
 program at one rank; over several torch.distributed ranks its
 data-parallel run (parallel/data_parallel.py) splits the global batch
 fed on every rank, syncs the gradients between the backward and the
-update ops and rebuilds the fetches' global values. FLAGS_sharded_exec
+update ops and rebuilds the fetches' global values, and a mesh with a
+model axis (tp, sp, ep) or an fsdp layout runs this rank's program of
+the model-parallel rewrite (parallel/model_parallel.py), its state held
+as this rank's shards, under the mesh (gates included). FLAGS_sharded_exec
 upgrades a data-parallel program to the SpecLayout path (ZeRO-sharded
 optimizer state) before the gates, as the JAX package does; the traced
 flags key the cache.
@@ -61,6 +64,7 @@ retried.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 from typing import Dict, Optional
@@ -150,6 +154,9 @@ class Executor:
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
         t_run0 = time.perf_counter()
+        if len(program.blocks) > 1:
+            from .parallel.recompute import expose_fetch_vars
+            expose_fetch_vars(program, fetch_names)
         feed, lod_names = self._expand_lod_feeds(program, feed)
         dp = self._data_parallel(compiled, program)
         global_sig = self.feed_signature(program.global_block(), feed)
@@ -162,7 +169,19 @@ class Executor:
             feed, rows = self._split_feed(compiled, feed)
             if rows[0] != rows[1]:
                 program = local_program(program, rows[1], rows[0])
-        run_prog = self._gates(program, feed, fetch_names, layout)
+        mp = self._model_parallel(compiled, program)
+        mesh_ctx = contextlib.nullcontext
+        if mp is not None:
+            from .parallel.mesh import mesh_context
+            mesh_ctx = lambda: mesh_context(compiled.mesh())  # noqa: E731
+            state_shapes = mp.global_shapes(program)
+            program = mp.program
+        gate_layout = layout
+        if mp is not None:
+            from .parallel.model_parallel import RankLayout
+            gate_layout = RankLayout(layout, mp)
+        with mesh_ctx():
+            run_prog = self._gates(program, feed, fetch_names, gate_layout)
         block = run_prog.global_block()
         feeds = self._prepare_feed(block, feed, lod_names)
 
@@ -182,8 +201,9 @@ class Executor:
             step = self._prepare(run_prog, block, scope, fetch_names)
             if dp is not None:
                 from .parallel.data_parallel import DataParallelPlan
-                step.dp_plan = DataParallelPlan(run_prog, block, compiled,
-                                                layout, *dp)
+                step.dp_plan = DataParallelPlan(
+                    run_prog, block, compiled, layout, *dp,
+                    synced=mp.synced_grads() if mp is not None else ())
             build_s = time.perf_counter() - t0
             STAT_OBSERVE("executor.compile_build_seconds", build_s)
             self._cache[key] = step
@@ -196,6 +216,8 @@ class Executor:
             STAT_SET("executor.compile_cache_capacity", cap)
 
         plan = step.dp_plan
+        if mp is not None:
+            mp.shard_state(scope, state_shapes)
         if plan is not None:
             plan.broadcast_state(scope, step.state_in_names)
             plan.shard_state(scope)
@@ -239,7 +261,7 @@ class Executor:
             # set here, not by the caller: grad mode is thread-local, and
             # serving engines run steps on worker threads
             with torch.inference_mode() if step.inference \
-                    else torch.no_grad():
+                    else torch.no_grad(), mesh_ctx():
                 lower_block(block, env, ctx, step.drop_after,
                             hooks=plan.hooks() if plan else None)
             return env
@@ -264,6 +286,8 @@ class Executor:
             if n in env:
                 scope.set(n, env[n].detach())
         fetches = [env[n].detach() for n in fetch_names]
+        if mp is not None:
+            fetches = [mp.fetch(n, t) for n, t in zip(fetch_names, fetches)]
         if plan is not None:
             fetches = [plan.fetch(n, t, block._find_var_recursive(n), rows)
                        for n, t in zip(fetch_names, fetches)]
@@ -379,26 +403,44 @@ class Executor:
         if compiled._state_spec_fn is not None:
             STAT_ADD("parallel.sharded_steps")
         mesh = compiled.mesh()
-        n, _ = compiled.batch_split()
-        wide = [a for a in mesh.axis_names
-                if a not in compiled._batch_axes and mesh.shape[a] > 1]
-        if wide:
-            from .ops.collective import MODEL_PARALLEL
+        n, idx = compiled.batch_split()
+        if "pp" in mesh.shape and mesh.shape["pp"] > 1:
             raise NotImplementedError(
-                f"mesh {mesh.shape}: axes {wide} above one rank are "
-                f"{MODEL_PARALLEL}")
+                f"mesh {mesh.shape}: the pipeline axis 'pp' waits for "
+                f"ROADMAP §A7c (parallel/pipeline.py)")
         size = world()[0]
         if mesh.size != size:
             raise ValueError(f"mesh {mesh.shape} holds {mesh.size} ranks "
                              f"but the process group has {size}")
-        if size == 1:
+        if size == 1 or n == 1:
             return None
-        if len(compiled._batch_axes) != 1:
+        wide = [a for a in compiled._batch_axes if mesh.shape[a] > 1]
+        if len(wide) != 1:
             raise NotImplementedError(
                 f"batch_axes {compiled._batch_axes}: the port splits the "
                 f"batch over one mesh axis")
-        return (mesh.group(compiled._batch_axes[0]), n,
-                compiled.batch_split()[1])
+        return mesh.group(wide[0]), n, idx
+
+    @staticmethod
+    def _model_parallel(compiled, program):
+        """The model-parallel plan (parallel/model_parallel.py) of a run
+        over several ranks whose mesh has an axis above one rank that is
+        not a batch axis, or an fsdp layout; None otherwise."""
+        if compiled is None or not compiled._is_data_parallel:
+            return None
+        from .parallel.mesh import world
+        if world()[0] == 1:
+            return None
+        mesh = compiled.mesh()
+        layout = compiled.spec_layout()
+        wide = [a for a in mesh.axis_names
+                if a not in compiled._batch_axes and mesh.shape[a] > 1]
+        fsdp = layout is not None and getattr(layout, "fsdp_axis", None) \
+            and mesh.shape.get(layout.fsdp_axis, 1) > 1
+        if not wide and not fsdp:
+            return None
+        from .parallel.model_parallel import plan_for
+        return plan_for(program, mesh, layout, compiled._batch_axes)
 
     @staticmethod
     def _split_feed(compiled, feed):

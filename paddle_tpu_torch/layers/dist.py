@@ -3,9 +3,10 @@
 Reference analogue: python/paddle/fluid/layers/collective.py (thin wrappers
 over the c_* ops used by the transpiler). shard_hint is the JAX package's
 addition: a sharding constraint on an activation, the tool behind
-tensor/sequence parallelism. The port builds the same ops; running a
-shard_hint over any axis but the data axis on dim 0, a ring_attention or a
-ulysses_attention raises and names ROADMAP §A7b (model parallelism).
+tensor/sequence parallelism. The port builds the same ops; a
+model-parallel run turns each hint into its reshard
+(parallel/model_parallel.py), and ring_attention and ulysses_attention
+run over the mesh's seq axis (parallel/ring_attention.py, ulysses.py).
 """
 from __future__ import annotations
 
@@ -37,15 +38,14 @@ def _seq_attention_layer(op_type, doc):
 ring_attention = _seq_attention_layer(
     "ring_attention",
     """Sequence-parallel attention over [b, h, T, d]: K/V blocks rotate
-    around the mesh's seq axis. Builds the op; running it waits for
-    ROADMAP §A7b.""")
+    around the mesh's seq axis, each block on the flash kernels.""")
 ulysses_attention = _seq_attention_layer(
     "ulysses_attention",
     """All-to-all (Ulysses) sequence-parallel attention over
     [b, h, T, d]: two all-to-alls trade the sequence sharding for a
-    head sharding, exact blockwise attention runs per head group
-    Requires seq-axis size | n_heads; use ring_attention below that.
-    Builds the op; running it waits for ROADMAP §A7b.""")
+    head sharding, and one flash attention over the whole T runs per
+    head group. Requires seq-axis size | n_heads; use ring_attention
+    below that.""")
 
 
 def shard_hint(x, spec, name=None):

@@ -1,6 +1,6 @@
 """layers.parity — layers of the JAX package's layers/parity.py: pool3d,
-adaptive_pool3d, unique_with_counts, beam_search and beam_search_decode
-(the rest waits for ROADMAP §A8)."""
+adaptive_pool3d, unique_with_counts, beam_search, beam_search_decode and
+moe_ffn (the rest waits for ROADMAP §A8)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -9,7 +9,7 @@ __all__ = ["pool3d", "adaptive_pool3d", "unique_with_counts",
            "beam_search", "beam_search_decode", "im2sequence", "lod_reset",
            "lod_append", "sequence_enumerate", "gather_tree",
            "filter_by_instag", "tensor_array_to_tensor",
-           "reorder_lod_tensor_by_rank"]
+           "reorder_lod_tensor_by_rank", "moe_ffn"]
 
 
 def _one_out(op_type, inputs, attrs=None, dtype=None, ref=None, name=None,
@@ -168,3 +168,51 @@ def reorder_lod_tensor_by_rank(x, rank_table):
     return _one_out("reorder_lod_tensor_by_rank",
                     {"X": [x.name], "RankTable": [rank_table.name]},
                     ref=x)
+
+
+def moe_ffn(input, num_experts, d_ff, ep_axis="ep", capacity=None,
+            batch_axis="dp", param_attr=None, name=None):
+    """Mixture-of-experts FFN layer (parallel/moe.py): top-1 switch
+    routing, the expert weights split over the `ep` mesh axis under
+    CompiledProgram.with_distributed; `batch_axis` names the axis the
+    batch is split over. A caller's param_attr (regularizer, lr, custom
+    init) applies to every expert weight; each weight's own default
+    initializer fills the gaps. Returns (out, router_load)."""
+    from ..framework import ParamAttr
+    from ..initializer import Normal
+    if param_attr is False:
+        raise TypeError(
+            "moe_ffn: param_attr=False is not meaningful — the expert "
+            "weights ARE the layer; pass a ParamAttr or None")
+    helper = LayerHelper("moe_ffn", name=name, param_attr=param_attr)
+    d = int(input.shape[-1])
+    pfx = helper.name
+    base = ParamAttr._to_attr(param_attr)
+
+    def param(suffix, shape, std, is_bias=False):
+        attr = ParamAttr(
+            name=f"{pfx}.{suffix}",
+            initializer=base.initializer or (None if is_bias
+                                             else Normal(0.0, std)),
+            learning_rate=base.learning_rate,
+            regularizer=base.regularizer,
+            trainable=base.trainable)
+        return helper.create_parameter(attr, shape, input.dtype,
+                                       is_bias=is_bias)
+
+    gate_w = param("gate_w", [d, num_experts], 0.02)
+    w1 = param("w1", [num_experts, d, d_ff], (2.0 / d) ** 0.5)
+    b1 = param("b1", [num_experts, d_ff], 0.0, is_bias=True)
+    w2 = param("w2", [num_experts, d_ff, d], (2.0 / d_ff) ** 0.5)
+    b2 = param("b2", [num_experts, d], 0.0, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    load = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input.name], "GateW": [gate_w.name],
+                "W1": [w1.name], "B1": [b1.name], "W2": [w2.name],
+                "B2": [b2.name]},
+        outputs={"Out": [out.name], "Load": [load.name]},
+        attrs={"ep_axis": ep_axis, "capacity": capacity or 0,
+               "batch_axis": batch_axis})
+    return out, load

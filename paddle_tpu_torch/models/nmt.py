@@ -5,8 +5,7 @@ Built from the layers API as the JAX package builds it, so the two
 packages produce the same programs. Self-attention takes the flash
 kernels (the encoder's unmasked, the decoder's causal); cross-attention
 takes the exact plain path (block_q=0), since its query and key lengths
-differ. The tensor- and sequence-parallel hints are not ported: the
-config raises on tp and sp.
+differ. The tensor- and sequence-parallel hints are transformer.py's.
 """
 from __future__ import annotations
 
@@ -41,12 +40,16 @@ def _mha(q_in, kv_in, cfg, prefix, causal):
     tk = kv_in.shape[1]
     d, h = cfg.d_model, cfg.n_heads
     hd = d // h
-    q = _dense(q_in, d, f"{prefix}.q", cfg)
-    k = _dense(kv_in, d, f"{prefix}.k", cfg)
-    v = _dense(kv_in, d, f"{prefix}.v", cfg)
+    q = _dense(q_in, d, f"{prefix}.q", cfg, tp_axis="col")
+    k = _dense(kv_in, d, f"{prefix}.k", cfg, tp_axis="col")
+    v = _dense(kv_in, d, f"{prefix}.v", cfg, tp_axis="col")
     q = _split_heads(q, b, tq, h, hd)
     k = _split_heads(k, b, tk, h, hd)
     v = _split_heads(v, b, tk, h, hd)
+    if cfg.tp:
+        q = layers.shard_hint(q, [cfg.dp_axis, cfg.tp_axis, None, None])
+        k = layers.shard_hint(k, [cfg.dp_axis, cfg.tp_axis, None, None])
+        v = layers.shard_hint(v, [cfg.dp_axis, cfg.tp_axis, None, None])
     if cfg.use_flash and q_in is kv_in:
         blk = _flash_block_attrs(cfg)
     else:
@@ -56,7 +59,7 @@ def _mha(q_in, kv_in, cfg, prefix, causal):
         attn_dropout=cfg.attn_dropout, **blk)
     ctx = layers.transpose(ctx, [0, 2, 1, 3])
     ctx = layers.reshape(ctx, [b, tq, d])
-    return _dense(ctx, d, f"{prefix}.proj", cfg)
+    return _dense(ctx, d, f"{prefix}.proj", cfg, tp_axis="row")
 
 
 def _residual_ln(x, sub, cfg, name):
@@ -70,8 +73,9 @@ def _residual_ln(x, sub, cfg, name):
 
 
 def _ffn(x, cfg, prefix):
-    hdn = _dense(x, cfg.d_ff, f"{prefix}.fc1", cfg, act="relu")
-    return _dense(hdn, cfg.d_model, f"{prefix}.fc2", cfg)
+    hdn = _dense(x, cfg.d_ff, f"{prefix}.fc1", cfg, act="relu",
+                 tp_axis="col")
+    return _dense(hdn, cfg.d_model, f"{prefix}.fc2", cfg, tp_axis="row")
 
 
 def _embed(tokens, cfg, name):
@@ -83,6 +87,8 @@ def _embed(tokens, cfg, name):
     if cfg.dropout:
         x = layers.dropout(x, cfg.dropout,
                            dropout_implementation="upscale_in_train")
+    if cfg.sp:
+        x = layers.shard_hint(x, [cfg.dp_axis, cfg.sp_axis, None])
     return x
 
 
@@ -94,6 +100,8 @@ def encode(src_tokens, cfg):
         x = _residual_ln(x, _mha(x, x, cfg, f"{p}.att", causal=False),
                          cfg, f"{p}.ln1")
         x = _residual_ln(x, _ffn(x, cfg, f"{p}.ffn"), cfg, f"{p}.ln2")
+        if cfg.sp:
+            x = layers.shard_hint(x, [cfg.dp_axis, cfg.sp_axis, None])
     return x
 
 
@@ -107,6 +115,8 @@ def decode(trg_tokens, memory, cfg):
         x = _residual_ln(x, _mha(x, memory, cfg, f"{p}.cross",
                                  causal=False), cfg, f"{p}.ln2")
         x = _residual_ln(x, _ffn(x, cfg, f"{p}.ffn"), cfg, f"{p}.ln3")
+        if cfg.sp:
+            x = layers.shard_hint(x, [cfg.dp_axis, cfg.sp_axis, None])
     return layers.fc(x, size=cfg.vocab_size, num_flatten_dims=2,
                      param_attr=ParamAttr(name="nmt_head.w",
                                           initializer=Normal(0.0, 0.02)),

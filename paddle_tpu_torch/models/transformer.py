@@ -3,9 +3,12 @@ programs.
 
 Built from the layers API exactly as the JAX package builds it, so the
 two packages produce the same programs (op types, attrs and parameter
-names), forward and training alike. The tensor- and sequence-parallel
-shard hints (``tp``/``sp``) are not ported yet; a config that asks for
-them raises.
+names), forward and training alike, the Megatron-style tensor- and
+sequence-parallel shard hints included (``tp``/``sp``): the q/k/v and
+FFN-in products' outputs are pinned [dp, None, tp], the heads
+[dp, tp, None, None], and with ``sp`` the activations between blocks
+[dp, sp, None]. A model-parallel run (parallel/model_parallel.py) turns
+them into this rank's program.
 """
 from __future__ import annotations
 
@@ -20,12 +23,9 @@ from ..ops.attention import FLASH_AUTO_MIN_SEQ
 class TransformerConfig:
     def __init__(self, vocab_size=30522, d_model=768, n_heads=12,
                  n_layers=12, d_ff=3072, max_seq_len=512, dropout=0.1,
-                 tp=False, sp=False, use_flash="auto", causal=False,
+                 tp=False, sp=False, dp_axis="dp", tp_axis="tp",
+                 sp_axis="sp", use_flash="auto", causal=False,
                  attn_dropout=None, flash_block_q=None, flash_block_k=None):
-        if tp or sp:
-            raise NotImplementedError(
-                "tensor/sequence-parallel shard hints (tp/sp) are not "
-                "ported yet")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_heads = n_heads
@@ -46,6 +46,12 @@ class TransformerConfig:
         self.causal = causal
         self.attn_dropout = dropout if attn_dropout is None else \
             attn_dropout
+        # mesh axis names the hints refer to; Megatron-style sequence
+        # parallelism shards the sequence over the tp group
+        # (sp_axis=tp_axis)
+        self.dp_axis = dp_axis
+        self.tp_axis = tp_axis
+        self.sp_axis = sp_axis
 
 
 def bert_base(**kw):
@@ -72,11 +78,16 @@ def transformer_big(**kw):
     return TransformerConfig(**kw)
 
 
-def _dense(x, size, name, cfg, act=None):
-    return layers.fc(x, size=size, num_flatten_dims=2, act=act,
-                     param_attr=ParamAttr(name=f"{name}.w",
-                                          initializer=Normal(0.0, 0.02)),
-                     bias_attr=ParamAttr(name=f"{name}.b"))
+def _dense(x, size, name, cfg, act=None, tp_axis=None):
+    """fc; a column-parallel one (tp_axis="col") pins its output's last
+    dim over the tp axis when cfg.tp."""
+    out = layers.fc(x, size=size, num_flatten_dims=2, act=act,
+                    param_attr=ParamAttr(name=f"{name}.w",
+                                         initializer=Normal(0.0, 0.02)),
+                    bias_attr=ParamAttr(name=f"{name}.b"))
+    if cfg.tp and tp_axis == "col":
+        out = layers.shard_hint(out, [cfg.dp_axis, None, cfg.tp_axis])
+    return out
 
 
 def _flash_block_attrs(cfg):
@@ -97,26 +108,31 @@ def _attention(x, cfg, prefix):
     b, t, d = x.shape[0], x.shape[1], cfg.d_model
     h = cfg.n_heads
     hd = d // h
-    q = _dense(x, d, f"{prefix}.q", cfg)
-    k = _dense(x, d, f"{prefix}.k", cfg)
-    v = _dense(x, d, f"{prefix}.v", cfg)
+    q = _dense(x, d, f"{prefix}.q", cfg, tp_axis="col")
+    k = _dense(x, d, f"{prefix}.k", cfg, tp_axis="col")
+    v = _dense(x, d, f"{prefix}.v", cfg, tp_axis="col")
 
     def split_heads(z):
         z = layers.reshape(z, [b, t, h, hd])
         return layers.transpose(z, [0, 2, 1, 3])  # [b, h, t, hd]
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    if cfg.tp:
+        q = layers.shard_hint(q, [cfg.dp_axis, cfg.tp_axis, None, None])
+        k = layers.shard_hint(k, [cfg.dp_axis, cfg.tp_axis, None, None])
+        v = layers.shard_hint(v, [cfg.dp_axis, cfg.tp_axis, None, None])
     ctxv = layers.flash_attention(
         q, k, v, causal=cfg.causal, sm_scale=1.0 / math.sqrt(hd),
         attn_dropout=cfg.attn_dropout, **_flash_block_attrs(cfg))
     ctxv = layers.transpose(ctxv, [0, 2, 1, 3])
     ctxv = layers.reshape(ctxv, [b, t, d])
-    return _dense(ctxv, d, f"{prefix}.proj", cfg)
+    return _dense(ctxv, d, f"{prefix}.proj", cfg, tp_axis="row")
 
 
 def _ffn(x, cfg, prefix):
-    h = _dense(x, cfg.d_ff, f"{prefix}.fc1", cfg, act="gelu")
-    return _dense(h, cfg.d_model, f"{prefix}.fc2", cfg)
+    h = _dense(x, cfg.d_ff, f"{prefix}.fc1", cfg, act="gelu",
+               tp_axis="col")
+    return _dense(h, cfg.d_model, f"{prefix}.fc2", cfg, tp_axis="row")
 
 
 def _block(x, cfg, i):
@@ -132,9 +148,12 @@ def _block(x, cfg, i):
     if cfg.dropout:
         ff = layers.dropout(ff, cfg.dropout,
                             dropout_implementation="upscale_in_train")
-    return layers.layer_norm(layers.elementwise_add(x, ff), begin_norm_axis=2,
-                             param_attr=ParamAttr(name=f"layer_{i}.ln2.w"),
-                             bias_attr=ParamAttr(name=f"layer_{i}.ln2.b"))
+    x = layers.layer_norm(layers.elementwise_add(x, ff), begin_norm_axis=2,
+                          param_attr=ParamAttr(name=f"layer_{i}.ln2.w"),
+                          bias_attr=ParamAttr(name=f"layer_{i}.ln2.b"))
+    if cfg.sp:
+        x = layers.shard_hint(x, [cfg.dp_axis, cfg.sp_axis, None])
+    return x
 
 
 def encoder(tokens, cfg: TransformerConfig):
@@ -147,6 +166,8 @@ def encoder(tokens, cfg: TransformerConfig):
     if cfg.dropout:
         x = layers.dropout(x, cfg.dropout,
                            dropout_implementation="upscale_in_train")
+    if cfg.sp:
+        x = layers.shard_hint(x, [cfg.dp_axis, cfg.sp_axis, None])
     for i in range(cfg.n_layers):
         x = _block(x, cfg, i)
     return x

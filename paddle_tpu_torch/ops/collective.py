@@ -22,9 +22,20 @@ that axis, it is the identity, as in the JAX package's GSPMD mode.
 - c_sync_calc_stream and c_sync_comm_stream wait for the current CUDA
   stream; c_comm_init, c_comm_init_all and c_gen_nccl_id do nothing: the
   process group is the bootstrap.
-- shard_hint is the identity where its spec names only the data axis on
-  dim 0 (the executor already splits the batch); any other axis is
-  model parallelism, which raises and names ROADMAP §A7b.
+- shard_hint is the identity in a lowering: the rank program of a
+  model-parallel run (parallel/model_parallel.py) turns each hint into
+  the reshard it asks for, as an adapter on the op. A spec that names an
+  axis the mesh lacks raises.
+- The model-parallel rewrite's own autograd pairs, each over one mesh
+  axis and a `Split` (the dim a tensor is split on): Megatron's f
+  (`copy_to`: identity, all-reduce backward) and g (`reduce_from`:
+  all-reduce, identity backward); `scatter_to` (this rank's block,
+  all-gather backward) and `gather_from` (all-gather, this rank's block
+  backward); `reduce_scatter_to` and its all-gather backward; and
+  `fsdp_gather` (a weight's dim-0 shards all-gathered before use, the
+  gradient reduce-scattered, or sliced where the ranks computed alike).
+  Unlike `c_allreduce_sum` (its backward all-reduces), g's backward is
+  the identity: its output is used alike on every rank.
 
 A group whose backend is gloo runs a CUDA tensor's collective through
 host memory: the port copies it to the host and back and counts the
@@ -42,10 +53,10 @@ from ..monitor import STAT_ADD
 
 __all__ = ["all_reduce", "all_gather", "reduce_scatter", "broadcast",
            "all_to_all", "coalesced", "COLLECTIVE_BYTES", "STAGED_BYTES",
-           "reset_counts", "axis_group"]
+           "reset_counts", "axis_group", "Split", "copy_to", "reduce_from",
+           "scatter_to", "gather_from", "reduce_scatter_to", "fsdp_gather",
+           "take_block", "join_blocks"]
 
-MODEL_PARALLEL = ("model parallelism (tensor, sequence or weight "
-                  "sharding) waits for ROADMAP §A7b")
 
 # payload bytes each collective kind moved in this process, and the
 # bytes a gloo group staged through host memory for CUDA tensors
@@ -80,9 +91,12 @@ def _count(kind, t):
     STAT_ADD("parallel.collective_bytes", n)
 
 
-def _staged(group, fn, *tensors):
-    """Run fn(*tensors) over `group`; a gloo group gets host copies of
-    CUDA tensors, and the results are copied back."""
+def _staged(group, fn, out, *inputs):
+    """Run fn(out, *inputs) over `group`, the collective writing `out`; a
+    gloo group gets host copies of CUDA tensors, and `out` is copied
+    back (only `out`: a write into an input would bump the version of a
+    tensor autograd saved)."""
+    tensors = (out, *inputs)
     if not any(t.is_cuda for t in tensors) or _backend(group) != "gloo":
         return fn(*tensors)
     host = [t.cpu() for t in tensors]
@@ -90,8 +104,7 @@ def _staged(group, fn, *tensors):
     STAGED_BYTES["bytes"] += n
     STAT_ADD("parallel.host_staged_bytes", n)
     fn(*host)
-    for t, h in zip(tensors, host):
-        t.copy_(h)
+    out.copy_(host[0])
 
 
 def _size(group):
@@ -324,39 +337,207 @@ def _c_gen_nccl_id(ctx, ins, attrs):
     return {}
 
 
-def check_shard_hint(spec, data_axis="dp"):
-    """A shard_hint spec the port runs: only the data axis, on dim 0."""
+def check_shard_hint(spec, mesh=None):
+    """A shard_hint spec the port runs: every axis it names is an axis of
+    the mesh (the run's, else the registry's)."""
+    if mesh is None:
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
     for dim, axes in enumerate(spec or ()):
         names = axes if isinstance(axes, (list, tuple)) else (axes,)
         for a in names:
-            if a is None:
-                continue
-            if dim != 0 or a != data_axis:
-                raise NotImplementedError(
-                    f"shard_hint {list(spec)}: axis {a!r} on dim {dim} "
-                    f"is {MODEL_PARALLEL}; the port splits only the "
-                    f"batch (dim 0) over {data_axis!r}")
+            if a is not None and a not in mesh.axis_names:
+                raise ValueError(
+                    f"shard_hint {list(spec)}: axis {a!r} on dim {dim} is "
+                    f"not an axis of the mesh {tuple(mesh.axis_names)}")
 
 
 @register_op("shard_hint")
 def _shard_hint(ctx, ins, attrs):
-    """The identity: each rank already holds its rows of dim 0."""
+    """The identity: a model-parallel rank program reshards through the
+    op's adapters before this runs (parallel/model_parallel.py)."""
     x = ins["X"][0]
     if not _on_meta(x):
-        check_shard_hint(attrs.get("spec", []))
+        from ..parallel.mesh import world
+        if world()[0] > 1:
+            check_shard_hint(attrs.get("spec", []))
     return {"Out": [x]}
 
 
-def _seq_parallel(name):
-    @register_op(name)
-    def _low(ctx, ins, attrs):
-        q = ins["Q"][0]
-        if _on_meta(q):
-            return {"Out": [torch.empty_like(q)]}
-        raise NotImplementedError(
-            f"{name}: sequence-parallel attention is {MODEL_PARALLEL}")
-    return _low
+# -- the model-parallel rewrite's autograd pairs -----------------------------
+
+class Split(tuple):
+    """Where a tensor is split over a mesh axis: dim `k` of its shape is
+    (outer, S, inner) with S cut into one block a rank (outer = inner = 1
+    for a plain dim split; a reshape that merges the split dim with its
+    neighbours keeps them)."""
+
+    def __new__(cls, k, outer=1, inner=1):
+        # with nothing outside it, a split's blocks are contiguous runs of
+        # the dim whatever lies inside: the plain split of dim k
+        if int(outer) == 1:
+            inner = 1
+        return super().__new__(cls, (int(k), int(outer), int(inner)))
+
+    k = property(lambda self: self[0])
+    outer = property(lambda self: self[1])
+    inner = property(lambda self: self[2])
+
+    def pure(self):
+        return self[1] == 1 and self[2] == 1
+
+    def __repr__(self):
+        return f"Split{tuple(self)}"
 
 
-_seq_parallel("ring_attention")
-_seq_parallel("ulysses_attention")
+def _fold(x, sp):
+    """x viewed with its split dim as (outer, S, inner): the S axis is
+    dim k + 1."""
+    k, o, i = sp
+    shape = tuple(x.shape)
+    return x.reshape(*shape[:k], o, shape[k] // (o * i), i, *shape[k + 1:])
+
+
+def take_block(x, sp, n, r):
+    """Rank r's block of x (global) under split `sp` over n ranks."""
+    k = sp[0]
+    f = _fold(x, sp)
+    s = f.shape[k + 1] // n
+    blk = f.narrow(k + 1, r * s, s)
+    shape = list(x.shape)
+    shape[k] //= n
+    return blk.reshape(shape)
+
+
+def join_blocks(parts, sp):
+    """The global tensor from the ranks' blocks (rank order)."""
+    k = sp[0]
+    f = torch.cat([_fold(p, sp) for p in parts], dim=k + 1)
+    shape = list(parts[0].shape)
+    shape[k] *= len(parts)
+    return f.reshape(shape)
+
+
+def _gather_blocks(x, sp, group):
+    n = _size(group)
+    flat = all_gather(x.detach().contiguous().reshape(1, -1), group)
+    return join_blocks([p.view(x.shape) for p in flat.unbind(0)], sp) \
+        if n > 1 else x.detach().clone()
+
+
+def _reduce_blocks(x, sp, group):
+    n, r = _size(group), _rank(group)
+    blocks = torch.stack([take_block(x.detach(), sp, n, j).reshape(-1)
+                          for j in range(n)])
+    return reduce_scatter(blocks, group).view(
+        take_block(x, sp, n, r).shape)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "sum"), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g: all-reduce forward (partial sums), identity
+    backward (the sum is used alike on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, scale):
+        ctx.scale = scale
+        out = all_reduce(x, group, "sum")
+        return out.mul_(scale) if scale != 1.0 else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g * ctx.scale if ctx.scale != 1.0 else g), None, None
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sp):
+        ctx.group, ctx.sp = group, sp
+        return take_block(x, sp, _size(group), _rank(group)).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_blocks(g, ctx.sp, ctx.group), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sp):
+        ctx.group, ctx.sp = group, sp
+        return _gather_blocks(x, sp, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return take_block(g, ctx.sp, _size(ctx.group),
+                          _rank(ctx.group)).contiguous(), None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sp):
+        ctx.group, ctx.sp = group, sp
+        return _reduce_blocks(x, sp, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_blocks(g, ctx.sp, ctx.group), None, None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, reduce, scale):
+        ctx.group, ctx.reduce, ctx.scale = group, reduce, scale
+        return all_gather(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce:
+            out = reduce_scatter(g, ctx.group)
+            return (out.mul_(ctx.scale) if ctx.scale != 1.0 else out), \
+                None, None, None
+        n, r = _size(ctx.group), _rank(ctx.group)
+        rows = g.shape[0] // n
+        return g[r * rows:(r + 1) * rows].contiguous(), None, None, None
+
+
+def copy_to(x, group):
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x, group, scale=1.0):
+    return _ReduceFrom.apply(x, group, float(scale))
+
+
+def scatter_to(x, group, sp):
+    if not x.is_floating_point():
+        return take_block(x, sp, _size(group), _rank(group)).clone()
+    return _ScatterTo.apply(x, group, Split(*sp))
+
+
+def gather_from(x, group, sp):
+    if not x.is_floating_point():
+        return _gather_blocks(x, sp, group)
+    return _GatherFrom.apply(x, group, Split(*sp))
+
+
+def reduce_scatter_to(x, group, sp):
+    return _ReduceScatterTo.apply(x, group, Split(*sp))
+
+
+def fsdp_gather(x, group, reduce, scale=1.0):
+    """A weight's dim-0 shards all-gathered; its gradient reduce-scattered
+    and scaled (`reduce`: the ranks computed on different rows), else
+    sliced (they computed alike)."""
+    return _FsdpGather.apply(x, group, bool(reduce), float(scale))

@@ -14,9 +14,11 @@ LR var. The programs they build are the JAX package's to the byte.
 
 Not ported yet: the eager (dygraph) path, with the TypeError the JAX
 package raises for a dygraph ``LearningRateDecay`` passed to a static
-optimizer (both come with the dygraph slice); RecomputeOptimizer and
-PipelineOptimizer (they need the parallel package).
-GradientMergeOptimizer accumulates k steps' gradients and applies the
+optimizer (both come with the dygraph slice).
+RecomputeOptimizer rewrites the forward into recompute segments at its
+checkpoints before the backward (parallel/recompute.py);
+PipelineOptimizer records its cut points and forwards ``minimize``, the
+whole of its JAX behaviour. GradientMergeOptimizer accumulates k steps' gradients and applies the
 inner optimizer inside a ``conditional_block``.
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ __all__ = [
     "FtrlOptimizer", "Lamb", "LambOptimizer", "Dpsgd", "DpsgdOptimizer",
     "DGCMomentum", "DGCMomentumOptimizer", "ExponentialMovingAverage",
     "ModelAverage", "LookaheadOptimizer", "GradientMergeOptimizer",
+    "RecomputeOptimizer", "PipelineOptimizer",
 ]
 
 
@@ -804,6 +807,58 @@ class LookaheadOptimizer:
                             inputs={"X": [p.name], "Y": [diff.name]},
                             outputs={"Out": [p.name]}, infer_shape=False)
         return opt_ops, params_grads
+
+
+class RecomputeOptimizer:
+    """Activation recomputation wrapper (reference optimizer.py:3313):
+    minimize() first rewrites the forward into `recompute_segment`
+    sub-blocks at the marked checkpoints (parallel/recompute.py); each
+    segment runs under torch.utils.checkpoint, so its grad op computes
+    it again and its inner activations are not kept."""
+
+    def __init__(self, optimizer):
+        self.inner = optimizer
+        self._checkpoints = []
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = checkpoints
+
+    def backward(self, loss, **kw):
+        return self.inner.backward(loss, **kw)
+
+    def apply_gradients(self, params_grads):
+        return self.inner.apply_gradients(params_grads)
+
+    def load(self, state):
+        raise NotImplementedError(
+            "load() is unsupported (matches reference RecomputeOptimizer)")
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        if self._checkpoints:
+            from .parallel.recompute import rewrite_program_for_recompute
+            rewrite_program_for_recompute(
+                loss.block.program, self._checkpoints, keep_names=[loss])
+        return self.inner.minimize(loss, startup_program, parameter_list,
+                                   no_grad_set)
+
+
+class PipelineOptimizer:
+    """Pipeline-parallel sectioning (reference optimizer.py:3020): records
+    the cut points and forwards minimize, as the JAX package does (its
+    GPipe schedule is a function API beside the Program path, ROADMAP
+    §A7c)."""
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0):
+        self.inner = optimizer
+        self.cut_list = cut_list or []
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        return self.inner.minimize(loss, startup_program, parameter_list,
+                                   no_grad_set)
 
 
 class GradientMergeOptimizer:

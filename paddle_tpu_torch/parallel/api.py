@@ -1,11 +1,13 @@
-"""ParallelExecutor: source-compatible facade over the data-parallel path.
+"""ParallelExecutor: source-compatible facade over the parallel paths.
 
 Reference: fluid.ParallelExecutor (parallel_executor.cc:393) — local scopes
 per device, NCCL bcast of params, SSA-graph executor selection. In the port
 each process is one rank, and that collapses to
 CompiledProgram.with_data_parallel + Executor.run (which broadcasts the
-parameters on the first run and all-reduces the gradients); this class
-keeps the constructor/run signature for ported scripts.
+parameters on the first run and all-reduces the gradients); with a `mesh`
+whose tp or fsdp axis holds more than one rank, the executor runs this
+rank's program of the model-parallel rewrite (model_parallel.py). This
+class keeps the constructor/run signature for ported scripts.
 """
 from __future__ import annotations
 

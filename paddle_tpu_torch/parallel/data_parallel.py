@@ -36,7 +36,9 @@ JAX package computes on the global batch:
   this rank's own value (a scalar that is not a mean over the batch, a
   sum say, differs from the JAX package's global value).
 
-`tp > 1` and `fsdp > 1` meshes raise and name ROADMAP §A7b.
+A mesh with a model axis or an fsdp layout runs the model-parallel
+rewrite's rank program (model_parallel.py); this plan then splits and
+syncs over the one batch axis above one rank, as before.
 """
 from __future__ import annotations
 
@@ -122,7 +124,7 @@ class DataParallelPlan:
     """What one prepared program does across the ranks of `group`."""
 
     def __init__(self, program, block, compiled, layout, group, dp,
-                 index):
+                 index, synced=()):
         self.group, self.dp, self.index = group, dp, index
         self.layout = layout
         self.loss_name = compiled._loss_name
@@ -145,8 +147,11 @@ class DataParallelPlan:
         produced = set()
         for op in ops[:self.cut]:
             produced.update(op.output_names())
+        # a gradient the model-parallel rewrite already reduced over the
+        # batch (an fsdp weight's) is not synced again
         self.grads = sorted(p + "@GRAD" for p in params
-                            if p + "@GRAD" in produced)
+                            if p + "@GRAD" in produced
+                            and p + "@GRAD" not in synced)
         # readers of each grad between the cut and the end
         readers: Dict[str, List[int]] = {}
         for i, op in enumerate(ops[self.cut:], self.cut):

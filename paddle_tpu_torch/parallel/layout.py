@@ -30,8 +30,8 @@ from ..monitor import STAT_SET
 from ..monitor import enabled as _monitor_on
 from .mesh import Mesh, make_mesh
 
-__all__ = ["SpecLayout", "MeshDims", "PartitionSpec", "mesh_from_spec",
-           "DATA_AXIS", "MODEL_AXIS", "FSDP_AXIS"]
+__all__ = ["SpecLayout", "SpecFnLayout", "MeshDims", "PartitionSpec",
+           "mesh_from_spec", "DATA_AXIS", "MODEL_AXIS", "FSDP_AXIS"]
 
 
 class PartitionSpec(tuple):
@@ -363,3 +363,28 @@ class SpecLayout:
 
     def __len__(self) -> int:
         return len(self._table)
+
+
+class SpecFnLayout:
+    """A plain state_spec_fn (var name -> PartitionSpec or None) seen
+    through SpecLayout's questions, as the model-parallel rewrite asks
+    them: the spec of a parameter, and the mesh's model and fsdp axes."""
+
+    def __init__(self, mesh, fn):
+        self.mesh = mesh
+        self.fn = fn
+        self.model_axis = MODEL_AXIS if MODEL_AXIS in mesh.axis_names \
+            else None
+        self.fsdp_axis = FSDP_AXIS if FSDP_AXIS in mesh.axis_names \
+            else None
+        self.data_axis = DATA_AXIS if DATA_AXIS in mesh.axis_names \
+            else None
+        self.fallbacks: list = []
+
+    def param_spec(self, name, shape=()):
+        spec = self.fn(name)
+        return PartitionSpec(*spec) if spec is not None \
+            else PartitionSpec()
+
+    def __call__(self, name):
+        return self.fn(name)

@@ -514,8 +514,8 @@ def test_compiled_program_runs_equal_the_plain_program():
 
 def test_compiled_program_refuses_more_than_one_rank(monkeypatch):
     """One process without a process group is one rank: a mesh of more
-    ranks is refused at the first run, and a model (tp) axis names
-    ROADMAP §A7b. `places` is accepted (a process drives its card)."""
+    ranks is refused at the first run, a model (tp) axis's mesh too.
+    `places` is accepted (a process drives its card)."""
     from paddle_tpu_torch.parallel.layout import mesh_from_spec
     main, feeds, fetch, _, start = _sgd(ft)
     feed = _crafted_feed(main, feeds)
@@ -525,7 +525,7 @@ def test_compiled_program_refuses_more_than_one_rank(monkeypatch):
     two = ft.CompiledProgram(main).with_data_parallel(
         loss_name=fetch[0], places=[ft.CPUPlace(), ft.CPUPlace()])
     exe.run(two, feed=feed, fetch_list=fetch, scope=scope)
-    with pytest.raises(NotImplementedError, match="§A7b"):
+    with pytest.raises(ValueError, match="2 ranks"):
         exe.run(ft.CompiledProgram(main).with_distributed(
             mesh_from_spec("1,2")), feed=feed, fetch_list=fetch,
             scope=scope)

@@ -14,8 +14,10 @@ differences, each held below:
   test): the JAX package returns the global one;
 - batch_norm normalises by the global batch's moments, all-reduced, as
   GSPMD does (test_batch_norm_uses_the_global_batch_statistics);
-- tp and fsdp meshes raise and name ROADMAP §A7b
-  (test_model_parallel_meshes_and_unknown_batch_axes_raise);
+- a mesh with a tp axis runs the model-parallel rewrite's rank program
+  (tests/test_torch_tensor_parallel.py holds it at full detail), and a
+  pipeline (pp) axis raises and names ROADMAP §A7c
+  (test_model_parallel_meshes_run_and_pp_and_unknown_batch_axes_raise);
 - on a single card two ranks run gloo, which stages CUDA tensors
   through host memory: tests/test_torch_cuda.py counts it on the card.
 """
@@ -165,13 +167,44 @@ def test_batch_norm_uses_the_global_batch_statistics(pool):
                                        atol=1e-5, err_msg=n)
 
 
-def test_model_parallel_meshes_and_unknown_batch_axes_raise(pool):
+def test_model_parallel_meshes_run_and_pp_and_unknown_batch_axes_raise(
+        pool):
     """A batch axis the mesh lacks raises ValueError naming batch_axes
-    (tests/test_parallel.py:98); a tp axis of two ranks names §A7b."""
+    (tests/test_parallel.py:98); a tp axis of two ranks runs, its 5 SGD
+    steps equal to the JAX package's single-device run (rtol 1e-4); a
+    pipeline (pp) axis of two ranks names §A7c."""
     for kind, err, words in (("batch_axes", "ValueError", "batch_axes"),
-                             ("tp", "NotImplementedError", "§A7b")):
+                             ("pp", "NotImplementedError", "§A7c")):
         for name, msg in pool.run(jobs.refused, kind):
             assert name == err and words in msg
+    rng = np.random.RandomState(0)
+    xs = rng.randn(32, 16).astype(np.float32)
+    ys = rng.randn(32, 1).astype(np.float32)
+    init, j_losses, j_state = _jax_mlp(xs, ys)
+    for losses, state in pool.run(jobs.mlp_tp_train, init, xs, ys, 5):
+        np.testing.assert_allclose(losses, j_losses, rtol=1e-4, atol=1e-5)
+        for n in j_state:
+            np.testing.assert_allclose(state[n], j_state[n], rtol=1e-4,
+                                       atol=1e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("mesh_spec", ["1,2", "1,1,2"],
+                         ids=["tp2", "fsdp2"])
+def test_parallel_executor_on_a_model_parallel_mesh(pool, mesh_spec):
+    """ParallelExecutor(mesh=...) with a tp or an fsdp axis runs the
+    model-parallel rewrite: 5 SGD steps of the MLP equal the JAX
+    package's single-device run (rtol 1e-4), the state gathered whole
+    too."""
+    rng = np.random.RandomState(4)
+    xs = rng.randn(32, 16).astype(np.float32)
+    ys = rng.randn(32, 1).astype(np.float32)
+    init, j_losses, j_state = _jax_mlp(xs, ys)
+    for losses, state in pool.run(jobs.parallel_executor_mp, init, xs, ys,
+                                  5, mesh_spec):
+        np.testing.assert_allclose(losses, j_losses, rtol=1e-4, atol=1e-5)
+        for n in j_state:
+            np.testing.assert_allclose(state[n], j_state[n], rtol=1e-4,
+                                       atol=1e-5, err_msg=n)
 
 
 def test_data_parallel_dygraph_at_two_ranks(pool):

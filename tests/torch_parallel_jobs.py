@@ -124,7 +124,7 @@ def bootstrap_ops():
     check_shard_hint(["dp", None])
     try:
         check_shard_hint([None, "tp"])
-    except NotImplementedError as e:
+    except ValueError as e:
         return str(e)
     return None
 
@@ -193,13 +193,55 @@ def refused(kind):
         prog = ptt.CompiledProgram(main).with_distributed(
             mesh_from_spec("2"), batch_axes=("data",))
     else:
+        from paddle_tpu_torch.parallel.mesh import make_mesh
         prog = ptt.CompiledProgram(main).with_distributed(
-            mesh_from_spec("1,2"))
+            make_mesh((1, 2), ("dp", "pp")))
     try:
         exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
     except (ValueError, NotImplementedError) as e:
         return type(e).__name__, str(e)
     return None
+
+
+def mlp_tp_train(init, xs, ys, steps):
+    """`steps` SGD steps of the MLP on a mesh dp1 x tp2 under its
+    SpecLayout: (losses, the final state gathered whole)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss, _, _ = mlp(ptt)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    mesh = mesh_from_spec("1,2")
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh, state_spec_fn=SpecLayout(mesh).add_program(main))
+    losses = [float(exe.run(prog, feed={"x": xs, "y": ys},
+                            fetch_list=[loss], scope=scope)[0])
+              for _ in range(steps)]
+    return losses, {n: gather_param(scope, n).numpy() for n in init}
+
+
+def parallel_executor_mp(init, xs, ys, steps, mesh_spec):
+    """fluid.ParallelExecutor(mesh=...) over the MLP on a tp or fsdp mesh:
+    (losses, the final state gathered whole)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel import ParallelExecutor
+    from paddle_tpu_torch.parallel.layout import mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss, _, _ = mlp(ptt)
+    scope = ptt.Scope()
+    _exe(ptt).run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    pe = ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                          main_program=main, scope=scope,
+                          mesh=mesh_from_spec(mesh_spec))
+    losses = [float(pe.run([loss], feed={"x": xs, "y": ys})[0])
+              for _ in range(steps)]
+    return losses, {n: gather_param(scope, n).numpy() for n in init}
 
 
 def parallel_executor(init, xs, ys, steps):
@@ -255,3 +297,383 @@ def staged_all_reduce():
     x = torch.arange(12.0, device="cuda") + dist.get_rank()
     out = coll.all_reduce(x, None, "sum")
     return out.cpu().numpy(), coll.STAGED_BYTES["bytes"]
+
+
+# -- model parallelism ----------------------------------------------------------
+
+def tiny_model(ptt, kind, tp=False, sp=False, amp=False):
+    """(main, startup, loss, feed names) of a tiny transformer built by
+    `ptt`: "bert" (transformer.build_train), "nmt" (nmt.build_train) or
+    "gpt" (gpt.build_train), 2 layers, d 64, 4 heads, dropout 0, with
+    the tp/sp hints (sp over the tp axis) when asked."""
+    from importlib import import_module
+    kw = dict(vocab_size=96, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+              dropout=0.0, attn_dropout=0.0, tp=tp, sp=sp, sp_axis="tp",
+              use_flash=False)
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        if kind == "bert":
+            tr = import_module(f"{ptt.__name__}.models.transformer")
+            cfg = tr.TransformerConfig(max_seq_len=MP_SEQ, **kw)
+            loss, feeds = tr.build_train(cfg, MP_BATCH, MP_SEQ, lr=1e-3,
+                                         amp=amp)
+        elif kind == "nmt":
+            nm = import_module(f"{ptt.__name__}.models.nmt")
+            cfg = nm.transformer_big_nmt(max_seq_len=MP_SEQ, **kw)
+            loss, feeds = nm.build_train(cfg, MP_BATCH, MP_SEQ, MP_SEQ,
+                                         lr=1e-3)
+        else:
+            gp = import_module(f"{ptt.__name__}.models.gpt")
+            cfg = gp.gpt_small(max_seq_len=MP_SEQ, **dict(
+                kw, use_flash=False))
+            loss, _, tok = gp.build_train(cfg, MP_BATCH, MP_SEQ, lr=1e-3)
+            feeds = [tok]
+    main.random_seed = startup.random_seed = 7
+    return main, startup, loss, [f.name for f in feeds]
+
+
+MP_BATCH, MP_SEQ = 4, 64
+
+
+def mp_feeds(kind):
+    rng = np.random.RandomState(11)
+    toks = lambda t: rng.randint(0, 96, (MP_BATCH, t)).astype(np.int64)
+    if kind == "bert":
+        return {"tokens": toks(MP_SEQ), "labels": toks(MP_SEQ)}
+    if kind == "nmt":
+        return {"src_tokens": toks(MP_SEQ), "trg_tokens": toks(MP_SEQ + 1)}
+    return {"tokens": toks(MP_SEQ)}
+
+
+def mp_train(kind, init, steps, mesh_spec, batch_axes=("dp",), tp=True,
+             sp=True, fetch_grads=False):
+    """`steps` AdamW steps of the tiny `kind` model from `init` on the
+    mesh `mesh_spec` ("dp,tp,fsdp" sizes) under its SpecLayout. Returns
+    (losses, the final parameters gathered whole, {state: this rank's
+    shape}, the first step's gradients gathered when asked)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss, _ = tiny_model(ptt, kind, tp=tp, sp=sp)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    mesh = mesh_from_spec(mesh_spec)
+    layout = SpecLayout(mesh).add_program(main)
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh, state_spec_fn=layout, batch_axes=batch_axes)
+    prog._loss_name = loss.name
+    params = [v.name for v in main.list_vars()
+              if getattr(v, "is_parameter", False)]
+    feed = mp_feeds(kind)
+    losses, grads = [], None
+    fl = [loss] + ([p + "@GRAD" for p in params] if fetch_grads else [])
+    for i in range(steps):
+        out = exe.run(prog, feed=feed, fetch_list=fl, scope=scope)
+        losses.append(float(out[0]))
+        if i == 0 and len(out) > 1:
+            grads = dict(zip(params, out[1:]))
+    final = {p: gather_param(scope, p).numpy() for p in params}
+    shapes = {n: tuple(scope.find_var(n).shape) for n in scope.names()
+              if isinstance(scope.find_var(n), __import__("torch").Tensor)}
+    # the split of the attention's queries in the rank program
+    from paddle_tpu_torch.parallel.model_parallel import plan_for
+    plan = plan_for(main, mesh, prog.spec_layout(), batch_axes)
+    q = [op.inputs["Q"][0] for op in main.global_block().ops
+         if op.type == "flash_attention"][0]
+    shapes["flash Q split"] = tuple(plan.lay.get(q) or ())
+    return losses, final, shapes, grads
+
+
+def mp_dropout_masks():
+    """(the mask dropout draws on a tp-split activation, the mask on a
+    whole one) of this rank: x [4, 8, 64] through a column-split fc,
+    dropout 0.5 on its split output and on the whole input."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data("x", shape=[4, 8, 64], dtype="float32",
+                            append_batch_size=False)
+        h = ptt.layers.fc(x, size=64, num_flatten_dims=2)
+        hd = ptt.layers.dropout(h, 0.5,
+                                dropout_implementation="upscale_in_train")
+        xd = ptt.layers.dropout(x, 0.5,
+                                dropout_implementation="upscale_in_train")
+        loss = ptt.layers.mean(hd) + ptt.layers.mean(xd)
+    main.random_seed = startup.random_seed = 5
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    mesh = mesh_from_spec("1,2")
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh, state_spec_fn=SpecLayout(mesh).add_program(main))
+    feed = {"x": np.ones((4, 8, 64), np.float32)}
+    blk = main.global_block()
+    masks = [op.outputs["Mask"][0] for op in blk.ops
+             if op.type == "dropout"]
+    from paddle_tpu_torch.parallel.model_parallel import plan_for
+    split_mask, whole_mask = masks
+    out = exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    assert np.isfinite(out[0]).all()
+    plan = plan_for(main, mesh, prog.spec_layout(), ("dp",))
+    assert plan.lay.get(split_mask) is not None
+    assert plan.lay.get(whole_mask) is None
+    env = {}
+    from paddle_tpu_torch.core import lowering
+    real = lowering.run_op
+
+    def spy(op, e, ctx, op_idx=None):
+        real(op, e, ctx, op_idx)
+        for n in op.output_names():
+            if n in (split_mask, whole_mask):
+                env[n] = e[n].detach().float().numpy().copy()
+    lowering.run_op = spy
+    try:
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    finally:
+        lowering.run_op = real
+    return env[split_mask] != 0, env[whole_mask] != 0
+
+
+# -- sequence parallelism -------------------------------------------------------
+
+def seq_attention(scheme, q, k, v, do, causal):
+    """(out, dq, dk, dv) of `scheme` ("ring" or "ulysses") attention over
+    a mesh sp2 on whole [b, h, T, d] inputs, differentiated against the
+    cotangent `do`."""
+    import torch
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    from paddle_tpu_torch.parallel import ulysses as ul
+    mesh = make_mesh((2,), ("sp",))
+    fn = ra.ring_attention_sharded if scheme == "ring" else \
+        ul.ulysses_attention_sharded
+    qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = fn(qt, kt, vt, mesh, "sp", causal=causal)
+    grads = torch.autograd.grad(out, (qt, kt, vt), torch.tensor(do))
+    return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def ulysses_refuses_odd_heads():
+    import torch
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel import ulysses as ul
+    q = torch.zeros(1, 3, 8, 4)
+    try:
+        ul.ulysses_attention_sharded(q, q, q, make_mesh((2,), ("sp",)),
+                                     "sp")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def long_context(ptt, scheme, batch=2, t=64, d=32, heads=4, vocab=64):
+    """examples/long_context.py's program built by `ptt` with `scheme`
+    attention (ring or ulysses), Adam."""
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 11
+    L = ptt.layers
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        tokens = L.data("tokens", shape=[batch, t], dtype="int64",
+                        append_batch_size=False)
+        targets = L.data("targets", shape=[batch, t], dtype="int64",
+                         append_batch_size=False)
+        emb = L.embedding(tokens, size=[vocab, d])
+        qkv = L.fc(emb, size=3 * d, num_flatten_dims=2)
+        q = L.slice(qkv, axes=[2], starts=[0], ends=[d])
+        k = L.slice(qkv, axes=[2], starts=[d], ends=[2 * d])
+        v = L.slice(qkv, axes=[2], starts=[2 * d], ends=[3 * d])
+
+        def heads_first(x):
+            x = L.reshape(x, shape=[batch, t, heads, d // heads])
+            return L.transpose(x, perm=[0, 2, 1, 3])
+
+        attn = L.ring_attention if scheme == "ring" else \
+            L.ulysses_attention
+        ctxv = attn(heads_first(q), heads_first(k), heads_first(v),
+                    causal=True)
+        ctxv = L.transpose(ctxv, perm=[0, 2, 1, 3])
+        ctxv = L.reshape(ctxv, shape=[batch, t, d])
+        h = L.fc(ctxv, size=d, num_flatten_dims=2, act="relu")
+        logits = L.fc(h, size=vocab, num_flatten_dims=2)
+        loss = L.mean(L.softmax_with_cross_entropy(
+            logits, L.reshape(targets, shape=[batch, t, 1])))
+        ptt.optimizer.Adam(learning_rate=3e-3).minimize(loss)
+    return main, startup, loss
+
+
+def long_context_feeds(batch=2, t=64, vocab=64):
+    toks = np.random.RandomState(0).randint(0, vocab, (batch, t))
+    return {"tokens": toks.astype(np.int64),
+            "targets": np.roll(toks, 1, axis=1).astype(np.int64)}
+
+
+def long_context_train(scheme, init, steps):
+    """`steps` Adam steps of the long-context program over a mesh sp2
+    (the batch not split): the losses."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    main, startup, loss = long_context(ptt, scheme)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    prog = ptt.CompiledProgram(main).with_distributed(
+        make_mesh((2,), ("sp",)), batch_axes=())
+    return [float(exe.run(prog, feed=long_context_feeds(),
+                          fetch_list=[loss], scope=scope)[0])
+            for _ in range(steps)]
+
+
+# -- mixture of experts -----------------------------------------------------------
+
+def moe_sharded(x, params, capacity, cot):
+    """(y, load, {param: d sum(y * cot) / d param}) of the MoE FFN over a
+    mesh ep2 from whole arrays: dense when capacity is None, else the
+    capacity-based dispatch."""
+    import torch
+    from paddle_tpu_torch.parallel import moe
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((2,), ("ep",))
+    p = {k: torch.tensor(v, requires_grad=True) for k, v in params.items()}
+    xt = torch.tensor(x, requires_grad=True)
+    if capacity is None:
+        y, load = moe.moe_ffn_sharded(xt, p, mesh, ep_axis="ep")
+    else:
+        y, load = moe.moe_ffn_sparse_sharded(xt, p, mesh, ep_axis="ep",
+                                             capacity=capacity)
+    names = sorted(p)
+    grads = torch.autograd.grad((y * torch.tensor(cot)).sum(),
+                                [p[k] for k in names] + [xt])
+    return (y.detach().numpy(), float(load),
+            {k: g.numpy() for k, g in zip(names + ["x"], grads)})
+
+
+def moe_program(ptt, capacity=None, batch=4, t=6, d=16, experts=4,
+                d_ff=32):
+    """tests/test_parallel.py:474's static program around layers.moe_ffn,
+    Adam 5e-3."""
+    main, startup = ptt.Program(), ptt.Program()
+    main.random_seed = startup.random_seed = 3
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data("moe_x", shape=[t, d], dtype="float32")
+        y, load = ptt.layers.moe_ffn(x, num_experts=experts, d_ff=d_ff,
+                                     capacity=capacity)
+        tgt = ptt.layers.data("moe_t", shape=[t, d], dtype="float32")
+        loss = ptt.layers.mean(ptt.layers.square(
+            ptt.layers.elementwise_sub(y, tgt)))
+        ptt.optimizer.Adam(learning_rate=5e-3).minimize(loss)
+    return main, startup, loss, load
+
+
+def moe_feeds(batch=4, t=6, d=16):
+    xv = np.random.RandomState(0).randn(batch, t, d).astype(np.float32)
+    return {"moe_x": xv, "moe_t": np.tanh(xv)}
+
+
+def moe_train(init, steps, capacity=None):
+    """`steps` Adam steps of the MoE program over a mesh ep2 (the batch
+    whole on both ranks): (losses, loads, {expert weight: rank shape})."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    main, startup, loss, load = moe_program(ptt, capacity)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    prog = ptt.CompiledProgram(main).with_distributed(
+        make_mesh((2,), ("ep",)), batch_axes=())
+    losses, loads = [], []
+    for _ in range(steps):
+        lv, ld = exe.run(prog, feed=moe_feeds(), fetch_list=[loss, load],
+                         scope=scope)
+        losses.append(float(lv))
+        loads.append(float(ld))
+    shapes = {n: tuple(scope.find_var(n).shape) for n in scope.names()
+              if n.endswith((".w1", ".w2", ".b1", ".gate_w"))}
+    return losses, loads, shapes
+
+
+# -- sharded checkpoints ------------------------------------------------------------
+
+def ckpt_spec_fn(name):
+    """tests/test_sharded_checkpoint.py's specs: w_col split on its
+    columns over tp, w_row on its rows."""
+    from paddle_tpu_torch.parallel.layout import PartitionSpec as P
+    return {"w_col": P(None, "tp"), "w_row": P("tp", None)}.get(name)
+
+
+def ckpt_build(ptt, batch=8):
+    """tests/test_sharded_checkpoint.py's program built by `ptt`."""
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        x = ptt.layers.data("x", shape=[batch, 8], dtype="float32",
+                            append_batch_size=False)
+        y = ptt.layers.data("y", shape=[batch, 1], dtype="float32",
+                            append_batch_size=False)
+        h = ptt.layers.fc(x, size=16, act="relu",
+                          param_attr=ptt.ParamAttr(name="w_col"),
+                          bias_attr=ptt.ParamAttr(name="b1"))
+        pred = ptt.layers.fc(h, size=1, param_attr=ptt.ParamAttr(
+            name="w_row"), bias_attr=ptt.ParamAttr(name="b2"))
+        loss = ptt.layers.mean(ptt.layers.square_error_cost(pred, y))
+        ptt.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    return main, startup, loss
+
+
+def ckpt_feed():
+    rng = np.random.RandomState(0)
+    return {"x": rng.randn(8, 8).astype(np.float32),
+            "y": rng.randn(8, 1).astype(np.float32)}
+
+
+def ckpt_save(init, dirname):
+    """One Adam step of the checkpoint program on a mesh tp2 from `init`,
+    then save_sharded_persistables: (loss, {state: gathered value},
+    {state: this rank's shape})."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.layout import mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss = ckpt_build(ptt)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh_from_spec("1,2"), state_spec_fn=ckpt_spec_fn)
+    lv = float(exe.run(prog, feed=ckpt_feed(), fetch_list=[loss],
+                       scope=scope)[0])
+    ptt.save_sharded_persistables(exe, dirname, main, scope=scope)
+    names = [v.name for v in main.list_vars() if v.persistable
+             and isinstance(scope.find_var(v.name), __import__("torch")
+                            .Tensor)]
+    return (lv, {n: gather_param(scope, n).numpy() for n in names},
+            {n: tuple(scope.find_var(n).shape) for n in names})
+
+
+def ckpt_load(dirname):
+    """load_sharded_persistables on a mesh tp2: ({state: this rank's
+    shape}, {state: this rank's loaded shard}, the loss of one more
+    step)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.parallel.layout import mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss = ckpt_build(ptt)
+    mesh = mesh_from_spec("1,2")
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh, state_spec_fn=ckpt_spec_fn)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    ptt.load_sharded_persistables(exe, dirname, main, mesh=mesh,
+                                  scope=scope, layout=prog.spec_layout())
+    loaded = {n: scope.get_numpy(n) for n in scope.names()}
+    shapes = {n: tuple(scope.find_var(n).shape) for n in scope.names()}
+    lv = float(exe.run(prog, feed=ckpt_feed(), fetch_list=[loss],
+                       scope=scope)[0])
+    return shapes, loaded, lv

@@ -31,6 +31,12 @@ Usage (both packages on the path, JAX on the CPU):
         --len 50]
     JAX_PLATFORMS=cpu python tools/torch_rounding_sensitivity.py sentiment \\
         [--batch 128] [--pert 1e-6]
+    PYTHONPATH=. python tools/torch_rounding_sensitivity.py tp \\
+        [--d-model 128 --layers 2 --len 128 --batch 4]
+    PYTHONPATH=. python tools/torch_rounding_sensitivity.py ring \\
+        [--len 512 --d-model 128 --heads 4 --vocab 1000]
+    PYTHONPATH=. python tools/torch_rounding_sensitivity.py moe \\
+        [--d-model 64 --experts 8 --batch 4 --len 64]
 
 ResNet runs at depth 50, 3x64x64, 10 classes, Momentum lr 0.1;
 --branch-scale multiplies the scale of every batch_norm that ends a
@@ -72,6 +78,23 @@ against the first, the largest loss gap, the update gap and the first
 step's gradient gap (the gaps DP_BARS bound), and the largest parameter
 gap. chip_smoke.py's dp_phases takes the two-rank and control readings
 again at the cell's own size on the card.
+
+`tp`, `ring` and `moe` read chip_smoke.py's model-parallel gaps on the
+CPU, each run against the one-rank run of the same program from one
+startup state, and beside it the same one-rank run from the startup
+state moved by --pert of seeded noise (how far rounding alone moves the
+gaps). `tp`: chip_smoke.mp_train_run's BERT (the tp/sp hints, vocab
+30522, the given width, depth and length, dropout 0, bf16 AMP, AdamW)
+at global batch --batch over two gloo ranks on a mesh dp1 x tp2, on a
+mesh fsdp2, and as each of chip_smoke.MP_CONTROLS: the loss, update and
+gradient gaps MP_BARS bound. `ring`: chip_smoke.seq_train_run's
+long-context program (causal, the given T, width, heads and vocab,
+q/k/v in bf16) with ring and with Ulysses attention over sp2, and the
+ring with its off-diagonal blocks dropped: the loss and gradient gaps
+SEQ_BARS bound. `moe`: chip_smoke.moe_train_run's MoE program (the
+given widths, experts and rows) over ep2, dense and sparse at capacity
+factor 1.25: the dense losses' relative gap and the kept rows' error
+MOE_TOL bounds, the dropped rows.
 
 `seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
 [seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
@@ -483,6 +506,136 @@ def _dp(args):
     tmp.cleanup()
 
 
+def _chip_importable():
+    """chip_smoke.py imported by name from the repository root, so the
+    rank processes find the functions the pool sends them."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), os.pardir))
+    import chip_smoke
+    return chip_smoke
+
+
+def _chip_pool_runs(fn, spec, variants):
+    """chip_smoke's one-rank run of `spec` (and moved by spec["pert"]),
+    then each variant ({spec changes}) over two gloo ranks: [(tag, the
+    one-rank result, rank 0's result)]."""
+    import os
+    import tempfile
+    c = _chip_importable()
+    from paddle_tpu_torch.distributed.spawn import RankPool
+    tmp = tempfile.TemporaryDirectory()
+    one = fn(spec)
+    init = dict(np.load(spec["init"]))
+    # the parameters only (optimizer state moved too can overflow)
+    params = set(np.load(spec["out"]).files) if spec.get("out") else \
+        {k for k, v in init.items() if v.dtype.kind == "f"}
+    rng = np.random.RandomState(0)
+    moved = {k: (v * (1 + spec["pert"] * rng.randn(*v.shape)))
+             .astype(v.dtype) if k in params else v
+             for k, v in init.items()}
+    np.savez(os.path.join(tmp.name, "moved.npz"), **moved)
+    runs = [("moved_init", fn({**spec, "out": None, "init": os.path.join(
+        tmp.name, "moved.npz")}))]
+    with RankPool(2, os.path.join(tmp.name, "store"),
+                  timeout_s=600.0) as pool:
+        for tag, change in variants:
+            runs.append((tag, pool.run(getattr(c, fn.__name__),
+                                       {**spec, **change})[0]))
+    tmp.cleanup()
+    return one, runs
+
+
+def _startup_npz(ptt, startup, path):
+    scope = ptt.Scope()
+    ptt.Executor(ptt.CPUPlace()).run(startup, scope=scope)
+    np.savez(path, **{n: scope.get_numpy(n) for n in scope.names()})
+
+
+def _tp(args):
+    import os
+    import tempfile
+    c = _chip_importable()
+    tmp = tempfile.TemporaryDirectory()
+    spec = {"cfg": dict(n_layers=args.layers, d_model=args.d_model,
+                        n_heads=max(args.d_model // 64, 2),
+                        d_ff=4 * args.d_model, max_seq_len=args.len),
+            "T": args.len, "batch": args.batch, "steps": args.steps,
+            "place": "cpu", "flash": False, "mesh": None,
+            "batch_axes": ["dp"], "init": os.path.join(tmp.name, "i.npz"),
+            "ref": None, "out": os.path.join(tmp.name, "one.npz"),
+            "control": None, "save": None, "pert": args.pert}
+    _, _, startup, _ = c._mp_build(ft, spec)
+    _startup_npz(ft, startup, spec["init"])
+    ref = {"ref": spec["out"], "out": None}
+    one, runs = _chip_pool_runs(c.mp_train_run, spec, [
+        ("tp2", {"mesh": "1,2", **ref}),
+        ("fsdp2", {"mesh": "1,1,2", "batch_axes": ["fsdp"], **ref}),
+        *[(k, {"mesh": "1,2", "control": k, **ref})
+          for k in c.MP_CONTROLS]])
+    for tag, res in runs:
+        if res.get("update_gap") is None:
+            res["update_gap"] = float("nan")
+        loss, update, grad = c._dp_gaps(res, one["losses"], one["grad"])
+        print(f"{tag}: loss_gap={loss:.3e} update_gap={update:.3e} "
+              f"grad_gap={grad:.3e}")
+    tmp.cleanup()
+
+
+def _ring(args):
+    import os
+    import tempfile
+    c = _chip_importable()
+    tmp = tempfile.TemporaryDirectory()
+    dims = (args.len, args.d_model, args.heads, args.vocab)
+    spec = {"scheme": "ring", "dims": dims, "steps": args.steps,
+            "sp": False, "place": "cpu", "pert": args.pert,
+            "init": os.path.join(tmp.name, "i.npz")}
+    _, startup, _ = c._long_context(ft, "ring", dims=dims)
+    _startup_npz(ft, startup, spec["init"])
+    one, runs = _chip_pool_runs(c.seq_train_run, spec, [
+        ("ring_sp2", {"sp": True}),
+        ("ulysses_sp2", {"sp": True, "scheme": "ulysses"}),
+        ("ring_no_offdiag", {"sp": True, "control": "no_offdiag"})])
+    for tag, res in runs:
+        loss = max(abs(a - b) for a, b in zip(res["losses"],
+                                              one["losses"]))
+        grad = float(np.linalg.norm(res["grad"] - one["grad"])
+                     / np.linalg.norm(one["grad"]))
+        print(f"{tag}: loss_gap={loss:.3e} grad_gap={grad:.3e}")
+    tmp.cleanup()
+
+
+def _moe(args):
+    import os
+    import tempfile
+    c = _chip_importable()
+    tmp = tempfile.TemporaryDirectory()
+    dims = (args.d_model, 4 * args.d_model, args.experts, args.batch,
+            args.len)
+    cap = int(1.25 * args.batch * args.len / args.experts)
+    spec = {"capacity": None, "dims": dims, "steps": args.steps,
+            "ep": False, "place": "cpu", "pert": args.pert,
+            "init": os.path.join(tmp.name, "i.npz")}
+    _, startup, *_ = c._moe_build(ft, None, dims)
+    _startup_npz(ft, startup, spec["init"])
+    one, runs = _chip_pool_runs(c.moe_train_run, spec, [
+        ("dense_ep2", {"ep": True}),
+        ("sparse_ep2", {"ep": True, "capacity": cap})])
+    ref = one["y"].reshape(-1, args.d_model)
+    for tag, res in runs:
+        rows = res["y"].reshape(-1, args.d_model)
+        zero = np.all(rows == 0.0, axis=-1) if tag.startswith("sparse") \
+            else np.zeros(len(rows), bool)
+        err = float(np.abs(rows[~zero] - ref[~zero]).max()
+                    / np.abs(ref).max())
+        loss = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                       one["losses"]))
+        print(f"{tag}: loss_rel_gap={loss:.3e} kept_rel_err={err:.3e} "
+              f"dropped_rows={int(zero.sum())} of {len(rows)}")
+    tmp.cleanup()
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -530,6 +683,27 @@ def main(argv=None):
     g.add_argument("--batch", type=int, default=8)
     g.add_argument("--steps", type=int, default=5)
     g.add_argument("--pert", type=float, default=1e-3)
+    t = sub.add_parser("tp")
+    t.add_argument("--d-model", type=int, default=128)
+    t.add_argument("--layers", type=int, default=2)
+    t.add_argument("--len", type=int, default=128)
+    t.add_argument("--batch", type=int, default=4)
+    t.add_argument("--steps", type=int, default=3)
+    t.add_argument("--pert", type=float, default=1e-3)
+    rg = sub.add_parser("ring")
+    rg.add_argument("--len", type=int, default=512)
+    rg.add_argument("--d-model", type=int, default=128)
+    rg.add_argument("--heads", type=int, default=4)
+    rg.add_argument("--vocab", type=int, default=1000)
+    rg.add_argument("--steps", type=int, default=3)
+    rg.add_argument("--pert", type=float, default=1e-3)
+    mo = sub.add_parser("moe")
+    mo.add_argument("--d-model", type=int, default=64)
+    mo.add_argument("--experts", type=int, default=8)
+    mo.add_argument("--batch", type=int, default=4)
+    mo.add_argument("--len", type=int, default=64)
+    mo.add_argument("--steps", type=int, default=3)
+    mo.add_argument("--pert", type=float, default=1e-3)
     m = sub.add_parser("sentiment")
     m.add_argument("--batch", type=int, default=128)
     m.add_argument("--pert", type=float, default=1e-6)
@@ -541,6 +715,8 @@ def main(argv=None):
         return _recipe(args)
     if args.model == "dp":
         return _dp(args)
+    if args.model in ("tp", "ring", "moe"):
+        return {"tp": _tp, "ring": _ring, "moe": _moe}[args.model](args)
     if args.model == "se_resnext":
         return _se_resnext(args)
     progs, init, base, moved = {"resnet": _resnet, "nmt": _nmt,
