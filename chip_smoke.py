@@ -9047,7 +9047,10 @@ def dp_phases(torch, card):
 # 7.264e-01). On an H100 80GB HBM3 at 700 W, loss / update / grad: tp2
 # 2.136e-04 / 3.198e-02 / 1.070e-02, fsdp2 2.861e-04 / 2.740e-02 /
 # 9.622e-03; g_bwd_allreduce 7.906e-04 / 5.120e-02 / 1.001, g_fwd_skipped
-# 5.240 / 1.199 / 9.618e-01.
+# 5.240 / 1.199 / 9.618e-01. The fsdp control leaves out the 1/n of the
+# fsdp gradient's reduce-scatter (every fsdp weight's gradient twice too
+# large, which Adam's updates hide) and must fail the grad bar: CPU
+# 1.000, the H100 1.001.
 MP_WORLD = 2
 MP_STEPS = 3
 MP_BATCH = 16
@@ -9084,6 +9087,18 @@ MOE_CAPACITY = int(1.25 * MOE_B * MOE_T / MOE_E)
 MOE_TIGHT = MOE_CAPACITY // 10
 MOE_STEPS = 3
 MOE_TOL = 1e-4
+# and the gate weight's first-step gradient, dense and at capacity 1.25,
+# within MOE_GRAD_BAR (relative L2) of one rank's; the control
+# all-reduces the ep sum's backward (g as c_allreduce_sum) and must fail
+# it. tools/torch_rounding_sensitivity.py moe reads both on the CPU (d
+# 64: dense 2.610e-07, the control 1.000; 1e-3 of seeded noise on the
+# startup state 4.708e-04); an H100 80GB HBM3: dense 1.965e-07, sparse
+# 1.371e-07, the control 1.000.
+MOE_GRAD_BAR = 1e-3
+# [tp_train], [fsdp_train], [ring_train], [ulysses_train], [moe_train]:
+# the bytes a rank's collectives moved a step against the sharding
+# gate's price of its rank program, relative
+BYTES_TOL = 0.05
 # [recompute_train]: [train]'s step (b32, dropout 0.1, bf16 AMP) with
 # RecomputeOptimizer(AdamW) checkpointed at each layer's output, against
 # the same program without recompute from the same seed, both under
@@ -9112,12 +9127,21 @@ def _mp_build(ptt, spec):
 def _mp_control(kind):
     """Break g on purpose, as a control for MP_BARS: 'g_bwd_allreduce'
     all-reduces its backward (Megatron's g differentiated like
-    c_allreduce_sum), 'g_fwd_skipped' skips its forward all-reduce. The
-    reduce-scatter of sequence parallelism is broken alike. Returns the
+    c_allreduce_sum; the MoE FFN's sum over ep is this g too),
+    'g_fwd_skipped' skips its forward all-reduce. The reduce-scatter of
+    sequence parallelism is broken alike. 'fsdp_rs_unscaled' leaves out
+    the 1/n of an fsdp weight's gradient reduce-scatter. Returns the
     function that repairs it."""
     import torch
     from paddle_tpu_torch.ops import collective as coll
-    saved = (coll.reduce_from, coll.reduce_scatter_to)
+    saved = (coll.reduce_from, coll.reduce_scatter_to, coll.fsdp_gather)
+    if kind == "fsdp_rs_unscaled":
+        coll.fsdp_gather = (lambda x, g, reduce, scale=1.0:
+                            saved[2](x, g, reduce, 1.0))
+
+        def repair_fsdp():
+            coll.fsdp_gather = saved[2]
+        return repair_fsdp
 
     class _Bwd(torch.autograd.Function):
         @staticmethod
@@ -9151,7 +9175,7 @@ def _mp_control(kind):
     coll.reduce_scatter_to = rs
 
     def repair():
-        coll.reduce_from, coll.reduce_scatter_to = saved
+        coll.reduce_from, coll.reduce_scatter_to, coll.fsdp_gather = saved
     return repair
 
 
@@ -9265,8 +9289,10 @@ def mp_train_run(spec):
                "full_param_bytes": sum(v.nbytes for v in params.values()),
                "peak_gb": max(peaks) if peaks else None}
         if layout is not None and cuda:
+            # the sharding gate's price of the rank program (the
+            # analyzer's rank walk the rewrite was built from)
             res["collective_bytes_estimate"] = \
-                layout.collective_bytes_estimate(main)
+                exe.last_sharding_report.collective_bytes_per_step
             res["plan"] = _rank_plan(exe, prog, main, feed, loss)
         if spec.get("save"):
             ptt.save_sharded_persistables(exe, spec["save"], main,
@@ -9411,14 +9437,10 @@ def seq_train_run(spec):
         init = dict(np.load(spec["init"]))
         scope_from_numpy(init, scope, place, program=main)
         prog = main
-        estimate = None
         if spec["sp"]:
-            from paddle_tpu_torch.parallel.layout import SpecLayout
             mesh = make_mesh((2,), ("sp",))
             prog = ptt.CompiledProgram(main).with_distributed(
                 mesh, batch_axes=())
-            estimate = SpecLayout(mesh).add_program(main) \
-                .collective_bytes_estimate(main)
         toks = np.random.RandomState(0).randint(0, dims[3], (1, dims[0]))
         feed = {"tokens": toks.astype(np.int64),
                 "targets": np.roll(toks, 1, axis=1).astype(np.int64)}
@@ -9463,7 +9485,9 @@ def seq_train_run(spec):
                // max(spec["steps"] - 1, 1),
                "staged_step": coll.STAGED_BYTES["bytes"]
                // max(spec["steps"] - 1, 1),
-               "collective_bytes_estimate": estimate}
+               "collective_bytes_estimate":
+               exe.last_sharding_report.collective_bytes_per_step
+               if spec["sp"] else None}
         if spec.get("op_check"):
             res.update(_seq_op_check(torch, spec["scheme"]))
         return res
@@ -9528,15 +9552,31 @@ def _moe_build(ptt, capacity, dims=None):
 def moe_train_run(spec):
     """The MoE program (capacity, init, steps, ep: two ranks over a mesh
     ep2 or one rank): the losses, the loads, the first step's output, the
-    rank's expert-weight bytes, per step device ms."""
+    rank's expert-weight bytes, per step device ms, the gate weight's
+    first-step gradient (control: an _mp_control kind), and the bytes
+    the collectives moved a step after the first beside the sharding
+    gate's price of the rank program."""
+    import paddle_tpu_torch as ptt
+    dims = _moe_dims(spec)
+    main, startup, loss, load, y = _moe_build(ptt, spec["capacity"], dims)
+    gname = [v.name for v in main.list_vars()
+             if v.name.endswith(".gate_w")][0] + "@GRAD"
+    repair = _mp_control(spec["control"]) if spec.get("control") \
+        else None
+    try:
+        return _moe_steps(spec, dims, main, startup, loss, load, y, gname)
+    finally:
+        if repair is not None:
+            repair()
+
+
+def _moe_steps(spec, dims, main, startup, loss, load, y, gname):
     import numpy as np
     import torch
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.convert import scope_from_numpy
     from paddle_tpu_torch.ops import collective as coll
     from paddle_tpu_torch.parallel.mesh import make_mesh, world
-    dims = _moe_dims(spec)
-    main, startup, loss, load, y = _moe_build(ptt, spec["capacity"], dims)
     cuda = spec.get("place", "cuda") != "cpu"
     place = _place(ptt, {"place": spec.get("place", "cuda")})
     scope = ptt.Scope()
@@ -9545,27 +9585,26 @@ def moe_train_run(spec):
     scope_from_numpy(dict(np.load(spec["init"])), scope, place,
                      program=main)
     prog = main
-    estimate = None
     if spec["ep"]:
-        from paddle_tpu_torch.parallel.layout import SpecLayout
         mesh = make_mesh((2,), ("ep",))
         prog = ptt.CompiledProgram(main).with_distributed(
             mesh, batch_axes=())
-        estimate = SpecLayout(mesh).add_program(main) \
-            .collective_bytes_estimate(main)
     xv = np.random.RandomState(0).randn(dims[3], dims[4], dims[0]) \
         .astype(np.float32)
     feed = {"moe_x": xv, "moe_t": np.tanh(xv)}
-    losses, loads, first, device = [], [], None, []
-    coll.reset_counts()
+    losses, loads, first, grad, device = [], [], None, None, []
     for i in range(spec["steps"]):
+        if i == 1:
+            # the first run broadcast and cut the state: steps after it
+            coll.reset_counts()
         t0 = time.perf_counter()
         if cuda:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             torch.cuda.synchronize()
             ev[0].record()
         out = exe.run(prog, feed=feed,
-                      fetch_list=[loss, load] + ([y] if i == 0 else []),
+                      fetch_list=[loss, load] + ([y, gname] if i == 0
+                                                 else []),
                       scope=scope)
         if cuda:
             ev[1].record()
@@ -9577,13 +9616,18 @@ def moe_train_run(spec):
         loads.append(float(out[1]))
         if i == 0:
             first = np.asarray(out[2], np.float32)
+            grad = np.asarray(out[3], np.float32)
     experts = sum(scope.find_var(n).numel() * 4 for n in scope.names()
                   if n.endswith((".w1", ".w2")))
+    report = exe.last_sharding_report if spec["ep"] else None
     return {"rank": world()[1], "losses": losses, "loads": loads,
-            "y": first, "expert_bytes": experts, "device_ms": device,
+            "y": first, "grad": grad, "expert_bytes": experts,
+            "device_ms": device,
             "moved_step": sum(coll.COLLECTIVE_BYTES.values())
-            // spec["steps"], "staged_step": coll.STAGED_BYTES["bytes"]
-            // spec["steps"], "collective_bytes_estimate": estimate}
+            // max(spec["steps"] - 1, 1),
+            "staged_step": coll.STAGED_BYTES["bytes"]
+            // max(spec["steps"] - 1, 1), "collective_bytes_estimate":
+            None if report is None else report.collective_bytes_per_step}
 
 
 def mp_phases(torch, card):
@@ -9674,6 +9718,18 @@ def mp_phases(torch, card):
                          param_share=f"{res['param_bytes'] / res['full_param_bytes']:.4f}")
                 for k in bf16:
                     bf16[k] += res["launches"][k]
+            # the fsdp gradient's reduce-scatter without its 1/n: every
+            # fsdp weight's gradient twice too large (Adam's updates
+            # hide it; the first step's gradient shows it)
+            res = pool.run(mp_train_run, {
+                **spec, "mesh": "1,1,2", "batch_axes": ["fsdp"],
+                "control": "fsdp_rs_unscaled", "steps": 1})[0]
+            ggap = _dp_gaps(res, one["losses"][:1], one["grad"])[2]
+            phase("fsdp_control", control="fsdp_rs_unscaled", steps=1,
+                  grad_gap=f"{ggap:.3e}", grad_bar=MP_BARS["grad"],
+                  must_be_rejected_by="grad", card=f"'{card}'")
+            check(ggap > MP_BARS["grad"], f"[fsdp_control] the unscaled "
+                  f"reduce-scatter passes the grad bar ({ggap})")
             ring = pool.run(seq_train_run, {**seq_spec, "sp": True,
                                             "op_check": True})
             _seq_line("ring_train", ring, seq_one, card)
@@ -9707,6 +9763,18 @@ def mp_phases(torch, card):
             moe_tight = pool.run(moe_train_run, {
                 **moe_spec, "ep": True, "capacity": MOE_TIGHT, "steps": 1})
             _moe_lines(moe_one, moe_dense, moe_sparse, moe_tight, card)
+            # the ep sum's backward all-reduced (g differentiated like
+            # c_allreduce_sum): every gradient upstream of it n times too
+            # large, which Adam's updates and the loss hide
+            ctl = pool.run(moe_train_run, {
+                **moe_spec, "ep": True, "steps": 1,
+                "control": "g_bwd_allreduce"})[0]
+            ggap = _grad_gap(ctl["grad"], moe_one["grad"], 0)
+            phase("moe_control", control="g_bwd_allreduce", steps=1,
+                  grad_gap=f"{ggap:.3e}", grad_bar=MOE_GRAD_BAR,
+                  must_be_rejected_by="grad", card=f"'{card}'")
+            check(ggap > MOE_GRAD_BAR, f"[moe_control] the all-reduced "
+                  f"backward of the ep sum passes the grad bar ({ggap})")
         finally:
             pool.close()
         one_rank_ckpt(spec, tp, path, card)
@@ -9716,6 +9784,17 @@ def mp_phases(torch, card):
     finally:
         tmp.cleanup()
     return bf16
+
+
+def _priced_check(tag, res):
+    """The bytes a rank's collectives moved a step against the sharding
+    gate's price of its rank program (the analyzer's rank walk, which
+    the rewrite was built from): equal within BYTES_TOL."""
+    moved, priced = res["moved_step"], res["collective_bytes_estimate"]
+    check(priced is not None and priced > 0 and
+          abs(moved - priced) <= BYTES_TOL * priced,
+          f"[{tag}] rank {res['rank']}: moved {moved} B a step, the "
+          f"analyzer priced {priced}")
 
 
 def _mp_line(tag, res, one, backend, card, **extra):
@@ -9749,6 +9828,7 @@ def _mp_line(tag, res, one, backend, card, **extra):
     for k, v in gaps.items():
         check(v <= MP_BARS[k], f"[{tag}] rank {res['rank']}: {k} gap {v} > "
               f"{MP_BARS[k]}")
+    _priced_check(tag, res)
     for name, n in res["launches"].items():
         check(n == 12 * steps, f"[{tag}] rank {res['rank']}: {name} "
               f"launched {n} times, not 12 x {steps}")
@@ -9851,6 +9931,7 @@ def _seq_line(tag, ranks, one, card, ring=None):
               op_tol=SEQ_OP_TOL, **extra,
               losses=",".join(f"{x:.6f}" for x in res["losses"]),
               card=f"'{card}'")
+        _priced_check(tag, res)
         check(loss_gap <= SEQ_BARS["loss"], f"[{tag}] loss gap {loss_gap}")
         check(grad_gap <= SEQ_BARS["grad"], f"[{tag}] grad gap {grad_gap}")
         check(max(res["op_errs"]) <= SEQ_OP_TOL,
@@ -9870,7 +9951,9 @@ def _moe_lines(one, dense, sparse, tight, card):
     MOE_TOL relative; the sparse runs' first-step output (capacity
     factor 1.25, and a tenth of it, which drops tokens): dropped rows
     exactly 0, kept rows within MOE_TOL of the dense output's largest
-    entry; every load in (0, 1]; each rank holds half the experts."""
+    entry; the gate weight's first-step gradient within MOE_GRAD_BAR
+    (dense, and capacity 1.25 where no row drops); every load in (0, 1]; each rank holds
+    half the experts; the bytes moved as the analyzer priced them."""
     import numpy as np
     ref = one["y"].reshape(-1, MOE_D)
     scale = float(np.abs(ref).max())
@@ -9883,6 +9966,7 @@ def _moe_lines(one, dense, sparse, tight, card):
             err = float(np.abs(rows[kept] - ref[kept]).max()) / scale
             loss_rel = max(abs(a - b) / abs(b) for a, b in
                            zip(res["losses"], one["losses"]))
+            grad_gap = _grad_gap(res["grad"], one["grad"], 0)
             phase("moe_train", kind=kind, rank=res["rank"], ep=MP_WORLD,
                   experts=MOE_E, d_model=MOE_D, d_ff=MOE_FF,
                   tokens=MOE_B * MOE_T,
@@ -9890,6 +9974,7 @@ def _moe_lines(one, dense, sparse, tight, card):
                             "sparse_tight": MOE_TIGHT}[kind],
                   dropped_rows=int(zero.sum()), kept_rel_err=f"{err:.3e}",
                   loss_rel_gap=f"{loss_rel:.3e}", tol=MOE_TOL,
+                  grad_gap=f"{grad_gap:.3e}", grad_bar=MOE_GRAD_BAR,
                   loads=",".join(f"{x:.4f}" for x in res["loads"]),
                   expert_bytes=res["expert_bytes"],
                   one_rank_expert_bytes=one["expert_bytes"],
@@ -9906,6 +9991,13 @@ def _moe_lines(one, dense, sparse, tight, card):
             check(res["expert_bytes"] * MP_WORLD == one["expert_bytes"],
                   f"[moe_train] {kind}: a rank holds {res['expert_bytes']} B "
                   f"of experts, not half of {one['expert_bytes']}")
+            if kind != "sparse_tight":
+                # a dropped row changes the function: the gradient is
+                # held where none drops (capacity 1.25 on this data)
+                check(grad_gap <= MOE_GRAD_BAR or
+                      (kind == "sparse" and zero.any()),
+                      f"[moe_train] {kind}: gradient gap {grad_gap}")
+                _priced_check("moe_train", res)
             if kind == "dense":
                 check(not zero.any() and loss_rel <= MOE_TOL,
                       f"[moe_train] dense: loss gap {loss_rel}")

@@ -45,22 +45,32 @@ ServingEngine.warmup — FLAGS_sharding_verify, reject before the cache
 key records a miss), `SpecLayout.collective_bytes_estimate`, and
 chip_smoke.py's data-parallel phases, which print it beside the bytes
 the sharded executor moved.
+
+The rank walk (`plan_rank_sharding`, the port's own) is the same walk
+over one model axis as each rank of a model-parallel mesh runs the
+program: it gives every var its layout and every op the collectives
+that reconcile them, and parallel/model_parallel.py builds the rank
+program from exactly that plan. Its prices are what the rank program
+moves (collective.py's counts, forward and backward); the gate prices a
+model-parallel run with it.
 """
 from __future__ import annotations
 
+import math
 import threading
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.dtypes import as_np_dtype
+from ..core.dtypes import as_np_dtype, as_torch_dtype
 from ..monitor import STAT_ADD, STAT_SET
+from ..ops.collective import Split
 from .diagnostics import VerifyResult
 from .shape_infer import OPAQUE_OPS, Spec, declared_spec, program_specs
 
 __all__ = ["ShardingReport", "analyze_program_sharding", "sharding_gate",
-           "reset_memo", "RESHARD_FINDING_MIN_BYTES"]
+           "plan_rank_sharding", "reset_memo", "RESHARD_FINDING_MIN_BYTES"]
 
 # PTV061 fires only when one op's implicit reshard moves at least this
 # many bytes — below it the reshard is noise, not a hot-path hazard.
@@ -1096,6 +1106,1013 @@ def _remap_reshape(in_shape, in_parts, out_shape, axis_size):
     return tuple(out_parts), lost
 
 
+# ---------------------------------------------------------------------------
+# the rank plan: the walk as each rank of a model-parallel mesh runs it
+# ---------------------------------------------------------------------------
+
+_UNARY = frozenset({
+    "cast", "scale", "gelu", "relu", "tanh", "sigmoid", "dropout", "exp",
+    "log", "sqrt", "rsqrt", "square", "abs", "softsign", "leaky_relu",
+    "elu", "swish", "silu", "relu6", "clip", "assign", "pow", "erf",
+    "softplus", "hard_sigmoid", "hard_swish", "brelu", "logsigmoid",
+    "sin", "cos", "floor", "ceil", "round", "reciprocal", "sign",
+    "fill_any_like", "fill_zeros_like", "stanh", "thresholded_relu",
+    "tanh_shrink", "softshrink", "hard_shrink", "mish"})
+_BINARY = frozenset({
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow"})
+# ops that read their input's last dim whole
+_LAST_WHOLE = frozenset({"softmax_with_cross_entropy", "softmax",
+                         "layer_norm", "log_softmax"})
+# ops a weight's product passes through on its way to one of those
+_PASS = frozenset({"elementwise_add", "cast", "scale", "reshape2",
+                   "reshape"})
+_SEQ_ATTENTION = frozenset({"ring_attention", "ulysses_attention"})
+
+
+def _prod(xs):
+    return int(math.prod(int(x) for x in xs))
+
+
+def is_update(op):
+    from ..core.registry import REGISTRY
+    return (REGISTRY.has(op.type) and REGISTRY.get(op.type).inplace
+            and "Param" in op.inputs and "Grad" in op.inputs)
+
+
+def forward_ops(block):
+    """The block's forward ops: everything before the first grad op, the
+    loss-gradient seed or the first update."""
+    out = []
+    for op in block.ops:
+        if op.type == "grad::generic" or is_update(op):
+            break
+        names = [n for n in op.output_names() if n]
+        if op.type in ("fill_any_like", "fill_constant") and names and \
+                all("@GRAD" in n for n in names):
+            break
+        out.append(op)
+    return out
+
+
+def _sp(v):
+    return None if v is None else [int(v[0]), int(v[1]), int(v[2])]
+
+
+class _Ops:
+    """One op's adapters while it is planned: per input (output) slot and
+    index, the list of adapters run on it, in order."""
+
+    def __init__(self):
+        self.ins: Dict[str, Dict[int, list]] = {}
+        self.outs: Dict[str, Dict[int, list]] = {}
+        self.fold = False
+        self.flags = {}
+
+    def add_in(self, slot, i, ads):
+        if ads:
+            self.ins.setdefault(slot, {}).setdefault(i, []).extend(ads)
+
+    def add_out(self, slot, i, ads):
+        if ads:
+            self.outs.setdefault(slot, {}).setdefault(i, []).extend(ads)
+
+    def attr(self, sizes):
+        if not (self.ins or self.outs or self.fold or self.flags):
+            return None
+        d = {"in": {s: {str(i): a for i, a in m.items()}
+                    for s, m in self.ins.items()},
+             "out": {s: {str(i): a for i, a in m.items()}
+                     for s, m in self.outs.items()}}
+        if self.fold:
+            d["fold"] = self.fold
+        d.update(self.flags)
+        d["sizes"] = dict(sizes)
+        return d
+
+
+class _RankAnalyzer(_Analyzer):
+    """The analyzer's walk over one model axis as each rank runs it.
+
+    The global walk above prices the layouts GSPMD gives the program (the
+    JAX package's partitioner). The port runs one process a rank and
+    each runs a rewrite of the program (parallel/model_parallel.py);
+    this walk is where that rewrite's layouts and collectives come from:
+
+    - each parameter is held as this rank's shard (`storage`): the
+      SpecLayout's split over the model axis, except a weight whose
+      product contracts over a split dim, which is held by its rows
+      (Megatron's row-parallel layer: `proj.w` and `fc2.w` of a
+      transformer). One pass finds every such weight, a second plans
+      with them;
+    - every forward var gets a layout over the model axis: whole (absent
+      from `lay`) or a `Split` (collective.Split: the dim it is cut on,
+      with the outer and inner factors a reshape that merges the dim
+      keeps). Each op's rule reads its inputs' layouts and records the
+      adapters that make them what it computes on (`adapters`, run
+      inside the op's autograd record, so the backward needs no
+      rewrite) and its outputs' layouts;
+    - each adapter is priced where it is placed, forward and backward,
+      in the bytes ops/collective.py counts for it, and so are the
+      collectives inside ring and Ulysses attention and the MoE FFN and
+      the data axes' gradient sync: the report's
+      collective_bytes_per_step is what a rank moves a step.
+
+    The layouts follow Megatron-LM's f/g scheme (arxiv 1909.08053), with
+    its sequence parallelism (arxiv 2205.05198) where the program carries
+    `sp` hints: a whole tensor that enters an op computing on blocks is
+    copied through f (its gradient all-reduced), a product over a split
+    contraction dim is a partial sum resolved by g (all-reduce) or, in
+    sequence-parallel mode, by a reduce-scatter over the sequence, and
+    an op that needs a whole tensor all-gathers it. An op without a rule
+    gathers every split input and runs whole on every rank (a PTV063
+    finding names it), so the rank program computes the global result
+    for any program. `fsdp` is a batch axis: a weight split on dim 0
+    over it is all-gathered before each use and its gradient
+    reduce-scattered."""
+
+    def __init__(self, program, layout, report, mesh, batch_axes=(),
+                 fetch_names=(), loss_name=None):
+        super().__init__(program, _MeshLayout(layout, mesh), report)
+        self.layout = layout
+        self.mesh = mesh
+        self.batch_axes = tuple(batch_axes)
+        self.fetch_names = tuple(fetch_names or ())
+        self.loss_name = loss_name
+        self.axis = self._model_axis(program, mesh, layout)
+        self.n = int(mesh.shape[self.axis]) if self.axis else 1
+        fa = getattr(layout, "fsdp_axis", None) if layout is not None \
+            else None
+        self.fsdp_axis = fa if fa and mesh.shape.get(fa, 1) > 1 else None
+        self.fsdp_n = int(mesh.shape[self.fsdp_axis]) \
+            if self.fsdp_axis else 1
+        self.fsdp_batch = self.fsdp_axis in self.batch_axes
+        self.nbatch = _prod([mesh.shape[a] for a in self.batch_axes
+                             if a in mesh.shape])
+        self.sp_mode = self.axis is not None and any(
+            op.type == "shard_hint" and self._hint_dim(op) == 1
+            for op in self.block.ops)
+        self.sizes = {str(ax): int(s) for ax, s in mesh.shape.items()}
+
+    # -- axes --------------------------------------------------------------
+    @staticmethod
+    def _model_axis(program, mesh, layout):
+        tp = getattr(layout, "model_axis", None) if layout is not None \
+            else None
+        if tp and mesh.shape.get(tp, 1) > 1:
+            return tp
+        wide = {a for a, s in mesh.shape.items() if s > 1}
+        for op in program.global_block().ops:
+            names = []
+            if op.type == "shard_hint":
+                for a in op.attrs.get("spec", []) or []:
+                    names.extend(a if isinstance(a, (list, tuple))
+                                 else [a])
+            elif op.type == "moe_ffn":
+                names.append(op.attrs.get("ep_axis", "ep"))
+            elif op.type in _SEQ_ATTENTION:
+                names.append(op.attrs.get("seq_axis", "sp"))
+            for a in names:
+                if a in wide and a != getattr(layout, "fsdp_axis", None) \
+                        and a not in (getattr(layout, "data_axis", None),
+                                      "dp"):
+                    return a
+        return None
+
+    def _hint_dim(self, op):
+        for d, a in enumerate(op.attrs.get("spec", []) or []):
+            names = a if isinstance(a, (list, tuple)) else [a]
+            if self.axis in names:
+                return d
+        return None
+
+    # -- the walk ----------------------------------------------------------
+    def run(self, feed_shapes=None, feed_names=()):
+        seed = None
+        if feed_shapes:
+            seed = {str(k): Spec(tuple(int(d) for d in s[0]), str(s[1]))
+                    for k, s in feed_shapes.items()}
+        self.specs = dict(program_specs(self.program, seed)[0])
+        self.params = {v.name: v for v in self.program.list_vars()
+                       if getattr(v, "is_parameter", False)}
+        self.grads = {n.split("@GRAD")[0]
+                      for b in self.program.blocks for n in b.vars
+                      if "@GRAD" in n}
+        self.rehold: set = set()
+        self.walks = 0
+        for _ in range(len(self.params) + 1):
+            self._want = set()
+            self._walk()
+            self.walks += 1
+            if self._want <= self.rehold:
+                break
+            self.rehold |= self._want
+        else:
+            raise RuntimeError(
+                f"model-parallel plan did not settle the weights held by "
+                f"their rows: {sorted(self._want - self.rehold)}")
+        for op_type, op_idx, op in self._gathered:
+            self._find("PTV063",
+                       f"no rank-program rule for {op_type!r}: its split "
+                       f"inputs are all-gathered and it runs whole on "
+                       f"every rank of {self.axis!r}", op=op, op_idx=op_idx)
+            if op_type not in self.report.uncovered:
+                self.report.uncovered.append(op_type)
+        if self._gathered:
+            STAT_ADD("parallel.mp_gathered_ops", len(self._gathered))
+        self._price()
+        return self.report
+
+    def _walk(self):
+        block = self.block
+        in_sub = set()
+        for b in self.program.blocks[1:]:
+            for op in b.ops:
+                in_sub.update(op.input_names())
+        self.storage: Dict[str, Optional[tuple]] = {}
+        self.fsdp_params: set = set()
+        moe_experts = set()
+        for op in block.ops:
+            if op.type == "moe_ffn" and \
+                    op.attrs.get("ep_axis", "ep") == self.axis:
+                for slot in ("W1", "B1", "W2", "B2"):
+                    moe_experts.update(op.inputs.get(slot, ()))
+        for name, v in self.params.items():
+            shape = tuple(v.shape or ())
+            sp = None
+            if name in in_sub:
+                pass
+            elif name in moe_experts:
+                if shape and shape[0] % self.n == 0:
+                    sp = Split(0)
+            elif self.axis and self.layout is not None and \
+                    self.axis == self.layout.model_axis:
+                spec = tuple(self.layout.param_spec(name, shape))
+                spec += (None,) * (len(shape) - len(spec))
+                if shape and spec[-1] == self.axis:
+                    sp = Split(0) if name in self.rehold else \
+                        Split(len(shape) - 1)
+                    if name in self.rehold and shape[0] % self.n:
+                        sp = None
+                elif shape and spec[0] == self.axis and \
+                        shape[0] % self.n == 0:
+                    sp = Split(0)
+            self.storage[name] = sp
+            if self.fsdp_axis and name not in in_sub:
+                spec = self.layout.param_spec(name, shape)
+                if spec and spec[0] == self.fsdp_axis:
+                    self.fsdp_params.add(name)
+        self.lay: Dict[str, tuple] = {
+            n: s for n, s in self.storage.items() if s is not None}
+        self.root: Dict[str, str] = {n: n for n in self.params}
+        self.adapters: Dict[int, _Ops] = {}
+        self.reshape_local: Dict[int, list] = {}
+        self.consumers: Dict[str, list] = {}
+        self._gathered = []
+        fwd = forward_ops(block)
+        for op in fwd:
+            for n in op.input_names():
+                self.consumers.setdefault(n, []).append(op)
+        index = {op.id: i for i, op in enumerate(block.ops)}
+        for op in fwd:
+            a = _Ops()
+            for slot, names in op.inputs.items():
+                for i, n in enumerate(names):
+                    if n in self.fsdp_params:
+                        a.add_in(slot, i, [["fsdp", self.fsdp_axis,
+                                            self.fsdp_batch,
+                                            1.0 / self.nbatch
+                                            if self.fsdp_batch else 1.0]])
+            if self.axis is None:
+                if op.type in _SEQ_ATTENTION or op.type == "moe_ffn":
+                    _RANK_RULES[op.type](self, op, a)
+            else:
+                rule = _RANK_RULES.get(op.type)
+                if rule is None:
+                    if op.type in _UNARY:
+                        rule = _RankAnalyzer._r_unary
+                    elif op.type in _BINARY:
+                        rule = _RankAnalyzer._r_binary
+                    else:
+                        if any(self.L(n) is not None
+                               for n in op.input_names()):
+                            self._gathered.append(
+                                (op.type, index[op.id], op))
+                        rule = _RankAnalyzer._r_generic
+                rule(self, op, a)
+            if a.attr(self.sizes) is not None:
+                self.adapters[op.id] = a
+
+    def attrs(self):
+        """{op id: the `_mp` attr of the op in the rank program}."""
+        return {i: a.attr(self.sizes) for i, a in self.adapters.items()}
+
+    # -- helpers of the rules ----------------------------------------------
+    def L(self, name):
+        return self.lay.get(name)
+
+    def shape(self, name):
+        v = self.block._find_var_recursive(name)
+        return tuple(v.shape or ()) if v is not None else ()
+
+    def floating(self, name):
+        v = self.block._find_var_recursive(name)
+        return v is None or "float" in str(v.dtype) or \
+            "bf16" in str(v.dtype)
+
+    def whole(self, name, sharded):
+        """Adapters that give an op the whole tensor: gathered if split,
+        and copied through f when the op computes on blocks."""
+        ads = []
+        sp = self.L(name)
+        if sp is not None:
+            ads.append(["gather", self.axis, _sp(sp)])
+        if sharded and self.floating(name):
+            ads.append(["f", self.axis])
+        return ads
+
+    def to_split(self, name, target):
+        """Adapters that give an op `target` (a Split, or None for whole,
+        then the op computes on blocks)."""
+        cur = self.L(name)
+        if target is None:
+            return self.whole(name, True)
+        if cur == target:
+            return []
+        ads = []
+        if cur is not None:
+            ads.append(["gather", self.axis, _sp(cur)])
+        ads.append(["scatter", self.axis, _sp(target)])
+        return ads
+
+    def split_of(self, shape, k):
+        """Split(k) when dim k divides the model axis, else None."""
+        if 0 <= k < len(shape) and shape[k] and shape[k] > 0 and \
+                shape[k] % self.n == 0:
+            return Split(k)
+        return None
+
+    def set_out(self, op, slot, sp, i=0):
+        names = op.outputs.get(slot, [])
+        if i < len(names) and names[i]:
+            if sp is None:
+                self.lay.pop(names[i], None)
+            else:
+                self.lay[names[i]] = sp
+
+    def resolve_partial(self, op, a, slot="Out"):
+        """The op's output is a partial sum: a reduce-scatter over the
+        sequence (dim 1 of a [b, t, d] activation) in sequence-parallel
+        mode, else an all-reduce (g)."""
+        name = op.outputs[slot][0]
+        shape = self.shape(name)
+        if self.sp_mode and len(shape) == 3 and \
+                self.split_of(shape, 1) is not None:
+            a.add_out(slot, 0, [["rs", self.axis, _sp(Split(1))]])
+            self.set_out(op, slot, Split(1))
+        else:
+            a.add_out(slot, 0, [["reduce", self.axis, 1.0]])
+            self.set_out(op, slot, None)
+
+    def needs_last_whole(self, name, depth=0):
+        """Whether `name` flows, through adds, casts, scales and
+        reshapes that keep its last dim, into an op that reads the last
+        dim whole (a vocabulary projection feeding the loss)."""
+        if depth > 6:
+            return False
+        last = self.shape(name)[-1:] or (None,)
+        for op in self.consumers.get(name, ()):
+            if op.type in _LAST_WHOLE:
+                return True
+            if op.type in _PASS:
+                for out in op.output_names():
+                    if out and self.shape(out)[-1:] == last and \
+                            self.needs_last_whole(out, depth + 1):
+                        return True
+        return False
+
+    # -- the rules ---------------------------------------------------------
+    def _r_generic(self, op, a):
+        """Gather every split input; the op runs whole on every rank."""
+        for slot, names in op.inputs.items():
+            for i, n in enumerate(names):
+                a.add_in(slot, i, self.whole(n, False) if self.L(n)
+                         else [])
+        for slot, names in op.outputs.items():
+            for i, _ in enumerate(names):
+                self.set_out(op, slot, None, i)
+
+    def _r_unary(self, op, a):
+        x = (op.inputs.get("X") or [None])[0]
+        if x is None:
+            return self._r_generic(op, a)
+        sp = self.L(x)
+        if x in self.root and op.type in ("cast", "scale", "assign"):
+            for n in op.output_names():
+                self.root[n] = self.root[x]
+        xs = self.shape(x)
+        for slot, names in op.outputs.items():
+            for i, n in enumerate(names):
+                same = n and self.shape(n) == xs
+                self.set_out(op, slot, sp if same else None, i)
+                if sp is not None and n and not same:
+                    # a side output of another shape: not split-aware
+                    return self._r_generic(op, a)
+        for slot, names in op.inputs.items():
+            for i, n in enumerate(names):
+                if n != x and self.floating(n) and sp is not None:
+                    a.add_in(slot, i, self.to_split(n, None))
+        if sp is not None and op.type == "dropout":
+            a.fold = self.axis
+
+    def _r_binary(self, op, a):
+        x, y = op.inputs["X"][0], op.inputs["Y"][0]
+        lx, ly = self.L(x), self.L(y)
+        xs, ys = self.shape(x), self.shape(y)
+        axis = op.attrs.get("axis", -1)
+        if lx is None and ly is None:
+            self.set_out(op, "Out", None)
+            return
+        if lx is not None and ly is not None and lx == ly and xs == ys:
+            self.set_out(op, "Out", lx)
+            return
+        if ly is not None and lx is None and xs == ys:
+            a.add_in("X", 0, self.to_split(x, ly))
+            self.set_out(op, "Out", ly)
+            return
+        if lx is not None and (ly is None or ly != lx):
+            if xs == ys:
+                a.add_in("Y", 0, self.to_split(y, lx))
+                self.set_out(op, "Out", lx)
+                return
+            off = len(xs) - len(ys) if axis in (-1, None) else axis
+            j = lx[0] - off
+            j = j if 0 <= j < len(ys) else None
+            if j is None or ys[j] == 1:
+                a.add_in("Y", 0, self.to_split(y, None))
+                self.set_out(op, "Out", lx)
+                return
+            if lx.pure() and ys[j] == xs[lx[0]]:
+                a.add_in("Y", 0, self.to_split(y, Split(j)))
+                self.set_out(op, "Out", lx)
+                return
+        self._r_generic(op, a)
+
+    def _r_mul(self, op, a):
+        x, y = op.inputs["X"][0], op.inputs["Y"][0]
+        xnc = int(op.attrs.get("x_num_col_dims", 1))
+        ync = int(op.attrs.get("y_num_col_dims", 1))
+        xs, ys = self.shape(x), self.shape(y)
+        out = op.outputs["Out"][0]
+        outs = self.shape(out)
+        lx, ly = self.L(x), self.L(y)
+        if len(ys) != 2 or ync != 1:
+            return self._r_generic(op, a)
+        col, row = Split(1), Split(0)
+        # a split contraction dim (X's last) wants the weight's rows split
+        if lx is not None and lx[0] >= xnc:
+            if lx.pure() and lx[0] == len(xs) - 1 and xnc == len(xs) - 1:
+                if ly == row:
+                    self.resolve_partial(op, a)
+                    return
+                root = self.root.get(y)
+                if ly == col and root in self.params and \
+                        root not in self.rehold and \
+                        self.storage.get(root) is not None and \
+                        self.shape(root)[0] % self.n == 0:
+                    # held by its rows in the next pass
+                    self._want.add(root)
+                if ly is None and self.split_of(ys, 0) is not None:
+                    a.add_in("Y", 0, self.to_split(y, row))
+                    self.resolve_partial(op, a)
+                    return
+            a.add_in("X", 0, [["gather", self.axis, _sp(lx)]])
+            lx = None
+        if ly is None and lx is None:
+            return self.set_out(op, "Out", None)
+        if ly is None:                       # X split on a row dim
+            a.add_in("Y", 0, self.to_split(y, None))
+            self.set_out(op, "Out", Split(lx[0], lx[1], lx[2]))
+            return
+        if ly == row:                        # a row-held weight
+            if lx is not None:
+                a.add_in("X", 0, [["gather", self.axis, _sp(lx)]])
+            xsplit = self.split_of(xs, len(xs) - 1)
+            if xsplit is None or xnc != len(xs) - 1:
+                a.add_in("Y", 0, self.whole(y, False))
+                return self.set_out(op, "Out", None)
+            a.add_in("X", 0, [["scatter", self.axis, _sp(xsplit)]])
+            self.resolve_partial(op, a)
+            return
+        if ly != col:
+            a.add_in("Y", 0, self.whole(y, lx is not None))
+            self.set_out(op, "Out", lx)
+            return
+        # a column-split weight
+        if self.needs_last_whole(out):
+            a.add_in("Y", 0, self.whole(y, lx is not None))
+            self.set_out(op, "Out", lx)
+            return
+        if lx is not None:
+            a.add_in("X", 0, [["gather", self.axis, _sp(lx)]])
+        if self.floating(x):
+            a.add_in("X", 0, [["f", self.axis]])
+        self.set_out(op, "Out", Split(len(outs) - 1))
+
+    def _r_reshape(self, op, a):
+        x = op.inputs["X"][0]
+        out = op.outputs["Out"][0]
+        sp = self.L(x)
+        if sp is None:
+            self.set_out(op, "Out", None)
+            if x in self.root:
+                self.root[out] = self.root[x]
+            return
+        new = remap_split(self.shape(x), self.shape(out), sp, self.n)
+        if new is None:
+            return self._r_generic(op, a)
+        self.set_out(op, "Out", new)
+        local = list(self.shape(out))
+        local[new[0]] //= self.n
+        self.reshape_local[op.id] = local
+
+    def _r_transpose(self, op, a):
+        x = op.inputs["X"][0]
+        sp = self.L(x)
+        if sp is None:
+            return self.set_out(op, "Out", None)
+        perm = list(op.attrs.get("axis") or op.attrs.get("perm") or [])
+        self.set_out(op, "Out", Split(perm.index(sp[0]), sp[1], sp[2]))
+
+    def _r_flash(self, op, a):
+        q, k, v = (op.inputs[s][0] for s in ("Q", "K", "V"))
+        lq, lk, lv = self.L(q), self.L(k), self.L(v)
+        if lq is not None and lq == lk == lv and lq.pure() and \
+                lq[0] in (0, 1):
+            return self.set_out(op, "Out", lq)
+        self._r_generic(op, a)
+
+    def _r_layer_norm(self, op, a):
+        x = op.inputs["X"][0]
+        sp = self.L(x)
+        xs = self.shape(x)
+        bna = int(op.attrs.get("begin_norm_axis", 1))
+        if sp is None or sp[0] >= bna:
+            return self._r_generic(op, a)
+        for slot in ("Scale", "Bias"):
+            for i, n in enumerate(op.inputs.get(slot, [])):
+                a.add_in(slot, i, self.to_split(n, None))
+        self.set_out(op, "Y", sp)
+        stat = Split(0, _prod(xs[:sp[0]]) * sp[1],
+                     sp[2] * _prod(xs[sp[0] + 1:bna]))
+        self.set_out(op, "Mean", stat)
+        self.set_out(op, "Variance", stat)
+
+    def _r_xent(self, op, a):
+        lg, lb = op.inputs["Logits"][0], op.inputs["Label"][0]
+        sp = self.L(lg)
+        xs = self.shape(lg)
+        if sp is None or sp[0] == len(xs) - 1:
+            return self._r_generic(op, a)
+        a.add_in("Label", 0, self.to_split(lb, sp))
+        self.set_out(op, "Softmax", sp)
+        self.set_out(op, "Loss", sp)
+
+    def _r_softmax(self, op, a):
+        x = op.inputs["X"][0]
+        sp = self.L(x)
+        axis = int(op.attrs.get("axis", -1)) % max(1, len(self.shape(x)))
+        if sp is None or sp[0] == axis:
+            return self._r_generic(op, a)
+        self.set_out(op, "Out", sp)
+
+    def _r_reduce(self, op, a):
+        x = op.inputs["X"][0]
+        if self.L(x) is None:
+            return self.set_out(op, "Out", None)
+        if op.type != "mean" and not op.attrs.get("reduce_all", False):
+            return self._r_generic(op, a)
+        scale = 1.0 / self.n if op.type in ("mean", "reduce_mean") \
+            else 1.0
+        a.add_out("Out", 0, [["reduce", self.axis, scale]])
+        self.set_out(op, "Out", None)
+
+    def _r_lookup(self, op, a):
+        w, ids = op.inputs["W"][0], op.inputs["Ids"][0]
+        lw, li = self.L(w), self.L(ids)
+        outs = self.shape(op.outputs["Out"][0])
+        if lw is None and li is None:
+            return self.set_out(op, "Out", None)
+        if lw == Split(1) and li is None:
+            return self.set_out(op, "Out", Split(len(outs) - 1))
+        if li is not None and li[0] < len(outs) - 1:
+            a.add_in("W", 0, self.whole(w, True))
+            return self.set_out(op, "Out", li)
+        self._r_generic(op, a)
+
+    def _r_shard_hint(self, op, a):
+        x = op.inputs["X"][0]
+        d = self._hint_dim(op)
+        target = None if d is None else self.split_of(self.shape(x), d)
+        if target is None:
+            if self.L(x) is not None:
+                a.add_in("X", 0, [["gather", self.axis, _sp(self.L(x))]])
+            return self.set_out(op, "Out", None)
+        a.add_in("X", 0, self.to_split(x, target))
+        self.set_out(op, "Out", target)
+
+    def _r_slice(self, op, a):
+        x = op.inputs["Input"][0]
+        sp = self.L(x)
+        if sp is None:
+            return self.set_out(op, "Out", None)
+        axes = [int(v) % len(self.shape(x))
+                for v in op.attrs.get("axes", [])]
+        if sp[0] in axes:
+            return self._r_generic(op, a)
+        self.set_out(op, "Out", sp)
+
+    def _r_concat_sum(self, op, a):
+        xs = op.inputs["X"]
+        lays = {self.L(n) for n in xs}
+        axis = int(op.attrs.get("axis", 0)) if op.type == "concat" \
+            else None
+        if len(lays) == 1:
+            sp = next(iter(lays))
+            if sp is None or axis is None or \
+                    axis % len(self.shape(xs[0])) != sp[0]:
+                return self.set_out(op, "Out", sp)
+        self._r_generic(op, a)
+
+    def _r_position(self, op, a):
+        x = op.inputs["X"][0]
+        sp = self.L(x)
+        if sp is None:
+            return self.set_out(op, "Out", None)
+        if sp[0] == 0 and sp.pure():
+            return self.set_out(op, "Out", sp)
+        self._r_generic(op, a)
+
+    def _r_seq_attention(self, op, a):
+        """Ring or Ulysses attention over its own seq axis: inputs
+        already split on the sequence over that axis run as the local
+        chunks; whole ones are chunked by the op itself."""
+        seq_axis = op.attrs.get("seq_axis", "sp")
+        q, k, v = (op.inputs[s][0] for s in ("Q", "K", "V"))
+        lays = {self.L(q), self.L(k), self.L(v)}
+        if seq_axis == self.axis and lays == {Split(2)}:
+            a.flags["chunked"] = True
+            return self.set_out(op, "Out", Split(2))
+        for s, n in (("Q", q), ("K", k), ("V", v)):
+            if self.L(n) is not None:
+                a.add_in(s, 0, [["gather", self.axis, _sp(self.L(n))]])
+        self.set_out(op, "Out", None)
+
+    def _r_moe(self, op, a):
+        """The MoE FFN over its own ep axis: expert weights held as this
+        rank's experts (dim 0); the op combines over ep itself."""
+        ep = op.attrs.get("ep_axis", "ep")
+        x = op.inputs["X"][0]
+        if self.L(x) is not None:
+            a.add_in("X", 0, [["gather", self.axis, _sp(self.L(x))]])
+        if ep == self.axis and all(
+                self.storage.get(op.inputs[s][0]) == Split(0)
+                for s in ("W1", "B1", "W2", "B2")):
+            a.flags["experts_local"] = True
+        self.set_out(op, "Out", None)
+        self.set_out(op, "Load", None)
+
+    # -- pricing -----------------------------------------------------------
+    def _bytes(self, name, split=None, fsdp=False):
+        """This rank's bytes of `name` held as `split` over the model
+        axis (and as its fsdp rows)."""
+        n = self._nbytes(name)
+        if split is not None:
+            n //= self.n
+        if fsdp:
+            n //= self.fsdp_n
+        return n
+
+    def _charge(self, kind, axis, nbytes, op_idx, op, note):
+        if nbytes > 0:
+            self._cost(kind, axis, nbytes, op_idx, op.type, note)
+
+    def _price_adapters(self, op, op_idx, a):
+        for side, table in (("in", a.ins), ("out", a.outs)):
+            slots = op.inputs if side == "in" else op.outputs
+            for slot, per in table.items():
+                names = slots.get(slot, [])
+                for i, ads in per.items():
+                    name = names[i] if i < len(names) else ""
+                    if not name:
+                        continue
+                    # the tensor the first adapter receives: an input as
+                    # the rank holds it, an output as the op computed it
+                    size = self._bytes(
+                        name, self.L(name) if side == "in" else None,
+                        side == "in" and name in self.fsdp_params)
+                    grad = name in self.grads and self.floating(name)
+                    for ad in ads:
+                        size = self._price_one(ad, size, grad, op, op_idx,
+                                               name)
+
+    def _price_one(self, ad, size, grad, op, op_idx, name):
+        """Charge one adapter on a tensor of `size` bytes; returns the
+        size of what it hands on. Forward and backward, as
+        ops/collective.py counts them: an all-gather its input piece, an
+        all-reduce and a reduce-scatter their whole input."""
+        kind, axis = ad[0], ad[1]
+        n = int(self.mesh.shape[axis])
+        if kind == "gather":
+            self._charge("all_gather", axis, size, op_idx, op,
+                         f"{name}: gathered")
+            return size * n
+        if kind == "f":
+            if grad:
+                self._charge("all_reduce", axis, size, op_idx, op,
+                             f"{name}: f's backward")
+            return size
+        if kind == "reduce":
+            self._charge("all_reduce", axis, size, op_idx, op,
+                         f"{name}: partial sums (g)")
+            return size
+        if kind == "scatter":
+            if grad:
+                self._charge("all_gather", axis, size // n, op_idx, op,
+                             f"{name}: scatter's backward")
+            return size // n
+        if kind == "rs":
+            self._charge("reduce_scatter", axis, size, op_idx, op,
+                         f"{name}: partial sums over the sequence")
+            if grad:
+                self._charge("all_gather", axis, size // n, op_idx, op,
+                             f"{name}: reduce-scatter's backward")
+            return size // n
+        if kind == "fsdp":
+            self._charge("all_gather", axis, size, op_idx, op,
+                         f"{name}: fsdp rows gathered")
+            if ad[2]:
+                self._charge("reduce_scatter", axis, size * n, op_idx, op,
+                             f"{name}: fsdp gradient")
+            return size * n
+        raise ValueError(f"unknown model-parallel adapter {ad!r}")
+
+    def _op_group_size(self, axis):
+        return int(self.mesh.shape.get(axis, 1)) if axis else 1
+
+    def _price_seq_attention(self, op, op_idx, a):
+        """Ring and Ulysses attention's own collectives. On whole inputs
+        the op scatters them (its backward gathers dq, dk and dv) and
+        gathers its output; the ring rotates K/V chunks n - 1 times and,
+        in the backward, K/V with the float32 dK/dV n - 1 times and dK/dV
+        once more; Ulysses on chunks trades sequence for heads with an
+        all-to-all each of q, k, v and the output (their gradients
+        alike); on whole inputs it runs on its own heads."""
+        axis = op.attrs.get("seq_axis", "sp")
+        n = self._op_group_size(axis)
+        if n <= 1:
+            return
+        q, k, v = (op.inputs[s][0] for s in ("Q", "K", "V"))
+        out = op.outputs["Out"][0]
+        chunked = a is not None and bool(a.flags.get("chunked"))
+        grad = any(x in self.grads for x in (q, k, v))
+        cq, ck, cv, co = (self._bytes(x) // n for x in (q, k, v, out))
+        if not chunked:
+            self._charge("all_gather", axis, co, op_idx, op,
+                         f"{out}: the rank's part gathered")
+            if grad:
+                self._charge("all_gather", axis, cq + ck + cv, op_idx, op,
+                             "dq, dk and dv gathered")
+        if op.type == "ring_attention":
+            self._charge("p2p", axis, (n - 1) * (ck + cv), op_idx, op,
+                         "K/V chunks around the ring")
+            if grad:
+                f32 = 4 * (ck // max(self._itemsize(k), 1))
+                self._charge("p2p", axis,
+                             (n - 1) * (ck + cv) + n * 2 * f32, op_idx, op,
+                             "K/V and the float32 dK/dV around the ring")
+        elif chunked:
+            self._charge("all_to_all", axis, cq + ck + cv + co, op_idx,
+                         op, "sequence traded for heads and back")
+            if grad:
+                self._charge("all_to_all", axis, cq + ck + cv + co,
+                             op_idx, op, "the gradients' all-to-alls")
+
+    def _itemsize(self, name):
+        spec = self._spec(name)
+        return 4 if spec is None else \
+            as_torch_dtype(spec.dtype).itemsize
+
+    def _price_moe(self, op, op_idx, a):
+        """The MoE FFN's own collectives (parallel/moe.py): f on x and
+        the gate (all-reduced gradients), then the dense sum over ep (g)
+        or the capacity dispatch's two all-to-alls (the combine's again
+        in the backward, the dispatch's where x has a gradient) and the
+        gather of each rank's rows; expert weights the rank does not hold
+        as its own are cut from the whole ones (their gradients
+        gathered)."""
+        axis = op.attrs.get("ep_axis", "ep")
+        n = self._op_group_size(axis)
+        if n <= 1:
+            return
+        x, gate = op.inputs["X"][0], op.inputs["GateW"][0]
+        sx = self._bytes(x)
+        if x in self.grads:
+            self._charge("all_reduce", axis, sx, op_idx, op,
+                         f"{x}: f's backward")
+        if gate in self.grads:
+            self._charge("all_reduce", axis, self._bytes(gate), op_idx,
+                         op, f"{gate}: f's backward")
+        if not (a is not None and a.flags.get("experts_local")):
+            for s in ("W1", "B1", "W2", "B2"):
+                w = op.inputs[s][0]
+                if w in self.grads:
+                    self._charge("all_gather", axis, self._bytes(w) // n,
+                                 op_idx, op, f"{w}: its experts' gradient")
+        cap = op.attrs.get("capacity")
+        if not cap:
+            self._charge("all_reduce", axis, sx, op_idx, op,
+                         "expert outputs summed over ep (g)")
+        else:
+            shape = self._spec(x).shape
+            e = int(self._spec(gate).shape[-1])
+            slots = e * int(cap) * int(shape[-1]) * self._itemsize(x)
+            self._charge("all_to_all", axis, 2 * slots, op_idx, op,
+                         "dispatch and combine")
+            self._charge("all_to_all", axis,
+                         slots * (2 if x in self.grads else 1), op_idx, op,
+                         "the backward's all-to-alls")
+            self._charge("all_gather", axis, sx // n, op_idx, op,
+                         "each rank's rows gathered")
+        bax = op.attrs.get("batch_axis", "dp")
+        if self._op_group_size(bax) > 1:
+            self._charge("all_reduce", bax, self._itemsize(x), op_idx, op,
+                         "the load averaged over the batch")
+
+    def _price(self):
+        self.env = {}
+        for name, sp in self.lay.items():
+            r = len(self.shape(name))
+            if sp[0] < r:
+                self.env[name] = tuple(self.axis if d == sp[0] else None
+                                       for d in range(r))
+        for op_idx, op in enumerate(self.block.ops):
+            a = self.adapters.get(op.id)
+            if a is not None:
+                self._price_adapters(op, op_idx, a)
+            if op.type in _SEQ_ATTENTION:
+                self._price_seq_attention(op, op_idx, a)
+            elif op.type == "moe_ffn":
+                self._price_moe(op, op_idx, a)
+            self._emit_row(op, op_idx)
+        self._price_batch_sync()
+        self._price_fetches()
+
+    def _price_fetches(self):
+        """A fetch held split is gathered whole (its fsdp rows, then its
+        model-axis blocks), and the loss averaged over the data axes."""
+        end = len(self.block.ops)
+        for name in self.fetch_names:
+            base = name.split("@GRAD")[0]
+            sp = self.lay.get(base) or self.storage.get(base)
+            size = self._bytes(name)
+            if base in self.fsdp_params:
+                size //= self.fsdp_n
+                self._cost("all_gather", self.fsdp_axis, size, end,
+                           "fetch", f"{name}: fetched whole")
+                size *= self.fsdp_n
+            if sp is not None and self.axis is not None:
+                self._cost("all_gather", self.axis, size // self.n, end,
+                           "fetch", f"{name}: fetched whole")
+            spec = self._spec(name)
+            if self.nbatch > 1 and name == self.loss_name and spec and \
+                    _prod(spec.shape) == 1:
+                self._cost("all_reduce", ",".join(self.batch_axes), size,
+                           end, "fetch", f"{name}: averaged over the batch")
+
+    def _price_batch_sync(self):
+        """The data axes' gradient sync (parallel/data_parallel.py): each
+        gradient the rewrite has not reduced all-reduced (or, where ZeRO
+        holds the accumulators, reduce-scattered) whole, and ZeRO's
+        parameters all-gathered from their rows."""
+        if self.nbatch <= 1:
+            return
+        axis = ",".join(a for a in self.batch_axes
+                        if self.mesh.shape.get(a, 1) > 1)
+        synced = {p for p in self.fsdp_params} if self.fsdp_batch \
+            else set()
+        layout = self.layout
+        dp = int(getattr(layout, "dp", 1) or 1) if layout is not None \
+            else 1
+        for op_idx, op in enumerate(self.block.ops):
+            if not is_update(op):
+                continue
+            p = op.inputs["Param"][0]
+            if p not in self.params or p in synced or \
+                    p not in self.grads:
+                continue
+            own = self._bytes(p, self.storage.get(p),
+                              p in self.fsdp_params)
+            self._charge("grad_sync", axis, own, op_idx, op,
+                         f"{p}@GRAD: per-step gradient sync")
+            if dp > 1 and hasattr(layout, "_is_zero_accumulator") and \
+                    not (getattr(layout, "fsdp_axis", None)
+                         and layout.fsdp > 1):
+                accs = [nm for slot, names in op.inputs.items()
+                        if slot not in ("Param", "Grad") for nm in names
+                        if nm and layout._is_zero_accumulator(nm)]
+                shape = self.shape(p)
+                if accs and shape and shape[0] % dp == 0 and \
+                        op.type not in ("lamb", "lars_momentum"):
+                    self._charge("all_gather", axis, own // dp, op_idx,
+                                 op, f"{p}: ZeRO rows gathered")
+
+
+_RANK_RULES = {
+    "mul": _RankAnalyzer._r_mul,
+    "reshape2": _RankAnalyzer._r_reshape,
+    "reshape": _RankAnalyzer._r_reshape,
+    "transpose2": _RankAnalyzer._r_transpose,
+    "transpose": _RankAnalyzer._r_transpose,
+    "flash_attention": _RankAnalyzer._r_flash,
+    "layer_norm": _RankAnalyzer._r_layer_norm,
+    "softmax_with_cross_entropy": _RankAnalyzer._r_xent,
+    "softmax": _RankAnalyzer._r_softmax,
+    "mean": _RankAnalyzer._r_reduce,
+    "reduce_sum": _RankAnalyzer._r_reduce,
+    "reduce_mean": _RankAnalyzer._r_reduce,
+    "lookup_table_v2": _RankAnalyzer._r_lookup,
+    "shard_hint": _RankAnalyzer._r_shard_hint,
+    "slice": _RankAnalyzer._r_slice,
+    "concat": _RankAnalyzer._r_concat_sum,
+    "sum": _RankAnalyzer._r_concat_sum,
+    "add_position_encoding": _RankAnalyzer._r_position,
+    "ring_attention": _RankAnalyzer._r_seq_attention,
+    "ulysses_attention": _RankAnalyzer._r_seq_attention,
+    "moe_ffn": _RankAnalyzer._r_moe,
+}
+
+
+def remap_split(in_shape, out_shape, sp, n):
+    """The Split of a reshape's output from its input's, or None where
+    the split does not stay one block a rank (the rank walk's
+    counterpart of _remap_reshape, which keeps only a group's leading
+    dim: a Split keeps a merged dim's outer and inner factors)."""
+    if any(d is None or d <= 0 for d in in_shape) or \
+            any(d is None or d <= 0 for d in out_shape):
+        return None
+    k, o, i = sp
+    s = in_shape[k] // (o * i)
+    a = _prod(in_shape[:k]) * o            # elements' index before S
+    if s % n:
+        return None
+    for j in range(len(out_shape)):
+        before = _prod(out_shape[:j])
+        if a % before:
+            return None
+        upto = before * out_shape[j]
+        if upto % (a * s) == 0:
+            # dim j holds all of S (and maybe its neighbours)
+            outer = a // before
+            inner = upto // (a * s)
+            if outer * s * inner != out_shape[j]:
+                return None
+            return Split(j, outer, inner)
+        if before == a and s % out_shape[j] == 0 and \
+                out_shape[j] % n == 0:
+            # dim j is S's leading factor (heads of [.., h * hd]): a
+            # rank's run of S is a run of dim j
+            return Split(j)
+    return None
+
+
+def plan_rank_sharding(program, mesh, layout, batch_axes=(),
+                       feed_shapes: Optional[Dict] = None, fetch_names=(),
+                       loss_name=None):
+    """The rank walk of `program` on `mesh` (a Mesh of ranks) under
+    `layout` -> a ShardingReport whose `rank` holds the walk's layouts,
+    held splits and adapters (parallel/model_parallel.py builds the rank
+    program from them) and whose costs are the collectives a rank runs
+    a step, its fetches' included. `program` is the rank's batch
+    (parallel/data_parallel.py's local_program where the batch is
+    split)."""
+    report = ShardingReport(program, _MeshLayout(layout, mesh))
+    walk = _RankAnalyzer(program, layout, report, mesh, batch_axes,
+                         fetch_names, loss_name)
+    walk.run(feed_shapes=feed_shapes)
+    report.rank = walk
+    return report
+
+
+class _MeshLayout:
+    """The report's view of a rank walk's mesh (a layout may be None)."""
+
+    def __init__(self, layout, mesh):
+        self.mesh = mesh
+        self.fallbacks = list(getattr(layout, "fallbacks", ()) or ())
+
+
 def analyze_program_sharding(
         program, layout, feed_names: Iterable[str] = (),
         fetch_names: Iterable[str] = (),
@@ -1141,13 +2158,16 @@ def _mesh_dims_from_flags():
 
 
 def sharding_gate(program, layout=None, feed_shapes: Optional[Dict] = None,
-                  fetch_names=None, where="executor"
+                  fetch_names=None, where="executor", rank=None
                   ) -> Optional[ShardingReport]:
     """The FLAGS_sharding_verify gate: off | warn (default) | error.
 
     Engages only when a layout is in scope: an explicit SpecLayout (the
     sharded-exec path passes the CompiledProgram's state_spec_fn), or a
-    device-free one built from FLAGS_sharded_mesh. Analyzes once per
+    device-free one built from FLAGS_sharded_mesh. A model-parallel run
+    passes `rank` = (mesh, batch axes, loss name) with its rank's
+    program and feed shapes, and the gate prices the rank walk (`plan_rank_sharding`):
+    the collectives the rank program runs. Analyzes once per
     (fingerprint, mesh, feed shapes, fetches) and memoizes; in 'error'
     mode PTV060 layout-inconsistent findings raise
     ProgramVerificationError — callers place this BEFORE the
@@ -1168,7 +2188,12 @@ def sharding_gate(program, layout=None, feed_shapes: Optional[Dict] = None,
     from ..parallel.layout import MeshDims, SpecLayout
     if not isinstance(layout, SpecLayout):
         layout = None
-    if layout is not None:
+    if rank is not None:
+        mesh, batch_axes, loss_name = rank
+        mesh_sig = ("rank", tuple((str(a), int(mesh.shape[a]))
+                                  for a in mesh.axis_names),
+                    tuple(batch_axes), id(layout), loss_name)
+    elif layout is not None:
         mesh_sig = tuple((str(a), int(layout.mesh.shape[a]))
                          for a in layout.mesh.axis_names)
     else:
@@ -1188,14 +2213,19 @@ def sharding_gate(program, layout=None, feed_shapes: Optional[Dict] = None,
             _GATE_MEMO.move_to_end(key)
     fresh = report is None
     if fresh:
-        if layout is None:
-            layout = SpecLayout(MeshDims(mesh_sig[1]))
-        report = analyze_program_sharding(
-            program, layout,
-            feed_names=[n for n, _, _ in shapes_sig],
-            fetch_names=key[3],
-            feed_shapes=dict((n, (shp, dt))
-                             for n, shp, dt in shapes_sig))
+        shapes = dict((n, (shp, dt)) for n, shp, dt in shapes_sig)
+        if rank is not None:
+            report = plan_rank_sharding(program, mesh, layout, batch_axes,
+                                        feed_shapes=shapes,
+                                        fetch_names=key[3],
+                                        loss_name=loss_name)
+        else:
+            if layout is None:
+                layout = SpecLayout(MeshDims(mesh_sig[1]))
+            report = analyze_program_sharding(
+                program, layout,
+                feed_names=[n for n, _, _ in shapes_sig],
+                fetch_names=key[3], feed_shapes=shapes)
         with _MEMO_LOCK:
             _GATE_MEMO[key] = report
             while len(_GATE_MEMO) > _MEMO_CAP:

@@ -135,6 +135,10 @@ class Executor:
         # after each step to attribute fetch time to the request spans
         # of the slots in flight.
         self.last_step_timings: Optional[Dict[str, float]] = None
+        # the sharding gate's report of the most recent run() (None with
+        # FLAGS_sharding_verify=off or no layout in scope); of a
+        # model-parallel run, the rank program's priced collectives
+        self.last_sharding_report = None
         self._last_feed_s = 0.0
 
     def run(self, program: Optional[Program] = None, feed=None,
@@ -162,14 +166,27 @@ class Executor:
         global_sig = self.feed_signature(program.global_block(), feed)
         rows = (0, 0)
         layout = compiled.layout() if compiled is not None else None
-        sharding_gate(program, layout=layout, feed_shapes=global_sig,
-                      fetch_names=fetch_names, where="executor")
+        gate_prog = program
         if dp is not None:
             from .parallel.data_parallel import local_program
             feed, rows = self._split_feed(compiled, feed)
             if rows[0] != rows[1]:
                 program = local_program(program, rows[1], rows[0])
         mp = self._model_parallel(compiled, program)
+        if mp is None:
+            self.last_sharding_report = sharding_gate(
+                gate_prog, layout=layout, feed_shapes=global_sig,
+                fetch_names=fetch_names, where="executor")
+        else:
+            # the rank walk the rewrite was built from, priced on this
+            # rank's feeds: the collectives the rank program runs
+            self.last_sharding_report = sharding_gate(
+                program, layout=layout,
+                feed_shapes=self.feed_signature(program.global_block(),
+                                                feed),
+                fetch_names=fetch_names, where="executor",
+                rank=(compiled.mesh(), compiled._batch_axes,
+                      compiled._loss_name))
         mesh_ctx = contextlib.nullcontext
         if mp is not None:
             from .parallel.mesh import mesh_context

@@ -49,7 +49,7 @@ from typing import Dict, List
 
 import torch
 
-from ..core.registry import REGISTRY
+from ..analysis.sharding import is_update as _is_update
 from ..monitor import STAT_ADD
 from ..ops import collective as coll
 
@@ -113,11 +113,6 @@ def local_program(program, total, local):
         while len(_LOCAL_MEMO) > _LOCAL_CAP:
             _LOCAL_MEMO.popitem(last=False)
     return out
-
-
-def _is_update(op) -> bool:
-    return (REGISTRY.has(op.type) and REGISTRY.get(op.type).inplace
-            and "Param" in op.inputs and "Grad" in op.inputs)
 
 
 class DataParallelPlan:

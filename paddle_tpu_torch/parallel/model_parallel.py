@@ -6,33 +6,25 @@ SpecLayout gives every parameter a PartitionSpec (the last dim of a
 matrix over `tp`, dim 0 over `fsdp`), `shard_hint` pins an activation,
 and the partitioner inserts the collectives. The port runs one process a
 rank, so it rewrites the global program into this rank's program once
-per (program, mesh, rank) and runs that:
+per (program, mesh, rank) and runs that.
 
-- each parameter and its optimizer accumulators hold this rank's shard
-  (`storage`): the SpecLayout's tp split, except a weight whose product
-  contracts over a split dim, which is held split on its rows (Megatron's
-  row-parallel layer: `proj.w` and `fc2.w` of a transformer). Checkpoints
-  still write the SpecLayout's spec (io_sharded.py);
-- a forward walk gives every var a layout over the model axis: whole on
-  every rank (None) or a `Split` (collective.Split: the dim it is cut
-  on). Each op's rule reads its inputs' layouts and says how to adapt
-  them and what its outputs are; the adapters run inside the op's
-  lowering, under its autograd record, so the op's `grad::generic`
+The sharding analyzer's rank walk (analysis/sharding.py,
+`plan_rank_sharding`) decides everything: which shard of each parameter
+the rank holds (Megatron's row-held `proj.w` and `fc2.w` among them),
+the layout of every var over the model axis, and the adapters each op
+runs on its inputs and outputs (f, g, all-gathers, reduce-scatters,
+fsdp gathers), each priced where it is placed. This module turns that
+plan into the rank program:
+
+- each op's adapters become its `_mp` attr; core/lowering runs them
+  inside the op's autograd record, so the op's `grad::generic`
   differentiates through them and the backward needs no rewrite;
 - the declared shapes of the split vars (their gradients and XShapes
-  too) and the `shape` attrs of the reshapes read local sizes.
-
-The layouts follow Megatron-LM's f/g scheme (arxiv 1909.08053), with its
-sequence parallelism (arxiv 2205.05198) where the program carries `sp`
-hints: a whole tensor that enters an op computing on blocks is copied
-through f (its gradient all-reduced), a product over a split contraction
-dim is a partial sum resolved by g (all-reduce) or, in sequence-parallel
-mode, by a reduce-scatter over the sequence, and an op that needs a
-whole tensor all-gathers it. An op without a rule gathers every split
-input and runs whole on every rank, so the rank program computes the JAX
-package's global result for any program; the rules make the common
-ones local. `fsdp` is a batch axis: a weight split on dim 0 over it is
-all-gathered before each use and its gradient reduce-scattered.
+  too), the reshapes' `shape` attrs and the parameters' accumulators
+  read local sizes;
+- the scope's state is cut to this rank's shards on the first run, and
+  fetches and checkpoints gather them back (`gather_param`).
+Checkpoints still write the SpecLayout's spec (io_sharded.py).
 
 Dropout on a split activation draws a different mask on each rank (the
 op's seed folded with the rank), and the same mask on every rank for a
@@ -40,7 +32,6 @@ whole one: neither is the single-rank run's mask (ROADMAP §C).
 """
 from __future__ import annotations
 
-import math
 import threading
 import weakref
 from collections import OrderedDict
@@ -48,7 +39,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..core.registry import REGISTRY
+from ..analysis.sharding import forward_ops, is_update as _is_update
 from ..ops import collective as coll
 from ..ops.collective import Split
 
@@ -57,334 +48,30 @@ __all__ = ["ModelParallelPlan", "plan_for", "apply_adapters", "MP_ATTR",
 
 MP_ATTR = "_mp"
 
-_UNARY = frozenset({
-    "cast", "scale", "gelu", "relu", "tanh", "sigmoid", "dropout", "exp",
-    "log", "sqrt", "rsqrt", "square", "abs", "softsign", "leaky_relu",
-    "elu", "swish", "silu", "relu6", "clip", "assign", "pow", "erf",
-    "softplus", "hard_sigmoid", "hard_swish", "brelu", "logsigmoid",
-    "sin", "cos", "floor", "ceil", "round", "reciprocal", "sign",
-    "fill_any_like", "fill_zeros_like", "stanh", "thresholded_relu",
-    "tanh_shrink", "softshrink", "hard_shrink", "mish"})
-_BINARY = frozenset({
-    "elementwise_add", "elementwise_sub", "elementwise_mul",
-    "elementwise_div", "elementwise_max", "elementwise_min",
-    "elementwise_pow"})
-# ops that read their input's last dim whole
-_LAST_WHOLE = frozenset({"softmax_with_cross_entropy", "softmax",
-                         "layer_norm", "log_softmax"})
-# ops a weight's product passes through on its way to one of those
-_PASS = frozenset({"elementwise_add", "cast", "scale", "reshape2",
-                   "reshape"})
-_SEQ_ATTENTION = frozenset({"ring_attention", "ulysses_attention"})
-
-
-class _Rehold(Exception):
-    """A product contracts over a dim split like the weight's columns:
-    hold that weight split on its rows and plan again."""
-
-    def __init__(self, name):
-        super().__init__(name)
-        self.name = name
-
-
-def _prod(xs):
-    return int(math.prod(int(x) for x in xs))
-
-
-def _is_update(op):
-    return (REGISTRY.has(op.type) and REGISTRY.get(op.type).inplace
-            and "Param" in op.inputs and "Grad" in op.inputs)
-
-
-def forward_ops(block):
-    """The block's forward ops: everything before the first grad op, the
-    loss-gradient seed or the first update."""
-    out = []
-    for op in block.ops:
-        if op.type == "grad::generic" or _is_update(op):
-            break
-        names = [n for n in op.output_names() if n]
-        if op.type in ("fill_any_like", "fill_constant") and names and \
-                all("@GRAD" in n for n in names):
-            break
-        out.append(op)
-    return out
-
-
-def _sp(v):
-    return None if v is None else [int(v[0]), int(v[1]), int(v[2])]
-
-
-class _Ops:
-    """One op's adapters while it is planned."""
-
-    def __init__(self):
-        self.ins: Dict[str, Dict[int, list]] = {}
-        self.outs: Dict[str, Dict[int, list]] = {}
-        self.fold = False
-        self.flags = {}
-
-    def add_in(self, slot, i, ads):
-        if ads:
-            self.ins.setdefault(slot, {}).setdefault(i, []).extend(ads)
-
-    def add_out(self, slot, i, ads):
-        if ads:
-            self.outs.setdefault(slot, {}).setdefault(i, []).extend(ads)
-
-    def attr(self):
-        if not (self.ins or self.outs or self.fold or self.flags):
-            return None
-        d = {"in": {s: {str(i): a for i, a in m.items()}
-                    for s, m in self.ins.items()},
-             "out": {s: {str(i): a for i, a in m.items()}
-                     for s, m in self.outs.items()}}
-        if self.fold:
-            d["fold"] = self.fold
-        d.update(self.flags)
-        return d
-
-    def with_sizes(self, sizes):
-        d = self.attr()
-        if d is not None:
-            d["sizes"] = dict(sizes)
-        return d
-
 
 class ModelParallelPlan:
-    """This rank's program of `program` on `mesh` (see the module doc).
+    """This rank's program of `program` on `mesh` (see the module doc),
+    from the analyzer's rank walk (`report.rank`).
 
     `axis` is the model axis the layouts split over: `tp` when it has
     more than one rank, else the axis the program's hints or its
-    sequence-parallel or MoE ops name. `fsdp` (and `fsdp_batch`: whether
-    the batch is split over it) shards weights on dim 0."""
+    sequence-parallel or MoE ops name. `fsdp_axis` (and `fsdp_batch`:
+    whether the batch is split over it) shards weights on dim 0."""
 
     def __init__(self, program, mesh, layout, batch_axes=()):
+        from ..analysis.sharding import plan_rank_sharding
         self.mesh = mesh
         self.layout = layout
         self.batch_axes = tuple(batch_axes)
-        self.axis = self._model_axis(program, mesh, layout)
-        self.n = int(mesh.shape[self.axis]) if self.axis else 1
-        fa = getattr(layout, "fsdp_axis", None) if layout is not None \
-            else None
-        self.fsdp_axis = fa if fa and mesh.shape.get(fa, 1) > 1 else None
-        self.fsdp_n = int(mesh.shape[self.fsdp_axis]) \
-            if self.fsdp_axis else 1
-        self.fsdp_batch = self.fsdp_axis in self.batch_axes
-        self.nbatch = _prod(mesh.shape[a] for a in self.batch_axes
-                            if a in mesh.shape) if self.batch_axes else 1
-        block = program.global_block()
-        self.sp_mode = self.axis is not None and any(
-            op.type == "shard_hint" and self._hint_dim(op) == 1
-            for op in block.ops)
-        self.rehold: set = set()
-        for _ in range(64):
-            try:
-                self._plan(program)
-                break
-            except _Rehold as r:
-                if r.name in self.rehold:
-                    raise
-                self.rehold.add(r.name)
+        self.report = plan_rank_sharding(program, mesh, layout,
+                                         self.batch_axes)
+        walk = self.report.rank
+        for k in ("axis", "n", "fsdp_axis", "fsdp_n", "fsdp_batch",
+                  "nbatch", "sp_mode", "params", "storage", "fsdp_params",
+                  "lay", "reshape_local", "rehold"):
+            setattr(self, k, getattr(walk, k))
+        self.attrs = walk.attrs()
         self.program = self._rank_program(program)
-
-    # -- axes --------------------------------------------------------------
-    @staticmethod
-    def _model_axis(program, mesh, layout):
-        tp = getattr(layout, "model_axis", None) if layout is not None \
-            else None
-        if tp and mesh.shape.get(tp, 1) > 1:
-            return tp
-        wide = {a for a, s in mesh.shape.items() if s > 1}
-        for op in program.global_block().ops:
-            names = []
-            if op.type == "shard_hint":
-                for a in op.attrs.get("spec", []) or []:
-                    names.extend(a if isinstance(a, (list, tuple))
-                                 else [a])
-            elif op.type == "moe_ffn":
-                names.append(op.attrs.get("ep_axis", "ep"))
-            elif op.type in _SEQ_ATTENTION:
-                names.append(op.attrs.get("seq_axis", "sp"))
-            for a in names:
-                if a in wide and a != getattr(layout, "fsdp_axis", None) \
-                        and a not in (getattr(layout, "data_axis", None),
-                                      "dp"):
-                    return a
-        return None
-
-    def _hint_dim(self, op):
-        for d, a in enumerate(op.attrs.get("spec", []) or []):
-            names = a if isinstance(a, (list, tuple)) else [a]
-            if self.axis in names:
-                return d
-        return None
-
-    # -- planning ----------------------------------------------------------
-    def _plan(self, program):
-        block = program.global_block()
-        self.block = block
-        self.params = {v.name: v for v in program.list_vars()
-                       if getattr(v, "is_parameter", False)}
-        in_sub = set()
-        for b in program.blocks[1:]:
-            for op in b.ops:
-                in_sub.update(op.input_names())
-        self.storage: Dict[str, Optional[Split]] = {}
-        self.fsdp_params: set = set()
-        moe_experts = set()
-        for op in block.ops:
-            if op.type == "moe_ffn" and \
-                    op.attrs.get("ep_axis", "ep") == self.axis:
-                for slot in ("W1", "B1", "W2", "B2"):
-                    moe_experts.update(op.inputs.get(slot, ()))
-        for name, v in self.params.items():
-            shape = tuple(v.shape or ())
-            sp = None
-            if name in in_sub:
-                pass
-            elif name in moe_experts:
-                if shape and shape[0] % self.n == 0:
-                    sp = Split(0)
-            elif self.axis and self.layout is not None and \
-                    self.axis == self.layout.model_axis:
-                spec = tuple(self.layout.param_spec(name, shape))
-                spec += (None,) * (len(shape) - len(spec))
-                if shape and spec[-1] == self.axis:
-                    sp = Split(0) if name in self.rehold else \
-                        Split(len(shape) - 1)
-                    if name in self.rehold and shape[0] % self.n:
-                        sp = None
-                elif shape and spec[0] == self.axis and \
-                        shape[0] % self.n == 0:
-                    sp = Split(0)
-            self.storage[name] = sp
-            if self.fsdp_axis and name not in in_sub:
-                spec = self.layout.param_spec(name, shape)
-                if spec and spec[0] == self.fsdp_axis:
-                    self.fsdp_params.add(name)
-        self.lay: Dict[str, Optional[Split]] = {
-            n: s for n, s in self.storage.items() if s is not None}
-        self.root: Dict[str, str] = {n: n for n in self.params}
-        self.attrs: Dict[int, dict] = {}
-        self.reshape_local: Dict[int, list] = {}
-        self.consumers: Dict[str, list] = {}
-        fwd = forward_ops(block)
-        for op in fwd:
-            for n in op.input_names():
-                self.consumers.setdefault(n, []).append(op)
-        for op in fwd:
-            a = _Ops()
-            for slot, names in op.inputs.items():
-                for i, n in enumerate(names):
-                    if n in self.fsdp_params:
-                        a.add_in(slot, i, [["fsdp", self.fsdp_axis,
-                                            self.fsdp_batch,
-                                            1.0 / self.nbatch
-                                            if self.fsdp_batch else 1.0]])
-            if self.axis is None:
-                self._rule_trivial(op, a)
-            else:
-                rule = _RULES.get(op.type)
-                if rule is None:
-                    rule = _rule_unary if op.type in _UNARY else \
-                        _rule_binary if op.type in _BINARY else \
-                        _rule_generic
-                rule(self, op, a)
-            attr = a.with_sizes({ax: int(s) for ax, s in
-                                 self.mesh.shape.items()})
-            if attr is not None:
-                self.attrs[op.id] = attr
-
-    # helpers used by the rules
-    def L(self, name):
-        return self.lay.get(name)
-
-    def shape(self, name):
-        v = self.block._find_var_recursive(name)
-        return tuple(v.shape or ()) if v is not None else ()
-
-    def floating(self, name):
-        v = self.block._find_var_recursive(name)
-        return v is None or "float" in str(v.dtype) or \
-            "bf16" in str(v.dtype)
-
-    def whole(self, name, sharded):
-        """Adapters that give an op the whole tensor: gathered if split,
-        and copied through f when the op computes on blocks."""
-        ads = []
-        sp = self.L(name)
-        if sp is not None:
-            ads.append(["gather", self.axis, _sp(sp)])
-        if sharded and self.floating(name):
-            ads.append(["f", self.axis])
-        return ads
-
-    def to_split(self, name, target):
-        """Adapters that give an op `target` (a Split, or None for whole,
-        then the op computes on blocks)."""
-        cur = self.L(name)
-        if target is None:
-            return self.whole(name, True)
-        if cur == target:
-            return []
-        ads = []
-        if cur is not None:
-            ads.append(["gather", self.axis, _sp(cur)])
-        ads.append(["scatter", self.axis, _sp(target)])
-        return ads
-
-    def split_of(self, shape, k):
-        """Split(k) when dim k divides the model axis, else None."""
-        if 0 <= k < len(shape) and shape[k] and shape[k] > 0 and \
-                shape[k] % self.n == 0:
-            return Split(k)
-        return None
-
-    def set_out(self, op, slot, sp, i=0):
-        names = op.outputs.get(slot, [])
-        if i < len(names) and names[i]:
-            if sp is None:
-                self.lay.pop(names[i], None)
-            else:
-                self.lay[names[i]] = sp
-
-    def resolve_partial(self, op, a, slot="Out"):
-        """The op's output is a partial sum: a reduce-scatter over the
-        sequence (dim 1 of a [b, t, d] activation) in sequence-parallel
-        mode, else an all-reduce."""
-        name = op.outputs[slot][0]
-        shape = self.shape(name)
-        if self.sp_mode and len(shape) == 3 and \
-                self.split_of(shape, 1) is not None:
-            a.add_out(slot, 0, [["rs", self.axis, _sp(Split(1))]])
-            self.set_out(op, slot, Split(1))
-        else:
-            a.add_out(slot, 0, [["reduce", self.axis, 1.0]])
-            self.set_out(op, slot, None)
-
-    def needs_last_whole(self, name, depth=0):
-        """Whether `name` flows, through adds, casts, scales and
-        reshapes that keep its last dim, into an op that reads the last
-        dim whole (a vocabulary projection feeding the loss)."""
-        if depth > 6:
-            return False
-        last = self.shape(name)[-1:] or (None,)
-        for op in self.consumers.get(name, ()):
-            if op.type in _LAST_WHOLE:
-                return True
-            if op.type in _PASS:
-                for out in op.output_names():
-                    if out and self.shape(out)[-1:] == last and \
-                            self.needs_last_whole(out, depth + 1):
-                        return True
-        return False
-
-    def _rule_trivial(self, op, a):
-        """No model axis splits a layout (a replicated program around
-        sequence-parallel attention or MoE on its own axis)."""
-        if op.type in _SEQ_ATTENTION or op.type == "moe_ffn":
-            _RULES[op.type](self, op, a)
 
     # -- the rank program --------------------------------------------------
     def _rank_program(self, program):
@@ -404,11 +91,15 @@ class ModelParallelPlan:
                                 s if s in (0, -1) else loc
                                 for s, loc in zip(attrs["shape"], local)]
         # local declared shapes: split vars, their gradients and XShapes
+        grads: Dict[str, list] = {}
+        for v in block.vars.values():
+            if "@GRAD" in v.name:
+                grads.setdefault(v.name.split("@GRAD")[0], []).append(
+                    v.name)
         split = dict(self.lay)
         for name, sp in list(split.items()):
-            for v in block.vars.values():
-                if v.name.startswith(name + "@GRAD"):
-                    split.setdefault(v.name, sp)
+            for g in grads.get(name, ()):
+                split.setdefault(g, sp)
         for op in forward_ops(block):
             if op.type in ("reshape2", "transpose2", "squeeze2",
                            "unsqueeze2"):
@@ -427,8 +118,7 @@ class ModelParallelPlan:
                 shape[k] //= n
                 v.shape = tuple(shape)
         for name in self.fsdp_params:
-            for vn in [name] + [v.name for v in block.vars.values()
-                                if v.name.startswith(name + "@GRAD")]:
+            for vn in [name] + grads.get(name, []):
                 v = block._find_var_recursive(vn)
                 if v is not None and v.shape:
                     v.shape = (v.shape[0] // self.fsdp_n, *v.shape[1:])
@@ -581,382 +271,6 @@ class RankLayout:
         if lay._is_zero_accumulator(name) and shape[0] % self.dp == 0:
             return self.dp
         return 1
-
-
-# -- the rules ----------------------------------------------------------------
-
-def _rule_generic(plan, op, a):
-    """Gather every split input; the op runs whole on every rank."""
-    for slot, names in op.inputs.items():
-        for i, n in enumerate(names):
-            a.add_in(slot, i, plan.whole(n, False) if plan.L(n) else [])
-    for slot, names in op.outputs.items():
-        for i, _ in enumerate(names):
-            plan.set_out(op, slot, None, i)
-
-
-def _rule_unary(plan, op, a):
-    x = (op.inputs.get("X") or [None])[0]
-    if x is None:
-        return _rule_generic(plan, op, a)
-    sp = plan.L(x)
-    if x in plan.root and op.type in ("cast", "scale", "assign"):
-        for n in op.output_names():
-            plan.root[n] = plan.root[x]
-    xs = plan.shape(x)
-    for slot, names in op.outputs.items():
-        for i, n in enumerate(names):
-            same = n and plan.shape(n) == xs
-            plan.set_out(op, slot, sp if same else None, i)
-            if sp is not None and n and not same:
-                # a side output of another shape: not split-aware
-                return _rule_generic(plan, op, a)
-    for slot, names in op.inputs.items():
-        for i, n in enumerate(names):
-            if n != x and plan.floating(n) and sp is not None:
-                a.add_in(slot, i, plan.to_split(n, None))
-    if sp is not None and op.type == "dropout":
-        a.fold = plan.axis
-
-
-def _bcast_dim(xshape, yshape, axis, k):
-    """Y's dim that lines up with X's dim k under the elementwise ops'
-    `axis` broadcast, or None where Y has no such dim."""
-    off = len(xshape) - len(yshape) if axis in (-1, None) else axis
-    j = k - off
-    return j if 0 <= j < len(yshape) else None
-
-
-def _rule_binary(plan, op, a):
-    x, y = op.inputs["X"][0], op.inputs["Y"][0]
-    lx, ly = plan.L(x), plan.L(y)
-    xs, ys = plan.shape(x), plan.shape(y)
-    axis = op.attrs.get("axis", -1)
-    if lx is None and ly is None:
-        plan.set_out(op, "Out", None)
-        return
-    if lx is not None and ly is not None and lx == ly and xs == ys:
-        plan.set_out(op, "Out", lx)
-        return
-    if ly is not None and lx is None and xs == ys:
-        a.add_in("X", 0, plan.to_split(x, ly))
-        plan.set_out(op, "Out", ly)
-        return
-    if lx is not None and (ly is None or ly != lx):
-        if xs == ys:
-            a.add_in("Y", 0, plan.to_split(y, lx))
-            plan.set_out(op, "Out", lx)
-            return
-        j = _bcast_dim(xs, ys, axis, lx[0])
-        if j is None or ys[j] == 1:
-            a.add_in("Y", 0, plan.to_split(y, None))
-            plan.set_out(op, "Out", lx)
-            return
-        if lx.pure() and ys[j] == xs[lx[0]]:
-            a.add_in("Y", 0, plan.to_split(y, Split(j)))
-            plan.set_out(op, "Out", lx)
-            return
-    _rule_generic(plan, op, a)
-
-
-def _rule_mul(plan, op, a):
-    x, y = op.inputs["X"][0], op.inputs["Y"][0]
-    xnc = int(op.attrs.get("x_num_col_dims", 1))
-    ync = int(op.attrs.get("y_num_col_dims", 1))
-    xs, ys = plan.shape(x), plan.shape(y)
-    out = op.outputs["Out"][0]
-    outs = plan.shape(out)
-    lx, ly = plan.L(x), plan.L(y)
-    if len(ys) != 2 or ync != 1:
-        return _rule_generic(plan, op, a)
-    col = Split(1)
-    row = Split(0)
-    # a split contraction dim (X's last) wants the weight's rows split
-    if lx is not None and lx[0] >= xnc:
-        if lx.pure() and lx[0] == len(xs) - 1 and xnc == len(xs) - 1:
-            if ly == row:
-                plan.resolve_partial(op, a)
-                return
-            root = plan.root.get(y)
-            if ly == col and root in plan.params and \
-                    root not in plan.rehold and \
-                    plan.storage.get(root) is not None and \
-                    plan.shape(root)[0] % plan.n == 0:
-                raise _Rehold(root)
-            if ly is None and plan.split_of(ys, 0) is not None:
-                a.add_in("Y", 0, plan.to_split(y, row))
-                plan.resolve_partial(op, a)
-                return
-        a.add_in("X", 0, [["gather", plan.axis, _sp(lx)]])
-        lx = None
-    if ly is None and lx is None:
-        return plan.set_out(op, "Out", None)
-    if ly is None:                       # X split on a row dim
-        a.add_in("Y", 0, plan.to_split(y, None))
-        plan.set_out(op, "Out", Split(lx[0], lx[1], lx[2]))
-        return
-    if ly == row:                        # a row-held weight
-        if lx is not None:
-            a.add_in("X", 0, [["gather", plan.axis, _sp(lx)]])
-        xsplit = plan.split_of(xs, len(xs) - 1)
-        if xsplit is None or xnc != len(xs) - 1:
-            a.add_in("Y", 0, plan.whole(y, False))
-            return plan.set_out(op, "Out", None)
-        a.add_in("X", 0, [["scatter", plan.axis, _sp(xsplit)]])
-        plan.resolve_partial(op, a)
-        return
-    if ly != col:
-        a.add_in("Y", 0, plan.whole(y, lx is not None))
-        plan.set_out(op, "Out", lx)
-        return
-    # a column-split weight
-    if plan.needs_last_whole(out):
-        a.add_in("Y", 0, plan.whole(y, lx is not None))
-        plan.set_out(op, "Out", lx)
-        return
-    if lx is not None:
-        a.add_in("X", 0, [["gather", plan.axis, _sp(lx)]])
-    if plan.floating(x):
-        a.add_in("X", 0, [["f", plan.axis]])
-    plan.set_out(op, "Out", Split(len(outs) - 1))
-
-
-def _map_reshape(in_shape, out_shape, sp, n):
-    """The Split of a reshape's output from its input's, or None where
-    the split does not stay one block a rank."""
-    if any(d is None or d <= 0 for d in in_shape) or \
-            any(d is None or d <= 0 for d in out_shape):
-        return None
-    k, o, i = sp
-    s = in_shape[k] // (o * i)
-    a = _prod(in_shape[:k]) * o            # elements' index before S
-    if s % n:
-        return None
-    for j in range(len(out_shape)):
-        before = _prod(out_shape[:j])
-        if a % before:
-            return None
-        upto = before * out_shape[j]
-        if upto % (a * s) == 0:
-            # dim j holds all of S (and maybe its neighbours)
-            outer = a // before
-            inner = upto // (a * s)
-            if outer * s * inner != out_shape[j]:
-                return None
-            return Split(j, outer, inner)
-        if before == a and s % out_shape[j] == 0 and \
-                out_shape[j] % n == 0:
-            # dim j is S's leading factor (heads of [.., h * hd]): a
-            # rank's run of S is a run of dim j
-            return Split(j)
-    return None
-
-
-def _rule_reshape(plan, op, a):
-    x = op.inputs["X"][0]
-    out = op.outputs["Out"][0]
-    sp = plan.L(x)
-    if sp is None:
-        plan.set_out(op, "Out", None)
-        if x in plan.root:
-            plan.root[out] = plan.root[x]
-        return
-    new = _map_reshape(plan.shape(x), plan.shape(out), sp, plan.n)
-    if new is None:
-        return _rule_generic(plan, op, a)
-    plan.set_out(op, "Out", new)
-    local = list(plan.shape(out))
-    local[new[0]] //= plan.n
-    plan.reshape_local[op.id] = local
-
-
-def _rule_transpose(plan, op, a):
-    x = op.inputs["X"][0]
-    sp = plan.L(x)
-    if sp is None:
-        return plan.set_out(op, "Out", None)
-    perm = list(op.attrs.get("axis") or op.attrs.get("perm") or [])
-    plan.set_out(op, "Out", Split(perm.index(sp[0]), sp[1], sp[2]))
-
-
-def _rule_flash(plan, op, a):
-    q, k, v = (op.inputs[s][0] for s in ("Q", "K", "V"))
-    lq, lk, lv = plan.L(q), plan.L(k), plan.L(v)
-    if lq is not None and lq == lk == lv and lq.pure() and lq[0] in (0, 1):
-        return plan.set_out(op, "Out", lq)
-    _rule_generic(plan, op, a)
-
-
-def _rule_layer_norm(plan, op, a):
-    x = op.inputs["X"][0]
-    sp = plan.L(x)
-    xs = plan.shape(x)
-    bna = int(op.attrs.get("begin_norm_axis", 1))
-    if sp is None or sp[0] >= bna:
-        return _rule_generic(plan, op, a)
-    for slot in ("Scale", "Bias"):
-        for i, n in enumerate(op.inputs.get(slot, [])):
-            a.add_in(slot, i, plan.to_split(n, None))
-    plan.set_out(op, "Y", sp)
-    stat = Split(0, _prod(xs[:sp[0]]) * sp[1],
-                 sp[2] * _prod(xs[sp[0] + 1:bna]))
-    plan.set_out(op, "Mean", stat)
-    plan.set_out(op, "Variance", stat)
-
-
-def _rule_xent(plan, op, a):
-    lg, lb = op.inputs["Logits"][0], op.inputs["Label"][0]
-    sp = plan.L(lg)
-    xs = plan.shape(lg)
-    if sp is None or sp[0] == len(xs) - 1:
-        return _rule_generic(plan, op, a)
-    a.add_in("Label", 0, plan.to_split(lb, sp))
-    plan.set_out(op, "Softmax", sp)
-    plan.set_out(op, "Loss", sp)
-
-
-def _rule_softmax(plan, op, a):
-    x = op.inputs["X"][0]
-    sp = plan.L(x)
-    axis = int(op.attrs.get("axis", -1)) % max(1, len(plan.shape(x)))
-    if sp is None or sp[0] == axis:
-        return _rule_generic(plan, op, a)
-    plan.set_out(op, "Out", sp)
-
-
-def _rule_mean(plan, op, a):
-    x = op.inputs["X"][0]
-    if plan.L(x) is None:
-        return plan.set_out(op, "Out", None)
-    a.add_out("Out", 0, [["reduce", plan.axis, 1.0 / plan.n]])
-    plan.set_out(op, "Out", None)
-
-
-def _rule_reduce(plan, op, a):
-    x = op.inputs["X"][0]
-    if plan.L(x) is None:
-        return plan.set_out(op, "Out", None)
-    if not op.attrs.get("reduce_all", False):
-        return _rule_generic(plan, op, a)
-    scale = 1.0 / plan.n if op.type == "reduce_mean" else 1.0
-    a.add_out("Out", 0, [["reduce", plan.axis, scale]])
-    plan.set_out(op, "Out", None)
-
-
-def _rule_lookup(plan, op, a):
-    w, ids = op.inputs["W"][0], op.inputs["Ids"][0]
-    lw, li = plan.L(w), plan.L(ids)
-    out = op.outputs["Out"][0]
-    outs = plan.shape(out)
-    if lw is None and li is None:
-        return plan.set_out(op, "Out", None)
-    if lw == Split(1) and li is None:
-        return plan.set_out(op, "Out", Split(len(outs) - 1))
-    if li is not None and li[0] < len(outs) - 1:
-        a.add_in("W", 0, plan.whole(w, True))
-        return plan.set_out(op, "Out", li)
-    _rule_generic(plan, op, a)
-
-
-def _rule_shard_hint(plan, op, a):
-    x = op.inputs["X"][0]
-    d = plan._hint_dim(op)
-    target = None if d is None else plan.split_of(plan.shape(x), d)
-    if target is None:
-        if plan.L(x) is not None:
-            a.add_in("X", 0, [["gather", plan.axis, _sp(plan.L(x))]])
-        return plan.set_out(op, "Out", None)
-    a.add_in("X", 0, plan.to_split(x, target))
-    plan.set_out(op, "Out", target)
-
-
-def _rule_slice(plan, op, a):
-    x = op.inputs["Input"][0]
-    sp = plan.L(x)
-    if sp is None:
-        return plan.set_out(op, "Out", None)
-    axes = [int(v) % len(plan.shape(x)) for v in op.attrs.get("axes", [])]
-    if sp[0] in axes:
-        return _rule_generic(plan, op, a)
-    plan.set_out(op, "Out", sp)
-
-
-def _rule_concat_sum(plan, op, a):
-    xs = op.inputs["X"]
-    lays = {plan.L(n) for n in xs}
-    axis = int(op.attrs.get("axis", 0)) if op.type == "concat" else None
-    if len(lays) == 1:
-        sp = next(iter(lays))
-        if sp is None or axis is None or \
-                axis % len(plan.shape(xs[0])) != sp[0]:
-            return plan.set_out(op, "Out", sp)
-    _rule_generic(plan, op, a)
-
-
-def _rule_position(plan, op, a):
-    x = op.inputs["X"][0]
-    sp = plan.L(x)
-    if sp is None:
-        return plan.set_out(op, "Out", None)
-    if sp[0] == 0 and sp.pure():
-        return plan.set_out(op, "Out", sp)
-    _rule_generic(plan, op, a)
-
-
-def _rule_seq_attention(plan, op, a):
-    """Ring or Ulysses attention over its own seq axis: inputs already
-    split on the sequence over that axis run as the local chunks;
-    whole ones are chunked by the op itself."""
-    seq_axis = op.attrs.get("seq_axis", "sp")
-    q, k, v = (op.inputs[s][0] for s in ("Q", "K", "V"))
-    lays = {plan.L(q), plan.L(k), plan.L(v)}
-    if seq_axis == plan.axis and lays == {Split(2)}:
-        a.flags["chunked"] = True
-        return plan.set_out(op, "Out", Split(2))
-    for s, n in (("Q", q), ("K", k), ("V", v)):
-        if plan.L(n) is not None:
-            a.add_in(s, 0, [["gather", plan.axis, _sp(plan.L(n))]])
-    plan.set_out(op, "Out", None)
-
-
-def _rule_moe(plan, op, a):
-    """The MoE FFN over its own ep axis: expert weights held as this
-    rank's experts (dim 0); the op combines over ep itself."""
-    ep = op.attrs.get("ep_axis", "ep")
-    x = op.inputs["X"][0]
-    if plan.L(x) is not None:
-        a.add_in("X", 0, [["gather", plan.axis, _sp(plan.L(x))]])
-    if ep == plan.axis and all(
-            plan.storage.get(op.inputs[s][0]) == Split(0)
-            for s in ("W1", "B1", "W2", "B2")):
-        a.flags["experts_local"] = True
-    plan.set_out(op, "Out", None)
-    plan.set_out(op, "Load", None)
-
-
-_RULES = {
-    "mul": _rule_mul,
-    "reshape2": _rule_reshape,
-    "reshape": _rule_reshape,
-    "transpose2": _rule_transpose,
-    "transpose": _rule_transpose,
-    "flash_attention": _rule_flash,
-    "layer_norm": _rule_layer_norm,
-    "softmax_with_cross_entropy": _rule_xent,
-    "softmax": _rule_softmax,
-    "mean": _rule_mean,
-    "reduce_sum": _rule_reduce,
-    "reduce_mean": _rule_reduce,
-    "lookup_table_v2": _rule_lookup,
-    "shard_hint": _rule_shard_hint,
-    "slice": _rule_slice,
-    "concat": _rule_concat_sum,
-    "sum": _rule_concat_sum,
-    "add_position_encoding": _rule_position,
-    "ring_attention": _rule_seq_attention,
-    "ulysses_attention": _rule_seq_attention,
-    "moe_ffn": _rule_moe,
-}
 
 
 # -- applying the adapters ----------------------------------------------------

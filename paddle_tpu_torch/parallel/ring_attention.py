@@ -201,11 +201,12 @@ def _whole(q, k, v, causal, sm_scale):
     return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
-def seq_parallel_attention_op(local_fn):
+def seq_parallel_attention_op(local_fn, whole_fn=None):
     """The op body shared by ring and Ulysses attention: chunks given by
-    the model-parallel rewrite run as they are, whole inputs are chunked
-    here, and a mesh without the seq axis (or one rank on it) runs
-    flash attention over the whole T."""
+    the model-parallel rewrite run as they are, whole inputs go through
+    `whole_fn` (default: chunked here, the output gathered), and a mesh
+    without the seq axis (or one rank on it) runs flash attention over
+    the whole T."""
 
     def _op(ctx, ins, attrs):
         from .mesh import get_mesh, world
@@ -224,6 +225,8 @@ def seq_parallel_attention_op(local_fn):
                                       scale)
         if getattr(ctx, "mp", {}).get("chunked"):
             return {"Out": [fn(q, k, v)]}
+        if whole_fn is not None:
+            return {"Out": [whole_fn(q, k, v, group, causal, scale)]}
         return {"Out": [_global_run(fn, q, k, v, group)]}
     return _op
 

@@ -96,6 +96,18 @@ def build_serving_engine(args):
         predictor=create_paddle_predictor(config))
 
 
+_EMIT_LOCK = threading.Lock()
+
+
+def _emit(rec):
+    """Print one JSON record as one line. The kv hook runs on the HTTP
+    server's request threads: a plain print writes the text and its
+    newline apart, so two threads could put two records on one line."""
+    with _EMIT_LOCK:
+        sys.stdout.write(json.dumps(rec) + "\n")
+        sys.stdout.flush()
+
+
 def kv_digest_hook(route, gen, req, out):
     """ServingHTTPServer.kv_hook that prints a transfer's row digest."""
     from paddle_tpu_torch.serving import disagg, kv_wire
@@ -111,7 +123,7 @@ def kv_digest_hook(route, gen, req, out):
                "chain_tail": hashes[-1] if hashes else None,
                "sha256": d["sha256"], "adopted": out["adopted"],
                "duplicate": out["duplicate"]}
-    print(json.dumps(rec), flush=True)
+    _emit(rec)
 
 
 def parse_args(argv=None):
@@ -185,10 +197,9 @@ def main(argv=None):
         with open(tmp, "w") as f:
             f.write(str(port))
         os.replace(tmp, args.port_file)  # atomic: readers never see ""
-    print(json.dumps({"kind": "replica_ready", "pid": os.getpid(),
-                      "port": port, "url": f"http://{args.host}:{port}",
-                      "predict": engine is not None,
-                      "generate": gen is not None}), flush=True)
+    _emit({"kind": "replica_ready", "pid": os.getpid(), "port": port,
+           "url": f"http://{args.host}:{port}",
+           "predict": engine is not None, "generate": gen is not None})
 
     while not stop_evt.wait(0.2):
         pass
@@ -201,8 +212,7 @@ def main(argv=None):
         engine.stop(drain=True)
     if args.trace_out:
         trace.export_jsonl(args.trace_out, trace.drain_spans())
-    print(json.dumps({"kind": "replica_exit", "pid": os.getpid()}),
-          flush=True)
+    _emit({"kind": "replica_exit", "pid": os.getpid()})
     return 0
 
 

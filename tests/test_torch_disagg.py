@@ -353,3 +353,36 @@ def test_admission_waits_for_the_kv_mutex(trained):
     finally:
         eng.stop()
     assert held and all(held)
+
+
+def test_replica_records_stay_one_a_line_across_threads(capsys):
+    """The replica's kv hook prints from the HTTP server's request
+    threads: records printed at once by many threads still come out one
+    JSON object a line (a plain print writes the text and its newline
+    apart)."""
+    import json
+    import sys
+    import threading
+    from paddle_tpu_torch.serving import replica
+
+    def emit(i):
+        for j in range(1000):
+            replica._emit({"kind": "kv_export", "thread": i, "n": j,
+                           "sha256": "0" * 64})
+    threads = [threading.Thread(target=emit, args=(i,)) for i in range(8)]
+    # switch threads as often as the interpreter can: a print's two
+    # writes then part often
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(interval)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 8 * 1000
+    recs = [json.loads(ln) for ln in lines]
+    assert sorted((r["thread"], r["n"]) for r in recs) == \
+        [(i, j) for i in range(8) for j in range(1000)]

@@ -168,3 +168,13 @@ def test_moe_program_over_ep2_matches_jax(pool, capacity):
         w1 = [s for n, s in shapes.items() if n.endswith(".w1")]
         gate = [s for n, s in shapes.items() if n.endswith(".gate_w")]
         assert w1 == [(2, 16, 32)] and gate == [(16, 4)]
+
+
+@pytest.mark.parametrize("kind", ["moe_dense", "moe_sparse"])
+def test_priced_collectives_are_the_moved_bytes(pool, kind):
+    """The MoE program over ep2, dense and at capacity 12: the sharding
+    gate's price of the rank program (f's gradient all-reduces, the sum
+    over ep or the dispatch and combine all-to-alls) equals, to the
+    byte, what the rank's collectives moved in its second step."""
+    for moved, priced, kinds in pool.run(jobs.priced_and_moved, kind):
+        assert priced == moved, kinds

@@ -31,6 +31,7 @@ def _jax(scheme, q, k, v, do, causal, mesh_axes=("sp",)):
     mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2), mesh_axes)
     fn = ring_attention_sharded if scheme == "ring" else \
         ulysses_attention_sharded
+
     @jax.jit
     def run(a, b_, c, g):
         out, vjp = jax.vjp(lambda a_, b2, c_: fn(a_, b2, c_, mesh, "sp",
@@ -41,13 +42,15 @@ def _jax(scheme, q, k, v, do, causal, mesh_axes=("sp",)):
     return [np.asarray(out)] + [np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("scheme", ["ring", "ulysses"])
+@pytest.mark.parametrize("scheme", ["ring", "ulysses", "ulysses_chunks"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_seq_parallel_attention_matches_jax(pool, scheme, causal):
     """Output and dQ/dK/dV of the whole [2, 4, 64, 16] inputs over sp2
-    within 2e-5 of the JAX package's, on both ranks."""
+    within 2e-5 of the JAX package's, on both ranks: Ulysses on whole
+    inputs (each rank on its own heads) and on sequence chunks (its
+    all-to-alls)."""
     q, k, v, do = _inputs()
-    want = _jax(scheme, q, k, v, do, causal)
+    want = _jax(scheme.split("_")[0], q, k, v, do, causal)
     for got in pool.run(jobs.seq_attention, scheme, q, k, v, do, causal):
         for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
             np.testing.assert_allclose(g, w, atol=2e-5, rtol=0,
@@ -117,3 +120,15 @@ def test_long_context_program_matches_jax(pool, scheme):
             for _ in range(4)]
     for got in pool.run(jobs.long_context_train, scheme, init, 4):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("scheme", ["ring", "ulysses", "ring_bf16",
+                                    "ulysses_bf16"])
+def test_priced_collectives_are_the_moved_bytes(pool, scheme):
+    """The long-context program over sp2, float32 and with q, k and v in
+    bf16: the sharding gate's price of the rank program (the ring's K/V
+    and float32 dK/dV hops, the chunking of whole inputs; Ulysses on its
+    own heads) equals, to the byte, what the rank's collectives moved in
+    its second step."""
+    for moved, priced, kinds in pool.run(jobs.priced_and_moved, scheme):
+        assert priced == moved, kinds

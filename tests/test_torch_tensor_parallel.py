@@ -209,3 +209,90 @@ def test_planner_prices_hints_and_the_rank_programs_buffers():
             layout=RankLayout(layout, plan))
     assert rank.device_charges["collective_buffers"] > 0
     assert rank.device_peak_bytes < peaks[True]
+
+
+@pytest.mark.parametrize("kind", ["bert_tp_sp", "bert_tp", "nmt_tp_sp",
+                                  "bert_fsdp"])
+def test_priced_collectives_are_the_moved_bytes(pool, kind):
+    """A model-parallel run's sharding gate prices the analyzer's rank
+    walk, the plan its rank program was built from: the bytes it charges
+    a step equal, to the byte, what the rank's collectives moved in its
+    second step (the adapters forward and backward, the gradient sync
+    and the fetches)."""
+    for moved, priced, kinds in pool.run(jobs.priced_and_moved, kind):
+        assert priced == moved, kinds
+
+
+def test_gpt_dp2_tp2_priced_collectives_are_the_moved_bytes(pool4):
+    """The same on the composed dp2 x tp2 mesh, ZeRO's gradient
+    reduce-scatter and parameter all-gather included."""
+    for moved, priced, kinds in pool4.run(jobs.priced_and_moved,
+                                          "gpt_dp2tp2"):
+        assert priced == moved, kinds
+
+
+def test_deep_model_plans_every_row_held_weight(pool):
+    """34 layers at tp2: one walk finds every weight whose product
+    contracts over a split dim, a second plans with all of them held by
+    their rows, and each layer's products get layer 0's adapters. One
+    step's loss and the last layer's updated FFN-out weight equal the
+    port's one-process run."""
+    import paddle_tpu_torch as ft
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import ModelParallelPlan
+    layers = 34
+    main, startup, loss, _ = jobs.tiny_model(ft, "bert", tp=True, sp=True,
+                                             layers=layers)
+    mesh = mesh_from_spec("1,2")
+    plan = ModelParallelPlan(main, mesh, SpecLayout(mesh).add_program(main),
+                             ("dp",))
+    assert plan.rehold == {f"layer_{i}.{w}" for i in range(layers)
+                           for w in ("att.proj.w", "ffn.fc2.w")}
+    assert plan.report.rank.walks == 2
+    muls = [plan.attrs.get(op.id) for op in main.global_block().ops
+            if op.type == "mul"]
+    per_layer = (len(muls) - 1) // layers       # the MLM head's last
+    first = [json_of(a) for a in muls[:per_layer]]
+    for i in range(layers):
+        assert [json_of(a) for a in
+                muls[i * per_layer:(i + 1) * per_layer]] == first, i
+
+    scope = ft.Scope()
+    exe = ft.Executor(ft.CPUPlace())
+    exe.run(startup, scope=scope)
+    init = {v.name: scope.get_numpy(v.name) for v in main.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+    want = float(exe.run(main, feed=jobs.mp_feeds("bert"),
+                         fetch_list=[loss], scope=scope)[0])
+    w = scope.get_numpy(f"layer_{layers - 1}.ffn.fc2.w")
+    for got, got_w in pool.run(jobs.deep_tp_step, init, layers):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got_w, w, rtol=1e-4, atol=1e-5)
+
+
+def json_of(attr):
+    import json
+    return json.dumps(attr, sort_keys=True)
+
+
+def test_an_op_without_a_rank_rule_is_named():
+    """An op the rank walk has no rule for (reduce_max) gathers its
+    split input and runs whole on every rank; the report names it: a
+    PTV063 finding and the op type among `uncovered`."""
+    import paddle_tpu_torch as ft
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import ModelParallelPlan
+    main, startup = ft.Program(), ft.Program()
+    with ft.program_guard(main, startup), ft.unique_name.guard():
+        x = ft.layers.data("x", shape=[8, 16], dtype="float32",
+                           append_batch_size=False)
+        h = ft.layers.fc(x, size=32)
+        ft.layers.mean(ft.layers.reduce_max(h, dim=1))
+    mesh = mesh_from_spec("1,2")
+    plan = ModelParallelPlan(main, mesh, SpecLayout(mesh).add_program(main),
+                             ("dp",))
+    assert plan.report.uncovered == ["reduce_max"]
+    found = [d for d in plan.report.result.findings if d.rule == "PTV063"]
+    assert len(found) == 1 and "reduce_max" in found[0].message
+    op = [o for o in main.global_block().ops if o.type == "reduce_max"][0]
+    assert plan.attrs[op.id]["in"]["X"]["0"][0][0] == "gather"

@@ -301,13 +301,14 @@ def staged_all_reduce():
 
 # -- model parallelism ----------------------------------------------------------
 
-def tiny_model(ptt, kind, tp=False, sp=False, amp=False):
+def tiny_model(ptt, kind, tp=False, sp=False, amp=False, layers=2):
     """(main, startup, loss, feed names) of a tiny transformer built by
     `ptt`: "bert" (transformer.build_train), "nmt" (nmt.build_train) or
-    "gpt" (gpt.build_train), 2 layers, d 64, 4 heads, dropout 0, with
-    the tp/sp hints (sp over the tp axis) when asked."""
+    "gpt" (gpt.build_train), 2 layers (or `layers`), d 64, 4 heads,
+    dropout 0, with the tp/sp hints (sp over the tp axis) when asked."""
     from importlib import import_module
-    kw = dict(vocab_size=96, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+    kw = dict(vocab_size=96, d_model=64, n_heads=4, n_layers=layers,
+              d_ff=128,
               dropout=0.0, attn_dropout=0.0, tp=tp, sp=sp, sp_axis="tp",
               use_flash=False)
     main, startup = ptt.Program(), ptt.Program()
@@ -443,14 +444,24 @@ def mp_dropout_masks():
 def seq_attention(scheme, q, k, v, do, causal):
     """(out, dq, dk, dv) of `scheme` ("ring" or "ulysses") attention over
     a mesh sp2 on whole [b, h, T, d] inputs, differentiated against the
-    cotangent `do`."""
+    cotangent `do`; "ulysses_chunks" hands Ulysses each rank's sequence
+    chunk (its all-to-all path) and gathers the output."""
     import torch
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.ops.collective import Split
     from paddle_tpu_torch.parallel.mesh import make_mesh
     from paddle_tpu_torch.parallel import ring_attention as ra
     from paddle_tpu_torch.parallel import ulysses as ul
     mesh = make_mesh((2,), ("sp",))
-    fn = ra.ring_attention_sharded if scheme == "ring" else \
-        ul.ulysses_attention_sharded
+
+    def chunks(a, b, c, mesh_, axis, causal):
+        g = mesh_.group(axis)
+        parts = (coll.scatter_to(x, g, Split(2)) for x in (a, b, c))
+        return coll.gather_from(ul.ulysses_attention(*parts, g, causal),
+                                g, Split(2))
+    fn = {"ring": ra.ring_attention_sharded,
+          "ulysses": ul.ulysses_attention_sharded,
+          "ulysses_chunks": chunks}[scheme]
     qt, kt, vt = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     out = fn(qt, kt, vt, mesh, "sp", causal=causal)
     grads = torch.autograd.grad(out, (qt, kt, vt), torch.tensor(do))
@@ -470,9 +481,11 @@ def ulysses_refuses_odd_heads():
     return None
 
 
-def long_context(ptt, scheme, batch=2, t=64, d=32, heads=4, vocab=64):
+def long_context(ptt, scheme, batch=2, t=64, d=32, heads=4, vocab=64,
+                 bf16=False):
     """examples/long_context.py's program built by `ptt` with `scheme`
-    attention (ring or ulysses), Adam."""
+    attention (ring or ulysses), Adam; with `bf16`, q, k and v cast to
+    bfloat16 around the attention op (as the card's cell runs it)."""
     main, startup = ptt.Program(), ptt.Program()
     main.random_seed = startup.random_seed = 11
     L = ptt.layers
@@ -489,12 +502,15 @@ def long_context(ptt, scheme, batch=2, t=64, d=32, heads=4, vocab=64):
 
         def heads_first(x):
             x = L.reshape(x, shape=[batch, t, heads, d // heads])
-            return L.transpose(x, perm=[0, 2, 1, 3])
+            x = L.transpose(x, perm=[0, 2, 1, 3])
+            return L.cast(x, "bfloat16") if bf16 else x
 
         attn = L.ring_attention if scheme == "ring" else \
             L.ulysses_attention
         ctxv = attn(heads_first(q), heads_first(k), heads_first(v),
                     causal=True)
+        if bf16:
+            ctxv = L.cast(ctxv, "float32")
         ctxv = L.transpose(ctxv, perm=[0, 2, 1, 3])
         ctxv = L.reshape(ctxv, shape=[batch, t, d])
         h = L.fc(ctxv, size=d, num_flatten_dims=2, act="relu")
@@ -677,3 +693,86 @@ def ckpt_load(dirname):
     lv = float(exe.run(prog, feed=ckpt_feed(), fetch_list=[loss],
                        scope=scope)[0])
     return shapes, loaded, lv
+
+
+# -- priced against moved ---------------------------------------------------------
+
+def _program(kind):
+    """(main, startup, loss, feed, mesh spec, batch axes, with a
+    SpecLayout) of the case `kind` of priced_and_moved."""
+    import paddle_tpu_torch as ptt
+    if kind in ("bert_tp_sp", "bert_tp", "nmt_tp_sp", "bert_fsdp"):
+        model = kind.split("_")[0]
+        tp = "_tp" in kind
+        main, startup, loss, _ = tiny_model(ptt, model, tp=tp,
+                                            sp=kind.endswith("_sp"))
+        if kind == "bert_fsdp":
+            return main, startup, loss, mp_feeds(model), "1,1,2", \
+                ("fsdp",), True
+        return main, startup, loss, mp_feeds(model), "1,2", ("dp",), True
+    if kind == "gpt_dp2tp2":
+        main, startup, loss, _ = tiny_model(ptt, "gpt", tp=True)
+        return main, startup, loss, mp_feeds("gpt"), "2,2", ("dp",), True
+    if kind.startswith(("ring", "ulysses")):
+        main, startup, loss = long_context(ptt, kind.split("_")[0],
+                                           bf16=kind.endswith("_bf16"))
+        return main, startup, loss, long_context_feeds(), "sp", (), False
+    cap = {"moe_dense": None, "moe_sparse": 12}[kind]
+    main, startup, loss, _ = moe_program(ptt, cap)
+    return main, startup, loss, moe_feeds(), "ep", (), False
+
+
+def priced_and_moved(kind, steps=2):
+    """Run `steps` steps of the case `kind` on the ranks' mesh; returns
+    (the bytes this rank's collectives moved in the last step, the bytes
+    the sharding gate priced for the rank program a step, {collective
+    kind: bytes moved})."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    main, startup, loss, feed, spec, batch_axes, with_layout = \
+        _program(kind)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    if with_layout:
+        mesh = mesh_from_spec(spec)
+        prog = ptt.CompiledProgram(main).with_distributed(
+            mesh, state_spec_fn=SpecLayout(mesh).add_program(main),
+            batch_axes=batch_axes)
+    else:
+        prog = ptt.CompiledProgram(main).with_distributed(
+            make_mesh((2,), (spec,)), batch_axes=batch_axes)
+    prog._loss_name = loss.name
+    for i in range(steps):
+        if i == steps - 1:
+            coll.reset_counts()
+        exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
+    moved = dict(coll.COLLECTIVE_BYTES)
+    return (sum(moved.values()),
+            exe.last_sharding_report.collective_bytes_per_step, moved)
+
+
+def deep_tp_step(init, layers):
+    """One AdamW step of the tiny BERT with `layers` layers at tp2 with
+    sequence parallelism: (the loss, the last layer's FFN-out weight
+    after the step, gathered whole)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.layout import SpecLayout, mesh_from_spec
+    from paddle_tpu_torch.parallel.model_parallel import gather_param
+    main, startup, loss, _ = tiny_model(ptt, "bert", tp=True, sp=True,
+                                        layers=layers)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    mesh = mesh_from_spec("1,2")
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh, state_spec_fn=SpecLayout(mesh).add_program(main))
+    prog._loss_name = loss.name
+    out = exe.run(prog, feed=mp_feeds("bert"), fetch_list=[loss],
+                  scope=scope)
+    w = f"layer_{layers - 1}.ffn.fc2.w"
+    return float(out[0]), gather_param(scope, w).numpy()

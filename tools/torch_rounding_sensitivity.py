@@ -86,15 +86,18 @@ state moved by --pert of seeded noise (how far rounding alone moves the
 gaps). `tp`: chip_smoke.mp_train_run's BERT (the tp/sp hints, vocab
 30522, the given width, depth and length, dropout 0, bf16 AMP, AdamW)
 at global batch --batch over two gloo ranks on a mesh dp1 x tp2, on a
-mesh fsdp2, and as each of chip_smoke.MP_CONTROLS: the loss, update and
-gradient gaps MP_BARS bound. `ring`: chip_smoke.seq_train_run's
+mesh fsdp2, as each of chip_smoke.MP_CONTROLS and with the fsdp
+gradient's reduce-scatter unscaled: the loss, update and gradient gaps
+MP_BARS bound. `ring`: chip_smoke.seq_train_run's
 long-context program (causal, the given T, width, heads and vocab,
 q/k/v in bf16) with ring and with Ulysses attention over sp2, and the
 ring with its off-diagonal blocks dropped: the loss and gradient gaps
 SEQ_BARS bound. `moe`: chip_smoke.moe_train_run's MoE program (the
 given widths, experts and rows) over ep2, dense and sparse at capacity
-factor 1.25: the dense losses' relative gap and the kept rows' error
-MOE_TOL bounds, the dropped rows.
+factor 1.25, and dense with the ep sum's backward all-reduced (the
+control): the dense losses' relative gap and the kept rows' error
+MOE_TOL bounds, the dropped rows, and the gate weight's first-step
+gradient gap MOE_GRAD_BAR bounds.
 
 `seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
 [seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
@@ -572,7 +575,9 @@ def _tp(args):
         ("tp2", {"mesh": "1,2", **ref}),
         ("fsdp2", {"mesh": "1,1,2", "batch_axes": ["fsdp"], **ref}),
         *[(k, {"mesh": "1,2", "control": k, **ref})
-          for k in c.MP_CONTROLS]])
+          for k in c.MP_CONTROLS],
+        ("fsdp_rs_unscaled", {"mesh": "1,1,2", "batch_axes": ["fsdp"],
+                              "control": "fsdp_rs_unscaled", **ref})])
     for tag, res in runs:
         if res.get("update_gap") is None:
             res["update_gap"] = float("nan")
@@ -621,7 +626,8 @@ def _moe(args):
     _startup_npz(ft, startup, spec["init"])
     one, runs = _chip_pool_runs(c.moe_train_run, spec, [
         ("dense_ep2", {"ep": True}),
-        ("sparse_ep2", {"ep": True, "capacity": cap})])
+        ("sparse_ep2", {"ep": True, "capacity": cap}),
+        ("g_bwd_allreduce", {"ep": True, "control": "g_bwd_allreduce"})])
     ref = one["y"].reshape(-1, args.d_model)
     for tag, res in runs:
         rows = res["y"].reshape(-1, args.d_model)
@@ -631,7 +637,9 @@ def _moe(args):
                     / np.abs(ref).max())
         loss = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
                                                        one["losses"]))
+        grad = c._grad_gap(res["grad"], one["grad"], 0)
         print(f"{tag}: loss_rel_gap={loss:.3e} kept_rel_err={err:.3e} "
+              f"grad_gap={grad:.3e} "
               f"dropped_rows={int(zero.sum())} of {len(rows)}")
     tmp.cleanup()
 
