@@ -3876,6 +3876,7 @@ def _adopt_and_decode(ptt, cfg, scope, shipment, prompt):
 # answers came back after the action returned
 ROUTER_DRILL_AFTER = 16
 ROUTER_DRILL_LIMIT_S = 300.0   # a drill that has not ended by then failed
+ROUTER_STOP_TRIES = 8          # the stop drill's own requests, at most
 FLEET_READY_S = 300.0          # replica processes: warm and bound by then
 FLEET_EXIT_S = 120.0           # and exited this long after SIGTERM
 ROUTER_HOP_REQUESTS = 4        # [serve]'s first requests over the url= hop
@@ -3962,6 +3963,23 @@ def _router_drill(router, reqs, action):
     return state["answers"], errors, result.get("value"), after
 
 
+def stop_and_redispatch(router, rep, feed, tries=ROUTER_STOP_TRIES):
+    """[router_drill] stop's action: stop `rep`, then send `feed` through
+    `router` until a request was re-dispatched away from it (at most
+    `tries`). The router runs no background probe, so `rep` stays in its
+    table until the drill's own probe_once(); its queue is empty, so the
+    least-loaded pick (ties broken by name: the stopped replica is r0)
+    sends the next request to it, and its EngineClosedError makes the
+    router re-dispatch. Returns the re-dispatches this counted."""
+    before = router.redispatches
+    rep.stop()
+    for _ in range(tries):
+        if router.redispatches > before:
+            break
+        router.predict(feed, timeout_ms=60000)
+    return router.redispatches - before
+
+
 def _answer_err(answers, want):
     """max |answer - [serve]'s answer| over [(request index, answer)]."""
     import numpy as np
@@ -4004,7 +4022,9 @@ def router_serve_phase(torch, card, model_dir, served, http):
     start_s = time.perf_counter() - t0
     set_flags({"FLAGS_enable_monitor": True})
     monitor.reset_stats()
-    router = Router(list(reps.values()))
+    # no background probe: the stop drill's probe is its own, so the
+    # stopped replica stays routable until then (stop_and_redispatch)
+    router = Router(list(reps.values()), start_probe=False)
     front = RouterHTTP(router, port=0)
     launched = []
 
@@ -4092,8 +4112,8 @@ def router_serve_phase(torch, card, model_dir, served, http):
               "its resume")
 
         def stop(wait):
-            reps["r0"].stop()
-            return True
+            return stop_and_redispatch(router, reps["r0"],
+                                       {"tokens": reqs[0]})
 
         _, moved, _ = drill("stop", stop, engines)
         router.probe_once()
@@ -7124,6 +7144,287 @@ def dense_layers_phase(torch, card):
           f"share, 1.0 the bar): {bad}")
 
 
+# -- slice 23: the CRF and CTC family ------------------------------------
+
+CRF_CTC_OP_TYPES = (
+    "modified_huber_loss", "sigmoid_focal_loss",
+    "teacher_student_sigmoid_loss", "cvm", "positive_negative_pair",
+    "warpctc", "ctc_align", "edit_distance", "linear_chain_crf",
+    "crf_decoding", "sample_logits", "chunk_eval")
+CRF_CTC_TOL = 1e-5       # [crf_ctc_ops]: card vs CPU, of max(1, max|CPU|)
+CTC_SPEECH = (16, 200, 29, 50)  # batch, T, classes, label length
+# warpctc at CTC_SPEECH rounds at each of its 200 steps on each side:
+# the CPU's float32 fetches (Loss, the gradient of mean(Loss^2)) read
+# 6.016e-05 from float64's, the card's 1.725e-05 from the CPU's (23A);
+# the phase prints both sides' float64 gaps beside this bar
+CTC_SPEECH_TOL = 1e-4
+
+
+def crf_ctc_op_cases():
+    """The cases of CRF_CTC_OP_TYPES at small shapes: {case: (op type,
+    inputs {slot: [numpy arrays]}, attrs, outputs {slot: count}, the
+    input slots differentiated)}. Sequences are shorter than T with
+    -1-padded labels; CTC has a repeated label and a label longer than
+    T/2; one Viterbi case is all ties (integer scores). sample_logits
+    draws its classes: sample_logits_gap checks it."""
+    import numpy as np
+    rng = np.random.RandomState(23)
+
+    def f(*shape, lo=None, hi=None):
+        if lo is not None:
+            return rng.uniform(lo, hi, shape).astype(np.float32)
+        return rng.randn(*shape).astype(np.float32)
+
+    def i64(lo, hi, *shape):
+        return rng.randint(lo, hi, shape).astype(np.int64)
+
+    def pad(rows, width):
+        out = np.full((len(rows), width), -1, np.int64)
+        for i, r in enumerate(rows):
+            out[i, :len(r)] = r
+        return out
+
+    ctc_labels = pad([[1, 1, 2], [3, 1, 4, 2, 5, 3, 1], [2, 2, 2, 4]], 7)
+    crf_len = np.array([8, 5, 3], np.int64)
+    crf_label = i64(0, 4, 3, 8)
+    crf_label[np.arange(8)[None, :] >= crf_len[:, None]] = -1
+    ties = rng.randint(0, 2, (2, 6, 3)).astype(np.float32)
+    iob = np.array([[0, 1, 4, 2, 3, 3, 4, 0, 4, 4],
+                    [2, 3, 4, 0, 1, 1, 4, 2, 2, 4],
+                    [4, 0, 1, 4, 2, 3, 0, 4, 4, 4]], np.int64)
+    iob_inf = iob.copy()
+    iob_inf[0, 4] = 2
+    iob_inf[1, 3:5] = (4, 0)
+    iob_inf[2, 6] = 1
+    ctc_out = {"Loss": 1, "WarpCTCGrad": 1}
+    crf_out = {"LogLikelihood": 1, "Alpha": 1, "EmissionExps": 1,
+               "TransitionExps": 1}
+    chunk_out = {k: 1 for k in ("Precision", "Recall", "F1-Score",
+                                "NumInferChunks", "NumLabelChunks",
+                                "NumCorrectChunks")}
+    return {
+        "modified_huber_loss": (
+            "modified_huber_loss",
+            {"X": [f(8, 1, lo=-3, hi=3)],
+             "Y": [i64(0, 2, 8, 1).astype(np.float32)]},
+            {}, {"Out": 1, "IntermediateVal": 1}, ("X",)),
+        "sigmoid_focal_loss": (
+            "sigmoid_focal_loss",
+            {"X": [f(6, 3)], "Label": [i64(0, 4, 6, 1).astype(np.int32)],
+             "FgNum": [np.array([4], np.int32)]},
+            {"gamma": 2.0, "alpha": 0.25}, {"Out": 1}, ("X",)),
+        "teacher_student_sigmoid_loss": (
+            "teacher_student_sigmoid_loss",
+            {"X": [f(8, 1)], "Label": [np.array(
+                [[-2.0], [-1.5], [-0.5], [-0.2], [0.3], [0.8], [1.2],
+                 [1.9]], np.float32)]},
+            {"soft_max_up_bound": 15.0, "soft_max_lower_bound": -15.0},
+            {"Y": 1}, ("X",)),
+        "cvm": ("cvm", {"X": [f(4, 5, lo=0.1, hi=3)],
+                        "CVM": [f(4, 2, lo=0.1, hi=3)]},
+                {"use_cvm": True}, {"Y": 1}, ("X",)),
+        "cvm_no_cvm": ("cvm", {"X": [f(4, 5, lo=0.1, hi=3)],
+                               "CVM": [f(4, 2, lo=0.1, hi=3)]},
+                       {"use_cvm": False}, {"Y": 1}, ("X",)),
+        "positive_negative_pair": (
+            "positive_negative_pair",
+            {"Score": [np.round(f(10, 1), 1)],
+             "Label": [i64(0, 3, 10, 1).astype(np.float32)],
+             "QueryID": [i64(0, 3, 10, 1)]},
+            {}, {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1},
+            ()),
+        "warpctc": (
+            "warpctc",
+            {"Logits": [f(3, 12, 6)], "Label": [ctc_labels],
+             "LogitsLength": [np.array([12, 9, 10], np.int64)]},
+            {"blank": 0, "norm_by_times": False}, ctc_out, ("Logits",)),
+        "warpctc_label_length": (
+            "warpctc",
+            {"Logits": [f(3, 12, 6)], "Label": [ctc_labels],
+             "LogitsLength": [np.array([12, 11, 10], np.int64)],
+             "LabelLength": [np.array([3, 6, 2], np.int64)]},
+            {"blank": 5, "norm_by_times": True}, ctc_out, ("Logits",)),
+        "ctc_align": (
+            "ctc_align",
+            {"Input": [np.array([[0, 1, 1, 0, 2, 2, 2, 0, 1, 0],
+                                 [3, 3, 0, 0, 3, 1, 0, 1, 1, 1],
+                                 [0, 0, 0, 0, 0, 0, 0, 0, 0, 0]],
+                                np.int64)]},
+            {"blank": 0}, {"Output": 1}, ()),
+        "edit_distance": (
+            "edit_distance",
+            {"Hyps": [pad([[1, 2, 3, 4], [5, 5], [], [2, 1, 2, 1, 2, 7]],
+                          6)],
+             "Refs": [pad([[1, 3, 4, 5, 6], [5], [1, 2], [1, 2, 1, 2]],
+                          7)]},
+            {"normalized": True}, {"Out": 1, "SequenceNum": 1}, ()),
+        "edit_distance_raw": (
+            "edit_distance",
+            {"Hyps": [pad([[1, 2, 3], [4, 4, 4, 4], [3]], 5)],
+             "Refs": [pad([[3, 2, 1], [], [3]], 4)]},
+            {"normalized": False}, {"Out": 1, "SequenceNum": 1}, ()),
+        "linear_chain_crf": (
+            "linear_chain_crf",
+            {"Emission": [f(3, 8, 4)], "Transition": [f(6, 4) * 0.5],
+             "Label": [crf_label], "Length": [crf_len]},
+            {}, crf_out, ("Emission", "Transition")),
+        "linear_chain_crf_full": (
+            "linear_chain_crf",
+            {"Emission": [f(2, 5, 3)], "Transition": [f(5, 3) * 0.5],
+             "Label": [i64(0, 3, 2, 5)]},
+            {}, crf_out, ("Emission", "Transition")),
+        "crf_decoding": (
+            "crf_decoding",
+            {"Emission": [f(3, 8, 4)], "Transition": [f(6, 4) * 0.5],
+             "Length": [crf_len]},
+            {}, {"ViterbiPath": 1}, ()),
+        "crf_decoding_label": (
+            "crf_decoding",
+            {"Emission": [f(3, 8, 4)], "Transition": [f(6, 4) * 0.5],
+             "Label": [i64(0, 4, 3, 8)], "Length": [crf_len]},
+            {}, {"ViterbiPath": 1}, ()),
+        "crf_decoding_ties": (
+            "crf_decoding",
+            {"Emission": [ties],
+             "Transition": [rng.randint(0, 2, (5, 3)).astype(np.float32)],
+             "Length": [np.array([6, 4], np.int64)]},
+            {}, {"ViterbiPath": 1}, ()),
+        "sample_logits": (
+            "sample_logits",
+            {"Logits": [f(4, 12)], "Labels": [i64(0, 12, 4, 2)]},
+            {"num_samples": 6, "remove_accidental_hits": True, "seed": 0},
+            {"SampledLogits": 1, "SampledLabels": 1, "Samples": 1,
+             "Probabilities": 1, "LogitsDim": 1, "LabelsDim": 1},
+            ("Logits",)),
+        "chunk_eval": (
+            "chunk_eval",
+            {"Inference": [iob_inf], "Label": [iob],
+             "SeqLength": [np.array([10, 9, 7], np.int64)]},
+            {"chunk_scheme": "IOB", "num_chunk_types": 2,
+             "excluded_chunk_types": []}, chunk_out, ()),
+        "chunk_eval_iobes": (
+            "chunk_eval",
+            {"Inference": [i64(0, 9, 3, 12)], "Label": [i64(0, 9, 3, 12)]},
+            {"chunk_scheme": "IOBES", "num_chunk_types": 2,
+             "excluded_chunk_types": [1]}, chunk_out, ()),
+    }
+
+
+def sample_logits_gap(got, ins, attrs):
+    """sample_logits' outputs against its formula on its own draws:
+    SampledLogits = Logits[row, Samples] - log(num_samples / N), a drawn
+    class equal to a true label at -1e30 (or below -1e29), labels
+    0..nt-1, Probabilities 1 / N, every draw in [0, N). Returns the
+    largest gap (inf for a wrong integer or shape)."""
+    import numpy as np
+    picked, labels, ids, probs = (np.asarray(g) for g in got[:4])
+    logits, true = ins["Logits"][0], ins["Labels"][0]
+    n, nt = logits.shape[1], true.shape[1]
+    if not (np.array_equal(ids[:, :nt], true) and ids.min() >= 0 and
+            ids.max() < n and np.array_equal(
+                labels, np.broadcast_to(np.arange(nt), labels.shape))):
+        return float("inf")
+    want = np.take_along_axis(logits, ids, 1) - np.log(
+        attrs["num_samples"] / n)
+    hit = (ids[:, nt:, None] == true[:, None, :]).any(-1)
+    if not (picked[:, nt:][hit] < -1e29).all():
+        return float("inf")
+    keep = np.concatenate([np.ones((len(ids), nt), bool), ~hit], 1)
+    return max(float(np.abs(picked[keep] - want[keep]).max()),
+               float(np.abs(probs - 1.0 / n).max()))
+
+
+def crf_ctc_ops_phase(torch, card):
+    """[crf_ctc_ops]: each case of crf_ctc_op_cases as a one-op program
+    (dense_op_program, the case's inputs differentiated) on the card
+    against the same program on the CPU, forward and gradients: floats
+    within CRF_CTC_TOL of max(1, max|CPU|), integers exactly;
+    sample_logits by its formula on the card's draws. Then warpctc at a
+    DeepSpeech-like shape (CTC_SPEECH: batch 16, T 200, 29 classes,
+    labels of 50) forward and backward, card against CPU, with the
+    card's ms of a forward and backward. Fails if an op type did not
+    run on the card."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    gaps, ran = {}, set()
+    for name, (op_type, ins, attrs, outs, grads) in \
+            crf_ctc_op_cases().items():
+        main, startup, feed, fetch = dense_op_program(ptt, op_type, ins,
+                                                      attrs, outs, grads)
+        got = {}
+        for where, place in (("card", ptt.CUDAPlace(0)),
+                             ("cpu", ptt.CPUPlace())):
+            exe, scope = ptt.Executor(place), ptt.Scope()
+            exe.run(startup, scope=scope)
+            got[where] = exe.run(main, feed=feed, fetch_list=fetch,
+                                 scope=scope)
+        ran |= {op.type for op in main.global_block().ops}
+        gaps[name] = sample_logits_gap(got["card"], ins, attrs) \
+            if op_type == "sample_logits" else \
+            data_layer_gap(got["card"], got["cpu"])
+    b, t, c, n_lab = CTC_SPEECH
+    rng = np.random.RandomState(SEED)
+    ins = {"Logits": [rng.randn(b, t, c).astype(np.float32)],
+           "Label": [rng.randint(1, c, (b, n_lab)).astype(np.int64)],
+           "LogitsLength": [rng.randint(t * 3 // 4, t + 1, b)
+                            .astype(np.int64)],
+           "LabelLength": [rng.randint(n_lab // 2, n_lab + 1, b)
+                           .astype(np.int64)]}
+    main, startup, feed, fetch = dense_op_program(
+        ptt, "warpctc", ins, {"blank": 0}, {"Loss": 1, "WarpCTCGrad": 1},
+        ("Logits",))
+    got = {}
+    for where, place in (("card", ptt.CUDAPlace(0)),
+                         ("cpu", ptt.CPUPlace())):
+        exe, scope = ptt.Executor(place), ptt.Scope()
+        exe.run(startup, scope=scope)
+        got[where] = exe.run(main, feed=feed, fetch_list=fetch,
+                             scope=scope)
+        if where == "card":
+            ms = cuda_ms(lambda: exe.run(main, feed=feed,
+                                         fetch_list=fetch[:1],
+                                         scope=scope, return_numpy=False),
+                         iters=5, warmup=1)
+    speech = data_layer_gap(got["card"], got["cpu"])
+    f64 = _ctc_float64(torch, ins)
+    f64_gaps = {w: data_layer_gap([got[w][0], got[w][2]], f64)
+                for w in got}
+    missing = [o for o in CRF_CTC_OP_TYPES if o not in ran]
+    worst = max(gaps, key=gaps.get)
+    phase("crf_ctc_ops", cases=len(gaps), op_types=len(ran & set(
+        CRF_CTC_OP_TYPES)), max_gap=f"{gaps[worst]:.3e}", worst=worst,
+          tol=CRF_CTC_TOL, exact=sum(g == 0 for g in gaps.values()),
+          speech_shape="x".join(map(str, CTC_SPEECH)),
+          speech_gap=f"{speech:.3e}", speech_tol=CTC_SPEECH_TOL,
+          speech_card_vs_f64=f"{f64_gaps['card']:.3e}",
+          speech_cpu_vs_f64=f"{f64_gaps['cpu']:.3e}",
+          speech_fwd_bwd_ms=f"{ms:.3f}",
+          speech_loss_mean=f"{float(np.mean(got['card'][0])):.4f}",
+          seconds=f"{time.perf_counter() - t0:.2f}", card=f"'{card}'")
+    check(not missing, f"[crf_ctc_ops] op types not run: {missing}")
+    bad = {k: g for k, g in gaps.items() if not g <= CRF_CTC_TOL}
+    check(not bad, f"[crf_ctc_ops] card vs CPU past {CRF_CTC_TOL}: {bad}")
+    check(speech <= CTC_SPEECH_TOL, f"[crf_ctc_ops] warpctc at "
+          f"{CTC_SPEECH}: card vs CPU {speech} past {CTC_SPEECH_TOL}")
+
+
+def _ctc_float64(torch, ins):
+    """warpctc's Loss and the Logits gradient of dense_op_program's
+    objective (the mean of Loss squared) in float64 on the CPU."""
+    from paddle_tpu_torch.ops.loss_extra import ctc_loss
+    x = torch.tensor(ins["Logits"][0], dtype=torch.float64,
+                     requires_grad=True)
+    lab, n = torch.tensor(ins["Label"][0]), ins["Label"][0].shape[1]
+    lab = torch.where(torch.arange(n)[None, :] <
+                      torch.tensor(ins["LabelLength"][0])[:, None], lab, -1)
+    loss = ctc_loss(torch.log_softmax(x, -1), lab, 0,
+                    torch.tensor(ins["LogitsLength"][0]))
+    (loss ** 2).mean().backward()
+    return [loss.detach().numpy().reshape(-1, 1), x.grad.numpy()]
+
+
 # -- control flow, RNNs and ragged sequences -------------------------------
 
 # RNNsearch-50's published widths (Bahdanau, Cho and Bengio, ICLR 2015):
@@ -10130,6 +10431,654 @@ def recompute_phase(torch, card):
     return rec["launches"]
 
 
+# -- slice 23: the pipeline and the CRF/CTC book model --------------------
+
+PP_WORLD = 2
+PP_BATCH = 32            # 4 microbatches of 8
+PP_MICRO = 4
+PP_STEPS = 3             # a warm-up step, then the timed ones
+PP_LR = 1e-3             # SGD on the float32 master weights
+# [pp_train] bars on the pipeline's loss gap (relative, every step) and
+# its first-step gradient gap (relative Frobenius over a rank's stage)
+# against the same 12 layers in one process. The controls must fail
+# them: the replication's backward summed over pp doubles every
+# gradient (gap 1.0); stage 0 fed microbatch t-1 moves the loss.
+# tools/torch_rounding_sensitivity.py pp on the CPU (d 128, 4 layers,
+# T 128, batch 8, 4 microbatches), loss / grad: bf16 autocast, two
+# ranks 0 / 1.292e-03, the input moved by 1e-3 8.486e-05 / 8.182e-03,
+# replica_bwd_summed 4.235e-05 / 1.000, stage0_lagged 67.33 / 9.743;
+# float32, two ranks 0 / 6.853e-08, moved 7.274e-05 / 2.787e-03.
+PP_BARS = {"loss": 1e-3, "grad": 0.05}
+PP_CONTROLS = {"replica_bwd_summed": "grad", "stage0_lagged": "loss"}
+SECTION_SPLIT = (4, 4, 4)  # [section_pipeline]: layers a section
+SECTION_BATCH = 16         # 4 microbatches of 4, float32
+# the same tool's section reading (float32, 2+1+1 layers): loss gap 0,
+# gradient gap 9.461e-08
+SECTION_BARS = {"loss": 1e-5, "grad": 1e-4}
+PP_REPLICA_STEPS = 2
+# the book's label_semantic_roles (test_label_semantic_roles.py): CoNLL-05
+# dictionary sizes (stand-ins: the dictionaries are not in the repo)
+SRL_WORDS, SRL_PREDS, SRL_LABELS, SRL_MARKS = 44068, 3162, 59, 2
+SRL_WORD_DIM, SRL_MARK_DIM, SRL_HIDDEN, SRL_DEPTH = 32, 5, 512, 8
+SRL_BATCH, SRL_MAX_T = 10, 64
+SRL_STEPS = 20           # two batches, ten passes
+SRL_CHECK_STEPS = 3
+# ten times tools/torch_rounding_sensitivity.py srl's reading: the word
+# and predicate embeddings moved by 1e-6 move the float32 losses by
+# 9.515e-08 (relative) on the CPU
+SRL_LOSS_RTOL = 1e-6
+
+
+def pp_dims(spec):
+    """(d, heads, d_ff, layers, batch, T) of a [pp_train] spec."""
+    return tuple(spec.get(k, v) for k, v in (
+        ("d", 768), ("heads", 12), ("ff", 3072), ("layers", 12),
+        ("batch", PP_BATCH), ("T", T)))
+
+
+def pp_encoder_params(torch, d, ff, layers, seed=SEED):
+    """BERT encoder layers' weights from a seed, float32 on the host:
+    {name: [layers, ...]} (normal 0.02, zero biases, unit LN scales)."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"wq": (d, d), "wk": (d, d), "wv": (d, d), "wo": (d, d),
+              "w1": (d, ff), "w2": (ff, d)}
+    out = {k: torch.randn((layers, *s), generator=g) * 0.02
+           for k, s in shapes.items()}
+    for k, n in (("bq", d), ("bk", d), ("bv", d), ("bo", d), ("b1", ff),
+                 ("b2", d), ("ln1_b", d), ("ln2_b", d)):
+        out[k] = torch.zeros(layers, n)
+    out["ln1_g"] = torch.ones(layers, d)
+    out["ln2_g"] = torch.ones(layers, d)
+    return out
+
+
+def pp_layer(torch, p, h, heads):
+    """One post-LN BERT encoder layer on the port's flash entry point
+    (ops/cuda/flash_attention.flash_attention: the forward kernel, and
+    the dQ and dK/dV kernels in its backward)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention
+    b, t, d = h.shape
+
+    def heads_of(w, bias):
+        return (h @ w + bias).reshape(b, t, heads, d // heads) \
+            .transpose(1, 2)
+    a = flash_attention(heads_of(p["wq"], p["bq"]),
+                        heads_of(p["wk"], p["bk"]),
+                        heads_of(p["wv"], p["bv"]))
+    a = a.transpose(1, 2).reshape(b, t, d)
+    h = F.layer_norm(h + a @ p["wo"] + p["bo"], (d,), p["ln1_g"],
+                     p["ln1_b"])
+    f = F.gelu(h @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    return F.layer_norm(h + f, (d,), p["ln2_g"], p["ln2_b"])
+
+
+def pp_stage_fn(torch, heads):
+    """stage_fn over a stage's layers ({name: [layers, ...]})."""
+    def stage(p, h):
+        for i in range(next(iter(p.values())).shape[0]):
+            h = pp_layer(torch, {k: v[i] for k, v in p.items()}, h, heads)
+        return h
+    return stage
+
+
+def _pp_control(kind):
+    """Break the pipeline on purpose, as a control for PP_BARS:
+    'replica_bwd_summed' sums dL/dout over pp in the replication's
+    backward (the transpose of psum(outputs * mask) taken literally:
+    the last stage gets it n_stages times); 'stage0_lagged' makes stage 0
+    inject microbatch t-1 at tick t. Returns the function that repairs
+    it."""
+    import torch
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import pipeline as pl
+    fwd, bwd = pl._GPipe.forward, pl._GPipe.backward
+    if kind == "replica_bwd_summed":
+        def backward(ctx, dout):
+            return bwd(ctx, coll.all_reduce(dout, ctx.group))
+        pl._GPipe.backward = staticmethod(backward)
+    else:
+        def forward(ctx, stage_fn, tree, group, n, idx, x_mb, *params):
+            if idx == 0:
+                x_mb = torch.cat([x_mb[:1], x_mb[:-1]])
+            return fwd(ctx, stage_fn, tree, group, n, idx, x_mb, *params)
+        pl._GPipe.forward = staticmethod(forward)
+
+    def repair():
+        pl._GPipe.forward = staticmethod(fwd)
+        pl._GPipe.backward = staticmethod(bwd)
+    return repair
+
+
+def pp_train_run(spec):
+    """[pp_train]'s step, SGD on float32 master weights under bf16
+    autocast (spec["amp"]): the encoder of pp_dims(spec) through gpipe
+    over a ("pp",) mesh of the process group's ranks (spec["pipe"]), or
+    the same layers in sequence over the whole batch in this process,
+    the activation cast to the input's dtype between the two halves as
+    gpipe casts it. Loss: mean((out - x)^2) on the replicated output.
+    spec: place, steps, control (a PP_CONTROLS kind), pert (the input
+    moved by that much seeded noise, the target kept), out (an npz for the
+    first step's gradients, one process), ref (that npz: a rank's
+    first-step gradient gap over its stage). Returns the losses, per
+    step ms, the flash launches and stage_fn calls a step after the
+    first, the p2p, broadcast and host-staged bytes a step, the peak
+    memory and the gradient gap."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import gpipe, pipeline
+    from paddle_tpu_torch.parallel.mesh import make_mesh, world
+
+    d, heads, ff, layers, batch, t = pp_dims(spec)
+    cuda = spec["place"] != "cpu"
+    dev = torch.device("cuda" if cuda else "cpu")
+    repair = _pp_control(spec["control"]) if spec.get("control") else None
+    try:
+        params = {k: v.to(dev).requires_grad_() for k, v in
+                  pp_encoder_params(torch, d, ff, layers).items()}
+        g = torch.Generator().manual_seed(SEED + 1)
+        dtype = torch.bfloat16 if spec["amp"] else torch.float32
+        x = torch.randn((batch, t, d), generator=g)
+        # the target is the input itself: a microbatch out of place
+        # moves the loss far more than rounding does
+        y = x.to(dev)
+        if spec.get("pert"):
+            x = x * (1 + spec["pert"] * torch.randn(x.shape, generator=g))
+        x = x.to(dev, dtype)
+        size, rank = world()
+        n_st = size if spec["pipe"] else 2
+        stacked = {k: v.reshape(n_st, layers // n_st, *v.shape[1:])
+                   for k, v in params.items()}
+        stage = pp_stage_fn(torch, heads)
+        mesh = make_mesh((size,), ("pp",)) if spec["pipe"] else None
+
+        def forward():
+            with torch.autocast(dev.type, dtype=torch.bfloat16,
+                                enabled=spec["amp"]):
+                if spec["pipe"]:
+                    out = gpipe(stage, stacked, x, n_microbatches=spec.get(
+                        "micro", PP_MICRO), mesh=mesh, axis="pp")
+                else:
+                    out = x
+                    for s in range(n_st):
+                        out = stage({k: v[s] for k, v in stacked.items()},
+                                    out).to(dtype)
+            return ((out.float() - y) ** 2).mean()
+
+        losses, ms, grad_gap = [], [], None
+        for step in range(spec["steps"]):
+            if step == 1:
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                coll.reset_counts()
+                _zero_launch_counts()
+                pipeline.STAGE_CALLS["calls"] = 0
+            t0 = time.perf_counter()
+            loss = forward()
+            loss.backward()
+            with torch.no_grad():
+                if step == 0:
+                    grads = {k: v.grad.float().cpu().numpy()
+                             for k, v in params.items()}
+                for v in params.values():
+                    v -= PP_LR * v.grad
+                    v.grad = None
+            losses.append(float(loss.detach()))
+            if cuda:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if spec.get("out"):
+            np.savez(spec["out"], **grads)
+        if spec.get("ref"):
+            ref = np.load(spec["ref"])
+            per = layers // n_st
+            mine = slice(rank * per, (rank + 1) * per) if spec["pipe"] \
+                else slice(None)
+            num = sum(float(np.sum((grads[k][mine].astype(np.float64)
+                                    - ref[k][mine]) ** 2)) for k in grads)
+            den = sum(float(np.sum(ref[k][mine].astype(np.float64) ** 2))
+                      for k in grads)
+            grad_gap = math.sqrt(num / den)
+        n = max(spec["steps"] - 1, 1)
+        return {"rank": rank, "losses": losses, "ms": ms[1:],
+                "launches": {k: v // n for k, v in
+                             _launch_counts().items()},
+                "stage_calls_step": pipeline.STAGE_CALLS["calls"] // n,
+                "p2p_bytes_step": coll.COLLECTIVE_BYTES["p2p"] // n,
+                "bcast_bytes_step": coll.COLLECTIVE_BYTES["broadcast"] // n,
+                "staged_bytes_step": coll.STAGED_BYTES["bytes"] // n,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+                if cuda else None, "grad_gap": grad_gap}
+    finally:
+        if repair is not None:
+            repair()
+
+
+def pp_gaps(res, one):
+    """(largest relative loss gap over the steps, first-step gradient
+    gap) of a pipeline result against the one-process run."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   one["losses"]))
+    return loss, res["grad_gap"]
+
+
+def section_pipeline_run(spec):
+    """[section_pipeline]: SectionPipeline.grad over the encoder of
+    pp_dims(spec) cut into SECTION_SPLIT sections, spec["micro"]
+    microbatches, float32, against one torch.autograd.grad of the same
+    loss over the whole batch, each timed on its second call. Returns
+    (loss gap, gradient gap (relative Frobenius over every weight),
+    pipeline ms, whole-batch ms, the timed pipeline call's flash
+    launches)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.parallel import SectionPipeline
+
+    d, heads, ff, layers, batch, t = pp_dims(spec)
+    cuda = spec["place"] != "cpu"
+    dev = torch.device("cuda" if cuda else "cpu")
+    params = {k: v.to(dev) for k, v in
+              pp_encoder_params(torch, d, ff, layers).items()}
+    g = torch.Generator().manual_seed(SEED + 2)
+    x = torch.randn((batch, t, d), generator=g).to(dev)
+    y = torch.randn((batch, t, d), generator=g).to(dev)
+    cuts = np.cumsum((0,) + tuple(spec.get("split", SECTION_SPLIT)))
+    sections = [{k: v[a:b] for k, v in params.items()}
+                for a, b in zip(cuts[:-1], cuts[1:])]
+    stage = pp_stage_fn(torch, heads)
+
+    def loss_fn(out, yb):
+        return ((out - yb) ** 2).mean()
+
+    def timed(fn):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    pipe = SectionPipeline([stage] * len(sections), spec.get("micro",
+                                                             PP_MICRO))
+    pipe.grad(loss_fn, sections, x, y)  # first calls plan new shapes
+    _zero_launch_counts()
+    (loss, grads), ms = timed(lambda: pipe.grad(loss_fn, sections, x, y))
+    launches = _launch_counts()
+    leaves = [v.clone().requires_grad_() for s in sections
+              for v in s.values()]
+
+    def whole():
+        it = iter(leaves)
+        h = x
+        for s in sections:
+            h = stage({k: next(it) for k in s}, h)
+        ll = loss_fn(h, y)
+        return ll, torch.autograd.grad(ll, leaves)
+    whole()
+    (ref_loss, ref_grads), ref_ms = timed(whole)
+    got = [g_ for s in grads for g_ in s.values()]
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(got, ref_grads))
+    den = sum(float((b.double() ** 2).sum()) for b in ref_grads)
+    ref_loss = float(ref_loss.detach())
+    return (abs(float(loss) - ref_loss) / abs(ref_loss),
+            math.sqrt(num / den), ms, ref_ms, launches)
+
+
+def pp_replicas_run(spec):
+    """[pp_replicas]: [dp_train]'s BERT program (dp_train_run's spec)
+    through the executor on a dp1 x pp2 mesh (its SpecLayout the state
+    specs) for spec["steps"] steps from spec["init"], under torch's
+    deterministic algorithms; in one process without a process group.
+    Returns the losses, the sha256 of every parameter, the largest
+    parameter gap to spec["ref"] (an npz spec["out"] wrote), the flash
+    launches of the steps, the sharding gate's priced bytes a step and
+    the rank."""
+    import hashlib
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel.layout import SpecLayout
+    from paddle_tpu_torch.parallel.mesh import make_mesh, world
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg, main, startup, loss = _dp_build(ptt, spec)
+        place = _place(ptt, spec)
+        scope = ptt.Scope()
+        exe = ptt.Executor(place)
+        exe.run(startup, scope=scope)
+        scope_from_numpy(dict(np.load(spec["init"])), scope, place,
+                         program=main)
+        prog = ptt.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name)
+        if world()[0] > 1:
+            mesh = make_mesh((1, world()[0]), ("dp", "pp"))
+            prog = prog.with_distributed(
+                mesh, state_spec_fn=SpecLayout(mesh).add_program(main),
+                batch_axes=("dp",))
+        feed = _dp_feed(cfg.vocab_size, spec["batch"], spec["T"])
+        _zero_launch_counts()
+        losses = [float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                scope=scope)[0])
+                  for _ in range(spec["steps"])]
+        digest = hashlib.sha256()
+        names = sorted(v.name for v in main.list_vars()
+                       if getattr(v, "is_parameter", False))
+        params = {p: scope.get_numpy(p) for p in names}
+        for p in names:
+            digest.update(np.ascontiguousarray(params[p]).tobytes())
+        if spec.get("out"):
+            np.savez(spec["out"], **params)
+        gap = None
+        if spec.get("ref"):
+            ref = np.load(spec["ref"])
+            gap = max(float(np.abs(params[p].astype(np.float64)
+                                   - ref[p]).max()) for p in names)
+        report = exe.last_sharding_report
+        return {"rank": world()[1], "losses": losses, "param_gap": gap,
+                "params_sha": digest.hexdigest(),
+                "launches": _launch_counts(),
+                "priced_bytes": report.collective_bytes_per_step
+                if report is not None else 0}
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def pp_phases(torch, card):
+    """[pp_train], [pp_control], [pp_replicas] over PP_WORLD rank
+    processes (gloo on cuda:0 where the machine has one card, as
+    mp_phases), then [section_pipeline] in this process. Returns
+    ({kernel: bf16 launches}, {kernel: float32 launches}) of the main
+    path runs."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.spawn import RankPool
+
+    backend, device = dp_backend(torch)
+    tmp = tempfile.TemporaryDirectory(prefix="pp_")
+    path = lambda name: os.path.join(tmp.name, name)  # noqa: E731
+    bf16 = dict.fromkeys(KERNEL_SOURCES, 0)
+    f32 = dict.fromkeys(KERNEL_SOURCES, 0)
+    spec = {"place": "cuda", "amp": True, "steps": PP_STEPS,
+            "pipe": False, "control": None}
+    rspec = {"cfg": {}, "batch": TRAIN_RUNS[True][0], "T": T, "amp": True,
+             "flash": True, "place": "cuda", "steps": PP_REPLICA_STEPS,
+             "init": path("bert.npz")}
+    try:
+        one = pp_train_run({**spec, "out": path("one.npz")})
+        dp_startup_state({**rspec, "mesh": None}, rspec["init"])
+        rep_one = pp_replicas_run({**rspec, "out": path("bert_one.npz")})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pool = RankPool(PP_WORLD, path("store"), backend=backend,
+                        timeout_s=DP_TIMEOUT_S, device=device)
+        try:
+            start_s = time.perf_counter() - t0
+            ranks = pool.run(pp_train_run, {**spec, "pipe": True,
+                                             "ref": path("one.npz")})
+            for res in ranks:
+                loss_gap, grad_gap = pp_gaps(res, one)
+                act = PP_BATCH // PP_MICRO * T * 768 * 2  # bf16
+                phase("pp_train", rank=res["rank"], backend=backend,
+                      stages=PP_WORLD, layers_a_stage=12 // PP_WORLD,
+                      microbatches=PP_MICRO, batch=PP_BATCH, T=T,
+                      loss=f"{res['losses'][-1]:.6f}",
+                      loss_gap=f"{loss_gap:.3e}", grad_gap=f"{grad_gap:.3e}",
+                      bars=f"{PP_BARS['loss']}/{PP_BARS['grad']}",
+                      ms_step=f"{np.median(res['ms']):.1f}",
+                      one_process_ms_step=f"{np.median(one['ms']):.1f}",
+                      stage_calls_step=res["stage_calls_step"],
+                      launches_step=",".join(str(v) for v in
+                                             res["launches"].values()),
+                      p2p_bytes_step=res["p2p_bytes_step"],
+                      transfer_bytes=act,
+                      bcast_bytes_step=res["bcast_bytes_step"],
+                      staged_bytes_step=res["staged_bytes_step"],
+                      peak_gb=f"{res['peak_gb']:.2f}",
+                      one_process_peak_gb=f"{one['peak_gb']:.2f}",
+                      start_s=f"{start_s:.1f}", card=f"'{card}'")
+                check(loss_gap <= PP_BARS["loss"] and
+                      grad_gap <= PP_BARS["grad"],
+                      f"[pp_train] rank {res['rank']}: gaps {loss_gap}, "
+                      f"{grad_gap} past {PP_BARS}")
+                want = 12 // PP_WORLD * PP_MICRO
+                check(all(v == want for v in res["launches"].values()) and
+                      res["stage_calls_step"] == PP_MICRO,
+                      f"[pp_train] rank {res['rank']}: launches a step "
+                      f"{res['launches']}, stage calls "
+                      f"{res['stage_calls_step']}; {want} and {PP_MICRO} "
+                      f"wanted (bubbles skipped)")
+                # stage 0 sends its activations, stage 1 their gradients
+                check(res["p2p_bytes_step"] == PP_MICRO * act,
+                      f"[pp_train] rank {res['rank']}: "
+                      f"{res['p2p_bytes_step']} p2p bytes a step, not "
+                      f"{PP_MICRO * act}")
+                for k in bf16:
+                    bf16[k] += res["launches"][k] * (PP_STEPS - 1)
+            for kind, bar in PP_CONTROLS.items():
+                res = pool.run(pp_train_run, {
+                    **spec, "pipe": True, "control": kind, "steps": 1,
+                    "ref": path("one.npz")})
+                gaps = dict(zip(("loss", "grad"), pp_gaps(
+                    {**res[0], "grad_gap": max(r["grad_gap"] for r in res)},
+                    one)))
+                phase("pp_control", control=kind, steps=1,
+                      loss_gap=f"{gaps['loss']:.3e}",
+                      grad_gap=f"{gaps['grad']:.3e}",
+                      must_be_rejected_by=bar, card=f"'{card}'")
+                check(gaps[bar] > PP_BARS[bar], f"[pp_control] {kind} "
+                      f"passes the {bar} bar ({gaps[bar]})")
+            reps = pool.run(pp_replicas_run, {**rspec,
+                                              "ref": path("bert_one.npz")})
+            for res in reps:
+                lgap = max(abs(a - b) / abs(b) for a, b in
+                           zip(res["losses"], rep_one["losses"]))
+                phase("pp_replicas", rank=res["rank"], mesh="dp1xpp2",
+                      steps=PP_REPLICA_STEPS,
+                      loss=f"{res['losses'][-1]:.6f}",
+                      loss_gap_vs_one_rank=f"{lgap:.3e}",
+                      param_gap_vs_one_rank=f"{res['param_gap']:.3e}",
+                      bars=f"{ZERO_BARS['loss']}/{ZERO_BARS['param']}",
+                      params_bitwise_equal_across_ranks=res["params_sha"]
+                      == reps[0]["params_sha"],
+                      params_bitwise_equal_to_one_rank=res["params_sha"]
+                      == rep_one["params_sha"],
+                      priced_bytes=res["priced_bytes"],
+                      launches=",".join(str(v) for v in
+                                        res["launches"].values()),
+                      card=f"'{card}'")
+                check(lgap <= ZERO_BARS["loss"] and
+                      res["param_gap"] <= ZERO_BARS["param"],
+                      f"[pp_replicas] rank {res['rank']} against one "
+                      f"rank: loss gap {lgap}, parameter gap "
+                      f"{res['param_gap']} past {ZERO_BARS}")
+                check(res["priced_bytes"] == 0, f"[pp_replicas] the gate "
+                      f"priced {res['priced_bytes']} B for pp")
+                for k in bf16:
+                    bf16[k] += res["launches"][k]
+        finally:
+            pool.close()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        loss_gap, grad_gap, ms, ref_ms, launches = section_pipeline_run(
+            {"place": "cuda", "batch": SECTION_BATCH})
+        phase("section_pipeline", sections="+".join(map(str,
+                                                        SECTION_SPLIT)),
+              microbatches=PP_MICRO, batch=SECTION_BATCH, T=T,
+              dtype="float32", loss_gap=f"{loss_gap:.3e}",
+              grad_gap=f"{grad_gap:.3e}",
+              bars=f"{SECTION_BARS['loss']}/{SECTION_BARS['grad']}",
+              ms=f"{ms:.1f}", whole_batch_ms=f"{ref_ms:.1f}",
+              launches=",".join(str(v) for v in launches.values()),
+              card=f"'{card}'")
+        check(loss_gap <= SECTION_BARS["loss"] and
+              grad_gap <= SECTION_BARS["grad"],
+              f"[section_pipeline] gaps {loss_gap}, {grad_gap} past "
+              f"{SECTION_BARS}")
+        check(all(v == 12 * PP_MICRO for v in launches.values()),
+              f"[section_pipeline] launches {launches}")
+        for k in f32:
+            f32[k] += launches[k]
+    finally:
+        tmp.cleanup()
+    return bf16, f32
+
+
+def srl_feeds(n_batches, batch=SRL_BATCH, max_t=SRL_MAX_T, seed=0):
+    """Padded [batch, T <= max_t] feeds of the book's eight inputs and
+    the target, per-row lengths from RandomState(seed)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        lengths = rng.randint(max_t // 4, max_t + 1, batch)
+        t = int(lengths.max())
+        feed = {n: rng.randint(0, v, (batch, t)).astype(np.int64)
+                for n, v in (("word", SRL_WORDS), ("ctx_n2", SRL_WORDS),
+                             ("ctx_n1", SRL_WORDS), ("ctx_0", SRL_WORDS),
+                             ("ctx_p1", SRL_WORDS), ("ctx_p2", SRL_WORDS),
+                             ("predicate", SRL_PREDS),
+                             ("mark", SRL_MARKS), ("target", SRL_LABELS))}
+        feed["length"] = lengths.astype(np.int64)
+        out.append(feed)
+    return out
+
+
+def build_srl(f, word_dim=SRL_WORD_DIM, mark_dim=SRL_MARK_DIM,
+              hidden=SRL_HIDDEN, depth=SRL_DEPTH):
+    """The book's db_lstm (chapter 07): the word and five context words
+    through one frozen embedding 'emb', the predicate ('vemb') and mark
+    embeddings, an fc (tanh) each summed, then `depth` dynamic_lstm
+    (candidate relu, gate and cell sigmoid) alternating direction, each
+    fed the sum of two fcs of the previous mix and LSTM; the CRF loss
+    ('crfw' at learning rate 1e-3), SGD at exponential_decay(0.01, 1e5,
+    0.5, staircase), crf_decoding and chunk_eval (IOB, 29 chunk types).
+    Padded [B, T] inputs with a `length` var. Returns (loss, decoded,
+    chunk_eval's outputs)."""
+    L = f.layers
+    names = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+             "predicate", "mark", "target")
+    v = {n: L.data(n, shape=[-1, -1], dtype="int64",
+                   append_batch_size=False) for n in names}
+    length = L.data("length", shape=[-1], dtype="int64",
+                    append_batch_size=False)
+    embs = [L.embedding(v[n], size=[SRL_WORDS, word_dim],
+                        param_attr=f.ParamAttr(name="emb", trainable=False))
+            for n in names[:6]]
+    embs.append(L.embedding(v["predicate"], size=[SRL_PREDS, word_dim],
+                            param_attr="vemb"))
+    embs.append(L.embedding(v["mark"], size=[SRL_MARKS, mark_dim]))
+    hidden_0 = L.sums([L.fc(e, size=hidden, act="tanh", num_flatten_dims=2)
+                       for e in embs])
+    lstm_kw = dict(candidate_activation="relu", gate_activation="sigmoid",
+                   cell_activation="sigmoid", sequence_length=length)
+    lstm_0, _ = L.dynamic_lstm(hidden_0, size=hidden, **lstm_kw)
+    mix, lstm = hidden_0, lstm_0
+    for i in range(1, depth):
+        mix = L.sums([L.fc(mix, size=hidden, act="tanh",
+                           num_flatten_dims=2),
+                      L.fc(lstm, size=hidden, act="tanh",
+                           num_flatten_dims=2)])
+        lstm, _ = L.dynamic_lstm(mix, size=hidden, is_reverse=i % 2 == 1,
+                                 **lstm_kw)
+    feature = L.sums([L.fc(mix, size=SRL_LABELS, act="tanh",
+                           num_flatten_dims=2),
+                      L.fc(lstm, size=SRL_LABELS, act="tanh",
+                           num_flatten_dims=2)])
+    crf = L.linear_chain_crf(feature, v["target"], length=length,
+                             param_attr=f.ParamAttr(name="crfw",
+                                                    learning_rate=1e-3))
+    loss = L.mean(crf)
+    f.optimizer.SGD(learning_rate=L.exponential_decay(
+        learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+        staircase=True)).minimize(loss)
+    decoded = L.crf_decoding(feature, param_attr=f.ParamAttr(name="crfw"),
+                             length=length)
+    chunks = L.chunk_eval(decoded, v["target"], chunk_scheme="IOB",
+                          num_chunk_types=int(math.ceil(
+                              (SRL_LABELS - 1) / 2.0)), seq_length=length)
+    return loss, decoded, chunks
+
+
+def _srl_program(ptt):
+    main, startup = ptt.Program(), ptt.Program()
+    startup.random_seed = SEED
+    with ptt.program_guard(main, startup), ptt.unique_name.guard():
+        loss, decoded, chunks = build_srl(ptt)
+    return main, startup, loss, decoded, chunks
+
+
+def srl_train_phase(torch, card):
+    """[srl_train]: the book's label_semantic_roles (build_srl) at its
+    widths, float32, batch 10, T <= 64, SRL_STEPS SGD steps over two
+    padded batches on the card, chunk_eval's counts read by
+    metrics.ChunkEvaluator; its first SRL_CHECK_STEPS losses against the
+    port's CPU run of the same program from the same startup state
+    within SRL_LOSS_RTOL; losses finite and falling; host and device ms
+    a step, tokens/s."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.metrics import ChunkEvaluator
+
+    main, startup, loss, decoded, chunks = _srl_program(ptt)
+    feeds = srl_feeds(2)
+    cpu_scope = ptt.Scope()
+    cpu = ptt.Executor(ptt.CPUPlace())
+    cpu.run(startup, scope=cpu_scope)
+    init = {n: cpu_scope.get_numpy(n) for n in cpu_scope.names()}
+    cpu_losses = [float(cpu.run(main, feed=feeds[i % 2], fetch_list=[loss],
+                                scope=cpu_scope)[0])
+                  for i in range(SRL_CHECK_STEPS)]
+    exe = ptt.Executor(ptt.CUDAPlace(0))
+    scope = scope_from_numpy(init, ptt.Scope(), ptt.CUDAPlace(0),
+                             program=main)
+    metric = ChunkEvaluator()
+    losses, host, device = [], [], []
+    for i in range(SRL_STEPS):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feeds[i % 2],
+                      fetch_list=[loss, *chunks[3:]], scope=scope,
+                      return_numpy=False)
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev[1].record()
+        torch.cuda.synchronize()
+        device.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(out[0]))
+        metric.update(*(int(o) for o in out[1:]))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    tokens = np.mean([int(f["length"].sum()) for f in feeds])
+    first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+    p, r, f1 = metric.eval()
+    phase("srl_train", words=SRL_WORDS, predicates=SRL_PREDS,
+          labels=SRL_LABELS, hidden=SRL_HIDDEN, depth=SRL_DEPTH,
+          batch=SRL_BATCH, max_T=SRL_MAX_T, steps=SRL_STEPS,
+          loss_first=f"{first:.4f}", loss_last=f"{last:.4f}",
+          cpu_check_steps=SRL_CHECK_STEPS, cpu_loss_gap=f"{gap:.3e}",
+          tol=SRL_LOSS_RTOL, host_ms=f"{np.median(host[1:]):.2f}",
+          device_ms=f"{np.median(device[1:]):.2f}",
+          tokens_per_s=f"{tokens / (np.median(host[1:]) / 1e3):.1f}",
+          chunk_precision=f"{p:.4f}", chunk_recall=f"{r:.4f}",
+          chunk_f1=f"{f1:.4f}", card=f"'{card}'")
+    check(all(math.isfinite(x) for x in losses),
+          f"[srl_train] non-finite losses {losses}")
+    check(last < first, f"[srl_train] the loss did not fall ({first} -> "
+          f"{last})")
+    check(gap <= SRL_LOSS_RTOL, f"[srl_train] card vs CPU losses "
+          f"{losses[:SRL_CHECK_STEPS]} / {cpu_losses} differ by {gap}")
+    check(metric.num_label_chunks > 0, "[srl_train] chunk_eval counted "
+          "no chunk")
+
+
 def main():
     args = sys.argv[1:]
     if args not in ([], ["--mutants"], ["--ablations"]) and not (
@@ -10230,6 +11179,9 @@ def main():
     sentiment_lod_phase(torch, card)
     control_flow_phase(torch, card)
     merged = grad_merge_phase(torch, card)
+    pp_bf16, pp_f32 = pp_phases(torch, card)
+    srl_train_phase(torch, card)
+    crf_ctc_ops_phase(torch, card)
     dp_bf16, dp_f32 = dp_phases(torch, card)
     mp_bf16 = mp_phases(torch, card)
     # the fleet last: run right after [http_serve], it left the later
@@ -10251,11 +11203,12 @@ def main():
 
     # launches on the main paths, per dtype: the bf16 kernels' over the
     # BERT (build_train, both recipes and the DataLoader-fed run), GPT,
-    # NMT and BERT-large bf16 training runs; the float32 kernels' over the
-    # float32 training run, the
+    # NMT and BERT-large bf16 training runs, the data-, model- and
+    # pipeline-parallel ranks' steps and [pp_replicas]; the float32
+    # kernels' over the float32 training run, the
     # float32 check step, the recipe check's card steps, the dygraph
     # BERT's timed steps and its check's card steps, the gradient-merge
-    # micro-steps, and the float32
+    # micro-steps, [section_pipeline]'s microbatches, and the float32
     # forward's over the serving runs (direct, [serve_gates], over HTTP
     # and through [router_serve]'s router) and the traced dygraph
     # encoder's call too
@@ -10282,7 +11235,7 @@ def main():
                  recipe_bert[name] + recipe_lamb[name] +
                  loader_trained[name] + large_trained[name] +
                  compiled_trained[name] + dp_bf16[name] +
-                 mp_bf16[name],
+                 mp_bf16[name] + pp_bf16[name],
                  causal=records["bfloat16_causal"][name],
                  nmt=records["nmt"][name],
                  nmt_causal=records["nmt_causal"][name],
@@ -10293,7 +11246,7 @@ def main():
                   checked_f32[name] + checked_recipe[name] +
                   dygraph_trained[name] + dygraph_checked[name] +
                   dygraph_traced[name] + merged[name] + dp_f32[name] +
-                  (http_served + gated + routed
+                  pp_f32[name] + (http_served + gated + routed
                    if name == "flash_attention_fwd" else 0),
                   "float32")
             for name in KERNEL_SOURCES]

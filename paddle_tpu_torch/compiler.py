@@ -16,7 +16,10 @@ to a PartitionSpec) as state_spec_fn: the accumulators its zero_spec
 splits are ZeRO-sharded over the data axis, and a mesh with a model
 (tp, sp, ep) or fsdp axis above one rank runs this rank's program of the
 model-parallel rewrite (parallel/model_parallel.py). A pipeline (pp)
-axis raises and names ROADMAP §A7c.
+axis is replicated, as GSPMD replicates an axis that neither the batch
+axes nor a state spec names: the ranks along it run the program as
+replicas of their batch coordinate, and the gradients are synced over
+the batch axis only (parallel/pipeline.py holds the GPipe schedule).
 
 The BuildStrategy and ExecutionStrategy knobs are accepted as in the
 JAX package; they configure nothing: the graph passes are

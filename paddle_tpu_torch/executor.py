@@ -421,10 +421,6 @@ class Executor:
             STAT_ADD("parallel.sharded_steps")
         mesh = compiled.mesh()
         n, idx = compiled.batch_split()
-        if "pp" in mesh.shape and mesh.shape["pp"] > 1:
-            raise NotImplementedError(
-                f"mesh {mesh.shape}: the pipeline axis 'pp' waits for "
-                f"ROADMAP §A7c (parallel/pipeline.py)")
         size = world()[0]
         if mesh.size != size:
             raise ValueError(f"mesh {mesh.shape} holds {mesh.size} ranks "
@@ -442,7 +438,11 @@ class Executor:
     def _model_parallel(compiled, program):
         """The model-parallel plan (parallel/model_parallel.py) of a run
         over several ranks whose mesh has an axis above one rank that is
-        not a batch axis, or an fsdp layout; None otherwise."""
+        not a batch axis, or an fsdp layout; None otherwise. A `pp` axis
+        is no model axis: GSPMD replicates a program over an axis that
+        neither the batch nor a state spec names, so the ranks along it
+        run the program as replicas of their batch coordinate (the
+        GPipe schedule is parallel/pipeline.py's function API)."""
         if compiled is None or not compiled._is_data_parallel:
             return None
         from .parallel.mesh import world
@@ -451,7 +451,8 @@ class Executor:
         mesh = compiled.mesh()
         layout = compiled.spec_layout()
         wide = [a for a in mesh.axis_names
-                if a not in compiled._batch_axes and mesh.shape[a] > 1]
+                if a not in compiled._batch_axes and a != "pp"
+                and mesh.shape[a] > 1]
         fsdp = layout is not None and getattr(layout, "fsdp_axis", None) \
             and mesh.shape.get(layout.fsdp_axis, 1) > 1
         if not wide and not fsdp:

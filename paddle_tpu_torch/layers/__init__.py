@@ -1,8 +1,8 @@
 """Graph-building layer functions: every layer of the JAX package's
-layers/nn.py but warpctc, the control flow, the sequence and RNN
-layers, the tensor creation and check layers, the in-program readers,
-the LR schedules, accuracy and auc, the dense and beam-search layers
-of layers/parity.py, and the collective and sharding layers of
+layers/nn.py, the control flow, the sequence and RNN layers, the tensor
+creation and check layers, the in-program readers, the LR schedules,
+accuracy and auc, the dense, beam-search and CRF/CTC layers of
+layers/parity.py, and the collective and sharding layers of
 layers/dist.py."""
 from . import control_flow  # noqa: F401
 from .control_flow import *  # noqa: F401,F403

@@ -1,9 +1,8 @@
 """layers.nn — graph-building functions over the op library.
 
-Every layer of the JAX package's layers/nn.py but ``warpctc``, which
-waits for the CRF and CTC slice (ROADMAP §A8a). Each emits the same op types and attrs as its
-counterpart in the JAX package, so programs built by the two packages
-serialize identically.
+Every layer of the JAX package's layers/nn.py. Each emits the same op
+types and attrs as its counterpart in the JAX package, so programs built
+by the two packages serialize identically.
 """
 from __future__ import annotations
 
@@ -40,7 +39,8 @@ __all__ = [
     "uniform_random", "gaussian_random", "sampling_id", "logical_and",
     "logical_or", "logical_xor", "logical_not", "sign", "where", "unique",
     "shard_index", "hash", "grid_sampler", "erf", "fsp_matrix",
-    "flash_attention", "sums", "elementwise_add", "elementwise_sub",
+    "flash_attention", "sums", "warpctc", "elementwise_add",
+    "elementwise_sub",
     "elementwise_mul", "elementwise_div", "elementwise_max",
     "elementwise_min"]
 
@@ -1244,3 +1244,23 @@ def fsp_matrix(x, y):
     helper.append_op(type="fsp", inputs={"X": [x.name], "Y": [y.name]},
                      outputs={"Out": [out.name]})
     return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss [B, 1] over padded [B, T, C] logits; input_length and
+    label_length give the true lengths, so padded steps emit nothing."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference(input.dtype)
+    grad = helper.create_variable_for_type_inference(input.dtype, True)
+    ins = {"Logits": [input.name], "Label": [label.name]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length.name]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length.name]
+    helper.append_op(type="warpctc", inputs=ins,
+                     outputs={"Loss": [loss.name],
+                              "WarpCTCGrad": [grad.name]},
+                     attrs={"blank": blank,
+                            "norm_by_times": norm_by_times})
+    return loss

@@ -1,6 +1,7 @@
 """layers.parity — layers of the JAX package's layers/parity.py: pool3d,
-adaptive_pool3d, unique_with_counts, beam_search, beam_search_decode and
-moe_ffn (the rest waits for ROADMAP §A8)."""
+adaptive_pool3d, unique_with_counts, beam_search, beam_search_decode,
+moe_ffn, the sequence helpers, and the CRF, CTC, chunk, edit-distance
+and sampled-loss layers (the rest waits for ROADMAP §A8)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
@@ -9,7 +10,10 @@ __all__ = ["pool3d", "adaptive_pool3d", "unique_with_counts",
            "beam_search", "beam_search_decode", "im2sequence", "lod_reset",
            "lod_append", "sequence_enumerate", "gather_tree",
            "filter_by_instag", "tensor_array_to_tensor",
-           "reorder_lod_tensor_by_rank", "moe_ffn"]
+           "reorder_lod_tensor_by_rank", "moe_ffn", "linear_chain_crf",
+           "crf_decoding", "chunk_eval", "edit_distance",
+           "ctc_greedy_decoder", "sampled_softmax_with_cross_entropy",
+           "teacher_student_sigmoid_loss", "continuous_value_model"]
 
 
 def _one_out(op_type, inputs, attrs=None, dtype=None, ref=None, name=None,
@@ -216,3 +220,148 @@ def moe_ffn(input, num_experts, d_ff, ep_axis="ep", capacity=None,
         attrs={"ep_axis": ep_axis, "capacity": capacity or 0,
                "batch_axis": batch_axis})
     return out, load
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The CRF's negative log-likelihood [B, 1] of `label` under the
+    emission scores `input` [B, T, n] and a transition parameter
+    [n + 2, n] (rows 0 and 1 the start and stop weights)."""
+    helper = LayerHelper("linear_chain_crf", param_attr=param_attr)
+    n_tags = int(input.shape[-1])
+    transition = helper.create_parameter(helper.param_attr,
+                                         [n_tags + 2, n_tags],
+                                         input.dtype)
+    alpha = helper.create_variable_for_type_inference(input.dtype, True)
+    e_exps = helper.create_variable_for_type_inference(input.dtype, True)
+    t_exps = helper.create_variable_for_type_inference(input.dtype, True)
+    ll = helper.create_variable_for_type_inference(input.dtype)
+    ins = {"Emission": [input.name], "Transition": [transition.name],
+           "Label": [label.name]}
+    if length is not None:
+        ins["Length"] = [length.name]
+    helper.append_op(type="linear_chain_crf", inputs=ins,
+                     outputs={"Alpha": [alpha.name],
+                              "EmissionExps": [e_exps.name],
+                              "TransitionExps": [t_exps.name],
+                              "LogLikelihood": [ll.name]})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None):
+    """Viterbi decoding under the transition parameter that
+    linear_chain_crf made with the same ParamAttr (found by name)."""
+    from ..framework import ParamAttr, default_main_program
+    helper = LayerHelper("crf_decoding")
+    attr = ParamAttr._to_attr(param_attr)
+    trans_var = default_main_program().global_block().var(attr.name)
+    out = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Emission": [input.name], "Transition": [trans_var.name]}
+    if label is not None:
+        ins["Label"] = [label.name]
+    if length is not None:
+        ins["Length"] = [length.name]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [out.name]})
+    return out
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, seq_length=None):
+    """(precision, recall, F1, inferred, labelled and correct chunks)."""
+    helper = LayerHelper("chunk_eval")
+    precision = helper.create_variable_for_type_inference("float32", True)
+    recall = helper.create_variable_for_type_inference("float32", True)
+    f1 = helper.create_variable_for_type_inference("float32", True)
+    n_infer = helper.create_variable_for_type_inference("int64", True)
+    n_label = helper.create_variable_for_type_inference("int64", True)
+    n_correct = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Inference": [input.name], "Label": [label.name]}
+    if seq_length is not None:
+        ins["SeqLength"] = [seq_length.name]
+    helper.append_op(
+        type="chunk_eval", inputs=ins,
+        outputs={"Precision": [precision.name], "Recall": [recall.name],
+                 "F1-Score": [f1.name], "NumInferChunks": [n_infer.name],
+                 "NumLabelChunks": [n_label.name],
+                 "NumCorrectChunks": [n_correct.name]},
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": num_chunk_types,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    return precision, recall, f1, n_infer, n_label, n_correct
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """(distance [B, 1], the number of sequences) of -1-padded ids."""
+    helper = LayerHelper("edit_distance")
+    out = helper.create_variable_for_type_inference("float32", True)
+    seq_num = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Hyps": [input.name], "Refs": [label.name]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length.name]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length.name]
+    helper.append_op(type="edit_distance", inputs=ins,
+                     outputs={"Out": [out.name],
+                              "SequenceNum": [seq_num.name]},
+                     attrs={"normalized": normalized})
+    return out, seq_num
+
+
+def sampled_softmax_with_cross_entropy(logits, label, num_samples,
+                                       num_true=1,
+                                       remove_accidental_hits=True,
+                                       use_customized_samples=False,
+                                       customized_samples=None,
+                                       customized_probabilities=None,
+                                       seed=0):
+    """The sample_logits op, then softmax cross-entropy over the sampled
+    slice."""
+    from .nn import softmax_with_cross_entropy
+    helper = LayerHelper("sample_logits")
+    samples = helper.create_variable_for_type_inference("int64", True)
+    probabilities = helper.create_variable_for_type_inference(
+        logits.dtype, True)
+    sampled_logits = helper.create_variable_for_type_inference(logits.dtype)
+    sampled_label = helper.create_variable_for_type_inference("int64", True)
+    logits_dim = helper.create_variable_for_type_inference(
+        logits.dtype, True)
+    labels_dim = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op(
+        type="sample_logits",
+        inputs={"Logits": [logits.name], "Labels": [label.name]},
+        outputs={"Samples": [samples.name],
+                 "Probabilities": [probabilities.name],
+                 "SampledLogits": [sampled_logits.name],
+                 "SampledLabels": [sampled_label.name],
+                 "LogitsDim": [logits_dim.name],
+                 "LabelsDim": [labels_dim.name]},
+        attrs={"num_samples": num_samples,
+               "remove_accidental_hits": remove_accidental_hits,
+               "seed": seed})
+    return softmax_with_cross_entropy(sampled_logits, sampled_label)
+
+
+def teacher_student_sigmoid_loss(input, label, soft_max_up_bound=15.0,
+                                 soft_max_lower_bound=-15.0):
+    return _one_out("teacher_student_sigmoid_loss",
+                    {"X": [input.name], "Label": [label.name]},
+                    {"soft_max_up_bound": soft_max_up_bound,
+                     "soft_max_lower_bound": soft_max_lower_bound},
+                    ref=input, out_slot="Y")
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _one_out("cvm", {"X": [input.name], "CVM": [cvm.name]},
+                    {"use_cvm": use_cvm}, ref=input, out_slot="Y")
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """argmax a step, repeats merged, blanks dropped (topk + ctc_align,
+    as the reference composes it)."""
+    from .nn import squeeze, topk
+    _, ids = topk(input, k=1)
+    ids2 = squeeze(ids, axes=[-1])
+    return _one_out("ctc_align", {"Input": [ids2.name]}, {"blank": blank},
+                    dtype="int64", ref=input, name=name,
+                    out_slot="Output", stop_gradient=True)

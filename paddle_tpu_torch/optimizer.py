@@ -846,8 +846,8 @@ class RecomputeOptimizer:
 class PipelineOptimizer:
     """Pipeline-parallel sectioning (reference optimizer.py:3020): records
     the cut points and forwards minimize, as the JAX package does (its
-    GPipe schedule is a function API beside the Program path, ROADMAP
-    §A7c)."""
+    GPipe schedule is a function API beside the Program path:
+    parallel/pipeline.py)."""
 
     def __init__(self, optimizer, cut_list=None, place_list=None,
                  concurrency_list=None, queue_size=30, sync_steps=1,

@@ -15,9 +15,10 @@ differences, each held below:
 - batch_norm normalises by the global batch's moments, all-reduced, as
   GSPMD does (test_batch_norm_uses_the_global_batch_statistics);
 - a mesh with a tp axis runs the model-parallel rewrite's rank program
-  (tests/test_torch_tensor_parallel.py holds it at full detail), and a
-  pipeline (pp) axis raises and names ROADMAP §A7c
-  (test_model_parallel_meshes_run_and_pp_and_unknown_batch_axes_raise);
+  (tests/test_torch_tensor_parallel.py holds it at full detail), and the
+  ranks along a pipeline (pp) axis run the program as replicas
+  (test_model_parallel_meshes_run_and_pp_and_unknown_batch_axes_raise;
+  tests/test_torch_pipeline.py);
 - on a single card two ranks run gloo, which stages CUDA tensors
   through host memory: tests/test_torch_cuda.py counts it on the card.
 """
@@ -172,16 +173,20 @@ def test_model_parallel_meshes_run_and_pp_and_unknown_batch_axes_raise(
     """A batch axis the mesh lacks raises ValueError naming batch_axes
     (tests/test_parallel.py:98); a tp axis of two ranks runs, its 5 SGD
     steps equal to the JAX package's single-device run (rtol 1e-4); a
-    pipeline (pp) axis of two ranks names §A7c."""
-    for kind, err, words in (("batch_axes", "ValueError", "batch_axes"),
-                             ("pp", "NotImplementedError", "§A7c")):
-        for name, msg in pool.run(jobs.refused, kind):
-            assert name == err and words in msg
+    pipeline (pp) axis of two ranks runs too, its ranks replicas of the
+    one batch coordinate, with the same 5 steps
+    (tests/test_torch_pipeline.py holds it against the JAX
+    CompiledProgram on that mesh)."""
+    for name, msg in pool.run(jobs.refused, "batch_axes"):
+        assert name == "ValueError" and "batch_axes" in msg
     rng = np.random.RandomState(0)
     xs = rng.randn(32, 16).astype(np.float32)
     ys = rng.randn(32, 1).astype(np.float32)
     init, j_losses, j_state = _jax_mlp(xs, ys)
-    for losses, state in pool.run(jobs.mlp_tp_train, init, xs, ys, 5):
+    got = pool.run(jobs.mlp_tp_train, init, xs, ys, 5) + [
+        r[:2] for r in pool.run(jobs.mlp_pp_train, init, xs, ys, 5,
+                                (1, 2))]
+    for losses, state in got:
         np.testing.assert_allclose(losses, j_losses, rtol=1e-4, atol=1e-5)
         for n in j_state:
             np.testing.assert_allclose(state[n], j_state[n], rtol=1e-4,

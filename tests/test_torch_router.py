@@ -469,6 +469,42 @@ def test_router_scenario_matches_jax(name):
         assert by[("stopped", "ready")]["state"] == "stopped"
 
 
+class _ClosingEngine(_StubEngine):
+    """A stub that, once stopped, answers as a stopped ServingEngine
+    does: EngineClosedError, and a "stopped" health."""
+
+    def stop(self, drain=True, timeout=30.0):
+        self.stopped, self.state = True, "stopped"
+
+    def predict(self, feed, timeout_ms=None):
+        if self.stopped:
+            raise ts.EngineClosedError("engine is shut down")
+        time.sleep(0.001)
+        return super().predict(feed, timeout_ms)
+
+
+@pytest.mark.parametrize("run", range(5))
+def test_stop_drill_redispatches_on_purpose(run):
+    """chip_smoke's [router_drill] stop action (stop_and_redispatch)
+    under the drill's client threads, on a Router with no background
+    probe as [router_serve] builds it: the action itself lands a request
+    on the stopped r0, so every run counts a re-dispatch, no client
+    fails, and the drill's probe then takes r0 out of the table."""
+    from test_torch_generate import _chip_smoke
+    c = _chip_smoke()
+    engines = {n: _ClosingEngine(tag=i) for i, n in enumerate(("r0", "r1"))}
+    reps = {n: ts.Replica(n, engine=e) for n, e in engines.items()}
+    with _router(PKGS["torch"], *reps.values()) as rt:
+        reqs = [np.zeros((1, 4, 6), np.float32)] * 3
+        got, errors, moved, after = c._router_drill(
+            rt, reqs, lambda wait: c.stop_and_redispatch(
+                rt, reps["r0"], {"tokens": reqs[0]}))
+        assert not errors and moved >= 1 and rt.redispatches >= 1
+        assert after >= c.ROUTER_DRILL_AFTER
+        rt.probe_once()
+        assert [r.name for r in rt.healthy_replicas()] == ["r1"]
+
+
 def test_install_sigterm_chains_previous_handler():
     seen = {}
     for name, p in PKGS.items():

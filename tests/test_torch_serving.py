@@ -244,11 +244,18 @@ def _hooked_serving(pkg, mon, tr, gp, d, cpu_predictor):
 
 def _reset_hooks():
     from paddle_tpu import goodput as jgp, monitor as jmon, trace as jtr
-    from paddle_tpu import resilience as jres
+    from paddle_tpu import monitor_alerts as jal, resilience as jres
     from paddle_tpu_torch import goodput as tgp, monitor as tmon
+    from paddle_tpu_torch import monitor_alerts as tal
     from paddle_tpu_torch import resilience as tres, trace as ttr
+    # an alert evaluator thread left running by an earlier test (an HTTP
+    # server or router started it) records alerts.* stats whenever it
+    # ticks; goodput's start_run leaves its rule in FLAGS_alert_rules
+    for al in (jal, tal):
+        al.stop_alerts()
     for pkg in (fj, ft):
-        pkg.set_flags({"FLAGS_enable_monitor": False,
+        pkg.set_flags({"FLAGS_alert_rules": "",
+                       "FLAGS_enable_monitor": False,
                        "FLAGS_enable_trace": False,
                        "FLAGS_trace_sample": 0.05,
                        "FLAGS_enable_goodput": False,

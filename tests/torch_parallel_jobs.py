@@ -189,13 +189,9 @@ def refused(kind):
     exe.run(startup, scope=scope)
     feed = {"x": np.ones((8, 16), np.float32),
             "y": np.ones((8, 1), np.float32)}
-    if kind == "batch_axes":
-        prog = ptt.CompiledProgram(main).with_distributed(
-            mesh_from_spec("2"), batch_axes=("data",))
-    else:
-        from paddle_tpu_torch.parallel.mesh import make_mesh
-        prog = ptt.CompiledProgram(main).with_distributed(
-            make_mesh((1, 2), ("dp", "pp")))
+    assert kind == "batch_axes", kind
+    prog = ptt.CompiledProgram(main).with_distributed(
+        mesh_from_spec("2"), batch_axes=("data",))
     try:
         exe.run(prog, feed=feed, fetch_list=[loss], scope=scope)
     except (ValueError, NotImplementedError) as e:
@@ -776,3 +772,101 @@ def deep_tp_step(init, layers):
                   scope=scope)
     w = f"layer_{layers - 1}.ffn.fc2.w"
     return float(out[0]), gather_param(scope, w).numpy()
+
+
+# -- the pipeline (parallel/pipeline.py) --------------------------------
+
+def tanh_stage(p, h):
+    """tests/test_parallel.py's GPipe stage."""
+    import torch
+    return torch.tanh(h @ p["w"] + p["b"])
+
+
+def gpipe_run(params, x, n_micro, shape, names, x_grad=False):
+    """gpipe of tanh_stage over a mesh of `shape` / `names` on the
+    global `x`, loss mean(out ** 2) backward: (this rank's output, the
+    loss, each stacked parameter's gradient, x's gradient, the
+    stage_fn calls, this rank's pp index)."""
+    import torch
+    from paddle_tpu_torch.parallel import gpipe, pipeline
+    from paddle_tpu_torch.parallel import stack_stage_params
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(tuple(shape), tuple(names))
+    stacked = {k: v.requires_grad_() for k, v in
+               stack_stage_params(params).items()}
+    xt = torch.as_tensor(x).requires_grad_(x_grad)
+    pipeline.STAGE_CALLS["calls"] = 0
+    out = gpipe(tanh_stage, stacked, xt, n_microbatches=n_micro,
+                mesh=mesh, axis="pp")
+    loss = (out ** 2).mean()
+    loss.backward()
+    return (out.detach().numpy(), float(loss),
+            {k: v.grad.numpy() for k, v in stacked.items()},
+            xt.grad.numpy() if x_grad else None,
+            pipeline.STAGE_CALLS["calls"], mesh.axis_index("pp"))
+
+
+def gpipe_3axis(params, x, y, lr=0.1):
+    """__graft_entry__._dryrun_3axis's step on a dp1 x tp2 x pp2 mesh:
+    w1 split by columns and b1 with it, w2 by rows over tp (Megatron's
+    f before w1, g after w2), GPipe over pp with 2 microbatches, loss
+    mean((out - y) ** 2), one SGD step on this rank's shards. Returns
+    (loss, {name: this rank's updated shard of its stage}, (tp, pp))."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import collective as coll
+    from paddle_tpu_torch.parallel import gpipe, stack_stage_params
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh((1, 2, 2), ("dp", "tp", "pp"))
+    tp_group, t = mesh.group("tp"), mesh.axis_index("tp")
+    f = params[0]["w1"].shape[1] // 2
+    cols = slice(t * f, (t + 1) * f)
+    local = [{"w1": p["w1"][:, cols], "b1": p["b1"][cols],
+              "w2": p["w2"][cols], "b2": p["b2"]} for p in params]
+    stacked = {k: v.requires_grad_() for k, v in
+               stack_stage_params(local).items()}
+
+    def stage(p, h):
+        h = coll.copy_to(h, tp_group)
+        hh = F.gelu(h @ p["w1"] + p["b1"], approximate="tanh")
+        return torch.tanh(coll.reduce_from(hh @ p["w2"], tp_group)
+                          + p["b2"])
+
+    out = gpipe(stage, stacked, torch.as_tensor(x), n_microbatches=2,
+                mesh=mesh, axis="pp")
+    loss = ((out - torch.as_tensor(y)) ** 2).mean()
+    loss.backward()
+    s = mesh.axis_index("pp")
+    new = {k: (v - lr * v.grad)[s].detach().numpy()
+           for k, v in stacked.items()}
+    return float(loss), new, (t, s)
+
+
+def mlp_pp_train(init, xs, ys, steps, shape):
+    """`steps` SGD steps of the MLP through with_distributed on a mesh
+    ("dp", "pp") of `shape` (the pp ranks replicas of their dp
+    coordinate): (losses, the final state, the sharding gate's priced
+    collective bytes, the gradient bytes this rank synced)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.convert import scope_from_numpy
+    from paddle_tpu_torch.parallel import data_parallel
+    from paddle_tpu_torch.parallel.layout import SpecLayout
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    main, startup, loss, _, _ = mlp(ptt)
+    scope = ptt.Scope()
+    exe = _exe(ptt)
+    exe.run(startup, scope=scope)
+    scope_from_numpy(init, scope, ptt.CPUPlace(), program=main)
+    mesh = make_mesh(tuple(shape), ("dp", "pp"))
+    prog = ptt.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name).with_distributed(
+        mesh, state_spec_fn=SpecLayout(mesh).add_program(main),
+        batch_axes=("dp",))
+    data_parallel.GRAD_SYNC_BYTES["bytes"] = 0
+    losses = [float(exe.run(prog, feed={"x": xs, "y": ys},
+                            fetch_list=[loss], scope=scope)[0])
+              for _ in range(steps)]
+    report = exe.last_sharding_report
+    return (losses, {n: scope.get_numpy(n) for n in init},
+            report.collective_bytes_per_step if report else None,
+            data_parallel.GRAD_SYNC_BYTES["bytes"])

@@ -99,6 +99,23 @@ control): the dense losses' relative gap and the kept rows' error
 MOE_TOL bounds, the dropped rows, and the gate weight's first-step
 gradient gap MOE_GRAD_BAR bounds.
 
+`pp` reads chip_smoke.py's pipeline gaps on the CPU
+(chip_smoke.pp_train_run: BERT encoder layers of the given width and
+depth, dropout 0, SGD, loss mean((out - x)^2)), in float32 and under
+bf16 autocast: gpipe over two gloo ranks (half the layers a rank,
+--micro microbatches), each chip_smoke.PP_CONTROLS kind, and the
+one-process run with its input moved by --pert of seeded noise, each
+against the one-process run: the largest relative loss gap and the
+first step's gradient gap PP_BARS bound. Then [section_pipeline]'s
+float32 gaps (chip_smoke.section_pipeline_run, three sections) that
+SECTION_BARS bound.
+
+`srl` reads float32 only, for chip_smoke.py's [srl_train] bar: the
+book's label_semantic_roles (chip_smoke.build_srl at its widths) on
+srl_feeds' two batches for --steps SGD steps from one startup state, and
+again with the word and predicate embeddings moved by --pert of seeded
+noise: the largest relative loss gap.
+
 `seq2seq` and `sentiment` read float32 only, for chip_smoke.py's
 [seq2seq_cpu_check] and [sentiment_lod] bars. seq2seq: chip_smoke's
 RNNsearch program (build_seq2seq, widths from the flags, RNNsearch-50's
@@ -644,6 +661,64 @@ def _moe(args):
     tmp.cleanup()
 
 
+def _pp(args):
+    import os
+    import tempfile
+    c = _chip_importable()
+    from paddle_tpu_torch.distributed.spawn import RankPool
+    tmp = tempfile.TemporaryDirectory()
+    one_npz = os.path.join(tmp.name, "one.npz")
+    dims = {"d": args.d_model, "heads": max(args.d_model // 64, 2),
+            "ff": 4 * args.d_model, "layers": args.layers,
+            "batch": args.batch, "T": args.len, "micro": args.micro}
+    with RankPool(2, os.path.join(tmp.name, "store"),
+                  timeout_s=600.0) as pool:
+        for amp in (False, True):
+            spec = {"place": "cpu", "amp": amp, "steps": args.steps,
+                    "pipe": False, "control": None, **dims}
+            one = c.pp_train_run({**spec, "out": one_npz})
+            runs = [("moved_input", [c.pp_train_run(
+                {**spec, "pert": args.pert, "ref": one_npz})])]
+            for tag, ctl in (("pp2", None),
+                             *((k, k) for k in c.PP_CONTROLS)):
+                runs.append((tag, pool.run(c.pp_train_run, {
+                    **spec, "pipe": True, "control": ctl,
+                    "ref": one_npz})))
+            for tag, ranks in runs:
+                gaps = [c.pp_gaps(r, one) for r in ranks]
+                print(f"{'amp' if amp else 'f32'} {tag}: loss_gap="
+                      f"{max(g[0] for g in gaps):.3e} grad_gap="
+                      f"{max(g[1] for g in gaps):.3e}")
+    loss, grad, _, _, _ = c.section_pipeline_run(
+        {"place": "cpu", "split": (args.layers // 2, args.layers // 4,
+                                   args.layers - 3 * args.layers // 4),
+         **dims})
+    print(f"section_pipeline f32: loss_gap={loss:.3e} grad_gap={grad:.3e}")
+    tmp.cleanup()
+
+
+def _srl(args):
+    c = _chip_importable()
+    main, startup, loss, _, _ = c._srl_program(ft)
+    scope = ft.Scope()
+    exe = ft.Executor(ft.CPUPlace())
+    exe.run(startup, scope=scope)
+    init = {n: scope.get_numpy(n) for n in scope.names()}
+    feeds = c.srl_feeds(2)
+    runs = {}
+    for tag, state in (("base", init),
+                       ("moved", _moved(init, ["emb", "vemb"], args.pert))):
+        sc = scope_from_numpy(state, ft.Scope(), ft.CPUPlace(),
+                              program=main)
+        runs[tag] = [float(exe.run(main, feed=feeds[i % 2],
+                                   fetch_list=[loss], scope=sc)[0])
+                     for i in range(args.steps)]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["moved"],
+                                                  runs["base"]))
+    print(f"losses {runs['base']}; moved by {args.pert}: loss_rel_gap="
+          f"{gap:.3e}")
+
+
 def _jax_init(startup):
     scope = fj.Scope()
     with fj.scope_guard(scope):
@@ -712,6 +787,17 @@ def main(argv=None):
     mo.add_argument("--len", type=int, default=64)
     mo.add_argument("--steps", type=int, default=3)
     mo.add_argument("--pert", type=float, default=1e-3)
+    sr = sub.add_parser("srl")
+    sr.add_argument("--steps", type=int, default=3)
+    sr.add_argument("--pert", type=float, default=1e-6)
+    pp = sub.add_parser("pp")
+    pp.add_argument("--d-model", type=int, default=128)
+    pp.add_argument("--layers", type=int, default=4)
+    pp.add_argument("--len", type=int, default=128)
+    pp.add_argument("--batch", type=int, default=8)
+    pp.add_argument("--micro", type=int, default=4)
+    pp.add_argument("--steps", type=int, default=3)
+    pp.add_argument("--pert", type=float, default=1e-3)
     m = sub.add_parser("sentiment")
     m.add_argument("--batch", type=int, default=128)
     m.add_argument("--pert", type=float, default=1e-6)
@@ -723,6 +809,10 @@ def main(argv=None):
         return _recipe(args)
     if args.model == "dp":
         return _dp(args)
+    if args.model == "pp":
+        return _pp(args)
+    if args.model == "srl":
+        return _srl(args)
     if args.model in ("tp", "ring", "moe"):
         return {"tp": _tp, "ring": _ring, "moe": _moe}[args.model](args)
     if args.model == "se_resnext":
